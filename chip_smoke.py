@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``mxnet_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py                      # every phase, one card
+    python3 chip_smoke.py --phases build,kernels  # a kernel-only check
+
+Phases, each of which fails the run on any error:
+
+1. device   -- a CUDA card must be there; print ``nvidia-smi``'s name and
+               power limit.
+2. build    -- compile ``mxnet_tpu_torch/csrc/*.cu`` (one ``nvcc`` each, in
+               parallel) into ``build/kernels/``.
+3. kernels  -- hold each hand-written kernel against its plain PyTorch
+               version on the card at ``llama3_8b`` shapes, in fp32, and
+               time the kernel, the plain version and, where one PyTorch
+               call computes the same function, that call.
+4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
+               generator: one ``(1, 512)`` forward, finite logits, and
+               exactly 65 RMSNorm and 32 flash-attention launches.
+5. serve    -- ``DecodeServer`` with its scheduler thread over six seeded
+               prompts (17 to 1500 tokens, two sharing a 64-token prefix),
+               32 new tokens each; every paged decode step goes through
+               the paged kernel. One request is re-run teacher-forced
+               through the full forward (the flash path) and must pick
+               the same tokens wherever the top-2 logit margin exceeds
+               1e-2. Then ``torch.profiler`` splits a decode step and a
+               prefill chunk into kernel time by name.
+
+The launch counters are set to 0 just before the forward phase and read
+just after the serving phase; the kernels' line reports those counts.
+The last line is ``{"ok": true, "device": {...}}``; it is printed only
+when every phase ran and passed. Exit code 0 only then.
+"""
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ('device', 'build', 'kernels', 'forward', 'serve')
+SEED = 0    # seeds the generators of the weights, inputs and prompts
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+
+KERNELS = {
+    'fused_norm': dict(
+        source='mxnet_tpu_torch/csrc/fused_norms.cu',
+        replaces='mxnet_tpu/ops/pallas/fused_norms.py:27'),
+    'flash_attention': dict(
+        source='mxnet_tpu_torch/csrc/flash_attention.cu',
+        replaces='mxnet_tpu/ops/pallas/flash_attention.py:38'),
+    'paged_attention_decode': dict(
+        source='mxnet_tpu_torch/csrc/paged_attention.cu',
+        replaces='mxnet_tpu/ops/pallas/paged_attention.py:44'),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg):
+    print(f'chip_smoke: FAILED: {msg}', file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi_line():
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------- timing
+def _events_ms(torch, fn, n):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def eager_ms(torch, fn, budget_ms=100.0):
+    """Mean time per call of ``fn()`` launched from Python, by CUDA events
+    around a run of calls after warm-up: for a short kernel this is the
+    host's launch rate, not the device's time."""
+    fn()
+    torch.cuda.synchronize()
+    n = int(min(200, max(5, budget_ms / max(_events_ms(torch, fn, 1), 1e-3))))
+    return _events_ms(torch, fn, n)
+
+
+def cuda_ms(torch, fn, budget_ms=100.0):
+    """Device time per call of ``fn()`` in ms: a run of calls captured in
+    one CUDA graph and replayed, timed with CUDA events, so the host's
+    launch overhead is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    n = int(min(100, max(5, budget_ms / max(_events_ms(torch, fn, 1), 1e-3))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    t = _events_ms(torch, graph.replay, 3) / n
+    del graph
+    return t
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) for work that moves ``nbytes`` and does
+    ``ops`` fp32 operations."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / FP32_OPS_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def compare(torch, got, want, rtol, atol):
+    """max |got - want|; fails unless |got - want| <= atol + rtol*|want|
+    everywhere and both are finite."""
+    if got.shape != want.shape:
+        return math.inf, False
+    err = (got.double() - want.double()).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (err <= atol + rtol * want.double().abs()).all())
+    return float(err.max()), ok
+
+
+# ------------------------------------------------------------- phases
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is false: this script needs a '
+             'CUDA card')
+    # fp32 products in full fp32, like the reference's Dense layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != 'highest':
+        fail('fp32 matmuls would run in TF32')
+    log(f'[device] {smi_line()}')
+    log(f'[device] torch {torch.__version__} cuda {torch.version.cuda} '
+        f'devices {torch.cuda.device_count()} '
+        f'name {torch.cuda.get_device_name(0)}')
+
+
+def phase_build():
+    from mxnet_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f'[build] {len(_build.sources())} sources, built {sorted(logs)} '
+        f'in {time.perf_counter() - t0:.1f} s')
+    for name, (_, text) in sorted(logs.items()):
+        for line in text.splitlines():
+            if 'registers' in line or 'spill' in line:
+                log(f'[build] {name}: {line.strip()}')
+
+
+def _case(torch, name, shape, got, want, tol, why, kernel, plain,
+          nbytes, ops, library=None):
+    err, ok = compare(torch, got, want, *tol)
+    launched_ms = eager_ms(torch, kernel)
+    ms = cuda_ms(torch, kernel)
+    plain_ms = cuda_ms(torch, plain)
+    library_ms = cuda_ms(torch, library) if library is not None else None
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = dict(name=name, shape=shape, max_abs_err=err, rtol=tol[0],
+               atol=tol[1], tolerance_reason=why, ok=ok, ms=ms,
+               launched_ms=launched_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms)
+    lib = 'none' if library_ms is None else f'{library_ms:.4f}'
+    log(f'[kernels] {name} {shape}: max_abs_err {err:.3e} '
+        f'(rtol {tol[0]:g}, atol {tol[1]:g}: {why}) kernel_ms {ms:.4f} '
+        f'(launched from Python {launched_ms:.4f}) '
+        f'plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) '
+        f'library_ms {lib} -> {"ok" if ok else "MISMATCH"}')
+    return row
+
+
+def phase_kernels(torch):
+    """Every kernel against its plain version; returns {kernel: [rows]}."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.kernels import fused_norms, flash_attention, \
+        paged_attention
+
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    rows = {k: [] for k in KERNELS}
+    f4 = 4   # bytes per fp32 value
+
+    # ---- fused norm, RMS and LayerNorm: bytes-bound row reductions
+    norm_tol = (1e-5, 1e-5)
+    norm_why = 'fp32 statistics, sum over 4096 taken in another order'
+    for n, d in ((4, 4096), (32, 4096), (512, 4096), (2048, 4096)):
+        x = randn(n, d, scale=2.0) + 0.3
+        g = randn(d) + 1.0
+        b = randn(d)
+        for rms in (True, False):
+            beta = None if rms else b
+            got = fused_norms.fused_norm(x, g, beta, 1e-5, rms)
+            want = fused_norms.fused_norm_plain(x, g, beta, 1e-5, rms)
+            if rms:
+                lib = lambda: F.rms_norm(x, (d,), g, 1e-5)  # noqa: E731
+            else:
+                lib = lambda: F.layer_norm(x, (d,), g, beta, 1e-5)  # noqa
+            nbytes = f4 * (2 * n * d + d * (1 if rms else 2))
+            ops = (4 if rms else 6) * n * d
+            rows['fused_norm'].append(_case(
+                torch, 'fused_norm', f'{"rms" if rms else "layer"} '
+                f'({n}, {d})', got, want, norm_tol, norm_why,
+                lambda: fused_norms.fused_norm(x, g, beta, 1e-5, rms),
+                lambda: fused_norms.fused_norm_plain(x, g, beta, 1e-5, rms),
+                nbytes, ops, lib))
+    del x, g, b
+
+    # ---- flash attention forward: fp32 on the CUDA cores
+    att_tol = (1e-4, 1e-4)
+    att_why = 'fp32 online softmax vs one-pass softmax, sums over S keys ' \
+              'in another order'
+    bh, d = 32, 128
+    for t, s, causal in ((512, 512, True), (2048, 2048, True),
+                         (2048, 2048, False), (37, 2048, True)):
+        q, k, v = randn(bh, t, d), randn(bh, s, d), randn(bh, s, d)
+        scale = d ** -0.5
+        got = flash_attention.flash_attention_fwd(q, k, v, scale, causal)
+        want = flash_attention.flash_attention_plain(q, k, v, scale, causal)
+        # (query, key) pairs the function needs: bottom-right causal keeps
+        # key j for query i when j <= S - T + i
+        pairs = sum(min(s, s - t + i + 1) for i in range(t)) if causal \
+            else t * s
+        ops = 4 * bh * pairs * d
+        nbytes = f4 * bh * d * (2 * t + 2 * s)
+        lib = None
+        if t == s:      # SDPA's causal mask is top-left: same only at T == S
+            q4, k4, v4 = q[None], k[None], v[None]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, is_causal=causal)
+        rows['flash_attention'].append(_case(
+            torch, 'flash_attention',
+            f'BH={bh} T={t} S={s} d={d} {"causal" if causal else "full"}',
+            got, want, att_tol, att_why,
+            lambda: flash_attention.flash_attention_fwd(q, k, v, scale,
+                                                        causal),
+            lambda: flash_attention.flash_attention_plain(q, k, v, scale,
+                                                          causal),
+            nbytes, ops, lib))
+    del q, k, v
+
+    # ---- paged decode at the serving shapes: 4 slots, llama3_8b heads; the
+    # second case has few enough pages that one block takes a whole row
+    kv, G, dh, psz = 8, 4, 128, 16
+    for B, NP, depths in ((4, 128, [1, 700, 2047, 0]),
+                          (3, 8, [0, 37, 127])):
+        P = B * NP + 1
+        q = randn(B, kv, G, dh)
+        kp, vp = randn(P, psz, kv, dh), randn(P, psz, kv, dh)
+        perm = torch.randperm(P - 1,
+                              generator=torch.Generator().manual_seed(1))
+        pages = (perm[:B * NP] + 1).reshape(B, NP).to(torch.int32)
+        if B == 4:
+            pages[3] = 0                           # an all-garbage row
+        pages = pages.to(dev)
+        offset = torch.tensor(depths, dtype=torch.int32, device=dev)
+        scale = dh ** -0.5
+        got = paged_attention.paged_attention_decode(q, kp, vp, pages,
+                                                     offset, scale)
+        want = paged_attention.paged_attention_decode_plain(
+            q, kp, vp, pages, offset, scale)
+        if not bool(torch.isfinite(got).all()):
+            fail('paged decode: output not finite')
+        live = sum(o + 1 for o in depths)      # positions the rows read
+        nbytes = f4 * (2 * live * kv * dh + 2 * B * kv * G * dh) \
+            + 4 * (pages.numel() + B)
+        ops = 4 * live * kv * G * dh
+        rows['paged_attention_decode'].append(_case(
+            torch, 'paged_attention_decode',
+            f'B={B} kv={kv} G={G} dh={dh} page={psz} pages/seq={NP} '
+            f'depths={depths}' + (' (last row all garbage)' if B == 4
+                                  else ''),
+            got, want, att_tol, 'fp32 online softmax across pages vs '
+            'one-pass softmax over the gathered cache',
+            lambda: paged_attention.paged_attention_decode(
+                q, kp, vp, pages, offset, scale),
+            lambda: paged_attention.paged_attention_decode_plain(
+                q, kp, vp, pages, offset, scale),
+            nbytes, ops, None))
+    del q, kp, vp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    bad = [r for rs in rows.values() for r in rs if not r['ok']]
+    if bad:
+        fail(f'{len(bad)} kernel check(s) disagree with the plain version: '
+             f'{[(r["name"], r["shape"]) for r in bad]}')
+    return rows
+
+
+def _sync(torch, dev):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def _device(net):
+    return net.model.embed_tokens.weight.device
+
+
+def phase_forward(torch, net, seed, length=512):
+    from mxnet_tpu_torch.ops import kernels
+    cfg, dev = net.cfg, _device(net)
+    before = kernels.launch_counts()
+    toks = torch.randint(0, cfg.vocab_size, (1, length),
+                         generator=torch.Generator().manual_seed(seed))
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = net(toks.to(dev))
+    _sync(torch, dev)
+    dt = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    log(f'[forward] layers={cfg.num_layers} units={cfg.units} '
+        f'(1, {length}) forward {dt * 1e3:.1f} ms, logits '
+        f'{tuple(logits.shape)}, launches {delta}')
+    if tuple(logits.shape) != (1, length, cfg.vocab_size):
+        fail(f'forward: logits shape {tuple(logits.shape)}')
+    if not bool(torch.isfinite(logits).all()):
+        fail('forward: logits are not finite')
+    want = {'fused_norm': 2 * cfg.num_layers + 1,
+            'flash_attention': cfg.num_layers, 'paged_attention_decode': 0}
+    if dev.type == 'cuda' and delta != want:
+        fail(f'forward: launches {delta}, want {want}')
+
+
+def _prompts(torch, vocab, seed):
+    """Six seeded prompts of 17 to 1500 tokens. The first and the fifth
+    share a 64-token prefix (two full prefill chunks); the fifth is
+    admitted only once a slot frees, after the first has published its
+    chunks, so it is served from the prefix cache."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(n):
+        return torch.randint(1, vocab, (n,), generator=g).tolist()
+    shared = rand(64)
+    return [shared + rand(33), rand(1500), rand(17), rand(700),
+            shared + rand(100), rand(300)]
+
+
+def phase_serve(torch, net, seed):
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.serve import DecodeServer
+
+    prompts = _prompts(torch, net.cfg.vocab_size, seed)
+    n_new = 32
+    before = kernels.launch_counts()
+    ds = DecodeServer(net, slots=4, max_length=2048, page_size=16,
+                      prefill_chunk=32)
+    try:
+        t0 = time.perf_counter()
+        futs = [ds.submit(p, n_new) for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = ds.stats()
+    finally:
+        ds.close()
+    after = kernels.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    steps, chunks = stats['steps'], stats['prefill_chunks']
+    gen = sum(len(o) for o in outs)
+    log(f'[serve] {len(prompts)} requests, prompt lengths '
+        f'{[len(p) for p in prompts]}, {gen} tokens in {wall:.2f} s '
+        f'({gen / wall:.1f} tok/s), decode steps {steps}, prefill chunks '
+        f'{chunks}, prefix_hit {stats["prefix_hit"]}, launches {delta}')
+    log(f'[serve] ttft_ms p50 {stats["ttft_ms"][50]:.1f} p95 '
+        f'{stats["ttft_ms"][95]:.1f}; intertoken_ms p50 '
+        f'{stats["intertoken_ms"][50]:.1f} p95 '
+        f'{stats["intertoken_ms"][95]:.1f}')
+    if [len(o) for o in outs] != [n_new] * len(prompts):
+        fail(f'serve: token counts {[len(o) for o in outs]}')
+    if stats['prefix_hit'] < 1:
+        fail(f'serve: prefix_hit {stats["prefix_hit"]}')
+    L = net.cfg.num_layers
+    want = {'fused_norm': (2 * L + 1) * (steps + chunks),
+            'flash_attention': 0, 'paged_attention_decode': L * steps}
+    if _device(net).type == 'cuda' and delta != want:
+        fail(f'serve: launches {delta}, want {want}')
+    return prompts, outs, stats
+
+
+def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5):
+    """Host-clock ms of a decode step over ``slots`` rows at ``depth`` and
+    of one ``(1, chunk)`` prefill chunk at ``depth`` (``reps`` calls back
+    to back, synchronised at the end), and their kernel time by name from
+    ``torch.profiler``; the busy share is kernel time over host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    psz, NP, dev = 16, 128, _device(net)
+    pool = net.init_paged_pool(slots * NP + 1, psz)
+    pages = (torch.arange(slots * NP, dtype=torch.int32) + 1).reshape(
+        slots, NP).to(dev)
+    toks = torch.ones(slots, 1, dtype=torch.long, device=dev)
+    off = torch.full((slots,), depth, dtype=torch.int32, device=dev)
+    ctoks = torch.ones(1, chunk, dtype=torch.long, device=dev)
+    calls = {
+        f'decode step ({slots} slots at depth {depth})':
+            lambda: net(toks, caches=pool, offset=off, pages=pages),
+        f'prefill chunk (1, {chunk}) at {depth}':
+            lambda: net(ctoks, caches=pool, offset=depth, pages=pages[:1]),
+    }
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad():
+        for what, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+            with profile(activities=acts) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            # kernels only: a CPU op's device time repeats its kernels'
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+            busy = sum(e.self_device_time_total for e in ev) / 1e3 / reps
+            log(f'[profile] {what}: {wall:.2f} ms on the host clock, '
+                f'{busy:.2f} ms of kernel time ({100 * busy / wall:.0f}% '
+                f'busy), {sum(e.count for e in ev) // reps} kernels; '
+                f'card {smi_line()}')
+            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
+                ms = e.self_device_time_total / 1e3 / reps
+                log(f'[profile]   {ms:8.3f} ms {100 * ms / busy:5.1f}% '
+                    f'x{e.count // reps:<4d} {e.key[:90]}')
+    del pool
+
+
+def teacher_forced(torch, net, prompt, out):
+    """Full-sequence forward over prompt + generated tokens (the flash
+    path); its greedy picks must equal the server's wherever the top-2
+    margin exceeds 1e-2."""
+    seq = torch.tensor([prompt + out[:-1]], device=_device(net))
+    with torch.no_grad():
+        logits = net(seq)[0, len(prompt) - 1:].float()
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    pick = logits.argmax(-1).tolist()
+    clear = [i for i, m in enumerate(margin) if m > 1e-2]
+    bad = [i for i in clear if pick[i] != out[i]]
+    log(f'[serve] teacher-forced check over {len(out)} tokens: '
+        f'{len(clear)} with margin > 1e-2, {len(bad)} disagree; '
+        f'{sum(p == o for p, o in zip(pick, out))} of {len(out)} equal')
+    if bad:
+        fail(f'serve: teacher-forced argmax differs at {bad}')
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--phases', default=','.join(PHASES),
+                    help=f'comma-separated subset of {",".join(PHASES)}')
+    args = ap.parse_args(argv)
+    phases = args.phases.split(',')
+    if not set(phases) <= set(PHASES):
+        ap.error(f'unknown phase in {phases}')
+
+    if not (ROOT / 'mxnet_tpu_torch' / '__init__.py').exists():
+        fail(f'mxnet_tpu_torch/ is not beside {Path(__file__).name}: run '
+             f'this from a checkout of the repository')
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    t_start = time.perf_counter()
+    phase_device(torch)         # always: no card, no run
+    from mxnet_tpu_torch.ops import kernels
+
+    if 'build' in phases:
+        phase_build()
+    rows = phase_kernels(torch) if 'kernels' in phases else None
+
+    launches = None
+    if 'forward' in phases or 'serve' in phases:
+        from mxnet_tpu_torch.gluon.model_zoo.llama import llama3_8b
+        t0 = time.perf_counter()
+        net = llama3_8b(device='cuda', seed=SEED).eval()
+        torch.cuda.synchronize()
+        n_par = sum(p.numel() for p in net.parameters())
+        log(f'[model] llama3_8b {n_par / 1e9:.2f} B fp32 parameters on '
+            f'cuda in {time.perf_counter() - t0:.1f} s, '
+            f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
+        kernels.reset_launch_counts()   # the main path starts here
+        if 'forward' in phases:
+            phase_forward(torch, net, SEED + 1)
+        if 'serve' in phases:
+            prompts, outs, _ = phase_serve(torch, net, SEED + 2)
+        launches = kernels.launch_counts()   # ... and ends here
+        if 'serve' in phases:
+            teacher_forced(torch, net, prompts[2], outs[2])
+            profile_breakdown(torch, net)
+        log(f'[model] peak memory '
+            f'{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB')
+        del net
+        torch.cuda.empty_cache()
+
+    if rows is not None:
+        line = []
+        for name, meta in KERNELS.items():
+            # the main path's shape is each kernel's first case
+            head = rows[name][0]
+            line.append(dict(
+                name=name, route='cuda', source=meta['source'],
+                replaces=meta['replaces'],
+                launches=None if launches is None else launches[name],
+                max_abs_err=max(r['max_abs_err'] for r in rows[name]),
+                ms=head['ms'], plain_ms=head['plain_ms'],
+                bound_ms=head['bound_ms'], bound_by=head['bound_by'],
+                library_ms=head['library_ms'], shape=head['shape'],
+                cases=rows[name]))
+        if {'forward', 'serve'} <= set(phases):
+            idle = [k for k, n in launches.items() if n == 0]
+            if idle:
+                fail(f'kernels of the main path never launched: {idle}')
+        log(f'[done] {time.perf_counter() - t_start:.1f} s')
+        log(smi_line())
+        log(json.dumps({'kernels': line}))
+    if set(phases) == set(PHASES):
+        log(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

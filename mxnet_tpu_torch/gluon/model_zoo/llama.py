@@ -1,0 +1,361 @@
+"""Llama model family (decoder-only causal LM) in PyTorch.
+
+Counterpart of ``mxnet_tpu/gluon/model_zoo/llama.py``: pre-norm blocks with
+RMSNorm, interleaved rotary position embeddings, grouped-query attention
+and a SwiGLU MLP, with the same parameter names (``layers{i}`` becomes
+``layers.{i}``) and the same numerics. The norms, the full-sequence
+attention and the paged decode attention go through the port's CUDA
+kernels on the card (``ops/kernels/``); the projections, the embedding
+lookup, RoPE, SiLU and the chunked-prefill attention are plain PyTorch,
+as the reference leaves them to XLA.
+
+Ported here: the no-cache forward, the paged per-slot decode and the
+paged chunked prefill, ``init_paged_pool`` and :func:`from_jax_params`.
+The dense KV cache and ``generate()`` are not ported yet.
+"""
+
+import re
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...context import resolve_device
+from ...ops import nn as nn_ops
+from ...ops.contrib import flash_attention, paged_attention_decode
+
+__all__ = ['LlamaConfig', 'LlamaModel', 'LlamaForCausalLM', 'llama_tiny',
+           'llama2_7b', 'llama3_8b', 'get_llama', 'from_jax_params']
+
+_NEG_INF = -1e30
+
+
+class LlamaConfig:
+    """Architecture hyperparameters. ``rope_theta`` is 1e4 for Llama-2
+    lineage, 5e5 for Llama-3 (long-context)."""
+
+    def __init__(self, vocab_size=32000, units=4096, num_layers=32,
+                 num_heads=32, num_kv_heads=None, hidden_size=11008,
+                 max_length=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
+                 tie_word_embeddings=False):
+        self.vocab_size = vocab_size
+        self.units = units
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.hidden_size = hidden_size
+        self.max_length = max_length
+        self.rope_theta = rope_theta
+        self.rms_norm_eps = rms_norm_eps
+        self.tie_word_embeddings = tie_word_embeddings
+        if units % num_heads or self.num_heads % self.num_kv_heads:
+            raise ValueError(
+                f'units {units} must split over {num_heads} heads and the '
+                f'heads over {self.num_kv_heads} KV heads')
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm (no mean subtraction, no bias)."""
+
+    def __init__(self, units, epsilon=1e-5):
+        super().__init__()
+        self._eps = epsilon
+        self.weight = nn.Parameter(torch.ones(units))
+
+    def forward(self, x):
+        return nn_ops.rms_norm(x, self.weight, eps=self._eps)
+
+
+def _rope(x, theta, offset=0):
+    """Rotary position embeddings on (B, S, H, Dh), interleaved even/odd
+    pairs as in the reference. ``offset`` is a scalar (prefill) or a
+    ``(B,)`` tensor of per-row positions (per-slot decode)."""
+    _, S, _, Dh = x.shape
+    f32 = torch.float32
+    inv = 1.0 / (theta ** (torch.arange(0, Dh, 2, dtype=f32,
+                                        device=x.device) / Dh))
+    off = torch.as_tensor(offset, dtype=f32, device=x.device)
+    pos = torch.atleast_1d(off)[:, None] \
+        + torch.arange(S, dtype=f32, device=x.device)
+    ang = pos[..., None] * inv[None, None, :]          # (1|B, S, Dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xf1 = x[..., ::2].float()
+    xf2 = x[..., 1::2].float()
+    r1 = xf1 * cos - xf2 * sin
+    r2 = xf2 * cos + xf1 * sin
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+class LlamaAttention(nn.Module):
+    """Grouped-query attention with RoPE."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self._h = cfg.num_heads
+        self._kv = cfg.num_kv_heads
+        self._dh = cfg.units // cfg.num_heads
+        self._theta = cfg.rope_theta
+        self.q_proj = nn.Linear(cfg.units, self._h * self._dh, bias=False)
+        self.k_proj = nn.Linear(cfg.units, self._kv * self._dh, bias=False)
+        self.v_proj = nn.Linear(cfg.units, self._kv * self._dh, bias=False)
+        self.o_proj = nn.Linear(self._h * self._dh, cfg.units, bias=False)
+
+    def forward(self, x, cache=None, offset=0, pages=None):
+        """Without ``cache``: causal attention over the sequence (flash
+        kernel). With ``cache`` = ``(k_pool, v_pool)``, the global page
+        pool ``(num_pages, page_size, kv_heads, dh)``, and ``pages`` the
+        int32 block table ``(B, pages_per_seq)``: logical position ``p``
+        of row ``b`` lives at ``pool[pages[b, p // page_size], p %
+        page_size]``. The new K/V are written into the pool IN PLACE
+        (index assignment; the reference donates the pool to a jitted
+        step instead) and ``(out, (k_pool, v_pool))`` is returned.
+
+        * per-slot decode: ``offset`` a ``(B,)`` tensor, S == 1; row b's
+          query attends positions ``<= offset[b]`` through the paged
+          decode kernel;
+        * chunked prefill: B == 1, ``offset`` a scalar; query i sits at
+          absolute position ``offset + i`` and attends positions up to
+          it, over the row's cache gathered out of the pool."""
+        B, S, _ = x.shape
+        q = self.q_proj(x).reshape(B, S, self._h, self._dh)
+        k = self.k_proj(x).reshape(B, S, self._kv, self._dh)
+        v = self.v_proj(x).reshape(B, S, self._kv, self._dh)
+        q = _rope(q, self._theta, offset=offset)
+        k = _rope(k, self._theta, offset=offset)
+        rep = self._h // self._kv
+
+        if cache is None:
+            if rep > 1:
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True)
+            out = out.transpose(1, 2).reshape(B, S, self._h * self._dh)
+            return self.o_proj(out)
+
+        if pages is None:
+            raise NotImplementedError(
+                'the dense KV cache is not ported; pass the paged pool '
+                '(init_paged_pool) and its block table as pages=')
+        k_pool, v_pool = cache
+        psz = k_pool.shape[1]
+        L = pages.shape[1] * psz
+        if torch.is_tensor(offset) and offset.dim() == 1:
+            if S != 1:
+                raise ValueError('per-slot offsets decode one token per step')
+            off = offset.long()
+            pid = pages[torch.arange(B, device=x.device), off // psz].long()
+            k_pool[pid, off % psz] = k[:, 0].to(k_pool.dtype)
+            v_pool[pid, off % psz] = v[:, 0].to(v_pool.dtype)
+            out = paged_attention_decode(
+                q[:, 0], k_pool, v_pool, pages,
+                offset.to(torch.int32).contiguous(),
+                sm_scale=self._dh ** -0.5)
+            out = out.reshape(B, S, self._h * self._dh)
+            return self.o_proj(out), (k_pool, v_pool)
+
+        if B != 1:
+            raise ValueError('chunked prefill fills one sequence')
+        pos = int(offset) + torch.arange(S, device=x.device)
+        pid = pages[0, pos // psz].long()
+        k_pool[pid, pos % psz] = k[0].to(k_pool.dtype)
+        v_pool[pid, pos % psz] = v[0].to(v_pool.dtype)
+        idx = pages.long()
+        kf = k_pool[idx].reshape(B, L, self._kv, self._dh)
+        vf = v_pool[idx].reshape(B, L, self._kv, self._dh)
+        if rep > 1:
+            kf = kf.repeat_interleave(rep, dim=2)
+            vf = vf.repeat_interleave(rep, dim=2)
+        scores = torch.einsum('bshd,blhd->bhsl', q.float(),
+                              kf.float()) * (self._dh ** -0.5)
+        mask = torch.arange(L, device=x.device)[None, :] <= pos[:, None]
+        scores = torch.where(mask[None, None], scores,
+                             torch.full_like(scores, _NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum('bhsl,blhd->bshd', probs, vf.float()).to(x.dtype)
+        out = out.reshape(B, S, self._h * self._dh)
+        return self.o_proj(out), (k_pool, v_pool)
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU: down(silu(gate(x)) * up(x))."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.gate_proj = nn.Linear(cfg.units, cfg.hidden_size, bias=False)
+        self.up_proj = nn.Linear(cfg.units, cfg.hidden_size, bias=False)
+        self.down_proj = nn.Linear(cfg.hidden_size, cfg.units, bias=False)
+
+    def forward(self, x):
+        return self.down_proj(nn_ops.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaBlock(nn.Module):
+    """Pre-norm decoder block."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.units, cfg.rms_norm_eps)
+        self.self_attn = LlamaAttention(cfg)
+        self.post_attention_layernorm = RMSNorm(cfg.units, cfg.rms_norm_eps)
+        self.mlp = LlamaMLP(cfg)
+
+    def forward(self, x, cache=None, offset=0, pages=None):
+        if cache is None:
+            x = x + self.self_attn(self.input_layernorm(x))
+            return x + self.mlp(self.post_attention_layernorm(x))
+        att, cache = self.self_attn(self.input_layernorm(x), cache=cache,
+                                    offset=offset, pages=pages)
+        x = x + att
+        return x + self.mlp(self.post_attention_layernorm(x)), cache
+
+
+class LlamaModel(nn.Module):
+    """Token embedding + decoder stack + final norm → hidden states."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.units)
+        self.layers = nn.ModuleList(LlamaBlock(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.norm = RMSNorm(cfg.units, cfg.rms_norm_eps)
+
+    def forward(self, token_ids, caches=None, offset=0, pages=None):
+        x = self.embed_tokens(token_ids)
+        if caches is None:
+            for blk in self.layers:
+                x = blk(x)
+            return self.norm(x)
+        new_caches = []
+        for blk, cache in zip(self.layers, caches):
+            x, cache = blk(x, cache=cache, offset=offset, pages=pages)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
+
+
+class LlamaForCausalLM(nn.Module):
+    """Decoder LM head: (B, S) int tokens → (B, S, vocab) logits.
+
+    ``device`` is where the parameters live (default: the current
+    context, ``gpu(0)``; raises when there is no card and the caller did
+    not pass ``device='cpu'``). ``device='meta'`` builds shapes only.
+    Parameters are drawn from a ``torch.Generator`` seeded with ``seed``:
+    projections and embeddings N(0, 0.02), norm weights 1."""
+
+    def __init__(self, cfg, device=None, seed=0):
+        super().__init__()
+        meta = isinstance(device, (str, torch.device)) \
+            and torch.device(device).type == 'meta'
+        dev = None if meta else resolve_device(device)
+        self.cfg = cfg
+        with torch.device('meta'):
+            self.model = LlamaModel(cfg)
+            if not cfg.tie_word_embeddings:
+                self.lm_head = nn.Linear(cfg.units, cfg.vocab_size,
+                                         bias=False)
+        if dev is not None:
+            self.to_empty(device=dev)
+            self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed=0):
+        """Redraw every parameter from a generator seeded with ``seed``
+        on the parameters' device."""
+        dev = self.model.embed_tokens.weight.device
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            if name.endswith('norm.weight'):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+
+    def forward(self, token_ids, caches=None, offset=0, pages=None):
+        if caches is None:
+            h = self.model(token_ids)
+        else:
+            h, caches = self.model(token_ids, caches=caches, offset=offset,
+                                   pages=pages)
+        if self.cfg.tie_word_embeddings:
+            logits = h @ self.model.embed_tokens.weight.T
+        else:
+            logits = self.lm_head(h)
+        return logits if caches is None else (logits, caches)
+
+    def init_paged_pool(self, num_pages, page_size, dtype='float32'):
+        """Allocate the paged-KV pool on the parameters' device: per
+        layer, (k, v) zero tensors of shape ``(num_pages, page_size,
+        kv_heads, dh)``. Every sequence's cache is a set of pages it
+        names through its block table (``forward(..., pages=...)``)."""
+        cfg = self.cfg
+        dh = cfg.units // cfg.num_heads
+        shape = (num_pages, page_size, cfg.num_kv_heads, dh)
+        dev = self.model.embed_tokens.weight.device
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        return [(torch.zeros(shape, dtype=dt, device=dev),
+                 torch.zeros(shape, dtype=dt, device=dev))
+                for _ in range(cfg.num_layers)]
+
+
+_LLAMA_CONFIGS = {
+    # test-scale config (CI, unit tests)
+    'llama_tiny': dict(vocab_size=256, units=64, num_layers=2, num_heads=4,
+                       num_kv_heads=2, hidden_size=128, max_length=128,
+                       rope_theta=10000.0),
+    'llama2_7b': dict(vocab_size=32000, units=4096, num_layers=32,
+                      num_heads=32, num_kv_heads=32, hidden_size=11008,
+                      max_length=4096, rope_theta=10000.0),
+    'llama3_8b': dict(vocab_size=128256, units=4096, num_layers=32,
+                      num_heads=32, num_kv_heads=8, hidden_size=14336,
+                      max_length=8192, rope_theta=500000.0),
+}
+
+
+def get_llama(name, device=None, seed=0, **kwargs):
+    """Build a named configuration (``kwargs`` override its fields)."""
+    cfg = dict(_LLAMA_CONFIGS[name])
+    cfg.update(kwargs)
+    return LlamaForCausalLM(LlamaConfig(**cfg), device=device, seed=seed)
+
+
+def llama_tiny(**kwargs):
+    """2-layer test-scale Llama (unit tests / smoke runs)."""
+    return get_llama('llama_tiny', **kwargs)
+
+
+def llama2_7b(**kwargs):
+    """Llama-2-7B shapes."""
+    return get_llama('llama2_7b', **kwargs)
+
+
+def llama3_8b(**kwargs):
+    """Llama-3-8B shapes (GQA 32/8, 500k rope theta)."""
+    return get_llama('llama3_8b', **kwargs)
+
+
+def from_jax_params(params, cfg):
+    """The port's ``state_dict`` for the JAX net's parameters.
+
+    ``params`` maps the JAX package's parameter names
+    (``model.layers0.self_attn.q_proj.weight``, ...) to numpy arrays, as
+    ``{n: p.data().asnumpy() for n, p in net.collect_params().items()}``
+    gives them. Gluon ``Dense`` stores ``(out, in)`` like ``nn.Linear``,
+    so only the names change: ``layers{i}`` becomes ``layers.{i}``.
+    Load the result with ``net.load_state_dict(...)``."""
+    shapes = {k: tuple(v.shape) for k, v in
+              LlamaForCausalLM(cfg, device='meta').state_dict().items()}
+    out = {}
+    for name, value in params.items():
+        key = re.sub(r'\.layers(\d+)\.', r'.layers.\1.', name)
+        if key not in shapes:
+            raise KeyError(f'{name} has no counterpart in the port ({key})')
+        arr = np.asarray(value)
+        if arr.shape != shapes[key]:
+            raise ValueError(f'{name}: shape {arr.shape}, the port wants '
+                             f'{shapes[key]}')
+        out[key] = torch.tensor(arr)
+    missing = sorted(set(shapes) - set(out))
+    if missing:
+        raise ValueError(f'parameters missing: {missing}')
+    return out

@@ -1,0 +1,148 @@
+"""Build the port's CUDA kernels and bind them with ``ctypes``.
+
+Each ``mxnet_tpu_torch/csrc/<name>.cu`` is compiled on its own by ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface, under
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
+The library's file name carries a hash of its sources, so an edited kernel
+is rebuilt and a built one is reused. Nothing is built when a module is
+imported: :func:`function` builds on the first launch, and
+:func:`build_all` builds every source at once, one ``nvcc`` process each,
+all started together.
+
+Every C entry point takes raw pointers and a ``cudaStream_t`` (all bound as
+``c_void_p``, so ``ctypes`` passes 64 bits) and returns the
+``cudaError_t`` of its launch; :func:`check` turns a nonzero code into an
+:class:`MXNetError`.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+from ...base import MXNetError
+
+__all__ = ['CSRC', 'BUILD_DIR', 'NVCC_FLAGS', 'sources', 'build_all',
+           'function', 'check']
+
+CSRC = Path(__file__).resolve().parents[2] / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_lock = threading.Lock()
+_libs = {}          # kernel name -> ctypes.CDLL
+_funcs = {}         # (kernel name, symbol) -> bound ctypes function
+
+
+def sources():
+    """Names of the kernel sources (``csrc/<name>.cu``), sorted."""
+    return sorted(p.stem for p in CSRC.glob('*.cu'))
+
+
+def _nvcc():
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    cands = [os.path.join(home, 'bin', 'nvcc')] if home else []
+    cands += [shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc']
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise MXNetError('nvcc not found: the CUDA kernels are built from '
+                     'mxnet_tpu_torch/csrc/ at first use and need the '
+                     'CUDA toolkit (set CUDA_HOME)')
+
+
+def _target(name):
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in [CSRC / f'{name}.cu'] + sorted(CSRC.glob('*.cuh')):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
+
+
+def _start(name):
+    """Start ``nvcc`` for one source; returns (process, tmp path, target)
+    or ``None`` when the library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name, started):
+    """Wait for one build; returns the compiler's output."""
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise MXNetError(f'nvcc failed on csrc/{name}.cu '
+                         f'(exit {proc.returncode}):\n{log}')
+    os.replace(tmp, out)
+    return log
+
+
+def build_all():
+    """Build every kernel source that is not built yet, one ``nvcc`` each,
+    all in parallel. Returns ``{name: (seconds, compiler output)}`` for
+    the sources it compiled (``ptxas`` reports registers, shared memory
+    and spills for each kernel)."""
+    with _lock:
+        t0 = time.perf_counter()
+        started = {n: _start(n) for n in sources()}
+        logs, errors = {}, []
+        for n, s in started.items():
+            if s is None:
+                continue
+            try:        # wait for every nvcc before raising the first fault
+                log = _finish(n, s)
+            except MXNetError as e:
+                errors.append(e)
+                continue
+            logs[n] = (time.perf_counter() - t0, log)
+        if errors:
+            raise errors[0]
+        return logs
+
+
+def _load(name):
+    lib = _libs.get(name)
+    if lib is None:
+        started = _start(name)
+        if started is not None:
+            _finish(name, started)
+        lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+        lib.mx_error_string.argtypes = [ctypes.c_int]
+        lib.mx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def function(name, symbol, argtypes, restype=ctypes.c_int):
+    """The C entry ``symbol`` of ``csrc/<name>.cu``, built and loaded at
+    first use, with ``argtypes`` and ``restype`` set."""
+    key = (name, symbol)
+    fn = _funcs.get(key)
+    if fn is None:
+        with _lock:
+            fn = _funcs.get(key)
+            if fn is None:
+                fn = getattr(_load(name), symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+                _funcs[key] = fn
+    return fn
+
+
+def check(name, rc, what):
+    """Raise if a C entry of ``csrc/<name>.cu`` returned a CUDA error."""
+    if rc != 0:
+        msg = _libs[name].mx_error_string(rc).decode()
+        raise MXNetError(f'{what}: CUDA error {rc} ({msg})')

@@ -1,0 +1,118 @@
+"""Paged attention decode: the CUDA kernel ``csrc/paged_attention.cu`` and
+its plain PyTorch version.
+
+Counterpart of ``paged_attention_decode_pallas`` in
+``mxnet_tpu/ops/pallas/paged_attention.py``. The plain version is the
+gather math of the reference op (``ops/contrib.py:paged_attention_decode``
+off the TPU). A CPU tensor takes it; a CUDA tensor launches the kernel, or
+raises on a dtype, shape or layout the kernel does not take.
+"""
+
+import ctypes
+
+import torch
+
+from ...base import MXNetError
+from . import _build
+
+__all__ = ['paged_attention_decode', 'paged_attention_decode_plain',
+           'HEAD_DIMS', 'GROUPS']
+
+#: head dims and query-group sizes the kernel is built for
+HEAD_DIMS = (64, 128)
+GROUPS = (1, 2, 4, 8)
+
+_NEG_INF = -1e30
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def paged_attention_decode_plain(q, k_pool, v_pool, pages, offset,
+                                 sm_scale):
+    """The kernel's function in plain PyTorch: gather each row's logical
+    cache out of the pool, repeat KV heads over the group, masked fp32
+    softmax over positions ``<= offset[b]``. q ``(B, kv, G, dh)``."""
+    B, kv, G, dh = q.shape
+    psz = k_pool.shape[1]
+    L = pages.shape[1] * psz
+    idx = pages.long()
+    kf = k_pool[idx].reshape(B, L, kv, dh)
+    vf = v_pool[idx].reshape(B, L, kv, dh)
+    if G > 1:
+        kf = kf.repeat_interleave(G, 2)
+        vf = vf.repeat_interleave(G, 2)
+    qh = q.reshape(B, kv * G, dh)
+    scores = torch.einsum('bshd,blhd->bhsl', qh[:, None].float(),
+                          kf.float()) * sm_scale
+    mask = torch.arange(L, device=q.device)[None, :] \
+        <= offset.long()[:, None]                                 # (B, L)
+    scores = torch.where(mask[:, None, None, :], scores,
+                         torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum('bhsl,blhd->bshd', probs, vf.float()).to(q.dtype)
+    return out[:, 0].reshape(B, kv, G, dh)
+
+
+def paged_attention_decode(q, k_pool, v_pool, pages, offset, sm_scale):
+    """One decode token per row against the paged pool. q ``(B, kv, G,
+    dh)``; pools ``(P, page_size, kv, dh)``; pages ``(B, NP)`` int32;
+    offset ``(B,)`` int32, the absolute position of each row's current
+    token. Returns ``(B, kv, G, dh)`` in q's dtype."""
+    tensors = (q, k_pool, v_pool, pages, offset)
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise MXNetError(f'paged_attention_decode: want q (B, kv, G, dh) '
+                         f'and pools (P, page_size, kv, dh); got '
+                         f'{tuple(q.shape)}, {tuple(k_pool.shape)}, '
+                         f'{tuple(v_pool.shape)}')
+    B, kv, G, dh = q.shape
+    P, psz = k_pool.shape[:2]
+    if k_pool.shape[2:] != (kv, dh) or pages.dim() != 2 \
+            or pages.shape[0] != B or offset.shape != (B,):
+        raise MXNetError(f'paged_attention_decode: shapes disagree: q '
+                         f'{tuple(q.shape)}, pool {tuple(k_pool.shape)}, '
+                         f'pages {tuple(pages.shape)}, offset '
+                         f'{tuple(offset.shape)}')
+    if pages.dtype != torch.int32 or offset.dtype != torch.int32:
+        raise MXNetError('paged_attention_decode: pages and offset must be '
+                         'int32')
+    if not all(t.is_contiguous() for t in tensors):
+        raise MXNetError('paged_attention_decode: tensors must be '
+                         'contiguous')
+    if q.device.type == 'cpu':
+        return paged_attention_decode_plain(q, k_pool, v_pool, pages,
+                                            offset, sm_scale)
+    if q.device.type != 'cuda' or any(t.device != q.device
+                                      for t in tensors):
+        raise MXNetError('paged_attention_decode: tensors must share one '
+                         'CUDA device')
+    if any(t.dtype != torch.float32 for t in (q, k_pool, v_pool)):
+        raise MXNetError('paged_attention_decode: the kernel takes float32 '
+                         'q and pools')
+    if dh not in HEAD_DIMS or G not in GROUPS:
+        raise MXNetError(f'paged_attention_decode: head dim {dh} / group '
+                         f'{G} not in {HEAD_DIMS} / {GROUPS}')
+    if not all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)):
+        raise MXNetError('paged_attention_decode: q and the pools must be '
+                         '16-byte aligned')
+    if B == 0 or P == 0 or pages.shape[1] == 0:
+        raise MXNetError('paged_attention_decode: empty batch, pool or '
+                         'table')
+    if B * kv >= 2 ** 31:
+        raise MXNetError('paged_attention_decode: batch too large')
+    out = torch.empty_like(q)
+    n_scratch = _build.function(
+        'paged_attention', 'paged_attention_scratch_floats',
+        [ctypes.c_int] * 5, ctypes.c_longlong)(B, kv, G, dh, pages.shape[1])
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
+    fn = _build.function('paged_attention', 'paged_attention_decode_f32',
+                         _ARGS)
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            pages.data_ptr(), offset.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, kv, G, dh, P, psz, pages.shape[1],
+            float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check('paged_attention', rc, 'paged_attention_decode')
+    paged_attention_decode.launches += 1
+    return out
+
+
+paged_attention_decode.launches = 0

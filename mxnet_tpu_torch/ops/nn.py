@@ -1,0 +1,44 @@
+"""Neural-network ops of the port that the Llama path calls: ``rms_norm``,
+``layer_norm`` and ``silu``.
+
+Counterpart of the same ops in ``mxnet_tpu/ops/nn.py``. A last-axis norm
+goes through the fused norm kernel (:mod:`.kernels.fused_norms`); other
+axes use plain PyTorch, as the reference uses XLA there.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from .kernels.fused_norms import fused_layer_norm, fused_rms_norm
+
+__all__ = ['rms_norm', 'layer_norm', 'silu']
+
+
+def _bcast(v, ndim, axis):
+    shape = [1] * ndim
+    shape[axis] = -1
+    return v.reshape(shape)
+
+
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
+    """LayerNorm over ``axis`` (reference: src/operator/nn/layer_norm.cc)."""
+    if axis in (-1, data.dim() - 1) and gamma.dim() == 1:
+        return fused_layer_norm(data.contiguous(), gamma.contiguous(),
+                                beta.contiguous(), eps)
+    mean = data.mean(axis, keepdim=True)
+    var = data.var(axis, keepdim=True, unbiased=False)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    return out * _bcast(gamma, data.dim(), axis) \
+        + _bcast(beta, data.dim(), axis)
+
+
+def rms_norm(data, gamma, axis=-1, eps=1e-6):
+    """RMSNorm over ``axis`` for the LLM stack."""
+    if axis in (-1, data.dim() - 1) and gamma.dim() == 1:
+        return fused_rms_norm(data.contiguous(), gamma.contiguous(), eps)
+    ms = (data * data).mean(axis, keepdim=True)
+    return data * torch.rsqrt(ms + eps) * _bcast(gamma, data.dim(), axis)
+
+
+def silu(x):
+    return F.silu(x)

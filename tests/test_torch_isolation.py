@@ -1,0 +1,62 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its entry points go to the card unless told otherwise."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / 'mxnet_tpu_torch'
+FORBIDDEN = ('jax', 'jaxlib', 'mxnet_tpu')
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        'import importlib, pkgutil, sys\n'
+        'import mxnet_tpu_torch as pkg\n'
+        'for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):\n'
+        '    importlib.import_module(m.name)\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
+
+
+@pytest.mark.parametrize('path', sorted(
+    str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split('.')[0] not in FORBIDDEN, \
+                f'{path}:{node.lineno} imports {name}'
+
+
+def test_no_card_means_an_error_not_the_cpu(monkeypatch):
+    from mxnet_tpu_torch import MXNetError, context
+    from mxnet_tpu_torch.gluon.model_zoo.llama import llama_tiny
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert context.current_context() == context.gpu(0)
+    with pytest.raises(MXNetError):
+        llama_tiny()
+    with pytest.raises(MXNetError):
+        context.resolve_device('cuda:0')
+    assert context.resolve_device('cpu') == torch.device('cpu')
+    with context.cpu():
+        assert llama_tiny().lm_head.weight.device.type == 'cpu'

@@ -1,0 +1,145 @@
+"""The PyTorch port's Llama against the JAX package's, on ``llama_tiny``.
+
+Both nets hold the same weights, drawn with numpy from a seed and carried
+across by ``from_jax_params``. Three outputs are held against the JAX
+net's ``_param_run``: the full-sequence forward (the flash path), a paged
+chunked-prefill call and a per-slot paged decode call, with the page pools
+they leave behind. Tolerance rtol = atol = 1e-4: the projections sum in
+another order in the two frameworks.
+"""
+
+import jax.numpy as jnp
+import numpy as onp
+import pytest
+import torch
+
+import mxnet_tpu as mx
+from mxnet_tpu.gluon.model_zoo import llama as jax_llama
+
+from mxnet_tpu_torch.gluon.model_zoo import llama as torch_llama
+from mxnet_tpu_torch.ops import kernels
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+PSZ, NUM_PAGES = 4, 24
+
+
+def _weights(net, seed=0):
+    """numpy weights for every parameter of the JAX net: N(0, 0.1) for
+    projections and embeddings (logits spread enough for a clear greedy
+    pick), 1 + N(0, 0.1) for the norms."""
+    rng = onp.random.default_rng(seed)
+    out = {}
+    for name, p in net.collect_params().items():
+        w = rng.standard_normal(p.shape).astype(onp.float32) * 0.1
+        out[name] = w + 1.0 if name.endswith('norm.weight') else w
+    return out
+
+
+@pytest.fixture(scope='module')
+def nets():
+    jnet = jax_llama.llama_tiny()
+    jnet.initialize()
+    jnet(mx.np.zeros((1, 2)))
+    params = _weights(jnet)
+    for name, p in jnet.collect_params().items():
+        p.set_data(params[name])
+    tnet = torch_llama.llama_tiny(device='cpu')
+    tnet.load_state_dict(torch_llama.from_jax_params(params, tnet.cfg))
+    return jnet, tnet, params
+
+
+def _close(got, want):
+    onp.testing.assert_allclose(got.detach().numpy(), onp.asarray(want),
+                                **TOL)
+
+
+def _pools(tnet, seed):
+    """The same random page pool for both nets (numpy, per layer k/v)."""
+    rng = onp.random.default_rng(seed)
+    cfg = tnet.cfg
+    shape = (NUM_PAGES, PSZ, cfg.num_kv_heads, cfg.units // cfg.num_heads)
+    arrs = [(rng.standard_normal(shape).astype(onp.float32),
+             rng.standard_normal(shape).astype(onp.float32))
+            for _ in range(cfg.num_layers)]
+    jpool = [(jnp.asarray(k), jnp.asarray(v)) for k, v in arrs]
+    tpool = [(torch.from_numpy(k.copy()), torch.from_numpy(v.copy()))
+             for k, v in arrs]
+    return jpool, tpool
+
+
+def _close_pools(tpool, jpool):
+    for (tk, tv), (jk, jv) in zip(tpool, jpool):
+        _close(tk, jk)
+        _close(tv, jv)
+
+
+def test_from_jax_params_maps_every_name(nets):
+    _, tnet, params = nets
+    sd = torch_llama.from_jax_params(params, tnet.cfg)
+    assert len(params) == len(sd) == 21
+    assert 'model.layers.1.self_attn.q_proj.weight' in sd
+    assert set(sd) == set(tnet.state_dict())
+    with pytest.raises(KeyError):
+        torch_llama.from_jax_params({'model.nope': onp.zeros(1)}, tnet.cfg)
+
+
+@pytest.mark.parametrize('batch', [1, 2])
+def test_full_forward_logits_match(nets, batch):
+    jnet, tnet, _ = nets
+    toks = onp.random.default_rng(1).integers(0, 256, (batch, 19))
+    want = jnet(mx.np.array(toks.astype(onp.int32))).asnumpy()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(toks))
+    assert got.shape == (batch, 19, 256)
+    _close(got, want)
+    assert kernels.launch_counts()['flash_attention'] == 0   # CPU: plain
+
+
+def test_paged_chunked_prefill_matches(nets):
+    """Two chunks of one sequence through its block table: the second
+    attends over the first chunk's pages and its own."""
+    jnet, tnet, _ = nets
+    run, praws = jnet._param_run()
+    jpool, tpool = _pools(tnet, seed=2)
+    pages = onp.asarray([[5, 9, 2, 17, 11, 0]], onp.int32)
+    toks = onp.random.default_rng(3).integers(0, 256, (1, 16))
+    for start in (0, 8):
+        chunk = toks[:, start:start + 8]
+        want, jpool = run(praws, jnp.asarray(chunk, jnp.int32), jpool,
+                          start, pages=jnp.asarray(pages))
+        with torch.no_grad():
+            got, tpool = tnet(torch.from_numpy(chunk), caches=tpool,
+                              offset=start, pages=torch.from_numpy(pages))
+        _close(got, want)
+    _close_pools(tpool, jpool)
+
+
+def test_paged_per_slot_decode_matches(nets):
+    """Rows at unequal depths, one of them idle on the garbage page."""
+    jnet, tnet, _ = nets
+    run, praws = jnet._param_run()
+    jpool, tpool = _pools(tnet, seed=4)
+    pages = onp.asarray([[3, 7, 1, 0],
+                         [0, 0, 0, 0],
+                         [12, 4, 20, 8]], onp.int32)
+    off = onp.asarray([6, 0, 13], onp.int32)
+    toks = onp.asarray([[17], [0], [201]])
+    want, jpool = run(praws, jnp.asarray(toks, jnp.int32), jpool,
+                      jnp.asarray(off), pages=jnp.asarray(pages))
+    with torch.no_grad():
+        got, tpool = tnet(torch.from_numpy(toks), caches=tpool,
+                          offset=torch.from_numpy(off),
+                          pages=torch.from_numpy(pages))
+    # only the idle row writes the garbage page, so all of it compares
+    _close(got, want)
+    _close_pools(tpool, jpool)
+
+
+def test_seeded_init_is_reproducible():
+    net = torch_llama.llama_tiny(device='cpu', seed=3)
+    again = torch_llama.llama_tiny(device='cpu', seed=3)
+    other = torch_llama.llama_tiny(device='cpu', seed=4)
+    assert torch.equal(net.lm_head.weight, again.lm_head.weight)
+    assert not torch.equal(net.lm_head.weight, other.lm_head.weight)
+    assert torch.equal(net.model.norm.weight, torch.ones(64))
