@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --phases build,kernels  # a kernel-only check
+    python3 chip_smoke.py --phases build,kernels,train  # the training path
 
 Phases, each of which fails the run on any error:
 
@@ -13,7 +14,9 @@ Phases, each of which fails the run on any error:
 3. kernels  -- hold each hand-written kernel against its plain PyTorch
                version on the card at ``llama3_8b`` shapes, in fp32, and
                time the kernel, the plain version and, where one PyTorch
-               call computes the same function, that call.
+               call computes the same function, that call. The gradients
+               of the norm and flash ops (their ``autograd.Function``s)
+               meet autograd through the plain versions.
 4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
                generator: one ``(1, 512)`` forward, finite logits, and
                exactly 65 RMSNorm and 32 flash-attention launches.
@@ -25,9 +28,23 @@ Phases, each of which fails the run on any error:
                the same tokens wherever the top-2 logit margin exceeds
                1e-2. Then ``torch.profiler`` splits a decode step and a
                prefill chunk into kernel time by name.
+6. train    -- ``llama3_8b`` at full width cut to 4 layers (1.92 B
+               parameters; fp32 Adam's weights, gradients and two moments
+               for all 32 layers would not fit one 80 GB card): three
+               ``Trainer('adam')`` steps, then three of a fresh
+               ``Trainer('sgd', momentum=0.9)``, each from the same seeded
+               weights (so that the second run has something left to
+               learn), on one seeded batch of 2048 tokens. Every loss
+               finite and falling, every parameter with a gradient after
+               the first backward, exactly 2L+1 norm, L flash and one
+               optimizer launch per parameter per step;
+               the last step of each run is split into kernel time by
+               name. Then a small Llama trains two Adam steps on the card
+               and on the CPU, and the losses must agree.
 
-The launch counters are set to 0 just before the forward phase and read
-just after the serving phase; the kernels' line reports those counts.
+The launch counters are set to 0 just before each of the forward, serve
+and train phases and read just after it; the kernels' line reports their
+sum over the three.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase ran and passed. Exit code 0 only then.
 """
@@ -41,7 +58,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ('device', 'build', 'kernels', 'forward', 'serve')
+PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'train')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -59,7 +76,19 @@ KERNELS = {
     'paged_attention_decode': dict(
         source='mxnet_tpu_torch/csrc/paged_attention.cu',
         replaces='mxnet_tpu/ops/pallas/paged_attention.py:44'),
+    'adam': dict(
+        source='mxnet_tpu_torch/csrc/fused_optimizer.cu',
+        replaces='mxnet_tpu/ops/pallas/fused_optimizer.py:85'),
+    'sgd_mom': dict(
+        source='mxnet_tpu_torch/csrc/fused_optimizer.cu',
+        replaces='mxnet_tpu/ops/pallas/fused_optimizer.py:146'),
 }
+#: the train phase: llama3_8b's widths at this depth, one batch of this
+#: many tokens, and the optimizers' settings
+TRAIN_LAYERS = 4
+TRAIN_TOKENS = 2048
+TRAIN_OPTS = (('adam', 'adam', {'learning_rate': 1e-5}),
+              ('sgd', 'sgd_mom', {'learning_rate': 0.1, 'momentum': 0.9}))
 
 
 def log(*a):
@@ -133,7 +162,12 @@ def bound(nbytes, ops):
 
 def compare(torch, got, want, rtol, atol):
     """max |got - want|; fails unless |got - want| <= atol + rtol*|want|
-    everywhere and both are finite."""
+    everywhere and both are finite. ``got``/``want`` may be tuples of
+    tensors (a kernel's several outputs), compared pairwise."""
+    if isinstance(got, tuple):
+        res = [compare(torch, a, b, rtol, atol) for a, b in zip(got, want)]
+        return max(e for e, _ in res), len(got) == len(want) and all(
+            ok for _, ok in res)
     if got.shape != want.shape:
         return math.inf, False
     err = (got.double() - want.double()).abs()
@@ -172,19 +206,30 @@ def phase_build():
 
 
 def _case(torch, name, shape, got, want, tol, why, kernel, plain,
-          nbytes, ops, library=None):
+          nbytes, ops, library=None, library_call=None):
+    """One row: the check, then the times. ``library_call`` names a
+    library call that is timed launched from Python (``eager_ms``), for
+    calls that a CUDA graph does not capture as they stand (an optimizer's
+    ``step``); other library calls are timed as the kernel is."""
     err, ok = compare(torch, got, want, *tol)
     launched_ms = eager_ms(torch, kernel)
     ms = cuda_ms(torch, kernel)
     plain_ms = cuda_ms(torch, plain)
-    library_ms = cuda_ms(torch, library) if library is not None else None
+    if library is None:
+        library_ms = None
+    else:
+        library_ms = (eager_ms if library_call else cuda_ms)(torch, library)
     bound_ms, bound_by = bound(nbytes, ops)
     row = dict(name=name, shape=shape, max_abs_err=err, rtol=tol[0],
                atol=tol[1], tolerance_reason=why, ok=ok, ms=ms,
                launched_ms=launched_ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms)
+    if library_call:
+        row['library_call'] = library_call
     lib = 'none' if library_ms is None else f'{library_ms:.4f}'
+    if library_call:
+        lib += f' ({library_call}, launched from Python)'
     log(f'[kernels] {name} {shape}: max_abs_err {err:.3e} '
         f'(rtol {tol[0]:g}, atol {tol[1]:g}: {why}) kernel_ms {ms:.4f} '
         f'(launched from Python {launched_ms:.4f}) '
@@ -308,11 +353,153 @@ def phase_kernels(torch):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    _optimizer_cases(torch, randn, rows)
+    grads_ok = _gradient_checks(torch, randn)
+
     bad = [r for rs in rows.values() for r in rs if not r['ok']]
+    if not grads_ok:
+        fail('a gradient through the kernels disagrees with autograd '
+             'through the plain versions')
     if bad:
         fail(f'{len(bad)} kernel check(s) disagree with the plain version: '
              f'{[(r["name"], r["shape"]) for r in bad]}')
     return rows
+
+
+def _optimizer_cases(torch, randn, rows):
+    """Adam and SGD-momentum against their plain versions, each on its own
+    copy of the same weight and slots: an MLP weight (the first case), the
+    embedding, a norm weight and a ragged size, at t = 1 and t = 1000. The
+    library call is one ``step()`` of ``torch.optim``'s fused optimizer,
+    timed only."""
+    from mxnet_tpu_torch.ops.kernels import fused_optimizer as fo
+    tol = (1e-6, 1e-7)
+    why = 'fp32, the same operations in the same order, none contracted'
+    lr, wd, clip = 1e-3, 0.01, dict(rescale_grad=0.5, clip_gradient=1.0)
+    betas = dict(beta1=0.9, beta2=0.999, epsilon=1e-8)
+    for shape in ((4096, 14336), (128256, 4096), (4096,), (1000,)):
+        n = math.prod(shape)
+        w, g = randn(*shape), randn(*shape, scale=3.0)   # the clip bites
+        m, v = randn(*shape, scale=0.1), randn(*shape, scale=0.1).square()
+        for t in (1, 1000):
+            bc = (1 - 0.9 ** t, 1 - 0.999 ** t)
+            kw = dict(**betas, **clip)
+            ks = [x.clone() for x in (w, m, v)]
+            ps = [x.clone() for x in (w, m, v)]
+            got = fo.adam_step(ks[0], g, ks[1], ks[2], lr, wd, *bc, **kw)
+            want = fo.adam_step_plain(ps[0], g, ps[1], ps[2], lr, wd, *bc,
+                                      **kw)
+            lib = None
+            if t == 1:
+                p = torch.nn.Parameter(w.clone())
+                p.grad = g
+                adam = torch.optim.Adam([p], lr=lr, betas=(0.9, 0.999),
+                                        eps=1e-8, weight_decay=wd,
+                                        fused=True)
+                lib = adam.step
+            rows['adam'].append(_case(
+                torch, 'adam', f'{shape} t={t}', got, want, tol, why,
+                lambda: fo.adam_step(ks[0], g, ks[1], ks[2], lr, wd, *bc,
+                                     **kw),
+                lambda: fo.adam_step_plain(ps[0], g, ps[1], ps[2], lr, wd,
+                                           *bc, **kw),
+                28 * n, 18 * n, lib,
+                library_call=lib and 'torch.optim.Adam(fused=True).step'))
+            del ks, ps, got, want, lib
+            if t == 1:
+                del p, adam
+
+            ks = [x.clone() for x in (w, m)]
+            ps = [x.clone() for x in (w, m)]
+            got = fo.sgd_mom_step(ks[0], g, ks[1], lr, wd, momentum=0.9,
+                                  **clip)
+            want = fo.sgd_mom_step_plain(ps[0], g, ps[1], lr, wd,
+                                         momentum=0.9, **clip)
+            lib = call = None
+            if t == 1:
+                p = torch.nn.Parameter(w.clone())
+                p.grad = g
+                try:
+                    sgd = torch.optim.SGD([p], lr=lr, momentum=0.9,
+                                          weight_decay=wd, fused=True)
+                    call = 'torch.optim.SGD(fused=True).step'
+                except (TypeError, RuntimeError, ValueError):
+                    sgd = torch.optim.SGD([p], lr=lr, momentum=0.9,
+                                          weight_decay=wd, foreach=True)
+                    call = 'torch.optim.SGD(foreach=True).step'
+                lib = sgd.step
+            rows['sgd_mom'].append(_case(
+                torch, 'sgd_mom', f'{shape} t={t}', got, want, tol, why,
+                lambda: fo.sgd_mom_step(ks[0], g, ks[1], lr, wd,
+                                        momentum=0.9, **clip),
+                lambda: fo.sgd_mom_step_plain(ps[0], g, ps[1], lr, wd,
+                                              momentum=0.9, **clip),
+                20 * n, 7 * n, lib, library_call=call))
+            del ks, ps, got, want, lib
+            if t == 1:
+                del p, sgd
+        del w, g, m, v
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _gradient_checks(torch, randn):
+    """The norm and flash gradients through their ``autograd.Function``s
+    (the kernel forward, the reference's backward) against autograd
+    through the plain versions, at a training step's shapes. True when
+    every output and gradient agrees."""
+    from mxnet_tpu_torch.ops.kernels import fused_norms, flash_attention
+    tol = (1e-4, 1e-4)
+
+    def run(fn, args, ct):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        out = fn(*leaves)
+        out.backward(ct)
+        return (out.detach(),) + tuple(x.grad for x in leaves)
+
+    n, d = TRAIN_TOKENS, 4096
+    x, gamma, beta = randn(n, d, scale=2.0) + 0.3, randn(d) + 1.0, randn(d)
+    ct = randn(n, d)
+    cases = [
+        (f'fused_norm rms ({n}, {d})', (x, gamma), ct,
+         lambda x_, g_: fused_norms.FusedNormFunction.apply(
+             x_, g_, None, 1e-5, True),
+         lambda x_, g_: fused_norms.fused_norm_plain(x_, g_, None, 1e-5,
+                                                     True)),
+        (f'fused_norm layer ({n}, {d})', (x, gamma, beta), ct,
+         lambda x_, g_, b_: fused_norms.FusedNormFunction.apply(
+             x_, g_, b_, 1e-5, False),
+         lambda x_, g_, b_: fused_norms.fused_norm_plain(x_, g_, b_, 1e-5,
+                                                         False))]
+    bh, t, dh = 32, TRAIN_TOKENS, 128
+    qkv = [randn(bh, t, dh) for _ in range(3)]
+    cases.append((
+        f'flash_attention BH={bh} T=S={t} d={dh} causal', qkv,
+        randn(bh, t, dh),
+        lambda q, k, v: flash_attention.FlashAttentionFunction.apply(
+            q, k, v, dh ** -0.5, True),
+        lambda q, k, v: flash_attention.flash_attention_plain(
+            q, k, v, dh ** -0.5, True)))
+    def step_ms(fn, args, ct):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        return eager_ms(torch, lambda: fn(*leaves).backward(ct))
+
+    ok_all = True
+    for what, args, ct, fn, plain in cases:
+        err, ok = compare(torch, run(fn, args, ct), run(plain, args, ct),
+                          *tol)
+        ok_all &= ok
+        log(f'[kernels] gradient of {what} through its Function: output '
+            f'and input gradients max_abs_err {err:.3e} against autograd '
+            f'through the plain version (rtol {tol[0]:g}, atol {tol[1]:g}: '
+            f'fp32, the backward sums in another order) -> '
+            f'{"ok" if ok else "MISMATCH"}; forward + backward '
+            f'{step_ms(fn, args, ct):.3f} ms, through the plain version '
+            f'{step_ms(plain, args, ct):.3f} ms (launched from Python)')
+    del cases, qkv, x, gamma, beta, ct
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ok_all
 
 
 def _sync(torch, dev):
@@ -346,7 +533,8 @@ def phase_forward(torch, net, seed, length=512):
     if not bool(torch.isfinite(logits).all()):
         fail('forward: logits are not finite')
     want = {'fused_norm': 2 * cfg.num_layers + 1,
-            'flash_attention': cfg.num_layers, 'paged_attention_decode': 0}
+            'flash_attention': cfg.num_layers, 'paged_attention_decode': 0,
+            'adam': 0, 'sgd_mom': 0}
     if dev.type == 'cuda' and delta != want:
         fail(f'forward: launches {delta}, want {want}')
 
@@ -400,7 +588,8 @@ def phase_serve(torch, net, seed):
         fail(f'serve: prefix_hit {stats["prefix_hit"]}')
     L = net.cfg.num_layers
     want = {'fused_norm': (2 * L + 1) * (steps + chunks),
-            'flash_attention': 0, 'paged_attention_decode': L * steps}
+            'flash_attention': 0, 'paged_attention_decode': L * steps,
+            'adam': 0, 'sgd_mom': 0}
     if _device(net).type == 'cuda' and delta != want:
         fail(f'serve: launches {delta}, want {want}')
     return prompts, outs, stats
@@ -411,8 +600,6 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5):
     of one ``(1, chunk)`` prefill chunk at ``depth`` (``reps`` calls back
     to back, synchronised at the end), and their kernel time by name from
     ``torch.profiler``; the busy share is kernel time over host time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     psz, NP, dev = 16, 128, _device(net)
     pool = net.init_paged_pool(slots * NP + 1, psz)
     pages = (torch.arange(slots * NP, dtype=torch.int32) + 1).reshape(
@@ -426,7 +613,6 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5):
         f'prefill chunk (1, {chunk}) at {depth}':
             lambda: net(ctoks, caches=pool, offset=depth, pages=pages[:1]),
     }
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad():
         for what, fn in calls.items():
             fn()
@@ -436,24 +622,39 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
-            with profile(activities=acts) as prof:
+            with profiled() as prof:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-            # kernels only: a CPU op's device time repeats its kernels'
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-            busy = sum(e.self_device_time_total for e in ev) / 1e3 / reps
-            log(f'[profile] {what}: {wall:.2f} ms on the host clock, '
-                f'{busy:.2f} ms of kernel time ({100 * busy / wall:.0f}% '
-                f'busy), {sum(e.count for e in ev) // reps} kernels; '
-                f'card {smi_line()}')
-            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
-                ms = e.self_device_time_total / 1e3 / reps
-                log(f'[profile]   {ms:8.3f} ms {100 * ms / busy:5.1f}% '
-                    f'x{e.count // reps:<4d} {e.key[:90]}')
+            kernel_breakdown('profile', what, prof, wall, reps)
     del pool
+
+
+def profiled():
+    """A ``torch.profiler`` context over the host and the card."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def kernel_breakdown(tag, what, prof, wall_ms, reps=1, top=8):
+    """Log the kernel time of a ``torch.profiler`` run of ``reps`` calls
+    by name, against ``wall_ms``, the host-clock ms of one call; returns
+    the kernel ms per call. Kernel events only: a CPU op's device time
+    repeats its kernels'."""
+    from torch.autograd import DeviceType
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / reps
+    log(f'[{tag}] {what}: {wall_ms:.2f} ms on the host clock, '
+        f'{busy:.2f} ms of kernel time ({100 * busy / wall_ms:.0f}% '
+        f'busy), {sum(e.count for e in ev) // reps} kernels; '
+        f'card {smi_line()}')
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3 / reps
+        log(f'[{tag}]   {ms:8.3f} ms {100 * ms / busy:5.1f}% '
+            f'x{e.count // reps:<4d} {e.key[:90]}')
+    return busy
 
 
 def teacher_forced(torch, net, prompt, out):
@@ -473,6 +674,132 @@ def teacher_forced(torch, net, prompt, out):
         f'{sum(p == o for p, o in zip(pick, out))} of {len(out)} equal')
     if bad:
         fail(f'serve: teacher-forced argmax differs at {bad}')
+
+
+def _grad_faults(torch, params):
+    """Names of the parameters whose gradient is missing, not finite, or
+    zero everywhere."""
+    return [n for n, p in params.items()
+            if p.grad is None or not bool(torch.isfinite(p.grad).all())
+            or not bool((p.grad != 0).any())]
+
+
+def phase_train(torch, seed, steps=3):
+    """``llama3_8b``'s widths at ``TRAIN_LAYERS`` layers: ``steps`` steps of
+    each Trainer of ``TRAIN_OPTS`` in turn, on one seeded batch of
+    ``TRAIN_TOKENS`` tokens, as tests/test_llama.py's loop runs them, each
+    run from the same seeded weights; the last step of each run goes
+    through ``torch.profiler``."""
+    import contextlib
+    from mxnet_tpu_torch.gluon import Trainer, loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+    from mxnet_tpu_torch.ops import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = get_llama('llama3_8b', num_layers=TRAIN_LAYERS, device='cuda',
+                    seed=seed)
+    L = net.cfg.num_layers
+    params = dict(net.named_parameters())
+    n_par = sum(p.numel() for p in params.values())
+    torch.cuda.synchronize()
+    log(f'[train] llama3_8b widths at {L} layers: {len(params)} '
+        f'parameters, {n_par / 1e9:.3f} B fp32, on cuda in '
+        f'{time.perf_counter() - t0:.1f} s')
+    toks = torch.randint(0, net.cfg.vocab_size, (1, TRAIN_TOKENS + 1),
+                         generator=torch.Generator().manual_seed(seed))
+    toks = toks.cuda()
+    x, y = toks[:, :-1], toks[:, 1:]
+    loss_fn = gloss.SoftmaxCrossEntropyLoss()
+    for run, (opt, kernel, hyper) in enumerate(TRAIN_OPTS):
+        if run:
+            net.reset_parameters(seed)
+        trainer = Trainer(params, opt, dict(hyper))
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(fused_norm=2 * L + 1, flash_attention=L)
+        want[kernel] = len(params)
+        losses, wall = [], []
+        for i in range(steps):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with (profiled() if i == steps - 1
+                  else contextlib.nullcontext()) as prof:
+                loss = loss_fn(net(x), y).mean()
+                loss.backward()
+                if run == 0 and i == 0:
+                    bad = _grad_faults(torch, params)
+                    if bad:
+                        fail(f'train: after the first backward these '
+                             f'parameters have no finite nonzero gradient: '
+                             f'{bad}')
+                    log(f'[train] after the first backward all '
+                        f'{len(params)} parameters have a finite gradient, '
+                        f'nonzero somewhere')
+                trainer.step(1)
+                torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss.detach()))
+            after = kernels.launch_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            if delta != want:
+                fail(f'train: {opt} step {i + 1} launches {delta}, want '
+                     f'{want}')
+        log(f'[train] {opt} {hyper}: losses {losses}; host ms per step '
+            f'{[round(w, 2) for w in wall]} (step {steps} profiled); '
+            f'{TRAIN_TOKENS / wall[-2] * 1e3:.1f} tokens/s at step '
+            f'{steps - 1}; launches per step {want}')
+        # the busy share takes the profiled step's own host time, which the
+        # profiler lengthens a little, so the share is a lower bound
+        kernel_breakdown('train', f'{opt} step {steps} (profiled)', prof,
+                         wall[-1], top=12)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f'train: {opt} losses not finite: {losses}')
+        if not losses[-1] < losses[0]:
+            fail(f'train: {opt} loss did not fall: {losses}')
+        del trainer, loss, prof
+    log(f'[train] peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB')
+    del net, params, x, y, toks
+    torch.cuda.empty_cache()
+
+
+def train_parity(torch, seed, steps=2):
+    """A small Llama (head dim 64, GQA 4/2) trains ``steps`` Adam steps on
+    the card, through the kernels, and on the CPU, through the plain
+    versions, from the same weights and tokens: the losses must agree at
+    rtol 1e-4, and every parameter on the card must get a gradient."""
+    import copy
+    from mxnet_tpu_torch.gluon import Trainer, loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+    cpu_net = get_llama('llama_tiny', device='cpu', seed=seed,
+                        vocab_size=512, units=256, num_layers=2, num_heads=4,
+                        num_kv_heads=2, hidden_size=512, max_length=128)
+    toks = torch.randint(0, 512, (2, 33),
+                         generator=torch.Generator().manual_seed(seed))
+    losses = {}
+    for where in ('cpu', 'cuda'):
+        net = copy.deepcopy(cpu_net).to(where)
+        params = dict(net.named_parameters())
+        trainer = Trainer(params, 'adam', {'learning_rate': 1e-3})
+        t = toks.to(where)
+        losses[where] = []
+        for i in range(steps):
+            loss = gloss.SoftmaxCrossEntropyLoss()(net(t[:, :-1]),
+                                                    t[:, 1:]).mean()
+            loss.backward()
+            if i == 0 and _grad_faults(torch, params):
+                fail(f'train: on {where} these parameters of the small '
+                     f'Llama get no gradient: {_grad_faults(torch, params)}')
+            trainer.step(1)
+            losses[where].append(float(loss.detach()))
+    ok = all(math.isclose(a, b, rel_tol=1e-4)
+             for a, b in zip(losses['cuda'], losses['cpu']))
+    log(f'[train] small Llama (units 256, heads 4/2, dh 64), {steps} Adam '
+        f'steps: losses on the card {losses["cuda"]}, on the CPU '
+        f'{losses["cpu"]} (rtol 1e-4) -> {"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail('train: the card and the CPU train the small Llama apart')
 
 
 def main(argv=None):
@@ -498,7 +825,15 @@ def main(argv=None):
         phase_build()
     rows = phase_kernels(torch) if 'kernels' in phases else None
 
-    launches = None
+    paths = {}      # main path -> the launch counts of its run
+
+    def window(path, fn, *args):
+        kernels.reset_launch_counts()       # the path starts here ...
+        out = fn(*args)
+        paths[path] = kernels.launch_counts()   # ... and ends here
+        log(f'[{path}] launches {paths[path]}')
+        return out
+
     if 'forward' in phases or 'serve' in phases:
         from mxnet_tpu_torch.gluon.model_zoo.llama import llama3_8b
         t0 = time.perf_counter()
@@ -508,20 +843,23 @@ def main(argv=None):
         log(f'[model] llama3_8b {n_par / 1e9:.2f} B fp32 parameters on '
             f'cuda in {time.perf_counter() - t0:.1f} s, '
             f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
-        kernels.reset_launch_counts()   # the main path starts here
         if 'forward' in phases:
-            phase_forward(torch, net, SEED + 1)
+            window('forward', phase_forward, torch, net, SEED + 1)
         if 'serve' in phases:
-            prompts, outs, _ = phase_serve(torch, net, SEED + 2)
-        launches = kernels.launch_counts()   # ... and ends here
-        if 'serve' in phases:
+            prompts, outs, _ = window('serve', phase_serve, torch, net,
+                                      SEED + 2)
             teacher_forced(torch, net, prompts[2], outs[2])
             profile_breakdown(torch, net)
         log(f'[model] peak memory '
             f'{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB')
         del net
         torch.cuda.empty_cache()
+    if 'train' in phases:
+        window('train', phase_train, torch, SEED + 3)
+        train_parity(torch, SEED + 4)
 
+    launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS} \
+        if paths else None
     if rows is not None:
         line = []
         for name, meta in KERNELS.items():
@@ -531,12 +869,13 @@ def main(argv=None):
                 name=name, route='cuda', source=meta['source'],
                 replaces=meta['replaces'],
                 launches=None if launches is None else launches[name],
+                launches_by_path={p: c[name] for p, c in paths.items()},
                 max_abs_err=max(r['max_abs_err'] for r in rows[name]),
                 ms=head['ms'], plain_ms=head['plain_ms'],
                 bound_ms=head['bound_ms'], bound_by=head['bound_by'],
                 library_ms=head['library_ms'], shape=head['shape'],
                 cases=rows[name]))
-        if {'forward', 'serve'} <= set(phases):
+        if {'forward', 'serve', 'train'} <= set(phases):
             idle = [k for k, n in launches.items() if n == 0]
             if idle:
                 fail(f'kernels of the main path never launched: {idle}')

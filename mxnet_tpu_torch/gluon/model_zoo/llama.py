@@ -12,6 +12,14 @@ as the reference leaves them to XLA.
 Ported here: the no-cache forward, the paged per-slot decode and the
 paged chunked prefill, ``init_paged_pool`` and :func:`from_jax_params`.
 The dense KV cache and ``generate()`` are not ported yet.
+
+The no-cache forward also trains: where autograd records, the norms and
+the flash attention go through their ``autograd.Function``s
+(``FusedNormFunction``, ``FlashAttentionFunction``), whose forward is the
+kernel and whose backward is the reference's ``custom_vjp`` backward, so
+``loss.backward()`` reaches every parameter. ``repeat_interleave`` carries
+the gradient of the repeated KV heads back to the ``num_kv_heads`` of
+``k_proj`` and ``v_proj``. A train step takes ``gluon.Trainer``.
 """
 
 import re

@@ -1,3 +1,3 @@
 """Operators of the PyTorch port: :mod:`.nn` and :mod:`.contrib` hold the
-ops the Llama serving path calls; :mod:`.kernels` holds the hand-written
-CUDA kernels beneath them."""
+ops the Llama path calls, :mod:`.optimizer_ops` the fused optimizer steps;
+:mod:`.kernels` holds the hand-written CUDA kernels beneath them."""

@@ -4,11 +4,15 @@ and ``paged_attention_decode``.
 Counterpart of the same ops in ``mxnet_tpu/ops/contrib.py``. Each reshapes
 its operands and calls the hand-written kernel's wrapper
 (:mod:`.kernels.flash_attention`, :mod:`.kernels.paged_attention`), which
-runs the plain PyTorch version for CPU tensors.
+runs the plain PyTorch version for CPU tensors. Where autograd records,
+``flash_attention`` goes through
+:class:`.kernels.flash_attention.FlashAttentionFunction`, whose backward
+is the reference's ``_flash3_bwd``.
 """
 
-from .kernels.flash_attention import flash_attention_fwd, \
-    flash_attention_plain
+from .kernels import needs_grad
+from .kernels.flash_attention import FlashAttentionFunction, \
+    flash_attention_fwd, flash_attention_plain
 from .kernels.paged_attention import paged_attention_decode as _paged
 
 __all__ = ['flash_attention', 'paged_attention_decode']
@@ -29,11 +33,15 @@ def flash_attention(q, k, v, sm_scale=None, causal=False):
     vr = v.reshape(-1, s, d).contiguous()
     if causal and t > s:
         # more queries than keys leaves fully masked rows: the reference
-        # takes plain attention there (its kernel would emit zeros)
+        # takes plain attention there (its kernel would emit zeros), and
+        # autograd differentiates it as it stands
         return flash_attention_plain(qr, kr, vr, sm_scale,
                                      causal).reshape(q_shape)
-    return flash_attention_fwd(qr, kr, vr, sm_scale,
-                               causal).reshape(q_shape)
+    if needs_grad(qr, kr, vr):
+        out = FlashAttentionFunction.apply(qr, kr, vr, sm_scale, causal)
+    else:
+        out = flash_attention_fwd(qr, kr, vr, sm_scale, causal)
+    return out.reshape(q_shape)
 
 
 def paged_attention_decode(q, k_pool, v_pool, pages, offset,

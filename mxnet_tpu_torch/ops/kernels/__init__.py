@@ -1,22 +1,28 @@
 """Hand-written CUDA kernels of the port, one module each beside its plain
 PyTorch version: :mod:`.fused_norms`, :mod:`.flash_attention`,
-:mod:`.paged_attention`. :mod:`._build` compiles ``csrc/`` and binds it.
+:mod:`.paged_attention`, :mod:`.fused_optimizer`. :mod:`._build` compiles
+``csrc/`` and binds it.
 
 Each kernel's wrapper counts its launches in a plain integer attribute
 (``fused_norm.launches`` ...); :func:`launch_counts` reads them and
 :func:`reset_launch_counts` sets them to 0.
 """
 
+import torch
+
 from .fused_norms import fused_norm
 from .flash_attention import flash_attention_fwd
 from .paged_attention import paged_attention_decode
+from .fused_optimizer import adam_step, sgd_mom_step
 
-__all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts']
+__all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts', 'needs_grad']
 
 #: kernel name -> the wrapper that launches it
 KERNELS = {'fused_norm': fused_norm,
            'flash_attention': flash_attention_fwd,
-           'paged_attention_decode': paged_attention_decode}
+           'paged_attention_decode': paged_attention_decode,
+           'adam': adam_step,
+           'sgd_mom': sgd_mom_step}
 
 
 def launch_counts():
@@ -27,3 +33,12 @@ def launch_counts():
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def needs_grad(*tensors):
+    """True when autograd records: grad mode is on and one of ``tensors``
+    (``None`` allowed) requires grad. The ops take a kernel's
+    ``autograd.Function`` only then, so that inference pays nothing for
+    it."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

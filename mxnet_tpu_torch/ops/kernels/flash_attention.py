@@ -4,6 +4,13 @@
 Counterpart of ``_flash_fwd`` in ``mxnet_tpu/ops/pallas/flash_attention.py``.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel, or
 raises on a dtype, shape or layout the kernel does not take.
+
+:class:`FlashAttentionFunction` gives the op its gradient, as the
+reference's ``custom_vjp`` (``_flash3``) does: the forward is the wrapper
+(the kernel on the card) and the backward is the reference's
+``_flash3_bwd``, a blockless recompute of the softmax in fp32 plain
+PyTorch. That backward is XLA in the reference, not a Pallas kernel, so it
+is no kernel here either.
 """
 
 import ctypes
@@ -13,7 +20,8 @@ import torch
 from ...base import MXNetError
 from . import _build
 
-__all__ = ['flash_attention_fwd', 'flash_attention_plain', 'HEAD_DIMS']
+__all__ = ['flash_attention_fwd', 'flash_attention_plain',
+           'flash_attention_bwd', 'FlashAttentionFunction', 'HEAD_DIMS']
 
 #: head dims the kernel is built for
 HEAD_DIMS = (32, 64, 128)
@@ -23,18 +31,56 @@ _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
-def flash_attention_plain(q, k, v, sm_scale, causal):
-    """The kernel's function in plain PyTorch (``_reference_attention``
-    of the reference): q ``(BH, T, d)``, k/v ``(BH, S, d)``, fp32
-    softmax, bottom-right causal mask."""
+def _probs(q, k, sm_scale, causal):
+    """fp32 softmax of the scaled scores, bottom-right causal mask."""
     s = torch.einsum('bqd,bkd->bqk', q.float(), k.float()) * sm_scale
     if causal:
         t, src = s.shape[-2], s.shape[-1]
         mask = torch.ones(t, src, dtype=torch.bool, device=s.device).tril(
             src - t)
         s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    return torch.softmax(s, dim=-1)
+
+
+def flash_attention_plain(q, k, v, sm_scale, causal):
+    """The kernel's function in plain PyTorch (``_reference_attention``
+    of the reference): q ``(BH, T, d)``, k/v ``(BH, S, d)``, fp32
+    softmax, bottom-right causal mask."""
+    p = _probs(q, k, sm_scale, causal)
     return torch.einsum('bqk,bkd->bqd', p, v.float()).to(q.dtype)
+
+
+def flash_attention_bwd(q, k, v, g, sm_scale, causal):
+    """``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the output
+    gradient ``g`` (``_flash3_bwd`` of the reference): ``p`` recomputed
+    without blocks, the rest in fp32, each result cast to its input's
+    dtype. It holds four ``(BH, T, S)`` fp32 tensors at a time."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = _probs(qf, kf, sm_scale, causal)
+    dv = torch.einsum('bqk,bqd->bkd', p, gf)
+    dp = torch.einsum('bqd,bkd->bqk', gf, vf)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * sm_scale
+    dq = torch.einsum('bqk,bkd->bqd', ds, kf)
+    dk = torch.einsum('bqk,bqd->bkd', ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention_fwd` with a gradient through
+    :func:`flash_attention_bwd`. ``apply(q, k, v, sm_scale, causal)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        return flash_attention_fwd(q, k, v, sm_scale, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, g, ctx.sm_scale,
+                                   ctx.causal) + (None, None)
 
 
 def flash_attention_fwd(q, k, v, sm_scale, causal):

@@ -4,6 +4,12 @@
 Counterpart of ``mxnet_tpu/ops/pallas/fused_norms.py``. A CPU tensor takes
 the plain version; a CUDA tensor launches the kernel, or raises on a dtype,
 shape or layout the kernel does not take.
+
+:class:`FusedNormFunction` gives the op its gradient, as the reference's
+``custom_vjp`` does: the forward is the wrapper (the kernel on the card)
+and the backward is the reference's ``_fused_norm_bwd``, a recompute of
+the statistics in fp32 plain PyTorch. That backward is XLA in the
+reference, not a Pallas kernel, so it is no kernel here either.
 """
 
 import ctypes
@@ -13,8 +19,8 @@ import torch
 from ...base import MXNetError
 from . import _build
 
-__all__ = ['fused_norm', 'fused_norm_plain', 'fused_rms_norm',
-           'fused_layer_norm']
+__all__ = ['fused_norm', 'fused_norm_plain', 'fused_norm_bwd',
+           'FusedNormFunction', 'fused_rms_norm', 'fused_layer_norm']
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                  ctypes.c_int, ctypes.c_void_p]
@@ -89,3 +95,49 @@ def fused_rms_norm(x, gamma, eps=1e-6):
 def fused_layer_norm(x, gamma, beta, eps=1e-5):
     """LayerNorm over the last axis."""
     return fused_norm(x, gamma, beta, eps, rms=False)
+
+
+def fused_norm_bwd(x, gamma, beta, g, eps, rms):
+    """``(dx, dgamma, dbeta)`` of :func:`fused_norm` for the output
+    gradient ``g`` (``_fused_norm_bwd`` of the reference): the statistics
+    recomputed in fp32, each result cast to its input's dtype; ``dbeta``
+    is ``None`` when ``beta`` is."""
+    xf, gf, gm = x.float(), g.float(), gamma.float()
+    red = tuple(range(x.dim() - 1))
+
+    def lead_sum(t):        # sum over every axis but the last
+        return t.sum(red) if red else t
+
+    if rms:
+        rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        xhat = xf * rstd
+        dy = gf * gm
+        # d/dx of x * rsqrt(mean(x^2)+eps)
+        dx = rstd * (dy - xhat * (dy * xhat).mean(-1, keepdim=True))
+    else:
+        xc = xf - xf.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+        xhat = xc * rstd
+        dy = gf * gm
+        dx = rstd * (dy - dy.mean(-1, keepdim=True)
+                     - xhat * (dy * xhat).mean(-1, keepdim=True))
+    dgamma = lead_sum(gf * xhat)
+    dbeta = None if beta is None else lead_sum(gf).to(beta.dtype)
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta
+
+
+class FusedNormFunction(torch.autograd.Function):
+    """:func:`fused_norm` with a gradient through
+    :func:`fused_norm_bwd`. ``apply(x, gamma, beta, eps, rms)``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, rms):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.rms = eps, rms
+        return fused_norm(x, gamma, beta, eps, rms)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        return fused_norm_bwd(x, gamma, beta, g, ctx.eps, ctx.rms) + (
+            None, None)

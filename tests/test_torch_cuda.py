@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, at shapes and template cases the
-serving path of ``chip_smoke.py`` does not reach: rows that are not a
+main paths of ``chip_smoke.py`` do not reach: rows that are not a
 multiple of 4 floats, head dims 32 and 64, query groups 1, 2 and 8, small
-pages, one query row, and the inputs the wrappers refuse.
+pages, one query row, optimizer steps over ragged and unaligned buffers,
+and the inputs the wrappers refuse; the norm and flash gradients on the
+card; and a small Llama served and trained on the card against the CPU.
 
 Every test needs a CUDA card and skips without one. The tests import no
 JAX, so on a machine without it they run with
@@ -10,7 +12,8 @@ JAX, so on a machine without it they run with
 
 Tolerances are those of ``chip_smoke.py``: 1e-5 for the norms (fp32
 statistics summed in another order), 1e-4 for attention (online against
-one-pass softmax).
+one-pass softmax) and for gradients and training losses, rtol 1e-6 and
+atol 1e-7 for the optimizer steps (the same fp32 operations).
 """
 
 import copy
@@ -19,16 +22,20 @@ import pytest
 import torch
 
 from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch.gluon import Trainer, loss as gloss
 from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
-from mxnet_tpu_torch.ops import kernels
+from mxnet_tpu_torch.ops import contrib, kernels, nn as nn_ops
 from mxnet_tpu_torch.ops.kernels import (fused_norms, flash_attention,
-                                         paged_attention)
+                                         fused_optimizer, paged_attention)
 from mxnet_tpu_torch.serve import DecodeServer
 
 pytestmark = pytest.mark.cuda
 
 NORM_TOL = dict(rtol=1e-5, atol=1e-5)
 ATT_TOL = dict(rtol=1e-4, atol=1e-4)
+OPT_TOL = dict(rtol=1e-6, atol=1e-7)
+SMALL_LLAMA = dict(vocab_size=512, units=256, num_layers=2, num_heads=4,
+                   num_kv_heads=2, hidden_size=512, max_length=128)
 
 
 @pytest.fixture
@@ -120,13 +127,12 @@ def test_small_llama_serves_the_same_tokens_on_the_card(dev):
     """A 2-layer Llama with head dim 64 and GQA 4/2 serves the same greedy
     tokens through the kernels as through the plain versions on the CPU,
     and launches each kernel where it should."""
-    cfg = dict(vocab_size=512, units=256, num_layers=2, num_heads=4,
-               num_kv_heads=2, hidden_size=512, max_length=128)
     gen_cpu = torch.Generator().manual_seed(1)
     prompts = [torch.randint(1, 512, (n,), generator=gen_cpu).tolist()
                for n in (5, 19, 40)]
     outs = {}
-    cpu_net = get_llama('llama_tiny', device='cpu', seed=3, **cfg)
+    cpu_net = get_llama('llama_tiny', device='cpu', seed=3,
+                        **SMALL_LLAMA)
     for where in ('cpu', 'cuda'):
         net = copy.deepcopy(cpu_net).to(where)
         kernels.reset_launch_counts()
@@ -151,3 +157,155 @@ def test_small_llama_serves_the_same_tokens_on_the_card(dev):
     assert outs['cuda'] == outs['cpu']
     torch.testing.assert_close(outs['cuda_logits'], outs['cpu_logits'],
                                **ATT_TOL)
+
+
+def _slots(dev, n, offset, k):
+    """A weight, its gradient and ``k`` slots of ``n`` floats each, every
+    one starting ``offset`` floats into its own buffer (``offset`` 1
+    leaves the pointers off 16-byte alignment, so the kernel takes its
+    scalar loop)."""
+    out = []
+    for i in range(2 + k):
+        buf = _randn(dev, n + offset, seed=10 + i)
+        if i == 1:
+            buf *= 3.0                               # the clip bites
+        if i >= 2:
+            buf = buf * 0.1 if i == 2 else (buf * 0.1).square()
+        out.append(buf[offset:])
+    return out
+
+
+def _clone_at(x, offset):
+    """A copy of ``x`` that starts ``offset`` floats into its buffer."""
+    buf = torch.empty(x.numel() + offset, device=x.device)
+    buf[offset:].copy_(x)
+    return buf[offset:]
+
+
+@pytest.mark.parametrize('t', [1, 1000])
+@pytest.mark.parametrize('n,offset', [(1000, 0), (1001, 0), (7, 0),
+                                      (4096 * 3 + 2, 1), (1000, 1)])
+def test_optimizer_kernels_match_plain(dev, n, offset, t):
+    """Adam and SGD-momentum over ragged sizes (a tail of n % 4) and
+    unaligned buffers, with rescale, clip and weight decay, in place."""
+    hyper = dict(rescale_grad=0.5, clip_gradient=1.0)
+    w, g, m, v = _slots(dev, n, offset, 2)
+    bc = (1 - 0.9 ** t, 1 - 0.999 ** t)
+    kin = [_clone_at(x, offset) for x in (w, m, v)]
+    pin = [x.clone() for x in (w, m, v)]
+    ptrs = [x.data_ptr() for x in kin]
+    launches = fused_optimizer.adam_step.launches
+    got = fused_optimizer.adam_step(kin[0], g, kin[1], kin[2], 1e-3, 0.01,
+                                    *bc, beta1=0.9, beta2=0.999,
+                                    epsilon=1e-8, **hyper)
+    want = fused_optimizer.adam_step_plain(pin[0], g, pin[1], pin[2], 1e-3,
+                                           0.01, *bc, beta1=0.9,
+                                           beta2=0.999, epsilon=1e-8,
+                                           **hyper)
+    torch.cuda.synchronize()
+    assert fused_optimizer.adam_step.launches == launches + 1
+    assert [x.data_ptr() for x in got] == ptrs
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **OPT_TOL)
+    w, g, mom = _slots(dev, n, offset, 1)
+    kin = [_clone_at(w, offset), _clone_at(mom, offset)]
+    pin = [w.clone(), mom.clone()]
+    got = fused_optimizer.sgd_mom_step(kin[0], g, kin[1], 0.1, 0.01,
+                                       momentum=0.9, **hyper)
+    want = fused_optimizer.sgd_mom_step_plain(pin[0], g, pin[1], 0.1, 0.01,
+                                              momentum=0.9, **hyper)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **OPT_TOL)
+
+
+def test_optimizer_kernels_refuse_what_they_do_not_take(dev):
+    w = torch.zeros(4, 8, device=dev)
+    with pytest.raises(MXNetError, match='float32'):
+        fused_optimizer.sgd_mom_step(w.half(), w.half(), w.half(), 0.1, 0.0,
+                                     momentum=0.9)
+    with pytest.raises(MXNetError, match='contiguous'):
+        fused_optimizer.adam_step(w.t(), w.t(), w.t(), w.t(), 0.1, 0.0, 1.0,
+                                  1.0, beta1=0.9, beta2=0.999, epsilon=1e-8)
+    with pytest.raises(MXNetError, match='distinct'):
+        fused_optimizer.sgd_mom_step(w, w.clone(), w, 0.1, 0.0, momentum=0.9)
+    with pytest.raises(MXNetError, match='device'):
+        fused_optimizer.sgd_mom_step(w, torch.zeros(4, 8), w.clone(), 0.1,
+                                     0.0, momentum=0.9)
+
+
+def _grads(fn, args, ct):
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    out = fn(*leaves)
+    out.backward(ct)
+    return [out.detach().cpu()] + [x.grad.cpu() for x in leaves]
+
+
+@pytest.mark.parametrize('rms', [True, False], ids=['rms', 'layer'])
+def test_norm_gradients_on_the_card_match_the_cpu(dev, rms):
+    """The op through the kernel's Function on the card against the same
+    op on the CPU (the plain forward), output and every gradient."""
+    x = _randn(dev, 3, 5, 1000) * 2 + 0.5
+    args = [x, _randn(dev, 1000, seed=1) + 1]
+    if not rms:
+        args.append(_randn(dev, 1000, seed=2))
+    ct = _randn(dev, 3, 5, 1000, seed=3)
+    fn = nn_ops.rms_norm if rms else nn_ops.layer_norm
+    n = fused_norms.fused_norm.launches
+    got = _grads(fn, args, ct)
+    assert fused_norms.fused_norm.launches == n + 1
+    want = _grads(fn, [a.cpu() for a in args], ct.cpu())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **ATT_TOL)
+
+
+@pytest.mark.parametrize('causal,t,s', [(True, 64, 64), (False, 64, 64),
+                                        (True, 33, 100), (False, 33, 100)])
+def test_flash_gradients_on_the_card_match_the_cpu(dev, causal, t, s):
+    args = [_randn(dev, 2, 3, n, 64, seed=i) for i, n in enumerate((t, s, s))]
+    ct = _randn(dev, 2, 3, t, 64, seed=5)
+
+    def fn(q, k, v):
+        return contrib.flash_attention(q, k, v, causal=causal)
+    n = flash_attention.flash_attention_fwd.launches
+    got = _grads(fn, args, ct)
+    assert flash_attention.flash_attention_fwd.launches == n + 1
+    want = _grads(fn, [a.cpu() for a in args], ct.cpu())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **ATT_TOL)
+
+
+def test_small_llama_trains_the_same_on_the_card(dev):
+    """Two Adam steps of a Llama with head dim 64 and GQA 4/2 on the card
+    (every kernel) and on the CPU (every plain version): the same losses,
+    and every parameter gets a gradient on the card."""
+    cpu_net = get_llama('llama_tiny', device='cpu', seed=4, **SMALL_LLAMA)
+    toks = torch.randint(0, 512, (2, 33),
+                         generator=torch.Generator().manual_seed(5))
+    losses = {}
+    for where in ('cpu', 'cuda'):
+        net = copy.deepcopy(cpu_net).to(where)
+        params = dict(net.named_parameters())
+        trainer = Trainer(params, 'adam', {'learning_rate': 1e-3})
+        t = toks.to(where)
+        kernels.reset_launch_counts()
+        losses[where] = []
+        for i in range(2):
+            loss = gloss.SoftmaxCrossEntropyLoss()(net(t[:, :-1]),
+                                                    t[:, 1:]).mean()
+            loss.backward()
+            if i == 0:
+                assert all(p.grad is not None and bool((p.grad != 0).any())
+                           for p in params.values())
+            trainer.step(1)
+            losses[where].append(float(loss.detach()))
+        counts = kernels.launch_counts()
+        if where == 'cuda':
+            assert counts['adam'] == 2 * len(params)
+            assert counts['fused_norm'] == 2 * 5
+            assert counts['flash_attention'] == 2 * 2
+        else:
+            assert set(counts.values()) == {0}
+    torch.testing.assert_close(torch.tensor(losses['cuda']),
+                               torch.tensor(losses['cpu']), rtol=1e-4,
+                               atol=0)

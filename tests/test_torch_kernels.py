@@ -5,9 +5,14 @@ On the CPU a kernel's wrapper runs its plain PyTorch version (the CUDA
 kernel itself is checked against that version on the card by
 ``chip_smoke.py``). Here the plain versions meet the JAX package's Pallas
 kernels in interpret mode on the same inputs, made with numpy from a seed,
-at the JAX tests' own fp32 tolerance: rtol = atol = 1e-5.
+at the JAX tests' own fp32 tolerance: rtol = atol = 1e-5. The gradients of
+the norm and flash ops (their ``autograd.Function``s) meet ``jax.vjp`` of
+the JAX ops, whose ``custom_vjp`` backwards they copy, at the same
+tolerance. The optimizer kernels have their own file,
+``tests/test_torch_optimizer.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as onp
 import pytest
@@ -16,13 +21,16 @@ import torch
 from mxnet_tpu.ops import nn as jax_nn
 from mxnet_tpu.ops.pallas.flash_attention import flash_attention as \
     jax_flash
-from mxnet_tpu.ops.pallas.fused_norms import _ln_pallas
+from mxnet_tpu.ops.pallas.fused_norms import _ln_pallas, \
+    fused_layer_norm as jax_layer_norm, fused_rms_norm as jax_rms_norm
 from mxnet_tpu.ops.pallas.paged_attention import \
     paged_attention_decode_pallas
 
 from mxnet_tpu_torch.ops import contrib, kernels, nn as torch_nn
-from mxnet_tpu_torch.ops.kernels import fused_norms, paged_attention
-from mxnet_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
+from mxnet_tpu_torch.ops.kernels import fused_norms, fused_optimizer, \
+    paged_attention
+from mxnet_tpu_torch.ops.kernels.flash_attention import \
+    FlashAttentionFunction, flash_attention_fwd
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -174,6 +182,109 @@ def test_paged_attention_op_groups_heads():
     _close(got, want)
 
 
+# -------------------------------------------------------------- gradients
+def _vjp(fn, args, ct):
+    """``jax.vjp`` of ``fn`` at numpy ``args`` for the cotangent ``ct``."""
+    _, pull = jax.vjp(fn, *(jnp.asarray(a) for a in args))
+    return pull(jnp.asarray(ct))
+
+
+def _torch_grads(fn, args, ct):
+    """Gradients of ``fn`` at numpy ``args`` by autograd for ``ct``."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    fn(*ts).backward(torch.from_numpy(ct))
+    return [t.grad for t in ts]
+
+
+@pytest.mark.parametrize('rms', [True, False], ids=['rms', 'layer'])
+@pytest.mark.parametrize('shape', [(2, 8, 64), (5, 48)])
+def test_norm_gradients_match_the_reference_vjp(rms, shape):
+    """dx, dgamma (and dbeta) of the op against ``_fused_norm_bwd``."""
+    rng = onp.random.default_rng(8)
+    d = shape[-1]
+    x = _randn(rng, *shape, scale=2.0) + 0.3
+    args = [x, _randn(rng, d) + 1.0] + ([] if rms else [_randn(rng, d)])
+    ct = _randn(rng, *shape)
+    if rms:
+        want = _vjp(lambda x_, g_: jax_rms_norm(x_, g_, 1e-6), args, ct)
+        got = _torch_grads(lambda x_, g_: torch_nn.rms_norm(x_, g_, eps=1e-6),
+                           args, ct)
+    else:
+        want = _vjp(lambda x_, g_, b_: jax_layer_norm(x_, g_, b_, 1e-5),
+                    args, ct)
+        got = _torch_grads(lambda x_, g_, b_: torch_nn.layer_norm(x_, g_, b_),
+                           args, ct)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.parametrize('causal,t,s', [
+    (True, 32, 32), (False, 32, 32), (True, 24, 40), (False, 24, 40)],
+    ids=['causal', 'full', 'causal-t<s', 'full-t<s'])
+def test_flash_gradients_match_the_reference_vjp(causal, t, s):
+    """dq, dk, dv of the op against ``_flash3_bwd`` (the XLA path of the
+    reference's ``custom_vjp`` off the TPU), with leading (B, H) dims."""
+    rng = onp.random.default_rng(9)
+    args = [_randn(rng, 2, 3, n, 16) for n in (t, s, s)]
+    ct = _randn(rng, 2, 3, t, 16)
+    want = _vjp(lambda q, k, v: jax_flash(q, k, v, causal=causal), args, ct)
+    got = _torch_grads(
+        lambda q, k, v: contrib.flash_attention(q, k, v, causal=causal),
+        args, ct)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def _graph_has(out, fn_cls):
+    """True when ``fn_cls``'s backward node is in ``out``'s graph."""
+    seen, todo = set(), [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if getattr(node, '_forward_cls', None) is fn_cls:
+            return True
+        todo.extend(n for n, _ in node.next_functions)
+    return False
+
+
+def test_ops_record_their_function_when_autograd_records():
+    """With grad on and an input that requires grad, the norm and flash
+    ops go through their ``autograd.Function``s, so the kernels' outputs
+    have a gradient on the card too (a wrapper's output alone has none)."""
+    x = torch.randn(3, 64, requires_grad=True)
+    y = torch_nn.rms_norm(x, torch.ones(64))
+    assert y.grad_fn._forward_cls is fused_norms.FusedNormFunction
+    y = torch_nn.layer_norm(torch.randn(3, 64), torch.ones(64,
+                            requires_grad=True), torch.zeros(64))
+    assert y.grad_fn._forward_cls is fused_norms.FusedNormFunction
+    q = torch.randn(2, 8, 16, requires_grad=True)
+    kv = torch.randn(2, 8, 16)
+    out = contrib.flash_attention(q, kv, kv, causal=True)
+    assert _graph_has(out, FlashAttentionFunction)
+
+
+def test_ops_skip_their_function_when_nothing_needs_a_gradient(
+        monkeypatch):
+    """Under ``no_grad``, or with no input that requires grad, the ops
+    call the wrappers directly: inference pays nothing for autograd."""
+    def refuse(*args):
+        raise AssertionError('autograd.Function used without autograd')
+    monkeypatch.setattr(fused_norms.FusedNormFunction, 'apply', refuse)
+    monkeypatch.setattr(FlashAttentionFunction, 'apply', refuse)
+    x = torch.randn(3, 64, requires_grad=True)
+    qkv = torch.randn(2, 8, 16, requires_grad=True)
+    with torch.no_grad():
+        torch_nn.rms_norm(x, torch.ones(64))
+        torch_nn.layer_norm(x, torch.ones(64), torch.zeros(64))
+        contrib.flash_attention(qkv, qkv, qkv, causal=True)
+    y = torch_nn.rms_norm(x.detach(), torch.ones(64))
+    assert y.grad_fn is None
+    contrib.flash_attention(qkv.detach(), qkv.detach(), qkv.detach())
+
+
 # --------------------------------------------------------- launch counters
 def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     kernels.reset_launch_counts()
@@ -185,8 +296,14 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     flash_attention_fwd(qkv, qkv, qkv, 0.1, True)
     q, kp, vp, pages = _paged_case()
     _paged_both(q, kp, vp, pages, onp.asarray([1, 2, 3], onp.int32))
+    fused_optimizer.adam_step(x, x.clone(), x.clone(), x.clone() ** 2,
+                              1e-3, 0.0, 0.1, 0.001, beta1=0.9, beta2=0.999,
+                              epsilon=1e-8)
+    fused_optimizer.sgd_mom_step(x, x.clone(), x.clone(), 0.1, 0.0,
+                                 momentum=0.9)
     assert kernels.launch_counts() == {
-        'fused_norm': 0, 'flash_attention': 0, 'paged_attention_decode': 0}
+        'fused_norm': 0, 'flash_attention': 0, 'paged_attention_decode': 0,
+        'adam': 0, 'sgd_mom': 0}
 
 
 def test_tensors_off_the_cpu_never_take_the_plain_path():
@@ -207,6 +324,14 @@ def test_tensors_off_the_cpu_never_take_the_plain_path():
             q.reshape(3, 2, 2, 16).to('meta'), kp.to('meta'), vp.to('meta'),
             pages.to('meta'), torch.zeros(3, dtype=torch.int32,
                                           device='meta'), 0.25)
+    w = torch.empty(4, 64, device='meta')
+    with pytest.raises(MXNetError, match='CUDA'):
+        fused_optimizer.adam_step(w, w.clone(), w.clone(), w.clone(), 1e-3,
+                                  0.0, 1.0, 1.0, beta1=0.9, beta2=0.999,
+                                  epsilon=1e-8)
+    with pytest.raises(MXNetError, match='CUDA'):
+        fused_optimizer.sgd_mom_step(w, w.clone(), w.clone(), 0.1, 0.0,
+                                     momentum=0.9)
     strided = torch.zeros(2, 8, 64).transpose(1, 2)
     with pytest.raises(MXNetError, match='contiguous'):
         flash_attention_fwd(strided, strided, strided, 0.1, False)
@@ -218,5 +343,5 @@ def test_tensors_off_the_cpu_never_take_the_plain_path():
 def test_kernel_sources_are_in_the_package():
     from mxnet_tpu_torch.ops.kernels import _build
     assert _build.sources() == ['flash_attention', 'fused_norms',
-                                'paged_attention']
+                                'fused_optimizer', 'paged_attention']
     assert _build.BUILD_DIR.parent.name == 'build'
