@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --phases build,kernels  # a kernel-only check
     python3 chip_smoke.py --phases build,kernels,train  # the training path
+    python3 chip_smoke.py --phases build,kernels,forward,serve,int8  # int8
 
 Phases, each of which fails the run on any error:
 
@@ -12,11 +13,12 @@ Phases, each of which fails the run on any error:
 2. build    -- compile ``mxnet_tpu_torch/csrc/*.cu`` (one ``nvcc`` each, in
                parallel) into ``build/kernels/``.
 3. kernels  -- hold each hand-written kernel against its plain PyTorch
-               version on the card at ``llama3_8b`` shapes, in fp32, and
-               time the kernel, the plain version and, where one PyTorch
-               call computes the same function, that call. The gradients
-               of the norm and flash ops (their ``autograd.Function``s)
-               meet autograd through the plain versions.
+               version on the card at ``llama3_8b`` shapes (fp32; the int8
+               product with fp32 or bf16 out, bit-equal), and time the
+               kernel, the plain version and, where one PyTorch call
+               computes the same function, that call. The gradients of
+               the norm and flash ops (their ``autograd.Function``s) meet
+               autograd through the plain versions.
 4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
                generator: one ``(1, 512)`` forward, finite logits, and
                exactly 65 RMSNorm and 32 flash-attention launches.
@@ -28,7 +30,20 @@ Phases, each of which fails the run on any error:
                the same tokens wherever the top-2 logit margin exceeds
                1e-2. Then ``torch.profiler`` splits a decode step and a
                prefill chunk into kernel time by name.
-6. train    -- ``llama3_8b`` at full width cut to 4 layers (1.92 B
+6. int8     -- the same net, quantized in place by ``quantize_net`` (naive
+               calibration on one seeded (1, 512) batch, bf16
+               activations): 225 ``QuantizedDense`` layers. One (1, 512)
+               forward with exactly 225 int8, 65 norm and 32 flash
+               launches; the six prompts served again, with 225 int8
+               launches per decode step and per prefill chunk;
+               ``generate()`` on one prompt. The same forward, that
+               prompt's serving and ``generate()`` again with every int8
+               layer through the product's plain version: bit-equal
+               logits and the same tokens. The teacher-forced check is
+               logged only (``int8_checks`` says why); the kernel-time
+               breakdown. Then a small quantized Llama must serve the
+               same tokens on the card and the CPU.
+7. train    -- ``llama3_8b`` at full width cut to 4 layers (1.92 B
                parameters; fp32 Adam's weights, gradients and two moments
                for all 32 layers would not fit one 80 GB card): three
                ``Trainer('adam')`` steps, then three of a fresh
@@ -42,14 +57,15 @@ Phases, each of which fails the run on any error:
                name. Then a small Llama trains two Adam steps on the card
                and on the CPU, and the losses must agree.
 
-The launch counters are set to 0 just before each of the forward, serve
-and train phases and read just after it; the kernels' line reports their
-sum over the three.
+The launch counters are set to 0 just before each of the forward, serve,
+int8 and train phases and read just after it; the kernels' line reports
+their sum over the four.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase ran and passed. Exit code 0 only then.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -58,13 +74,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'train')
+PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
+          'train')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores, and the dense int8
+# tensor-core rate (without sparsity).
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+INT8_OPS_S = 1979e12
 
 KERNELS = {
     'fused_norm': dict(
@@ -82,6 +101,9 @@ KERNELS = {
     'sgd_mom': dict(
         source='mxnet_tpu_torch/csrc/fused_optimizer.cu',
         replaces='mxnet_tpu/ops/pallas/fused_optimizer.py:146'),
+    'int8_matmul': dict(
+        source='mxnet_tpu_torch/csrc/int8_matmul.cu',
+        replaces='mxnet_tpu/ops/pallas/int8_matmul.py:36'),
 }
 #: the train phase: llama3_8b's widths at this depth, one batch of this
 #: many tokens, and the optimizers' settings
@@ -152,11 +174,11 @@ def cuda_ms(torch, fn, budget_ms=100.0):
     return t
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_s=FP32_OPS_S):
     """(bound_ms, bound_by) for work that moves ``nbytes`` and does
-    ``ops`` fp32 operations."""
+    ``ops`` operations at a peak of ``ops_s`` (fp32 by default)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / FP32_OPS_S * 1e3
+    t_ops = ops / ops_s * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -206,7 +228,7 @@ def phase_build():
 
 
 def _case(torch, name, shape, got, want, tol, why, kernel, plain,
-          nbytes, ops, library=None, library_call=None):
+          nbytes, ops, library=None, library_call=None, ops_s=FP32_OPS_S):
     """One row: the check, then the times. ``library_call`` names a
     library call that is timed launched from Python (``eager_ms``), for
     calls that a CUDA graph does not capture as they stand (an optimizer's
@@ -219,7 +241,7 @@ def _case(torch, name, shape, got, want, tol, why, kernel, plain,
         library_ms = None
     else:
         library_ms = (eager_ms if library_call else cuda_ms)(torch, library)
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by = bound(nbytes, ops, ops_s)
     row = dict(name=name, shape=shape, max_abs_err=err, rtol=tol[0],
                atol=tol[1], tolerance_reason=why, ok=ok, ms=ms,
                launched_ms=launched_ms,
@@ -295,11 +317,14 @@ def phase_kernels(torch):
             else t * s
         ops = 4 * bh * pairs * d
         nbytes = f4 * bh * d * (2 * t + 2 * s)
-        lib = None
-        if t == s:      # SDPA's causal mask is top-left: same only at T == S
-            q4, k4, v4 = q[None], k[None], v[None]
+        q4, k4, v4 = q[None], k[None], v[None]
+        if t == s or not causal:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q4, k4, v4, is_causal=causal)
+        else:   # SDPA's is_causal is top-left: pass the bottom-right mask
+            mask = torch.ones(t, s, dtype=torch.bool, device=dev).tril(s - t)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=mask)
         rows['flash_attention'].append(_case(
             torch, 'flash_attention',
             f'BH={bh} T={t} S={s} d={d} {"causal" if causal else "full"}',
@@ -354,6 +379,7 @@ def phase_kernels(torch):
     torch.cuda.empty_cache()
 
     _optimizer_cases(torch, randn, rows)
+    _int8_cases(torch, dev, rows)
     grads_ok = _gradient_checks(torch, randn)
 
     bad = [r for rs in rows.values() for r in rs if not r['ok']]
@@ -443,6 +469,69 @@ def _optimizer_cases(torch, randn, rows):
         torch.cuda.empty_cache()
 
 
+def _int8_cases(torch, dev, rows):
+    """The int8 product against its plain version, bit-equal. The first
+    case is the main path's: a decode step's gate or up projection (M = 4
+    rows, K = 4096, N = 14336, bf16 out, no bias). Then M in {4, 32, 512}
+    over the projections' and the LM head's (N, K), with fp32 or bf16 out
+    and with or without bias in turn, a ragged shape, and one with x and w
+    off 16-byte alignment and K not a multiple of 16 (the byte loads). The
+    library call is ``torch._int_mm`` with the epilogue as PyTorch ops,
+    where cuBLASLt takes the shape (M > 16, K and N multiples of 8)."""
+    from mxnet_tpu_torch.ops.kernels import int8_matmul as im
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def codes(shape, offset):
+        n = math.prod(shape)
+        buf = torch.randint(-127, 128, (n + offset,), generator=gen,
+                            device=dev, dtype=torch.int8)
+        return buf[offset:].view(shape)
+
+    cases = [(4, 14336, 4096, bf16, False, 0)]
+    turns = [(bf16, False), (f32, True), (bf16, True), (f32, False)]
+    for m in (4, 32, 512):
+        for n, k in ((4096, 4096), (1024, 4096), (4096, 14336),
+                     (128256, 4096)):
+            cases.append((m, n, k) + turns[len(cases) % 4] + (0,))
+    cases += [(37, 1000, 200, f32, True, 0), (17, 130, 4100, bf16, True, 1)]
+    why = ('an exact int32 sum, then the plain version\'s rounded '
+           'operations one for one (__int2float_rn, __fmul_rn, __fadd_rn, '
+           '__float2bfloat16_rn)')
+    for m, n, k, dt, has_bias, offset in cases:
+        x, w = codes((m, k), offset), codes((n, k), offset)
+        scale = torch.rand(n, generator=gen, device=dev) * 1e-4 + 1e-6
+        b = torch.randn(n, generator=gen, device=dev) if has_bias else None
+        got = im.int8_matmul(x, w, scale, b, dt)
+        want = im.int8_matmul_plain(x, w, scale, b, dt)
+        lib = None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            def lib(x=x, wt=w.t(), scale=scale, b=b, dt=dt):
+                out = torch._int_mm(x, wt).float() * scale
+                return (out if b is None else out + b).to(dt)
+            try:
+                lib()
+            except RuntimeError as e:       # the yardstick only
+                log(f'[kernels] torch._int_mm refused ({m}, {n}, {k}): '
+                    f'{str(e).splitlines()[0]}')
+                lib = None
+        out_bytes = 2 if dt == bf16 else 4
+        nbytes = m * k + n * k + 4 * n * (2 if has_bias else 1) \
+            + out_bytes * m * n
+        rows['int8_matmul'].append(_case(
+            torch, 'int8_matmul',
+            f'M={m} N={n} K={k} {str(dt)[6:]} out'
+            f'{" + bias" if has_bias else ""}'
+            f'{" (x, w off 16-byte alignment)" if offset else ""}',
+            got.float(), want.float(), (0.0, 0.0), why,
+            lambda: im.int8_matmul(x, w, scale, b, dt),
+            lambda: im.int8_matmul_plain(x, w, scale, b, dt),
+            nbytes, 2 * m * n * k, lib, ops_s=INT8_OPS_S))
+        del x, w, scale, b, got, want, lib
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def _gradient_checks(torch, randn):
     """The norm and flash gradients through their ``autograd.Function``s
     (the kernel forward, the reference's backward) against autograd
@@ -511,7 +600,17 @@ def _device(net):
     return net.model.embed_tokens.weight.device
 
 
-def phase_forward(torch, net, seed, length=512):
+def _want(**counts):
+    """Every kernel's expected launches: 0 unless named."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(counts)
+    return want
+
+
+def phase_forward(torch, net, seed, length=512, int8_layers=0, tag='forward'):
+    """One ``(1, length)`` forward; returns its logits on the CPU. A net
+    with ``int8_layers`` quantized layers launches the int8 kernel once
+    for each."""
     from mxnet_tpu_torch.ops import kernels
     cfg, dev = net.cfg, _device(net)
     before = kernels.launch_counts()
@@ -525,18 +624,18 @@ def phase_forward(torch, net, seed, length=512):
     dt = time.perf_counter() - t0
     after = kernels.launch_counts()
     delta = {k: after[k] - before[k] for k in after}
-    log(f'[forward] layers={cfg.num_layers} units={cfg.units} '
+    log(f'[{tag}] layers={cfg.num_layers} units={cfg.units} '
         f'(1, {length}) forward {dt * 1e3:.1f} ms, logits '
-        f'{tuple(logits.shape)}, launches {delta}')
+        f'{tuple(logits.shape)} {logits.dtype}, launches {delta}')
     if tuple(logits.shape) != (1, length, cfg.vocab_size):
-        fail(f'forward: logits shape {tuple(logits.shape)}')
+        fail(f'{tag}: logits shape {tuple(logits.shape)}')
     if not bool(torch.isfinite(logits).all()):
-        fail('forward: logits are not finite')
-    want = {'fused_norm': 2 * cfg.num_layers + 1,
-            'flash_attention': cfg.num_layers, 'paged_attention_decode': 0,
-            'adam': 0, 'sgd_mom': 0}
+        fail(f'{tag}: logits are not finite')
+    want = _want(fused_norm=2 * cfg.num_layers + 1,
+                 flash_attention=cfg.num_layers, int8_matmul=int8_layers)
     if dev.type == 'cuda' and delta != want:
-        fail(f'forward: launches {delta}, want {want}')
+        fail(f'{tag}: launches {delta}, want {want}')
+    return logits.float().cpu()
 
 
 def _prompts(torch, vocab, seed):
@@ -553,7 +652,10 @@ def _prompts(torch, vocab, seed):
             shared + rand(100), rand(300)]
 
 
-def phase_serve(torch, net, seed):
+def phase_serve(torch, net, seed, int8_layers=0, tag='serve'):
+    """The six prompts through ``DecodeServer``; a net with
+    ``int8_layers`` quantized layers launches the int8 kernel once for
+    each in every decode step and prefill chunk."""
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.serve import DecodeServer
 
@@ -574,28 +676,29 @@ def phase_serve(torch, net, seed):
     delta = {k: after[k] - before[k] for k in after}
     steps, chunks = stats['steps'], stats['prefill_chunks']
     gen = sum(len(o) for o in outs)
-    log(f'[serve] {len(prompts)} requests, prompt lengths '
+    log(f'[{tag}] {len(prompts)} requests, prompt lengths '
         f'{[len(p) for p in prompts]}, {gen} tokens in {wall:.2f} s '
         f'({gen / wall:.1f} tok/s), decode steps {steps}, prefill chunks '
         f'{chunks}, prefix_hit {stats["prefix_hit"]}, launches {delta}')
-    log(f'[serve] ttft_ms p50 {stats["ttft_ms"][50]:.1f} p95 '
+    log(f'[{tag}] ttft_ms p50 {stats["ttft_ms"][50]:.1f} p95 '
         f'{stats["ttft_ms"][95]:.1f}; intertoken_ms p50 '
         f'{stats["intertoken_ms"][50]:.1f} p95 '
         f'{stats["intertoken_ms"][95]:.1f}')
     if [len(o) for o in outs] != [n_new] * len(prompts):
-        fail(f'serve: token counts {[len(o) for o in outs]}')
+        fail(f'{tag}: token counts {[len(o) for o in outs]}')
     if stats['prefix_hit'] < 1:
-        fail(f'serve: prefix_hit {stats["prefix_hit"]}')
+        fail(f'{tag}: prefix_hit {stats["prefix_hit"]}')
     L = net.cfg.num_layers
-    want = {'fused_norm': (2 * L + 1) * (steps + chunks),
-            'flash_attention': 0, 'paged_attention_decode': L * steps,
-            'adam': 0, 'sgd_mom': 0}
+    want = _want(fused_norm=(2 * L + 1) * (steps + chunks),
+                 paged_attention_decode=L * steps,
+                 int8_matmul=int8_layers * (steps + chunks))
     if _device(net).type == 'cuda' and delta != want:
-        fail(f'serve: launches {delta}, want {want}')
+        fail(f'{tag}: launches {delta}, want {want}')
     return prompts, outs, stats
 
 
-def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5):
+def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
+                      tag='profile'):
     """Host-clock ms of a decode step over ``slots`` rows at ``depth`` and
     of one ``(1, chunk)`` prefill chunk at ``depth`` (``reps`` calls back
     to back, synchronised at the end), and their kernel time by name from
@@ -626,7 +729,7 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5):
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-            kernel_breakdown('profile', what, prof, wall, reps)
+            kernel_breakdown(tag, what, prof, wall, reps)
     del pool
 
 
@@ -657,10 +760,11 @@ def kernel_breakdown(tag, what, prof, wall_ms, reps=1, top=8):
     return busy
 
 
-def teacher_forced(torch, net, prompt, out):
+def teacher_forced(torch, net, prompt, out, tag='serve', check=True):
     """Full-sequence forward over prompt + generated tokens (the flash
     path); its greedy picks must equal the server's wherever the top-2
-    margin exceeds 1e-2."""
+    margin exceeds 1e-2. With ``check`` False the agreement is only
+    logged."""
     seq = torch.tensor([prompt + out[:-1]], device=_device(net))
     with torch.no_grad():
         logits = net(seq)[0, len(prompt) - 1:].float()
@@ -669,11 +773,206 @@ def teacher_forced(torch, net, prompt, out):
     pick = logits.argmax(-1).tolist()
     clear = [i for i, m in enumerate(margin) if m > 1e-2]
     bad = [i for i in clear if pick[i] != out[i]]
-    log(f'[serve] teacher-forced check over {len(out)} tokens: '
+    log(f'[{tag}] teacher-forced check over {len(out)} tokens: '
         f'{len(clear)} with margin > 1e-2, {len(bad)} disagree; '
-        f'{sum(p == o for p, o in zip(pick, out))} of {len(out)} equal')
-    if bad:
-        fail(f'serve: teacher-forced argmax differs at {bad}')
+        f'{sum(p == o for p, o in zip(pick, out))} of {len(out)} equal'
+        + ('' if check else ' (logged only)'))
+    if check and bad:
+        fail(f'{tag}: teacher-forced argmax differs at {bad}')
+
+
+def path_spread(torch, net, seq):
+    """The largest |difference| between the logits of one sequence through
+    the full forward (flash attention) and through a paged cache as one
+    prefill chunk (the server's gather attention)."""
+    dev, psz = _device(net), 16
+    n_pages = -(-len(seq) // psz)
+    pool = net.init_paged_pool(n_pages + 1, psz)
+    pages = torch.arange(1, n_pages + 1, dtype=torch.int32,
+                         device=dev)[None]
+    toks = torch.tensor([seq], device=dev)
+    with torch.no_grad():
+        full = net(toks).float()
+        chunk, _ = net(toks, caches=pool, offset=0, pages=pages)
+    return float((full - chunk.float()).abs().max())
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Every int8 layer through the product's plain version (its sums in
+    float64 on the card), so that a run can be held against the same run
+    through the kernel."""
+    from mxnet_tpu_torch.ops import quantization_ops
+    from mxnet_tpu_torch.ops.kernels import int8_matmul as im
+    quantization_ops.int8_matmul = im.int8_matmul_plain
+    try:
+        yield
+    finally:
+        quantization_ops.int8_matmul = im.int8_matmul
+
+
+def serve_one(torch, net, prompt, n_new):
+    """One prompt through a ``DecodeServer`` stepped by hand."""
+    from mxnet_tpu_torch.serve import DecodeServer
+    ds = DecodeServer(net, slots=4, max_length=2048, page_size=16,
+                      prefill_chunk=32, start=False)
+    try:
+        fut = ds.submit(prompt, n_new)
+        while not fut.done():
+            ds.step_once()
+        return fut.result()
+    finally:
+        ds.close()
+
+
+def phase_int8(torch, net, seed, float_logits=None, float_outs=None):
+    """Quantize ``net`` in place (naive calibration on one seeded (1, 512)
+    batch, bf16 activations) and drive the int8 net: the forward, the
+    server over the six prompts, and ``generate()`` on one of them, each
+    launch counted. The float net's logits and tokens, where given, are
+    compared in the log only. Returns what :func:`int8_checks` holds."""
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.quantization import QuantizedDense, quantize_net
+    cfg = net.cfg
+    L = cfg.num_layers
+    n_dense = 7 * L + (0 if cfg.tie_word_embeddings else 1)
+    calib = torch.randint(0, cfg.vocab_size, (1, 512),
+                          generator=torch.Generator().manual_seed(seed))
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_net(net, calib_data=[calib], calib_mode='naive')
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    torch.cuda.empty_cache()
+    layers = [m for m in net.modules() if isinstance(m, QuantizedDense)]
+    int8_bytes = sum(m.qweight.numel() for m in layers)
+    float_bytes = sum(p.numel() * p.element_size() for p in net.parameters())
+    log(f'[int8] quantize_net (naive, one (1, 512) batch) in {dt:.1f} s: '
+        f'{len(layers)} QuantizedDense layers, {int8_bytes / 1e9:.3f} GB of '
+        f'int8 weights, {float_bytes / 1e9:.3f} GB of float parameters '
+        f'left, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; '
+        f'calibration launches {delta}')
+    if len(layers) != n_dense:
+        fail(f'int8: {len(layers)} QuantizedDense layers, want {n_dense}')
+    if delta != _want(fused_norm=2 * L + 1, flash_attention=L):
+        fail(f'int8: the calibration forward launched {delta}')
+    logits = phase_forward(torch, net, SEED + 1, int8_layers=n_dense,
+                           tag='int8')
+    if float_logits is not None:
+        agree = (logits.argmax(-1) == float_logits.argmax(-1)).float().mean()
+        log(f'[int8] against the float net on the same tokens: max |logit '
+            f'difference| {float((logits - float_logits).abs().max()):.4f} '
+            f'(max |logit| {float(float_logits.abs().max()):.4f}), the same '
+            f'top-1 at {100 * float(agree):.1f} % of positions')
+    prompts, outs, _ = phase_serve(torch, net, SEED + 2, int8_layers=n_dense,
+                                   tag='int8')
+    if float_outs is not None:
+        same = sum(a == b for o, f in zip(outs, float_outs)
+                   for a, b in zip(o, f))
+        log(f'[int8] served tokens equal to the float net\'s: {same} of '
+            f'{sum(len(o) for o in outs)}')
+
+    prompt, n = prompts[2], len(outs[2])
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = net.generate([prompt], max_new_tokens=n)[0, len(prompt):].tolist()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    log(f'[int8] generate() greedy over the dense cache, {len(prompt)}-token '
+        f'prompt, {n} new tokens in {dt:.2f} s ({n / dt:.1f} tok/s), '
+        f'launches {delta}')
+    if delta != _want(fused_norm=(2 * L + 1) * n, int8_matmul=n_dense * n):
+        fail(f'int8: generate() launches {delta}')
+    return dict(logits=logits, prompts=prompts, outs=outs, gen=gen)
+
+
+def int8_checks(torch, net, logits, prompts, outs, gen):
+    """Hold the int8 net's runs through the kernel to the same runs with
+    every int8 layer through the product's plain version: the (1, 512)
+    forward's logits bit-equal, and the same tokens from the server and
+    from ``generate()`` on one prompt (the kernel is bit-equal to its
+    plain version, and every other op runs as it did). Then log how the
+    paths compare with each other, and profile a decode step and a
+    prefill chunk.
+
+    The teacher-forced check and ``generate()`` against the server are
+    logged, not held: on this random 32-layer int8 net a difference of
+    one rounding between two attention paths moves int8 codes, whose
+    errors the next layers' norms and projections spread into more
+    codes, so the paths part in their logits by as much as quantizing
+    moves them from the float net's."""
+    prompt, out = prompts[2], outs[2]
+    toks = torch.randint(0, net.cfg.vocab_size, (1, 512),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    with plain_int8(), torch.no_grad():
+        plain = net(toks.to(_device(net))).float().cpu()
+        plain_served = serve_one(torch, net, prompt, len(out))
+        plain_gen = net.generate([prompt], max_new_tokens=len(out))[
+            0, len(prompt):].tolist()
+    ok = torch.equal(plain, logits)
+    log(f'[int8] through the plain int8 product instead of the kernel: the '
+        f'(1, 512) forward\'s logits {"bit-equal" if ok else "DIFFER"} '
+        f'(max |difference| {float((plain - logits).abs().max()):.3g}); '
+        f'served tokens of prompt 3 {"equal" if plain_served == out else "DIFFER"}; '
+        f'generate() tokens {"equal" if plain_gen == gen else "DIFFER"}')
+    if not ok or plain_served != out or plain_gen != gen:
+        fail('int8: the kernel and its plain version drive the net apart')
+    part = next((i for i, (a, b) in enumerate(zip(gen, out)) if a != b),
+                len(out))
+    log(f'[int8] generate() (dense cache) and the server (paged cache) agree '
+        f'on the first {part} of {len(out)} tokens (logged only); largest '
+        f'logit difference between the flash and the paged path over the '
+        f'served sequence {path_spread(torch, net, prompt + out[:-1]):.4g}')
+    teacher_forced(torch, net, prompt, out, tag='int8', check=False)
+    profile_breakdown(torch, net, tag='int8')
+
+
+def int8_parity(torch, seed):
+    """A small Llama (head dim 64, GQA 4/2) quantized on the CPU, then
+    served on the card (the int8 kernel) and on the CPU (its plain
+    version): the greedy tokens must be equal."""
+    import copy
+    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.quantization import quantize_net
+    from mxnet_tpu_torch.serve import DecodeServer
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (5, 19, 40)]
+    calib = torch.randint(0, 512, (2, 24), generator=g)
+    cpu_net = get_llama('llama_tiny', device='cpu', seed=seed,
+                        vocab_size=512, units=256, num_layers=2, num_heads=4,
+                        num_kv_heads=2, hidden_size=512, max_length=128)
+    quantize_net(cpu_net, calib_data=[calib], calib_mode='naive')
+    outs, launches = {}, {}
+    for where in ('cpu', 'cuda'):
+        net = copy.deepcopy(cpu_net).to(where)
+        before = kernels.launch_counts()['int8_matmul']
+        ds = DecodeServer(net, slots=2, max_length=64, page_size=4,
+                          prefill_chunk=8, start=False)
+        futs = [ds.submit(p, 8) for p in prompts]
+        while not all(f.done() for f in futs):
+            ds.step_once()
+        outs[where] = [f.result() for f in futs]
+        calls = ds.stats()['steps'] + ds.stats()['prefill_chunks']
+        ds.close()
+        launches[where] = (kernels.launch_counts()['int8_matmul'] - before,
+                           15 * calls if where == 'cuda' else 0)
+    ok = outs['cuda'] == outs['cpu'] and all(
+        a == b for a, b in launches.values())
+    log(f'[int8] small quantized Llama (units 256, heads 4/2, dh 64, bf16 '
+        f'activations) served on the card {outs["cuda"]}, on the CPU '
+        f'{outs["cpu"]}; int8 launches (got, want) {launches} -> '
+        f'{"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail('int8: the card and the CPU serve the small quantized Llama '
+             'apart')
 
 
 def _grad_faults(torch, params):
@@ -690,7 +989,6 @@ def phase_train(torch, seed, steps=3):
     ``TRAIN_TOKENS`` tokens, as tests/test_llama.py's loop runs them, each
     run from the same seeded weights; the last step of each run goes
     through ``torch.profiler``."""
-    import contextlib
     from mxnet_tpu_torch.gluon import Trainer, loss as gloss
     from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
     from mxnet_tpu_torch.ops import kernels
@@ -834,7 +1132,7 @@ def main(argv=None):
         log(f'[{path}] launches {paths[path]}')
         return out
 
-    if 'forward' in phases or 'serve' in phases:
+    if {'forward', 'serve', 'int8'} & set(phases):
         from mxnet_tpu_torch.gluon.model_zoo.llama import llama3_8b
         t0 = time.perf_counter()
         net = llama3_8b(device='cuda', seed=SEED).eval()
@@ -843,13 +1141,20 @@ def main(argv=None):
         log(f'[model] llama3_8b {n_par / 1e9:.2f} B fp32 parameters on '
             f'cuda in {time.perf_counter() - t0:.1f} s, '
             f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
+        logits = outs = None
         if 'forward' in phases:
-            window('forward', phase_forward, torch, net, SEED + 1)
+            logits = window('forward', phase_forward, torch, net, SEED + 1)
         if 'serve' in phases:
             prompts, outs, _ = window('serve', phase_serve, torch, net,
                                       SEED + 2)
             teacher_forced(torch, net, prompts[2], outs[2])
             profile_breakdown(torch, net)
+        if 'int8' in phases:        # the same net, quantized in place
+            got = window('int8', phase_int8, torch, net, SEED + 5, logits,
+                         outs)
+            del logits
+            int8_checks(torch, net, **got)
+            int8_parity(torch, SEED + 6)
         log(f'[model] peak memory '
             f'{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB')
         del net
@@ -875,7 +1180,7 @@ def main(argv=None):
                 bound_ms=head['bound_ms'], bound_by=head['bound_by'],
                 library_ms=head['library_ms'], shape=head['shape'],
                 cases=rows[name]))
-        if {'forward', 'serve', 'train'} <= set(phases):
+        if {'forward', 'serve', 'int8', 'train'} <= set(phases):
             idle = [k for k, n in launches.items() if n == 0]
             if idle:
                 fail(f'kernels of the main path never launched: {idle}')

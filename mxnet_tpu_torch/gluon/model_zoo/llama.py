@@ -9,9 +9,15 @@ kernels on the card (``ops/kernels/``); the projections, the embedding
 lookup, RoPE, SiLU and the chunked-prefill attention are plain PyTorch,
 as the reference leaves them to XLA.
 
-Ported here: the no-cache forward, the paged per-slot decode and the
-paged chunked prefill, ``init_paged_pool`` and :func:`from_jax_params`.
-The dense KV cache and ``generate()`` are not ported yet.
+Ported here: the no-cache forward, the dense KV cache (``init_caches``,
+prefill, lockstep and per-slot decode), the paged per-slot decode and the
+paged chunked prefill, ``init_paged_pool``, ``generate()`` and
+:func:`from_jax_params`. ``generate()`` runs its decode steps as a Python
+loop over the eager forward: the reference's one ``lax.scan`` program, its
+cache of compiled prefill and decode steps and its power-of-two padding of
+the step count have no counterpart, as nothing is compiled. A net
+quantized by :func:`mxnet_tpu_torch.quantization.quantize_net` runs every
+path unchanged, with bf16 activations between its int8 layers.
 
 The no-cache forward also trains: where autograd records, the norms and
 the flash attention go through their ``autograd.Function``s
@@ -111,20 +117,29 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cache=None, offset=0, pages=None):
         """Without ``cache``: causal attention over the sequence (flash
-        kernel). With ``cache`` = ``(k_pool, v_pool)``, the global page
-        pool ``(num_pages, page_size, kv_heads, dh)``, and ``pages`` the
-        int32 block table ``(B, pages_per_seq)``: logical position ``p``
-        of row ``b`` lives at ``pool[pages[b, p // page_size], p %
-        page_size]``. The new K/V are written into the pool IN PLACE
-        (index assignment; the reference donates the pool to a jitted
-        step instead) and ``(out, (k_pool, v_pool))`` is returned.
+        kernel). With ``cache``, new K/V are written into it IN PLACE
+        (index assignment; the reference donates the cache to a jitted
+        step instead) and ``(out, cache)`` is returned.
 
-        * per-slot decode: ``offset`` a ``(B,)`` tensor, S == 1; row b's
-          query attends positions ``<= offset[b]`` through the paged
-          decode kernel;
-        * chunked prefill: B == 1, ``offset`` a scalar; query i sits at
+        ``cache`` is either the dense per-row cache ``(k, v)``, each
+        ``(B, max_length, kv_heads, dh)`` (:meth:`init_caches`), or, with
+        ``pages`` the int32 block table ``(B, pages_per_seq)``, the global
+        page pool ``(num_pages, page_size, kv_heads, dh)``
+        (:meth:`init_paged_pool`), where logical position ``p`` of row
+        ``b`` lives at ``pool[pages[b, p // page_size], p % page_size]``.
+
+        * per-slot decode: ``offset`` a ``(B,)`` tensor, S == 1; row b
+          writes at ``offset[b]`` and attends positions ``<= offset[b]``
+          (through the paged decode kernel on the pool);
+        * scalar ``offset`` (prefill, lockstep decode): query i sits at
           absolute position ``offset + i`` and attends positions up to
-          it, over the row's cache gathered out of the pool."""
+          it. On the pool this is chunked prefill (B == 1), over the
+          row's cache gathered out of the pool.
+
+        The kernels take fp32: bf16 q, k, v (the projections of a
+        quantized net) are upcast at the calls, which is exact, and the
+        output leaves in q's dtype, as the reference's kernels return it.
+        The caches keep their own dtype."""
         B, S, _ = x.shape
         q = self.q_proj(x).reshape(B, S, self._h, self._dh)
         k = self.k_proj(x).reshape(B, S, self._kv, self._dh)
@@ -137,53 +152,72 @@ class LlamaAttention(nn.Module):
             if rep > 1:
                 k = k.repeat_interleave(rep, dim=2)
                 v = v.repeat_interleave(rep, dim=2)
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True)
-            out = out.transpose(1, 2).reshape(B, S, self._h * self._dh)
+            out = flash_attention(q.transpose(1, 2).float(),
+                                  k.transpose(1, 2).float(),
+                                  v.transpose(1, 2).float(), causal=True)
+            out = out.to(q.dtype).transpose(1, 2).reshape(
+                B, S, self._h * self._dh)
             return self.o_proj(out)
 
-        if pages is None:
-            raise NotImplementedError(
-                'the dense KV cache is not ported; pass the paged pool '
-                '(init_paged_pool) and its block table as pages=')
-        k_pool, v_pool = cache
-        psz = k_pool.shape[1]
-        L = pages.shape[1] * psz
-        if torch.is_tensor(offset) and offset.dim() == 1:
-            if S != 1:
-                raise ValueError('per-slot offsets decode one token per step')
-            off = offset.long()
-            pid = pages[torch.arange(B, device=x.device), off // psz].long()
-            k_pool[pid, off % psz] = k[:, 0].to(k_pool.dtype)
-            v_pool[pid, off % psz] = v[:, 0].to(v_pool.dtype)
-            out = paged_attention_decode(
-                q[:, 0], k_pool, v_pool, pages,
-                offset.to(torch.int32).contiguous(),
-                sm_scale=self._dh ** -0.5)
-            out = out.reshape(B, S, self._h * self._dh)
-            return self.o_proj(out), (k_pool, v_pool)
-
-        if B != 1:
-            raise ValueError('chunked prefill fills one sequence')
-        pos = int(offset) + torch.arange(S, device=x.device)
-        pid = pages[0, pos // psz].long()
-        k_pool[pid, pos % psz] = k[0].to(k_pool.dtype)
-        v_pool[pid, pos % psz] = v[0].to(v_pool.dtype)
-        idx = pages.long()
-        kf = k_pool[idx].reshape(B, L, self._kv, self._dh)
-        vf = v_pool[idx].reshape(B, L, self._kv, self._dh)
+        k_cache, v_cache = cache
+        per_slot = torch.is_tensor(offset) and offset.dim() == 1
+        if per_slot and S != 1:
+            raise ValueError('per-slot offsets decode one token per step')
+        if pages is not None:
+            psz = k_cache.shape[1]
+            L = pages.shape[1] * psz
+            if per_slot:
+                off = offset.long()
+                pid = pages[torch.arange(B, device=x.device),
+                            off // psz].long()
+                k_cache[pid, off % psz] = k[:, 0].to(k_cache.dtype)
+                v_cache[pid, off % psz] = v[:, 0].to(v_cache.dtype)
+                out = paged_attention_decode(
+                    q[:, 0].float(), k_cache, v_cache, pages,
+                    offset.to(torch.int32).contiguous(),
+                    sm_scale=self._dh ** -0.5)
+                out = out.to(q.dtype).reshape(B, S, self._h * self._dh)
+                return self.o_proj(out), (k_cache, v_cache)
+            if B != 1:
+                raise ValueError('chunked prefill fills one sequence')
+            pos = int(offset) + torch.arange(S, device=x.device)
+            pid = pages[0, pos // psz].long()
+            k_cache[pid, pos % psz] = k[0].to(k_cache.dtype)
+            v_cache[pid, pos % psz] = v[0].to(v_cache.dtype)
+            idx = pages.long()
+            kf = k_cache[idx].reshape(B, L, self._kv, self._dh)
+            vf = v_cache[idx].reshape(B, L, self._kv, self._dh)
+        else:
+            L = k_cache.shape[1]
+            if per_slot:
+                rows = torch.arange(B, device=x.device)
+                k_cache[rows, offset.long()] = k[:, 0].to(k_cache.dtype)
+                v_cache[rows, offset.long()] = v[:, 0].to(v_cache.dtype)
+            else:
+                o = int(offset)
+                if o < 0 or o + S > L:
+                    raise ValueError(f'positions {o}..{o + S - 1} outside '
+                                     f'the cache of length {L}')
+                k_cache[:, o:o + S] = k.to(k_cache.dtype)
+                v_cache[:, o:o + S] = v.to(v_cache.dtype)
+            kf, vf = k_cache, v_cache
         if rep > 1:
             kf = kf.repeat_interleave(rep, dim=2)
             vf = vf.repeat_interleave(rep, dim=2)
         scores = torch.einsum('bshd,blhd->bhsl', q.float(),
                               kf.float()) * (self._dh ** -0.5)
-        mask = torch.arange(L, device=x.device)[None, :] <= pos[:, None]
-        scores = torch.where(mask[None, None], scores,
-                             torch.full_like(scores, _NEG_INF))
+        keys = torch.arange(L, device=x.device)
+        if per_slot:
+            # row b's single query (position offset[b]) sees slots <= it
+            mask = (keys[None, :] <= offset.long()[:, None])[:, None, None]
+        else:
+            qpos = int(offset) + torch.arange(S, device=x.device)
+            mask = (keys[None, :] <= qpos[:, None])[None, None]
+        scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum('bhsl,blhd->bshd', probs, vf.float()).to(x.dtype)
         out = out.reshape(B, S, self._h * self._dh)
-        return self.o_proj(out), (k_pool, v_pool)
+        return self.o_proj(out), (k_cache, v_cache)
 
 
 class LlamaMLP(nn.Module):
@@ -271,7 +305,7 @@ class LlamaForCausalLM(nn.Module):
     def reset_parameters(self, seed=0):
         """Redraw every parameter from a generator seeded with ``seed``
         on the parameters' device."""
-        dev = self.model.embed_tokens.weight.device
+        dev = self._device()
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         for name, p in self.named_parameters():
             if name.endswith('norm.weight'):
@@ -291,6 +325,80 @@ class LlamaForCausalLM(nn.Module):
             logits = self.lm_head(h)
         return logits if caches is None else (logits, caches)
 
+    def _device(self):
+        return self.model.embed_tokens.weight.device
+
+    def init_caches(self, batch_size, max_length=None, dtype='float32'):
+        """Allocate the dense per-layer KV caches on the parameters'
+        device: a list of ``(k, v)`` zero tensors, each ``(batch_size,
+        max_length, kv_heads, dh)`` (``max_length`` defaults to
+        ``cfg.max_length``). ``forward(..., caches=...)`` writes them in
+        place."""
+        cfg = self.cfg
+        L = max_length or cfg.max_length
+        shape = (batch_size, L, cfg.num_kv_heads, cfg.units // cfg.num_heads)
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        return [(torch.zeros(shape, dtype=dt, device=self._device()),
+                 torch.zeros(shape, dtype=dt, device=self._device()))
+                for _ in range(cfg.num_layers)]
+
+    @torch.no_grad()
+    def generate(self, token_ids, max_new_tokens=32, max_length=None,
+                 temperature=0.0, seed=0, batch_bucket=None):
+        """Autoregressive generation over the dense KV cache.
+
+        One prefill call over the whole prompt, then one ``(B, 1)`` decode
+        call per new token at a shared offset. Greedy (fp32 argmax of the
+        last position) when ``temperature == 0``; otherwise sampling from
+        ``softmax(logits / temperature)`` with a ``torch.Generator`` seeded
+        with ``seed`` on the net's device (deterministic for a seed, but
+        not the reference's ``jax.random`` draws).
+
+        token_ids: ``(B, S)`` prompt tokens (tensor, array or nested
+        list). ``batch_bucket`` pads the batch with dummy rows up to that
+        size (they are sliced off; causal rows are independent, so they
+        cannot change the real ones). The cache holds ``max_length``
+        positions, by default ``min(cfg.max_length, S + 2**ceil(log2(
+        max(max_new_tokens - 1, 1))) + 1)`` as in the reference. Returns
+        ``(B, S + max_new_tokens)`` int64 tokens on the net's device."""
+        dev = self._device()
+        toks = token_ids if torch.is_tensor(token_ids) \
+            else torch.as_tensor(np.asarray(token_ids))
+        toks = toks.to(dev, torch.long)
+        B_req, S = toks.shape
+        if batch_bucket is not None:
+            if batch_bucket < B_req:
+                raise ValueError(f'batch_bucket={batch_bucket} smaller than '
+                                 f'the actual batch {B_req}')
+            toks = torch.cat([toks, toks.new_zeros(batch_bucket - B_req, S)])
+        n_pow2 = 1
+        while n_pow2 < max(max_new_tokens - 1, 1):
+            n_pow2 *= 2
+        L = max_length or min(self.cfg.max_length, S + n_pow2 + 1)
+        if S + max_new_tokens > L:
+            raise ValueError(f'max_length {L} too small for {S} prompt '
+                             f'and {max_new_tokens} new tokens')
+        gen = None
+        if temperature > 0.0:
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+        def pick(logits):
+            last = logits[:, -1, :].float()
+            if temperature <= 0.0:
+                return torch.argmax(last, dim=-1)
+            probs = torch.softmax(last / float(temperature), dim=-1)
+            return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+        caches = self.init_caches(toks.shape[0], L)
+        logits, caches = self(toks, caches=caches, offset=0)
+        nxt = pick(logits)
+        out = [toks, nxt[:, None]]
+        for off in range(S, S + max_new_tokens - 1):
+            logits, caches = self(nxt[:, None], caches=caches, offset=off)
+            nxt = pick(logits)
+            out.append(nxt[:, None])
+        return torch.cat(out, dim=1)[:B_req]
+
     def init_paged_pool(self, num_pages, page_size, dtype='float32'):
         """Allocate the paged-KV pool on the parameters' device: per
         layer, (k, v) zero tensors of shape ``(num_pages, page_size,
@@ -299,7 +407,7 @@ class LlamaForCausalLM(nn.Module):
         cfg = self.cfg
         dh = cfg.units // cfg.num_heads
         shape = (num_pages, page_size, cfg.num_kv_heads, dh)
-        dev = self.model.embed_tokens.weight.device
+        dev = self._device()
         dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         return [(torch.zeros(shape, dtype=dt, device=dev),
                  torch.zeros(shape, dtype=dt, device=dev))

@@ -1,5 +1,6 @@
-"""Attention ops of the port that the Llama path calls: ``flash_attention``
-and ``paged_attention_decode``.
+"""Contrib ops of the port: the attention ops that the Llama path calls,
+``flash_attention`` and ``paged_attention_decode``, and the calibration op
+``calibrate_entropy``.
 
 Counterpart of the same ops in ``mxnet_tpu/ops/contrib.py``. Each reshapes
 its operands and calls the hand-written kernel's wrapper
@@ -7,15 +8,19 @@ its operands and calls the hand-written kernel's wrapper
 runs the plain PyTorch version for CPU tensors. Where autograd records,
 ``flash_attention`` goes through
 :class:`.kernels.flash_attention.FlashAttentionFunction`, whose backward
-is the reference's ``_flash3_bwd``.
+is the reference's ``_flash3_bwd``. ``calibrate_entropy`` reuses the
+calibration collector of :mod:`mxnet_tpu_torch.quantization`.
 """
+
+import numpy as _np
+import torch
 
 from .kernels import needs_grad
 from .kernels.flash_attention import FlashAttentionFunction, \
     flash_attention_fwd, flash_attention_plain
 from .kernels.paged_attention import paged_attention_decode as _paged
 
-__all__ = ['flash_attention', 'paged_attention_decode']
+__all__ = ['flash_attention', 'paged_attention_decode', 'calibrate_entropy']
 
 
 def flash_attention(q, k, v, sm_scale=None, causal=False):
@@ -60,3 +65,20 @@ def paged_attention_decode(q, k_pool, v_pool, pages, offset,
     out = _paged(q.reshape(B, kv, H // kv, dh).contiguous(), k_pool, v_pool,
                  pages, offset, scale)
     return out.reshape(B, H, dh)
+
+
+def calibrate_entropy(hist, hist_edges, num_quantized_bins=255):
+    """KL-optimal int8 threshold from a histogram (reference
+    quantization/calibrate.cc ``_contrib_calibrate_entropy``); returns
+    ``(threshold, divergence)`` as fp32 0-dim tensors, the divergence 0
+    as in the reference."""
+    from ..quantization import _HistogramCollector
+    c = _HistogramCollector.__new__(_HistogramCollector)
+    c.hist = _np.asarray(hist)
+    c.edges = _np.asarray(hist_edges)
+    c.num_bins = int(c.hist.shape[0])
+    c.min = float(c.edges[0])
+    c.max = float(c.edges[-1])
+    _, hi = c.entropy(num_quantized_bins=int(num_quantized_bins))
+    return (torch.tensor(hi, dtype=torch.float32),
+            torch.tensor(0.0, dtype=torch.float32))

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, one module each beside its plain
 PyTorch version: :mod:`.fused_norms`, :mod:`.flash_attention`,
-:mod:`.paged_attention`, :mod:`.fused_optimizer`. :mod:`._build` compiles
-``csrc/`` and binds it.
+:mod:`.paged_attention`, :mod:`.fused_optimizer`, :mod:`.int8_matmul`.
+:mod:`._build` compiles ``csrc/`` and binds it.
 
 Each kernel's wrapper counts its launches in a plain integer attribute
 (``fused_norm.launches`` ...); :func:`launch_counts` reads them and
@@ -14,6 +14,7 @@ from .fused_norms import fused_norm
 from .flash_attention import flash_attention_fwd
 from .paged_attention import paged_attention_decode
 from .fused_optimizer import adam_step, sgd_mom_step
+from . import int8_matmul as _int8     # the module keeps its name here
 
 __all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts', 'needs_grad']
 
@@ -22,7 +23,8 @@ KERNELS = {'fused_norm': fused_norm,
            'flash_attention': flash_attention_fwd,
            'paged_attention_decode': paged_attention_decode,
            'adam': adam_step,
-           'sgd_mom': sgd_mom_step}
+           'sgd_mom': sgd_mom_step,
+           'int8_matmul': _int8.int8_matmul}
 
 
 def launch_counts():

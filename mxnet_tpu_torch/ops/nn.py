@@ -52,4 +52,10 @@ def rms_norm(data, gamma, axis=-1, eps=1e-6):
 
 
 def silu(x):
-    return F.silu(x)
+    """``x * sigmoid(x)``. In fp32, one fused op. In a 16-bit type (the
+    bf16 activations of a quantized net), the reference's ``jax.nn.silu``
+    steps, ``x * (1 / (1 + exp(-x)))``, each rounded to that type as XLA
+    rounds them: one rounding at the end gives other bf16 values."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))

@@ -1,0 +1,80 @@
+"""Quantization ops of the port: ``range_to_scale``, ``quantize_v2``,
+``dequantize``, ``requantize`` and ``quantized_dense``.
+
+Counterpart of ``mxnet_tpu/ops/quantization_ops.py``. Symmetric int8, per
+tensor for activations, per output channel for weights; see
+:mod:`mxnet_tpu_torch.quantization` for calibration and the net rewrite.
+``quantized_dense`` is the int8 product with the dequantize fused into its
+epilogue, through the hand-written kernel (:mod:`.kernels.int8_matmul`).
+``quantized_conv2d`` is not ported yet (ROADMAP A7, with ResNet).
+
+Scales are fp32 and every division is by an fp32 tensor on the data's
+device, never by a Python number: PyTorch on CUDA divides by a Python
+number (or a CPU scalar) as a product with its reciprocal, which can be 1
+ulp off the true quotient, and 1 ulp before ``round`` moves a code that sits
+on a .5 boundary. ``torch.round`` rounds half to even, as ``jnp.round``.
+"""
+
+import torch
+
+from .kernels.int8_matmul import int8_matmul
+
+__all__ = ['range_to_scale', 'quantize_v2', 'dequantize', 'requantize',
+           'quantized_dense']
+
+
+def _f32(v, device):
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def range_to_scale(min_range, max_range, dtype='int8'):
+    """max(|min|, |max|) / 127 (255 for uint8), 1 where the range is 0."""
+    dev = max_range.device if torch.is_tensor(max_range) else None
+    amax = torch.maximum(_f32(min_range, dev).abs(), _f32(max_range, dev).abs())
+    qmax = _f32(127.0 if dtype == 'int8' else 255.0, amax.device)
+    return torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+
+
+def quantize_v2(data, min_calib_range=None, max_calib_range=None,
+                out_type='int8'):
+    """float -> int8/uint8 with calibrated or data-derived ranges; returns
+    ``(quantized, min_range, max_range)``. uint8 uses the unsigned [0, max]
+    scheme of post-ReLU activations."""
+    if min_calib_range is None or max_calib_range is None:
+        min_r, max_r = data.min(), data.max()
+    else:
+        min_r = _f32(min_calib_range, data.device)
+        max_r = _f32(max_calib_range, data.device)
+    if out_type in ('int8', 'auto'):
+        scale = range_to_scale(min_r, max_r)
+        q = torch.clamp(torch.round(data / scale), -127, 127).to(torch.int8)
+    elif out_type == 'uint8':
+        scale = range_to_scale(min_r, max_r, 'uint8')
+        q = torch.clamp(torch.round(data / scale), 0, 255).to(torch.uint8)
+    else:
+        raise ValueError(f'unsupported out_type {out_type!r}')
+    return q, min_r, max_r
+
+
+def dequantize(data, min_range, max_range, out_type='float32'):
+    qtype = 'uint8' if data.dtype == torch.uint8 else 'int8'
+    scale = range_to_scale(_f32(min_range, data.device),
+                           _f32(max_range, data.device), qtype)
+    return data.float() * scale
+
+
+def requantize(data, min_range, max_range, min_calib_range=None,
+               max_calib_range=None):
+    """int32 accumulator -> int8 under the (possibly calibrated) range."""
+    real = dequantize(data, min_range, max_range)
+    return quantize_v2(real, min_calib_range, max_calib_range)
+
+
+def quantized_dense(x_q, w_q, scale, bias=None, out_dtype='bfloat16'):
+    """int8 x int8 -> int32 product with the dequantize in the epilogue:
+    scale per output channel, add bias, cast to ``out_dtype``.
+
+    x_q ``(..., K)`` int8; w_q ``(N, K)`` int8 (the Dense ``(out, in)``
+    layout); scale ``(N,)`` fp32, the combined activation x weight scale;
+    bias ``(N,)`` fp32 or None."""
+    return int8_matmul(x_q.contiguous(), w_q, scale, bias, out_dtype)

@@ -2,8 +2,9 @@
 main paths of ``chip_smoke.py`` do not reach: rows that are not a
 multiple of 4 floats, head dims 32 and 64, query groups 1, 2 and 8, small
 pages, one query row, optimizer steps over ragged and unaligned buffers,
-and the inputs the wrappers refuse; the norm and flash gradients on the
-card; and a small Llama served and trained on the card against the CPU.
+int8 products at ragged and unaligned shapes, and the inputs the wrappers
+refuse; the norm and flash gradients on the card; and a small Llama
+served and trained on the card against the CPU, float and int8.
 
 Every test needs a CUDA card and skips without one. The tests import no
 JAX, so on a machine without it they run with
@@ -13,7 +14,8 @@ JAX, so on a machine without it they run with
 Tolerances are those of ``chip_smoke.py``: 1e-5 for the norms (fp32
 statistics summed in another order), 1e-4 for attention (online against
 one-pass softmax) and for gradients and training losses, rtol 1e-6 and
-atol 1e-7 for the optimizer steps (the same fp32 operations).
+atol 1e-7 for the optimizer steps (the same fp32 operations), and 0 for
+the int8 product (an exact int32 sum, then the same rounded operations).
 """
 
 import copy
@@ -26,7 +28,9 @@ from mxnet_tpu_torch.gluon import Trainer, loss as gloss
 from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
 from mxnet_tpu_torch.ops import contrib, kernels, nn as nn_ops
 from mxnet_tpu_torch.ops.kernels import (fused_norms, flash_attention,
-                                         fused_optimizer, paged_attention)
+                                         fused_optimizer, int8_matmul,
+                                         paged_attention)
+from mxnet_tpu_torch.quantization import QuantizedDense, quantize_net
 from mxnet_tpu_torch.serve import DecodeServer
 
 pytestmark = pytest.mark.cuda
@@ -309,3 +313,115 @@ def test_small_llama_trains_the_same_on_the_card(dev):
     torch.testing.assert_close(torch.tensor(losses['cuda']),
                                torch.tensor(losses['cpu']), rtol=1e-4,
                                atol=0)
+
+
+def _int8(dev, *shape, seed=0, offset=0):
+    """Seeded int8 values in [-127, 127] of ``shape``, starting ``offset``
+    bytes into their buffer (1 leaves them off 16-byte alignment)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randint(-127, 128, (n + offset,), generator=g, device=dev,
+                        dtype=torch.int8)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('m,n,k,offset', [
+    (1, 8, 16, 0), (4, 1000, 200, 0), (37, 1000, 200, 0), (17, 130, 48, 1),
+    (65, 257, 4096, 0), (300, 96, 520, 1), (4, 4096, 4100, 0),
+    (129, 128, 32, 0)])
+def test_int8_matmul_matches_plain(dev, m, n, k, offset, out_dtype):
+    """Every tile shape (M up to 16, up to 64, above), ragged M, N and K,
+    K not a multiple of 16 and x and w off 16-byte alignment (the byte
+    loads), with and without bias: bit-equal to the plain version."""
+    x = _int8(dev, m, k, seed=1, offset=offset)
+    w = _int8(dev, n, k, seed=2, offset=offset)
+    scale = _randn(dev, n, seed=3).abs() * 1e-4 + 1e-6
+    bias = _randn(dev, n, seed=4)
+    for b in (None, bias):
+        launches = int8_matmul.int8_matmul.launches
+        got = int8_matmul.int8_matmul(x, w, scale, b, out_dtype)
+        torch.cuda.synchronize()
+        assert int8_matmul.int8_matmul.launches == launches + 1
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        want = int8_matmul.int8_matmul_plain(x, w, scale, b, out_dtype)
+        assert torch.equal(got, want)
+
+
+def test_int8_matmul_takes_leading_dims_and_extreme_codes(dev):
+    """(B, S, K) inputs, and sums of -128 * -128 over K = 4096 codes."""
+    x = torch.full((2, 3, 4096), -128, dtype=torch.int8, device=dev)
+    w = torch.full((40, 4096), -128, dtype=torch.int8, device=dev)
+    scale = torch.ones(40, device=dev)
+    got = int8_matmul.int8_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 3, 40)
+    assert bool((got == 128 * 128 * 4096).all())
+
+
+def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
+    x = _int8(dev, 4, 64)
+    w = _int8(dev, 8, 64)
+    s = torch.ones(8, device=dev)
+    with pytest.raises(MXNetError, match='int8'):
+        int8_matmul.int8_matmul(x.float(), w, s)
+    with pytest.raises(MXNetError, match='want x'):
+        int8_matmul.int8_matmul(_int8(dev, 4, 32), w, s)
+    with pytest.raises(MXNetError, match='scale'):
+        int8_matmul.int8_matmul(x, w, torch.ones(7, device=dev))
+    with pytest.raises(MXNetError, match='float32'):
+        int8_matmul.int8_matmul(x, w, s.half())
+    with pytest.raises(MXNetError, match='out_dtype'):
+        int8_matmul.int8_matmul(x, w, s, out_dtype=torch.float16)
+    with pytest.raises(MXNetError, match='contiguous'):
+        int8_matmul.int8_matmul(_int8(dev, 64, 4).t(), w, s)
+    with pytest.raises(MXNetError, match='device'):
+        int8_matmul.int8_matmul(x, w, torch.ones(8))
+
+
+@pytest.mark.parametrize('act', ['bfloat16', 'float32'])
+def test_small_quantized_llama_serves_the_same_tokens_on_the_card(dev, act):
+    """A 2-layer Llama quantized on the CPU, then served on the card
+    (every int8 product through the kernel) and on the CPU (the plain
+    version): the same greedy tokens, one int8 launch per Dense per call,
+    and logits within 1e-2 of each other. The int8 products are exact on
+    both sides; the norms and attention differ by float rounding, and a
+    code at a .5 boundary can flip in the quantize after them."""
+    gen_cpu = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, 512, (n,), generator=gen_cpu).tolist()
+               for n in (5, 19, 40)]
+    calib = torch.randint(0, 512, (2, 24), generator=gen_cpu)
+    cpu_net = get_llama('llama_tiny', device='cpu', seed=3, **SMALL_LLAMA)
+    quantize_net(cpu_net, calib_data=[calib], calib_mode='naive',
+                 activation_dtype=act)
+    dense = [m for m in cpu_net.modules() if isinstance(m, QuantizedDense)]
+    assert len(dense) == 15
+    outs = {}
+    for where in ('cpu', 'cuda'):
+        net = copy.deepcopy(cpu_net).to(where)
+        kernels.reset_launch_counts()
+        ds = DecodeServer(net, slots=2, max_length=64, page_size=4,
+                          prefill_chunk=8, start=False)
+        futs = [ds.submit(p, 6) for p in prompts]
+        while not all(f.done() for f in futs):
+            ds.step_once()
+        outs[where] = [f.result() for f in futs]
+        stats = ds.stats()
+        ds.close()
+        counts = kernels.launch_counts()
+        if where == 'cuda':
+            calls = stats['steps'] + stats['prefill_chunks']
+            assert counts['int8_matmul'] == 15 * calls
+            assert counts['paged_attention_decode'] == 2 * stats['steps']
+        else:
+            assert set(counts.values()) == {0}
+        with torch.no_grad():
+            logits = net(torch.tensor([prompts[1]], device=where))
+        assert logits.dtype == getattr(torch, act)
+        outs[where + '_logits'] = logits.float().cpu()
+    assert outs['cuda'] == outs['cpu']
+    torch.testing.assert_close(outs['cuda_logits'], outs['cpu_logits'],
+                               rtol=0, atol=1e-2)

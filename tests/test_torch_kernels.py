@@ -28,7 +28,7 @@ from mxnet_tpu.ops.pallas.paged_attention import \
 
 from mxnet_tpu_torch.ops import contrib, kernels, nn as torch_nn
 from mxnet_tpu_torch.ops.kernels import fused_norms, fused_optimizer, \
-    paged_attention
+    int8_matmul, paged_attention
 from mxnet_tpu_torch.ops.kernels.flash_attention import \
     FlashAttentionFunction, flash_attention_fwd
 
@@ -301,9 +301,11 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
                               epsilon=1e-8)
     fused_optimizer.sgd_mom_step(x, x.clone(), x.clone(), 0.1, 0.0,
                                  momentum=0.9)
+    xq = torch.ones(4, 64, dtype=torch.int8)
+    int8_matmul.int8_matmul(xq, xq[:3], torch.ones(3), None, 'bfloat16')
     assert kernels.launch_counts() == {
         'fused_norm': 0, 'flash_attention': 0, 'paged_attention_decode': 0,
-        'adam': 0, 'sgd_mom': 0}
+        'adam': 0, 'sgd_mom': 0, 'int8_matmul': 0}
 
 
 def test_tensors_off_the_cpu_never_take_the_plain_path():
@@ -332,6 +334,16 @@ def test_tensors_off_the_cpu_never_take_the_plain_path():
     with pytest.raises(MXNetError, match='CUDA'):
         fused_optimizer.sgd_mom_step(w, w.clone(), w.clone(), 0.1, 0.0,
                                      momentum=0.9)
+    xq = torch.empty(4, 64, dtype=torch.int8, device='meta')
+    with pytest.raises(MXNetError, match='CUDA'):
+        int8_matmul.int8_matmul(xq, xq, torch.empty(4, device='meta'))
+    with pytest.raises(MXNetError, match='int8'):
+        int8_matmul.int8_matmul(torch.ones(4, 64), torch.ones(4, 64),
+                                torch.ones(4))
+    with pytest.raises(MXNetError, match='contiguous'):
+        int8_matmul.int8_matmul(torch.ones(64, 4, dtype=torch.int8).t(),
+                                torch.ones(4, 64, dtype=torch.int8),
+                                torch.ones(4))
     strided = torch.zeros(2, 8, 64).transpose(1, 2)
     with pytest.raises(MXNetError, match='contiguous'):
         flash_attention_fwd(strided, strided, strided, 0.1, False)
@@ -343,5 +355,6 @@ def test_tensors_off_the_cpu_never_take_the_plain_path():
 def test_kernel_sources_are_in_the_package():
     from mxnet_tpu_torch.ops.kernels import _build
     assert _build.sources() == ['flash_attention', 'fused_norms',
-                                'fused_optimizer', 'paged_attention']
+                                'fused_optimizer', 'int8_matmul',
+                                'paged_attention']
     assert _build.BUILD_DIR.parent.name == 'build'

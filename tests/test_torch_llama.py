@@ -1,11 +1,13 @@
 """The PyTorch port's Llama against the JAX package's, on ``llama_tiny``.
 
 Both nets hold the same weights, drawn with numpy from a seed and carried
-across by ``from_jax_params``. Three outputs are held against the JAX
+across by ``from_jax_params``. These outputs are held against the JAX
 net's ``_param_run``: the full-sequence forward (the flash path), a paged
-chunked-prefill call and a per-slot paged decode call, with the page pools
-they leave behind. Tolerance rtol = atol = 1e-4: the projections sum in
-another order in the two frameworks.
+chunked-prefill call and a per-slot paged decode call, a dense-cache
+prefill, lockstep decode and per-slot decode, with the caches and page
+pools they leave behind. Tolerance rtol = atol = 1e-4: the projections
+sum in another order in the two frameworks. ``generate()`` must pick the
+JAX net's greedy tokens.
 """
 
 import jax.numpy as jnp
@@ -143,3 +145,85 @@ def test_seeded_init_is_reproducible():
     assert torch.equal(net.lm_head.weight, again.lm_head.weight)
     assert not torch.equal(net.lm_head.weight, other.lm_head.weight)
     assert torch.equal(net.model.norm.weight, torch.ones(64))
+
+
+def _dense(tnet, batch, length, seed):
+    """The same random dense caches for both nets."""
+    rng = onp.random.default_rng(seed)
+    cfg = tnet.cfg
+    shape = (batch, length, cfg.num_kv_heads, cfg.units // cfg.num_heads)
+    arrs = [(rng.standard_normal(shape).astype(onp.float32),
+             rng.standard_normal(shape).astype(onp.float32))
+            for _ in range(cfg.num_layers)]
+    return ([(jnp.asarray(k), jnp.asarray(v)) for k, v in arrs],
+            [(torch.from_numpy(k.copy()), torch.from_numpy(v.copy()))
+             for k, v in arrs])
+
+
+def test_init_caches_allocates_per_layer_zeros(nets):
+    _, tnet, _ = nets
+    caches = tnet.init_caches(3, 20)
+    assert len(caches) == 2
+    assert all(k.shape == v.shape == (3, 20, 2, 16) and not k.any()
+               for k, v in caches)
+    assert tnet.init_caches(1)[0][0].shape[1] == tnet.cfg.max_length
+
+
+def test_dense_prefill_then_lockstep_decode_match(nets):
+    """A (2, 7) prefill at offset 0, then two (2, 1) decode calls at the
+    shared offsets 7 and 8, over zeroed caches of 12 positions."""
+    jnet, tnet, _ = nets
+    run, praws = jnet._param_run()
+    jc, tc = jnet.init_caches(2, 12), tnet.init_caches(2, 12)
+    toks = onp.random.default_rng(5).integers(0, 256, (2, 9))
+    for start, stop in ((0, 7), (7, 8), (8, 9)):
+        chunk = toks[:, start:stop]
+        want, jc = run(praws, jnp.asarray(chunk, jnp.int32), jc, start)
+        with torch.no_grad():
+            got, tc = tnet(torch.from_numpy(chunk), caches=tc, offset=start)
+        _close(got, want)
+    _close_pools(tc, jc)
+    with pytest.raises(ValueError, match='outside'):
+        tnet(torch.from_numpy(toks), caches=tc, offset=5)
+
+
+def test_dense_per_slot_decode_matches(nets):
+    """Rows of one dense cache at unequal depths."""
+    jnet, tnet, _ = nets
+    run, praws = jnet._param_run()
+    jc, tc = _dense(tnet, 3, 10, seed=6)
+    off = onp.asarray([0, 9, 4], onp.int32)
+    toks = onp.asarray([[3], [250], [77]])
+    want, jc = run(praws, jnp.asarray(toks, jnp.int32), jc,
+                   jnp.asarray(off))
+    with torch.no_grad():
+        got, tc = tnet(torch.from_numpy(toks), caches=tc,
+                       offset=torch.from_numpy(off))
+    _close(got, want)
+    _close_pools(tc, jc)
+
+
+@pytest.mark.parametrize('bucket', [None, 4])
+def test_generate_greedy_matches(nets, bucket):
+    jnet, tnet, _ = nets
+    prompt = onp.random.default_rng(7).integers(0, 256, (2, 6))
+    want = jnet.generate(mx.np.array(prompt.astype(onp.int32)),
+                         max_new_tokens=7, batch_bucket=bucket).asnumpy()
+    kernels.reset_launch_counts()
+    got = tnet.generate(prompt, max_new_tokens=7, batch_bucket=bucket)
+    assert got.shape == (2, 13) and got.dtype == torch.long
+    assert (got[:, :6].numpy() == prompt).all()
+    assert got.numpy().tolist() == want.tolist()
+    assert set(kernels.launch_counts().values()) == {0}   # CPU: plain
+
+
+def test_generate_sampling_is_deterministic_for_a_seed(nets):
+    _, tnet, _ = nets
+    prompt = torch.tensor([[5, 6, 7]])
+    a = tnet.generate(prompt, max_new_tokens=6, temperature=1.0, seed=3)
+    b = tnet.generate(prompt, max_new_tokens=6, temperature=1.0, seed=3)
+    assert torch.equal(a, b) and a.shape == (1, 9)
+    with pytest.raises(ValueError, match='batch_bucket'):
+        tnet.generate(prompt, batch_bucket=0)
+    with pytest.raises(ValueError, match='too small'):
+        tnet.generate(prompt, max_new_tokens=6, max_length=8)
