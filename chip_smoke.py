@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels  # a kernel-only check
     python3 chip_smoke.py --phases build,kernels,train  # the training path
     python3 chip_smoke.py --phases build,kernels,forward,serve,int8  # int8
+    python3 chip_smoke.py --phases build,kernels,ring,rtc  # ring and rtc
 
 Phases, each of which fails the run on any error:
 
@@ -56,10 +57,25 @@ Phases, each of which fails the run on any error:
                the last step of each run is split into kernel time by
                name. Then a small Llama trains two Adam steps on the card
                and on the CPU, and the losses must agree.
+8. ring     -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+               widths (32 heads of 128) over its whole 8192 tokens,
+               sharded over four ranks (``parallel.launch.spawn``) that
+               share cuda:0 over gloo, causal and full. Each rank must
+               launch the flash-attention stats kernel exactly r + 1 times
+               causal and 4 times full, and returns its counts; the
+               gathered output must meet plain dense attention and the
+               flash forward over the whole sequence, and the ranks'
+               plain blockwise path the flash path. Logs each rank's host
+               ms, stats-kernel ms and transport ms.
+9. rtc      -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+               (``RTC_SOURCE``: a doubling and one with a scalar argument
+               and two outputs) with NVRTC and launches them at (4096,
+               14336) fp32: bit-equal to their torch twins, timed against
+               the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8 and train phases and read just after it; the kernels' line reports
-their sum over the four.
+int8, train and rtc phases and read just after it, and in each rank just
+before and after its ring runs; the kernels' line reports their sum.
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase ran and passed. Exit code 0 only then.
 """
@@ -75,7 +91,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
-          'train')
+          'train', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -104,6 +120,14 @@ KERNELS = {
     'int8_matmul': dict(
         source='mxnet_tpu_torch/csrc/int8_matmul.cu',
         replaces='mxnet_tpu/ops/pallas/int8_matmul.py:36'),
+    'flash_attention_stats': dict(
+        source='mxnet_tpu_torch/csrc/flash_attention.cu',
+        replaces='mxnet_tpu/ops/pallas/flash_attention.py:168'),
+    # a user's CUDA source (RTC_SOURCE below), compiled at run time by
+    # mxnet_tpu_torch/rtc.py through NVRTC
+    'rtc': dict(
+        source='chip_smoke.py',
+        replaces='mxnet_tpu/rtc.py:39'),
 }
 #: the train phase: llama3_8b's widths at this depth, one batch of this
 #: many tokens, and the optimizers' settings
@@ -335,6 +359,7 @@ def phase_kernels(torch):
                                                           causal),
             nbytes, ops, lib))
     del q, k, v
+    _stats_cases(torch, randn, rows)
 
     # ---- paged decode at the serving shapes: 4 slots, llama3_8b heads; the
     # second case has few enough pages that one block takes a whole row
@@ -390,6 +415,54 @@ def phase_kernels(torch):
         fail(f'{len(bad)} kernel check(s) disagree with the plain version: '
              f'{[(r["name"], r["shape"]) for r in bad]}')
     return rows
+
+
+def _stats_cases(torch, randn, rows):
+    """The flash-attention stats kernel (acc, m, l) against its plain
+    version: the ring's blocks at llama3_8b's attention widths (BH 32,
+    2048 tokens a rank, d 128), full first (the block most launched on the
+    main path), then diagonal, then a ragged case. No one PyTorch call
+    returns (acc, m, l): the library time is that of the nearest, the
+    memory-efficient SDPA kernel with its log-sum-exp (out and lse, fp32),
+    timed only and not the same function."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention
+    f4 = 4
+    tol = (1e-4, 1e-4)
+    why = ('fp32 online softmax vs one-pass softmax; m from (q*scale)k vs '
+           '(qk)*scale')
+    for bh, t, d, causal in ((32, 2048, 128, False), (32, 2048, 128, True),
+                             (12, 1000, 64, True)):
+        q, k, v = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
+        scale = d ** -0.5
+        got = flash_attention.flash_attention_stats(q, k, v, scale, causal)
+        want = flash_attention.flash_attention_stats_plain(q, k, v, scale,
+                                                           causal)
+        pairs = t * (t + 1) // 2 if causal else t * t
+        ops = 4 * bh * pairs * d
+        nbytes = f4 * bh * (4 * t * d + 2 * t)
+        q4, k4, v4 = q[None], k[None], v[None]
+
+        def lib():
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True, 0.0, causal)
+        try:
+            lib()
+        except RuntimeError as e:           # the yardstick only
+            log(f'[kernels] efficient SDPA refused: '
+                f'{str(e).splitlines()[0]}')
+            lib = None
+        rows['flash_attention_stats'].append(_case(
+            torch, 'flash_attention_stats',
+            f'BH={bh} T=S={t} d={d} {"diagonal" if causal else "full"}',
+            got, want, tol, why,
+            lambda: flash_attention.flash_attention_stats(q, k, v, scale,
+                                                          causal),
+            lambda: flash_attention.flash_attention_stats_plain(
+                q, k, v, scale, causal),
+            nbytes, ops, lib))
+        del q, k, v, got, want, q4, k4, v4, lib
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def _optimizer_cases(torch, randn, rows):
@@ -1100,6 +1173,233 @@ def train_parity(torch, seed, steps=2):
         fail('train: the card and the CPU train the small Llama apart')
 
 
+# ------------------------------------------------------------- ring
+#: the ring phase: llama3_8b's attention widths (32 query heads of 128, K/V
+#: expanded to 32 heads) over its whole max_length, sharded over sp ranks
+RING = dict(heads=32, head_dim=128, tokens=8192, ranks=4)
+
+
+def _ring_inputs(torch, seed):
+    """q, k, v (1, heads, tokens, head_dim) on cuda:0 from a seeded
+    generator: the same tensors in every rank and in the parent."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    shape = (1, RING['heads'], RING['tokens'], RING['head_dim'])
+    return [torch.randn(*shape, generator=gen, device='cuda')
+            for _ in range(3)]
+
+
+def _ring_rank(seed):
+    """One rank of the ring phase (run by ``parallel.launch.spawn``; every
+    rank shares cuda:0 and the world is gloo). Returns this rank's
+    outputs, the launch counts of the main path's two runs, and its
+    timings."""
+    import torch
+    import torch.distributed as dist
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_stats
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel.ring_attention import _Ring, \
+        ring_attention
+    rank, world = dist.get_rank(), dist.get_world_size()
+    full = _ring_inputs(torch, seed)
+    sl = RING['tokens'] // world
+    q, k, v = (x[:, :, rank * sl:(rank + 1) * sl].contiguous() for x in full)
+    del full
+    torch.cuda.synchronize()
+    mesh = make_mesh(sp=world)
+    res = {'rank': rank}
+    # warm-up: the first call connects gloo's pairs and grows the caches
+    ring_attention(q, k, v, mesh, causal=True)
+    torch.cuda.synchronize()
+    for causal in (True, False):            # the main path, counted
+        dist.barrier()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = ring_attention(q, k, v, mesh, causal=causal)
+        torch.cuda.synchronize()
+        res['host_ms', causal] = (time.perf_counter() - t0) * 1e3
+        res['launches', causal] = kernels.launch_counts()
+        res['out', causal] = out.cpu()
+    for causal in (True, False):            # the plain path, not counted
+        dist.barrier()
+        t0 = time.perf_counter()
+        plain = ring_attention(q, k, v, mesh, causal=causal, use_flash=False)
+        torch.cuda.synchronize()
+        res['plain_host_ms', causal] = (time.perf_counter() - t0) * 1e3
+        res['plain_err', causal] = float(
+            (plain.cpu() - res['out', causal]).abs().max())
+        del plain
+    torch.cuda.empty_cache()
+    # the rotation alone, every rank at once: the staging (two pinned
+    # host buffers and the copy of this rank's K/V into one), then world -
+    # 1 steps of the K/V block through gloo and back onto the card
+    dist.barrier()
+    t0 = time.perf_counter()
+    ring = _Ring(k, v, mesh.get_group('sp'))
+    t1 = time.perf_counter()
+    for _ in range(world - 1):
+        ring.start()
+        ring.finish()
+    torch.cuda.synchronize()
+    res['staging_ms'] = (t1 - t0) * 1e3
+    res['transport_ms'] = (time.perf_counter() - t1) * 1e3
+    del ring
+    # this rank's blocks through the stats kernel, each rank alone on the
+    # card in turn: causal, r full blocks and one diagonal; full, world
+    b, h, _, d = q.shape
+    qs, ks, vs = (x.view(b * h, sl, d) for x in (q, k, v))
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            res['b3_ms', False] = cuda_ms(torch, lambda: flash_attention_stats(
+                qs, ks, vs, d ** -0.5, False))
+            res['b3_ms', True] = cuda_ms(torch, lambda: flash_attention_stats(
+                qs, ks, vs, d ** -0.5, True))
+    dist.barrier()
+    return res
+
+
+def phase_ring(torch, seed):
+    """Ring attention over ``RING['ranks']`` processes that share cuda:0,
+    over gloo (NCCL refuses two ranks on one card), each K/V block through
+    pinned host buffers. Holds every rank to exactly r + 1 stats launches
+    causal and ``ranks`` full; the gathered output to plain dense
+    attention and to the flash forward (B2) over the whole sequence; the
+    flash path to the plain blockwise path. Returns the summed launch
+    counts of the main path's runs."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention
+    from mxnet_tpu_torch.parallel import launch
+    n = RING['ranks']
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_ring_rank, n, seed, backend='gloo', timeout=600)
+    log(f'[ring] {n} ranks on cuda:0 over gloo, (1, {RING["heads"]}, '
+        f'{RING["tokens"]}, {RING["head_dim"]}) fp32 sharded '
+        f'{RING["tokens"] // n} a rank, in '
+        f'{time.perf_counter() - t0:.1f} s (spawn included)')
+    counts = dict.fromkeys(KERNELS, 0)
+    for r in ranks:
+        for causal in (True, False):
+            got = r['launches', causal]['flash_attention_stats']
+            want = r['rank'] + 1 if causal else n
+            if got != want:
+                fail(f'ring: rank {r["rank"]} launched the stats kernel '
+                     f'{got} times {"causal" if causal else "full"}, want '
+                     f'{want}')
+            for name, c in r['launches', causal].items():
+                counts[name] += c
+        log(f'[ring] rank {r["rank"]}: host ms causal '
+            f'{r["host_ms", True]:.2f} full {r["host_ms", False]:.2f} '
+            f'(plain path {r["plain_host_ms", True]:.2f} / '
+            f'{r["plain_host_ms", False]:.2f}); B3 kernel ms causal '
+            f'{r["rank"] * r["b3_ms", False] + r["b3_ms", True]:.4f} '
+            f'({r["rank"]} full x {r["b3_ms", False]:.4f} + 1 diagonal x '
+            f'{r["b3_ms", True]:.4f}), full {n * r["b3_ms", False]:.4f}; '
+            f'transport ms {r["transport_ms"]:.2f} for {n - 1} rotations '
+            f'(after {r["staging_ms"]:.2f} ms of staging set-up); '
+            f'flash vs plain max err {r["plain_err", True]:.3e} / '
+            f'{r["plain_err", False]:.3e}')
+    tol = (1e-4, 1e-4)
+    q, k, v = (x.view(RING['heads'], RING['tokens'], RING['head_dim'])
+               for x in _ring_inputs(torch, seed))
+    scale = RING['head_dim'] ** -0.5
+    for causal in (True, False):
+        got = torch.cat([r['out', causal] for r in ranks], dim=2).cuda()
+        got = got.view_as(q)
+        for what, fn in (
+                ('plain dense attention',
+                 flash_attention.flash_attention_plain),
+                ('the flash forward (B2)', flash_attention.flash_attention_fwd)):
+            want = fn(q, k, v, scale, causal)
+            err, ok = compare(torch, got, want, *tol)
+            log(f'[ring] {"causal" if causal else "full"}: gathered output '
+                f'vs {what} over {RING["tokens"]} tokens: max_abs_err '
+                f'{err:.3e} (rtol {tol[0]:g}, atol {tol[1]:g}: fp32 online '
+                f'softmax merged across ranks vs one pass) -> '
+                f'{"ok" if ok else "MISMATCH"}')
+            if not ok:
+                fail(f'ring: the gathered output disagrees with {what}')
+            del want
+            torch.cuda.empty_cache()
+        perr = max(r['plain_err', causal] for r in ranks)
+        if not perr <= 1e-4:
+            fail(f'ring: the flash path and the plain path part by {perr}')
+        del got
+    del q, k, v
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------------------------------------- rtc
+RTC_SOURCE = r'''
+extern "C" __global__ void double_kernel(const float* x, long long n,
+                                         float* y) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * 2.0f;
+}
+
+// out = a * x + y rounded as torch rounds it (no contraction into an
+// FMA), and the sign of x as an int
+extern "C" __global__ void axpy_sign(const float* x, const float* y,
+                                     float a, long long n, float* out,
+                                     int* sign) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) {
+    out[i] = __fadd_rn(__fmul_rn(a, x[i]), y[i]);
+    sign[i] = x[i] < 0.f ? -1 : 1;
+  }
+}
+'''
+RTC_SHAPE = (4096, 14336)
+
+
+def phase_rtc(torch, seed):
+    """The user-facing rtc path: ``CudaModule`` compiles ``RTC_SOURCE``
+    with NVRTC and launches both kernels once at ``RTC_SHAPE``. Returns
+    what ``rtc_checks`` holds against the torch twins."""
+    from mxnet_tpu_torch.rtc import CudaModule
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x, y = (torch.randn(*RTC_SHAPE, generator=gen, device='cuda')
+            for _ in range(2))
+    t0 = time.perf_counter()
+    mod = CudaModule(RTC_SOURCE, exports=('double_kernel', 'axpy_sign'))
+    dbl, axpy = mod.get_kernel('double_kernel'), mod.get_kernel('axpy_sign')
+    n = x.numel()
+    grid = ((n + 255) // 256,)
+    (d2,) = dbl.launch([x, n], grid, 256, x.shape)
+    torch.cuda.synchronize()
+    log(f'[rtc] compiled (NVRTC, sm_90a) and launched in '
+        f'{time.perf_counter() - t0:.2f} s: {dbl}, {axpy}')
+    out, sign = axpy.launch([x, y, 0.37, n], grid, 256, [x.shape, x.shape],
+                            ['float32', 'int32'])
+    torch.cuda.synchronize()
+    return dict(x=x, y=y, n=n, grid=grid, kernels=(dbl, axpy),
+                got=(d2, out, sign))
+
+
+def rtc_checks(torch, rows, x, y, n, grid, kernels, got):
+    """Both rtc kernels bit-equal to their torch twins, timed against the
+    bytes they must move (their rows in the kernels line)."""
+    dbl, axpy = kernels
+    why = 'the same fp32 roundings, none contracted'
+    rows['rtc'].append(_case(
+        torch, 'rtc', f'double_kernel {RTC_SHAPE} fp32', got[0], x * 2,
+        (0.0, 0.0), why,
+        lambda: dbl.launch([x, n], grid, 256, x.shape),
+        lambda: x * 2.0, 8 * n, n, lambda: torch.mul(x, 2.0)))
+    rows['rtc'].append(_case(
+        torch, 'rtc', f'axpy_sign {RTC_SHAPE} fp32 -> fp32, int32',
+        (got[1], got[2]), (0.37 * x + y, torch.where(x < 0, -1, 1).int()),
+        (0.0, 0.0), why,
+        lambda: axpy.launch([x, y, 0.37, n], grid, 256, [x.shape, x.shape],
+                            ['float32', 'int32']),
+        lambda: (0.37 * x + y, torch.where(x < 0, -1, 1).int()),
+        16 * n, 3 * n, None))
+    if not all(r['ok'] for r in rows['rtc']):
+        fail('rtc: a kernel compiled from CUDA source disagrees with its '
+             'torch twin')
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -1162,12 +1462,21 @@ def main(argv=None):
     if 'train' in phases:
         window('train', phase_train, torch, SEED + 3)
         train_parity(torch, SEED + 4)
+    if 'ring' in phases:        # counted in the ranks, which return counts
+        paths['ring'] = phase_ring(torch, SEED + 7)
+        log(f'[ring] launches {paths["ring"]}')
+    if 'rtc' in phases:
+        if rows is None:
+            rows = {k: [] for k in KERNELS}
+        rtc_checks(torch, rows, **window('rtc', phase_rtc, torch, SEED + 8))
 
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS} \
         if paths else None
     if rows is not None:
         line = []
         for name, meta in KERNELS.items():
+            if not rows[name]:
+                continue
             # the main path's shape is each kernel's first case
             head = rows[name][0]
             line.append(dict(
@@ -1180,7 +1489,8 @@ def main(argv=None):
                 bound_ms=head['bound_ms'], bound_by=head['bound_by'],
                 library_ms=head['library_ms'], shape=head['shape'],
                 cases=rows[name]))
-        if {'forward', 'serve', 'int8', 'train'} <= set(phases):
+        if {'forward', 'serve', 'int8', 'train', 'ring', 'rtc'} <= \
+                set(phases):
             idle = [k for k, n in launches.items() if n == 0]
             if idle:
                 fail(f'kernels of the main path never launched: {idle}')

@@ -1,13 +1,21 @@
-// Flash-attention forward, normalised form, fp32.
+// Flash-attention forward, fp32, in two forms from one kernel body.
 //
-// Replaces mxnet_tpu/ops/pallas/flash_attention.py:_flash_fwd_kernel in the
-// form _flash_fwd launches (o = softmax(q k^T * sm_scale) v, normalised,
-// bottom-right causal with q_offset = S - T). The stats form
-// (flash_attention_stats) is not ported here.
+// Normalised form: replaces mxnet_tpu/ops/pallas/flash_attention.py:
+// _flash_fwd_kernel as _flash_fwd launches it (o = softmax(q k^T *
+// sm_scale) v, normalised, bottom-right causal with q_offset = S - T).
+//
+// Stats form (Stats = true): replaces the same Pallas body in its stats
+// form (flash_attention.py:38 with m_ref/l_ref given, as
+// flash_attention_stats :168 launches it), the ring-attention block. It
+// writes acc = sum_j exp(s_j - m) v_j unnormalised, and each row's max m
+// (in the units of the scaled scores, q pre-scaled as the reference does)
+// and sum l = sum_j exp(s_j - m). Its causal mask is the diagonal block:
+// q_offset = 0, T == S, key j kept for query i when i >= j.
 //
 // Bound on the H100: operations. In fp32 on the CUDA cores the card does
 // 67 TFLOP/s, so at T = S = 2048, d = 128 the 4*T*S*d products take far
-// longer than reading q, k and v once.
+// longer than reading q, k and v once (half as many under a causal mask).
+// The stats form writes two more floats a row and changes nothing else.
 //
 // Design: one block of 4 warps per (batch*head, 64 query rows); each warp
 // owns 16 query rows. A loop inside the block walks key tiles of 32 rows
@@ -19,7 +27,8 @@
 // ... . Key tiles above the causal diagonal of the block are never loaded.
 // Rows past T and keys past S are masked, so T and S may be any length.
 // The products are scalar FMAs: no tensor cores, so the sums are true fp32
-// like the reference's.
+// like the reference's. The stats form is this design unchanged: a simple
+// kernel that is right; making either form fast is later work.
 #include "common.cuh"
 
 namespace {
@@ -35,10 +44,13 @@ constexpr size_t smem_bytes() {
          (kBQ * D + kBK * (D + 4) + kBK * D + kBQ * kBK);
 }
 
-template <int D>
+// Stats = false: o = acc / l. Stats = true: o = acc, m_out = m, l_out = l
+// (both (bh, T)), and the causal mask is the diagonal block (q_offset 0).
+template <int D, bool Stats>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int T,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int T,
                  int S, float sm_scale, int causal) {
   static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   constexpr int KP = D + 4;    // padded K row: lane j reads row j
@@ -53,7 +65,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x / nq;
   const int q0 = (blockIdx.x % nq) * kBQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q_offset = S - T;
+  const int q_offset = Stats ? 0 : S - T;
 
   const float* qb = q + static_cast<size_t>(bh) * T * D;
   const float* kb = k + static_cast<size_t>(bh) * S * D;
@@ -173,29 +185,60 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int row = row0 + r;
     if (row < T) {
-      const float lr = fmaxf(l[r], 1e-30f);
+      if constexpr (Stats) {
 #pragma unroll
-      for (int i = 0; i < PER; ++i)
-        ob[static_cast<size_t>(row) * D + lane + 32 * i] = acc[r][i] / lr;
+        for (int i = 0; i < PER; ++i)
+          ob[static_cast<size_t>(row) * D + lane + 32 * i] = acc[r][i];
+        if (lane == 0) {
+          m_out[static_cast<size_t>(bh) * T + row] = m[r];
+          l_out[static_cast<size_t>(bh) * T + row] = l[r];
+        }
+      } else {
+        const float lr = fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int i = 0; i < PER; ++i)
+          ob[static_cast<size_t>(row) * D + lane + 32 * i] = acc[r][i] / lr;
+      }
     }
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o, int bh,
-           int T, int S, float sm_scale, int causal, cudaStream_t st) {
+template <int D, bool Stats>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* m, float* l, int bh, int T, int S, float sm_scale,
+           int causal, cudaStream_t st) {
   constexpr size_t bytes = smem_bytes<D>();
   // above 48 KB of dynamic shared memory only when asked for; the setting
   // belongs to the current device, so it is made on every launch
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, Stats>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = static_cast<long long>(bh) * ((T + kBQ - 1) / kBQ);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<D><<<static_cast<unsigned>(blocks), kWarps * 32, bytes, st>>>(
-      q, k, v, o, T, S, sm_scale, causal);
+  flash_fwd_kernel<D, Stats>
+      <<<static_cast<unsigned>(blocks), kWarps * 32, bytes, st>>>(
+          q, k, v, o, m, l, T, S, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool Stats>
+int dispatch(const float* q, const float* k, const float* v, float* o,
+             float* m, float* l, int bh, int T, int S, int d, float sm_scale,
+             int causal, void* stream) {
+  if (bh <= 0 || T <= 0 || S <= 0 || !mx_aligned16(q) || !mx_aligned16(k) ||
+      !mx_aligned16(v) || !mx_aligned16(o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch<32, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal, st);
+    case 64:
+      return launch<64, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal, st);
+    case 128:
+      return launch<128, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -206,14 +249,19 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
                                        const float* v, float* o, int bh,
                                        int T, int S, int d, float sm_scale,
                                        int causal, void* stream) {
-  if (bh <= 0 || T <= 0 || S <= 0 || !mx_aligned16(q) || !mx_aligned16(k) ||
-      !mx_aligned16(v) || !mx_aligned16(o))
+  return dispatch<false>(q, k, v, o, nullptr, nullptr, bh, T, S, d, sm_scale,
+                         causal, stream);
+}
+
+// The stats form: acc (bh, T, d) unnormalised, m and l (bh, T); causal is
+// the diagonal block and needs T == S. Same layout rules as above.
+extern "C" int flash_attention_stats_f32(const float* q, const float* k,
+                                         const float* v, float* acc, float* m,
+                                         float* l, int bh, int T, int S, int d,
+                                         float sm_scale, int causal,
+                                         void* stream) {
+  if (m == nullptr || l == nullptr || (causal && T != S))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch<32>(q, k, v, o, bh, T, S, sm_scale, causal, st);
-    case 64: return launch<64>(q, k, v, o, bh, T, S, sm_scale, causal, st);
-    case 128: return launch<128>(q, k, v, o, bh, T, S, sm_scale, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<true>(q, k, v, acc, m, l, bh, T, S, d, sm_scale, causal,
+                        stream);
 }

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, one module each beside its plain
-PyTorch version: :mod:`.fused_norms`, :mod:`.flash_attention`,
-:mod:`.paged_attention`, :mod:`.fused_optimizer`, :mod:`.int8_matmul`.
-:mod:`._build` compiles ``csrc/`` and binds it.
+PyTorch version: :mod:`.fused_norms`, :mod:`.flash_attention` (both
+forms), :mod:`.paged_attention`, :mod:`.fused_optimizer`,
+:mod:`.int8_matmul`. :mod:`._build` compiles ``csrc/`` and binds it;
+:mod:`._nvrtc` compiles and launches a user's CUDA source for
+:mod:`mxnet_tpu_torch.rtc` (counted as ``'rtc'``).
 
 Each kernel's wrapper counts its launches in a plain integer attribute
 (``fused_norm.launches`` ...); :func:`launch_counts` reads them and
@@ -11,10 +13,11 @@ Each kernel's wrapper counts its launches in a plain integer attribute
 import torch
 
 from .fused_norms import fused_norm
-from .flash_attention import flash_attention_fwd
+from .flash_attention import flash_attention_fwd, flash_attention_stats
 from .paged_attention import paged_attention_decode
 from .fused_optimizer import adam_step, sgd_mom_step
 from . import int8_matmul as _int8     # the module keeps its name here
+from . import _nvrtc
 
 __all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts', 'needs_grad']
 
@@ -24,7 +27,9 @@ KERNELS = {'fused_norm': fused_norm,
            'paged_attention_decode': paged_attention_decode,
            'adam': adam_step,
            'sgd_mom': sgd_mom_step,
-           'int8_matmul': _int8.int8_matmul}
+           'int8_matmul': _int8.int8_matmul,
+           'flash_attention_stats': flash_attention_stats,
+           'rtc': _nvrtc.launch}
 
 
 def launch_counts():

@@ -1,9 +1,12 @@
-"""Flash-attention forward, normalised form: the CUDA kernel
-``csrc/flash_attention.cu`` and its plain PyTorch version.
+"""Flash-attention forward: the CUDA kernel ``csrc/flash_attention.cu`` in
+its two forms and their plain PyTorch versions.
 
-Counterpart of ``_flash_fwd`` in ``mxnet_tpu/ops/pallas/flash_attention.py``.
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel, or
-raises on a dtype, shape or layout the kernel does not take.
+:func:`flash_attention_fwd`, the normalised form, is the counterpart of
+``_flash_fwd`` in ``mxnet_tpu/ops/pallas/flash_attention.py``;
+:func:`flash_attention_stats`, the stats form that ring attention merges
+across ranks, of ``flash_attention_stats`` there. A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel, or raises on a dtype,
+shape or layout the kernel does not take.
 
 :class:`FlashAttentionFunction` gives the op its gradient, as the
 reference's ``custom_vjp`` (``_flash3``) does: the forward is the wrapper
@@ -21,13 +24,17 @@ from ...base import MXNetError
 from . import _build
 
 __all__ = ['flash_attention_fwd', 'flash_attention_plain',
-           'flash_attention_bwd', 'FlashAttentionFunction', 'HEAD_DIMS']
+           'flash_attention_bwd', 'FlashAttentionFunction',
+           'flash_attention_stats', 'flash_attention_stats_plain',
+           'HEAD_DIMS']
 
 #: head dims the kernel is built for
 HEAD_DIMS = (32, 64, 128)
 
 _NEG_INF = -1e30
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_STATS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -83,40 +90,50 @@ class FlashAttentionFunction(torch.autograd.Function):
                                    ctx.causal) + (None, None)
 
 
+def _check(what, q, k, v):
+    """The shape and layout checks of both forms, on any device; returns
+    ``(bh, t, s, d)``."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise MXNetError(f'{what}: want q (BH, T, d) and k, v '
+                         f'(BH, S, d); got {tuple(q.shape)}, '
+                         f'{tuple(k.shape)}, {tuple(v.shape)}')
+    if not all(x.is_contiguous() for x in (q, k, v)):
+        raise MXNetError(f'{what}: q, k, v must be contiguous')
+    return (*q.shape[:2], k.shape[1], q.shape[2])
+
+
+def _check_cuda(what, q, k, v):
+    """What the kernel takes, checked before a launch."""
+    if q.device.type != 'cuda' or k.device != q.device \
+            or v.device != q.device:
+        raise MXNetError(f'{what}: q, k, v must share one CUDA device')
+    if any(x.dtype != torch.float32 for x in (q, k, v)):
+        raise MXNetError(f'{what}: the kernel takes float32, got '
+                         f'{q.dtype}, {k.dtype}, {v.dtype}')
+    if q.shape[2] not in HEAD_DIMS:
+        raise MXNetError(f'{what}: head dim {q.shape[2]} not in '
+                         f'{HEAD_DIMS}')
+    if not all(x.data_ptr() % 16 == 0 for x in (q, k, v)):
+        raise MXNetError(f'{what}: q, k, v must be 16-byte aligned')
+    if max(q.shape[0], q.shape[1], k.shape[1]) >= 2 ** 31:
+        raise MXNetError(f'{what}: shape too large')
+
+
 def flash_attention_fwd(q, k, v, sm_scale, causal):
     """Normalised blockwise attention over q ``(BH, T, d)`` and k/v
     ``(BH, S, d)``, all contiguous; bottom-right causal (``q_offset = S -
     T``) when ``causal``, which needs T <= S. Output in q's dtype."""
-    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise MXNetError(f'flash_attention: want q (BH, T, d) and k, v '
-                         f'(BH, S, d); got {tuple(q.shape)}, '
-                         f'{tuple(k.shape)}, {tuple(v.shape)}')
-    bh, t, d = q.shape
-    s = k.shape[1]
+    bh, t, s, d = _check('flash_attention', q, k, v)
     if causal and t > s:
         raise MXNetError('flash_attention: causal with T > S leaves rows '
                          'with no key; the op takes the plain path there')
-    if not all(x.is_contiguous() for x in (q, k, v)):
-        raise MXNetError('flash_attention: q, k, v must be contiguous')
     if q.device.type == 'cpu':
         return flash_attention_plain(q, k, v, sm_scale, causal)
-    if q.device.type != 'cuda' or k.device != q.device \
-            or v.device != q.device:
-        raise MXNetError('flash_attention: q, k, v must share one CUDA '
-                         'device')
-    if any(x.dtype != torch.float32 for x in (q, k, v)):
-        raise MXNetError(f'flash_attention: the kernel takes float32, got '
-                         f'{q.dtype}, {k.dtype}, {v.dtype}')
-    if d not in HEAD_DIMS:
-        raise MXNetError(f'flash_attention: head dim {d} not in {HEAD_DIMS}')
-    if not all(x.data_ptr() % 16 == 0 for x in (q, k, v)):
-        raise MXNetError('flash_attention: q, k, v must be 16-byte aligned')
+    _check_cuda('flash_attention', q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if max(bh, t, s) >= 2 ** 31:
-        raise MXNetError('flash_attention: shape too large')
     fn = _build.function('flash_attention', 'flash_attention_fwd_f32', _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bh, t, s, d, float(sm_scale), int(bool(causal)),
@@ -127,3 +144,57 @@ def flash_attention_fwd(q, k, v, sm_scale, causal):
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_stats_plain(q, k, v, sm_scale, causal):
+    """The stats form's function in plain PyTorch (``_stats_xla`` of the
+    reference): ``(acc, m, l)`` with ``acc = sum_j exp(s_j - m) v_j``
+    unnormalised, ``m`` the row max of the scaled scores ``s = (q k^T) *
+    sm_scale`` and ``l = sum_j exp(s_j - m)``, all fp32. ``causal`` is the
+    diagonal-block mask (T == S, query i keeps key j when i >= j).
+
+    The kernel scales q before the product, as the Pallas kernel does;
+    this version scales the scores, as ``_stats_xla`` does. The two differ
+    by the rounding of one product per score, within the tolerances the
+    tests state (1e-5 against the Pallas kernel, 1e-4 on the card)."""
+    s = torch.einsum('bqd,bkd->bqk', q.float(), k.float()) * sm_scale
+    if causal:
+        t, src = s.shape[-2], s.shape[-1]
+        mask = torch.ones(t, src, dtype=torch.bool, device=s.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    return torch.einsum('bqk,bkd->bqd', p, v.float()), m, p.sum(-1)
+
+
+def flash_attention_stats(q, k, v, sm_scale, causal=False):
+    """Blockwise attention that returns ``(acc, m, l)`` (see
+    :func:`flash_attention_stats_plain`) so that a caller can merge blocks
+    from other ranks: q ``(BH, T, d)``, k/v ``(BH, S, d)``, contiguous;
+    acc ``(BH, T, d)``, m and l ``(BH, T)``, all fp32. ``causal`` is the
+    diagonal-block mask and needs T == S. No gradient: the ring that calls
+    it refuses autograd (``parallel.ring_attention``)."""
+    bh, t, s, d = _check('flash_attention_stats', q, k, v)
+    if causal and t != s:
+        raise MXNetError(f'flash_attention_stats: the causal mask is the '
+                         f'diagonal block and needs T == S, got T={t}, '
+                         f'S={s}')
+    if q.device.type == 'cpu':
+        return flash_attention_stats_plain(q, k, v, sm_scale, causal)
+    _check_cuda('flash_attention_stats', q, k, v)
+    acc = torch.empty_like(q)
+    m = torch.empty(bh, t, dtype=torch.float32, device=q.device)
+    l = torch.empty(bh, t, dtype=torch.float32, device=q.device)
+    if acc.numel() == 0:
+        return acc, m, l
+    fn = _build.function('flash_attention', 'flash_attention_stats_f32',
+                         _STATS_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), bh, t, s, d, float(sm_scale),
+            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check('flash_attention', rc, 'flash_attention_stats')
+    flash_attention_stats.launches += 1
+    return acc, m, l
+
+
+flash_attention_stats.launches = 0

@@ -3,8 +3,13 @@ main paths of ``chip_smoke.py`` do not reach: rows that are not a
 multiple of 4 floats, head dims 32 and 64, query groups 1, 2 and 8, small
 pages, one query row, optimizer steps over ragged and unaligned buffers,
 int8 products at ragged and unaligned shapes, and the inputs the wrappers
-refuse; the norm and flash gradients on the card; and a small Llama
-served and trained on the card against the CPU, float and int8.
+refuse; the norm and flash gradients on the card; a small Llama
+served and trained on the card against the CPU, float and int8; the
+flash-attention stats kernel over head dims, ragged edges and both masks;
+a two-rank ring (two processes sharing the card over gloo) against dense
+attention, with each rank's stats launches; and ``rtc`` kernels compiled
+from CUDA source, bit-equal to their torch twins, and a source that does
+not compile.
 
 Every test needs a CUDA card and skips without one. The tests import no
 JAX, so on a machine without it they run with
@@ -13,9 +18,11 @@ JAX, so on a machine without it they run with
 
 Tolerances are those of ``chip_smoke.py``: 1e-5 for the norms (fp32
 statistics summed in another order), 1e-4 for attention (online against
-one-pass softmax) and for gradients and training losses, rtol 1e-6 and
-atol 1e-7 for the optimizer steps (the same fp32 operations), and 0 for
-the int8 product (an exact int32 sum, then the same rounded operations).
+one-pass softmax; also the stats kernel and the ring) and for gradients
+and training losses, rtol 1e-6 and atol 1e-7 for the optimizer steps (the
+same fp32 operations), and 0 for the int8 product (an exact int32 sum,
+then the same rounded operations) and the rtc kernels (the same fp32
+roundings, none contracted).
 """
 
 import copy
@@ -425,3 +432,151 @@ def test_small_quantized_llama_serves_the_same_tokens_on_the_card(dev, act):
     assert outs['cuda'] == outs['cpu']
     torch.testing.assert_close(outs['cuda_logits'], outs['cpu_logits'],
                                rtol=0, atol=1e-2)
+
+
+# ------------------------------------- flash stats kernel, ring attention
+@pytest.mark.parametrize('d', [32, 64, 128])
+@pytest.mark.parametrize('causal,t,s', [
+    (True, 1, 1), (True, 100, 100), (True, 130, 130), (False, 65, 33),
+    (False, 1, 300), (False, 37, 130)])
+def test_flash_attention_stats_matches_plain(dev, d, causal, t, s):
+    """acc, m and l of the stats kernel against its plain version, with
+    ragged query and key edges; m is in the units of the scaled scores,
+    which the kernel forms as (q * scale) k and the plain version as
+    (q k) * scale."""
+    bh = 3
+    q, k, v = (_randn(dev, bh, n, d, seed=i)
+               for i, n in enumerate((t, s, s)))
+    n = flash_attention.flash_attention_stats.launches
+    got = flash_attention.flash_attention_stats(q, k, v, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_stats.launches == n + 1
+    want = flash_attention.flash_attention_stats_plain(q, k, v, d ** -0.5,
+                                                       causal)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **ATT_TOL)
+
+
+def test_flash_attention_stats_refuses_what_it_does_not_take(dev):
+    x = _randn(dev, 2, 8, 32)
+    with pytest.raises(MXNetError, match='T == S'):
+        flash_attention.flash_attention_stats(x, _randn(dev, 2, 9, 32), _randn(
+            dev, 2, 9, 32), 0.1, True)
+    with pytest.raises(MXNetError, match='head dim'):
+        y = _randn(dev, 2, 8, 48)
+        flash_attention.flash_attention_stats(y, y, y, 0.1, False)
+    with pytest.raises(MXNetError, match='float32'):
+        flash_attention.flash_attention_stats(x.half(), x.half(), x.half(),
+                                              0.1, False)
+
+
+def _ring_on_one_card(seed, shape):
+    """A rank of a ring that shares cuda:0 with the others (gloo): its
+    output for each causal mode and path, and the stats launches of each
+    flash run."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch.parallel import make_mesh, ring_attention
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device('cuda', 0)
+    full = [_randn(dev, *shape, seed=seed + i) for i in range(3)]
+    sl = shape[2] // world
+    q, k, v = (x[:, :, rank * sl:(rank + 1) * sl].contiguous() for x in full)
+    mesh = make_mesh(sp=world)
+    out = {}
+    for causal in (False, True):
+        for flash in (False, True):
+            n = flash_attention.flash_attention_stats.launches
+            o = ring_attention.ring_attention(q, k, v, mesh, causal=causal,
+                                              use_flash=flash)
+            out[causal, flash] = o.cpu()
+            out['launches', causal, flash] = \
+                flash_attention.flash_attention_stats.launches - n
+    return out
+
+
+def test_two_rank_ring_on_one_card_matches_dense_attention(dev):
+    from mxnet_tpu_torch.parallel import launch
+    shape = (1, 2, 256, 64)
+    ranks = launch.spawn(_ring_on_one_card, 2, 7, shape, timeout=300)
+    q, k, v = (_randn(dev, *shape, seed=7 + i).view(2, 256, 64)
+               for i in range(3))
+    for causal in (False, True):
+        want = flash_attention.flash_attention_plain(q, k, v, 64 ** -0.5,
+                                                     causal).view(shape)
+        for flash in (False, True):
+            got = torch.cat([r[causal, flash] for r in ranks], dim=2)
+            torch.testing.assert_close(got, want.cpu(), **ATT_TOL)
+            assert [r['launches', causal, flash] for r in ranks] == (
+                [0, 0] if not flash else [1, 2] if causal else [2, 2])
+
+
+RTC_SOURCE = r'''
+extern "C" __global__ void double_kernel(const float* x, long long n,
+                                         float* y) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * 2.0f;
+}
+
+// out = a * x + y rounded as torch rounds it (no contraction into an
+// FMA), and the sign of x as an int
+extern "C" __global__ void axpy_sign(const float* x, const float* y,
+                                     float a, long long n, float* out,
+                                     int* sign) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) {
+    out[i] = __fadd_rn(__fmul_rn(a, x[i]), y[i]);
+    sign[i] = x[i] < 0.f ? -1 : 1;
+  }
+}
+'''
+
+
+def test_rtc_kernels_run_bit_equal_to_their_torch_twins(dev):
+    from mxnet_tpu_torch.rtc import CudaModule
+    mod = CudaModule(RTC_SOURCE, exports=('double_kernel', 'axpy_sign'))
+    x, y = _randn(dev, 37, 1001), _randn(dev, 37, 1001, seed=1)
+    n = x.numel()
+    grid = (n + 255) // 256
+    c = kernels.launch_counts()['rtc']
+    (d2,) = mod.get_kernel('double_kernel').launch(
+        [x, n], grid=grid, block=256, out_shapes=x.shape)
+    out, sign = mod.get_kernel('axpy_sign').launch(
+        [x, y, 0.37, n], grid=(grid, 1), block=(256,),
+        out_shapes=[x.shape, x.shape], out_dtypes=['float32', 'int32'])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()['rtc'] == c + 2
+    assert torch.equal(d2, x * 2)
+    assert torch.equal(out, 0.37 * x + y)
+    assert sign.dtype == torch.int32
+    assert torch.equal(sign, torch.where(x < 0, -1, 1).int())
+    with pytest.raises(MXNetError, match='wants torch.float32'):
+        mod.get_kernel('double_kernel').launch(
+            [x.double(), n], grid=grid, block=256, out_shapes=x.shape)
+
+
+def test_rtc_kernel_with_more_than_48_kb_of_shared_memory(dev):
+    """Each block reverses 16384 floats through 64 KB of dynamic shared
+    memory, which the launch must allow (cuFuncSetAttribute)."""
+    from mxnet_tpu_torch.rtc import CudaModule
+    mod = CudaModule(r'''
+extern "C" __global__ void reverse_rows(const float* x, float* y) {
+  extern __shared__ float buf[];
+  const float* row = x + blockIdx.x * 16384ll;
+  for (int i = threadIdx.x; i < 16384; i += blockDim.x) buf[i] = row[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < 16384; i += blockDim.x)
+    y[blockIdx.x * 16384ll + i] = buf[16383 - i];
+}''')
+    x = _randn(dev, 3, 16384)
+    (y,) = mod.get_kernel('reverse_rows').launch(
+        [x], grid=3, block=1024, out_shapes=x.shape, shared_mem=65536)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x.flip(1))
+
+
+def test_rtc_source_that_does_not_compile_raises_with_the_log(dev):
+    from mxnet_tpu_torch.rtc import CudaModule
+    mod = CudaModule('extern "C" __global__ void broken(float* y) '
+                     '{ y[0] = undeclared_name; }')
+    with pytest.raises(MXNetError, match='undeclared_name'):
+        mod.get_kernel('broken').launch([], grid=1, block=1, out_shapes=(1,))

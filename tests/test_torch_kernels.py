@@ -30,7 +30,7 @@ from mxnet_tpu_torch.ops import contrib, kernels, nn as torch_nn
 from mxnet_tpu_torch.ops.kernels import fused_norms, fused_optimizer, \
     int8_matmul, paged_attention
 from mxnet_tpu_torch.ops.kernels.flash_attention import \
-    FlashAttentionFunction, flash_attention_fwd
+    FlashAttentionFunction, flash_attention_fwd, flash_attention_stats
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -294,6 +294,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     fused_norms.fused_layer_norm(x, torch.ones(64), torch.zeros(64))
     qkv = torch.from_numpy(_randn(rng, 2, 8, 32))
     flash_attention_fwd(qkv, qkv, qkv, 0.1, True)
+    flash_attention_stats(qkv, qkv, qkv, 0.1, True)
     q, kp, vp, pages = _paged_case()
     _paged_both(q, kp, vp, pages, onp.asarray([1, 2, 3], onp.int32))
     fused_optimizer.adam_step(x, x.clone(), x.clone(), x.clone() ** 2,
@@ -305,7 +306,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     int8_matmul.int8_matmul(xq, xq[:3], torch.ones(3), None, 'bfloat16')
     assert kernels.launch_counts() == {
         'fused_norm': 0, 'flash_attention': 0, 'paged_attention_decode': 0,
-        'adam': 0, 'sgd_mom': 0, 'int8_matmul': 0}
+        'adam': 0, 'sgd_mom': 0, 'int8_matmul': 0,
+        'flash_attention_stats': 0, 'rtc': 0}
 
 
 def test_tensors_off_the_cpu_never_take_the_plain_path():
