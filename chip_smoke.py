@@ -17,9 +17,12 @@ Phases, each of which fails the run on any error:
                version on the card at ``llama3_8b`` shapes (fp32; the int8
                product with fp32 or bf16 out, bit-equal), and time the
                kernel, the plain version and, where one PyTorch call
-               computes the same function, that call. The gradients of
-               the norm and flash ops (their ``autograd.Function``s) meet
-               autograd through the plain versions.
+               computes the same function, that call. The int8 product
+               and flash attention name the design their plan took; the
+               int8 product's earlier design (sm80) is timed beside it,
+               and the int8 wrapper's host cost per call is logged. The gradients of the norm and flash ops (their
+               ``autograd.Function``s) meet autograd through the plain
+               versions.
 4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
                generator: one ``(1, 512)`` forward, finite logits, and
                exactly 65 RMSNorm and 32 flash-attention launches.
@@ -75,7 +78,9 @@ Phases, each of which fails the run on any error:
 
 The launch counters are set to 0 just before each of the forward, serve,
 int8, train and rtc phases and read just after it, and in each rank just
-before and after its ring runs; the kernels' line reports their sum.
+before and after its ring runs; the kernels' line reports their sum. A
+phase fails if the int8 product or flash attention (either form) ran
+another design than its Hopper ones on its main path (``NEW_DESIGNS``).
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase ran and passed. Exit code 0 only then.
 """
@@ -100,6 +105,9 @@ SEED = 0    # seeds the generators of the weights, inputs and prompts
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 INT8_OPS_S = 1979e12
+# fp32-accurate products on the TF32 tensor cores: three TF32 products
+# (3xTF32) for each, at the data sheet's dense 495 TFLOP/s
+TF32X3_OPS_S = 495e12 / 3
 
 KERNELS = {
     'fused_norm': dict(
@@ -179,7 +187,9 @@ def eager_ms(torch, fn, budget_ms=100.0):
 def cuda_ms(torch, fn, budget_ms=100.0):
     """Device time per call of ``fn()`` in ms: a run of calls captured in
     one CUDA graph and replayed, timed with CUDA events, so the host's
-    launch overhead is not in it."""
+    launch overhead is not in it. The calls are warmed up on the stream
+    that captures them (the split kernels keep their counters per
+    stream)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -189,7 +199,7 @@ def cuda_ms(torch, fn, budget_ms=100.0):
     torch.cuda.synchronize()
     n = int(min(100, max(5, budget_ms / max(_events_ms(torch, fn, 1), 1e-3))))
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(n):
             fn()
     graph.replay()
@@ -217,8 +227,16 @@ def compare(torch, got, want, rtol, atol):
     if got.shape != want.shape:
         return math.inf, False
     err = (got.double() - want.double()).abs()
-    ok = bool(torch.isfinite(got).all()) and bool(
-        (err <= atol + rtol * want.double().abs()).all())
+    tol = atol + rtol * want.double().abs()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    if not ok:      # say where: the worst element against its tolerance
+        over = (err - tol).nan_to_num(math.inf)
+        i = int(over.flatten().argmax())
+        log(f'[compare] {tuple(got.shape)}: worst element {i}: got '
+            f'{float(got.flatten()[i])!r}, want '
+            f'{float(want.flatten()[i])!r}, {float(err.flatten()[i]):.3g} '
+            f'off, {float(over.flatten()[i]):.3g} past its tolerance; '
+            f'finite {bool(torch.isfinite(got).all())}')
     return float(err.max()), ok
 
 
@@ -252,11 +270,16 @@ def phase_build():
 
 
 def _case(torch, name, shape, got, want, tol, why, kernel, plain,
-          nbytes, ops, library=None, library_call=None, ops_s=FP32_OPS_S):
+          nbytes, ops, library=None, library_call=None, ops_s=FP32_OPS_S,
+          path=None, earlier=None, fp32_bound=False):
     """One row: the check, then the times. ``library_call`` names a
     library call that is timed launched from Python (``eager_ms``), for
     calls that a CUDA graph does not capture as they stand (an optimizer's
-    ``step``); other library calls are timed as the kernel is."""
+    ``step``); other library calls are timed as the kernel is. ``path``
+    names the design the kernel's plan took; ``earlier`` is ``(call of
+    the earlier design, what it is)``, timed here as the kernel is;
+    ``fp32_bound`` adds the bound at fp32 on the CUDA cores beside
+    ``ops_s``'s."""
     err, ok = compare(torch, got, want, *tol)
     launched_ms = eager_ms(torch, kernel)
     ms = cuda_ms(torch, kernel)
@@ -271,6 +294,19 @@ def _case(torch, name, shape, got, want, tol, why, kernel, plain,
                launched_ms=launched_ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms)
+    extra = ''
+    if path is not None:
+        row['path'] = path
+        extra += f' path {path}'
+    if fp32_bound:
+        row['bound_fp32_ms'], _ = bound(nbytes, ops, FP32_OPS_S)
+        extra += (f' (3xTF32 tensor-core bound; at fp32 on the CUDA cores '
+                  f'{row["bound_fp32_ms"]:.4f})')
+    if earlier is not None:
+        e_ms, e_from = earlier
+        row['earlier_ms'] = cuda_ms(torch, e_ms)
+        row['earlier_from'] = e_from
+        extra += f' earlier_ms {row["earlier_ms"]:.4f} ({e_from})'
     if library_call:
         row['library_call'] = library_call
     lib = 'none' if library_ms is None else f'{library_ms:.4f}'
@@ -279,8 +315,8 @@ def _case(torch, name, shape, got, want, tol, why, kernel, plain,
     log(f'[kernels] {name} {shape}: max_abs_err {err:.3e} '
         f'(rtol {tol[0]:g}, atol {tol[1]:g}: {why}) kernel_ms {ms:.4f} '
         f'(launched from Python {launched_ms:.4f}) '
-        f'plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) '
-        f'library_ms {lib} -> {"ok" if ok else "MISMATCH"}')
+        f'plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})'
+        f'{extra} library_ms {lib} -> {"ok" if ok else "MISMATCH"}')
     return row
 
 
@@ -324,13 +360,19 @@ def phase_kernels(torch):
                 nbytes, ops, lib))
     del x, g, b
 
-    # ---- flash attention forward: fp32 on the CUDA cores
+    # ---- flash attention forward: fp32-accurate, 3xTF32 on the tensor
+    # cores; the keys split where the grid is short (T against a long S)
     att_tol = (1e-4, 1e-4)
     att_why = 'fp32 online softmax vs one-pass softmax, sums over S keys ' \
-              'in another order'
-    bh, d = 32, 128
-    for t, s, causal in ((512, 512, True), (2048, 2048, True),
-                         (2048, 2048, False), (37, 2048, True)):
+              'in another order; products in 3xTF32'
+    bh = 32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for t, s, d, causal in ((512, 512, 128, True), (512, 512, 128, False),
+                            (2048, 2048, 128, True),
+                            (2048, 2048, 128, False), (37, 2048, 128, True),
+                            (1, 2048, 128, True), (64, 2048, 128, True),
+                            (65, 2048, 128, True), (2048, 2048, 64, True),
+                            (2048, 2048, 32, True)):
         q, k, v = randn(bh, t, d), randn(bh, s, d), randn(bh, s, d)
         scale = d ** -0.5
         got = flash_attention.flash_attention_fwd(q, k, v, scale, causal)
@@ -357,7 +399,9 @@ def phase_kernels(torch):
                                                         causal),
             lambda: flash_attention.flash_attention_plain(q, k, v, scale,
                                                           causal),
-            nbytes, ops, lib))
+            nbytes, ops, lib, ops_s=TF32X3_OPS_S, fp32_bound=True,
+            path=flash_attention.plan(bh, t, s, d, sms).path))
+        del got, want
     del q, k, v
     _stats_cases(torch, randn, rows)
 
@@ -429,7 +473,8 @@ def _stats_cases(torch, randn, rows):
     f4 = 4
     tol = (1e-4, 1e-4)
     why = ('fp32 online softmax vs one-pass softmax; m from (q*scale)k vs '
-           '(qk)*scale')
+           '(qk)*scale; products in 3xTF32')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for bh, t, d, causal in ((32, 2048, 128, False), (32, 2048, 128, True),
                              (12, 1000, 64, True)):
         q, k, v = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
@@ -459,7 +504,8 @@ def _stats_cases(torch, randn, rows):
                                                           causal),
             lambda: flash_attention.flash_attention_stats_plain(
                 q, k, v, scale, causal),
-            nbytes, ops, lib))
+            nbytes, ops, lib, ops_s=TF32X3_OPS_S, fp32_bound=True,
+            path=flash_attention.plan(bh, t, t, d, sms).path))
         del q, k, v, got, want, q4, k4, v4, lib
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -565,9 +611,13 @@ def _int8_cases(torch, dev, rows):
     turns = [(bf16, False), (f32, True), (bf16, True), (f32, False)]
     for m in (4, 32, 512):
         for n, k in ((4096, 4096), (1024, 4096), (4096, 14336),
-                     (128256, 4096)):
+                     (128256, 4096)) + (((14336, 4096),) if m > 4 else ()):
             cases.append((m, n, k) + turns[len(cases) % 4] + (0,))
+    for m in (1, 16, 17, 64, 65):    # the edges of the plan's tile widths
+        cases.append((m, 4096, 4096) + turns[len(cases) % 4] + (0,))
     cases += [(37, 1000, 200, f32, True, 0), (17, 130, 4100, bf16, True, 1)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sm80 = im.plan(1, 1, 16, False, sms)     # the earlier design, forced
     why = ('an exact int32 sum, then the plain version\'s rounded '
            'operations one for one (__int2float_rn, __fmul_rn, __fadd_rn, '
            '__float2bfloat16_rn)')
@@ -591,6 +641,19 @@ def _int8_cases(torch, dev, rows):
         out_bytes = 2 if dt == bf16 else 4
         nbytes = m * k + n * k + 4 * n * (2 if has_bias else 1) \
             + out_bytes * m * n
+        path = im.plan(m, n, k, offset == 0, sms).path
+        earlier = None
+        if path != 'sm80':
+            out_old = torch.empty(m, n, dtype=dt, device=dev)
+
+            def old(x=x, w=w, scale=scale, b=b, out_old=out_old, m=m, n=n,
+                    k=k):
+                im._launch(x, w, scale, b, out_old, m, n, k, sm80)
+            old()
+            if not torch.equal(out_old.float(), want.float()):
+                fail(f'int8: the sm80 design differs from the plain '
+                     f'version at ({m}, {n}, {k})')
+            earlier = (old, 'sm80 design, this run')
         rows['int8_matmul'].append(_case(
             torch, 'int8_matmul',
             f'M={m} N={n} K={k} {str(dt)[6:]} out'
@@ -599,10 +662,46 @@ def _int8_cases(torch, dev, rows):
             got.float(), want.float(), (0.0, 0.0), why,
             lambda: im.int8_matmul(x, w, scale, b, dt),
             lambda: im.int8_matmul_plain(x, w, scale, b, dt),
-            nbytes, 2 * m * n * k, lib, ops_s=INT8_OPS_S))
-        del x, w, scale, b, got, want, lib
+            nbytes, 2 * m * n * k, lib, ops_s=INT8_OPS_S, path=path,
+            earlier=earlier))
+        del x, w, scale, b, got, want, lib, earlier
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    _int8_host_cost(torch, dev, codes)
+
+
+def _int8_host_cost(torch, dev, codes, calls=200, rounds=5):
+    """Host microseconds per int8 wrapper call, on the host clock over
+    ``calls`` calls launched back to back (each kernel takes less time on
+    the card than its launch on the host): the TMA designs' plan, the two
+    tensor maps that every such call encodes and the workspace, against
+    the sm80 design's launch at the same small shape with x and w off
+    alignment. The designs take turns for ``rounds`` rounds and each
+    keeps its least time, since the host clock drifts from round to
+    round by more than the difference measured."""
+    from mxnet_tpu_torch.ops.kernels import int8_matmul as im
+    cases = {}
+    for what, (m, n, k, offset) in (
+            ('tma_splitk, K split 16 ways (4, 1024, 4096)', (4, 1024, 4096, 0)),
+            ('tma_splitk, unsplit (4, 64, 128)', (4, 64, 128, 0)),
+            ('sm80, x and w off alignment (4, 64, 128)', (4, 64, 128, 1))):
+        x, w = codes((m, k), offset), codes((n, k), offset)
+        cases[what] = (x, w, torch.ones(n, device=dev))
+        for _ in range(20):
+            im.int8_matmul(*cases[what])
+    res = {}
+    for _ in range(rounds):
+        for what, args in cases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                im.int8_matmul(*args)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            res[what] = min(res.get(what, math.inf), (t1 - t0) / calls * 1e6)
+    log(f'[kernels] int8_matmul host us per call, launched back to back '
+        f'(least of {rounds} rounds of {calls}): ' +
+        ', '.join(f'{k} {v:.2f}' for k, v in res.items()))
 
 
 def _gradient_checks(torch, randn):
@@ -1220,6 +1319,7 @@ def _ring_rank(seed):
         torch.cuda.synchronize()
         res['host_ms', causal] = (time.perf_counter() - t0) * 1e3
         res['launches', causal] = kernels.launch_counts()
+        res['designs', causal] = kernels.path_counts()
         res['out', causal] = out.cpu()
     for causal in (True, False):            # the plain path, not counted
         dist.barrier()
@@ -1267,7 +1367,7 @@ def phase_ring(torch, seed):
     causal and ``ranks`` full; the gathered output to plain dense
     attention and to the flash forward (B2) over the whole sequence; the
     flash path to the plain blockwise path. Returns the summed launch
-    counts of the main path's runs."""
+    counts of the main path's runs, in all and by design."""
     from mxnet_tpu_torch.ops.kernels import flash_attention
     from mxnet_tpu_torch.parallel import launch
     n = RING['ranks']
@@ -1278,8 +1378,13 @@ def phase_ring(torch, seed):
         f'{RING["tokens"] // n} a rank, in '
         f'{time.perf_counter() - t0:.1f} s (spawn included)')
     counts = dict.fromkeys(KERNELS, 0)
+    by_design = {}
     for r in ranks:
         for causal in (True, False):
+            for name, ds in r['designs', causal].items():
+                for d, c in ds.items():
+                    by_design.setdefault(name, {}).setdefault(d, 0)
+                    by_design[name][d] += c
             got = r['launches', causal]['flash_attention_stats']
             want = r['rank'] + 1 if causal else n
             if got != want:
@@ -1327,7 +1432,7 @@ def phase_ring(torch, seed):
         del got
     del q, k, v
     torch.cuda.empty_cache()
-    return counts
+    return counts, by_design
 
 
 # ------------------------------------------------------------- rtc
@@ -1400,6 +1505,24 @@ def rtc_checks(torch, rows, x, y, n, grid, kernels, got):
              'torch twin')
 
 
+#: the designs the main paths must run, the Hopper ones; the int8
+#: product's earlier design (``sm80``) stays for layouts that TMA
+#: refuses, which no main path gives it
+NEW_DESIGNS = {'int8_matmul': ('tma_splitk', 'tma'),
+               'flash_attention': ('tf32x3', 'tf32x3_splitkv'),
+               'flash_attention_stats': ('tf32x3', 'tf32x3_splitkv')}
+
+
+def check_designs(path, counts, by_design):
+    """Fail unless every launch of a planned kernel on the main path
+    ``path`` ran one of the new designs."""
+    for name, designs in by_design.items():
+        new = sum(designs.get(d, 0) for d in NEW_DESIGNS[name])
+        if new != counts[name]:
+            fail(f'{path}: {name} launched {counts[name]} times, '
+                 f'{new} of them in the new designs: {designs}')
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -1424,12 +1547,15 @@ def main(argv=None):
     rows = phase_kernels(torch) if 'kernels' in phases else None
 
     paths = {}      # main path -> the launch counts of its run
+    designs = {}    # main path -> {kernel: {design: launches}}
 
     def window(path, fn, *args):
         kernels.reset_launch_counts()       # the path starts here ...
         out = fn(*args)
         paths[path] = kernels.launch_counts()   # ... and ends here
-        log(f'[{path}] launches {paths[path]}')
+        designs[path] = kernels.path_counts()
+        log(f'[{path}] launches {paths[path]}; by design {designs[path]}')
+        check_designs(path, paths[path], designs[path])
         return out
 
     if {'forward', 'serve', 'int8'} & set(phases):
@@ -1463,8 +1589,9 @@ def main(argv=None):
         window('train', phase_train, torch, SEED + 3)
         train_parity(torch, SEED + 4)
     if 'ring' in phases:        # counted in the ranks, which return counts
-        paths['ring'] = phase_ring(torch, SEED + 7)
-        log(f'[ring] launches {paths["ring"]}')
+        paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
+        log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')
+        check_designs('ring', paths['ring'], designs['ring'])
     if 'rtc' in phases:
         if rows is None:
             rows = {k: [] for k in KERNELS}
@@ -1484,6 +1611,8 @@ def main(argv=None):
                 replaces=meta['replaces'],
                 launches=None if launches is None else launches[name],
                 launches_by_path={p: c[name] for p, c in paths.items()},
+                designs_by_path={p: d[name] for p, d in designs.items()
+                                 if name in d},
                 max_abs_err=max(r['max_abs_err'] for r in rows[name]),
                 ms=head['ms'], plain_ms=head['plain_ms'],
                 bound_ms=head['bound_ms'], bound_by=head['bound_by'],

@@ -30,3 +30,29 @@ __device__ __forceinline__ float mx_warp_max(float v) {
 static inline bool mx_aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
+
+// The most devices whose shared-memory opt-in is remembered.
+constexpr int kMxMaxDevices = 64;
+
+// Opt `kernel` in to `bytes` of dynamic shared memory (above 48 KB only when
+// asked for) once per device: cudaFuncSetAttribute applies to the current
+// device, so the flag is kept per device index, in a `done` array that the
+// caller keeps for this kernel. Two threads may both set it the first time,
+// which is harmless. Returns a cudaError_t.
+template <class Kernel>
+static int mx_smem_opt_in(Kernel kernel, int bytes,
+                          bool (&done)[kMxMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMxMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done[dev] = true;
+  }
+  return 0;
+}

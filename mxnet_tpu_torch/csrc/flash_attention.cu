@@ -12,231 +12,488 @@
 // and sum l = sum_j exp(s_j - m). Its causal mask is the diagonal block:
 // q_offset = 0, T == S, key j kept for query i when i >= j.
 //
-// Bound on the H100: operations. In fp32 on the CUDA cores the card does
-// 67 TFLOP/s, so at T = S = 2048, d = 128 the 4*T*S*d products take far
-// longer than reading q, k and v once (half as many under a causal mask).
-// The stats form writes two more floats a row and changes nothing else.
+// Bound on the H100: operations. At T = S = 2048, d = 128 the 4*T*S*d
+// products take far longer than reading q, k and v once (half as many
+// under a causal mask). Each product here is three TF32 tensor-core
+// products (below), so the kernel's ceiling is 495 / 3 = 165 TFLOP/s of
+// fp32-accurate work, against 67 on the CUDA cores.
 //
-// Design: one block of 4 warps per (batch*head, 64 query rows); each warp
-// owns 16 query rows. A loop inside the block walks key tiles of 32 rows
-// (the TPU kernel's fori_loop over key blocks): the tile of K and V is
-// staged in shared memory, lane j computes the scores of key j against the
-// warp's 16 queries, the warp keeps each row's running max and sum (online
-// softmax in fp32, p set to 0 on masked lanes after exp), writes p to
-// shared memory and accumulates p v with lane j owning head dims j, j+32,
-// ... . Key tiles above the causal diagonal of the block are never loaded.
-// Rows past T and keys past S are masked, so T and S may be any length.
-// The products are scalar FMAs: no tensor cores, so the sums are true fp32
-// like the reference's. The stats form is this design unchanged: a simple
-// kernel that is right; making either form fast is later work.
+// Design: one block of 4 warps per (batch*head, 64 query rows), each warp
+// 16 query rows; a loop inside the block walks key tiles of BK rows (32 at
+// d 128, 64 below; the TPU kernel's fori_loop over key blocks), each staged
+// in shared memory through a two-stage cp.async ring so that the next tile
+// loads while this one computes. Q k^T and p v run on mma.sync m16n8k8
+// tf32 in 3xTF32: each fp32 operand is split as hi = cvt.rna.tf32(a), lo =
+// a - hi (read by the tensor cores as TF32, which rounds it toward zero),
+// and the product is accumulated in fp32 as hi*lo + lo*hi + hi*hi
+// (CUTLASS's OpMultiplyAddFastF32), which keeps about fp32's
+// accuracy; one TF32 pass keeps about three digits, too few for the 1e-4
+// the kernel is held to. q, pre-scaled as the reference does, stays in
+// shared memory and is split as its fragments are read (its fragments at d
+// 128 would not fit in registers beside the 64 accumulators a thread, and
+// a second copy would halve the blocks an SM holds). The online softmax
+// works on the accumulator fragments in registers: each row's max through
+// quad shuffles every tile, its sum in each lane's share until the end. The
+// MMA's k index is permuted within each 8 (k-index t4 is 2*t4, t4 + 4 is
+// 2*t4 + 1), head dims in q k^T and keys in p v alike: q's and k's
+// fragment pairs are then single 8-byte loads, and p's accumulator
+// fragment is its A fragment as it stands. The tensor cores truncate as
+// they accumulate, at the scale of the running sum: a score's small
+// products sum apart from its big ones, and each tile's p v sums in fresh
+// registers and is added to the output accumulators in fp32. Masked scores
+// are -1e30 and p is 0 on masked lanes; rows past T and keys past S are
+// masked, so T and S may be any length. Key tiles above the causal
+// diagonal of the block are never loaded, the heaviest query blocks are
+// launched first, and a warp whose rows all lie past T skips the products.
+//
+// Split-KV: where (batch*head) x (query blocks) would leave SMs idle (a
+// short T against a long S), the wrapper's plan splits the keys. Each split
+// writes its (acc, m, l) partial to a workspace; the last block of its
+// (batch*head, query block) to arrive (atomicAdd on a counter after
+// __threadfence) merges the partials in split order with the isfinite-
+// guarded merge of parallel/ring_attention.py:_merge_stats, writes o, or
+// (acc, m, l) for the stats form, and sets the counter back to 0. One
+// launch a call.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 32;   // key rows per tile
 constexpr int kWarps = 4;
-constexpr int kRows = kBQ / kWarps;  // query rows per warp
+constexpr int kThreads = kWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;   // exp(x) = 2^(x log2 e)
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * D + kBK * (D + 4) + kBK * D + kBQ * kBK);
+struct Cfg {
+  static constexpr int kBK = D == 128 ? 32 : 64;  // key rows per tile
+  static constexpr int kQS = D + 8;    // row strides in floats, chosen so
+  static constexpr int kKS = D + 8;    // that a warp's fragment loads hit
+  static constexpr int kVS = D + 4;    // 32 distinct banks
+  static constexpr int kStageFloats = kBK * (kKS + kVS);
+  static constexpr size_t kSmem =
+      sizeof(float) * (kBQ * kQS + 2 * kStageFloats);
+  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
+};
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// a = hi + lo as two TF32 operands, CUTLASS's OpMultiplyAddFastF32 split:
+// hi = cvt.rna.tf32(a), and lo = a - hi (exact in fp32) passed as it is,
+// since the tensor cores read a TF32 operand's top 19 bits and drop the
+// rest, which rounds lo toward zero.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(a);
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// Not volatile: a pure function of its operands, which the compiler may
+// interleave with independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The merge of two (m, l, acc) partials, ring_attention._merge_stats.
+__device__ __forceinline__ void merge(float& m, float& l, float& o, float mb,
+                                      float lb, float ob) {
+  const float mn = fmaxf(m, mb);
+  const float ms = isfinite(mn) ? mn : 0.f;
+  const float a = isfinite(m) ? expf(m - ms) : 0.f;
+  const float b = isfinite(mb) ? expf(mb - ms) : 0.f;
+  l = a * l + b * lb;
+  o = a * o + b * ob;
+  m = mn;
 }
 
 // Stats = false: o = acc / l. Stats = true: o = acc, m_out = m, l_out = l
 // (both (bh, T)), and the causal mask is the diagonal block (q_offset 0).
+// Grid: (bh * query blocks, splits); split s takes the key tiles s * chunk
+// .. (s + 1) * chunk - 1. With splits > 1, ws holds each split's (acc, m,
+// l) and counters one int a (bh, query block).
 template <int D, bool Stats>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ m_out, float* __restrict__ l_out, int T,
-                 int S, float sm_scale, int causal) {
-  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
-  constexpr int KP = D + 4;    // padded K row: lane j reads row j
-  constexpr int PER = D / 32;  // head dims per lane in the accumulator
+                 float* __restrict__ m_out, float* __restrict__ l_out, int bh,
+                 int T, int S, float sm_scale, int causal, int splits,
+                 int chunk, float* __restrict__ ws,
+                 int* __restrict__ counters) {
+  using C = Cfg<D>;
+  constexpr int BK = C::kBK;
   extern __shared__ float4 smem4[];
+  __shared__ int s_last;
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + kBQ * D;
-  float* sV = sK + kBK * KP;
-  float* sP = sV + kBK * D;
+  float* sKV = sQ + kBQ * C::kQS;   // [2][BK * kKS (K), BK * kVS (V)]
 
   const int nq = (T + kBQ - 1) / kBQ;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x % nq) * kBQ;
+  const int blk = blockIdx.x, split = blockIdx.y;
+  const int qb = nq - 1 - blk / bh;  // the longest causal rows go first
+  const int b = blk % bh;
+  const int q0 = qb * kBQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
   const int q_offset = Stats ? 0 : S - T;
 
-  const float* qb = q + static_cast<size_t>(bh) * T * D;
-  const float* kb = k + static_cast<size_t>(bh) * S * D;
-  const float* vb = v + static_cast<size_t>(bh) * S * D;
+  const float* qb_ = q + static_cast<size_t>(b) * T * D;
+  const float* kb = k + static_cast<size_t>(b) * S * D;
+  const float* vb = v + static_cast<size_t>(b) * S * D;
 
   // q tile, pre-scaled as the reference does (q * sm_scale, then dot)
-  for (int i = tid; i < kBQ * D / 4; i += kWarps * 32) {
+  for (int i = tid; i < kBQ * D / 4; i += kThreads) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < T) {
-      val = *reinterpret_cast<const float4*>(qb + static_cast<size_t>(q0 + r) * D + c);
+      val = *reinterpret_cast<const float4*>(
+          qb_ + static_cast<size_t>(q0 + r) * D + c);
       val.x *= sm_scale;
       val.y *= sm_scale;
       val.z *= sm_scale;
       val.w *= sm_scale;
     }
-    *reinterpret_cast<float4*>(sQ + r * D + c) = val;
+    *reinterpret_cast<float4*>(sQ + r * C::kQS + c) = val;
   }
 
-  float acc[kRows][PER];
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = MX_NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[r][i] = 0.f;
-  }
-
-  int n_tiles = (S + kBK - 1) / kBK;
+  // this split's key tiles, cut at the causal diagonal of the block
+  const int nt = (S + BK - 1) / BK;
+  const int j0 = split * chunk;
+  int j1 = min(nt, j0 + chunk);
   if (causal) {
     const int last_col = q_offset + min(q0 + kBQ, T) - 1;
-    n_tiles = min(n_tiles, last_col / kBK + 1);
+    j1 = min(j1, last_col / BK + 1);
   }
 
-  const int row0 = q0 + warp * kRows;
-  float* sPw = sP + warp * kRows * kBK;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();  // the previous tile's K/V reads are done
-    for (int i = tid; i < kBK * D / 4; i += kWarps * 32) {
+  auto load_kv = [&](int j, int buf) {
+    float* sK = sKV + buf * C::kStageFloats;
+    float* sV = sK + BK * C::kKS;
+    for (int i = tid; i < BK * D / 4; i += kThreads) {
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < S) {
-        kv = *reinterpret_cast<const float4*>(kb + static_cast<size_t>(k0 + r) * D + c);
-        vv = *reinterpret_cast<const float4*>(vb + static_cast<size_t>(k0 + r) * D + c);
-      }
-      *reinterpret_cast<float4*>(sK + r * KP + c) = kv;
-      *reinterpret_cast<float4*>(sV + r * D + c) = vv;
+      const int key = j * BK + r;
+      const bool ok = key < S;
+      const size_t off = ok ? static_cast<size_t>(key) * D + c : 0;
+      cp_async16(sK + r * C::kKS + c, kb + off, ok);
+      cp_async16(sV + r * C::kVS + c, vb + off, ok);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // scores of key k0 + lane against the warp's rows
-    float s[kRows];
+  // accumulators: oacc[n][e] is row g + 8*(e/2) of the warp's 16, head dim
+  // 8n + 2*t4 + e%2; m and l for rows g and g + 8
+  float oacc[D / 8][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* krow = sK + lane * KP;
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m[2] = {MX_NEG_INF, MX_NEG_INF}, l[2] = {0.f, 0.f};
+  const int r0 = warp * 16;
+  const bool active = q0 + r0 < T;
+  const float* qw = sQ + r0 * C::kQS;
+
+  if (j0 < j1) load_kv(j0, 0);
+  for (int j = j0; j < j1; ++j) {
+    const int buf = (j - j0) & 1;
+    if (j + 1 < j1) {
+      load_kv(j + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile j (and, the first time, q) is in place
+    const float* sK = sKV + buf * C::kStageFloats;
+    const float* sV = sK + BK * C::kKS;
+    if (active) {   // a warp whose rows all lie past T has nothing to do
+      // scores: s[n] is the 16 x 8 tile of keys j*BK + 8n .. . The big
+      // products hi*hi sum in s and the small ones hi*lo + lo*hi in their
+      // own registers, added once at the end: the tensor cores truncate as
+      // they accumulate, at the scale of the running sum
+      float s[BK / 8][4], small[BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = small[n][e] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(krow + d);
+      for (int kk = 0; kk < D; kk += 8) {   // k-steps of 8 head dims
+        // the MMA's k index t4 is head dim kk + 2*t4 and t4 + 4 is kk +
+        // 2*t4 + 1, in q and k alike, so each pair is one 8-byte load
+        uint32_t ah[4], al[4];
+        const float2 q0v = *reinterpret_cast<const float2*>(
+            qw + g * C::kQS + kk + 2 * t4);
+        const float2 q8v = *reinterpret_cast<const float2*>(
+            qw + (g + 8) * C::kQS + kk + 2 * t4);
+        split_tf32(q0v.x, ah[0], al[0]);
+        split_tf32(q8v.x, ah[1], al[1]);
+        split_tf32(q0v.y, ah[2], al[2]);
+        split_tf32(q8v.y, ah[3], al[3]);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qq =
-            *reinterpret_cast<const float4*>(sQ + (warp * kRows + r) * D + d);
-        s[r] = fmaf(qq.x, kk.x, s[r]);
-        s[r] = fmaf(qq.y, kk.y, s[r]);
-        s[r] = fmaf(qq.z, kk.z, s[r]);
-        s[r] = fmaf(qq.w, kk.w, s[r]);
-      }
-    }
-
-    // online softmax, one row at a time across the warp
-    const int col = k0 + lane;
+        for (int n = 0; n < BK / 8; n += 4) {   // four key blocks in turn
+          uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = col < S && (!causal || q_offset + row0 + r >= col);
-      const float sv = ok ? s[r] : MX_NEG_INF;
-      const float m_new = fmaxf(m[r], mx_warp_max(sv));
-      const float p = ok ? expf(sv - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = alpha * l[r] + mx_warp_sum(p);
-      m[r] = m_new;
+          for (int i = 0; i < 4; ++i) {
+            const float2 kv = *reinterpret_cast<const float2*>(
+                sK + ((n + i) * 8 + g) * C::kKS + kk + 2 * t4);
+            split_tf32(kv.x, bh[i][0], bl[i][0]);
+            split_tf32(kv.y, bh[i][1], bl[i][1]);
+          }
 #pragma unroll
-      for (int i = 0; i < PER; ++i) acc[r][i] *= alpha;
-      sPw[r * kBK + lane] = p;
-    }
-    __syncwarp();
-
-    // acc += p v over the tile's keys
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float vv[4][PER];
+          for (int i = 0; i < 4; ++i) mma_tf32(small[n + i], ah, bl[i]);
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+          for (int i = 0; i < 4; ++i) mma_tf32(small[n + i], al, bh[i]);
 #pragma unroll
-        for (int i = 0; i < PER; ++i) vv[t][i] = sV[(kk + t) * D + lane + 32 * i];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(sPw + r * kBK + kk);
-#pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          float a = acc[r][i];
-          a = fmaf(p4.x, vv[0][i], a);
-          a = fmaf(p4.y, vv[1][i], a);
-          a = fmaf(p4.z, vv[2][i], a);
-          a = fmaf(p4.w, vv[3][i], a);
-          acc[r][i] = a;
+          for (int i = 0; i < 4; ++i) mma_tf32(s[n + i], ah, bh[i]);
         }
       }
-    }
-    __syncwarp();  // sPw is rewritten by the next tile
-  }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += small[n][e];
 
-  float* ob = o + static_cast<size_t>(bh) * T * D;
+      // online softmax on the fragments, rows g (h = 0) and g + 8 (h = 1);
+      // only a tile that crosses S or the warp's causal diagonal is masked
+      const bool masked =
+          (j + 1) * BK > S || (causal && (j + 1) * BK - 1 > q_offset + q0 + r0);
+      if (masked) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = row0 + r;
-    if (row < T) {
-      if constexpr (Stats) {
+        for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-        for (int i = 0; i < PER; ++i)
-          ob[static_cast<size_t>(row) * D + lane + 32 * i] = acc[r][i];
-        if (lane == 0) {
-          m_out[static_cast<size_t>(bh) * T + row] = m[r];
-          l_out[static_cast<size_t>(bh) * T + row] = l[r];
+          for (int e = 0; e < 4; ++e) {
+            const int col = j * BK + n * 8 + 2 * t4 + (e & 1);
+            const int row = q0 + r0 + g + 8 * (e >> 1);
+            if (col >= S || (causal && q_offset + row < col))
+              s[n][e] = MX_NEG_INF;
+          }
+      }
+      float mx[2] = {MX_NEG_INF, MX_NEG_INF};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        mx[h] = fmaxf(m[h], mx[h]);      // the new running max
+        alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);
+        m[h] = mx[h];
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // p is 0 on a masked lane, also where the row's max is still -1e30
+          const float p = masked && s[n][e] == MX_NEG_INF
+                              ? 0.f
+                              : exp2f((s[n][e] - m[e >> 1]) * kLog2e);
+          s[n][e] = p;
+          sum[e >> 1] += p;
         }
-      } else {
-        const float lr = fmaxf(l[r], 1e-30f);
 #pragma unroll
-        for (int i = 0; i < PER; ++i)
-          ob[static_cast<size_t>(row) * D + lane + 32 * i] = acc[r][i] / lr;
+      for (int h = 0; h < 2; ++h) {
+        l[h] = alpha[h] * l[h] + sum[h];   // this lane's share of the row
+      }
+      // the running max of most rows stays put after the first tiles
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) oacc[n][e] *= alpha[e >> 1];
+      }
+
+      // oacc += p v. The MMA's k index t4 is key 2*t4 and t4 + 4 is key
+      // 2*t4 + 1 of each 8, so p's C fragment is its A fragment as it
+      // stands: (c0, c2, c1, c3). Each 16 x 8 block of the tile's p v is
+      // summed in fresh registers and then added to oacc in fp32: the tensor
+      // cores truncate as they accumulate, so oacc is never their running sum.
+      uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+      for (int n2 = 0; n2 < BK / 8; ++n2) {
+        split_tf32(s[n2][0], ph[n2][0], pl[n2][0]);
+        split_tf32(s[n2][2], ph[n2][1], pl[n2][1]);
+        split_tf32(s[n2][1], ph[n2][2], pl[n2][2]);
+        split_tf32(s[n2][3], ph[n2][3], pl[n2][3]);
+      }
+      // head dims in groups of kNG blocks of 8, whose products go to the
+      // tensor cores in turn so that consecutive MMAs do not wait on each other
+      constexpr int kNG = 4;
+      const float* vr = sV + 2 * t4 * C::kVS + g;
+#pragma unroll
+      for (int n0 = 0; n0 < D / 8; n0 += kNG) {
+        float acc[kNG][4];
+#pragma unroll
+        for (int i = 0; i < kNG; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+#pragma unroll
+        for (int n2 = 0; n2 < BK / 8; ++n2) {
+          uint32_t bh[kNG][2], bl[kNG][2];
+#pragma unroll
+          for (int i = 0; i < kNG; ++i) {
+            split_tf32(vr[n2 * 8 * C::kVS + (n0 + i) * 8], bh[i][0], bl[i][0]);
+            split_tf32(vr[(n2 * 8 + 1) * C::kVS + (n0 + i) * 8], bh[i][1],
+                       bl[i][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < kNG; ++i) mma_tf32(acc[i], ph[n2], bl[i]);
+#pragma unroll
+          for (int i = 0; i < kNG; ++i) mma_tf32(acc[i], pl[n2], bh[i]);
+#pragma unroll
+          for (int i = 0; i < kNG; ++i) mma_tf32(acc[i], ph[n2], bh[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kNG; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) oacc[n0 + i][e] += acc[i][e];
       }
     }
+    __syncthreads();   // the buffer is refilled two tiles on
   }
+
+  // each row's sum l, from the shares of the quad's four lanes
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+
+  // rows of this thread: q0 + r0 + g + 8h
+  if (splits == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + r0 + g + 8 * h;
+      if (row >= T) continue;
+      float* orow = o + (static_cast<size_t>(b) * T + row) * D;
+      const float lr = fmaxf(l[h], 1e-30f);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float2 val = make_float2(oacc[n][2 * h], oacc[n][2 * h + 1]);
+        if (!Stats) {
+          val.x = val.x / lr;
+          val.y = val.y / lr;
+        }
+        *reinterpret_cast<float2*>(orow + n * 8 + 2 * t4) = val;
+      }
+      if (Stats && t4 == 0) {
+        m_out[static_cast<size_t>(b) * T + row] = m[h];
+        l_out[static_cast<size_t>(b) * T + row] = l[h];
+      }
+    }
+    return;
+  }
+
+  // split-KV: this split's partial, then the last block merges
+  const size_t part = static_cast<size_t>(kBQ) * (D + 2);
+  float* mine = ws + (static_cast<size_t>(blk) * splits + split) * part;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      __stcg(reinterpret_cast<float2*>(mine + r * D + n * 8 + 2 * t4),
+             make_float2(oacc[n][2 * h], oacc[n][2 * h + 1]));
+    if (t4 == 0) {
+      __stcg(mine + kBQ * D + r, m[h]);
+      __stcg(mine + kBQ * D + kBQ + r, l[h]);
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&counters[blk], 1) == splits - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* base = ws + static_cast<size_t>(blk) * splits * part;
+  for (int i = tid; i < kBQ * D; i += kThreads) {
+    const int r = i / D, c = i % D, row = q0 + r;
+    if (row >= T) continue;
+    float mm = __ldcg(base + kBQ * D + r);
+    float ll = __ldcg(base + kBQ * D + kBQ + r);
+    float oo = __ldcg(base + i);
+    for (int sp = 1; sp < splits; ++sp) {
+      const float* pp = base + sp * part;
+      merge(mm, ll, oo, __ldcg(pp + kBQ * D + r),
+            __ldcg(pp + kBQ * D + kBQ + r), __ldcg(pp + i));
+    }
+    const size_t at = static_cast<size_t>(b) * T + row;
+    if (Stats) {
+      o[at * D + c] = oo;
+      if (c == 0) {
+        m_out[at] = mm;
+        l_out[at] = ll;
+      }
+    } else {
+      o[at * D + c] = oo / fmaxf(ll, 1e-30f);
+    }
+  }
+  if (tid == 0) counters[blk] = 0;     // zero again for the next call
 }
 
 template <int D, bool Stats>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* m, float* l, int bh, int T, int S, float sm_scale,
-           int causal, cudaStream_t st) {
-  constexpr size_t bytes = smem_bytes<D>();
-  // above 48 KB of dynamic shared memory only when asked for; the setting
-  // belongs to the current device, so it is made on every launch
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, Stats>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
+           int causal, int block_k, int splits, int chunk, float* ws,
+           int* counters, cudaStream_t st) {
+  constexpr int bytes = static_cast<int>(Cfg<D>::kSmem);
+  auto kernel = flash_fwd_kernel<D, Stats>;
+  static bool configured[kMxMaxDevices] = {};   // per device index
+  const int rc = mx_smem_opt_in(kernel, bytes, configured);
+  if (rc != 0) return rc;
   const long long blocks = static_cast<long long>(bh) * ((T + kBQ - 1) / kBQ);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<D, Stats>
-      <<<static_cast<unsigned>(blocks), kWarps * 32, bytes, st>>>(
-          q, k, v, o, m, l, T, S, sm_scale, causal);
+  // the plan's key tile is this instantiation's, every split takes at
+  // least one key tile and together they take each once
+  const int nt = (S + Cfg<D>::kBK - 1) / Cfg<D>::kBK;
+  if (blocks > 0x7fffffffLL || block_k != Cfg<D>::kBK || splits < 1 ||
+      chunk < 1 || (splits - 1) * chunk >= nt || splits * chunk < nt ||
+      splits > 65535 || (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<dim3(static_cast<unsigned>(blocks), splits), kThreads, bytes,
+           st>>>(q, k, v, o, m, l, bh, T, S, sm_scale, causal, splits, chunk,
+                 ws, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool Stats>
 int dispatch(const float* q, const float* k, const float* v, float* o,
              float* m, float* l, int bh, int T, int S, int d, float sm_scale,
-             int causal, void* stream) {
+             int causal, int block_k, int splits, int chunk, float* ws,
+             int* counters, void* stream) {
   if (bh <= 0 || T <= 0 || S <= 0 || !mx_aligned16(q) || !mx_aligned16(k) ||
       !mx_aligned16(v) || !mx_aligned16(o))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal, st);
+      return launch<32, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
+                               block_k, splits, chunk, ws, counters, st);
     case 64:
-      return launch<64, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal, st);
+      return launch<64, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
+                               block_k, splits, chunk, ws, counters, st);
     case 128:
-      return launch<128, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal, st);
+      return launch<128, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
+                                block_k, splits, chunk, ws, counters, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -244,13 +501,23 @@ int dispatch(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 
 // q, o: (bh, T, d); k, v: (bh, S, d); all contiguous fp32, 16-byte aligned.
-// d must be 32, 64 or 128. Returns the cudaError_t of the launch.
+// d must be 32, 64 or 128. From the wrapper's plan: `block_k`, the key
+// rows of a tile (32 at d 128, 64 below, checked), and `splits` of the
+// ceil(S / block_k) key tiles, split s taking tiles s * chunk .. (s + 1) *
+// chunk - 1 (the last one to the end of S); the entry refuses a chunk and
+// split count that leave a split empty or a tile untaken. With splits > 1,
+// ws holds bh * ceil(T / 64) * splits * 64 * (d + 2) floats and counters
+// bh * ceil(T / 64) ints, zero (the kernel leaves them zero). Returns the
+// cudaError_t of the launch.
 extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
                                        const float* v, float* o, int bh,
                                        int T, int S, int d, float sm_scale,
-                                       int causal, void* stream) {
+                                       int causal, int block_k, int splits,
+                                       int chunk, float* ws, int* counters,
+                                       void* stream) {
   return dispatch<false>(q, k, v, o, nullptr, nullptr, bh, T, S, d, sm_scale,
-                         causal, stream);
+                         causal, block_k, splits, chunk, ws, counters,
+                         stream);
 }
 
 // The stats form: acc (bh, T, d) unnormalised, m and l (bh, T); causal is
@@ -259,9 +526,11 @@ extern "C" int flash_attention_stats_f32(const float* q, const float* k,
                                          const float* v, float* acc, float* m,
                                          float* l, int bh, int T, int S, int d,
                                          float sm_scale, int causal,
+                                         int block_k, int splits, int chunk,
+                                         float* ws, int* counters,
                                          void* stream) {
   if (m == nullptr || l == nullptr || (causal && T != S))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<true>(q, k, v, acc, m, l, bh, T, S, d, sm_scale, causal,
-                        stream);
+                        block_k, splits, chunk, ws, counters, stream);
 }

@@ -7,7 +7,9 @@ forms), :mod:`.paged_attention`, :mod:`.fused_optimizer`,
 
 Each kernel's wrapper counts its launches in a plain integer attribute
 (``fused_norm.launches`` ...); :func:`launch_counts` reads them and
-:func:`reset_launch_counts` sets them to 0.
+:func:`reset_launch_counts` sets them to 0. The int8 product and both
+flash forms also count by the design their plan took
+(``launches_by_path``), which :func:`path_counts` reads.
 """
 
 import torch
@@ -19,7 +21,8 @@ from .fused_optimizer import adam_step, sgd_mom_step
 from . import int8_matmul as _int8     # the module keeps its name here
 from . import _nvrtc
 
-__all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts', 'needs_grad']
+__all__ = ['KERNELS', 'launch_counts', 'path_counts', 'reset_launch_counts',
+           'needs_grad']
 
 #: kernel name -> the wrapper that launches it
 KERNELS = {'fused_norm': fused_norm,
@@ -37,9 +40,18 @@ def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def path_counts():
+    """``{kernel name: {design: launches so far}}`` for the kernels whose
+    wrappers plan a design."""
+    return {name: dict(fn.launches_by_path) for name, fn in KERNELS.items()
+            if hasattr(fn, 'launches_by_path')}
+
+
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, 'launches_by_path'):
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
 
 
 def needs_grad(*tensors):

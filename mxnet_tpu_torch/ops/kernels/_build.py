@@ -12,7 +12,8 @@ all started together.
 Every C entry point takes raw pointers and a ``cudaStream_t`` (all bound as
 ``c_void_p``, so ``ctypes`` passes 64 bits) and returns the
 ``cudaError_t`` of its launch; :func:`check` turns a nonzero code into an
-:class:`MXNetError`.
+:class:`MXNetError`. :func:`sm_count` and :func:`counters` serve the
+wrappers whose plans split a kernel's work across blocks.
 """
 
 import ctypes
@@ -24,10 +25,12 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from ...base import MXNetError
 
 __all__ = ['CSRC', 'BUILD_DIR', 'NVCC_FLAGS', 'sources', 'build_all',
-           'function', 'check']
+           'function', 'check', 'sm_count', 'counters']
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
@@ -146,3 +149,36 @@ def check(name, rc, what):
     if rc != 0:
         msg = _libs[name].mx_error_string(rc).decode()
         raise MXNetError(f'{what}: CUDA error {rc} ({msg})')
+
+
+_sm_counts = {}     # device index -> SMs
+_counters = {}      # (kernel name, device index, stream) -> int32 counters
+
+
+def sm_count(device):
+    """The SMs of a CUDA ``device``, read once."""
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = _sm_counts[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def counters(name, device, stream, n):
+    """At least ``n`` int32 counters on ``device`` for the kernels of
+    ``csrc/<name>.cu`` that split their work, launched on ``stream`` (a
+    ``cudaStream_t`` as an integer), zero at rest: made once with
+    ``torch.zeros`` (grown when a call needs more), and set back to zero by
+    the block that finishes each tile. One set per stream, so that split
+    calls on two streams never count each other's blocks; calls on one
+    stream run one after another."""
+    key = (name, device.index, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise MXNetError(f'{name}: the first split call of this size on '
+                             f'a stream cannot be captured in a CUDA graph; '
+                             f'run it once before capturing')
+        c = _counters[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                         device=device)
+    return c

@@ -14,9 +14,18 @@ reference's ``custom_vjp`` (``_flash3``) does: the forward is the wrapper
 ``_flash3_bwd``, a blockless recompute of the softmax in fp32 plain
 PyTorch. That backward is XLA in the reference, not a Pallas kernel, so it
 is no kernel here either.
+
+:func:`plan` picks the kernel's design for a call before the launch:
+``'tf32x3'`` (Q k^T and p v on the tensor cores in 3xTF32, one block a
+batch*head and 64 query rows) or ``'tf32x3_splitkv'`` (the same, with the
+keys split where those blocks would leave SMs idle, the partials merged by
+the last block to arrive). Both forms count their launches in
+``launches`` and, by design, in ``launches_by_path``.
 """
 
 import ctypes
+import functools
+from collections import namedtuple
 
 import torch
 
@@ -26,16 +35,73 @@ from . import _build
 __all__ = ['flash_attention_fwd', 'flash_attention_plain',
            'flash_attention_bwd', 'FlashAttentionFunction',
            'flash_attention_stats', 'flash_attention_stats_plain',
-           'HEAD_DIMS']
+           'HEAD_DIMS', 'PATHS', 'FlashPlan', 'plan']
 
 #: head dims the kernel is built for
 HEAD_DIMS = (32, 64, 128)
 
+#: the kernel's designs, by the plan's name
+PATHS = ('tf32x3', 'tf32x3_splitkv')
+#: query rows a block takes
+BLOCK_Q = 64
+#: most key splits of one call
+MAX_SPLITS = 64
+
 _NEG_INF = -1e30
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 _STATS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+
+#: one call's design: ``path`` (one of :data:`PATHS`), ``block_k`` key
+#: rows a tile (the C entry checks it against its own), ``splits`` of the
+#: key tiles, each taking ``chunk`` tiles (split i takes tiles ``i *
+#: chunk`` up to ``(i + 1) * chunk``, the last one to the end of S),
+#: ``blocks`` (bh * query blocks, one counter each) and ``workspace``
+#: (fp32 partials, 0 when the keys are not split)
+FlashPlan = namedtuple('FlashPlan',
+                       'path block_k splits chunk blocks workspace')
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(bh, t, s, d, sm_count):
+    """The design of one call over ``bh`` heads, ``t`` queries, ``s`` keys
+    and head dim ``d`` on a card with ``sm_count`` SMs. The keys are split
+    when the ``bh * ceil(t / 64)`` blocks are fewer than the SMs, into as
+    many splits as one wave of two blocks an SM holds. Pure Python: the
+    CPU tests check it, and the C entry checks what it is given."""
+    block_k = 32 if d == 128 else 64
+    blocks = bh * _cdiv(t, BLOCK_Q)
+    nt = _cdiv(s, block_k)
+    splits = 1
+    if blocks < sm_count:
+        splits = max(1, min(2 * sm_count // blocks, nt, MAX_SPLITS))
+    # equal chunks of key tiles, and no split left empty
+    chunk = _cdiv(nt, splits)
+    splits = _cdiv(nt, chunk)
+    ws = blocks * splits * BLOCK_Q * (d + 2) if splits > 1 else 0
+    return FlashPlan('tf32x3_splitkv' if splits > 1 else 'tf32x3', block_k,
+                     splits, chunk, blocks, ws)
+
+
+def _launch_args(dev, bh, t, s, d):
+    """The plan of a call, its workspace and counters (or None) and the
+    stream it launches on."""
+    p = plan(bh, t, s, d, _build.sm_count(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if p.splits == 1:
+        return p, None, None, stream
+    ws = torch.empty(p.workspace, dtype=torch.float32, device=dev)
+    return p, ws, _build.counters('flash_attention', dev, stream,
+                                  p.blocks), stream
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _probs(q, k, sm_scale, causal):
@@ -134,16 +200,19 @@ def flash_attention_fwd(q, k, v, sm_scale, causal):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    p, ws, counters, stream = _launch_args(q.device, bh, t, s, d)
     fn = _build.function('flash_attention', 'flash_attention_fwd_f32', _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, t, s, d, float(sm_scale), int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            bh, t, s, d, float(sm_scale), int(bool(causal)), p.block_k,
+            p.splits, p.chunk, _ptr(ws), _ptr(counters), stream)
     _build.check('flash_attention', rc, 'flash_attention')
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_path[p.path] += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def flash_attention_stats_plain(q, k, v, sm_scale, causal):
@@ -187,14 +256,18 @@ def flash_attention_stats(q, k, v, sm_scale, causal=False):
     l = torch.empty(bh, t, dtype=torch.float32, device=q.device)
     if acc.numel() == 0:
         return acc, m, l
+    p, ws, counters, stream = _launch_args(q.device, bh, t, s, d)
     fn = _build.function('flash_attention', 'flash_attention_stats_f32',
                          _STATS_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(), bh, t, s, d, float(sm_scale),
-            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+            int(bool(causal)), p.block_k, p.splits, p.chunk, _ptr(ws),
+            _ptr(counters), stream)
     _build.check('flash_attention', rc, 'flash_attention_stats')
     flash_attention_stats.launches += 1
+    flash_attention_stats.launches_by_path[p.path] += 1
     return acc, m, l
 
 
 flash_attention_stats.launches = 0
+flash_attention_stats.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -7,9 +7,14 @@ refuse; the norm and flash gradients on the card; a small Llama
 served and trained on the card against the CPU, float and int8; the
 flash-attention stats kernel over head dims, ragged edges and both masks;
 a two-rank ring (two processes sharing the card over gloo) against dense
-attention, with each rank's stats launches; and ``rtc`` kernels compiled
+attention, with each rank's stats launches; ``rtc`` kernels compiled
 from CUDA source, bit-equal to their torch twins, and a source that does
-not compile.
+not compile; each design that the int8 product's and flash attention's
+plans pick (split or not, and the int8 product's sm80 design for layouts
+TMA refuses), counted under its path; split plans that miss a tile,
+which the C entries refuse; split calls on two streams at once; and the
+kernels that opt in to more than 48 KB of shared memory, launched on
+every visible card (that test skips on a machine with one card).
 
 Every test needs a CUDA card and skips without one. The tests import no
 JAX, so on a machine without it they run with
@@ -580,3 +585,141 @@ def test_rtc_source_that_does_not_compile_raises_with_the_log(dev):
                      '{ y[0] = undeclared_name; }')
     with pytest.raises(MXNetError, match='undeclared_name'):
         mod.get_kernel('broken').launch([], grid=1, block=1, out_shapes=(1,))
+
+
+# ------------------------------- the planned designs, and every card
+@pytest.mark.parametrize('m,n,k,offset,path', [
+    (4, 1000, 4096, 0, 'tma_splitk'), (33, 1024, 4096, 0, 'tma_splitk'),
+    (64, 130, 14336, 0, 'tma_splitk'), (65, 4096, 4096, 0, 'tma'),
+    (300, 200, 4096, 0, 'tma'), (512, 1024, 16, 0, 'tma'),
+    (3, 257, 4096, 1, 'sm80'), (200, 130, 4100, 0, 'sm80')])
+def test_int8_matmul_takes_its_planned_design(dev, m, n, k, offset, path):
+    """Each design, split or not, with ragged M, N and K edges against the
+    TMA boxes: bit-equal to the plain version, counted under its path."""
+    x = _int8(dev, m, k, seed=1, offset=offset)
+    w = _int8(dev, n, k, seed=2, offset=offset)
+    scale = _randn(dev, n, seed=3).abs() * 1e-4 + 1e-6
+    bias = _randn(dev, n, seed=4)
+    for b in (None, bias):          # the second call reuses the counters
+        before = dict(int8_matmul.int8_matmul.launches_by_path)
+        got = int8_matmul.int8_matmul(x, w, scale, b, torch.bfloat16)
+        torch.cuda.synchronize()
+        after = int8_matmul.int8_matmul.launches_by_path
+        assert {p: after[p] - before[p] for p in after} == {
+            p: int(p == path) for p in after}
+        assert torch.equal(got, int8_matmul.int8_matmul_plain(
+            x, w, scale, b, torch.bfloat16))
+
+
+@pytest.mark.parametrize('t,s,path', [(1, 2048, 'tf32x3_splitkv'),
+                                      (65, 300, 'tf32x3_splitkv'),
+                                      (2048, 2048, 'tf32x3')])
+def test_flash_attention_takes_its_planned_design(dev, t, s, path):
+    """Split-KV at short T (the merge of the partials, twice so that the
+    counters are seen to return to zero) and the unsplit grid, both forms,
+    against the plain versions."""
+    bh, d = 32, 128
+    q, k, v = (_randn(dev, bh, n, d, seed=i)
+               for i, n in enumerate((t, s, s)))
+    for _ in range(2):
+        before = dict(flash_attention.flash_attention_fwd.launches_by_path)
+        got = flash_attention.flash_attention_fwd(q, k, v, d ** -0.5, True)
+        torch.cuda.synchronize()
+        after = flash_attention.flash_attention_fwd.launches_by_path
+        assert after[path] == before[path] + 1
+        torch.testing.assert_close(got, flash_attention.flash_attention_plain(
+            q, k, v, d ** -0.5, True), **ATT_TOL)
+    if t == s:
+        got = flash_attention.flash_attention_stats(q, k, v, d ** -0.5, True)
+        want = flash_attention.flash_attention_stats_plain(q, k, v,
+                                                           d ** -0.5, True)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **ATT_TOL)
+
+
+def test_split_plans_that_miss_a_tile_are_refused(dev, monkeypatch):
+    """The kernels take their split boundaries from the plan; the C entries
+    refuse a chunk that leaves a K tile or a key tile unsummed, a split
+    with nothing to sum, and a key tile other than the kernel's."""
+    x, w = _int8(dev, 4, 4096, seed=1), _int8(dev, 1024, 4096, seed=2)
+    scale = torch.ones(1024, device=dev)
+    good = int8_matmul.plan(4, 1024, 4096, True, 132)
+    assert good.splits > 1      # 32 K tiles of 128 bytes
+    for splits, chunk in ((good.splits, good.chunk - 1),
+                          (good.splits + 1, good.chunk), (2, 8)):
+        bad = good._replace(splits=splits, chunk=chunk)
+        monkeypatch.setattr(int8_matmul, 'plan', lambda *a, bad=bad: bad)
+        with pytest.raises(MXNetError, match='CUDA error'):
+            int8_matmul.int8_matmul(x, w, scale)
+    q, k, v = (_randn(dev, 4, n, 128, seed=j)
+               for j, n in enumerate((37, 2048, 2048)))
+    good = flash_attention.plan(4, 37, 2048, 128, 132)
+    assert good.splits > 1 and good.block_k == 32
+    for change in (dict(chunk=good.chunk - 1), dict(splits=good.splits + 1),
+                   dict(block_k=64)):
+        bad = good._replace(**change)
+        monkeypatch.setattr(flash_attention, 'plan', lambda *a, bad=bad: bad)
+        with pytest.raises(MXNetError, match='CUDA error'):
+            flash_attention.flash_attention_fwd(q, k, v, 0.1, True)
+        with pytest.raises(MXNetError, match='CUDA error'):
+            flash_attention.flash_attention_stats(q, k, v, 0.1)
+
+
+def test_split_calls_on_two_streams_keep_apart(dev):
+    """Split calls of one kernel source on two streams at once: each
+    stream has its own tile counters, so neither call counts the other's
+    blocks, and both stay equal to their plain versions."""
+    x = [_int8(dev, 4, 4096, seed=i) for i in (1, 2)]
+    w = _int8(dev, 1024, 4096, seed=3)
+    scale = torch.ones(1024, device=dev)
+    q, k, v = (_randn(dev, 4, n, 128, seed=j)
+               for j, n in enumerate((37, 2048, 2048)))
+    assert int8_matmul.plan(4, 1024, 4096, True, 132).splits > 1
+    assert flash_attention.plan(4, 37, 2048, 128, 132).splits > 1
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append((int8_matmul.int8_matmul(x[i], w, scale),
+                                flash_attention.flash_attention_fwd(
+                                    q, k, v, 0.1 * (i + 1), True)))
+    torch.cuda.synchronize(dev)
+    for i in range(2):
+        want = int8_matmul.int8_matmul_plain(x[i], w, scale)
+        att = flash_attention.flash_attention_plain(q, k, v, 0.1 * (i + 1),
+                                                    True)
+        for got, got_att in outs[i]:
+            assert torch.equal(got, want)
+            torch.testing.assert_close(got_att, att, **ATT_TOL)
+
+
+def test_kernels_launch_on_every_card(dev):
+    """The shared-memory opt-in above 48 KB belongs to the device it was
+    made on: each kernel that needs it launches after ``set_device`` on
+    every visible card, and agrees with its plain version there."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f'needs two or more CUDA cards to launch on a second '
+                    f'one; this machine has {cards}')
+    for i in range(cards):
+        torch.cuda.set_device(i)
+        d = torch.device('cuda', i)
+        for m, offset in ((4, 0), (512, 0), (512, 1)):   # swap, tma, sm80
+            x = _int8(d, m, 4096, seed=1, offset=offset)
+            w = _int8(d, 1024, 4096, seed=2, offset=offset)
+            scale = _randn(d, 1024, seed=3).abs() * 1e-4
+            assert torch.equal(
+                int8_matmul.int8_matmul(x, w, scale),
+                int8_matmul.int8_matmul_plain(x, w, scale))
+        for t in (37, 512):             # split-KV and unsplit
+            q, k, v = (_randn(d, 4, n, 128, seed=j)
+                       for j, n in enumerate((t, 512, 512)))
+            torch.testing.assert_close(
+                flash_attention.flash_attention_fwd(q, k, v, 0.1, True),
+                flash_attention.flash_attention_plain(q, k, v, 0.1, True),
+                **ATT_TOL)
+        torch.cuda.synchronize(d)
+    torch.cuda.set_device(0)

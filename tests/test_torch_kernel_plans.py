@@ -1,0 +1,167 @@
+"""The plans that pick the int8 product's and flash attention's designs
+before a launch, checked on the CPU with no card (``sm_count=132``, the
+H100's SMs, passed in).
+
+Every shape the main paths give the kernels must plan the Hopper designs:
+the int8 product at M in {4, 32, 512} (a decode step, a prefill chunk, a
+(1, 512) forward) over llama3_8b's projections, and flash attention at
+T = S in {512, 2048} and at short T against S = 2048. Layouts that TMA
+refuses plan the earlier ``sm80`` design. The kernels take their split
+boundaries from the plan (split s sums tiles ``s * chunk`` up to ``(s +
+1) * chunk``, the last one to the end) and their C entries refuse a plan
+that leaves a split empty or a tile unsummed: the plans' splits cover
+every K byte and every key exactly once, and the grids reach about two
+blocks an SM, in one wave, where the shape allows.
+"""
+
+import pytest
+
+from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+from mxnet_tpu_torch.ops.kernels import int8_matmul as im
+
+SMS = 132
+
+#: llama3_8b's int8 projections (N, K): attention q, k, v, o, the MLP's
+#: gate, up and down, and the LM head
+LLAMA3_8B = {'q': (4096, 4096), 'k': (1024, 4096), 'v': (1024, 4096),
+             'o': (4096, 4096), 'gate': (14336, 4096),
+             'up': (14336, 4096), 'down': (4096, 14336),
+             'head': (128256, 4096)}
+
+
+def _covered(n, splits, chunk):
+    """The tiles each split takes, as the kernels take them from the
+    plan, after the check their C entries make."""
+    assert splits >= 1 and chunk >= 1
+    assert (splits - 1) * chunk < n <= splits * chunk
+    return [list(range(s * chunk, min(n, (s + 1) * chunk)))
+            for s in range(splits)]
+
+
+@pytest.mark.parametrize('proj', sorted(LLAMA3_8B))
+@pytest.mark.parametrize('m', [4, 32, 512])
+def test_int8_main_path_shapes_plan_the_hopper_designs(m, proj):
+    n, k = LLAMA3_8B[proj]
+    p = im.plan(m, n, k, True, SMS)
+    ktiles = -(-k // im.TMA_BK)
+    assert 1 <= p.splits <= min(ktiles, im.MAX_SPLITS)
+    assert sum(_covered(ktiles, p.splits, p.chunk), []) == list(range(ktiles))
+    blocks = p.tiles * p.splits
+    if m <= 64:
+        # out^T = w x^T: 64 weight rows against x's rows rounded up to a
+        # wgmma width
+        assert p.path == 'tma_splitk'
+        assert (p.tile_a, p.tile_b) == (64, 8 if m <= 8 else 32)
+        assert p.tiles == -(-n // 64)
+        # one wave of two blocks an SM: one more split would not fit,
+        # unless K or the split cap runs out first
+        assert blocks <= max(2 * SMS, p.tiles)
+        assert blocks + p.tiles > 2 * SMS or p.splits in (
+            ktiles, im.MAX_SPLITS)
+    else:
+        assert p.path == 'tma' and (p.tile_a, p.tile_b) == (128, 128)
+        assert p.tiles == -(-m // 128) * -(-n // 128)
+        # K is split only when the tiles leave whole SMs idle
+        assert p.splits == max(1, min(SMS // p.tiles, ktiles, 32))
+        assert blocks <= max(SMS, p.tiles)
+    assert p.workspace == (p.tiles * p.splits * p.tile_a * p.tile_b
+                           if p.splits > 1 else 0)
+
+
+@pytest.mark.parametrize('m', [1, 8, 9, 16, 17, 32, 33, 64])
+def test_int8_plan_rounds_m_up_to_a_wgmma_width(m):
+    p = im.plan(m, 4096, 4096, True, SMS)
+    assert p.path == 'tma_splitk'
+    assert p.tile_b == min(w for w in (8, 16, 32, 64) if w >= m)
+    assert im.plan(65, 4096, 4096, True, SMS).path == 'tma'
+
+
+@pytest.mark.parametrize('aligned,k', [(False, 4096), (True, 4100),
+                                       (False, 4100), (True, 200),
+                                       (True, 8)])
+def test_int8_layouts_tma_refuses_plan_sm80(aligned, k):
+    """x or w off 16-byte alignment, or K not a multiple of 16, keep the
+    earlier sm80 kernel; a K that is a multiple of 16 and aligned data
+    take TMA."""
+    for m in (4, 32, 512):
+        p = im.plan(m, 1000, k, aligned, SMS)
+        want = 'sm80' if not aligned or k % 16 else (
+            'tma_splitk' if m <= 64 else 'tma')
+        assert p.path == want
+        if want == 'sm80':
+            assert p.splits == 1 and p.workspace == 0
+
+
+@pytest.mark.parametrize('k', [200, 4100, 131071, 14336, 208, 4112, 16,
+                               128, 131056])
+def test_int8_k_splits_cover_k_exactly_once(k):
+    """Each K byte is summed by exactly one split, which sums at least one
+    whole 128-byte tile, for every N from one 64-row tile up to two
+    waves, at M 4 and 512: ragged K whose last tile is part full included.
+    A K that is not a multiple of 16 (200, 4100, 131071) plans the sm80
+    design, which walks all of K in one block."""
+    ktiles = -(-k // im.TMA_BK)
+    seen = set()
+    for m in (4, 512):
+        for n in range(64, 2 * SMS * 64 + 1, 64):
+            p = im.plan(m, n, k, True, SMS)
+            if k % 16:
+                assert (p.path, p.splits, p.workspace) == ('sm80', 1, 0)
+                continue
+            seen.add(p.splits)
+            tiles = _covered(ktiles, p.splits, p.chunk)
+            assert all(tiles)
+            covered = [b for t in tiles for b in range(
+                t[0] * im.TMA_BK, min(k, (t[-1] + 1) * im.TMA_BK))]
+            assert covered == list(range(k))
+    if k % 16 == 0:     # the split paths were planned where K allows them
+        assert max(seen) == min(ktiles, im.MAX_SPLITS) or max(seen) > 8
+
+
+@pytest.mark.parametrize('t,s', [(512, 512), (2048, 2048), (37, 2048),
+                                 (1, 2048), (64, 2048), (65, 2048)])
+@pytest.mark.parametrize('d', [32, 64, 128])
+def test_flash_main_path_shapes_plan_the_tensor_core_designs(t, s, d):
+    bh = 32
+    p = fa.plan(bh, t, s, d, SMS)
+    blocks = bh * -(-t // fa.BLOCK_Q)
+    nt = -(-s // p.block_k)
+    assert p.block_k == (32 if d == 128 else 64)
+    assert p.blocks == blocks
+    assert sum(_covered(nt, p.splits, p.chunk), []) == list(range(nt))
+    if blocks >= SMS:
+        # a long T fills the card unsplit
+        assert p.path == 'tf32x3' and p.splits == 1 and p.workspace == 0
+    else:
+        assert p.path == 'tf32x3_splitkv' and p.splits > 1
+        assert blocks * p.splits <= 2 * SMS
+        assert blocks * (p.splits + 1) > 2 * SMS or p.splits == min(
+            nt, fa.MAX_SPLITS)
+        assert p.workspace == blocks * p.splits * fa.BLOCK_Q * (d + 2)
+
+
+def test_flash_plan_splits_at_llama_widths():
+    """T = S = 512 (a (1, 512) forward), 2048 (a train step, the ring's
+    blocks) unsplit; T 37 against S 2048 split."""
+    assert fa.plan(32, 512, 512, 128, SMS).path == 'tf32x3'
+    assert fa.plan(32, 2048, 2048, 128, SMS).path == 'tf32x3'
+    p = fa.plan(32, 37, 2048, 128, SMS)
+    assert p.path == 'tf32x3_splitkv' and p.splits == 8
+
+
+@pytest.mark.parametrize('s', [1, 37, 2048, 2049])
+@pytest.mark.parametrize('block_k', [32, 64])
+def test_flash_key_splits_cover_s_exactly_once(s, block_k):
+    """Every key is taken by exactly one split, which takes at least one
+    key tile (32 keys at d 128, 64 below), for every batch*head count
+    from one block up to a full wave."""
+    d = 128 if block_k == 32 else 64
+    for bh in range(1, SMS + 1):
+        p = fa.plan(bh, 1, s, d, SMS)
+        assert p.block_k == block_k
+        nt = -(-s // p.block_k)
+        tiles = _covered(nt, p.splits, p.chunk)
+        assert all(tiles)
+        covered = [j for t in tiles for j in range(
+            t[0] * p.block_k, min(s, (t[-1] + 1) * p.block_k))]
+        assert covered == list(range(s))
