@@ -20,7 +20,11 @@ Phases, each of which fails the run on any error:
                computes the same function, that call. The int8 product
                and flash attention name the design their plan took; the
                int8 product's earlier design (sm80) is timed beside it,
-               and the int8 wrapper's host cost per call is logged. The gradients of the norm and flash ops (their
+               and the int8 wrapper's host cost per call is logged. Paged
+               decode names its split count, is timed at half and twice
+               that count too, and is replayed from a CUDA graph after its
+               offsets and block table were rewritten in place. The
+               gradients of the norm and flash ops (their
                ``autograd.Function``s) meet autograd through the plain
                versions.
 4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
@@ -33,7 +37,8 @@ Phases, each of which fails the run on any error:
                through the full forward (the flash path) and must pick
                the same tokens wherever the top-2 logit margin exceeds
                1e-2. Then ``torch.profiler`` splits a decode step and a
-               prefill chunk into kernel time by name.
+               prefill chunk into kernel time by name; a decode step must
+               show one paged-decode kernel event a layer.
 6. int8     -- the same net, quantized in place by ``quantize_net`` (naive
                calibration on one seeded (1, 512) batch, bf16
                activations): 225 ``QuantizedDense`` layers. One (1, 512)
@@ -323,8 +328,7 @@ def _case(torch, name, shape, got, want, tol, why, kernel, plain,
 def phase_kernels(torch):
     """Every kernel against its plain version; returns {kernel: [rows]}."""
     import torch.nn.functional as F
-    from mxnet_tpu_torch.ops.kernels import fused_norms, flash_attention, \
-        paged_attention
+    from mxnet_tpu_torch.ops.kernels import fused_norms, flash_attention
 
     dev = torch.device('cuda', 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -405,47 +409,7 @@ def phase_kernels(torch):
     del q, k, v
     _stats_cases(torch, randn, rows)
 
-    # ---- paged decode at the serving shapes: 4 slots, llama3_8b heads; the
-    # second case has few enough pages that one block takes a whole row
-    kv, G, dh, psz = 8, 4, 128, 16
-    for B, NP, depths in ((4, 128, [1, 700, 2047, 0]),
-                          (3, 8, [0, 37, 127])):
-        P = B * NP + 1
-        q = randn(B, kv, G, dh)
-        kp, vp = randn(P, psz, kv, dh), randn(P, psz, kv, dh)
-        perm = torch.randperm(P - 1,
-                              generator=torch.Generator().manual_seed(1))
-        pages = (perm[:B * NP] + 1).reshape(B, NP).to(torch.int32)
-        if B == 4:
-            pages[3] = 0                           # an all-garbage row
-        pages = pages.to(dev)
-        offset = torch.tensor(depths, dtype=torch.int32, device=dev)
-        scale = dh ** -0.5
-        got = paged_attention.paged_attention_decode(q, kp, vp, pages,
-                                                     offset, scale)
-        want = paged_attention.paged_attention_decode_plain(
-            q, kp, vp, pages, offset, scale)
-        if not bool(torch.isfinite(got).all()):
-            fail('paged decode: output not finite')
-        live = sum(o + 1 for o in depths)      # positions the rows read
-        nbytes = f4 * (2 * live * kv * dh + 2 * B * kv * G * dh) \
-            + 4 * (pages.numel() + B)
-        ops = 4 * live * kv * G * dh
-        rows['paged_attention_decode'].append(_case(
-            torch, 'paged_attention_decode',
-            f'B={B} kv={kv} G={G} dh={dh} page={psz} pages/seq={NP} '
-            f'depths={depths}' + (' (last row all garbage)' if B == 4
-                                  else ''),
-            got, want, att_tol, 'fp32 online softmax across pages vs '
-            'one-pass softmax over the gathered cache',
-            lambda: paged_attention.paged_attention_decode(
-                q, kp, vp, pages, offset, scale),
-            lambda: paged_attention.paged_attention_decode_plain(
-                q, kp, vp, pages, offset, scale),
-            nbytes, ops, None))
-    del q, kp, vp
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    _paged_cases(torch, randn, rows, sms)
 
     _optimizer_cases(torch, randn, rows)
     _int8_cases(torch, dev, rows)
@@ -459,6 +423,111 @@ def phase_kernels(torch):
         fail(f'{len(bad)} kernel check(s) disagree with the plain version: '
              f'{[(r["name"], r["shape"]) for r in bad]}')
     return rows
+
+
+def _paged_cases(torch, randn, rows, sms):
+    """Paged decode against its plain version at the serving shapes (4
+    slots, llama3_8b's 8 KV heads of 128 with 4 query heads each, pages of
+    16, 128 pages a row): first a decode step's own, every row at depth
+    1024; then mixed depths with a retired row of garbage pages; then a
+    table of 8 pages. The first two also time the kernel at half and twice
+    the plan's split count. Last, one call captured in a CUDA graph whose
+    offsets and block table are then rewritten in place (a dead row, a
+    depth-0 row): the replay must meet the plain version at the new
+    values, as a graph of the decode step will rely on."""
+    import ctypes
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import paged_attention as pa
+    smem = _build.function('paged_attention', 'paged_attention_smem_bytes',
+                           [ctypes.c_int, ctypes.c_int])
+    log(f'[kernels] paged_attention_decode shared memory a block, bytes, '
+        f'by (head dim, group): '
+        f'{ {(d, g): smem(d, g) for d in pa.HEAD_DIMS for g in pa.GROUPS} }')
+    kv, G, dh, psz = 8, 4, 128, 16
+    tol, why = (1e-4, 1e-4), ('fp32 online softmax across tiles vs '
+                              'one-pass softmax over the gathered cache')
+    scale = dh ** -0.5
+
+    def inputs(B, NP, depths, garbage_row=None):
+        P = B * NP + 1
+        q = randn(B, kv, G, dh)
+        kp, vp = randn(P, psz, kv, dh), randn(P, psz, kv, dh)
+        perm = torch.randperm(P - 1,
+                              generator=torch.Generator().manual_seed(1))
+        pages = (perm[:B * NP] + 1).reshape(B, NP).to(torch.int32)
+        if garbage_row is not None:
+            pages[garbage_row] = 0
+        return q, kp, vp, pages.to(q.device), torch.tensor(
+            depths, dtype=torch.int32, device=q.device)
+
+    def cost(B, pages, depths):
+        live = sum(o + 1 for o in depths)      # positions the rows read
+        nbytes = 4 * (2 * live * kv * dh + 2 * B * kv * G * dh) \
+            + 4 * (pages.numel() + B)
+        return nbytes, 4 * live * kv * G * dh
+
+    for B, NP, depths, garbage in ((4, 128, [1024] * 4, None),
+                                   (4, 128, [1, 700, 2047, 0], 3),
+                                   (3, 8, [0, 37, 127], None)):
+        q, kp, vp, pages, offset = inputs(B, NP, depths, garbage)
+        got = pa.paged_attention_decode(q, kp, vp, pages, offset, scale)
+        want = pa.paged_attention_decode_plain(q, kp, vp, pages, offset,
+                                               scale)
+        splits = pa.plan(B, kv, NP, psz, sms)
+        row = _case(
+            torch, 'paged_attention_decode',
+            f'B={B} kv={kv} G={G} dh={dh} page={psz} pages/seq={NP} '
+            f'depths={depths}' + ('' if garbage is None else
+                                  f' (row {garbage} all garbage)'),
+            got, want, tol, why,
+            lambda: pa.paged_attention_decode(q, kp, vp, pages, offset,
+                                              scale),
+            lambda: pa.paged_attention_decode_plain(q, kp, vp, pages,
+                                                    offset, scale),
+            *cost(B, pages, depths), None, path=f'splits{splits}')
+        if NP == 128:       # the plan's count against its neighbours
+            out = torch.empty_like(q)
+            row['splits_ms'] = {
+                n: cuda_ms(torch, lambda n=n: pa._launch(
+                    q, kp, vp, pages, offset, out, scale, n))
+                for n in sorted({max(1, splits // 2), splits,
+                                 min(pa.MAX_SPLITS, 2 * splits)})}
+            log(f'[kernels] paged_attention_decode by split count, ms: '
+                f'{row["splits_ms"]}')
+        rows['paged_attention_decode'].append(row)
+
+    # the graph case: captured at depth 1024, replayed at other depths
+    q, kp, vp, pages, offset = inputs(4, 128, [1024] * 4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention_decode(q, kp, vp, pages, offset, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = pa.paged_attention_decode(q, kp, vp, pages, offset, scale)
+    depths = [2047, 0, 300, 0]
+    new_pages = pages.flip(0).clone()
+    new_pages[3] = 0                            # a retired row
+    pages.copy_(new_pages)
+    offset.copy_(torch.tensor(depths, dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = pa.paged_attention_decode_plain(q, kp, vp, pages, offset, scale)
+    rows['paged_attention_decode'].append(_case(
+        torch, 'paged_attention_decode',
+        f'CUDA graph captured at depths [1024]*4, replayed after offset and '
+        f'pages were rewritten in place: depths={depths} (row 3 all '
+        f'garbage); timed as the wrapper at those values', out, want, tol,
+        why, lambda: pa.paged_attention_decode(q, kp, vp, pages, offset,
+                                               scale),
+        lambda: pa.paged_attention_decode_plain(q, kp, vp, pages, offset,
+                                                scale),
+        *cost(4, pages, depths), None,
+        path=f'splits{pa.plan(4, kv, 128, psz, sms)}'))
+    del graph, q, kp, vp, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def _stats_cases(torch, randn, rows):
@@ -874,7 +943,9 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
     """Host-clock ms of a decode step over ``slots`` rows at ``depth`` and
     of one ``(1, chunk)`` prefill chunk at ``depth`` (``reps`` calls back
     to back, synchronised at the end), and their kernel time by name from
-    ``torch.profiler``; the busy share is kernel time over host time."""
+    ``torch.profiler``; the busy share is kernel time over host time. A
+    decode step must show one paged-decode kernel event a layer (the
+    splits merge inside the launch), a prefill chunk none."""
     psz, NP, dev = 16, 128, _device(net)
     pool = net.init_paged_pool(slots * NP + 1, psz)
     pages = (torch.arange(slots * NP, dtype=torch.int32) + 1).reshape(
@@ -902,6 +973,14 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
                     fn()
                 torch.cuda.synchronize()
             kernel_breakdown(tag, what, prof, wall, reps)
+            paged = sum(e.count for e in prof.key_averages()
+                        if 'paged_decode_kernel' in e.key)
+            want = net.cfg.num_layers * reps if 'decode' in what else 0
+            log(f'[{tag}] {what}: {paged // reps} paged-decode kernel '
+                f'events a call (want {want // reps})')
+            if paged != want:
+                fail(f'{tag}: {paged} paged-decode kernel events over '
+                     f'{reps} calls of the {what}, want {want}')
     del pool
 
 
@@ -1507,10 +1586,13 @@ def rtc_checks(torch, rows, x, y, n, grid, kernels, got):
 
 #: the designs the main paths must run, the Hopper ones; the int8
 #: product's earlier design (``sm80``) stays for layouts that TMA
-#: refuses, which no main path gives it
+#: refuses, which no main path gives it. Paged decode has one design,
+#: counted by the split count of its plan (1 to 8)
 NEW_DESIGNS = {'int8_matmul': ('tma_splitk', 'tma'),
                'flash_attention': ('tf32x3', 'tf32x3_splitkv'),
-               'flash_attention_stats': ('tf32x3', 'tf32x3_splitkv')}
+               'flash_attention_stats': ('tf32x3', 'tf32x3_splitkv'),
+               'paged_attention_decode': tuple(
+                   f'splits{n}' for n in range(1, 9))}
 
 
 def check_designs(path, counts, by_design):

@@ -12,10 +12,12 @@ all started together.
 Every C entry point takes raw pointers and a ``cudaStream_t`` (all bound as
 ``c_void_p``, so ``ctypes`` passes 64 bits) and returns the
 ``cudaError_t`` of its launch; :func:`check` turns a nonzero code into an
-:class:`MXNetError`. :func:`sm_count` and :func:`counters` serve the
-wrappers whose plans split a kernel's work across blocks.
+:class:`MXNetError`. :func:`on_device` makes a launch go to its tensors'
+card. :func:`sm_count` and :func:`counters` serve the wrappers whose plans
+split a kernel's work across blocks.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +32,7 @@ import torch
 from ...base import MXNetError
 
 __all__ = ['CSRC', 'BUILD_DIR', 'NVCC_FLAGS', 'sources', 'build_all',
-           'function', 'check', 'sm_count', 'counters']
+           'function', 'check', 'on_device', 'sm_count', 'counters']
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
@@ -151,8 +153,21 @@ def check(name, rc, what):
         raise MXNetError(f'{what}: CUDA error {rc} ({msg})')
 
 
+def on_device(device):
+    """A context in which ``device`` (a CUDA ``torch.device``) is the
+    current device, for a launch on its tensors. A stream handle (the
+    default stream's is 0 on every card) and ``cudaGetDevice`` in the C
+    entries both mean the current device, so without it a tensor on
+    ``cuda:1`` would launch on whatever card the thread has current. Entered
+    only when the current device differs: the common case costs one
+    compare."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 _sm_counts = {}     # device index -> SMs
-_counters = {}      # (kernel name, device index, stream) -> int32 counters
+_counters = {}      # (kernel name, device index, stream) -> [int32 counters]
 
 
 def sm_count(device):
@@ -168,17 +183,23 @@ def counters(name, device, stream, n):
     """At least ``n`` int32 counters on ``device`` for the kernels of
     ``csrc/<name>.cu`` that split their work, launched on ``stream`` (a
     ``cudaStream_t`` as an integer), zero at rest: made once with
-    ``torch.zeros`` (grown when a call needs more), and set back to zero by
-    the block that finishes each tile. One set per stream, so that split
-    calls on two streams never count each other's blocks; calls on one
-    stream run one after another."""
+    ``torch.zeros``, and set back to zero by the block that finishes each
+    tile. One set per stream, so that split calls on two streams never
+    count each other's blocks; calls on one stream run one after another.
+
+    When a call needs more, a larger set takes over, and every set handed
+    out stays alive for the life of the process: a CUDA graph that
+    captured a smaller one keeps its address and counts there on every
+    replay, so that memory must never go back to the allocator for
+    something else to take. An old set is still zero at rest, so it stays
+    right for the calls its graphs replay."""
     key = (name, device.index, stream)
-    c = _counters.get(key)
-    if c is None or c.numel() < n:
+    sets = _counters.setdefault(key, [])
+    if not sets or sets[-1].numel() < n:
         if torch.cuda.is_current_stream_capturing():
             raise MXNetError(f'{name}: the first split call of this size on '
                              f'a stream cannot be captured in a CUDA graph; '
                              f'run it once before capturing')
-        c = _counters[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
-                                         device=device)
-    return c
+        sets.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=device))
+    return sets[-1]

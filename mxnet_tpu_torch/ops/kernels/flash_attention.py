@@ -200,11 +200,12 @@ def flash_attention_fwd(q, k, v, sm_scale, causal):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    p, ws, counters, stream = _launch_args(q.device, bh, t, s, d)
     fn = _build.function('flash_attention', 'flash_attention_fwd_f32', _ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, t, s, d, float(sm_scale), int(bool(causal)), p.block_k,
-            p.splits, p.chunk, _ptr(ws), _ptr(counters), stream)
+    with _build.on_device(q.device):
+        p, ws, counters, stream = _launch_args(q.device, bh, t, s, d)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bh, t, s, d, float(sm_scale), int(bool(causal)), p.block_k,
+                p.splits, p.chunk, _ptr(ws), _ptr(counters), stream)
     _build.check('flash_attention', rc, 'flash_attention')
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_path[p.path] += 1
@@ -256,13 +257,14 @@ def flash_attention_stats(q, k, v, sm_scale, causal=False):
     l = torch.empty(bh, t, dtype=torch.float32, device=q.device)
     if acc.numel() == 0:
         return acc, m, l
-    p, ws, counters, stream = _launch_args(q.device, bh, t, s, d)
     fn = _build.function('flash_attention', 'flash_attention_stats_f32',
                          _STATS_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), bh, t, s, d, float(sm_scale),
-            int(bool(causal)), p.block_k, p.splits, p.chunk, _ptr(ws),
-            _ptr(counters), stream)
+    with _build.on_device(q.device):
+        p, ws, counters, stream = _launch_args(q.device, bh, t, s, d)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+                m.data_ptr(), l.data_ptr(), bh, t, s, d, float(sm_scale),
+                int(bool(causal)), p.block_k, p.splits, p.chunk, _ptr(ws),
+                _ptr(counters), stream)
     _build.check('flash_attention', rc, 'flash_attention_stats')
     flash_attention_stats.launches += 1
     flash_attention_stats.launches_by_path[p.path] += 1

@@ -75,10 +75,11 @@ def fused_norm(x, gamma, beta=None, eps=1e-5, rms=False):
     if n >= 2 ** 31 or d >= 2 ** 31:
         raise MXNetError(f'fused_norm: shape {tuple(x.shape)} too large')
     fn = _build.function('fused_norms', 'fused_norm_f32', _ARGS)
-    rc = fn(x.data_ptr(), gamma.data_ptr(),
-            None if beta is None else beta.data_ptr(), out.data_ptr(),
-            n, d, float(eps), int(rms),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    with _build.on_device(x.device):
+        rc = fn(x.data_ptr(), gamma.data_ptr(),
+                None if beta is None else beta.data_ptr(), out.data_ptr(),
+                n, d, float(eps), int(rms),
+                torch.cuda.current_stream(x.device).cuda_stream)
     _build.check('fused_norms', rc, 'fused_norm')
     fused_norm.launches += 1
     return out

@@ -105,10 +105,11 @@ def adam_step(w, g, m, v, lr, wd, bc1, bc2, *, beta1, beta2, epsilon,
     if w.numel() == 0:
         return w, m, v
     fn = _build.function('fused_optimizer', 'adam_step_f32', _ADAM_ARGS)
-    rc = fn(w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            w.numel(), lr, wd, bc1, bc2, beta1, 1.0 - beta1, beta2,
-            1.0 - beta2, epsilon, rescale_grad, *_clip(clip_gradient),
-            torch.cuda.current_stream(w.device).cuda_stream)
+    with _build.on_device(w.device):
+        rc = fn(w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                w.numel(), lr, wd, bc1, bc2, beta1, 1.0 - beta1, beta2,
+                1.0 - beta2, epsilon, rescale_grad, *_clip(clip_gradient),
+                torch.cuda.current_stream(w.device).cuda_stream)
     _build.check('fused_optimizer', rc, 'adam_step')
     adam_step.launches += 1
     return w, m, v
@@ -128,9 +129,10 @@ def sgd_mom_step(w, g, mom, lr, wd, *, momentum, rescale_grad=1.0,
     if w.numel() == 0:
         return w, mom
     fn = _build.function('fused_optimizer', 'sgd_mom_step_f32', _SGD_ARGS)
-    rc = fn(w.data_ptr(), g.data_ptr(), mom.data_ptr(), w.numel(), lr, wd,
-            momentum, rescale_grad, *_clip(clip_gradient),
-            torch.cuda.current_stream(w.device).cuda_stream)
+    with _build.on_device(w.device):
+        rc = fn(w.data_ptr(), g.data_ptr(), mom.data_ptr(), w.numel(), lr,
+                wd, momentum, rescale_grad, *_clip(clip_gradient),
+                torch.cuda.current_stream(w.device).cuda_stream)
     _build.check('fused_optimizer', rc, 'sgd_mom_step')
     sgd_mom_step.launches += 1
     return w, mom

@@ -159,17 +159,20 @@ def int8_matmul(x, w, scale, bias=None, out_dtype=torch.float32):
 def _launch(x, w, scale, bias, out, M, N, K, p):
     """One launch of the kernel on checked tensors, in the design of the
     plan ``p``."""
-    ws = counters = None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if p.splits > 1:
-        ws = torch.empty(p.workspace, dtype=torch.int32, device=x.device)
-        counters = _build.counters('int8_matmul', x.device, stream, p.tiles)
     fn = _build.function('int8_matmul', 'int8_matmul_s8', _ARGS)
-    rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            M, N, K, int(out.dtype == torch.bfloat16), _PATH_CODE[p.path],
-            p.tile_b, p.splits, p.chunk, None if ws is None else ws.data_ptr(),
-            None if counters is None else counters.data_ptr(), stream)
+    with _build.on_device(x.device):
+        ws = counters = None
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if p.splits > 1:
+            ws = torch.empty(p.workspace, dtype=torch.int32, device=x.device)
+            counters = _build.counters('int8_matmul', x.device, stream,
+                                       p.tiles)
+        rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                None if bias is None else bias.data_ptr(), out.data_ptr(),
+                M, N, K, int(out.dtype == torch.bfloat16),
+                _PATH_CODE[p.path], p.tile_b, p.splits, p.chunk,
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), stream)
     _build.check('int8_matmul', rc, 'int8_matmul')
 
 

@@ -6,9 +6,18 @@ Counterpart of ``paged_attention_decode_pallas`` in
 gather math of the reference op (``ops/contrib.py:paged_attention_decode``
 off the TPU). A CPU tensor takes it; a CUDA tensor launches the kernel, or
 raises on a dtype, shape or layout the kernel does not take.
+
+:func:`plan` picks the split count of a call from its shapes alone; the
+kernel launches the splits of one (row, KV head) as one thread-block
+cluster, which merges them before it ends: one launch a call, counted in
+``launches`` and, by split count, in ``launches_by_path``. The kernel reads
+``offset`` and ``pages`` on the card and the wrapper never does, so one
+launch captured in a CUDA graph stays right when both are rewritten in
+place.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,15 +25,48 @@ from ...base import MXNetError
 from . import _build
 
 __all__ = ['paged_attention_decode', 'paged_attention_decode_plain',
-           'HEAD_DIMS', 'GROUPS']
+           'HEAD_DIMS', 'GROUPS', 'TILE', 'MAX_SPLITS', 'PATHS', 'plan']
 
 #: head dims and query-group sizes the kernel is built for
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+#: positions a block takes a step (one page at a page size of 16)
+TILE = 16
+#: most splits of one (row, KV head): the largest portable cluster, as
+#: the kernel launches the splits of one (row, KV head) as one
+MAX_SPLITS = 8
+#: the kernel's designs by split count, as ``launches_by_path`` counts them
+PATHS = tuple(f'splits{n}' for n in range(1, MAX_SPLITS + 1))
 
 _NEG_INF = -1e30
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b, kv, np_, psz, sm_count):
+    """The split count of a call over ``b`` rows, ``kv`` KV heads and a
+    block table of ``np_`` pages of ``psz`` positions, on a card with
+    ``sm_count`` SMs: as many splits as keep the ``b * kv * splits``
+    blocks within one and a half an SM, at most :data:`MAX_SPLITS` and at
+    most the table's tiles of :data:`TILE` positions. The kernel holds two
+    blocks an SM, but clusters of up to 8 blocks are placed whole on one
+    of the card's processing clusters, and on the H100 a split count that
+    filled both slots of every SM left some clusters for a second wave
+    (PERF.md). Shapes only, never the offsets: the work of each split
+    follows the depth on the card. A row at ``offset`` has ``n_live =
+    ceil(e / TILE)`` live tiles, ``e = min(offset + 1, np_ * psz)`` (0 for
+    a negative offset), and split ``s`` of ``n`` takes tiles
+    ``floor(n_live * s / n)`` up to ``floor(n_live * (s + 1) / n)``, the
+    kernel's own integer formula, so the splits' shares differ by one tile
+    at most. Pure Python: the CPU tests check it, and the C entry refuses a
+    count outside 1..8."""
+    tiles = _cdiv(np_ * psz, TILE)
+    return max(1, min(MAX_SPLITS, tiles, 3 * sm_count // 2 // (b * kv)))
 
 
 def paged_attention_decode_plain(q, k_pool, v_pool, pages, offset,
@@ -94,25 +136,34 @@ def paged_attention_decode(q, k_pool, v_pool, pages, offset, sm_scale):
     if not all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)):
         raise MXNetError('paged_attention_decode: q and the pools must be '
                          '16-byte aligned')
-    if B == 0 or P == 0 or pages.shape[1] == 0:
+    NP = pages.shape[1]
+    if B == 0 or P == 0 or NP == 0:
         raise MXNetError('paged_attention_decode: empty batch, pool or '
                          'table')
-    if B * kv >= 2 ** 31:
-        raise MXNetError('paged_attention_decode: batch too large')
+    splits = plan(B, kv, NP, psz, _build.sm_count(q.device))
+    if B * kv * splits >= 2 ** 31 or NP * psz >= 2 ** 31 - TILE:
+        raise MXNetError('paged_attention_decode: batch or table too large')
     out = torch.empty_like(q)
-    n_scratch = _build.function(
-        'paged_attention', 'paged_attention_scratch_floats',
-        [ctypes.c_int] * 5, ctypes.c_longlong)(B, kv, G, dh, pages.shape[1])
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
-    fn = _build.function('paged_attention', 'paged_attention_decode_f32',
-                         _ARGS)
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            pages.data_ptr(), offset.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), B, kv, G, dh, P, psz, pages.shape[1],
-            float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check('paged_attention', rc, 'paged_attention_decode')
+    _launch(q, k_pool, v_pool, pages, offset, out, sm_scale, splits)
     paged_attention_decode.launches += 1
+    paged_attention_decode.launches_by_path[PATHS[splits - 1]] += 1
     return out
 
 
+def _launch(q, k_pool, v_pool, pages, offset, out, sm_scale, splits):
+    """One launch of the kernel on checked tensors, in ``splits`` splits
+    (the cluster size)."""
+    B, kv, G, dh = q.shape
+    P, psz = k_pool.shape[:2]
+    fn = _build.function('paged_attention', 'paged_attention_decode_f32',
+                         _ARGS)
+    with _build.on_device(q.device):
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                pages.data_ptr(), offset.data_ptr(), out.data_ptr(), B, kv,
+                G, dh, P, psz, pages.shape[1], splits, float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check('paged_attention', rc, 'paged_attention_decode')
+
+
 paged_attention_decode.launches = 0
+paged_attention_decode.launches_by_path = dict.fromkeys(PATHS, 0)

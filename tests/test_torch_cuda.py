@@ -12,9 +12,15 @@ from CUDA source, bit-equal to their torch twins, and a source that does
 not compile; each design that the int8 product's and flash attention's
 plans pick (split or not, and the int8 product's sm80 design for layouts
 TMA refuses), counted under its path; split plans that miss a tile,
-which the C entries refuse; split calls on two streams at once; and the
+which the C entries refuse; split calls on two streams at once; the
 kernels that opt in to more than 48 KB of shared memory, launched on
-every visible card (that test skips on a machine with one card).
+every visible card; paged decode split 1 to 8 ways over depth-0,
+garbage and out-of-pool rows, the plan's split count passed to the
+kernel, and one call replayed from a CUDA graph after its offsets and
+block table were rewritten; split counters that outlive a graph that
+captured them; and every kernel launched on a card that is not the
+current one (the two multi-card tests skip on a machine with one
+card).
 
 Every test needs a CUDA card and skips without one. The tests import no
 JAX, so on a machine without it they run with
@@ -723,3 +729,215 @@ def test_kernels_launch_on_every_card(dev):
                 **ATT_TOL)
         torch.cuda.synchronize(d)
     torch.cuda.set_device(0)
+
+
+# -------------------------- paged decode: splits, graphs; the two repairs
+def _paged_inputs(dev, B, NP, depths, kv=8, G=4, dh=128, psz=16):
+    """Seeded q and pools, a block table of distinct pages (page 0 is the
+    garbage page), and ``depths`` as the int32 offsets."""
+    P = B * NP + 1
+    q = _randn(dev, B, kv, G, dh)
+    kp, vp = _randn(dev, P, psz, kv, dh, seed=1), \
+        _randn(dev, P, psz, kv, dh, seed=2)
+    pages = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))
+             [:B * NP] + 1).reshape(B, NP).to(torch.int32).to(dev)
+    offset = torch.tensor(depths, dtype=torch.int32, device=dev)
+    return q, kp, vp, pages, offset
+
+
+def _paged_want(q, kp, vp, pages, offset):
+    """The plain version over the table as the kernel reads it: page ids
+    clamped into the pool (the plain gather would index out of range)."""
+    return paged_attention.paged_attention_decode_plain(
+        q, kp, vp, pages.clamp(0, kp.shape[0] - 1), offset,
+        q.shape[-1] ** -0.5)
+
+
+@pytest.mark.parametrize('splits', [1, 2, 3, 7, 8])
+def test_paged_attention_splits_depths_and_out_of_pool_ids(dev, splits):
+    """llama3_8b's heads over 64 pages a row, split 1 to 8 ways (the
+    largest portable cluster): a depth-0 row, rows on and past page edges,
+    a retired row of garbage pages, a row at the table's end, and a row
+    whose table holds ids past both ends of the pool."""
+    NP, psz = 64, 16
+    depths = [0, 1023, 16, 0, NP * psz - 1, 700]
+    q, kp, vp, pages, offset = _paged_inputs(dev, 6, NP, depths)
+    pages[3] = 0
+    pages[5, 0], pages[5, 7] = kp.shape[0] + 9, -4
+    out = torch.empty_like(q)
+    paged_attention._launch(q, kp, vp, pages, offset, out, 128 ** -0.5,
+                            splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, _paged_want(q, kp, vp, pages, offset),
+                               **ATT_TOL)
+
+
+def test_paged_attention_launches_its_plan_once(dev, monkeypatch):
+    """The wrapper passes the plan's split count to the kernel and counts
+    one launch under it; the C entry refuses a count past 8."""
+    from mxnet_tpu_torch.ops.kernels import _build
+    q, kp, vp, pages, offset = _paged_inputs(dev, 4, 128, [1024] * 4)
+    seen = []
+    real = _build.function
+
+    def spy(name, symbol, argtypes, restype=None):
+        fn = real(name, symbol, argtypes) if restype is None else \
+            real(name, symbol, argtypes, restype)
+        if symbol != 'paged_attention_decode_f32':
+            return fn
+
+        def call(*args):
+            seen.append(args[13])
+            return fn(*args)
+        return call
+    monkeypatch.setattr(_build, 'function', spy)
+    want = paged_attention.plan(4, 8, 128, 16, _build.sm_count(dev))
+    before = dict(paged_attention.paged_attention_decode.launches_by_path)
+    n = paged_attention.paged_attention_decode.launches
+    got = paged_attention.paged_attention_decode(q, kp, vp, pages, offset,
+                                                 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert seen == [want] and 1 < want <= paged_attention.MAX_SPLITS
+    assert paged_attention.paged_attention_decode.launches == n + 1
+    after = paged_attention.paged_attention_decode.launches_by_path
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == f'splits{want}') for p in after}
+    torch.testing.assert_close(got, _paged_want(q, kp, vp, pages, offset),
+                               **ATT_TOL)
+    with pytest.raises(MXNetError, match='CUDA error'):
+        paged_attention._launch(q, kp, vp, pages, offset, got, 0.1, 9)
+
+
+def test_paged_attention_graph_replays_at_new_depths(dev):
+    """One call captured in a CUDA graph, then the offsets and the block
+    table rewritten in place (a row grows, a row becomes a retired row of
+    garbage pages, a row goes back to depth 0): the replay reads the new
+    values on the card and meets the plain version at them."""
+    q, kp, vp, pages, offset = _paged_inputs(dev, 4, 128, [1024] * 4)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        paged_attention.paged_attention_decode(q, kp, vp, pages, offset,
+                                               128 ** -0.5)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = paged_attention.paged_attention_decode(q, kp, vp, pages,
+                                                     offset, 128 ** -0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, _paged_want(q, kp, vp, pages, offset),
+                               **ATT_TOL)
+    new_pages = pages.flip(0).clone()
+    new_pages[1] = 0
+    for depths in ([2047, 0, 300, 17], [5, 0, 0, 1500]):
+        offset.copy_(torch.tensor(depths, dtype=torch.int32))
+        pages.copy_(new_pages)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(
+            out, _paged_want(q, kp, vp, pages, offset), **ATT_TOL)
+    del graph
+
+
+def test_split_counters_outlive_a_graph_that_captured_them(dev):
+    """A graph captures a split flash call and a split int8 call while
+    their counter sets are small; a later call needs more counters on the
+    same stream, the allocator's cache is emptied and its memory handed
+    out again, filled with garbage. The counters the graph holds stay
+    alive and zero at rest, so its replays still meet the plain
+    versions."""
+    from mxnet_tpu_torch.ops.kernels import _build
+    q, k, v = (_randn(dev, 4, n, 128, seed=j)
+               for j, n in enumerate((37, 2048, 2048)))
+    x, w = _int8(dev, 4, 4096, seed=1), _int8(dev, 1024, 4096, seed=2)
+    scale = _randn(dev, 1024, seed=3).abs() * 1e-4
+    assert flash_attention.plan(4, 37, 2048, 128, 132).splits > 1
+    assert int8_matmul.plan(4, 1024, 4096, True, 132).splits > 1
+
+    def calls():
+        return (flash_attention.flash_attention_fwd(q, k, v, 0.1, True),
+                int8_matmul.int8_matmul(x, w, scale))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        att, prod = calls()
+    held = [_build.counters(name, dev, side.cuda_stream, 1).data_ptr()
+            for name in ('flash_attention', 'int8_matmul')]
+    # a larger plan on the same stream: a larger set takes over
+    for name in ('flash_attention', 'int8_matmul'):
+        grown = _build.counters(name, dev, side.cuda_stream, 1 << 20)
+        assert grown.numel() >= 1 << 20 and grown.data_ptr() not in held
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 22,), 7, dtype=torch.int32, device=dev)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(att, flash_attention.flash_attention_plain(
+        q, k, v, 0.1, True), **ATT_TOL)
+    assert torch.equal(prod, int8_matmul.int8_matmul_plain(x, w, scale))
+    assert int(junk.min()) == 7 == int(junk.max())
+    del graph
+
+
+def test_kernels_launch_on_their_tensors_card(dev):
+    """Every kernel, with its tensors on ``cuda:i`` while device 0 stays
+    current: each launches on card i (its stream, its shared-memory
+    opt-in) and meets its plain version there, and device 0 is still
+    current after."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f'needs two or more CUDA cards to launch on one that is '
+                    f'not current; this machine has {cards}')
+    torch.cuda.set_device(0)
+    for i in range(1, cards):
+        d = torch.device('cuda', i)
+        x = _randn(d, 4, 4096)
+        gamma = _randn(d, 4096, seed=1)
+        torch.testing.assert_close(
+            fused_norms.fused_norm(x, gamma, None, 1e-5, True),
+            fused_norms.fused_norm_plain(x, gamma, None, 1e-5, True),
+            **NORM_TOL)
+        for t in (37, 512):             # split-KV and unsplit
+            q, k, v = (_randn(d, 4, n, 128, seed=j)
+                       for j, n in enumerate((t, 512, 512)))
+            torch.testing.assert_close(
+                flash_attention.flash_attention_fwd(q, k, v, 0.1, True),
+                flash_attention.flash_attention_plain(q, k, v, 0.1, True),
+                **ATT_TOL)
+        for a, b in zip(flash_attention.flash_attention_stats(q, k, v, 0.1),
+                        flash_attention.flash_attention_stats_plain(
+                            q, k, v, 0.1, False)):
+            torch.testing.assert_close(a, b, **ATT_TOL)
+        args = _paged_inputs(d, 4, 128, [1024, 0, 2047, 5])
+        torch.testing.assert_close(
+            paged_attention.paged_attention_decode(*args, 128 ** -0.5),
+            _paged_want(*args), **ATT_TOL)
+        for m in (4, 512):              # swap-AB split-K, and tma
+            xq, wq = _int8(d, m, 4096, seed=1), _int8(d, 1024, 4096, seed=2)
+            scale = _randn(d, 1024, seed=3).abs() * 1e-4
+            assert torch.equal(int8_matmul.int8_matmul(xq, wq, scale),
+                               int8_matmul.int8_matmul_plain(xq, wq, scale))
+        w, g, m1, v1 = _slots(d, 4096 * 3 + 2, 0, 2)
+        want = fused_optimizer.adam_step_plain(
+            w.clone(), g, m1.clone(), v1.clone(), 1e-3, 0.0, 0.1, 0.001,
+            beta1=0.9, beta2=0.999, epsilon=1e-8)
+        got = fused_optimizer.adam_step(w, g, m1, v1, 1e-3, 0.0, 0.1, 0.001,
+                                        beta1=0.9, beta2=0.999, epsilon=1e-8)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **OPT_TOL)
+        w, g, mom = _slots(d, 1001, 0, 1)
+        want = fused_optimizer.sgd_mom_step_plain(w.clone(), g, mom.clone(),
+                                                  0.1, 0.0, momentum=0.9)
+        got = fused_optimizer.sgd_mom_step(w, g, mom, 0.1, 0.0, momentum=0.9)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **OPT_TOL)
+        torch.cuda.synchronize(d)
+        assert torch.cuda.current_device() == 0

@@ -1,6 +1,6 @@
 """The plans that pick the int8 product's and flash attention's designs
-before a launch, checked on the CPU with no card (``sm_count=132``, the
-H100's SMs, passed in).
+and paged decode's split count before a launch, checked on the CPU with
+no card (``sm_count=132``, the H100's SMs, passed in).
 
 Every shape the main paths give the kernels must plan the Hopper designs:
 the int8 product at M in {4, 32, 512} (a decode step, a prefill chunk, a
@@ -18,6 +18,7 @@ import pytest
 
 from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 from mxnet_tpu_torch.ops.kernels import int8_matmul as im
+from mxnet_tpu_torch.ops.kernels import paged_attention as pa
 
 SMS = 132
 
@@ -165,3 +166,80 @@ def test_flash_key_splits_cover_s_exactly_once(s, block_k):
         covered = [j for t in tiles for j in range(
             t[0] * p.block_k, min(s, (t[-1] + 1) * p.block_k))]
         assert covered == list(range(s))
+
+
+# ------------------------------------------------------------ paged decode
+#: the decode step's shapes: 4 slots, llama3_8b's 8 KV heads, 128 pages of
+#: 16 a row (max_length 2048)
+PAGED_MAIN = dict(b=4, kv=8, np_=128, psz=16)
+
+
+def _live_tiles(offset, np_, psz):
+    """The live tiles of a row at ``offset``, by the plan's docstring."""
+    end = 0 if offset < 0 else min(offset + 1, np_ * psz)
+    return -(-end // pa.TILE)
+
+
+def _split_tiles(n_live, split, splits):
+    """The tiles split ``split`` of ``splits`` takes, by the plan's
+    docstring (the kernel's formula)."""
+    return range(n_live * split // splits, n_live * (split + 1) // splits)
+
+
+def test_paged_plan_takes_shapes_only():
+    """The split count is a function of the shapes and the SM count, never
+    of the offsets or the block table, so one launch serves every depth
+    (and a CUDA graph of it stays right when both are rewritten)."""
+    import inspect
+    assert list(inspect.signature(pa.plan).parameters) == [
+        'b', 'kv', 'np_', 'psz', 'sm_count']
+    assert pa.PATHS == tuple(f'splits{n}' for n in
+                             range(1, pa.MAX_SPLITS + 1))
+
+
+@pytest.mark.parametrize('b,kv,np_,psz', [
+    (4, 8, 128, 16), (3, 8, 8, 16), (1, 8, 128, 16), (64, 8, 128, 16),
+    (3, 2, 5, 4), (3, 2, 40, 16), (1, 1, 1, 1), (2, 8, 7, 32),
+    (256, 32, 2048, 16)])
+def test_paged_plan_stays_within_the_cluster_limit(b, kv, np_, psz):
+    """At most 8 splits (the largest portable cluster, which the C entry
+    takes), at most one a tile of the table, and at least one; the blocks
+    stay within one and a half an SM unless one split is already more."""
+    n = pa.plan(b, kv, np_, psz, SMS)
+    tiles = -(-np_ * psz // pa.TILE)
+    assert pa.MAX_SPLITS == 8
+    assert 1 <= n <= min(pa.MAX_SPLITS, tiles)
+    assert b * kv * n <= 3 * SMS // 2 or n == 1
+
+
+def test_paged_plan_at_the_decode_step():
+    """4 rows x 8 KV heads: 6 splits, 192 blocks on the 132 SMs; at depth
+    1024 (65 live pages) every split takes 10 or 11 pages, where the
+    table's width once gave 16, 16, 16, 16, 1 and three empty splits."""
+    n = pa.plan(sm_count=SMS, **PAGED_MAIN)
+    assert n == 6
+    live = _live_tiles(1024, PAGED_MAIN['np_'], PAGED_MAIN['psz'])
+    assert live == 65
+    sizes = [len(_split_tiles(live, s, n)) for s in range(n)]
+    assert sum(sizes) == live and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize('np_,psz', [(128, 16), (8, 16), (5, 4), (7, 32),
+                                     (3, 1)])
+def test_paged_splits_cover_every_live_position_once(np_, psz):
+    """For every depth from 0 to the table's end (and past it, and a
+    negative offset), with the plan's split count and every other one up to
+    the cluster limit: each live position falls in the tiles of exactly one
+    split, and no split takes a tile past the row's depth."""
+    L = np_ * psz
+    for n in range(1, pa.MAX_SPLITS + 1):
+        for off in list(range(-1, L)) + [L, L + 40]:
+            live = _live_tiles(off, np_, psz)
+            owner = {}
+            for s in range(n):
+                for t in _split_tiles(live, s, n):
+                    assert t not in owner
+                    owner[t] = s
+            assert sorted(owner) == list(range(live))
+            positions = range(0, min(off + 1, L)) if off >= 0 else ()
+            assert {p // pa.TILE for p in positions} == set(owner)

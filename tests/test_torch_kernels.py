@@ -172,6 +172,32 @@ def test_paged_attention_dead_row_is_finite():
     _close(got, want)
 
 
+def _llama_case(B, NP, seed):
+    """llama3_8b's head layout (8 KV heads, 4 query heads each, head dim
+    128) over pages of 16 positions, at small depths."""
+    return _paged_case(B=B, H=32, kv=8, dh=128, P=B * NP + 1, psz=16,
+                       NP=NP, seed=seed)
+
+
+def test_paged_attention_at_llama3_8b_heads():
+    """Two rows at depths inside the first and the third page."""
+    q, kp, vp, pages = _llama_case(2, 3, seed=11)
+    got, want = _paged_both(q, kp, vp, pages,
+                            onp.asarray([5, 40], onp.int32))
+    _close(got, want)
+
+
+def test_paged_attention_at_llama3_8b_heads_mixed_depths():
+    """A depth-0 row, a row on a page boundary, a row at the table's end
+    and a retired row whose table is all garbage pages."""
+    q, kp, vp, pages = _llama_case(4, 3, seed=12)
+    pages[3] = 0
+    got, want = _paged_both(q, kp, vp, pages,
+                            onp.asarray([0, 15, 47, 0], onp.int32))
+    assert torch.isfinite(got).all()
+    _close(got, want)
+
+
 def test_paged_attention_op_groups_heads():
     """The op's (B, H, dh) layout: query heads [j*G, (j+1)*G) share KV
     head j, as in the reference's gather fallback."""
