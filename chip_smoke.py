@@ -26,32 +26,44 @@ Phases, each of which fails the run on any error:
                offsets and block table were rewritten in place. The
                gradients of the norm and flash ops (their
                ``autograd.Function``s) meet autograd through the plain
-               versions.
+               versions. The launch floor: an empty kernel compiled
+               through ``rtc`` and timed as the norm is, beside the
+               norm's decode-step rows.
 4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
                generator: one ``(1, 512)`` forward, finite logits, and
                exactly 65 RMSNorm and 32 flash-attention launches.
 5. serve    -- ``DecodeServer`` with its scheduler thread over six seeded
                prompts (17 to 1500 tokens, two sharing a 64-token prefix),
-               32 new tokens each; every paged decode step goes through
-               the paged kernel. One request is re-run teacher-forced
-               through the full forward (the flash path) and must pick
-               the same tokens wherever the top-2 logit margin exceeds
-               1e-2. Then ``torch.profiler`` splits a decode step and a
-               prefill chunk into kernel time by name; a decode step must
-               show one paged-decode kernel event a layer.
+               32 new tokens each; its warm-up captures the prefill chunk
+               and the decode step as CUDA graphs, which every call
+               replays, and every paged decode step goes through the
+               paged kernel. The server must capture twice and never
+               again, and its audit find the pool written in place and
+               no allocation in a replayed step. One request is re-run
+               teacher-forced through the full forward (the flash path)
+               and must pick the same tokens wherever the top-2 logit
+               margin exceeds 1e-2; served alone by a server stepped by
+               hand it must give the tokens of eager steps at the same
+               shapes, and ``generate()`` replaying its decode graph
+               those of its eager loop (both timed). Then
+               ``torch.profiler`` splits a decode step and a prefill chunk
+               into kernel time by name, eager and replayed from a graph;
+               a decode step must show one paged-decode kernel event a
+               layer.
 6. int8     -- the same net, quantized in place by ``quantize_net`` (naive
                calibration on one seeded (1, 512) batch, bf16
                activations): 225 ``QuantizedDense`` layers. One (1, 512)
                forward with exactly 225 int8, 65 norm and 32 flash
                launches; the six prompts served again, with 225 int8
-               launches per decode step and per prefill chunk;
-               ``generate()`` on one prompt. The same forward, that
-               prompt's serving and ``generate()`` again with every int8
-               layer through the product's plain version: bit-equal
-               logits and the same tokens. The teacher-forced check is
-               logged only (``int8_checks`` says why); the kernel-time
-               breakdown. Then a small quantized Llama must serve the
-               same tokens on the card and the CPU.
+               launches per decode step and per prefill chunk, through
+               the graphs as above; ``generate()`` on one prompt. The same
+               forward, that prompt's serving and ``generate()`` again
+               with every int8 layer through the product's plain version:
+               bit-equal logits and the same tokens. The graphs against
+               eager calls as above. The teacher-forced check is logged
+               only (``int8_checks`` says why); the kernel-time breakdown,
+               eager and graphed. Then a small quantized Llama must serve
+               the same tokens on the card and the CPU.
 7. train    -- ``llama3_8b`` at full width cut to 4 layers (1.92 B
                parameters; fp32 Adam's weights, gradients and two moments
                for all 32 layers would not fit one 80 GB card): three
@@ -84,6 +96,8 @@ Phases, each of which fails the run on any error:
 The launch counters are set to 0 just before each of the forward, serve,
 int8, train and rtc phases and read just after it, and in each rank just
 before and after its ring runs; the kernels' line reports their sum. A
+CUDA graph's replay counts the launches its capture saw
+(``_graphs.StepGraph``). A
 phase fails if the int8 product or flash attention (either form) ran
 another design than its Hopper ones on its main path (``NEW_DESIGNS``).
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
@@ -363,6 +377,7 @@ def phase_kernels(torch):
                 lambda: fused_norms.fused_norm_plain(x, g, beta, 1e-5, rms),
                 nbytes, ops, lib))
     del x, g, b
+    _launch_floor(torch, rows['fused_norm'])
 
     # ---- flash attention forward: fp32-accurate, 3xTF32 on the tensor
     # cores; the keys split where the grid is short (T against a long S)
@@ -423,6 +438,29 @@ def phase_kernels(torch):
         fail(f'{len(bad)} kernel check(s) disagree with the plain version: '
              f'{[(r["name"], r["shape"]) for r in bad]}')
     return rows
+
+
+FLOOR_SOURCE = r'''
+extern "C" __global__ void empty_kernel(int* unused) {}
+'''
+
+
+def _launch_floor(torch, norm_rows):
+    """The least time of one launch: a kernel that does nothing, compiled
+    through ``rtc`` (NVRTC), one block of 32 threads, timed by ``cuda_ms``
+    as the norm's rows are. Each RMS norm row at 4 or 32 rows (a decode
+    step's) gets its time as a multiple of it."""
+    from mxnet_tpu_torch.rtc import CudaModule
+    empty = CudaModule(FLOOR_SOURCE).get_kernel('empty_kernel')
+    floor = cuda_ms(torch, lambda: empty.launch([], (1,), 32, (1,)))
+    for row in norm_rows:
+        if row['shape'] in ('rms (4, 4096)', 'rms (32, 4096)'):
+            row['launch_floor_ms'] = floor
+            row['floor_multiple'] = row['ms'] / floor
+            log(f'[kernels] fused_norm {row["shape"]}: {row["ms"]:.4f} ms, '
+                f'{row["floor_multiple"]:.2f} x the launch floor')
+    log(f'[kernels] launch floor: an empty kernel (one block of 32 '
+        f'threads, rtc) {floor:.4f} ms a launch in a CUDA graph')
 
 
 def _paged_cases(torch, randn, rows, sms):
@@ -894,26 +932,35 @@ def _prompts(torch, vocab, seed):
 
 
 def phase_serve(torch, net, seed, int8_layers=0, tag='serve'):
-    """The six prompts through ``DecodeServer``; a net with
-    ``int8_layers`` quantized layers launches the int8 kernel once for
-    each in every decode step and prefill chunk."""
+    """The six prompts through ``DecodeServer``, whose warm-up captures the
+    prefill chunk and the decode step as CUDA graphs that every later
+    call replays; a net with ``int8_layers`` quantized layers launches the
+    int8 kernel once for each in every decode step and prefill chunk.
+    The counts take in the warm-up's two eager calls (one chunk, one
+    step) and every replay; the server must have captured twice and
+    never again, and its audit must find the pool written in place and
+    no allocation in a replayed step."""
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.serve import DecodeServer
 
     prompts = _prompts(torch, net.cfg.vocab_size, seed)
     n_new = 32
     before = kernels.launch_counts()
+    t0 = time.perf_counter()
     ds = DecodeServer(net, slots=4, max_length=2048, page_size=16,
                       prefill_chunk=32)
     try:
+        log(f'[{tag}] server built in {time.perf_counter() - t0:.2f} s, '
+            f'{ds.warmup_compiles} graphs captured at warm-up')
         t0 = time.perf_counter()
         futs = [ds.submit(p, n_new) for p in prompts]
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         stats = ds.stats()
+        after = kernels.launch_counts()
+        audit = ds.audit_donation()
     finally:
         ds.close()
-    after = kernels.launch_counts()
     delta = {k: after[k] - before[k] for k in after}
     steps, chunks = stats['steps'], stats['prefill_chunks']
     gen = sum(len(o) for o in outs)
@@ -925,17 +972,108 @@ def phase_serve(torch, net, seed, int8_layers=0, tag='serve'):
         f'{stats["ttft_ms"][95]:.1f}; intertoken_ms p50 '
         f'{stats["intertoken_ms"][50]:.1f} p95 '
         f'{stats["intertoken_ms"][95]:.1f}')
+    server_checks(stats, audit, net, tag)
     if [len(o) for o in outs] != [n_new] * len(prompts):
         fail(f'{tag}: token counts {[len(o) for o in outs]}')
     if stats['prefix_hit'] < 1:
         fail(f'{tag}: prefix_hit {stats["prefix_hit"]}')
     L = net.cfg.num_layers
-    want = _want(fused_norm=(2 * L + 1) * (steps + chunks),
-                 paged_attention_decode=L * steps,
-                 int8_matmul=int8_layers * (steps + chunks))
+    calls = steps + chunks + 2      # + the warm-up's eager chunk and step
+    want = _want(fused_norm=(2 * L + 1) * calls,
+                 paged_attention_decode=L * (steps + 1),
+                 int8_matmul=int8_layers * calls)
     if _device(net).type == 'cuda' and delta != want:
         fail(f'{tag}: launches {delta}, want {want}')
     return prompts, outs, stats
+
+
+def server_checks(stats, audit, net, tag):
+    """Log a served run's captures and its pool audit; fail unless a server
+    on the card captured its two graphs and never again (none on the CPU)
+    and the audit is clean: every pool tensor written in place, and no
+    allocation in a replayed step on the card."""
+    cuda = _device(net).type == 'cuda'
+    log(f'[{tag}] compile_count {stats["compile_count"]} recompiles '
+        f'{stats["recompiles"]}; audit_donation: {audit.summary()}, '
+        f'{audit.stats}')
+    if stats['compile_count'] != (2 if cuda else 0) or stats['recompiles']:
+        fail(f'{tag}: compile_count {stats["compile_count"]}, recompiles '
+             f'{stats["recompiles"]}')
+    if not audit.ok or audit.stats['aliased_args'] != \
+            2 * net.cfg.num_layers or \
+            audit.stats['allocations_per_step'] != (0 if cuda else None):
+        fail(f'{tag}: audit_donation {audit}: {audit.findings}')
+
+
+def eager_steps(torch, net, prompt, n_new, slots=4, max_length=2048,
+                psz=16, chunk=32):
+    """Greedy tokens of ``prompt`` from eager ``net(...)`` calls at the
+    shapes ``serve_one``'s server gives its graphs: ``(1, chunk)``
+    prefill chunks through a block-table row of ``max_length / psz``
+    pages at Python-int offsets, then decode steps over ``slots`` rows,
+    the sequence in row 0 and the others idle on the garbage page."""
+    dev = _device(net)
+    mp = max_length // psz
+    pool = net.init_paged_pool(slots * mp + 1, psz)
+    row = torch.arange(1, mp + 1, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        for start in range(0, len(prompt), chunk):
+            real = min(chunk, len(prompt) - start)
+            toks = prompt[start:start + real] + [0] * (chunk - real)
+            logits, _ = net(torch.tensor([toks], device=dev), caches=pool,
+                            offset=start, pages=row)
+        out = [int(logits[0, real - 1].float().argmax())]
+        bt = torch.zeros(slots, mp, dtype=torch.int32, device=dev)
+        bt[0] = row[0]
+        while len(out) < n_new:
+            toks = torch.zeros(slots, 1, dtype=torch.long, device=dev)
+            toks[0, 0] = out[-1]
+            offs = torch.zeros(slots, dtype=torch.int32, device=dev)
+            offs[0] = len(prompt) + len(out) - 1
+            logits, _ = net(toks, caches=pool, offset=offs, pages=bt)
+            out.append(int(logits[0, -1].float().argmax()))
+    del pool
+    return out
+
+
+def graph_checks(torch, net, prompt, served, tag='serve'):
+    """The graphs against eager calls on one prompt: a server stepped by
+    hand (its graphs) and eager steps at the same shapes must pick the
+    same greedy tokens, and ``generate()`` replaying its graph the same
+    tokens as its eager loop; both timed."""
+    n = len(served)
+    t0 = time.perf_counter()
+    alone = serve_one(torch, net, prompt, n, tag)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager = eager_steps(torch, net, prompt, n)
+    t_eager = time.perf_counter() - t0
+    same = 'the same' if served == eager else 'otherwise'
+    log(f'[{tag}] graphed server alone ({t_graph:.2f} s with its warm-up) '
+        f'and eager steps ({t_eager:.2f} s) on a {len(prompt)}-token '
+        f'prompt: tokens {"equal" if alone == eager else "DIFFER"}; the '
+        f'six-request run served it {same}')
+    if alone != eager:
+        fail(f'{tag}: the graphed server and eager steps part: {alone} '
+             f'against {eager}')
+    times, toks = {}, {}
+    for how, graph in (('eager', False), ('graphed', True),
+                       ('graphed', True)):
+        caps = net.graph_captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net.generate([prompt], max_new_tokens=n, graph=graph)
+        toks[how] = out[0, len(prompt):].tolist()
+        times[how + (' with capture' if net.graph_captures > caps
+                     else '')] = time.perf_counter() - t0
+    log(f'[{tag}] generate() over {n} new tokens, s: '
+        f'{ {k: round(v, 4) for k, v in times.items()} } '
+        f'(graphed {n / times["graphed"]:.1f} tok/s, eager '
+        f'{n / times["eager"]:.1f} tok/s); tokens '
+        f'{"equal" if toks["eager"] == toks["graphed"] else "DIFFER"}')
+    if toks['eager'] != toks['graphed']:
+        fail(f'{tag}: graphed generate() {toks["graphed"]} against the '
+             f'eager loop {toks["eager"]}')
 
 
 def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
@@ -943,9 +1081,12 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
     """Host-clock ms of a decode step over ``slots`` rows at ``depth`` and
     of one ``(1, chunk)`` prefill chunk at ``depth`` (``reps`` calls back
     to back, synchronised at the end), and their kernel time by name from
-    ``torch.profiler``; the busy share is kernel time over host time. A
-    decode step must show one paged-decode kernel event a layer (the
-    splits merge inside the launch), a prefill chunk none."""
+    ``torch.profiler``; the busy share is kernel time over host time. Each
+    call is timed eager and then replayed from a CUDA graph (captured as
+    the server captures it, the chunk's offset a 0-dim tensor), side by
+    side. A decode step must show one paged-decode kernel event a layer
+    (the splits merge inside the launch), a prefill chunk none."""
+    from mxnet_tpu_torch._graphs import StepGraph
     psz, NP, dev = 16, 128, _device(net)
     pool = net.init_paged_pool(slots * NP + 1, psz)
     pages = (torch.arange(slots * NP, dtype=torch.int32) + 1).reshape(
@@ -953,34 +1094,41 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
     toks = torch.ones(slots, 1, dtype=torch.long, device=dev)
     off = torch.full((slots,), depth, dtype=torch.int32, device=dev)
     ctoks = torch.ones(1, chunk, dtype=torch.long, device=dev)
-    calls = {
-        f'decode step ({slots} slots at depth {depth})':
-            lambda: net(toks, caches=pool, offset=off, pages=pages),
-        f'prefill chunk (1, {chunk}) at {depth}':
+    coff = torch.tensor(depth, dtype=torch.int32, device=dev)
+    def step():
+        return net(toks, caches=pool, offset=off, pages=pages)
+    calls = {   # (eager call, the call a graph captures)
+        f'decode step ({slots} slots at depth {depth})': (step, step),
+        f'prefill chunk (1, {chunk}) at {depth}': (
             lambda: net(ctoks, caches=pool, offset=depth, pages=pages[:1]),
+            lambda: net(ctoks, caches=pool, offset=coff, pages=pages[:1])),
     }
     with torch.no_grad():
-        for what, fn in calls.items():
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / reps
-            with profiled() as prof:
-                for _ in range(reps):
-                    fn()
+        for what, (fn, captured) in calls.items():
+            graph = StepGraph(captured, dev)
+            graph.capture()
+            for how, call in (('eager', fn), ('graphed', graph.replay)):
+                call()
                 torch.cuda.synchronize()
-            kernel_breakdown(tag, what, prof, wall, reps)
-            paged = sum(e.count for e in prof.key_averages()
-                        if 'paged_decode_kernel' in e.key)
-            want = net.cfg.num_layers * reps if 'decode' in what else 0
-            log(f'[{tag}] {what}: {paged // reps} paged-decode kernel '
-                f'events a call (want {want // reps})')
-            if paged != want:
-                fail(f'{tag}: {paged} paged-decode kernel events over '
-                     f'{reps} calls of the {what}, want {want}')
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    call()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / reps
+                with profiled() as prof:
+                    for _ in range(reps):
+                        call()
+                    torch.cuda.synchronize()
+                kernel_breakdown(tag, f'{how} {what}', prof, wall, reps)
+                paged = sum(e.count for e in prof.key_averages()
+                            if 'paged_decode_kernel' in e.key)
+                want = net.cfg.num_layers * reps if 'decode' in what else 0
+                log(f'[{tag}] {how} {what}: {paged // reps} paged-decode '
+                    f'kernel events a call (want {want // reps})')
+                if paged != want:
+                    fail(f'{tag}: {paged} paged-decode kernel events over '
+                         f'{reps} {how} calls of the {what}, want {want}')
+            graph.release()
     del pool
 
 
@@ -1049,21 +1197,25 @@ def path_spread(torch, net, seq):
 
 
 @contextlib.contextmanager
-def plain_int8():
+def plain_int8(net):
     """Every int8 layer through the product's plain version (its sums in
     float64 on the card), so that a run can be held against the same run
-    through the kernel."""
+    through the kernel. ``net``'s ``generate()`` graphs, which captured
+    one product or the other, are dropped on the way in and out."""
     from mxnet_tpu_torch.ops import quantization_ops
     from mxnet_tpu_torch.ops.kernels import int8_matmul as im
+    net.release_graphs()
     quantization_ops.int8_matmul = im.int8_matmul_plain
     try:
         yield
     finally:
         quantization_ops.int8_matmul = im.int8_matmul
+        net.release_graphs()
 
 
-def serve_one(torch, net, prompt, n_new):
-    """One prompt through a ``DecodeServer`` stepped by hand."""
+def serve_one(torch, net, prompt, n_new, tag='serve'):
+    """One prompt through a ``DecodeServer`` stepped by hand; its captures
+    and audit held by ``server_checks``."""
     from mxnet_tpu_torch.serve import DecodeServer
     ds = DecodeServer(net, slots=4, max_length=2048, page_size=16,
                       prefill_chunk=32, start=False)
@@ -1071,6 +1223,7 @@ def serve_one(torch, net, prompt, n_new):
         fut = ds.submit(prompt, n_new)
         while not fut.done():
             ds.step_once()
+        server_checks(ds.stats(), ds.audit_donation(), net, tag)
         return fut.result()
     finally:
         ds.close()
@@ -1128,6 +1281,7 @@ def phase_int8(torch, net, seed, float_logits=None, float_outs=None):
 
     prompt, n = prompts[2], len(outs[2])
     before = kernels.launch_counts()
+    caps = net.graph_captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gen = net.generate([prompt], max_new_tokens=n)[0, len(prompt):].tolist()
@@ -1135,10 +1289,13 @@ def phase_int8(torch, net, seed, float_logits=None, float_outs=None):
     dt = time.perf_counter() - t0
     after = kernels.launch_counts()
     delta = {k: after[k] - before[k] for k in after}
+    caps = net.graph_captures - caps
     log(f'[int8] generate() greedy over the dense cache, {len(prompt)}-token '
-        f'prompt, {n} new tokens in {dt:.2f} s ({n / dt:.1f} tok/s), '
-        f'launches {delta}')
-    if delta != _want(fused_norm=(2 * L + 1) * n, int8_matmul=n_dense * n):
+        f'prompt, {n} new tokens in {dt:.2f} s ({n / dt:.1f} tok/s, '
+        f'{caps} decode graph captured), launches {delta}')
+    calls = n + caps        # + the warm-up step of a capture
+    if delta != _want(fused_norm=(2 * L + 1) * calls,
+                      int8_matmul=n_dense * calls):
         fail(f'int8: generate() launches {delta}')
     return dict(logits=logits, prompts=prompts, outs=outs, gen=gen)
 
@@ -1161,9 +1318,9 @@ def int8_checks(torch, net, logits, prompts, outs, gen):
     prompt, out = prompts[2], outs[2]
     toks = torch.randint(0, net.cfg.vocab_size, (1, 512),
                          generator=torch.Generator().manual_seed(SEED + 1))
-    with plain_int8(), torch.no_grad():
+    with plain_int8(net), torch.no_grad():
         plain = net(toks.to(_device(net))).float().cpu()
-        plain_served = serve_one(torch, net, prompt, len(out))
+        plain_served = serve_one(torch, net, prompt, len(out), tag='int8')
         plain_gen = net.generate([prompt], max_new_tokens=len(out))[
             0, len(prompt):].tolist()
     ok = torch.equal(plain, logits)
@@ -1180,6 +1337,7 @@ def int8_checks(torch, net, logits, prompts, outs, gen):
         f'on the first {part} of {len(out)} tokens (logged only); largest '
         f'logit difference between the flash and the paged path over the '
         f'served sequence {path_spread(torch, net, prompt + out[:-1]):.4g}')
+    graph_checks(torch, net, prompt, out, tag='int8')
     teacher_forced(torch, net, prompt, out, tag='int8', check=False)
     profile_breakdown(torch, net, tag='int8')
 
@@ -1211,9 +1369,13 @@ def int8_parity(torch, seed):
         while not all(f.done() for f in futs):
             ds.step_once()
         outs[where] = [f.result() for f in futs]
-        calls = ds.stats()['steps'] + ds.stats()['prefill_chunks']
+        stats = ds.stats()
+        after = kernels.launch_counts()['int8_matmul']
+        server_checks(stats, ds.audit_donation(), net, f'int8 {where}')
         ds.close()
-        launches[where] = (kernels.launch_counts()['int8_matmul'] - before,
+        # + the warm-up's eager chunk and step on the card
+        calls = stats['steps'] + stats['prefill_chunks'] + 2
+        launches[where] = (after - before,
                            15 * calls if where == 'cuda' else 0)
     ok = outs['cuda'] == outs['cpu'] and all(
         a == b for a, b in launches.values())
@@ -1656,6 +1818,7 @@ def main(argv=None):
             prompts, outs, _ = window('serve', phase_serve, torch, net,
                                       SEED + 2)
             teacher_forced(torch, net, prompts[2], outs[2])
+            graph_checks(torch, net, prompts[2], outs[2])
             profile_breakdown(torch, net)
         if 'int8' in phases:        # the same net, quantized in place
             got = window('int8', phase_int8, torch, net, SEED + 5, logits,

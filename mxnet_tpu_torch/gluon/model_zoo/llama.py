@@ -12,10 +12,12 @@ as the reference leaves them to XLA.
 Ported here: the no-cache forward, the dense KV cache (``init_caches``,
 prefill, lockstep and per-slot decode), the paged per-slot decode and the
 paged chunked prefill, ``init_paged_pool``, ``generate()`` and
-:func:`from_jax_params`. ``generate()`` runs its decode steps as a Python
-loop over the eager forward: the reference's one ``lax.scan`` program, its
-cache of compiled prefill and decode steps and its power-of-two padding of
-the step count have no counterpart, as nothing is compiled. A net
+:func:`from_jax_params`. Every cached path also takes its offset as a tensor
+read on the device, so that a CUDA graph can capture it, and the RoPE
+tables are built once a forward. On the card ``generate()`` replays one
+captured decode step once a token, as the reference runs its decode loop
+as one ``lax.scan`` program, and keeps the graphs under the reference's
+key (``_graphs.StepGraph``); its prefill stays one eager call. A net
 quantized by :func:`mxnet_tpu_torch.quantization.quantize_net` runs every
 path unchanged, with bf16 activations between its int8 layers.
 
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import _graphs
 from ...context import resolve_device
 from ...ops import nn as nn_ops
 from ...ops.contrib import flash_attention, paged_attention_decode
@@ -80,20 +83,35 @@ class RMSNorm(nn.Module):
         return nn_ops.rms_norm(x, self.weight, eps=self._eps)
 
 
-def _rope(x, theta, offset=0):
-    """Rotary position embeddings on (B, S, H, Dh), interleaved even/odd
-    pairs as in the reference. ``offset`` is a scalar (prefill) or a
-    ``(B,)`` tensor of per-row positions (per-slot decode)."""
-    _, S, _, Dh = x.shape
+def _positions(offset, S, device):
+    """Absolute positions ``offset .. offset + S - 1`` as a long tensor,
+    for a Python int ``offset`` or a 0-dim tensor one (read on the device,
+    with no host sync, so that a CUDA graph can capture it)."""
+    if torch.is_tensor(offset):
+        return offset.to(device, torch.long) + torch.arange(S, device=device)
+    return int(offset) + torch.arange(S, device=device)
+
+
+def _rope_tables(S, Dh, theta, offset, device):
+    """The cos and sin tables of rotary position embeddings for ``S``
+    positions from ``offset``, each ``(1|B, S, 1, Dh/2)`` fp32: ``offset``
+    is a scalar (an int or a 0-dim tensor; prefill, lockstep decode) or a
+    ``(B,)`` tensor of per-row positions (per-slot decode). Built once a
+    forward and shared by every layer's q and k."""
     f32 = torch.float32
     inv = 1.0 / (theta ** (torch.arange(0, Dh, 2, dtype=f32,
-                                        device=x.device) / Dh))
-    off = torch.as_tensor(offset, dtype=f32, device=x.device)
+                                        device=device) / Dh))
+    off = torch.as_tensor(offset, dtype=f32, device=device)
     pos = torch.atleast_1d(off)[:, None] \
-        + torch.arange(S, dtype=f32, device=x.device)
+        + torch.arange(S, dtype=f32, device=device)
     ang = pos[..., None] * inv[None, None, :]          # (1|B, S, Dh/2)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def _rope(x, cos, sin):
+    """Rotary position embeddings on (B, S, H, Dh) from
+    :func:`_rope_tables`, interleaved even/odd pairs as in the
+    reference."""
     xf1 = x[..., ::2].float()
     xf2 = x[..., 1::2].float()
     r1 = xf1 * cos - xf2 * sin
@@ -115,7 +133,7 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(cfg.units, self._kv * self._dh, bias=False)
         self.o_proj = nn.Linear(self._h * self._dh, cfg.units, bias=False)
 
-    def forward(self, x, cache=None, offset=0, pages=None):
+    def forward(self, x, cache=None, offset=0, pages=None, rope=None):
         """Without ``cache``: causal attention over the sequence (flash
         kernel). With ``cache``, new K/V are written into it IN PLACE
         (index assignment; the reference donates the cache to a jitted
@@ -134,7 +152,13 @@ class LlamaAttention(nn.Module):
         * scalar ``offset`` (prefill, lockstep decode): query i sits at
           absolute position ``offset + i`` and attends positions up to
           it. On the pool this is chunked prefill (B == 1), over the
-          row's cache gathered out of the pool.
+          row's cache gathered out of the pool. A 0-dim int tensor
+          ``offset`` is read on the device (no host sync), as a CUDA
+          graph needs; a Python int is bounds-checked on the dense cache.
+
+        ``rope`` is the ``(cos, sin)`` pair of :func:`_rope_tables` for
+        these positions (``LlamaModel`` builds it once a forward); without
+        it the layer builds its own.
 
         The kernels take fp32: bf16 q, k, v (the projections of a
         quantized net) are upcast at the calls, which is exact, and the
@@ -144,8 +168,10 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).reshape(B, S, self._h, self._dh)
         k = self.k_proj(x).reshape(B, S, self._kv, self._dh)
         v = self.v_proj(x).reshape(B, S, self._kv, self._dh)
-        q = _rope(q, self._theta, offset=offset)
-        k = _rope(k, self._theta, offset=offset)
+        if rope is None:
+            rope = _rope_tables(S, self._dh, self._theta, offset, x.device)
+        q = _rope(q, *rope)
+        k = _rope(k, *rope)
         rep = self._h // self._kv
 
         if cache is None:
@@ -180,7 +206,7 @@ class LlamaAttention(nn.Module):
                 return self.o_proj(out), (k_cache, v_cache)
             if B != 1:
                 raise ValueError('chunked prefill fills one sequence')
-            pos = int(offset) + torch.arange(S, device=x.device)
+            pos = _positions(offset, S, x.device)
             pid = pages[0, pos // psz].long()
             k_cache[pid, pos % psz] = k[0].to(k_cache.dtype)
             v_cache[pid, pos % psz] = v[0].to(v_cache.dtype)
@@ -193,6 +219,10 @@ class LlamaAttention(nn.Module):
                 rows = torch.arange(B, device=x.device)
                 k_cache[rows, offset.long()] = k[:, 0].to(k_cache.dtype)
                 v_cache[rows, offset.long()] = v[:, 0].to(v_cache.dtype)
+            elif torch.is_tensor(offset):
+                pos = _positions(offset, S, x.device)
+                k_cache[:, pos] = k.to(k_cache.dtype)
+                v_cache[:, pos] = v.to(v_cache.dtype)
             else:
                 o = int(offset)
                 if o < 0 or o + S > L:
@@ -211,7 +241,7 @@ class LlamaAttention(nn.Module):
             # row b's single query (position offset[b]) sees slots <= it
             mask = (keys[None, :] <= offset.long()[:, None])[:, None, None]
         else:
-            qpos = int(offset) + torch.arange(S, device=x.device)
+            qpos = _positions(offset, S, x.device)
             mask = (keys[None, :] <= qpos[:, None])[None, None]
         scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
         probs = torch.softmax(scores, dim=-1)
@@ -243,12 +273,12 @@ class LlamaBlock(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.units, cfg.rms_norm_eps)
         self.mlp = LlamaMLP(cfg)
 
-    def forward(self, x, cache=None, offset=0, pages=None):
+    def forward(self, x, cache=None, offset=0, pages=None, rope=None):
         if cache is None:
-            x = x + self.self_attn(self.input_layernorm(x))
+            x = x + self.self_attn(self.input_layernorm(x), rope=rope)
             return x + self.mlp(self.post_attention_layernorm(x))
         att, cache = self.self_attn(self.input_layernorm(x), cache=cache,
-                                    offset=offset, pages=pages)
+                                    offset=offset, pages=pages, rope=rope)
         x = x + att
         return x + self.mlp(self.post_attention_layernorm(x)), cache
 
@@ -266,13 +296,19 @@ class LlamaModel(nn.Module):
 
     def forward(self, token_ids, caches=None, offset=0, pages=None):
         x = self.embed_tokens(token_ids)
+        cfg = self.cfg
+        # one set of RoPE tables for every layer's q and k
+        rope = _rope_tables(x.shape[1], cfg.units // cfg.num_heads,
+                            cfg.rope_theta, offset if caches is not None
+                            else 0, x.device)
         if caches is None:
             for blk in self.layers:
-                x = blk(x)
+                x = blk(x, rope=rope)
             return self.norm(x)
         new_caches = []
         for blk, cache in zip(self.layers, caches):
-            x, cache = blk(x, cache=cache, offset=offset, pages=pages)
+            x, cache = blk(x, cache=cache, offset=offset, pages=pages,
+                           rope=rope)
             new_caches.append(cache)
         return self.norm(x), new_caches
 
@@ -284,10 +320,13 @@ class LlamaForCausalLM(nn.Module):
     context, ``gpu(0)``; raises when there is no card and the caller did
     not pass ``device='cpu'``). ``device='meta'`` builds shapes only.
     Parameters are drawn from a ``torch.Generator`` seeded with ``seed``:
-    projections and embeddings N(0, 0.02), norm weights 1."""
+    projections and embeddings N(0, 0.02), norm weights 1.
+    ``graph_captures`` counts the decode steps ``generate()`` captured."""
 
     def __init__(self, cfg, device=None, seed=0):
         super().__init__()
+        self._decode_loops = {}     # generate()'s graphs, by key
+        self.graph_captures = 0     # their captures, as compiles count
         meta = isinstance(device, (str, torch.device)) \
             and torch.device(device).type == 'meta'
         dev = None if meta else resolve_device(device)
@@ -344,15 +383,29 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def generate(self, token_ids, max_new_tokens=32, max_length=None,
-                 temperature=0.0, seed=0, batch_bucket=None):
+                 temperature=0.0, seed=0, batch_bucket=None, graph=True):
         """Autoregressive generation over the dense KV cache.
 
         One prefill call over the whole prompt, then one ``(B, 1)`` decode
-        call per new token at a shared offset. Greedy (fp32 argmax of the
-        last position) when ``temperature == 0``; otherwise sampling from
-        ``softmax(logits / temperature)`` with a ``torch.Generator`` seeded
-        with ``seed`` on the net's device (deterministic for a seed, but
-        not the reference's ``jax.random`` draws).
+        step per new token. Greedy (fp32 argmax of the last position) when
+        ``temperature == 0``; otherwise sampling from ``softmax(logits /
+        temperature)`` with a ``torch.Generator`` seeded with ``seed`` on
+        the net's device (``torch.multinomial``'s draw: deterministic for
+        a seed, but not the reference's ``jax.random`` draws).
+
+        On a CUDA net the decode loop runs as the reference's one
+        ``lax.scan`` program does: one decode step captured in a CUDA
+        graph (per-row offsets over the dense cache), replayed once a
+        token with no host sync in between. The graph and its caches are
+        kept for the reference's key ``(B, S, L, temperature, n_pad)``,
+        at most 16 of them (:meth:`release_graphs` drops them). They read
+        the weights at the addresses they had at capture: updates in
+        place are seen, a swapped module is not (``quantize_net`` and
+        ``.to()`` drop them). Sampling is captured only where this torch
+        registers a generator with a graph
+        (:func:`mxnet_tpu_torch._graphs.captures_generators`); otherwise,
+        on the CPU and with ``graph=False`` the steps run eagerly, at a
+        shared Python-int offset.
 
         token_ids: ``(B, S)`` prompt tokens (tensor, array or nested
         list). ``batch_bucket`` pads the batch with dummy rows up to that
@@ -378,26 +431,45 @@ class LlamaForCausalLM(nn.Module):
         if S + max_new_tokens > L:
             raise ValueError(f'max_length {L} too small for {S} prompt '
                              f'and {max_new_tokens} new tokens')
+        n_rest = max_new_tokens - 1
+        B = toks.shape[0]
+        if graph and dev.type == 'cuda' and n_rest > 0 and (
+                temperature <= 0.0 or _graphs.captures_generators()):
+            key = (B, S, L, float(temperature), min(n_pow2, L - S - 1))
+            loop = self._decode_loops.get(key)
+            if loop is None:
+                if len(self._decode_loops) >= 16:   # bound as the reference
+                    self._decode_loops.pop(
+                        next(iter(self._decode_loops))).graph.release()
+                loop = self._decode_loops[key] = _DecodeLoop(
+                    self, B, L, key[-1], temperature)
+                self.graph_captures += 1
+            nxt, rest = loop.run(self, toks, n_rest, seed)
+            return torch.cat([toks, nxt[:, None], rest], dim=1)[:B_req]
+
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-
-        def pick(logits):
-            last = logits[:, -1, :].float()
-            if temperature <= 0.0:
-                return torch.argmax(last, dim=-1)
-            probs = torch.softmax(last / float(temperature), dim=-1)
-            return torch.multinomial(probs, 1, generator=gen)[:, 0]
-
-        caches = self.init_caches(toks.shape[0], L)
+        caches = self.init_caches(B, L)
         logits, caches = self(toks, caches=caches, offset=0)
-        nxt = pick(logits)
+        nxt = _pick(logits, temperature, gen)
         out = [toks, nxt[:, None]]
-        for off in range(S, S + max_new_tokens - 1):
+        for off in range(S, S + n_rest):
             logits, caches = self(nxt[:, None], caches=caches, offset=off)
-            nxt = pick(logits)
+            nxt = _pick(logits, temperature, gen)
             out.append(nxt[:, None])
         return torch.cat(out, dim=1)[:B_req]
+
+    def release_graphs(self):
+        """Drop the CUDA graphs of :meth:`generate` and their caches."""
+        for loop in self._decode_loops.values():
+            loop.graph.release()
+        self._decode_loops.clear()
+
+    def _apply(self, fn, *args, **kwargs):
+        # moving or casting the parameters moves what the graphs read
+        self.release_graphs()
+        return super()._apply(fn, *args, **kwargs)
 
     def init_paged_pool(self, num_pages, page_size, dtype='float32'):
         """Allocate the paged-KV pool on the parameters' device: per
@@ -412,6 +484,71 @@ class LlamaForCausalLM(nn.Module):
         return [(torch.zeros(shape, dtype=dt, device=dev),
                  torch.zeros(shape, dtype=dt, device=dev))
                 for _ in range(cfg.num_layers)]
+
+
+def _pick(logits, temperature, gen):
+    """The next token of every row from the last position's logits: the
+    fp32 argmax, or with ``temperature > 0`` a draw from
+    ``softmax(logits / temperature)``. The draw is
+    ``torch.multinomial(probs, 1, generator=gen)``'s own (an exponential
+    race, the same calls on the same generator) without its host-side
+    check of ``probs``, which a CUDA graph cannot capture."""
+    last = logits[:, -1, :].float()
+    if temperature <= 0.0:
+        return torch.argmax(last, dim=-1)
+    probs = torch.softmax(last / float(temperature), dim=-1)
+    q = torch.empty_like(probs).exponential_(1, generator=gen)
+    return torch.argmax(probs / q, dim=-1)
+
+
+class _DecodeLoop:
+    """``generate()``'s decode loop for one key, on the card: the dense
+    caches, the token, per-row offset and step buffers, the ``(n_pad, B)``
+    output, and one decode step captured over them. The step picks the
+    next token, writes it into the token buffer and into row ``step`` of
+    the output, and advances the offsets and ``step``, so that replays
+    follow each other with nothing from the host."""
+
+    def __init__(self, net, B, L, n_pad, temperature):
+        dev = net._device()
+        self.temperature = temperature
+        self.caches = net.init_caches(B, L)
+        self.tok = torch.zeros(B, dtype=torch.long, device=dev)
+        self.offset = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.step = torch.zeros(1, dtype=torch.long, device=dev)
+        self.out = torch.zeros(n_pad, B, dtype=torch.long, device=dev)
+        self.gen = torch.Generator(device=dev) if temperature > 0.0 \
+            else None
+
+        def body():
+            logits, _ = net(self.tok[:, None], caches=self.caches,
+                            offset=self.offset)
+            nxt = _pick(logits, temperature, self.gen)
+            self.tok.copy_(nxt)
+            self.out.index_copy_(0, self.step, nxt[None])
+            self.offset.add_(1)
+            self.step.add_(1)
+
+        self.graph = _graphs.StepGraph(
+            body, dev, () if self.gen is None else (self.gen,))
+        self.graph.capture()
+
+    def run(self, net, toks, n_rest, seed):
+        """Prefill ``toks`` eagerly, then replay the step ``n_rest``
+        times; returns the first picked token ``(B,)`` and the rest
+        ``(B, n_rest)``, on the card, unsynchronised."""
+        for k, v in self.caches:     # as fresh as the eager loop's
+            k.zero_()
+            v.zero_()
+        if self.gen is not None:
+            self.gen.manual_seed(int(seed))
+        logits, _ = net(toks, caches=self.caches, offset=0)
+        nxt = _pick(logits, self.temperature, self.gen)
+        self.tok.copy_(nxt)
+        self.offset.fill_(toks.shape[1])
+        self.step.zero_()
+        self.graph.replay(n_rest)
+        return nxt, self.out[:n_rest].T
 
 
 _LLAMA_CONFIGS = {

@@ -6,8 +6,9 @@ forms), :mod:`.paged_attention`, :mod:`.fused_optimizer`,
 :mod:`mxnet_tpu_torch.rtc` (counted as ``'rtc'``).
 
 Each kernel's wrapper counts its launches in a plain integer attribute
-(``fused_norm.launches`` ...); :func:`launch_counts` reads them and
-:func:`reset_launch_counts` sets them to 0. The int8 product and both
+(``fused_norm.launches`` ...); :func:`launch_counts` reads them,
+:func:`reset_launch_counts` sets them to 0, and :func:`add_launch_counts`
+adds what a CUDA graph's replay launched. The int8 product and both
 flash forms also count by the design their plan took
 (``launches_by_path``), which :func:`path_counts` reads.
 """
@@ -22,7 +23,7 @@ from . import int8_matmul as _int8     # the module keeps its name here
 from . import _nvrtc
 
 __all__ = ['KERNELS', 'launch_counts', 'path_counts', 'reset_launch_counts',
-           'needs_grad']
+           'add_launch_counts', 'needs_grad']
 
 #: kernel name -> the wrapper that launches it
 KERNELS = {'fused_norm': fused_norm,
@@ -52,6 +53,19 @@ def reset_launch_counts():
         fn.launches = 0
         if hasattr(fn, 'launches_by_path'):
             fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+
+
+def add_launch_counts(counts, paths=None, times=1):
+    """Add ``times`` x ``counts`` (``{kernel name: launches}``) and
+    ``paths`` (``{kernel name: {design: launches}}``) to the counters:
+    the launches of a CUDA graph's replay, which no wrapper sees
+    (:class:`mxnet_tpu_torch._graphs.StepGraph`)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += times * n
+    for name, by_design in (paths or {}).items():
+        fn = KERNELS[name]
+        for design, n in by_design.items():
+            fn.launches_by_path[design] += times * n
 
 
 def needs_grad(*tensors):

@@ -312,6 +312,8 @@ def quantize_net(net, calib_data=None, calib_mode='entropy',
             h.remove()
 
     table = calib_table(collectors, calib_mode)
+    if hasattr(net, 'release_graphs'):      # they read the float layers
+        net.release_graphs()
     result = net
     while targets:
         parent, name, path, child = targets.pop(0)

@@ -20,13 +20,18 @@ chunks are published to a **prefix cache** (chain hash over the token
 prefix), so a repeated shared prefix resolves to warm pages with zero
 prefill dispatches.
 
-What differs from the reference: the step and the prefill chunk are plain
-Python over the ``nn.Module`` (eager PyTorch, nothing is captured or
-compiled, so ``compile_count`` and ``recompiles`` stay 0), and the page
-pool is updated IN PLACE by index assignment where the reference donates
-it to a jitted step. The decode step reads the pool through the paged
-attention kernel; the prefill chunk attends over the row's pages gathered
-out of the pool.
+Where the reference compiles one step and one prefill-chunk program, the
+server here captures each as a CUDA graph (``_graphs.StepGraph``) and
+replays it: ``warmup`` captures both at construction, ``compile_count``
+counts captures and ``recompiles`` any capture after warm-up. Their inputs
+are static device buffers filled from one pinned host buffer by
+non-blocking copies; the argmax runs inside the graph, so a call's one
+host sync is reading its tokens. On the CPU nothing is captured: the same
+bodies run eagerly and ``compile_count`` stays 0. The page pool is updated
+IN PLACE by index assignment where the reference donates it to a jitted
+step (:meth:`DecodeServer.audit_donation` checks it). The decode step
+reads the pool through the paged attention kernel; the prefill chunk
+attends over the row's pages gathered out of the pool.
 
 Pad/garbage safety is positional: row ``b`` only ever attends to cache
 positions ``<= offset[b]``, and every such position was written by the
@@ -40,10 +45,13 @@ Locking: ``_cv`` (``serve.queue``) guards admission, the page allocator's
 lock (``serve.pages``, taken inside the queue lock during admission)
 guards the free list / refcounts / prefix cache, and ``_slot_lock``
 (``serve.slots``, innermost, never held across a model call or an
-allocator call) guards the slot table; the pool itself is touched only
-by the scheduler thread.
+allocator call) guards the slot table; ``_run_lock`` (``serve.run``,
+taken with no other lock held) serialises the model calls, which the
+scheduler thread makes, with ``audit_donation`` and ``close``, which
+share the staged inputs and the graphs.
 """
 
+import math
 import os
 import threading
 import time
@@ -53,7 +61,9 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from .. import _graphs
 from ..analysis import race as _race
+from ..analysis.report import AnalysisReport
 from ..telemetry import trace as _trace
 from . import faults as _faults
 from . import pages as _pages
@@ -146,12 +156,24 @@ class DecodeServer:
     clock, name, start
         Time source, metrics name, and whether to start the scheduler
         thread (``start=False``: drive it with :meth:`step_once`).
+    warmup : bool
+        Capture the prefill-chunk and step graphs at construction
+        (default True, as the reference compiles its programs then; on
+        the CPU the bodies run once). Without it the first call of each
+        captures its graph.
+
+    The graphs read the weights through the addresses they had when they
+    were captured: updates in place (``load_state_dict``, an optimizer
+    step) are seen, a swapped module or a moved net is not, so a net
+    quantized by ``quantize_net`` after a server was built needs a new
+    server, as the reference's server takes its parameters at
+    construction.
     """
 
     def __init__(self, net, slots=4, max_length=None, page_size=None,
                  num_pages=None, prefill_chunk=None, prefix_cache=None,
                  queue_depth=None, deadline_ms=None, clock=time.monotonic,
-                 name=None, start=True):
+                 name=None, start=True, warmup=True):
         self.net = net
         self.device = net.model.embed_tokens.weight.device
         self.slots = int(slots)
@@ -207,6 +229,22 @@ class DecodeServer:
                                     name=self.name, metrics=self.metrics)
         self._pool = net.init_paged_pool(num_pages, self.page_size)
 
+        # the model calls: their static inputs, staged in one pinned host
+        # buffer, and the graphs (step and prefill) captured over them;
+        # ``serve.run`` serialises the calls with the audit and close
+        self._run_lock = _race.tracked(threading.Lock(), 'serve.run')
+        self._stage_inputs()
+        self._graphs = {}
+        self._returned = {}         # call -> the pool it returned
+        self._captures = 0
+        self._released = False
+        if warmup:
+            self.warmup_compiles = self._warmup()
+            self.compile_baseline = self._captures
+        else:
+            self.warmup_compiles = 0
+            self.compile_baseline = None
+
         self._thread = None
         if start:
             self._thread = threading.Thread(
@@ -214,29 +252,115 @@ class DecodeServer:
             self._thread.start()
 
     # ------------------------------------------------------- model calls
-    def _tensor(self, rows, dtype):
-        return torch.as_tensor(np.asarray(rows), dtype=dtype,
-                               device=self.device)
+    def _stage_inputs(self):
+        """The calls' inputs, int32, each call's in one region of a host
+        buffer (pinned on the card) and of its device twin, so that one
+        non-blocking copy stages a call: the step's tokens and offsets
+        ``(slots,)`` and block table ``(slots, max_pages)``; the chunk's
+        tokens ``(1, prefill_chunk)``, offset ``()``, table row ``(1,
+        max_pages)`` and ``last`` ``(1,)``. Each field starts on 64
+        bytes."""
+        n, c, mp = self.slots, self.prefill_chunk, self._max_pages
+        layout = {'step': {'toks': (n,), 'offs': (n,), 'pages': (n, mp)},
+                  'prefill': {'toks': (1, c), 'off': (), 'pages': (1, mp),
+                              'last': (1,)}}
+        cuda = self.device.type == 'cuda'
+        self._host, self._dev, self._in = {}, {}, {}
+        for call, fields in layout.items():
+            spans, size = {}, 0
+            for f, shape in fields.items():
+                spans[f] = (size, shape)
+                size += -(-math.prod(shape) // 16) * 16
+            host = torch.zeros(size, dtype=torch.int32, pin_memory=cuda)
+            dev = torch.zeros(size, dtype=torch.int32, device=self.device)
+            self._host[call] = (host, {
+                f: host[o:o + math.prod(s)].numpy().reshape(s)
+                for f, (o, s) in spans.items()})
+            self._dev[call] = dev
+            self._in[call] = {f: dev[o:o + math.prod(s)].view(s)
+                              for f, (o, s) in spans.items()}
+
+    def _upload(self, call):
+        host, _ = self._host[call]
+        self._dev[call].copy_(host, non_blocking=True)
 
     @torch.no_grad()
+    def _step_body(self):
+        i = self._in['step']
+        logits, pool = self.net(i['toks'][:, None], caches=self._pool,
+                                offset=i['offs'], pages=i['pages'])
+        return torch.argmax(logits[:, -1].float(), dim=-1), pool
+
+    @torch.no_grad()
+    def _prefill_body(self):
+        i = self._in['prefill']
+        logits, pool = self.net(i['toks'], caches=self._pool,
+                                offset=i['off'], pages=i['pages'])
+        last = logits[0].index_select(0, i['last'])
+        return torch.argmax(last.float(), dim=-1), pool
+
+    def _capture(self, call):
+        if self._released:
+            raise ServerClosed(f'{self.name} released its graphs')
+        body = self._step_body if call == 'step' else self._prefill_body
+        g = self._graphs[call] = _graphs.StepGraph(body, self.device)
+        g.capture()
+        self._captures += 1
+        return g
+
+    def _call(self, call):
+        """Run the step or the chunk over its staged inputs: its graph on
+        the card (captured here if warm-up did not), its body on the CPU.
+        Returns the picked tokens, on the device."""
+        self._upload(call)
+        if self.device.type != 'cuda':
+            nxt, pool = (self._step_body if call == 'step'
+                         else self._prefill_body)()
+        else:
+            g = self._graphs.get(call) or self._capture(call)
+            nxt, pool = g.replay()
+        self._returned[call] = pool
+        return nxt
+
+    def _warmup(self):
+        """Capture the prefill-chunk graph, then the step graph (on the CPU:
+        run each body once), over all-zero block tables, which point every
+        write at the garbage page, as the reference's warm-up does."""
+        before = self._captures
+        with self._run_lock:
+            for call in ('prefill', 'step'):
+                host, fields = self._host[call]
+                host.zero_()
+                if call == 'prefill':
+                    fields['last'][0] = self.prefill_chunk - 1
+                if self.device.type == 'cuda':
+                    self._upload(call)
+                    self._returned[call] = self._capture(call).outputs[1]
+                else:
+                    self._call(call)
+        return self._captures - before
+
     def _run_prefill(self, toks, start, row, last):
         """One prompt chunk ``(1, prefill_chunk)`` at absolute position
         ``start`` through block-table row ``row``; returns the greedy
         token at chunk index ``last`` (float32 argmax)."""
-        logits, _ = self.net(self._tensor([toks], torch.long),
-                             caches=self._pool, offset=start,
-                             pages=self._tensor(row, torch.int32))
-        return int(torch.argmax(logits[0, last].float()))
+        with self._run_lock:
+            _, f = self._host['prefill']
+            f['toks'][0] = toks
+            f['off'][()] = start
+            f['pages'][:] = row
+            f['last'][0] = last
+            return self._call('prefill').tolist()[0]
 
-    @torch.no_grad()
     def _run_step(self, toks, offs, bt):
         """One decode step over the whole slot pool; returns the greedy
         next token of every row."""
-        logits, _ = self.net(self._tensor(toks, torch.long)[:, None],
-                             caches=self._pool,
-                             offset=self._tensor(offs, torch.int32),
-                             pages=self._tensor(bt, torch.int32))
-        return torch.argmax(logits[:, -1].float(), dim=-1).tolist()
+        with self._run_lock:
+            _, f = self._host['step']
+            f['toks'][:] = toks
+            f['offs'][:] = offs
+            f['pages'][:] = bt
+            return self._call('step').tolist()
 
     # --------------------------------------------------------- admission
     def submit(self, prompt, max_new_tokens=32, deadline_ms=None):
@@ -511,6 +635,11 @@ class DecodeServer:
             for s in decoding:
                 if s.remaining <= 0:
                     self._retire(s, result=list(s.tokens))
+        if self.compile_baseline is not None \
+                and self._captures != self.compile_baseline:
+            self.metrics.on_recompile(
+                self._captures - self.compile_baseline)
+            self.compile_baseline = self._captures
         return len(admitted) + prefilled + stepped + len(expired)
 
     @staticmethod
@@ -592,6 +721,13 @@ class DecodeServer:
                             'drain deadline exceeded '
                             '(MXNET_SERVE_DRAIN_S)')
                     self._closed = True
+        if self._thread is None or not self._thread.is_alive():
+            with self._run_lock:    # a wedged scheduler keeps them
+                for g in self._graphs.values():
+                    g.release()
+                self._graphs.clear()
+                self._returned.clear()
+                self._released = True
         self._alloc.detach()
         _unregister(self._metrics_name)
 
@@ -607,10 +743,61 @@ class DecodeServer:
         self.close(drain=exc[0] is None)
         return False
 
+    # --------------------------------------------------------- analysis
+    def audit_donation(self):
+        """Check that the pool is updated in place, the counterpart of
+        the reference's audit of its donated pool. Every per-layer (k, v)
+        pool tensor counts as donated; it is aliased when the step (its
+        graph at capture, or its last eager call) returned that very
+        storage, so that no copy of the pool lives beside it. On the card
+        the captured step is then replayed 4 times over an
+        all-garbage block table and ``allocations_per_step`` is the
+        change of ``torch.cuda.memory_stats()['allocation.all.allocated']``
+        a step, which must be 0 (``None`` on the CPU). Returns an
+        ``AnalysisReport`` (``stats['donated_args']``,
+        ``['aliased_args']``, ``['allocations_per_step']``) with an
+        ``error`` finding for each failed check."""
+        report = AnalysisReport(f'{self.name}.step')
+        report.rules_run.extend(['donation', 'allocations'])
+        pool = [t for kv in self._pool for t in kv]
+        allocs = None
+        with self._run_lock:
+            returned = self._returned.get('step')
+            if self.device.type == 'cuda' and 'step' in self._graphs:
+                host, _ = self._host['step']
+                host.zero_()
+                torch.cuda.synchronize(self.device)
+                stat = 'allocation.all.allocated'
+                before = torch.cuda.memory_stats(self.device)[stat]
+                for _ in range(4):
+                    self._call('step').tolist()
+                allocs = (torch.cuda.memory_stats(self.device)[stat]
+                          - before) / 4
+        if returned is None:
+            aliased = 0
+            report.add('donation', 'error', 'the step has not run yet: '
+                       'build the server with warmup=True or serve first')
+        else:
+            got = [t for kv in returned for t in kv]
+            aliased = sum(a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                          for a, b in zip(got, pool))
+            if aliased != len(pool):
+                report.add('donation', 'error',
+                           f'{len(pool) - aliased} of {len(pool)} pool '
+                           f'tensors are not the storage the step writes: '
+                           f'the pool would be doubly resident')
+        if allocs:
+            report.add('allocations', 'error',
+                       f'a replayed step allocates {allocs} times')
+        report.stats.update(donated_args=len(pool), aliased_args=aliased,
+                            allocations_per_step=allocs,
+                            captures=self._captures)
+        return report
+
     # ------------------------------------------------------------- stats
     def stats(self):
         out = self.metrics.snapshot()
-        out['compile_count'] = 0        # eager PyTorch: nothing compiled
+        out['compile_count'] = self._captures
         with self._cv:
             out['queued'] = len(self._queue)
         with self._slot_lock:

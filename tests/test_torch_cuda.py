@@ -4,7 +4,8 @@ multiple of 4 floats, head dims 32 and 64, query groups 1, 2 and 8, small
 pages, one query row, optimizer steps over ragged and unaligned buffers,
 int8 products at ragged and unaligned shapes, and the inputs the wrappers
 refuse; the norm and flash gradients on the card; a small Llama
-served and trained on the card against the CPU, float and int8; the
+served and trained on the card against the CPU, float and int8
+(served through the server's CUDA graphs); the
 flash-attention stats kernel over head dims, ragged edges and both masks;
 a two-rank ring (two processes sharing the card over gloo) against dense
 attention, with each rank's stats launches; ``rtc`` kernels compiled
@@ -18,9 +19,14 @@ every visible card; paged decode split 1 to 8 ways over depth-0,
 garbage and out-of-pool rows, the plan's split count passed to the
 kernel, and one call replayed from a CUDA graph after its offsets and
 block table were rewritten; split counters that outlive a graph that
-captured them; and every kernel launched on a card that is not the
+captured them; every kernel launched on a card that is not the
 current one (the two multi-card tests skip on a machine with one
-card).
+card); and the serving calls as CUDA graphs: a server's graphs against
+eager steps at the same shapes, captured at warm-up and never again
+under mixed depths, its pool audit, a graph's launch counts over its
+replays, and ``generate()``'s replayed decode loop against its eager
+one, greedy and sampled, its cache of at most 16 graphs and their
+release when the layers are swapped or moved.
 
 Every test needs a CUDA card and skips without one. The tests import no
 JAX, so on a machine without it they run with
@@ -50,6 +56,7 @@ from mxnet_tpu_torch.ops.kernels import (fused_norms, flash_attention,
                                          paged_attention)
 from mxnet_tpu_torch.quantization import QuantizedDense, quantize_net
 from mxnet_tpu_torch.serve import DecodeServer
+from mxnet_tpu_torch.serve.errors import ServerClosed
 
 pytestmark = pytest.mark.cuda
 
@@ -147,8 +154,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 def test_small_llama_serves_the_same_tokens_on_the_card(dev):
     """A 2-layer Llama with head dim 64 and GQA 4/2 serves the same greedy
-    tokens through the kernels as through the plain versions on the CPU,
-    and launches each kernel where it should."""
+    tokens through the kernels (its calls replayed from CUDA graphs) as
+    through the plain versions on the CPU, and launches each kernel where
+    it should."""
     gen_cpu = torch.Generator().manual_seed(1)
     prompts = [torch.randint(1, 512, (n,), generator=gen_cpu).tolist()
                for n in (5, 19, 40)]
@@ -167,8 +175,8 @@ def test_small_llama_serves_the_same_tokens_on_the_card(dev):
         steps = ds.stats()['steps']
         ds.close()
         counts = kernels.launch_counts()
-        if where == 'cuda':
-            assert counts['paged_attention_decode'] == 2 * steps
+        if where == 'cuda':     # + the warm-up's eager step
+            assert counts['paged_attention_decode'] == 2 * (steps + 1)
             assert counts['fused_norm'] > 0
         else:
             assert set(counts.values()) == {0}
@@ -430,10 +438,11 @@ def test_small_quantized_llama_serves_the_same_tokens_on_the_card(dev, act):
         stats = ds.stats()
         ds.close()
         counts = kernels.launch_counts()
-        if where == 'cuda':
-            calls = stats['steps'] + stats['prefill_chunks']
+        if where == 'cuda':     # + the warm-up's eager chunk and step
+            calls = stats['steps'] + stats['prefill_chunks'] + 2
             assert counts['int8_matmul'] == 15 * calls
-            assert counts['paged_attention_decode'] == 2 * stats['steps']
+            assert counts['paged_attention_decode'] == \
+                2 * (stats['steps'] + 1)
         else:
             assert set(counts.values()) == {0}
         with torch.no_grad():
@@ -941,3 +950,193 @@ def test_kernels_launch_on_their_tensors_card(dev):
             torch.testing.assert_close(a, b, **OPT_TOL)
         torch.cuda.synchronize(d)
         assert torch.cuda.current_device() == 0
+
+
+# ------------------------------------------------------------ CUDA graphs
+def _eager_steps(net, prompt, n_new, slots=2, max_length=64, psz=4,
+                 chunk=8):
+    """Greedy tokens of ``prompt`` from eager ``net(...)`` calls at the
+    shapes a ``DecodeServer`` gives its graphs: ``(1, chunk)`` prefill
+    chunks through a block-table row of ``max_length / psz`` pages at
+    Python-int offsets, then decode steps over ``slots`` rows, the
+    sequence in row 0 and the others idle on the garbage page."""
+    dev = net.model.embed_tokens.weight.device
+    mp = max_length // psz
+    pool = net.init_paged_pool(slots * mp + 1, psz)
+    row = torch.arange(1, mp + 1, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        for start in range(0, len(prompt), chunk):
+            real = min(chunk, len(prompt) - start)
+            toks = prompt[start:start + real] + [0] * (chunk - real)
+            logits, _ = net(torch.tensor([toks], device=dev), caches=pool,
+                            offset=start, pages=row)
+        out = [int(logits[0, real - 1].float().argmax())]
+        bt = torch.zeros(slots, mp, dtype=torch.int32, device=dev)
+        bt[0] = row[0]
+        while len(out) < n_new:
+            toks = torch.zeros(slots, 1, dtype=torch.long, device=dev)
+            toks[0, 0] = out[-1]
+            offs = torch.zeros(slots, dtype=torch.int32, device=dev)
+            offs[0] = len(prompt) + len(out) - 1
+            logits, _ = net(toks, caches=pool, offset=offs, pages=bt)
+            out.append(int(logits[0, -1].float().argmax()))
+    return out
+
+
+def _small_net(dev, quantized):
+    net = get_llama('llama_tiny', device='cpu', seed=3, **SMALL_LLAMA)
+    if quantized:
+        calib = torch.randint(0, 512, (2, 24),
+                              generator=torch.Generator().manual_seed(1))
+        quantize_net(net, calib_data=[calib], calib_mode='naive')
+    return net.to(dev)
+
+
+def _prompts(*lengths):
+    g = torch.Generator().manual_seed(1)
+    return [torch.randint(1, 512, (n,), generator=g).tolist()
+            for n in lengths]
+
+
+@pytest.mark.parametrize('quantized', [False, True], ids=['fp32', 'int8'])
+def test_graphed_server_serves_the_eager_steps_tokens(dev, quantized):
+    """Each prompt alone through a server whose step and chunk replay
+    their graphs, against eager calls at the same shapes: equal greedy
+    tokens."""
+    net = _small_net(dev, quantized)
+    for prompt in _prompts(5, 19, 40):
+        ds = DecodeServer(net, slots=2, max_length=64, page_size=4,
+                          prefill_chunk=8, start=False)
+        fut = ds.submit(prompt, 7)
+        while not fut.done():
+            ds.step_once()
+        assert ds.stats()['compile_count'] == 2
+        ds.close()
+        assert fut.result() == _eager_steps(net, prompt, 7)
+
+
+@pytest.mark.parametrize('quantized', [False, True], ids=['fp32', 'int8'])
+def test_graphed_server_captures_at_warmup_and_never_again(dev, quantized):
+    """Warm-up captures the chunk and the step; requests of mixed depths
+    served by the scheduler thread (which replays what the constructing
+    thread captured) capture nothing more. The launches count the two
+    warm-up calls and every replay; the audit finds the pool written in
+    place and no allocation in a replayed step."""
+    net = _small_net(dev, quantized)
+    L, dense = 2, 15 if quantized else 0
+    kernels.reset_launch_counts()
+    ds = DecodeServer(net, slots=2, max_length=64, page_size=4,
+                      prefill_chunk=8)
+    assert ds.warmup_compiles == ds.compile_baseline == 2
+    futs = [ds.submit(p, n) for p, n in zip(_prompts(5, 19, 40, 3, 26),
+                                           (7, 3, 9, 12, 5))]
+    outs = [f.result(timeout=120) for f in futs]
+    stats = ds.stats()
+    counts = kernels.launch_counts()
+    assert [len(o) for o in outs] == [7, 3, 9, 12, 5]
+    assert stats['compile_count'] == 2 and stats['recompiles'] == 0
+    calls = stats['steps'] + stats['prefill_chunks'] + 2
+    assert counts['fused_norm'] == (2 * L + 1) * calls
+    assert counts['paged_attention_decode'] == L * (stats['steps'] + 1)
+    assert counts['int8_matmul'] == dense * calls
+    report = ds.audit_donation()
+    assert report.ok, report
+    assert report.stats['donated_args'] == report.stats['aliased_args'] \
+        == 2 * L
+    assert report.stats['allocations_per_step'] == 0
+    ds.close()
+    assert ds._released and not ds._graphs
+    with pytest.raises(ServerClosed):
+        ds.submit([1, 2], 2)
+
+
+def test_step_graph_counts_each_replay_as_its_capture(dev):
+    """A norm and a split int8 product captured once: the capture counts
+    only its warm-up, each replay counts the capture's launches again, by
+    design too, and replays read the inputs rewritten in place."""
+    from mxnet_tpu_torch._graphs import StepGraph
+    x, gamma = _randn(dev, 4, 4096), _randn(dev, 4096, seed=1)
+    xq, wq = _int8(dev, 4, 4096, seed=1), _int8(dev, 1024, 4096, seed=2)
+    scale = _randn(dev, 1024, seed=3).abs() * 1e-4
+
+    def body():
+        return (nn_ops.rms_norm(x, gamma, eps=1e-5),
+                int8_matmul.int8_matmul(xq, wq, scale))
+    kernels.reset_launch_counts()
+    g = StepGraph(body, dev)
+    norm, prod = g.capture()
+    assert g.captures == 1
+    assert g.launches == {'fused_norm': 1, 'int8_matmul': 1}
+    assert g.paths == {'int8_matmul': {'tma_splitk': 1}}
+    assert kernels.launch_counts()['fused_norm'] == 1     # the warm-up
+    g.replay(5)
+    counts = kernels.launch_counts()
+    assert counts['fused_norm'] == counts['int8_matmul'] == 6
+    assert kernels.path_counts()['int8_matmul']['tma_splitk'] == 6
+    x.mul_(-3.0)
+    xq.copy_(xq.flip(0))
+    g.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(norm, fused_norms.fused_norm_plain(
+        x, gamma, None, 1e-5, True), **NORM_TOL)
+    assert torch.equal(prod, int8_matmul.int8_matmul_plain(xq, wq, scale))
+    g.release()
+
+
+@pytest.mark.parametrize('quantized', [False, True], ids=['fp32', 'int8'])
+def test_graphed_generate_equals_the_eager_one(dev, quantized):
+    """``generate()``'s decode loop replayed from one graph: the eager
+    loop's tokens, one capture for a key, its launches the prefill, the
+    warm-up step and one step a token; a second prompt of the same shape
+    replays the same graph."""
+    net = _small_net(dev, quantized)
+    L, dense = 2, 15 if quantized else 0
+    prompts = torch.tensor(_prompts(7, 7, 7))
+    for i, prompt in enumerate((prompts[:2], prompts[1:])):
+        eager = net.generate(prompt, max_new_tokens=9, graph=False)
+        kernels.reset_launch_counts()
+        got = net.generate(prompt, max_new_tokens=9)
+        assert torch.equal(got, eager)
+        assert net.graph_captures == 1
+        calls = 9 + (1 if i == 0 else 0)
+        counts = kernels.launch_counts()
+        assert counts['fused_norm'] == (2 * L + 1) * calls
+        assert counts['int8_matmul'] == dense * calls
+    one = net.generate(prompts[:1, :5], max_new_tokens=2)
+    assert torch.equal(one, net.generate(prompts[:1, :5], max_new_tokens=2,
+                                         graph=False))
+    assert net.graph_captures == 2
+
+
+def test_graphed_sampling_is_deterministic_for_a_seed(dev):
+    """Sampling replays its graph with the generator registered, where
+    torch allows it; a seed gives the same tokens every time, and those
+    of the eager loop."""
+    from mxnet_tpu_torch._graphs import captures_generators
+    net = _small_net(dev, False)
+    prompt = torch.tensor([_prompts(6)[0]])
+    eager = net.generate(prompt, max_new_tokens=8, temperature=1.0, seed=5,
+                         graph=False)
+    a = net.generate(prompt, max_new_tokens=8, temperature=1.0, seed=5)
+    b = net.generate(prompt, max_new_tokens=8, temperature=1.0, seed=5)
+    assert torch.equal(a, b)
+    assert net.graph_captures == (1 if captures_generators() else 0)
+    assert torch.equal(a, eager)
+
+
+def test_generate_keeps_at_most_16_graphs_and_drops_them_on_a_swap(dev):
+    """The graph cache is bounded as the reference's program cache is,
+    and ``quantize_net`` (which swaps the layers the graphs read) and
+    ``.to()`` drop it."""
+    net = _small_net(dev, False)
+    for s in range(2, 19):
+        net.generate(torch.ones(1, s, dtype=torch.long), max_new_tokens=3)
+    assert net.graph_captures == 17 and len(net._decode_loops) == 16
+    calib = torch.randint(0, 512, (2, 24),
+                          generator=torch.Generator().manual_seed(1))
+    quantize_net(net, calib_data=[calib], calib_mode='naive')
+    assert not net._decode_loops
+    net.generate(torch.ones(1, 4, dtype=torch.long), max_new_tokens=3)
+    assert len(net._decode_loops) == 1
+    net.to('cpu')
+    assert not net._decode_loops
