@@ -26,9 +26,15 @@ Phases, each of which fails the run on any error:
                offsets and block table were rewritten in place. The
                gradients of the norm and flash ops (their
                ``autograd.Function``s) meet autograd through the plain
-               versions. The launch floor: an empty kernel compiled
-               through ``rtc`` and timed as the norm is, beside the
-               norm's decode-step rows.
+               versions. The norm names its design (``regs``, the row
+               in registers, or ``cluster``, a short batch's rows split
+               over thread-block clusters) and times the earlier one
+               (``general``) beside it, RMS and LayerNorm at (4 / 32 /
+               512 / 2048, 4096) and LayerNorm at BERT-base's (512,
+               768); at (4, 4096) and (32, 4096) its designs are timed
+               in turns with the launch floor (an empty kernel) and the
+               copy floor (the regs grid and block writing x * gamma, no
+               reduction), both compiled through ``rtc``.
 4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
                generator: one ``(1, 512)`` forward, finite logits, and
                exactly 65 RMSNorm and 32 flash-attention launches.
@@ -49,7 +55,7 @@ Phases, each of which fails the run on any error:
                ``torch.profiler`` splits a decode step and a prefill chunk
                into kernel time by name, eager and replayed from a graph;
                a decode step must show one paged-decode kernel event a
-               layer.
+               layer; the norm's kernel time in each is logged apart.
 6. int8     -- the same net, quantized in place by ``quantize_net`` (naive
                calibration on one seeded (1, 512) batch, bf16
                activations): 225 ``QuantizedDense`` layers. One (1, 512)
@@ -98,8 +104,9 @@ int8, train and rtc phases and read just after it, and in each rank just
 before and after its ring runs; the kernels' line reports their sum. A
 CUDA graph's replay counts the launches its capture saw
 (``_graphs.StepGraph``). A
-phase fails if the int8 product or flash attention (either form) ran
-another design than its Hopper ones on its main path (``NEW_DESIGNS``).
+phase fails if the norm, the int8 product or flash attention (either
+form) ran another design than its Hopper ones on its main path
+(``NEW_DESIGNS``).
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase ran and passed. Exit code 0 only then.
 """
@@ -342,7 +349,7 @@ def _case(torch, name, shape, got, want, tol, why, kernel, plain,
 def phase_kernels(torch):
     """Every kernel against its plain version; returns {kernel: [rows]}."""
     import torch.nn.functional as F
-    from mxnet_tpu_torch.ops.kernels import fused_norms, flash_attention
+    from mxnet_tpu_torch.ops.kernels import flash_attention
 
     dev = torch.device('cuda', 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -353,31 +360,8 @@ def phase_kernels(torch):
     rows = {k: [] for k in KERNELS}
     f4 = 4   # bytes per fp32 value
 
-    # ---- fused norm, RMS and LayerNorm: bytes-bound row reductions
-    norm_tol = (1e-5, 1e-5)
-    norm_why = 'fp32 statistics, sum over 4096 taken in another order'
-    for n, d in ((4, 4096), (32, 4096), (512, 4096), (2048, 4096)):
-        x = randn(n, d, scale=2.0) + 0.3
-        g = randn(d) + 1.0
-        b = randn(d)
-        for rms in (True, False):
-            beta = None if rms else b
-            got = fused_norms.fused_norm(x, g, beta, 1e-5, rms)
-            want = fused_norms.fused_norm_plain(x, g, beta, 1e-5, rms)
-            if rms:
-                lib = lambda: F.rms_norm(x, (d,), g, 1e-5)  # noqa: E731
-            else:
-                lib = lambda: F.layer_norm(x, (d,), g, beta, 1e-5)  # noqa
-            nbytes = f4 * (2 * n * d + d * (1 if rms else 2))
-            ops = (4 if rms else 6) * n * d
-            rows['fused_norm'].append(_case(
-                torch, 'fused_norm', f'{"rms" if rms else "layer"} '
-                f'({n}, {d})', got, want, norm_tol, norm_why,
-                lambda: fused_norms.fused_norm(x, g, beta, 1e-5, rms),
-                lambda: fused_norms.fused_norm_plain(x, g, beta, 1e-5, rms),
-                nbytes, ops, lib))
-    del x, g, b
-    _launch_floor(torch, rows['fused_norm'])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _norm_cases(torch, randn, rows['fused_norm'], sms)
 
     # ---- flash attention forward: fp32-accurate, 3xTF32 on the tensor
     # cores; the keys split where the grid is short (T against a long S)
@@ -385,7 +369,6 @@ def phase_kernels(torch):
     att_why = 'fp32 online softmax vs one-pass softmax, sums over S keys ' \
               'in another order; products in 3xTF32'
     bh = 32
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for t, s, d, causal in ((512, 512, 128, True), (512, 512, 128, False),
                             (2048, 2048, 128, True),
                             (2048, 2048, 128, False), (37, 2048, 128, True),
@@ -440,27 +423,165 @@ def phase_kernels(torch):
     return rows
 
 
+def _norm_cases(torch, randn, rows, sms):
+    """The fused norm against its plain version, RMS and LayerNorm, at a
+    decode step's (4, 4096), a prefill chunk's (32, 4096), (512, 4096) and
+    a training batch's (2048, 4096), and LayerNorm at BERT-base's (512,
+    768). Each row names the design its plan took; the earlier design
+    (``general``, forced) is held to the plain version too and timed
+    beside it. Then the floors (``_norm_floors``). The library call is
+    ``F.rms_norm`` or ``F.layer_norm``."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.kernels import fused_norms as fn
+    tol = (1e-5, 1e-5)
+    why = 'fp32 statistics, sums over d taken in another order'
+    general = fn.Plan('general', fn.GENERAL_THREADS, 0, 1)
+    cases = [(n, 4096, rms) for n in (4, 32, 512, 2048)
+             for rms in (True, False)] + [(512, 768, False)]
+    for n, d, rms in cases:
+        if rms or d != 4096:        # new inputs for each shape
+            x = randn(n, d, scale=2.0) + 0.3
+            g, b = randn(d) + 1.0, randn(d)
+        beta = None if rms else b
+        got = fn.fused_norm(x, g, beta, 1e-5, rms)
+        want = fn.fused_norm_plain(x, g, beta, 1e-5, rms)
+        out_old = torch.empty_like(x)
+
+        def old():
+            fn._launch(x, g, beta, out_old, 1e-5, rms, general)
+        old()
+        err, ok = compare(torch, out_old, want, *tol)
+        if not ok:
+            fail(f'fused_norm: the general design differs from the plain '
+                 f'version at ({n}, {d}), rms {rms}: {err:.3g}')
+        if rms:
+            lib = lambda: F.rms_norm(x, (d,), g, 1e-5)  # noqa: E731
+        else:
+            lib = lambda: F.layer_norm(x, (d,), g, beta, 1e-5)  # noqa
+        rows.append(_case(
+            torch, 'fused_norm', f'{"rms" if rms else "layer"} ({n}, {d})',
+            got, want, tol, why,
+            lambda: fn.fused_norm(x, g, beta, 1e-5, rms),
+            lambda: fn.fused_norm_plain(x, g, beta, 1e-5, rms),
+            4 * (2 * n * d + d * (1 if rms else 2)), (4 if rms else 6) * n * d,
+            lib, path=fn.plan(n, d, True, sms, rms).path,
+            earlier=(old, 'general design, this run')))
+    del x, g, b, got, want, out_old
+    _norm_floors(torch, randn, rows, sms)
+
+
 FLOOR_SOURCE = r'''
 extern "C" __global__ void empty_kernel(int* unused) {}
+
+// The norm's copy floor: the regs design's grid and block at d = 4096 (one
+// block of 256 threads a row, four 16-byte vectors a thread, every load
+// issued first, the weights with ld.relaxed.cta as there), writing
+// x * gamma with no reduction.
+extern "C" __global__ void __launch_bounds__(256)
+copy_floor(const float* x, const float* gamma, int nv, float* y) {
+  const float4* xr = reinterpret_cast<const float4*>(x) +
+                     static_cast<unsigned long long>(blockIdx.x) * nv;
+  const float4* g4 = reinterpret_cast<const float4*>(gamma);
+  float4* yr = reinterpret_cast<float4*>(y) +
+               static_cast<unsigned long long>(blockIdx.x) * nv;
+  float4 a[4], b[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4* p = xr + min(k * 256 + int(threadIdx.x), nv - 1);
+    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(a[k].x), "=f"(a[k].y), "=f"(a[k].z), "=f"(a[k].w)
+                 : "l"(p));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4* p = g4 + min(k * 256 + int(threadIdx.x), nv - 1);
+    asm volatile("ld.relaxed.cta.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(b[k].x), "=f"(b[k].y), "=f"(b[k].z), "=f"(b[k].w)
+                 : "l"(p));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = k * 256 + threadIdx.x;
+    if (j < nv)
+      yr[j] = make_float4(a[k].x * b[k].x, a[k].y * b[k].y, a[k].z * b[k].z,
+                          a[k].w * b[k].w);
+  }
+}
 '''
 
 
-def _launch_floor(torch, norm_rows):
-    """The least time of one launch: a kernel that does nothing, compiled
-    through ``rtc`` (NVRTC), one block of 32 threads, timed by ``cuda_ms``
-    as the norm's rows are. Each RMS norm row at 4 or 32 rows (a decode
-    step's) gets its time as a multiple of it."""
+def _turns(torch, calls, rounds=5):
+    """``{name: ms}``: each call's least ``cuda_ms`` over ``rounds`` rounds
+    that time the calls in turns, so that a change of the card's clocks
+    during the rounds (on the H100 an empty kernel's time has moved by a
+    fifth within one run) falls on every call alike."""
+    best = dict.fromkeys(calls, math.inf)
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            best[name] = min(best[name], cuda_ms(torch, fn))
+    return best
+
+
+def _norm_floors(torch, randn, rows, sms):
+    """What the norm's rows at (4, 4096) and (32, 4096) are held against:
+    the launch floor (an empty kernel, one block of 32 threads) and the
+    copy floor (``copy_floor``: the regs design's grid and block reading x
+    and gamma and writing x * gamma, no reduction), both compiled through
+    ``rtc``; the copy floor must give torch's x * gamma bit for bit. At
+    each shape every design that takes it (``cluster`` and ``regs``, which
+    the plans take, and the earlier ``general``) is held to the plain
+    version, RMS and LayerNorm, and timed in turns with both floors
+    (``_turns``); each row there gets those times and its multiples of
+    both floors."""
+    from mxnet_tpu_torch.ops.kernels import fused_norms as fn
     from mxnet_tpu_torch.rtc import CudaModule
-    empty = CudaModule(FLOOR_SOURCE).get_kernel('empty_kernel')
-    floor = cuda_ms(torch, lambda: empty.launch([], (1,), 32, (1,)))
-    for row in norm_rows:
-        if row['shape'] in ('rms (4, 4096)', 'rms (32, 4096)'):
-            row['launch_floor_ms'] = floor
-            row['floor_multiple'] = row['ms'] / floor
-            log(f'[kernels] fused_norm {row["shape"]}: {row["ms"]:.4f} ms, '
-                f'{row["floor_multiple"]:.2f} x the launch floor')
-    log(f'[kernels] launch floor: an empty kernel (one block of 32 '
-        f'threads, rtc) {floor:.4f} ms a launch in a CUDA graph')
+    floors = CudaModule(FLOOR_SOURCE)
+    empty = floors.get_kernel('empty_kernel')
+    copy = floors.get_kernel('copy_floor')
+    d = 4096
+    for n in (4, 32):
+        x, g, b = randn(n, d, scale=2.0) + 0.3, randn(d) + 1.0, randn(d)
+        args = [x, g, d // 4]
+        if not torch.equal(copy.launch(args, (n,), 256, [(n, d)])[0], x * g):
+            fail(f'the copy floor kernel is wrong at ({n}, {d})')
+        out = torch.empty_like(x)
+        calls = {'launch floor': lambda: empty.launch([], (1,), 32, (1,)),
+                 'copy floor': lambda: copy.launch(args, (n,), 256,
+                                                   [(n, d)])}
+        designs = {'cluster': fn.plan(n, d, True, sms, True),    # RMS's
+                   'regs': fn.plan(n, d, True, sms, False),      # LN's
+                   'general': fn.Plan('general', fn.GENERAL_THREADS, 0, 1)}
+        for rms in (True, False):
+            beta = None if rms else b
+            kind = 'rms' if rms else 'layer'
+            want = fn.fused_norm_plain(x, g, beta, 1e-5, rms)
+            for name, p in designs.items():
+                fn._launch(x, g, beta, out, 1e-5, rms, p)
+                err, ok = compare(torch, out, want, 1e-5, 1e-5)
+                if not ok:
+                    fail(f'fused_norm: the {name} design differs from the '
+                         f'plain version at ({n}, {d}), {kind}: {err:.3g}')
+                calls[f'{kind} {name}'] = \
+                    lambda beta=beta, rms=rms, p=p: fn._launch(
+                        x, g, beta, out, 1e-5, rms, p)
+        ms = _turns(torch, calls)
+        log(f'[kernels] norm at ({n}, {d}), the least of 5 rounds in turns '
+            f'({designs["cluster"]}, {designs["regs"]}): '
+            + ', '.join(f'{k} {v:.5f}' for k, v in ms.items()) + ' ms')
+        for row in rows:
+            if not row['shape'].endswith(f'({n}, {d})'):
+                continue
+            kind = row['shape'].split()[0]
+            new = ms[f'{kind} {row["path"]}']
+            row.update(turns_ms=ms, launch_floor_multiple=new / ms[
+                'launch floor'], copy_floor_multiple=new / ms['copy floor'])
+            log(f'[kernels] fused_norm {row["shape"]}: {row["path"]} '
+                f'{new:.5f} ms in turns, {row["launch_floor_multiple"]:.2f} '
+                f'x the launch floor, {row["copy_floor_multiple"]:.2f} x the '
+                f'copy floor; cluster {ms[f"{kind} cluster"]:.5f}, regs '
+                f'{ms[f"{kind} regs"]:.5f}, general '
+                f'{ms[f"{kind} general"]:.5f}')
+        del x, g, b, args, out, calls
 
 
 def _paged_cases(torch, randn, rows, sms):
@@ -1120,6 +1241,7 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
                         call()
                     torch.cuda.synchronize()
                 kernel_breakdown(tag, f'{how} {what}', prof, wall, reps)
+                norm_breakdown(tag, f'{how} {what}', prof, reps)
                 paged = sum(e.count for e in prof.key_averages()
                             if 'paged_decode_kernel' in e.key)
                 want = net.cfg.num_layers * reps if 'decode' in what else 0
@@ -1157,6 +1279,23 @@ def kernel_breakdown(tag, what, prof, wall_ms, reps=1, top=8):
         log(f'[{tag}]   {ms:8.3f} ms {100 * ms / busy:5.1f}% '
             f'x{e.count // reps:<4d} {e.key[:90]}')
     return busy
+
+
+def norm_breakdown(tag, what, prof, reps):
+    """Log the fused norm's (B1's) kernel time a call in a
+    ``torch.profiler`` run of ``reps`` calls, by kernel: its weights at
+    the L2 state the call leaves them in."""
+    from torch.autograd import DeviceType
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and 'fused_norm' in e.key]
+    ms = sum(e.self_device_time_total for e in ev) / 1e3 / reps
+    n = sum(e.count for e in ev) // reps
+    by = ', '.join(f'{e.key.split("(float")[0].split("::")[-1]} '
+                   f'x{e.count // reps} '
+                   f'{e.self_device_time_total / 1e3 / reps:.4f}'
+                   for e in ev)
+    log(f'[{tag}] {what}: B1 (fused_norm) {ms:.4f} ms over {n} launches '
+        f'a call ({1e3 * ms / max(n, 1):.2f} us each): {by}')
 
 
 def teacher_forced(torch, net, prompt, out, tag='serve', check=True):
@@ -1748,9 +1887,12 @@ def rtc_checks(torch, rows, x, y, n, grid, kernels, got):
 
 #: the designs the main paths must run, the Hopper ones; the int8
 #: product's earlier design (``sm80``) stays for layouts that TMA
-#: refuses, which no main path gives it. Paged decode has one design,
-#: counted by the split count of its plan (1 to 8)
-NEW_DESIGNS = {'int8_matmul': ('tma_splitk', 'tma'),
+#: refuses, and the norm's (``general``) for widths and layouts that the
+#: register-resident designs do not take; no main path gives them those.
+#: Paged decode has one design, counted by the split count of its plan (1
+#: to 8)
+NEW_DESIGNS = {'fused_norm': ('regs', 'cluster'),
+               'int8_matmul': ('tma_splitk', 'tma'),
                'flash_attention': ('tf32x3', 'tf32x3_splitkv'),
                'flash_attention_stats': ('tf32x3', 'tf32x3_splitkv'),
                'paged_attention_decode': tuple(

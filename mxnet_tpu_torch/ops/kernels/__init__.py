@@ -8,9 +8,9 @@ forms), :mod:`.paged_attention`, :mod:`.fused_optimizer`,
 Each kernel's wrapper counts its launches in a plain integer attribute
 (``fused_norm.launches`` ...); :func:`launch_counts` reads them,
 :func:`reset_launch_counts` sets them to 0, and :func:`add_launch_counts`
-adds what a CUDA graph's replay launched. The int8 product and both
-flash forms also count by the design their plan took
-(``launches_by_path``), which :func:`path_counts` reads.
+adds what a CUDA graph's replay launched. The norm, the int8 product,
+both flash forms and paged decode also count by the design their plan
+took (``launches_by_path``), which :func:`path_counts` reads.
 """
 
 import torch

@@ -1,9 +1,18 @@
-"""Fused row normalisation, RMS or LayerNorm: the CUDA kernel
-``csrc/fused_norms.cu`` and its plain PyTorch version.
+"""Fused row normalisation, RMS or LayerNorm: the CUDA kernels
+``csrc/fused_norms.cu`` and their plain PyTorch version.
 
 Counterpart of ``mxnet_tpu/ops/pallas/fused_norms.py``. A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel, or raises on a dtype,
-shape or layout the kernel does not take.
+the plain version; a CUDA tensor launches a kernel, or raises on a dtype,
+shape or layout the kernels do not take.
+
+:func:`plan` picks the kernel's design from the shapes, the mode and the
+pointers' alignment alone: ``regs`` (one block a row, the row held in
+registers), ``cluster`` (each row of a short RMS batch split over a
+thread-block cluster, the slices held in registers) or ``general`` (the
+earlier design, for widths that are not a multiple of 4 or above
+:data:`MAX_D`, and for data off 16-byte alignment). Launches are counted
+in ``fused_norm.launches`` and, by design, in
+``fused_norm.launches_by_path``.
 
 :class:`FusedNormFunction` gives the op its gradient, as the reference's
 ``custom_vjp`` does: the forward is the wrapper (the kernel on the card)
@@ -13,6 +22,8 @@ reference, not a Pallas kernel, so it is no kernel here either.
 """
 
 import ctypes
+import functools
+from collections import namedtuple
 
 import torch
 
@@ -20,10 +31,74 @@ from ...base import MXNetError
 from . import _build
 
 __all__ = ['fused_norm', 'fused_norm_plain', 'fused_norm_bwd',
-           'FusedNormFunction', 'fused_rms_norm', 'fused_layer_norm']
+           'FusedNormFunction', 'fused_rms_norm', 'fused_layer_norm',
+           'PATHS', 'Plan', 'plan']
+
+#: the kernel's designs, by the plan's name
+PATHS = ('regs', 'cluster', 'general')
+_PATH_CODE = {'general': 0, 'regs': 1, 'cluster': 2}
+#: threads of a block and 16-byte vectors of a thread the register-resident
+#: designs are built for (regs: one block a row; cluster: a block a slice)
+REGS_THREADS = (64, 128, 256, 512)
+CLUSTER_THREADS = (32, 64, 128, 256)
+VECS = (1, 2, 3, 4)
+#: widest row the register-resident designs hold
+MAX_D = 4 * REGS_THREADS[-1] * VECS[-1]
+#: most rows of a call whose rows are split over clusters, the cluster
+#: sizes built (the largest the portable limit) and the most partial sums
+#: (one a warp of a row's blocks) a sum adds
+CLUSTER_ROWS = 32
+CLUSTERS = (8, 4, 2)
+MAX_PARTS = 32
+#: the general design's block
+GENERAL_THREADS = 256
+
+#: one call's design: ``path`` (one of :data:`PATHS`), ``threads`` a
+#: block, ``vecs`` 16-byte vectors a thread (0 for general, which strides)
+#: and ``cluster`` blocks a row. Thread ``t`` of block ``r`` of a row takes
+#: the vectors ``r * threads * vecs + k * threads + t``, ``k < vecs``, that
+#: are below ``d / 4``.
+Plan = namedtuple('Plan', 'path threads vecs cluster')
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_int, ctypes.c_void_p]
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _fit(nv, threads, c):
+    """``(threads, vecs)`` of the ``c`` blocks of a row of ``nv`` vectors
+    with the fewest idle slots, then the most vectors a thread, among those
+    that leave no vector column of the last block empty and add at most
+    :data:`MAX_PARTS` partials (the C entry's own conditions); None if
+    none does."""
+    fits = [(t * v * c - nv, -v, t, v) for t in threads for v in VECS
+            if t * v * c >= nv > t * (v * c - 1)
+            and c * t // 32 <= MAX_PARTS]
+    return min(fits)[2:] if fits else None
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(n, d, aligned, sm_count, rms):
+    """The design of a call over ``n`` rows of ``d`` on a card with
+    ``sm_count`` SMs, RMS or (``rms`` False) LayerNorm; ``aligned`` says
+    that x, gamma, beta and the output start on 16-byte boundaries.
+    ``cluster`` takes an RMS batch of at most :data:`CLUSTER_ROWS` rows, in
+    the largest cluster of :data:`CLUSTERS` whose blocks fit one wave
+    (``n * cluster <= sm_count``) and split the row evenly; ``regs`` the
+    other rows of up to :data:`MAX_D` that are a multiple of 4; ``general``
+    the rest. LayerNorm's two sums would cross the cluster twice, and on
+    the H100 that took longer than the split saved (PERF.md). Pure Python:
+    the CPU tests check it, and the C entry refuses a plan that does not
+    fit."""
+    if not aligned or d % 4 or d > MAX_D:
+        return Plan('general', GENERAL_THREADS, 0, 1)
+    nv = d // 4
+    if rms and n <= CLUSTER_ROWS:
+        for c in CLUSTERS:
+            tv = _fit(nv, CLUSTER_THREADS, c) if n * c <= sm_count else None
+            if tv:
+                return Plan('cluster', *tv, c)
+    return Plan('regs', *_fit(nv, REGS_THREADS, 1), 1)
 
 
 def _out_dtype(x, gamma, beta):
@@ -74,18 +149,30 @@ def fused_norm(x, gamma, beta=None, eps=1e-5, rms=False):
         return out
     if n >= 2 ** 31 or d >= 2 ** 31:
         raise MXNetError(f'fused_norm: shape {tuple(x.shape)} too large')
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors + (out,))
+    p = plan(n, d, aligned, _build.sm_count(x.device), bool(rms))
+    _launch(x, gamma, beta, out, eps, rms, p)
+    fused_norm.launches += 1
+    fused_norm.launches_by_path[p.path] += 1
+    return out
+
+
+def _launch(x, gamma, beta, out, eps, rms, p):
+    """One launch of the kernel on checked tensors, in the design of plan
+    ``p``."""
+    d = x.shape[-1]
     fn = _build.function('fused_norms', 'fused_norm_f32', _ARGS)
     with _build.on_device(x.device):
         rc = fn(x.data_ptr(), gamma.data_ptr(),
                 None if beta is None else beta.data_ptr(), out.data_ptr(),
-                n, d, float(eps), int(rms),
+                x.numel() // d, d, float(eps), int(rms), _PATH_CODE[p.path],
+                p.threads, p.vecs, p.cluster,
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check('fused_norms', rc, 'fused_norm')
-    fused_norm.launches += 1
-    return out
 
 
 fused_norm.launches = 0
+fused_norm.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def fused_rms_norm(x, gamma, eps=1e-6):

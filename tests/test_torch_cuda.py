@@ -3,7 +3,11 @@ main paths of ``chip_smoke.py`` do not reach: rows that are not a
 multiple of 4 floats, head dims 32 and 64, query groups 1, 2 and 8, small
 pages, one query row, optimizer steps over ragged and unaligned buffers,
 int8 products at ragged and unaligned shapes, and the inputs the wrappers
-refuse; the norm and flash gradients on the card; a small Llama
+refuse; the norm's three designs, each forced, at widths that select them (one
+row, 2049 rows, 768, 4100 with a masked tail, 12288 above the
+register-resident limit), data one float off 16-byte alignment and the
+norm replayed from a CUDA graph; the norm and flash gradients on the
+card; a small Llama
 served and trained on the card against the CPU, float and int8
 (served through the server's CUDA graphs); the
 flash-attention stats kernel over head dims, ragged edges and both masks;
@@ -81,19 +85,87 @@ def _randn(dev, *shape, seed=0):
 
 
 @pytest.mark.parametrize('rms', [True, False], ids=['rms', 'layer'])
-@pytest.mark.parametrize('shape', [(3, 1000), (2, 5, 4096), (1, 130)])
+@pytest.mark.parametrize('shape', [(3, 1000), (2, 5, 4096), (1, 130),
+                                   (1, 4096), (2049, 4096), (4, 768),
+                                   (3, 4100), (2, 12288), (5, 6)])
 def test_fused_norm_matches_plain(dev, rms, shape):
+    """The wrapper's call, counted under its plan's design, and then each
+    design that takes the shape (the register-resident ones, with their
+    masked tails at 4100 and 768; the general one, which takes every
+    shape), forced through the C entry, against the plain version."""
     x = _randn(dev, *shape) * 2 + 0.5
     d = shape[-1]
     g, b = _randn(dev, d, seed=1) + 1, _randn(dev, d, seed=2)
     beta = None if rms else b
+    want = fused_norms.fused_norm_plain(x, g, beta, 1e-5, rms)
     n = fused_norms.fused_norm.launches
+    path = fused_norms.plan(x.numel() // d, d, True, 132, rms).path
+    by_path = fused_norms.fused_norm.launches_by_path[path]
     got = fused_norms.fused_norm(x, g, beta, 1e-5, rms)
     torch.cuda.synchronize()
     assert fused_norms.fused_norm.launches == n + 1
+    assert fused_norms.fused_norm.launches_by_path[path] == by_path + 1
+    torch.testing.assert_close(got, want, **NORM_TOL)
+    plans = {fused_norms.plan(m, d, True, 132, True) for m in (1, 64)} | {
+        fused_norms.Plan('general', fused_norms.GENERAL_THREADS, 0, 1)}
+    assert {p.path for p in plans} >= (
+        {'regs', 'general'} if d % 4 == 0 and d <= fused_norms.MAX_D
+        else {'general'})
+    for p in plans:
+        out = torch.empty_like(x)
+        fused_norms._launch(x, g, beta, out, 1e-5, rms, p)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, **NORM_TOL)
+
+
+@pytest.mark.parametrize('rms', [True, False], ids=['rms', 'layer'])
+@pytest.mark.parametrize('which', ['x', 'gamma'])
+def test_fused_norm_off_alignment_takes_the_general_design(dev, rms, which):
+    """A contiguous view one float off a 16-byte boundary plans the
+    general design, and the C entry refuses it to the register-resident
+    ones."""
+    n, d = 4, 4096
+    xbuf = _randn(dev, n * d + 1) * 2 + 0.5
+    gbuf = _randn(dev, d + 1, seed=1) + 1
+    x = xbuf[1:].view(n, d) if which == 'x' else xbuf[:n * d].view(n, d)
+    g = gbuf[1:] if which == 'gamma' else gbuf[:d]
+    beta = None if rms else _randn(dev, d, seed=2)
+    before = fused_norms.fused_norm.launches_by_path['general']
+    got = fused_norms.fused_norm(x, g, beta, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert fused_norms.fused_norm.launches_by_path['general'] == before + 1
     torch.testing.assert_close(
         got, fused_norms.fused_norm_plain(x, g, beta, 1e-5, rms),
         **NORM_TOL)
+    for m in (n, 64):       # the cluster design, and regs
+        with pytest.raises(MXNetError, match='CUDA error'):
+            fused_norms._launch(x, g, beta, torch.empty_like(x), 1e-5, rms,
+                                fused_norms.plan(m, d, True, 132, True))
+
+
+@pytest.mark.parametrize('rms', [True, False], ids=['rms', 'layer'])
+@pytest.mark.parametrize('n,d', [(4, 4096), (32, 4096), (3, 4100),
+                                 (64, 4096)])
+def test_fused_norm_graph_replay_equals_eager(dev, rms, n, d):
+    """The norm captured in a CUDA graph, replayed after its input was
+    rewritten in place, gives the eager call's output bit for bit."""
+    x = _randn(dev, n, d) * 2 + 0.5
+    g, b = _randn(dev, d, seed=1) + 1, _randn(dev, d, seed=2)
+    beta = None if rms else b
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fused_norms.fused_norm(x, g, beta, 1e-5, rms)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fused_norms.fused_norm(x, g, beta, 1e-5, rms)
+    for seed in (3, 4):
+        x.copy_(_randn(dev, n, d, seed=seed) * 3 - 0.25)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fused_norms.fused_norm(x, g, beta, 1e-5,
+                                                       rms))
 
 
 @pytest.mark.parametrize('d', [32, 64, 128])
@@ -1067,12 +1139,14 @@ def test_step_graph_counts_each_replay_as_its_capture(dev):
     norm, prod = g.capture()
     assert g.captures == 1
     assert g.launches == {'fused_norm': 1, 'int8_matmul': 1}
-    assert g.paths == {'int8_matmul': {'tma_splitk': 1}}
+    assert g.paths == {'fused_norm': {'cluster': 1},
+                       'int8_matmul': {'tma_splitk': 1}}
     assert kernels.launch_counts()['fused_norm'] == 1     # the warm-up
     g.replay(5)
     counts = kernels.launch_counts()
     assert counts['fused_norm'] == counts['int8_matmul'] == 6
     assert kernels.path_counts()['int8_matmul']['tma_splitk'] == 6
+    assert kernels.path_counts()['fused_norm']['cluster'] == 6
     x.mul_(-3.0)
     xq.copy_(xq.flip(0))
     g.replay()

@@ -1,6 +1,16 @@
-"""The plans that pick the int8 product's and flash attention's designs
-and paged decode's split count before a launch, checked on the CPU with
-no card (``sm_count=132``, the H100's SMs, passed in).
+"""The plans that pick the fused norm's, the int8 product's and flash
+attention's designs and paged decode's split count before a launch,
+checked on the CPU with no card (``sm_count=132``, the H100's SMs, passed
+in).
+
+Every main-path shape of the norm, RMS at (4 / 32 / 2048, 4096) and
+LayerNorm at BERT-base's (512, 768), plans a register-resident design:
+rows split over thread-block clusters for batches of at most 32 rows, one
+block a row above; widths that are not a multiple of 4 or above their
+limit, and data off 16-byte alignment, plan the earlier general design.
+Block ``r`` of a row takes the vectors ``r * threads * vecs + k * threads
++ t``: the plan's blocks cover every vector exactly once, with the slots
+past the row masked.
 
 Every shape the main paths give the kernels must plan the Hopper designs:
 the int8 product at M in {4, 32, 512} (a decode step, a prefill chunk, a
@@ -17,6 +27,7 @@ blocks an SM, in one wave, where the shape allows.
 import pytest
 
 from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+from mxnet_tpu_torch.ops.kernels import fused_norms as fnorm
 from mxnet_tpu_torch.ops.kernels import int8_matmul as im
 from mxnet_tpu_torch.ops.kernels import paged_attention as pa
 
@@ -37,6 +48,124 @@ def _covered(n, splits, chunk):
     assert (splits - 1) * chunk < n <= splits * chunk
     return [list(range(s * chunk, min(n, (s + 1) * chunk)))
             for s in range(splits)]
+
+
+# -------------------------------------------------------------- fused norm
+#: (rows, width, RMS, design) of the norm on the main paths: llama3_8b's
+#: RMS at a decode step and a prefill chunk (rows split over clusters) and
+#: over a training batch, and BERT-base's LayerNorm over a (512, 768)
+#: batch and a short one
+NORM_MAIN = [(4, 4096, True, 'cluster'), (32, 4096, True, 'cluster'),
+             (2048, 4096, True, 'regs'), (512, 768, False, 'regs'),
+             (4, 768, False, 'regs')]
+
+
+def _norm_owners(p, d):
+    """``{vector: (block, thread, k)}`` over the slots of a row's blocks
+    that fall inside the row, by the plan's docstring (the kernel's
+    formula); fails on a vector taken twice."""
+    owners = {}
+    for r in range(p.cluster):
+        for t in range(p.threads):
+            for k in range(p.vecs):
+                j = r * p.threads * p.vecs + k * p.threads + t
+                if j < d // 4:
+                    assert j not in owners
+                    owners[j] = (r, t, k)
+    return owners
+
+
+@pytest.mark.parametrize('n,d,rms,design', NORM_MAIN)
+def test_norm_main_path_shapes_plan_the_register_designs(n, d, rms, design):
+    p = fnorm.plan(n, d, True, SMS, rms)
+    assert p.path == design
+    threads = fnorm.CLUSTER_THREADS if design == 'cluster' \
+        else fnorm.REGS_THREADS
+    assert p.threads in threads and p.vecs in fnorm.VECS
+    assert sorted(_norm_owners(p, d)) == list(range(d // 4))
+
+
+def test_norm_plan_at_llama_and_bert_widths():
+    """llama3_8b's 4096, RMS: a decode step's 4 rows over clusters of 8
+    blocks of one warp (32 blocks), a prefill chunk's 32 over clusters of
+    4 (128 blocks, one wave on 132 SMs); 33 rows and more, and LayerNorm
+    at any rows, one block of 256 threads a row; BERT-base's 768 64
+    threads of three vectors. Every slot of these blocks holds a
+    vector."""
+    regs = fnorm.Plan('regs', 256, 4, 1)
+    assert fnorm.plan(4, 4096, True, SMS, True) == fnorm.Plan('cluster', 32,
+                                                              4, 8)
+    assert fnorm.plan(32, 4096, True, SMS, True) == fnorm.Plan('cluster', 64,
+                                                               4, 4)
+    assert fnorm.plan(33, 4096, True, SMS, True) == regs
+    assert fnorm.plan(2048, 4096, True, SMS, True) == regs
+    assert fnorm.plan(4, 4096, True, SMS, False) == regs
+    assert fnorm.plan(512, 768, True, SMS, False) == fnorm.Plan('regs', 64,
+                                                                3, 1)
+
+
+@pytest.mark.parametrize('n,d,aligned', [
+    (4, 4098, True), (4, 6, True), (2049, 1001, True),   # d % 4 != 0
+    (4, 4096, False), (512, 768, False),                 # unaligned data
+    (3, 12288, True), (1, fnorm.MAX_D + 4, True)])      # above the limit
+def test_norm_plans_the_general_design_for_what_regs_does_not_take(
+        n, d, aligned):
+    assert fnorm.MAX_D == 8192
+    for rms in (True, False):
+        assert fnorm.plan(n, d, aligned, SMS, rms) == fnorm.Plan(
+            'general', fnorm.GENERAL_THREADS, 0, 1)
+
+
+@pytest.mark.parametrize('rms', [True, False], ids=['rms', 'layer'])
+@pytest.mark.parametrize('n', [1, 4, 17, 32, 33, 2048])
+@pytest.mark.parametrize('d', [4, 64, 100, 256, 768, 1024, 2048, 4096, 4100,
+                               5120, 6144, 8188, 8192])
+def test_norm_blocks_cover_the_row_exactly_once(n, d, rms):
+    """Every vector of the row in exactly one slot, the slots past it
+    masked, and no vector column of a row's last block all masked, which
+    the C entry refuses (threads * (vecs * cluster - 1) < d / 4 <= threads
+    * vecs * cluster); among the blocks that meet that, the fewest idle
+    slots."""
+    p = fnorm.plan(n, d, True, SMS, rms)
+    assert p.path in ('regs', 'cluster')
+    nv = d // 4
+    assert p.threads * (p.vecs * p.cluster - 1) < nv <= \
+        p.threads * p.vecs * p.cluster
+    assert sorted(_norm_owners(p, d)) == list(range(nv))
+    threads = fnorm.CLUSTER_THREADS if p.path == 'cluster' \
+        else fnorm.REGS_THREADS
+    assert p.threads * p.vecs * p.cluster - nv == min(
+        t * v * p.cluster - nv for t in threads for v in fnorm.VECS
+        if t * v * p.cluster >= nv > t * (v * p.cluster - 1))
+
+
+@pytest.mark.parametrize('n', [1, 2, 4, 16, 17, 32, 33, 64, 2048])
+@pytest.mark.parametrize('d', [256, 768, 4096, 8192])
+@pytest.mark.parametrize('sms', [8, 66, 132])
+def test_norm_cluster_plan_stays_within_the_cluster_limit(n, d, sms):
+    """Clusters of 2, 4 or 8 blocks (8 the portable limit), only for RMS
+    batches of at most 32 rows, all blocks in one wave (n * cluster <= the
+    SMs), at most 32 partials a sum; otherwise, and for LayerNorm, one
+    block a row."""
+    assert fnorm.plan(n, d, True, sms, False).path == 'regs'
+    p = fnorm.plan(n, d, True, sms, True)
+    if p.path == 'cluster':
+        assert n <= fnorm.CLUSTER_ROWS
+        assert p.cluster in fnorm.CLUSTERS and max(fnorm.CLUSTERS) == 8
+        assert n * p.cluster <= sms
+        assert p.cluster * p.threads // 32 <= fnorm.MAX_PARTS == 32
+    else:   # too many rows, or no cluster that fits one wave splits d
+        assert p == fnorm.Plan('regs', p.threads, p.vecs, 1)
+        assert n > fnorm.CLUSTER_ROWS or all(
+            fnorm._fit(d // 4, fnorm.CLUSTER_THREADS, c) is None
+            for c in fnorm.CLUSTERS if n * c <= sms)
+
+
+def test_norm_plan_takes_shapes_only():
+    import inspect
+    assert list(inspect.signature(fnorm.plan).parameters) == [
+        'n', 'd', 'aligned', 'sm_count', 'rms']
+    assert fnorm.PATHS == ('regs', 'cluster', 'general')
 
 
 @pytest.mark.parametrize('proj', sorted(LLAMA3_8B))

@@ -49,9 +49,26 @@ def _randn(rng, *shape, scale=1.0):
 
 
 # ------------------------------------------------------------ fused norms
+#: the card's design for RMS at each shape below (LayerNorm takes regs
+#: where RMS takes a cluster)
+NORM_DESIGNS = {
+    (16, 256): 'cluster', (6, 64): 'regs',
+    (4, 4096): 'cluster',       # llama3_8b's width, a decode step's rows
+    (64, 4096): 'regs',         # llama3_8b's width, more rows
+    (32, 768): 'cluster',       # BERT-base's width
+    (3, 4100): 'regs',          # a multiple of 4 with a masked tail
+    (5, 6): 'general'}          # not a multiple of 4
+
+
 @pytest.mark.parametrize('rms', [True, False], ids=['rms', 'layer'])
-@pytest.mark.parametrize('n,d', [(16, 256), (6, 64)])
+@pytest.mark.parametrize('n,d', list(NORM_DESIGNS))
 def test_fused_norm_matches_pallas_interpret(rms, n, d):
+    """The plain version, which the card's kernel is held to, against
+    the Pallas kernel at widths that select each design of the kernel."""
+    design = NORM_DESIGNS[n, d]
+    if not rms and design == 'cluster':
+        design = 'regs'
+    assert fused_norms.plan(n, d, True, 132, rms).path == design
     rng = onp.random.default_rng(0)
     x = _randn(rng, n, d, scale=3.0) + 0.5
     g = _randn(rng, d)
