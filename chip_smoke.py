@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,train  # the training path
     python3 chip_smoke.py --phases build,kernels,forward,serve,int8  # int8
     python3 chip_smoke.py --phases build,kernels,ring,rtc  # ring and rtc
+    python3 chip_smoke.py --phases device,build,ndarray  # the frontend
 
 Phases, each of which fails the run on any error:
 
@@ -83,7 +84,28 @@ Phases, each of which fails the run on any error:
                the last step of each run is split into kernel time by
                name. Then a small Llama trains two Adam steps on the card
                and on the CPU, and the losses must agree.
-8. ring     -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+8. ndarray  -- the imperative frontend (``mx.np``/``mx.npx``/``mx.autograd``
+               on ``mx.gpu(0)``): ``frontend_loss``, one ``llama3_8b``
+               decoder block with the embedding and the LM head (1.27 B
+               parameters) written only with ``mx.np``/``mx.npx`` calls,
+               recorded and stepped through ``npx.fused_adam_step`` three
+               times, then ``npx.fused_sgd_mom_step`` three times from the
+               same seeded weights, on one seeded (1, 2049) batch; in
+               lockstep the module path (a one-block ``LlamaForCausalLM``
+               from copies of the same weights, torch autograd and the
+               in-place tensor functions) must give every loss within
+               rtol 1e-4 and every weight within atol 1e-5. Each
+               imperative step must launch 3 norm, 1 flash and one
+               optimizer launch a parameter; the module path's launches
+               are taken back off the counters, so the window counts the
+               imperative program's. Then one ``npx.paged_attention_decode``
+               and one ``nd.quantized_dense`` at decode-step shapes against
+               their plain versions. Logged beside the card's name and
+               power limit: host ms a step against the module path's, ops
+               dispatched a step, host us of ``mx.np.add`` of (4, 4)
+               against ``torch.add``, and what the value-semantics copies
+               of ``npx.fused_adam_step`` cost over every parameter.
+9. ring     -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -93,18 +115,17 @@ Phases, each of which fails the run on any error:
                flash forward over the whole sequence, and the ranks'
                plain blockwise path the flash path. Logs each rank's host
                ms, stats-kernel ms and transport ms.
-9. rtc      -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+10. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
                the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8, train and rtc phases and read just after it, and in each rank just
-before and after its ring runs; the kernels' line reports their sum. A
-CUDA graph's replay counts the launches its capture saw
-(``_graphs.StepGraph``). A
-phase fails if the norm, the int8 product or flash attention (either
+int8, train, ndarray and rtc phases and read just after it, and in each
+rank just before and after its ring runs; the kernels' line reports their
+sum. A CUDA graph's replay counts the launches its capture saw
+(``_graphs.StepGraph``). A phase fails if the norm, the int8 product or flash attention (either
 form) ran another design than its Hopper ones on its main path
 (``NEW_DESIGNS``).
 The last line is ``{"ok": true, "device": {...}}``; it is printed only
@@ -122,7 +143,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
-          'train', 'ring', 'rtc')
+          'train', 'ndarray', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -1652,6 +1673,377 @@ def train_parity(torch, seed, steps=2):
         fail('train: the card and the CPU train the small Llama apart')
 
 
+# ------------------------------------------------------------- ndarray
+#: the imperative program's widths: llama3_8b's (one decoder block with
+#: the embedding and the LM head) on the card, llama_tiny's in the CPU test
+FRONTEND_WIDTHS = {
+    'llama3_8b': dict(vocab=128256, units=4096, heads=32, kv_heads=8,
+                      hidden=14336, theta=500000.0, eps=1e-5),
+    'llama_tiny': dict(vocab=256, units=64, heads=4, kv_heads=2,
+                       hidden=128, theta=10000.0, eps=1e-5)}
+#: the ndarray phase: one seeded (1, NDARRAY_TOKENS + 1) batch, and
+#: NDARRAY_STEPS steps of each optimizer, each run from the same weights
+NDARRAY_TOKENS = 2048
+NDARRAY_STEPS = 3
+FRONTEND_OPTS = (('adam', {'lr': 1e-5}),
+                 ('sgd_mom', {'lr': 0.1, 'momentum': 0.9}))
+_L0 = 'model.layers.0.'
+
+
+def frontend_shapes(w):
+    """``{parameter: shape}`` of the imperative program, under the port
+    Llama's parameter names (a one-block ``LlamaForCausalLM``)."""
+    d, dh = w['units'], w['units'] // w['heads']
+    return {'model.embed_tokens.weight': (w['vocab'], d),
+            _L0 + 'input_layernorm.weight': (d,),
+            _L0 + 'self_attn.q_proj.weight': (w['heads'] * dh, d),
+            _L0 + 'self_attn.k_proj.weight': (w['kv_heads'] * dh, d),
+            _L0 + 'self_attn.v_proj.weight': (w['kv_heads'] * dh, d),
+            _L0 + 'self_attn.o_proj.weight': (d, w['heads'] * dh),
+            _L0 + 'post_attention_layernorm.weight': (d,),
+            _L0 + 'mlp.gate_proj.weight': (w['hidden'], d),
+            _L0 + 'mlp.up_proj.weight': (w['hidden'], d),
+            _L0 + 'mlp.down_proj.weight': (d, w['hidden']),
+            'model.norm.weight': (d,),
+            'lm_head.weight': (w['vocab'], d)}
+
+
+def frontend_loss(mx, p, tokens, w):
+    """The imperative program: a one-block Llama's mean next-token loss
+    over ``tokens`` ``(B, S + 1)`` int32, written only with ``mx.np`` and
+    ``mx.npx`` calls on the NDArrays ``p`` (:func:`frontend_shapes`), for
+    ``mx`` either package. RMSNorm, GQA attention through
+    ``npx.flash_attention`` with interleaved RoPE from ``mx.np`` ops, a
+    SwiGLU MLP, the LM head, ``log_softmax`` and ``pick``."""
+    np_, npx = mx.np, mx.npx
+    x_ids, y_ids = tokens[:, :-1], tokens[:, 1:]
+    B, S = x_ids.shape
+    H, KV = w['heads'], w['kv_heads']
+    dh = w['units'] // H
+
+    def proj(x, name):
+        return npx.fully_connected(x, p[_L0 + name + '.weight'],
+                                   no_bias=True, flatten=False)
+
+    inv = 1.0 / (w['theta'] ** (np_.arange(0, dh, 2, dtype='float32') / dh))
+    ang = np_.arange(S, dtype='float32')[:, None] * inv[None, :]
+    cos, sin = np_.cos(ang)[None, :, None, :], np_.sin(ang)[None, :, None, :]
+
+    def rope(x):
+        x1, x2 = x[..., ::2], x[..., 1::2]
+        return np_.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                         axis=-1).reshape(x.shape)
+
+    h = npx.embedding(x_ids, p['model.embed_tokens.weight'])
+    a = npx.rms_norm(h, p[_L0 + 'input_layernorm.weight'], eps=w['eps'])
+    q = rope(proj(a, 'self_attn.q_proj').reshape(B, S, H, dh))
+    k = rope(proj(a, 'self_attn.k_proj').reshape(B, S, KV, dh))
+    v = proj(a, 'self_attn.v_proj').reshape(B, S, KV, dh)
+    k, v = np_.repeat(k, H // KV, axis=2), np_.repeat(v, H // KV, axis=2)
+    o = npx.flash_attention(q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+                            v.transpose(0, 2, 1, 3), causal=True)
+    h = h + proj(o.transpose(0, 2, 1, 3).reshape(B, S, H * dh),
+                 'self_attn.o_proj')
+    m = npx.rms_norm(h, p[_L0 + 'post_attention_layernorm.weight'],
+                     eps=w['eps'])
+    h = h + proj(npx.silu(proj(m, 'mlp.gate_proj')) * proj(m, 'mlp.up_proj'),
+                 'mlp.down_proj')
+    h = npx.rms_norm(h, p['model.norm.weight'], eps=w['eps'])
+    logits = npx.fully_connected(h, p['lm_head.weight'], no_bias=True,
+                                 flatten=False)
+    return -npx.pick(npx.log_softmax(logits, axis=-1), y_ids,
+                     axis=-1).mean()
+
+
+def frontend_backward(mx, p, tokens, w):
+    """Record the program and run ``loss.backward()``; returns the loss
+    (the gradients are in ``p[name].grad``)."""
+    with mx.autograd.record():
+        loss = frontend_loss(mx, p, tokens, w)
+    loss.backward()
+    return loss
+
+
+def frontend_update(mx, p, slots, opt, hyper, t):
+    """One optimizer step over every parameter through
+    ``npx.fused_adam_step`` / ``npx.fused_sgd_mom_step``, which return new
+    arrays: ``p`` and ``slots`` are rebound and the new weights marked for
+    the next ``backward``."""
+    for n in p:
+        if opt == 'adam':
+            new = mx.npx.fused_adam_step(p[n], p[n].grad, *slots[n], t=t,
+                                         **hyper)
+        else:
+            new = mx.npx.fused_sgd_mom_step(p[n], p[n].grad, *slots[n],
+                                            **hyper)
+        p[n], slots[n] = new[0], tuple(new[1:])
+        p[n].attach_grad()
+
+
+def frontend_slots(mx, p, opt):
+    return {n: tuple(mx.np.zeros(a.shape) for _ in range(
+        2 if opt == 'adam' else 1)) for n, a in p.items()}
+
+
+def module_step(torch, net, tokens, opt, hyper, slots, t):
+    """The same step through the port's module path: ``net`` (a one-block
+    ``LlamaForCausalLM``), torch autograd, ``SoftmaxCrossEntropyLoss`` and
+    the in-place tensor functions of ``ops/optimizer_ops.py``; returns the
+    loss."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    loss = gloss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
+    loss.backward()
+    with torch.no_grad():
+        for n, prm in net.named_parameters():
+            if opt == 'adam':
+                oo.fused_adam_step(prm, prm.grad, *slots[n], t=t, **hyper)
+            else:
+                oo.fused_sgd_mom_step(prm, prm.grad, *slots[n], **hyper)
+            prm.grad = None
+    return loss.detach()
+
+
+def module_net(torch, w, p, device):
+    """A one-block ``LlamaForCausalLM`` at widths ``w`` on ``device`` whose
+    weights are copies of the NDArray payloads ``p``."""
+    from mxnet_tpu_torch.gluon.model_zoo.llama import LlamaConfig, \
+        LlamaForCausalLM
+    cfg = LlamaConfig(vocab_size=w['vocab'], units=w['units'], num_layers=1,
+                      num_heads=w['heads'], num_kv_heads=w['kv_heads'],
+                      hidden_size=w['hidden'], rope_theta=w['theta'],
+                      rms_norm_eps=w['eps'])
+    net = LlamaForCausalLM(cfg, device='meta')
+    net.to_empty(device=device)
+    load_module(torch, net, p)
+    return net
+
+
+def load_module(torch, net, p):
+    with torch.no_grad():
+        for n, prm in net.named_parameters():
+            prm.copy_(p[n]._data)
+
+
+def _take_back(kernels, before, paths_before):
+    """Take the launches since ``before`` back off the counters: the
+    module path is the ndarray phase's reference, so its window counts the
+    imperative program's launches only."""
+    after, paths = kernels.launch_counts(), kernels.path_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    by_path = {k: {d: n - paths_before[k].get(d, 0) for d, n in v.items()
+                   if n != paths_before[k].get(d, 0)}
+               for k, v in paths.items()}
+    kernels.add_launch_counts(delta, {k: v for k, v in by_path.items() if v},
+                              times=-1)
+    return delta
+
+
+def phase_ndarray(torch, seed):
+    """The imperative frontend at ``llama3_8b``'s widths: the program of
+    :func:`frontend_loss` (one decoder block with the embedding and the LM
+    head) on ``mx.gpu(0)`` over one seeded ``(1, NDARRAY_TOKENS + 1)``
+    batch, ``NDARRAY_STEPS`` steps of each optimizer of ``FRONTEND_OPTS``
+    from the same seeded weights, in lockstep with the module path
+    (:func:`module_step`) from copies of the same weights: every loss and
+    every weight after every step bit-equal to it (both paths run the same
+    kernels and cuBLAS calls in the same order; a tolerance as wide as one
+    Adam update at lr 1e-5 would pass a step that left the weights as they
+    were). Each imperative step must launch the norm kernel 3 times, flash
+    attention once and its optimizer's kernel once a parameter, and
+    nothing else. Then one ``npx.paged_attention_decode`` and one
+    ``nd.quantized_dense`` at their decode-step shapes, each against its
+    plain version. Returns what :func:`ndarray_costs` times."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import kernels, registry
+    w = FRONTEND_WIDTHS['llama3_8b']
+    dev = mx.gpu(0).to_torch()  # the default context: NDArrays go there
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mx.random.seed(seed)
+    p0 = {n: mx.np.ones(shape) if len(shape) == 1 else
+          mx.np.random.normal(0.0, 0.02, size=shape)
+          for n, shape in frontend_shapes(w).items()}
+    tokens = mx.np.random.randint(0, w['vocab'],
+                                  size=(1, NDARRAY_TOKENS + 1))
+    c0, q0 = kernels.launch_counts(), kernels.path_counts()
+    net = module_net(torch, w, p0, dev)
+    _take_back(kernels, c0, q0)
+    toks = tokens._data.long()
+    _sync(torch, dev)
+    n_par = sum(a.size for a in p0.values())
+    log(f'[ndarray] llama3_8b widths, one block with the embedding and the '
+        f'LM head: {len(p0)} parameters, {n_par / 1e9:.3f} B fp32, as '
+        f'NDArrays on {tokens.context} and copied into the module path, in '
+        f'{time.perf_counter() - t0:.1f} s')
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(fused_norm=3, flash_attention=1)
+    host = {}
+    for opt, hyper in FRONTEND_OPTS:
+        p = dict(p0)
+        for a in p.values():
+            a.attach_grad()
+        slots = frontend_slots(mx, p, opt)
+        load_module(torch, net, p0)
+        mslots = {n: tuple(torch.zeros_like(q) for _ in slots[n])
+                  for n, q in net.named_parameters()}
+        step_want = dict(want, **{'adam' if opt == 'adam' else 'sgd_mom':
+                                  len(p)})
+        rows = []
+        for t in range(1, NDARRAY_STEPS + 1):
+            before, d0 = kernels.launch_counts(), registry.dispatch_count()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            loss = frontend_backward(mx, p, tokens, w)
+            frontend_update(mx, p, slots, opt, hyper, t)
+            lv = loss.item()
+            imp_ms = (time.perf_counter() - t1) * 1e3
+            ops = registry.dispatch_count() - d0
+            after = kernels.launch_counts()
+            got = {k: after[k] - before[k] for k in after}
+            if got != step_want:
+                fail(f'ndarray: {opt} step {t} launches {got}, want '
+                     f'{step_want}')
+            del loss
+            c1, q1 = kernels.launch_counts(), kernels.path_counts()
+            _sync(torch, dev)
+            t2 = time.perf_counter()
+            mv = float(module_step(torch, net, toks, opt, hyper, mslots, t))
+            mod_ms = (time.perf_counter() - t2) * 1e3
+            mod = _take_back(kernels, c1, q1)
+            if {k: mod.get(k, 0) for k in KERNELS} != step_want:
+                fail(f'ndarray: the module path launched {mod}, want '
+                     f'{step_want}')
+            werr = max(float((p[n]._data.detach() - prm.detach()).abs().max())
+                       for n, prm in net.named_parameters())
+            ok = lv == mv and werr == 0 and math.isfinite(lv)
+            rows.append((t, lv, mv, werr, imp_ms, mod_ms, ops))
+            log(f'[ndarray] {opt} step {t}: loss {lv!r} (module path '
+                f'{mv!r}), weights max |diff| {werr:.3e} (both bit-equal); host '
+                f'ms imperative {imp_ms:.2f}, module path {mod_ms:.2f}; '
+                f'{ops} ops dispatched -> {"ok" if ok else "MISMATCH"}')
+            if not ok:
+                fail(f'ndarray: {opt} step {t} parts from the module path')
+        if not rows[-1][1] < rows[0][1]:
+            fail(f'ndarray: {opt} loss did not fall: {rows}')
+        host[opt] = rows
+        del slots, mslots
+    log(f'[ndarray] peak memory '
+        f'{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB (both '
+        f'paths\' weights, gradients and slots at once)')
+    g = {n: a.grad for n, a in p.items()}
+    _decode_ops(torch, mx, dev)
+    return dict(p=p, g=g, net=net, host=host)
+
+
+def _decode_ops(torch, mx, dev):
+    """``npx.paged_attention_decode`` (B4) and ``nd.quantized_dense`` (B7)
+    at a decode step's shapes, each against its plain version: paged
+    decode within rtol 1e-4 and atol 1e-4 (an online softmax across tiles
+    against one pass), the int8 product bit-equal."""
+    from mxnet_tpu_torch.ops.kernels import int8_matmul as im
+    from mxnet_tpu_torch.ops.kernels import paged_attention as pa
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, H, kv, dh, psz, NP = 4, 32, 8, 128, 16, 128
+    q = torch.randn(B, H, dh, generator=gen, device=dev)
+    kp, vp = (torch.randn(B * NP + 1, psz, kv, dh, generator=gen, device=dev)
+              for _ in range(2))
+    pages = (torch.randperm(B * NP, generator=gen, device=dev) + 1).reshape(
+        B, NP).to(torch.int32)
+    offset = torch.full((B,), 1024, dtype=torch.int32, device=dev)
+    got = mx.npx.paged_attention_decode(*[mx.np.array(a) for a in
+                                          (q, kp, vp, pages, offset)])
+    want = pa.paged_attention_decode_plain(
+        q.reshape(B, kv, H // kv, dh), kp, vp, pages, offset,
+        dh ** -0.5).reshape(B, H, dh)
+    err, ok = compare(torch, got._data, want, 1e-4, 1e-4)
+    log(f'[ndarray] npx.paged_attention_decode {tuple(got.shape)} at depth '
+        f'1024: max_abs_err {err:.3e} against its plain version (rtol 1e-4, '
+        f'atol 1e-4) -> {"ok" if ok else "MISMATCH"}')
+    x = torch.randint(-127, 128, (4, 4096), generator=gen, device=dev,
+                      dtype=torch.int8)
+    wq = torch.randint(-127, 128, (14336, 4096), generator=gen, device=dev,
+                       dtype=torch.int8)
+    scale = torch.rand(14336, generator=gen, device=dev) * 1e-4 + 1e-6
+    got8 = mx.nd.quantized_dense(*[mx.np.array(a) for a in (x, wq, scale)],
+                                 out_dtype='bfloat16')
+    want8 = im.int8_matmul_plain(x, wq, scale, None, torch.bfloat16)
+    ok8 = bool(torch.equal(got8._data, want8))
+    log(f'[ndarray] nd.quantized_dense (4, 4096) x (14336, 4096) bf16 out: '
+        f'bit-equal to its plain version -> {"ok" if ok8 else "MISMATCH"}')
+    if not (ok and ok8):
+        fail('ndarray: a kernel-backed op parts from its plain version')
+
+
+def ndarray_costs(torch, got, rounds=5, calls=2000):
+    """What the frontend costs on the host, beside the card's name and
+    power limit: ms per imperative step against the module path's, µs per
+    dispatched op (``mx.np.add`` of (4, 4) against ``torch.add``, the least
+    of ``rounds`` rounds of ``calls``), and the value-semantics copy of
+    ``npx.fused_adam_step`` (every parameter, against the in-place tensor
+    function on the same arrays, by CUDA events around calls launched from
+    Python)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+    smi = smi_line()
+    for opt, rows in got['host'].items():
+        t, _, _, _, imp, mod, ops = rows[-1]
+        log(f'[ndarray] host ms per {opt} step {t}: imperative {imp:.2f}, '
+            f'module path {mod:.2f} ({imp / mod:.3f}x); {ops} ops '
+            f'dispatched a step; all steps imperative '
+            f'{[round(r[4], 2) for r in rows]} module '
+            f'{[round(r[5], 2) for r in rows]} ({smi})')
+    a, b = mx.np.ones((4, 4)), mx.np.ones((4, 4))
+    ta, tb = a._data, b._data
+
+    def per_call_us(fn):
+        best = math.inf
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        return best
+
+    for _ in range(100):
+        mx.np.add(a, b)
+        torch.add(ta, tb)
+    us_mx = per_call_us(lambda: mx.np.add(a, b))
+    us_t = per_call_us(lambda: torch.add(ta, tb))
+    log(f'[ndarray] host us per dispatched op, mx.np.add (4, 4): {us_mx:.2f}; '
+        f'torch.add: {us_t:.2f}; the frontend adds {us_mx - us_t:.2f} us '
+        f'({smi})')
+    p, g, net = got['p'], got['g'], got['net']
+    slots = {n: (torch.zeros_like(a._data), torch.zeros_like(a._data))
+             for n, a in p.items()}
+    nd_slots = {n: (mx.NDArray(s[0]), mx.NDArray(s[1]))
+                for n, s in slots.items()}
+    prms = dict(net.named_parameters())
+
+    def pure():
+        for n in p:
+            mx.npx.fused_adam_step(p[n], g[n], *nd_slots[n], lr=1e-5, t=1)
+
+    def inplace():
+        with torch.no_grad():
+            for n in p:
+                oo.fused_adam_step(prms[n], g[n]._data, *slots[n], lr=1e-5,
+                                   t=1)
+
+    pure_ms, inplace_ms = eager_ms(torch, pure), eager_ms(torch, inplace)
+    n_par = sum(a.size for a in p.values())
+    log(f'[ndarray] npx.fused_adam_step over all {len(p)} parameters '
+        f'({n_par / 1e9:.3f} B): {pure_ms:.3f} ms with the value-semantics '
+        f'copies of w, m, v, against {inplace_ms:.3f} ms in place: the copy '
+        f'costs {pure_ms - inplace_ms:.3f} ms a step (bytes moved 13/7 of '
+        f'the in-place step\'s) ({smi})')
+    return dict(us_mx=us_mx, us_torch=us_t, pure_ms=pure_ms,
+                inplace_ms=inplace_ms)
+
+
 # ------------------------------------------------------------- ring
 #: the ring phase: llama3_8b's attention widths (32 query heads of 128, K/V
 #: expanded to 32 heads) over its whole max_length, sharded over sp ranks
@@ -1975,6 +2367,15 @@ def main(argv=None):
     if 'train' in phases:
         window('train', phase_train, torch, SEED + 3)
         train_parity(torch, SEED + 4)
+    if 'ndarray' in phases:
+        got = window('ndarray', phase_ndarray, torch, SEED + 9)
+        for k in ('fused_norm', 'flash_attention', 'adam', 'sgd_mom',
+                  'paged_attention_decode', 'int8_matmul'):
+            if not paths['ndarray'][k]:
+                fail(f'ndarray: the imperative program never launched {k}')
+        ndarray_costs(torch, got)
+        del got
+        torch.cuda.empty_cache()
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')
@@ -2005,8 +2406,8 @@ def main(argv=None):
                 bound_ms=head['bound_ms'], bound_by=head['bound_by'],
                 library_ms=head['library_ms'], shape=head['shape'],
                 cases=rows[name]))
-        if {'forward', 'serve', 'int8', 'train', 'ring', 'rtc'} <= \
-                set(phases):
+        if {'forward', 'serve', 'int8', 'train', 'ndarray', 'ring',
+                'rtc'} <= set(phases):
             idle = [k for k, n in launches.items() if n == 0]
             if idle:
                 fail(f'kernels of the main path never launched: {idle}')

@@ -1,0 +1,150 @@
+"""Imperative autograd state and backward, on ``torch.autograd``.
+
+Counterpart of ``mxnet_tpu/_tape.py``. The thread-local ``is_recording``
+and ``is_training`` flags are the reference's (imperative.h:309-323);
+the tape itself is torch's graph: while recording, ops run with grad mode
+on (``ops.registry.apply_op``), so each result carries its ``grad_fn``.
+
+A variable (``attach_grad``, :func:`mark_variables`) is an NDArray whose
+payload is a leaf tensor that requires grad, with a hook that moves what
+torch accumulates into the variable's own grad buffer, as its
+``grad_req`` says: ``'write'`` replaces, ``'add'`` accumulates, ``'null'``
+records but never writes. A write into a variable (``x += 1``,
+``x[...] = v``) makes a fresh leaf of the new value, so the marking
+outlives it (``NDArray._rebind``).
+
+:func:`backward` keeps the graph (``retain_graph=True`` to torch): the
+JAX tape re-linearizes a node whose residuals a first backward dropped,
+so a second ``backward()`` over the same heads gives the same gradients
+there, and does here.
+"""
+
+import threading
+
+import torch
+
+_state = threading.local()
+
+
+def _st():
+    if not hasattr(_state, 'recording'):
+        _state.recording = False
+        _state.training = False
+    return _state
+
+
+def is_recording():
+    return _st().recording
+
+
+def is_training():
+    return _st().training
+
+
+def set_recording(flag):
+    prev = _st().recording
+    _state.recording = flag
+    return prev
+
+
+def set_training(flag):
+    prev = _st().training
+    _state.training = flag
+    return prev
+
+
+class AGInfo:
+    """A variable's autograd record (reference imperative.h:54): its grad
+    buffer (an NDArray) and ``grad_req``."""
+
+    __slots__ = ('variable', 'grad', 'grad_req')
+
+    def __init__(self, grad=None, grad_req='write'):
+        self.variable = True
+        self.grad = grad
+        self.grad_req = grad_req
+
+
+def _write_grad(info):
+    def hook(leaf):
+        g, leaf.grad = leaf.grad, None
+        if g is None or info.grad is None or info.grad_req == 'null':
+            return
+        g = g.detach().to(info.grad._data.dtype)
+        if info.grad_req == 'add':
+            info.grad._data = info.grad._data + g
+        else:
+            info.grad._data = g
+    return hook
+
+
+def track(nd):
+    """Make ``nd``'s payload a fresh leaf that requires grad and writes
+    its gradient into ``nd``'s buffer; integer payloads have no gradient
+    and stay as they are."""
+    t = nd._data.detach()
+    if t.is_floating_point() or t.is_complex():
+        t.requires_grad_(True)
+        t.register_post_accumulate_grad_hook(_write_grad(nd._ag))
+    nd._data = t
+
+
+def mark_variables(variables, gradients, grad_reqs='write'):
+    """Reference: Imperative::MarkVariables (imperative.h:237)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, grad, req in zip(variables, gradients, grad_reqs):
+        var._ag = AGInfo(grad=grad, grad_req=req)
+        track(var)
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True,
+             variables=None, create_graph=False):
+    """Reference: Imperative::Backward (src/imperative/imperative.cc:377).
+
+    Fills the grad buffers of the variables the heads reach, as their
+    ``grad_req`` says; or, with ``variables`` (the ``autograd.grad``
+    path), returns their gradients as NDArrays and writes no buffer. A
+    head without a head gradient gets ones. ``create_graph=True``
+    records the backward itself, so that the returned gradients can be
+    differentiated again. ``retain_graph`` is accepted for the
+    reference's signature: the graph is always kept (module docstring).
+    """
+    from .ndarray.ndarray import NDArray
+
+    tensors, grads = [], []
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    for h, hg in zip(heads, head_grads):
+        t = h._data
+        if not t.requires_grad:
+            raise ValueError(
+                'cannot differentiate a head that was not computed while '
+                'autograd recording was on')
+        tensors.append(t)
+        if hg is None:
+            grads.append(torch.ones_like(t))
+        elif isinstance(hg, NDArray):
+            grads.append(hg._data.to(t.dtype))
+        else:
+            grads.append(torch.as_tensor(hg, dtype=t.dtype, device=t.device))
+
+    prev = set_training(train_mode)
+    try:
+        if variables is None:
+            torch.autograd.backward(tensors, grads, retain_graph=True,
+                                    create_graph=create_graph)
+            return None
+        for v in variables:
+            info = getattr(v, '_ag', None)
+            if info is None or not info.variable:
+                raise ValueError('grad() variables must be marked '
+                                 '(attach_grad/mark_variables)')
+        got = torch.autograd.grad(tensors, [v._data for v in variables],
+                                  grads, retain_graph=True,
+                                  create_graph=create_graph,
+                                  allow_unused=True)
+    finally:
+        set_training(prev)
+    return [NDArray(torch.zeros_like(v._data).detach() if g is None else g)
+            for v, g in zip(variables, got)]

@@ -1,15 +1,18 @@
-"""Contrib ops of the port: the attention ops that the Llama path calls,
-``flash_attention`` and ``paged_attention_decode``, and the calibration op
-``calibrate_entropy``.
+"""Contrib ops of the port: the attention ops, ``flash_attention``,
+``paged_attention_decode`` and ``multi_head_attention``, and the
+calibration op ``calibrate_entropy``.
 
-Counterpart of the same ops in ``mxnet_tpu/ops/contrib.py``. Each reshapes
-its operands and calls the hand-written kernel's wrapper
+Counterpart of the same ops in ``mxnet_tpu/ops/contrib.py``. The attention
+ops reshape their operands and call the hand-written kernel's wrapper
 (:mod:`.kernels.flash_attention`, :mod:`.kernels.paged_attention`), which
 runs the plain PyTorch version for CPU tensors. Where autograd records,
 ``flash_attention`` goes through
 :class:`.kernels.flash_attention.FlashAttentionFunction`, whose backward
-is the reference's ``_flash3_bwd``. ``calibrate_entropy`` reuses the
-calibration collector of :mod:`mxnet_tpu_torch.quantization`.
+is the reference's ``_flash3_bwd``. ``multi_head_attention`` without a
+mask or dropout is ``flash_attention``; with them, plain PyTorch, as the
+reference leaves that case to XLA. ``calibrate_entropy`` reuses the
+calibration collector of :mod:`mxnet_tpu_torch.quantization`. The other
+contrib ops of the reference wait (``ops/ledger.py``).
 """
 
 import numpy as _np
@@ -19,15 +22,21 @@ from .kernels import needs_grad
 from .kernels.flash_attention import FlashAttentionFunction, \
     flash_attention_fwd, flash_attention_plain
 from .kernels.paged_attention import paged_attention_decode as _paged
+from .registry import register
 
-__all__ = ['flash_attention', 'paged_attention_decode', 'calibrate_entropy']
+__all__ = ['flash_attention', 'paged_attention_decode',
+           'multi_head_attention', 'calibrate_entropy']
 
 
-def flash_attention(q, k, v, sm_scale=None, causal=False):
+@register('flash_attention')
+def flash_attention(q, k, v, sm_scale=None, causal=False, block_q=128,
+                    block_k=128):
     """Blockwise fused attention. q ``(..., T, d)``; k/v ``(..., S, d)``
     with matching leading dims; ``sm_scale`` defaults to 1/sqrt(d);
     causal masking is bottom-right aligned. Returns ``(..., T, d)`` in
-    q's dtype, softmax and accumulation in fp32."""
+    q's dtype, softmax and accumulation in fp32. ``block_q``/``block_k``
+    are the TPU kernel's tiles, taken for the reference's signature and
+    not used: the kernel's plan picks its own."""
     q_shape = q.shape
     d = q_shape[-1]
     t, s = q.shape[-2], k.shape[-2]
@@ -49,6 +58,7 @@ def flash_attention(q, k, v, sm_scale=None, causal=False):
     return out.reshape(q_shape)
 
 
+@register('paged_attention_decode')
 def paged_attention_decode(q, k_pool, v_pool, pages, offset,
                            sm_scale=None):
     """One decode step of attention over a paged KV pool.
@@ -67,6 +77,44 @@ def paged_attention_decode(q, k_pool, v_pool, pages, offset,
     return out.reshape(B, H, dh)
 
 
+@register('multi_head_attention')
+def multi_head_attention(q, k, v, num_heads, mask=None, dropout_p=0.0,
+                         causal=False, key=None):
+    """Scaled-dot-product attention over ``(batch, seq, embed)``. With no
+    mask and no dropout it is :func:`flash_attention` over the heads;
+    otherwise plain PyTorch in fp32, where ``key`` (a ``torch.Generator``
+    on q's device) draws the dropout mask."""
+    b, sq, e = q.shape
+    hd = e // num_heads
+    qh = q.reshape(b, sq, num_heads, hd).transpose(1, 2)
+    kh = k.reshape(b, k.shape[1], num_heads, hd).transpose(1, 2)
+    vh = v.reshape(b, v.shape[1], num_heads, hd).transpose(1, 2)
+    if mask is None and dropout_p == 0.0:
+        out = flash_attention(qh, kh, vh, causal=causal)
+        return out.transpose(1, 2).reshape(b, sq, e)
+    sk = k.shape[1]
+    if causal:
+        # bottom-right aligned, as the flash path when T != S
+        tri = torch.ones((sq, sk), dtype=torch.bool,
+                         device=q.device).tril(sk - sq)
+        mask = tri if mask is None else mask.to(torch.bool) & tri
+    s = torch.einsum('bhqd,bhkd->bhqk', qh.float(), kh.float()) * hd ** -0.5
+    if mask is not None:
+        s = torch.where(mask.to(torch.bool), s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    if dropout_p > 0.0:
+        if key is None:
+            raise ValueError(
+                'multi_head_attention with dropout_p > 0 needs key= (a '
+                'torch.Generator); pass one or apply dropout outside')
+        keep = torch.rand(p.shape, generator=key, device=p.device) \
+            < 1.0 - dropout_p
+        p = torch.where(keep, p / (1.0 - dropout_p), torch.zeros_like(p))
+    out = torch.einsum('bhqk,bhkd->bqhd', p, vh.float()).to(q.dtype)
+    return out.reshape(b, sq, e)
+
+
+@register('calibrate_entropy', differentiable=False)
 def calibrate_entropy(hist, hist_edges, num_quantized_bins=255):
     """KL-optimal int8 threshold from a histogram (reference
     quantization/calibrate.cc ``_contrib_calibrate_entropy``); returns
@@ -74,8 +122,9 @@ def calibrate_entropy(hist, hist_edges, num_quantized_bins=255):
     as in the reference."""
     from ..quantization import _HistogramCollector
     c = _HistogramCollector.__new__(_HistogramCollector)
-    c.hist = _np.asarray(hist)
-    c.edges = _np.asarray(hist_edges)
+    c.hist = _np.asarray(hist.cpu() if torch.is_tensor(hist) else hist)
+    c.edges = _np.asarray(hist_edges.cpu() if torch.is_tensor(hist_edges)
+                          else hist_edges)
     c.num_bins = int(c.hist.shape[0])
     c.min = float(c.edges[0])
     c.max = float(c.edges[-1])

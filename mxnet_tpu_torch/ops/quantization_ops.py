@@ -6,7 +6,10 @@ tensor for activations, per output channel for weights; see
 :mod:`mxnet_tpu_torch.quantization` for calibration and the net rewrite.
 ``quantized_dense`` is the int8 product with the dequantize fused into its
 epilogue, through the hand-written kernel (:mod:`.kernels.int8_matmul`).
-``quantized_conv2d`` is not ported yet (ROADMAP A7, with ResNet).
+``quantized_conv2d`` is an int8 convolution with the same epilogue in plain
+PyTorch, as the reference leaves it to XLA; its integer products and sums
+are taken in float64, which holds them exactly. All five are registered
+(``mx.nd``), with no gradient.
 
 Scales are fp32 and every division is by an fp32 tensor on the data's
 device, never by a Python number: PyTorch on CUDA divides by a Python
@@ -16,11 +19,13 @@ on a .5 boundary. ``torch.round`` rounds half to even, as ``jnp.round``.
 """
 
 import torch
+import torch.nn.functional as F
 
 from .kernels.int8_matmul import int8_matmul
+from .registry import register
 
 __all__ = ['range_to_scale', 'quantize_v2', 'dequantize', 'requantize',
-           'quantized_dense']
+           'quantized_dense', 'quantized_conv2d']
 
 
 def _f32(v, device):
@@ -35,6 +40,7 @@ def range_to_scale(min_range, max_range, dtype='int8'):
     return torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
 
 
+@register('quantize_v2', differentiable=False, namespaces=('nd',))
 def quantize_v2(data, min_calib_range=None, max_calib_range=None,
                 out_type='int8'):
     """float -> int8/uint8 with calibrated or data-derived ranges; returns
@@ -56,6 +62,7 @@ def quantize_v2(data, min_calib_range=None, max_calib_range=None,
     return q, min_r, max_r
 
 
+@register('dequantize', differentiable=False, namespaces=('nd',))
 def dequantize(data, min_range, max_range, out_type='float32'):
     qtype = 'uint8' if data.dtype == torch.uint8 else 'int8'
     scale = range_to_scale(_f32(min_range, data.device),
@@ -63,6 +70,7 @@ def dequantize(data, min_range, max_range, out_type='float32'):
     return data.float() * scale
 
 
+@register('requantize', differentiable=False, namespaces=('nd',))
 def requantize(data, min_range, max_range, min_calib_range=None,
                max_calib_range=None):
     """int32 accumulator -> int8 under the (possibly calibrated) range."""
@@ -70,6 +78,7 @@ def requantize(data, min_range, max_range, min_calib_range=None,
     return quantize_v2(real, min_calib_range, max_calib_range)
 
 
+@register('quantized_dense', differentiable=False, namespaces=('nd',))
 def quantized_dense(x_q, w_q, scale, bias=None, out_dtype='bfloat16'):
     """int8 x int8 -> int32 product with the dequantize in the epilogue:
     scale per output channel, add bias, cast to ``out_dtype``.
@@ -78,3 +87,21 @@ def quantized_dense(x_q, w_q, scale, bias=None, out_dtype='bfloat16'):
     layout); scale ``(N,)`` fp32, the combined activation x weight scale;
     bias ``(N,)`` fp32 or None."""
     return int8_matmul(x_q.contiguous(), w_q, scale, bias, out_dtype)
+
+
+@register('quantized_conv2d', differentiable=False, namespaces=('nd',))
+def quantized_conv2d(x_q, w_q, scale, bias=None, out_dtype='bfloat16',
+                     strides=(1, 1), padding=(0, 0), dilation=(1, 1),
+                     groups=1, layout='NCHW'):
+    """int8 convolution with quantized_dense's epilogue: the int32
+    accumulator times ``scale`` per output channel, plus ``bias``, cast to
+    ``out_dtype``. w_q OIHW int8; scale/bias ``(O,)`` fp32."""
+    x = x_q if layout == 'NCHW' else x_q.permute(0, 3, 1, 2)
+    acc = F.conv2d(x.double(), w_q.double(), stride=tuple(strides),
+                   padding=tuple(padding), dilation=tuple(dilation),
+                   groups=groups)
+    out = acc.float() * scale.reshape(1, -1, 1, 1)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    out = out.to(getattr(torch, str(out_dtype)))
+    return out if layout == 'NCHW' else out.permute(0, 2, 3, 1)

@@ -32,6 +32,25 @@ def test_importing_every_module_loads_no_jax():
     assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
 
 
+def test_the_package_exports_the_frontend_and_loads_no_jax():
+    code = (
+        'import sys\n'
+        'import mxnet_tpu_torch as mx\n'
+        'names = ("np", "npx", "nd", "autograd", "random", "NDArray", '
+        '"waitall")\n'
+        'print("MISSING", [n for n in names if not hasattr(mx, n)])\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-2:] == ['MISSING []',
+                                                    'LOADED []']
+
+
 @pytest.mark.parametrize('path', sorted(
     str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')))
 def test_no_source_imports_jax_or_the_jax_package(path):
@@ -60,3 +79,17 @@ def test_no_card_means_an_error_not_the_cpu(monkeypatch):
     assert context.resolve_device('cpu') == torch.device('cpu')
     with context.cpu():
         assert llama_tiny().lm_head.weight.device.type == 'cpu'
+
+
+def test_the_frontend_with_no_card_and_no_context_raises(monkeypatch):
+    import mxnet_tpu_torch as mx
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert mx.current_context() == mx.gpu(0)
+    with pytest.raises(mx.MXNetError):
+        mx.np.ones((2, 3))
+    with pytest.raises(mx.MXNetError):
+        mx.np.array([1.0])
+    with pytest.raises(mx.MXNetError):
+        mx.np.random.normal(size=(2,))
+    with mx.cpu():
+        assert mx.np.ones((2, 3)).context == mx.cpu()
