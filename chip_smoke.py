@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,forward,serve,int8  # int8
     python3 chip_smoke.py --phases build,kernels,ring,rtc  # ring and rtc
     python3 chip_smoke.py --phases device,build,ndarray  # the frontend
+    python3 chip_smoke.py --phases device,build,bert  # Gluon and BERT
 
 Phases, each of which fails the run on any error:
 
@@ -32,7 +33,10 @@ Phases, each of which fails the run on any error:
                over thread-block clusters) and times the earlier one
                (``general``) beside it, RMS and LayerNorm at (4 / 32 /
                512 / 2048, 4096) and LayerNorm at BERT-base's (512,
-               768); at (4, 4096) and (32, 4096) its designs are timed
+               768) and (4096, 768) with eps 1e-12 (a (32, 128) batch);
+               flash attention at BERT-base's BH 384, T = S = 128 and BH
+               96, T = S = 512, d 64, full; at (4, 4096) and (32, 4096)
+               its designs are timed
                in turns with the launch floor (an empty kernel) and the
                copy floor (the regs grid and block writing x * gamma, no
                reduction), both compiled through ``rtc``.
@@ -105,7 +109,30 @@ Phases, each of which fails the run on any error:
                dispatched a step, host us of ``mx.np.add`` of (4, 4)
                against ``torch.add``, and what the value-semantics copies
                of ``npx.fused_adam_step`` cost over every parameter.
-9. ring     -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+9. bert     -- Gluon: ``bert_12_768_12`` at full width and depth
+               (``max_length`` 128, no dropout, no NSP head) on
+               ``mx.gpu(0)``, initialized by its own initializers from the
+               seed, on one seeded (32, 128) batch of token ids and MLM
+               labels (``bench_bert``'s defaults). Three eager forwards,
+               then ``hybridize(static_alloc=True)`` and three predict
+               calls: one CUDA-graph capture and no other, outputs
+               against the eager forward, 26 norm and 12 flash launches a
+               call, replays counted. Then ``BERT_STEPS`` steps of
+               ``Trainer(net.collect_params(), 'adam')`` under
+               ``autograd.record()`` with ``SoftmaxCrossEntropyLoss``, and
+               as many of a fresh SGD-momentum Trainer from the same
+               weights: losses finite and falling, 26 norm, 12 flash and
+               ``BERT_UPDATED`` optimizer launches a step, every parameter
+               but the pooler (no gradient from an MLM loss) moved; one
+               Adam step split into kernel time by group; a predict call
+               after training replays the same graph and sees the new
+               weights. Logged: host ms a step, samples/s, the step's
+               GEMM TFLOP against cuBLAS's measured fp32 rate, the plain
+               flash backward, graphed against eager predict ms and peak
+               memory. Then a small BERT (2 layers, 128 units, 2 heads of
+               64) trains two Adam steps on the card and on the CPU, and
+               the losses must agree.
+10. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -115,14 +142,14 @@ Phases, each of which fails the run on any error:
                flash forward over the whole sequence, and the ranks'
                plain blockwise path the flash path. Logs each rank's host
                ms, stats-kernel ms and transport ms.
-10. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+11. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
                the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8, train, ndarray and rtc phases and read just after it, and in each
+int8, train, ndarray, bert and rtc phases and read just after it, and in each
 rank just before and after its ring runs; the kernels' line reports their
 sum. A CUDA graph's replay counts the launches its capture saw
 (``_graphs.StepGraph``). A phase fails if the norm, the int8 product or flash attention (either
@@ -143,7 +170,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
-          'train', 'ndarray', 'ring', 'rtc')
+          'train', 'ndarray', 'bert', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -389,13 +416,14 @@ def phase_kernels(torch):
     att_tol = (1e-4, 1e-4)
     att_why = 'fp32 online softmax vs one-pass softmax, sums over S keys ' \
               'in another order; products in 3xTF32'
-    bh = 32
-    for t, s, d, causal in ((512, 512, 128, True), (512, 512, 128, False),
-                            (2048, 2048, 128, True),
-                            (2048, 2048, 128, False), (37, 2048, 128, True),
-                            (1, 2048, 128, True), (64, 2048, 128, True),
-                            (65, 2048, 128, True), (2048, 2048, 64, True),
-                            (2048, 2048, 32, True)):
+    llama = ((512, 512, 128, True), (512, 512, 128, False),
+             (2048, 2048, 128, True), (2048, 2048, 128, False),
+             (37, 2048, 128, True), (1, 2048, 128, True),
+             (64, 2048, 128, True), (65, 2048, 128, True),
+             (2048, 2048, 64, True), (2048, 2048, 32, True))
+    # BERT-base: a (32, 128) batch of 12 heads of 64, and (8, 512)
+    bert = ((384, 128, 128, 64, False), (96, 512, 512, 64, False))
+    for bh, t, s, d, causal in [(32,) + c for c in llama] + list(bert):
         q, k, v = randn(bh, t, d), randn(bh, s, d), randn(bh, s, d)
         scale = d ** -0.5
         got = flash_attention.flash_attention_fwd(q, k, v, scale, causal)
@@ -448,7 +476,7 @@ def _norm_cases(torch, randn, rows, sms):
     """The fused norm against its plain version, RMS and LayerNorm, at a
     decode step's (4, 4096), a prefill chunk's (32, 4096), (512, 4096) and
     a training batch's (2048, 4096), and LayerNorm at BERT-base's (512,
-    768). Each row names the design its plan took; the earlier design
+    768) and (4096, 768), eps 1e-12. Each row names the design its plan took; the earlier design
     (``general``, forced) is held to the plain version too and timed
     beside it. Then the floors (``_norm_floors``). The library call is
     ``F.rms_norm`` or ``F.layer_norm``."""
@@ -457,33 +485,36 @@ def _norm_cases(torch, randn, rows, sms):
     tol = (1e-5, 1e-5)
     why = 'fp32 statistics, sums over d taken in another order'
     general = fn.Plan('general', fn.GENERAL_THREADS, 0, 1)
-    cases = [(n, 4096, rms) for n in (4, 32, 512, 2048)
-             for rms in (True, False)] + [(512, 768, False)]
-    for n, d, rms in cases:
+    # BERT-base's LayerNorm at a (32, 128) batch takes its eps, 1e-12
+    cases = [(n, 4096, rms, 1e-5) for n in (4, 32, 512, 2048)
+             for rms in (True, False)] + [(512, 768, False, 1e-5),
+                                          (4096, 768, False, 1e-12)]
+    for n, d, rms, eps in cases:
         if rms or d != 4096:        # new inputs for each shape
             x = randn(n, d, scale=2.0) + 0.3
             g, b = randn(d) + 1.0, randn(d)
         beta = None if rms else b
-        got = fn.fused_norm(x, g, beta, 1e-5, rms)
-        want = fn.fused_norm_plain(x, g, beta, 1e-5, rms)
+        got = fn.fused_norm(x, g, beta, eps, rms)
+        want = fn.fused_norm_plain(x, g, beta, eps, rms)
         out_old = torch.empty_like(x)
 
         def old():
-            fn._launch(x, g, beta, out_old, 1e-5, rms, general)
+            fn._launch(x, g, beta, out_old, eps, rms, general)
         old()
         err, ok = compare(torch, out_old, want, *tol)
         if not ok:
             fail(f'fused_norm: the general design differs from the plain '
                  f'version at ({n}, {d}), rms {rms}: {err:.3g}')
         if rms:
-            lib = lambda: F.rms_norm(x, (d,), g, 1e-5)  # noqa: E731
+            lib = lambda: F.rms_norm(x, (d,), g, eps)  # noqa: E731
         else:
-            lib = lambda: F.layer_norm(x, (d,), g, beta, 1e-5)  # noqa
+            lib = lambda: F.layer_norm(x, (d,), g, beta, eps)  # noqa
         rows.append(_case(
-            torch, 'fused_norm', f'{"rms" if rms else "layer"} ({n}, {d})',
+            torch, 'fused_norm', f'{"rms" if rms else "layer"} ({n}, {d})'
+            f'{" eps 1e-12" if eps != 1e-5 else ""}',
             got, want, tol, why,
-            lambda: fn.fused_norm(x, g, beta, 1e-5, rms),
-            lambda: fn.fused_norm_plain(x, g, beta, 1e-5, rms),
+            lambda: fn.fused_norm(x, g, beta, eps, rms),
+            lambda: fn.fused_norm_plain(x, g, beta, eps, rms),
             4 * (2 * n * d + d * (1 if rms else 2)), (4 if rms else 6) * n * d,
             lib, path=fn.plan(n, d, True, sms, rms).path,
             earlier=(old, 'general design, this run')))
@@ -1223,7 +1254,8 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
     """Host-clock ms of a decode step over ``slots`` rows at ``depth`` and
     of one ``(1, chunk)`` prefill chunk at ``depth`` (``reps`` calls back
     to back, synchronised at the end), and their kernel time by name from
-    ``torch.profiler``; the busy share is kernel time over host time. Each
+    ``torch.profiler``, one session a call (``profiled_calls``); the busy
+    share is kernel time over host time. Each
     call is timed eager and then replayed from a CUDA graph (captured as
     the server captures it, the chunk's offset a 0-dim tensor), side by
     side. A decode step must show one paged-decode kernel event a layer
@@ -1257,10 +1289,7 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
                     call()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / reps
-                with profiled() as prof:
-                    for _ in range(reps):
-                        call()
-                    torch.cuda.synchronize()
+                prof = profiled_calls(torch, call, reps)
                 kernel_breakdown(tag, f'{how} {what}', prof, wall, reps)
                 norm_breakdown(tag, f'{how} {what}', prof, reps)
                 paged = sum(e.count for e in prof.key_averages()
@@ -1279,6 +1308,48 @@ def profiled():
     """A ``torch.profiler`` context over the host and the card."""
     from torch.profiler import ProfilerActivity, profile
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+class _Merged:
+    """The key averages of several ``torch.profiler`` sessions, summed by
+    kernel name, with the fields the breakdowns read."""
+
+    def __init__(self, profs):
+        by = {}
+        for prof in profs:
+            for e in prof.key_averages():
+                m = by.setdefault((e.key, e.device_type), _Event(
+                    e.key, e.device_type))
+                m.count += e.count
+                m.self_device_time_total += e.self_device_time_total
+        self._events = list(by.values())
+
+    def key_averages(self):
+        return self._events
+
+
+class _Event:
+    def __init__(self, key, device_type):
+        self.key, self.device_type = key, device_type
+        self.count, self.self_device_time_total = 0, 0.0
+
+
+def profiled_calls(torch, call, reps):
+    """``reps`` calls of ``call()``, each in a ``torch.profiler`` session
+    of its own that opens and closes on an idle card, merged. One session
+    over all of them once lost 2 of 160 paged-decode events of an eager
+    int8 decode step (ROADMAP C5); a session now holds one call's ~2700
+    kernels and no launch near its edges."""
+    profs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        with profiled() as prof:
+            time.sleep(0.005)
+            call()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        profs.append(prof)
+    return _Merged(profs)
 
 
 def kernel_breakdown(tag, what, prof, wall_ms, reps=1, top=8):
@@ -2044,6 +2115,284 @@ def ndarray_costs(torch, got, rounds=5, calls=2000):
                 inplace_ms=inplace_ms)
 
 
+# ------------------------------------------------------------- bert
+#: the bert phase: bert_12_768_12 at full width and depth, bench_bert's
+#: defaults (bench.py:1082-1083): a (32, 128) batch, MLM labels, token
+#: types 0; BERT_STEPS steps of each optimizer from the same seeded weights
+BERT_BATCH, BERT_SEQ, BERT_VOCAB = 32, 128, 30522
+BERT_STEPS = 3
+BERT_OPTS = (('adam', 'adam', {'learning_rate': 1e-4}),
+             ('sgd', 'sgd_mom', {'learning_rate': 0.1, 'momentum': 0.9}))
+#: parameters the JAX Trainer updates a step for bert_12_768_12 without the
+#: NSP classifier (tests/test_torch_bert.py derives it against the JAX
+#: Trainer on the CPU): every one, the pooler included, whose gradient an
+#: MLM loss leaves at zero
+BERT_UPDATED = 156
+#: launches a forward: LayerNorm (the embedding's, two a cell, the
+#: decoder's) and flash attention (one a cell)
+BERT_FORWARD = dict(fused_norm=26, flash_attention=12)
+
+
+def bert_batch(mx, seed, batch, seq, vocab):
+    """Seeded token ids, zero token types and MLM labels on the current
+    context, as bench_bert makes them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = mx.np.array(rng.integers(0, vocab, (batch, seq)), dtype='int32')
+    tt = mx.np.zeros((batch, seq), dtype='int32')
+    labels = mx.np.array(rng.integers(0, vocab, (batch, seq)),
+                         dtype='int32')
+    return ids, tt, labels
+
+
+def bert_step(mx, net, trainer, loss_fn, ids, tt, labels):
+    """One MLM training step through hybridize, record, backward and the
+    Trainer, the reference's imperative path (bench.py:570-576); the loss
+    is the batch mean, so the Trainer steps with batch size 1."""
+    with mx.autograd.record():
+        _, _, mlm = net(ids, tt)
+        loss = loss_fn(mlm, labels).mean()
+    loss.backward()
+    trainer.step(1)
+    return loss
+
+
+def _counts_since(kernels, before):
+    after = kernels.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def phase_bert(torch, seed):
+    """BERT-base trained through the port's Gluon on ``mx.gpu(0)``: see the
+    module docstring. Returns the host numbers :func:`bert_costs` logs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import kernels
+    dev = mx.gpu(0).to_torch()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)     # what earlier phases hold
+    t0 = time.perf_counter()
+    mx.random.seed(seed)
+    net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
+                              use_classifier=False)
+    net.initialize(ctx=mx.gpu(0))
+    ids, tt, labels = bert_batch(mx, seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB)
+    params = net.collect_params()
+    want_fwd = dict(BERT_FORWARD)
+    eager_ms = []
+    for _ in range(3):      # deferred init, then the eager reference
+        before = kernels.launch_counts()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        eager = net(ids, tt)
+        _sync(torch, dev)
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+        if _counts_since(kernels, before) != want_fwd:
+            fail(f'bert: an eager forward launched '
+                 f'{_counts_since(kernels, before)}, want {want_fwd}')
+    n_par = sum(math.prod(p.shape) for p in params.values())
+    log(f'[bert] bert_12_768_12 (12 layers, 768 units, 12 heads of 64, FFN '
+        f'3072, vocab {BERT_VOCAB}) without the NSP head: {len(params)} '
+        f'parameters, {n_par / 1e6:.2f} M fp32, built, initialized and run '
+        f'once on {ids.context} in {time.perf_counter() - t0:.1f} s')
+    init = {k: p.data()._data.detach().clone() for k, p in params.items()}
+
+    net.hybridize(static_alloc=True)
+    graph_ms = []
+    for i in range(3):
+        before = kernels.launch_counts()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        outs = net(ids, tt)
+        _sync(torch, dev)
+        graph_ms.append((time.perf_counter() - t1) * 1e3)
+        got = _counts_since(kernels, before)
+        errs = [compare(torch, g._data, w._data, 1e-5, 1e-6)
+                for g, w in zip(outs, eager)]
+        log(f'[bert] hybridized predict call {i + 1}: launches {got}, '
+            f'max |diff| against the eager forward '
+            f'{[float(f"{e:.3g}") for e, _ in errs]} (rtol 1e-5, atol 1e-6: '
+            f'the same kernels in the same order) -> '
+            f'{"ok" if all(ok for _, ok in errs) else "MISMATCH"}')
+        if got != want_fwd or not all(ok for _, ok in errs):
+            fail(f'bert: hybridized predict call {i + 1} launched {got} '
+                 f'(want {want_fwd}) or parts from the eager forward')
+    if net.capture_count != 1 or net.compile_count != 1:
+        fail(f'bert: {net.capture_count} captures and {net.compile_count} '
+             f'cache keys over three predict calls, want 1 and 1')
+    log(f'[bert] one capture, no re-capture over three predict calls; host '
+        f'ms a forward: eager {[round(x, 2) for x in eager_ms]}, hybridized '
+        f'{[round(x, 2) for x in graph_ms]} (the first captures); card '
+        f'{smi_line()}')
+    del outs
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    steps = {}
+    for run, (opt, kernel, hyper) in enumerate(BERT_OPTS):
+        if run:
+            for k, p in params.items():
+                p.set_data(init[k])
+        trainer = gluon.Trainer(params, opt, dict(hyper))
+        want = dict(want_fwd, **{kernel: BERT_UPDATED})
+        losses, wall = [], []
+        for i in range(BERT_STEPS):
+            before = kernels.launch_counts()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            last = run == 0 and i == BERT_STEPS - 1
+            with (profiled() if last else contextlib.nullcontext()) as prof:
+                loss = bert_step(mx, net, trainer, loss_fn, ids, tt, labels)
+                _sync(torch, dev)
+            wall.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss.item())
+            got = _counts_since(kernels, before)
+            if got != want:
+                fail(f'bert: {opt} step {i + 1} launches {got}, want {want}')
+            if last:    # against the step before, which no profiler slowed
+                bert_breakdown(torch, prof, wall[-2])
+            del loss
+        moved = [k for k, p in params.items()
+                 if not torch.equal(p.data()._data, init[k])]
+        still = sorted(set(params) - set(moved))
+        log(f'[bert] {opt} {hyper}: losses {losses}; host ms a step '
+            f'{[round(w, 2) for w in wall]}; '
+            f'{BERT_BATCH / wall[-2] * 1e3:.1f} samples/s at step '
+            f'{BERT_STEPS - 1}; launches a step {want}; {len(moved)} '
+            f'parameters moved, unchanged (no gradient from the MLM loss): '
+            f'{still}')
+        if not all(math.isfinite(v) for v in losses):
+            fail(f'bert: {opt} losses not finite: {losses}')
+        if not losses[-1] < losses[0]:
+            fail(f'bert: {opt} loss did not fall: {losses}')
+        if still != ['pooler.bias', 'pooler.weight']:
+            fail(f'bert: {opt} left {still} unchanged; only the pooler gets '
+                 f'no gradient from the MLM loss')
+        steps[opt] = wall
+        del trainer
+
+    # a replay after Trainer.step reads the updated weights in place
+    before = kernels.launch_counts()
+    outs = net(ids, tt)
+    got = _counts_since(kernels, before)
+    with mx.autograd.predict_mode():
+        want_out = net.forward(ids, tt)
+    err, ok = compare(torch, outs[2]._data, want_out[2]._data, 1e-5, 1e-6)
+    log(f'[bert] predict call after training: launches {got}, '
+        f'{net.capture_count} capture(s) in all, MLM logits against an eager '
+        f'forward of the trained weights {err:.3g} -> '
+        f'{"ok" if ok else "MISMATCH"}')
+    if not ok or net.capture_count != 1 or got != want_fwd:
+        fail('bert: the replayed graph did not see the trained weights, '
+             'captured again or launched other kernels')
+    del outs, want_out, eager
+    return dict(eager_ms=eager_ms, graph_ms=graph_ms, steps=steps,
+                peak=(torch.cuda.max_memory_allocated(dev) - base) / 2**30,
+                net=net)
+
+
+def bert_breakdown(torch, prof, wall_ms):
+    """Split one profiled BERT train step's kernel time: cuBLAS's GEMMs,
+    B1, B2, the optimizer kernels and the rest (elementwise, softmax,
+    reductions, embedding gathers, copies; the plain flash backward's
+    products are among the GEMMs, its softmax among the rest)."""
+    from torch.autograd import DeviceType
+    busy = kernel_breakdown('bert', 'train step (Adam, profiled; host ms '
+                            'of the unprofiled step before)', prof, wall_ms,
+                            top=10)
+    groups = {'B1 fused_norm': ('fused_norm',),
+              'B2 flash_fwd': ('flash_fwd',),
+              'B5/B6 optimizer': ('adam_kernel', 'sgd_mom_kernel'),
+              'cuBLAS GEMMs': ('gemm', 'Gemm', 'GEMM')}
+    sums = dict.fromkeys(list(groups) + ['other'], 0.0)
+    counts = dict.fromkeys(sums, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        g = next((g for g, keys in groups.items()
+                  if any(k in e.key for k in keys)), 'other')
+        sums[g] += e.self_device_time_total / 1e3
+        counts[g] += e.count
+    log('[bert] kernel ms of the step by group: ' + ', '.join(
+        f'{g} {ms:.2f} ({100 * ms / max(busy, 1e-9):.1f} %, x{counts[g]})'
+        for g, ms in sums.items()))
+    return sums
+
+
+def bert_costs(torch, got):
+    """Log the bert phase's host numbers beside cuBLAS's fp32 GEMM rate and
+    the plain flash backward, each measured here."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    net = got['net']
+    dev = torch.device('cuda', 0)
+    tokens = BERT_BATCH * BERT_SEQ
+    mm = [p for k, p in net.collect_params().items()
+          if k.endswith('.weight') and len(p.shape) == 2
+          and not k.startswith(('token_type', 'pooler'))]
+    flops = 6 * tokens * sum(math.prod(p.shape) for p in mm)
+    a = torch.randn(tokens, 768, device=dev)
+    b = torch.randn(768, 3072, device=dev)
+    gemm_ms = cuda_ms(torch, lambda: a @ b)
+    rate = 2 * tokens * 768 * 3072 / gemm_ms / 1e9
+    q = torch.randn(BERT_BATCH * 12, BERT_SEQ, 64, device=dev)
+    bwd_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(
+        q, q, q, q, 0.125, False))
+    for opt, wall in got['steps'].items():
+        step = wall[-2]
+        log(f'[bert] {opt}: {step:.2f} host ms a step, '
+            f'{BERT_BATCH / step * 1e3:.1f} samples/s; the step\'s GEMMs are '
+            f'{flops / 1e12:.3f} TFLOP (6 x {sum(math.prod(p.shape) for p in mm) / 1e6:.1f} M '
+            f'weights in products x {tokens} tokens), '
+            f'{flops / step / 1e9:.1f} TFLOP/s over the host step against '
+            f'cuBLAS\'s fp32 (4096 x 768) @ (768 x 3072) at {rate:.1f} '
+            f'TFLOP/s ({gemm_ms:.4f} ms) in this run')
+    log(f'[bert] plain flash backward at the step\'s (384, 128, 64): '
+        f'{bwd_ms:.4f} ms a call, x12 a step; hybridized predict '
+        f'{got["graph_ms"][-1]:.2f} host ms against eager '
+        f'{got["eager_ms"][-1]:.2f}; peak memory {got["peak"]:.2f} GiB above '
+        f'the phase\'s start; card '
+        f'{smi_line()}')
+
+
+def bert_parity(torch, seed, steps=2):
+    """A small BERT (2 layers, 128 units, 2 heads of 64, vocab 1000) trains
+    ``steps`` Adam steps on a (4, 32) batch on the card, through the
+    kernels, and on the CPU, through the plain versions, from the same
+    weights: the losses must agree at rtol 1e-4."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    cfg = dict(vocab_size=1000, num_layers=2, units=128, hidden_size=512,
+               num_heads=2, max_length=32, dropout=0.0, use_classifier=False)
+    losses, weights = {}, None
+    for where in (mx.cpu(), mx.gpu(0)):
+        with where:
+            mx.random.seed(seed)
+            net = bert.get_bert_model('bert_12_768_12', **cfg)
+            net.initialize(ctx=where)
+            batch = bert_batch(mx, seed, 4, 32, 1000)
+            net(*batch[:2])             # deferred initialization
+            if weights is None:
+                weights = {k: p.data().asnumpy()
+                           for k, p in net.collect_params().items()}
+            else:
+                net.load_dict(weights)
+            net.hybridize()
+            trainer = gluon.Trainer(net.collect_params(), 'adam',
+                                    {'learning_rate': 1e-3})
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            losses[str(where)] = [
+                bert_step(mx, net, trainer, loss_fn, *batch).item()
+                for _ in range(steps)]
+    cpu, card = losses['cpu(0)'], losses['gpu(0)']
+    ok = all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(card, cpu))
+    log(f'[bert] small BERT (2 layers, 128 units, 2 heads of 64), {steps} '
+        f'Adam steps: losses on the card {card}, on the CPU {cpu} (rtol '
+        f'1e-4) -> {"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail('bert: the card and the CPU train the small BERT apart')
+
+
 # ------------------------------------------------------------- ring
 #: the ring phase: llama3_8b's attention widths (32 query heads of 128, K/V
 #: expanded to 32 heads) over its whole max_length, sharded over sp ranks
@@ -2376,6 +2725,12 @@ def main(argv=None):
         ndarray_costs(torch, got)
         del got
         torch.cuda.empty_cache()
+    if 'bert' in phases:
+        got = window('bert', phase_bert, torch, SEED + 10)
+        bert_costs(torch, got)
+        del got
+        torch.cuda.empty_cache()
+        bert_parity(torch, SEED + 11)
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')
@@ -2406,7 +2761,7 @@ def main(argv=None):
                 bound_ms=head['bound_ms'], bound_by=head['bound_by'],
                 library_ms=head['library_ms'], shape=head['shape'],
                 cases=rows[name]))
-        if {'forward', 'serve', 'int8', 'train', 'ndarray', 'ring',
+        if {'forward', 'serve', 'int8', 'train', 'ndarray', 'bert', 'ring',
                 'rtc'} <= set(phases):
             idle = [k for k, n in launches.items() if n == 0]
             if idle:

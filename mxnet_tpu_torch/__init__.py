@@ -17,7 +17,9 @@ The imperative frontend is the reference's::
 
 ``mx.np``, ``mx.npx`` and ``mx.nd`` are generated from the op registry
 (``ops/registry.py``); an NDArray holds one ``torch.Tensor``, and
-``mx.autograd`` runs on ``torch.autograd``.
+``mx.autograd`` runs on ``torch.autograd``. ``mx.gluon`` has the blocks,
+layers, losses and Trainer, ``mx.init`` (``mx.initializer``) the
+initializers.
 """
 
 from .base import MXNetError
@@ -32,7 +34,11 @@ from . import autograd
 from . import random
 from .ndarray.ndarray import NDArray
 from .ndarray import waitall
+from . import initializer
+from . import initializer as init
+from . import model
+from . import gluon
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'num_gpus',
            'current_context', 'np', 'npx', 'nd', 'autograd', 'random',
-           'NDArray', 'waitall']
+           'NDArray', 'waitall', 'initializer', 'init', 'model', 'gluon']

@@ -66,16 +66,24 @@ class StepGraph:
         self.stream = torch.cuda.Stream(self.device)
         self.graph = None
         self.outputs = None
+        self.warmup_outputs = None
         self.captures = 0
         self.launches = {}
         self.paths = {}
 
-    def capture(self):
+    def capture(self, keep_warmup=False):
+        """Warm up, capture, and return the captured outputs (not yet
+        computed: the first :meth:`replay` computes them). With
+        ``keep_warmup`` the warm-up's own outputs, which are computed,
+        stay in ``warmup_outputs`` for the caller to take, so that a
+        first call can be answered without replaying."""
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
-            self.body()
+            warm = self.body()
         cur.wait_stream(self.stream)
+        if keep_warmup:
+            self.warmup_outputs = warm
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)

@@ -1,8 +1,18 @@
-"""Gluon of the PyTorch port: the model zoo's Llama family
-(:mod:`.model_zoo.llama`) as ``torch.nn.Module``s, the losses of
-:mod:`.loss` and the single-device :class:`Trainer`."""
+"""Gluon of the PyTorch port (counterpart of ``mxnet_tpu/gluon/``):
+:class:`Parameter`, :class:`Block` and :class:`HybridBlock` (whose
+``hybridize()`` replays predict-mode calls from CUDA graphs on the card),
+the layers of :mod:`.nn`, the losses of :mod:`.loss`, :mod:`.utils`, the
+single-device :class:`Trainer`, and the model zoo (BERT on these blocks,
+the Llama family as ``torch.nn.Module``s)."""
 
-from . import loss
+from .block import Block, HybridBlock, ParameterDict
+from .parameter import Constant, DeferredInitializationError, Parameter
 from .trainer import Trainer
+from . import nn
+from . import loss
+from . import utils
+from . import model_zoo
 
-__all__ = ['loss', 'Trainer']
+__all__ = ['Block', 'HybridBlock', 'ParameterDict', 'Constant',
+           'DeferredInitializationError', 'Parameter', 'Trainer', 'nn',
+           'loss', 'utils', 'model_zoo']

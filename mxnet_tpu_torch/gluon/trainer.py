@@ -1,5 +1,6 @@
 """``gluon.Trainer`` of the port: applies an :mod:`..optimizer` to a set of
-``torch.nn.Parameter``s on one device.
+Gluon :class:`.Parameter`s (``net.collect_params()``) or
+``torch.nn.Parameter``s (the ``torch.nn`` Llama's) on one device.
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py`` (``__init__``,
 ``learning_rate``, ``set_learning_rate``, ``step``, ``allreduce_grads``,
@@ -11,13 +12,20 @@ reduce, so the kvstore may only be ``'device'`` or ``None``; the
 distributed kvstores, gradient compression, row-sparse gradients,
 ``save_states``/``load_states`` and AMP are not ported yet.
 
-MXNet's ``grad_req='write'``: every backward overwrites a parameter's
-gradient, so a training loop never zeroes it. PyTorch's ``backward``
-accumulates into ``.grad`` instead. So :meth:`Trainer.step` (and
-:meth:`Trainer.update`) set the ``.grad`` of every parameter it updated
-to ``None`` after the update: the next backward writes a fresh gradient,
-and a loop written for the reference, with no ``zero_grad``, computes
-what it computes there.
+A Gluon parameter is updated as the JAX Trainer updates it
+(``mxnet_tpu/gluon/trainer.py:241-243``): every one whose ``grad_req`` is
+not ``'null'`` and that is initialized, with whatever its grad buffer
+holds (zeros for a parameter no backward reached, such as BERT's pooler
+under an MLM loss), and with its ``lr_mult`` and ``wd_mult``. Its buffer
+follows ``grad_req`` (the autograd hook overwrites it for ``'write'``),
+so a loop needs no ``zero_grad``.
+
+A ``torch.nn.Parameter`` has no grad buffer, only ``.grad``, into which
+PyTorch's ``backward`` accumulates. So :meth:`Trainer.step` (and
+:meth:`Trainer.update`) set the ``.grad`` of every such parameter it
+updated to ``None`` after the update: the next backward writes a fresh
+gradient, as MXNet's ``grad_req='write'`` does, and one without a
+gradient since the last step raises unless ``ignore_stale_grad``.
 """
 
 import re
@@ -27,6 +35,7 @@ import torch
 
 from ..base import MXNetError
 from .. import optimizer as opt
+from .parameter import Parameter
 
 __all__ = ['Trainer']
 
@@ -40,8 +49,8 @@ def _jax_name(name):
 
 class Trainer:
     """Apply ``optimizer`` (a name or an :class:`..optimizer.Optimizer`)
-    to ``params``: a dict of named parameters
-    (``dict(net.named_parameters())``) or a list of them, all on one
+    to ``params``: a dict of named parameters (``net.collect_params()``,
+    ``dict(net.named_parameters())``) or a list of them, all on one
     device."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
@@ -54,9 +63,10 @@ class Trainer:
         else:
             raise ValueError('params must be a dict/list of Parameters')
         for param in params:
-            if not isinstance(param, torch.nn.Parameter):
+            if not isinstance(param, (Parameter, torch.nn.Parameter)):
                 raise ValueError(f'invalid parameter {param!r}')
-        devices = sorted({str(p.device) for p in params})
+        devices = sorted({str(_device(p)) for p in params
+                          if _device(p) is not None})
         if len(devices) > 1:
             raise MXNetError(f'the Trainer updates parameters on one device; '
                              f'got {devices}')
@@ -118,6 +128,11 @@ class Trainer:
     def _update(self, ignore_stale_grad=False):
         live = []
         for i, param in enumerate(self._params):
+            if isinstance(param, Parameter):
+                if param.grad_req != 'null' and param._var is not None:
+                    live.append((i, param._sync().detach(),
+                                 param.grad()._data, None))
+                continue
             if not param.requires_grad:          # grad_req='null'
                 continue
             if param.grad is None:
@@ -128,15 +143,15 @@ class Trainer:
                     f'Gradient of Parameter `{name}` has not been computed '
                     f'by backward since the last step; call step with '
                     f'ignore_stale_grad=True to skip it')
-            live.append((i, param))
-        for i, param in live:
+            live.append((i, param.detach(), param.grad, param))
+        for i, weight, grad, leaf in live:
             if i not in self._states:
                 self._states[i] = \
-                    self._optimizer.create_state_multi_precision(
-                        i, param.detach())
-            self._optimizer.update_multi_precision(
-                i, param.detach(), param.grad, self._states[i])
-            param.grad = None                    # grad_req='write'
+                    self._optimizer.create_state_multi_precision(i, weight)
+            self._optimizer.update_multi_precision(i, weight, grad,
+                                                   self._states[i])
+            if leaf is not None:
+                leaf.grad = None                 # grad_req='write'
 
     # ---------------------------------------------------------- carry over
     def load_jax_state(self, states, counts):
@@ -168,6 +183,14 @@ class Trainer:
                                 *optim._index_update_count.values()])
 
 
+def _device(param):
+    """The device of a parameter; None for a Gluon parameter whose
+    initialization is still deferred."""
+    if isinstance(param, Parameter):
+        return None if param._var is None else param._var.device
+    return param.device
+
+
 def _state_to_torch(name, state, param):
     if state is None:
         return None
@@ -177,4 +200,4 @@ def _state_to_torch(name, state, param):
     if arr.shape != tuple(param.shape):
         raise ValueError(f'{name}: state shape {arr.shape}, the parameter '
                          f'is {tuple(param.shape)}')
-    return torch.tensor(arr, device=param.device)
+    return torch.tensor(arr, device=_device(param))

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: one NDArray class backs
 ``mx.nd`` and ``mx.np``; the creators and every op tagged ``'nd'`` are
-injected here. ``waitall`` synchronizes every visible card.
+injected here. ``waitall`` synchronizes every visible card; ``save`` and
+``load`` read and write the NDArray-map files of :mod:`..model`.
 """
 
 import sys as _sys
@@ -29,3 +30,15 @@ for _n, _f in _CREATORS.items():
 _register.populate(_mod.__dict__, 'nd')
 
 from .ndarray import array as from_numpy  # noqa: E402,F401
+
+
+def save(fname, data):
+    """Write an NDArray, a list or a dict of them (``mx.nd.save``)."""
+    from ..model import save_ndarray_map
+    save_ndarray_map(fname, data)
+
+
+def load(fname):
+    """Read what :func:`save` wrote (``mx.nd.load``)."""
+    from ..model import load_ndarray_map
+    return load_ndarray_map(fname)

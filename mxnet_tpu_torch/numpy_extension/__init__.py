@@ -3,9 +3,9 @@
 Counterpart of ``mxnet_tpu/numpy_extension/__init__.py`` (reference
 python/mxnet/numpy_extension/): every registered op is reachable here
 (``npx.rms_norm``, ``npx.flash_attention``, ``npx.fused_adam_step``, ...),
-beside the ``set_np`` switches and the device helpers. Control flow
-(``cond``, ``foreach``, ``while_loop``) and ``save``/``load`` are not
-ported yet (``ops/ledger.py``).
+beside the ``set_np`` switches, the device helpers and ``save``/``load``
+(the NDArray-map files of :mod:`..model`). Control flow (``cond``,
+``foreach``, ``while_loop``) is not ported yet (``ops/ledger.py``).
 """
 
 import sys as _sys
@@ -17,6 +17,9 @@ _mod = _sys.modules[__name__]
 
 _register.populate(_mod.__dict__, 'np')
 _register.populate(_mod.__dict__, 'nd')
+
+from ..model import save_ndarray_map as save     # noqa: E402
+from ..model import load_ndarray_map as load     # noqa: E402
 
 _np_flags = {'shape': True, 'array': True}
 

@@ -465,6 +465,11 @@ def searchsorted(a, v, side='left'):
     return torch.searchsorted(a, v, right=(side == 'right'))
 
 
+def _dyn_unless_size(args, kwargs):
+    # with size= the output shape is static
+    return kwargs.get('size') is None and (len(args) < 2 or args[1] is None)
+
+
 def _sized(t, size, fill=0):
     if size is None:
         return t
@@ -475,23 +480,25 @@ def _sized(t, size, fill=0):
     return torch.cat([t, pad])
 
 
-@register('argwhere', differentiable=False)
+@register('argwhere', differentiable=False, dynamic_shape=_dyn_unless_size)
 def argwhere(x, size=None):
     return _sized(torch.argwhere(x), size)
 
 
-@register('nonzero', differentiable=False)
+@register('nonzero', differentiable=False, dynamic_shape=_dyn_unless_size)
 def nonzero(x, size=None):
     nz = _sized(torch.argwhere(x), size)
     return tuple(nz[:, i] for i in range(x.dim()))
 
 
-@register('flatnonzero', differentiable=False)
+@register('flatnonzero', differentiable=False,
+          dynamic_shape=_dyn_unless_size)
 def flatnonzero(a, size=None):
     return _sized(torch.argwhere(a.reshape(-1))[:, 0], size)
 
 
-@register('boolean_mask', static_argnums=(1,), static_argnames=('index',))
+@register('boolean_mask', static_argnums=(1,), static_argnames=('index',),
+          dynamic_shape=True)
 def boolean_mask(data, index, axis=0):
     """Keep the entries of ``data`` along ``axis`` where ``index`` is
     true; differentiable in ``data``."""

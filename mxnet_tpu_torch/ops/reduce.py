@@ -246,7 +246,8 @@ def topk(x, axis=-1, k=1, ret_typ='indices', is_ascend=False,
     raise ValueError(f'unknown ret_typ {ret_typ}')
 
 
-@register('unique', differentiable=False)
+@register('unique', differentiable=False,
+          dynamic_shape=lambda args, kw: kw.get('size') is None)
 def unique(x, return_index=False, return_inverse=False, return_counts=False,
            axis=None, size=None):
     """numpy's unique of the flattened array (``axis`` None), the first

@@ -28,7 +28,7 @@ import torch
 from .. import _dtypes, _rng, _tape
 
 __all__ = ['Op', 'register', 'get_op', 'list_ops', 'apply_op', 'invoke',
-           'make_frontend', 'dispatch_count']
+           'make_frontend', 'dispatch_count', 'DynamicShapeError']
 
 _OPS = {}
 #: ops dispatched through :func:`apply_op` since the process started
@@ -40,23 +40,32 @@ def dispatch_count():
     return _dispatched[0]
 
 
+class DynamicShapeError(TypeError):
+    """An op whose output shape depends on its data was called inside a
+    hybridized block's cached call (``gluon.block.is_tracing()``); the
+    block then runs eagerly, as the reference's CachedOp does with
+    ``is_dynamic``."""
+
+
 class Op:
     """One registered operator: ``fn`` over tensors, ``differentiable``
     (False: outputs carry no gradient), ``stochastic`` (the dispatch
     passes the device's generator as ``key=``), the frontend
-    ``namespaces`` and ``aliases``, and ``static_argnums``/
+    ``namespaces`` and ``aliases``, ``static_argnums``/
     ``static_argnames`` (NDArray arguments passed as constants, with no
-    gradient). The JAX package's other attributes (``n_out``,
-    ``dynamic_shape``, the cost and lint metadata, a custom frontend
-    ``wrap``) serve symbols, hybridize and the analysis, which are not
-    ported yet."""
+    gradient) and ``dynamic_shape`` (True, or a predicate of the call's
+    ``(args, kwargs)``: the output shape depends on the data). The JAX
+    package's other attributes (``n_out``, the cost and lint metadata, a
+    custom frontend ``wrap``) serve symbols and the analysis, which are
+    not ported yet."""
 
     __slots__ = ('name', 'fn', 'differentiable', 'stochastic', 'namespaces',
-                 'aliases', 'static_argnums', 'static_argnames')
+                 'aliases', 'static_argnums', 'static_argnames',
+                 'dynamic_shape')
 
     def __init__(self, name, fn, differentiable=True, stochastic=False,
                  namespaces=('np', 'nd'), aliases=(), static_argnums=(),
-                 static_argnames=()):
+                 static_argnames=(), dynamic_shape=False):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
@@ -65,11 +74,12 @@ class Op:
         self.aliases = aliases
         self.static_argnums = frozenset(static_argnums)
         self.static_argnames = frozenset(static_argnames)
+        self.dynamic_shape = dynamic_shape
 
 
 def register(name=None, differentiable=True, stochastic=False,
              namespaces=('np', 'nd'), aliases=(), static_argnums=(),
-             static_argnames=()):
+             static_argnames=(), dynamic_shape=False):
     """Decorator registering a tensor function as an operator; returns
     the function unchanged."""
 
@@ -78,7 +88,8 @@ def register(name=None, differentiable=True, stochastic=False,
         op = Op(opname, fn, differentiable=differentiable,
                 stochastic=stochastic, namespaces=namespaces,
                 aliases=aliases, static_argnums=static_argnums,
-                static_argnames=static_argnames)
+                static_argnames=static_argnames,
+                dynamic_shape=dynamic_shape)
         _OPS[opname] = op
         for a in aliases:
             _OPS[a] = op
@@ -150,6 +161,13 @@ def invoke(op_name, args, kwargs):
     from ..context import resolve_device
 
     op = _OPS[op_name] if isinstance(op_name, str) else op_name
+    if op.dynamic_shape and (op.dynamic_shape is True
+                             or op.dynamic_shape(args, kwargs)):
+        from ..gluon.block import is_tracing
+        if is_tracing():
+            raise DynamicShapeError(
+                f'op {op.name!r} has a data-dependent output shape and '
+                f'cannot run in a cached call; the block runs eagerly')
     kwargs = dict(kwargs)
     out = kwargs.pop('out', None)
     dev = _first_device(args, kwargs)

@@ -1214,3 +1214,86 @@ def test_generate_keeps_at_most_16_graphs_and_drops_them_on_a_swap(dev):
     assert len(net._decode_loops) == 1
     net.to('cpu')
     assert not net._decode_loops
+
+
+# ------------------------------------------------- Gluon's graphed predict
+def _small_bert(dev, seed=0):
+    """A hybridized 2-layer BERT on the card (heads of 64, which the flash
+    kernel takes), its (4, 32) batch and a seeded state."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    mx.random.seed(seed)
+    net = bert.get_bert_model('bert_12_768_12', vocab_size=1000,
+                              num_layers=2, units=128, hidden_size=512,
+                              num_heads=2, max_length=32, dropout=0.0,
+                              use_classifier=False)
+    net.initialize(ctx=mx.gpu(0))
+    g = torch.Generator().manual_seed(seed)
+    ids = mx.np.array(torch.randint(0, 1000, (4, 32), generator=g),
+                      dtype='int32', ctx=mx.gpu(0))
+    tt = mx.np.zeros((4, 32), dtype='int32', ctx=mx.gpu(0))
+    net(ids, tt)
+    net.hybridize()
+    return net, ids, tt
+
+
+def _eager_mlm(mx, net, ids, tt):
+    with mx.autograd.predict_mode():
+        return net.forward(ids, tt)[2]._data
+
+
+def test_hybridized_predict_replays_see_in_place_writes(dev, tmp_path):
+    """A predict call after hybridize() captures once; after a Trainer
+    step, load_parameters and set_data the replay gives the new weights'
+    output, with no other capture; a cast captures again."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    net, ids, tt = _small_bert(dev)
+    before = kernels.launch_counts()
+    first = net(ids, tt)[2]._data
+    got = {k: v - before[k] for k, v in kernels.launch_counts().items()
+           if v != before[k]}
+    assert got == {'fused_norm': 6, 'flash_attention': 2}
+    assert net.capture_count == 1 and net.compile_count == 1
+    torch.testing.assert_close(first, _eager_mlm(mx, net, ids, tt),
+                               rtol=0, atol=0)
+    net.save_parameters(str(tmp_path / 'w.npz'))
+    trainer = gluon.Trainer(net.collect_params(), 'adam',
+                            {'learning_rate': 1e-2})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(ids, tt)[2], ids).mean()
+    loss.backward()
+    trainer.step(1)
+    trained = net(ids, tt)[2]._data
+    assert not torch.equal(trained, first)
+    torch.testing.assert_close(trained, _eager_mlm(mx, net, ids, tt),
+                               rtol=0, atol=0)
+    net.load_parameters(str(tmp_path / 'w.npz'))
+    torch.testing.assert_close(net(ids, tt)[2]._data, first, rtol=0, atol=0)
+    w = net.collect_params()['decoder_bias']
+    w.set_data(w.data() + 1.0)
+    torch.testing.assert_close(net(ids, tt)[2]._data, first + 1.0,
+                               rtol=1e-6, atol=1e-5)
+    assert net.capture_count == 1
+    net.cast('float32')         # new leaves: the next call captures again
+    net(ids, tt)
+    assert net.capture_count == 2
+
+
+def test_hybridized_graph_equals_eager_and_counts_replays(dev):
+    """Three graphed predict calls launch what three eager ones do, and
+    their outputs equal the eager forward's; keyword arguments raise."""
+    import mxnet_tpu_torch as mx
+    net, ids, tt = _small_bert(dev, seed=1)
+    want = _eager_mlm(mx, net, ids, tt)
+    before = kernels.launch_counts()
+    for _ in range(3):
+        torch.testing.assert_close(net(ids, tt)[2]._data, want, rtol=0,
+                                   atol=0)
+    got = {k: v - before[k] for k, v in kernels.launch_counts().items()
+           if v != before[k]}
+    assert got == {'fused_norm': 18, 'flash_attention': 6}
+    assert net.capture_count == 1
+    with pytest.raises(ValueError, match='keyword'):
+        net(ids, token_types=tt)
