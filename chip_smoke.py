@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,kernels,ring,rtc  # ring and rtc
     python3 chip_smoke.py --phases device,build,ndarray  # the frontend
     python3 chip_smoke.py --phases device,build,bert  # Gluon and BERT
+    python3 chip_smoke.py --phases device,build,resnet  # ResNet-50 training
 
 Phases, each of which fails the run on any error:
 
@@ -132,7 +133,36 @@ Phases, each of which fails the run on any error:
                memory. Then a small BERT (2 layers, 128 units, 2 heads of
                64) trains two Adam steps on the card and on the CPU, and
                the losses must agree.
-10. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+10. resnet  -- ResNet-50 training through Gluon's conv layers, the vision
+               zoo, ``io`` and ``metric`` (``bench_resnet_train``'s
+               imperative loop, bench.py:302-497), with cuDNN's TF32 flag
+               left on as PyTorch sets it: one of its convolutions
+               through the port's ``Conv2D`` must be fp32 against fp64.
+               ``vision.resnet50_v1()`` (1000 classes, full width and
+               depth, fp32, seeded) on ``mx.gpu(0)``; 8 seeded batches of
+               32 at 3 x 224 x 224 with float labels through
+               ``io.NDArrayIter`` put on the card. Three eager forwards,
+               then three ``hybridize(static_alloc=True)`` predict calls:
+               one capture and one key, outputs equal to the eager ones;
+               ``metric.Accuracy`` and ``TopKAccuracy(5)`` on one batch.
+               Then ``Trainer(net.collect_params(), 'sgd')`` (lr 0.05,
+               momentum 0.9) with ``SoftmaxCrossEntropyLoss``: 3 warm-up
+               steps, 6 back to back (img/s) and 6 synced one by one (host
+               ms a step), each with exactly ``RESNET_UPDATED`` B6
+               launches and no other kernel; losses finite; the last step
+               split into kernel time by group against the unprofiled
+               step before (the busy share); every updated parameter and
+               running statistic moved; a predict call after training
+               replays the same graph and equals an eager forward with
+               the new running statistics. The same steps fed by
+               ``io.PrefetchingIter(NDArrayIter, ctx=gpu(0), depth=3)``,
+               whose first batch must equal ``NDArrayIter``'s. Logged
+               against the step's bound (3 x 7.72 GFLOP an image at the
+               fp32 peak) with the card's name and power limit. Then a
+               ``resnet18_v1`` thumbnail trains two steps on the card and
+               on the CPU: losses within rtol 1e-4, and each weight's and
+               running statistic's change within 1 % of the CPU's (2-norm).
+11. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -142,14 +172,14 @@ Phases, each of which fails the run on any error:
                flash forward over the whole sequence, and the ranks'
                plain blockwise path the flash path. Logs each rank's host
                ms, stats-kernel ms and transport ms.
-11. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+12. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
                the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8, train, ndarray, bert and rtc phases and read just after it, and in each
+int8, train, ndarray, bert, resnet and rtc phases and read just after it, and in each
 rank just before and after its ring runs; the kernels' line reports their
 sum. A CUDA graph's replay counts the launches its capture saw
 (``_graphs.StepGraph``). A phase fails if the norm, the int8 product or flash attention (either
@@ -170,7 +200,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
-          'train', 'ndarray', 'bert', 'ring', 'rtc')
+          'train', 'ndarray', 'bert', 'resnet', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -802,7 +832,8 @@ def _optimizer_cases(torch, randn, rows):
     why = 'fp32, the same operations in the same order, none contracted'
     lr, wd, clip = 1e-3, 0.01, dict(rescale_grad=0.5, clip_gradient=1.0)
     betas = dict(beta1=0.9, beta2=0.999, epsilon=1e-8)
-    for shape in ((4096, 14336), (128256, 4096), (4096,), (1000,)):
+    for shape in ((4096, 14336), (128256, 4096), (4096,), (1000,),
+                  (512, 512, 3, 3)):
         n = math.prod(shape)
         w, g = randn(*shape), randn(*shape, scale=3.0)   # the clip bites
         m, v = randn(*shape, scale=0.1), randn(*shape, scale=0.1).square()
@@ -2133,6 +2164,20 @@ BERT_UPDATED = 156
 BERT_FORWARD = dict(fused_norm=26, flash_attention=12)
 
 
+#: resnet phase: bench_resnet_train's defaults (bench.py:302-497, :1082):
+#: resnet50_v1 with 1000 classes, a batch of 32 at 3 x 224 x 224, 8 batches
+#: through NDArrayIter, SGD-momentum at lr 0.05, 3 warm-up and 6 timed steps
+RESNET_BATCH, RESNET_BATCHES = 32, 8
+RESNET_WARMUP, RESNET_STEPS = 3, 6
+RESNET_OPT = ('sgd', {'learning_rate': 0.05, 'momentum': 0.9})
+#: parameters the JAX Trainer updates a step for resnet50_v1 (every one
+#: whose grad_req is not 'null': 53 conv weights, 32 bottleneck conv
+#: biases, 106 BatchNorm gamma and beta, the Dense weight and bias; not
+#: the 106 running statistics; tests/test_torch_vision.py holds it to
+#: both packages)
+RESNET_UPDATED = 193
+
+
 def bert_batch(mx, seed, batch, seq, vocab):
     """Seeded token ids, zero token types and MLM labels on the current
     context, as bench_bert makes them."""
@@ -2391,6 +2436,377 @@ def bert_parity(torch, seed, steps=2):
         f'1e-4) -> {"ok" if ok else "MISMATCH"}')
     if not ok:
         fail('bert: the card and the CPU train the small BERT apart')
+
+
+# ------------------------------------------------------------- resnet
+#: bench.py:55: resnet50's forward is 7.72 GFLOP an image; a training step
+#: (forward, backward) about three times that
+RESNET50_FWD_FLOPS = 7.72e9
+
+
+def resnet_data(seed, n):
+    """``n`` seeded images at 3 x 224 x 224 (N(0, 0.1)) and integer labels
+    0-999 stored as float32, as bench_resnet_train makes them
+    (bench.py:397-400)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((n, 3, 224, 224), dtype=np.float32) * 0.1
+    labels = rng.integers(0, 1000, n).astype(np.float32)
+    return images, labels
+
+
+def resnet_step(mx, net, trainer, loss_fn, x, y):
+    """One step of bench_resnet_train's imperative loop (bench.py:413-426):
+    record, forward, the mean loss, backward, ``trainer.step(batch)``."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y).mean()
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def _tf32_conv_check(torch, mx, dev):
+    """One of resnet50's 3 x 3 convolutions (64 -> 64 channels at 56 x 56,
+    a batch of 32) through the port's ``Conv2D`` and through
+    ``F.conv2d``, with cuDNN's TF32 flag left on as PyTorch sets it, each
+    against the same convolution in fp64: the port's must be fp32."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.gluon import nn
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(RESNET_BATCH, 64, 56, 56, generator=g, device=dev)
+    conv = nn.Conv2D(64, 3, padding=1, use_bias=False, in_channels=64)
+    conv.initialize(ctx=mx.gpu(0))
+    w = conv.weight.data()._data.detach()
+    want = F.conv2d(x.double(), w.double(), padding=1)
+    scale = float(want.abs().max())
+    got = conv(mx.NDArray(x))._data.detach()
+    port = float((got.double() - want).abs().max()) / scale
+    lib = float((F.conv2d(x, w, padding=1).double() - want).abs().max()) \
+        / scale
+    log(f'[resnet] conv 64 -> 64, 3 x 3 at (32, 64, 56, 56), cuDNN TF32 flag '
+        f'{torch.backends.cudnn.allow_tf32}: max error over max |out| '
+        f'against fp64: port Conv2D {port:.3g}, F.conv2d {lib:.3g} (fp32: '
+        f'under 1e-5)')
+    if port > 1e-5:
+        fail(f'resnet: the port\'s Conv2D ran in TF32 ({port:.3g} off fp64)')
+
+
+def phase_resnet(torch, seed):
+    """ResNet-50 trained through the port's Gluon, io and metric on
+    ``mx.gpu(0)``, with cuDNN's TF32 flag on, as PyTorch sets it: see the
+    module docstring. Returns what :func:`resnet_costs` logs."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return _resnet_phase(torch, seed)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _resnet_phase(torch, seed):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, io, metric
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import kernels
+    dev = mx.gpu(0).to_torch()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)     # what earlier phases hold
+    _tf32_conv_check(torch, mx, dev)
+    t0 = time.perf_counter()
+    mx.random.seed(seed)
+    net = vision.resnet50_v1()
+    net.initialize(ctx=mx.gpu(0))
+    images, labels = resnet_data(seed, RESNET_BATCH * RESNET_BATCHES)
+    it = io.NDArrayIter(images, labels, batch_size=RESNET_BATCH,
+                        shuffle=False)
+    batches = [(b.data[0].as_in_context(mx.gpu(0)),
+                b.label[0].as_in_context(mx.gpu(0))) for b in it]
+    x0, y0 = batches[0]
+    eager_ms = []
+    for _ in range(3):      # deferred initialization, then the reference
+        before = kernels.launch_counts()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        eager = net(x0)
+        _sync(torch, dev)
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+        if _counts_since(kernels, before):
+            fail(f'resnet: an eager forward launched '
+                 f'{_counts_since(kernels, before)}, want no kernel')
+    params = net.collect_params()
+    n_par = sum(math.prod(p.shape) for p in params.values()
+                if p.grad_req != 'null')
+    log(f'[resnet] resnet50_v1 (1000 classes, fp32): {len(params)} '
+        f'parameters ({sum(p.grad_req != "null" for p in params.values())} '
+        f'trained, {n_par / 1e6:.2f} M values), built, initialized and run '
+        f'once on {x0.context} in {time.perf_counter() - t0:.1f} s; '
+        f'{len(batches)} batches of {tuple(x0.shape)} from NDArrayIter')
+    init = {k: p.data()._data.detach().clone() for k, p in params.items()}
+
+    net.hybridize(static_alloc=True)
+    graph_ms = []
+    for i in range(3):
+        before = kernels.launch_counts()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        out = net(x0)
+        _sync(torch, dev)
+        graph_ms.append((time.perf_counter() - t1) * 1e3)
+        err, ok = compare(torch, out._data, eager._data, 1e-5, 1e-6)
+        log(f'[resnet] hybridized predict call {i + 1}: launches '
+            f'{_counts_since(kernels, before)}, max |diff| against the '
+            f'eager forward {err:.3g} (rtol 1e-5, atol 1e-6: the same '
+            f'kernels in the same order) -> {"ok" if ok else "MISMATCH"}')
+        if not ok or _counts_since(kernels, before):
+            fail(f'resnet: hybridized predict call {i + 1} parts from the '
+                 f'eager forward or launched a kernel')
+    if net.capture_count != 1 or net.compile_count != 1:
+        fail(f'resnet: {net.capture_count} captures and {net.compile_count} '
+             f'cache keys over three predict calls, want 1 and 1')
+    acc, top5 = metric.Accuracy(), metric.TopKAccuracy(5)
+    for m in (acc, top5):
+        m.update([y0], [out])
+    log(f'[resnet] one capture, no re-capture over three predict calls; '
+        f'host ms a forward: eager {[round(t, 2) for t in eager_ms]}, '
+        f'hybridized {[round(t, 2) for t in graph_ms]} (the first '
+        f'captures); on batch 0 of the random net {acc.get()} '
+        f'{top5.get()}; card {smi_line()}')
+    del out
+
+    trainer = gluon.Trainer(params, RESNET_OPT[0], dict(RESNET_OPT[1]))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    want = {'sgd_mom': RESNET_UPDATED}
+
+    def steps(n, get, tag, profile_last=False):
+        losses, wall, prof = [], [], None
+        for i in range(n):
+            x, y = get(i)
+            before = kernels.launch_counts()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            last = profile_last and i == n - 1
+            with (profiled() if last else contextlib.nullcontext()) as p:
+                loss = resnet_step(mx, net, trainer, loss_fn, x, y)
+                _sync(torch, dev)
+            wall.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss.item())
+            got = _counts_since(kernels, before)
+            if got != want:
+                fail(f'resnet: {tag} step {i + 1} launched {got}, want '
+                     f'{want}')
+            if last:
+                prof = p
+        if not all(math.isfinite(v) for v in losses):
+            fail(f'resnet: {tag} losses not finite: {losses}')
+        return losses, wall, prof
+
+    def dev_get(i):
+        return batches[i % len(batches)]
+
+    warm, warm_wall, _ = steps(RESNET_WARMUP, dev_get, 'warm-up')
+    # the timed steps run back to back as bench's loop does, one sync at
+    # the end; then the same steps synced one by one, for host ms a step
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for i in range(RESNET_STEPS):
+        loss = resnet_step(mx, net, trainer, loss_fn, *dev_get(i))
+    loop_loss = loss.item()
+    loop_ms = (time.perf_counter() - t1) * 1e3
+    losses, wall, prof = steps(RESNET_STEPS, dev_get, 'timed',
+                               profile_last=True)
+    img_s = RESNET_STEPS * RESNET_BATCH / loop_ms * 1e3
+    log(f'[resnet] {RESNET_OPT}: warm-up losses {warm}, host ms '
+        f'{[round(t, 2) for t in warm_wall]}; {RESNET_STEPS} steps back to '
+        f'back {loop_ms:.2f} ms ({loop_ms / RESNET_STEPS:.2f} ms a step, '
+        f'{img_s:.1f} img/s, last loss {loop_loss}); then synced one by one: '
+        f'losses {losses}, host ms a step {[round(t, 2) for t in wall]} (the '
+        f'last profiled); launches a step {want}')
+    breakdown = resnet_breakdown(torch, prof, wall[-2])
+
+    moved = [k for k, p in params.items()
+             if not torch.equal(p.data()._data, init[k])]
+    still = sorted(set(params) - set(moved))
+    log(f'[resnet] {len(moved)} of {len(params)} parameters and running '
+        f'statistics moved; unchanged: {still}')
+    if still:
+        fail(f'resnet: {still} did not move over the training steps')
+
+    # a replay after training reads the running statistics in place
+    before = kernels.launch_counts()
+    out = net(x0)
+    with mx.autograd.predict_mode():
+        want_out = net.forward(x0)
+    err, ok = compare(torch, out._data, want_out._data, 1e-5, 1e-6)
+    log(f'[resnet] predict call after training: launches '
+        f'{_counts_since(kernels, before)}, {net.capture_count} capture(s) '
+        f'in all, against an eager forward with the new running statistics '
+        f'{err:.3g} -> {"ok" if ok else "MISMATCH"}')
+    if not ok or net.capture_count != 1 or _counts_since(kernels, before):
+        fail('resnet: the replayed graph did not see the trained weights '
+             'and statistics, captured again or launched a kernel')
+    del out, want_out, eager
+
+    # the host feed: the same steps fed by PrefetchingIter (bench.py:463-485)
+    pref = io.PrefetchingIter(
+        io.NDArrayIter(images, labels, batch_size=RESNET_BATCH,
+                       shuffle=False), ctx=x0.context, depth=3)
+    first = next(pref)
+    if not (torch.equal(first.data[0]._data, x0._data)
+            and torch.equal(first.label[0]._data, y0._data)):
+        fail('resnet: the first PrefetchingIter batch is not NDArrayIter\'s')
+    fed = [first]
+
+    def pref_get(i):
+        if fed:
+            b = fed.pop()
+        else:
+            try:
+                b = next(pref)
+            except StopIteration:
+                pref.reset()
+                b = next(pref)
+        return b.data[0], b.label[0]
+
+    steps(2, pref_get, 'host-fed warm-up')
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for i in range(RESNET_STEPS):
+        loss = resnet_step(mx, net, trainer, loss_fn, *pref_get(i))
+    loss.item()
+    fed_ms = (time.perf_counter() - t1) * 1e3
+    pref.close()
+    fed_img_s = RESNET_STEPS * RESNET_BATCH / fed_ms * 1e3
+    log(f'[resnet] host-fed (PrefetchingIter over NDArrayIter, ctx gpu(0), '
+        f'depth 3; the first batch equal to NDArrayIter\'s): '
+        f'{RESNET_STEPS} steps {fed_ms:.2f} ms, {fed_img_s:.1f} img/s '
+        f'against {img_s:.1f} from batches on the card')
+    return dict(loop_ms=loop_ms, img_s=img_s, fed_img_s=fed_img_s,
+                wall=wall, eager_ms=eager_ms, graph_ms=graph_ms,
+                breakdown=breakdown,
+                peak=(torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+
+
+#: kernel groups of a ResNet-50 step, matched on the kernel's name in order
+#: (cuDNN's implicit-GEMM convolutions have "gemm" in their names too)
+RESNET_GROUPS = (
+    ('conv backward (weight)', ('wgrad', 'Wgrad', 'wgrad_alg')),
+    ('conv backward (data)', ('dgrad', 'Dgrad')),
+    ('conv forward', ('fprop', 'Fprop', 'implicit_convolve', 'conv2d',
+                      'convolve', 'xmma')),
+    ('conv layout transforms', ('nchwToNhwc', 'nhwcToNchw', 'NchwToNhwc',
+                                'NhwcToNchw')),
+    ('pooling', ('pool', 'Pool')),
+    ('B6 sgd_mom', ('sgd_mom_kernel',)),
+    ('GEMM (Dense)', ('gemm', 'Gemm', 'GEMM')),
+)
+
+
+def resnet_breakdown(torch, prof, wall_ms):
+    """Split one profiled ResNet-50 train step's kernel time by group: the
+    convolutions (cuDNN), pooling, the Dense layer's GEMMs, B6, and the
+    rest (BatchNorm's plain ops, ReLU, adds, the loss: elementwise work and
+    reductions). Returns the kernel ms and the ms by group."""
+    from torch.autograd import DeviceType
+    busy = kernel_breakdown('resnet', 'train step (SGD-momentum, profiled; '
+                            'host ms of the unprofiled step before)', prof,
+                            wall_ms, top=15)
+    names = [g for g, _ in RESNET_GROUPS] + [
+        'BatchNorm, ReLU and other elementwise work and reductions']
+    sums, counts = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        g = next((g for g, keys in RESNET_GROUPS
+                  if any(k in e.key for k in keys)), names[-1])
+        sums[g] += e.self_device_time_total / 1e3
+        counts[g] += e.count
+    log('[resnet] kernel ms of the step by group: ' + ', '.join(
+        f'{g} {ms:.2f} ({100 * ms / max(busy, 1e-9):.1f} %, x{counts[g]})'
+        for g, ms in sums.items()))
+    return dict(busy_ms=busy, wall_ms=wall_ms, groups=sums)
+
+
+def resnet_costs(torch, got):
+    """Log the resnet phase's numbers against the step's bound."""
+    flops = 3 * RESNET50_FWD_FLOPS * RESNET_BATCH
+    bound_ms, _ = bound(0, flops)
+    step = got['loop_ms'] / RESNET_STEPS
+    b = got['breakdown']
+    log(f'[resnet] a step: {step:.2f} host ms back to back, '
+        f'{got["img_s"]:.1f} img/s ({got["fed_img_s"]:.1f} host-fed); '
+        f'{flops / 1e9:.0f} GFLOP (3 x {RESNET50_FWD_FLOPS / 1e9:.2f} x '
+        f'{RESNET_BATCH}) at the fp32 CUDA-core peak of '
+        f'{FP32_OPS_S / 1e12:.0f} TFLOP/s is {bound_ms:.2f} ms, a ceiling '
+        f'of {RESNET_BATCH / bound_ms * 1e3:.0f} img/s: the step is '
+        f'{100 * bound_ms / step:.1f} % of its bound '
+        f'({flops / step / 1e9:.1f} TFLOP/s); busy '
+        f'{100 * b["busy_ms"] / b["wall_ms"]:.0f} % of the profiled step '
+        f'({b["busy_ms"]:.2f} kernel ms over {b["wall_ms"]:.2f} host ms); '
+        f'graphed predict {got["graph_ms"][-1]:.2f} host ms against eager '
+        f'{got["eager_ms"][-1]:.2f}; peak memory {got["peak"]:.2f} GiB above '
+        f'the phase\'s start; card {smi_line()}')
+
+
+def resnet_parity(torch, seed, steps=2):
+    """A ``resnet18_v1(classes=10, thumbnail=True)`` trains ``steps``
+    SGD-momentum steps on a (4, 3, 32, 32) batch on the card (cuDNN) and
+    on the CPU from the same weights. The losses must agree at rtol 1e-4,
+    and each weight's and running statistic's change over the steps on the
+    card must be within 1 % of that tensor's change on the CPU, in the
+    2-norm: the two-step change is what training computes, and two fp32
+    libraries' orders of summation (a weight gradient sums over every
+    position of the batch) part by more than 1e-5 of a weight where that
+    change is large."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    y = np.array([1, 7, 3, 9], np.float32)
+    losses, state, weights = {}, {}, None
+    for where in (mx.cpu(), mx.gpu(0)):
+        with where:
+            mx.random.seed(seed)
+            net = vision.resnet18_v1(classes=10, thumbnail=True)
+            net.initialize(ctx=where)
+            xs, ys = mx.np.array(x), mx.np.array(y)
+            net(xs)                     # deferred initialization
+            if weights is None:
+                weights = {k: p.data().asnumpy()
+                           for k, p in net.collect_params().items()}
+            else:
+                net.load_dict(weights)
+            net.hybridize()
+            trainer = gluon.Trainer(net.collect_params(), RESNET_OPT[0],
+                                    dict(RESNET_OPT[1]))
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            losses[str(where)] = [
+                resnet_step(mx, net, trainer, loss_fn, xs, ys).item()
+                for _ in range(steps)]
+            state[str(where)] = {k: p.data().asnumpy().astype(np.float64)
+                                 for k, p in net.collect_params().items()}
+    cpu, card = losses['cpu(0)'], losses['gpu(0)']
+    ok = all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(card, cpu))
+    rel = {}
+    for k, w0 in weights.items():
+        step_cpu = state['cpu(0)'][k] - w0
+        step_card = state['gpu(0)'][k] - w0
+        rel[k] = float(np.linalg.norm(step_card - step_cpu)
+                       / max(np.linalg.norm(step_cpu), 1e-30))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    absd = max(float(np.abs(state['gpu(0)'][k] - state['cpu(0)'][k]).max())
+               for k in rel)
+    bad = sorted(k for k, r in rel.items() if not r <= 1e-2)
+    log(f'[resnet] resnet18_v1 thumbnail (10 classes, (4, 3, 32, 32)), '
+        f'{steps} SGD-momentum steps: losses on the card {card}, on the CPU '
+        f'{cpu} (rtol 1e-4); {len(rel)} weights and running statistics: '
+        f'max |card - CPU| {absd:.3g}; |card\'s change - CPU\'s change| over '
+        f'|CPU\'s change| (2-norms over the steps), worst '
+        f'{[(k, float(f"{r:.3g}")) for k, r in worst]} (1e-2) -> '
+        f'{"ok" if ok and not bad else "MISMATCH"}')
+    if not ok or bad:
+        fail(f'resnet: the card and the CPU train resnet18 apart: losses '
+             f'{card} against {cpu}; tensors past tolerance {bad}')
 
 
 # ------------------------------------------------------------- ring
@@ -2731,6 +3147,12 @@ def main(argv=None):
         del got
         torch.cuda.empty_cache()
         bert_parity(torch, SEED + 11)
+    if 'resnet' in phases:
+        got = window('resnet', phase_resnet, torch, SEED + 12)
+        resnet_costs(torch, got)
+        del got
+        torch.cuda.empty_cache()
+        resnet_parity(torch, SEED + 13)
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')
@@ -2761,8 +3183,8 @@ def main(argv=None):
                 bound_ms=head['bound_ms'], bound_by=head['bound_by'],
                 library_ms=head['library_ms'], shape=head['shape'],
                 cases=rows[name]))
-        if {'forward', 'serve', 'int8', 'train', 'ndarray', 'bert', 'ring',
-                'rtc'} <= set(phases):
+        if {'forward', 'serve', 'int8', 'train', 'ndarray', 'bert', 'resnet',
+                'ring', 'rtc'} <= set(phases):
             idle = [k for k, n in launches.items() if n == 0]
             if idle:
                 fail(f'kernels of the main path never launched: {idle}')

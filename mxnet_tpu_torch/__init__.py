@@ -19,7 +19,8 @@ The imperative frontend is the reference's::
 (``ops/registry.py``); an NDArray holds one ``torch.Tensor``, and
 ``mx.autograd`` runs on ``torch.autograd``. ``mx.gluon`` has the blocks,
 layers, losses and Trainer, ``mx.init`` (``mx.initializer``) the
-initializers.
+initializers, ``mx.io`` the data iterators and ``mx.metric`` the
+evaluation metrics.
 """
 
 from .base import MXNetError
@@ -37,8 +38,11 @@ from .ndarray import waitall
 from . import initializer
 from . import initializer as init
 from . import model
+from . import metric
+from . import io
 from . import gluon
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'num_gpus',
            'current_context', 'np', 'npx', 'nd', 'autograd', 'random',
-           'NDArray', 'waitall', 'initializer', 'init', 'model', 'gluon']
+           'NDArray', 'waitall', 'initializer', 'init', 'model', 'metric',
+           'io', 'gluon']

@@ -2,17 +2,21 @@
 :class:`Parameter`, :class:`Block` and :class:`HybridBlock` (whose
 ``hybridize()`` replays predict-mode calls from CUDA graphs on the card),
 the layers of :mod:`.nn`, the losses of :mod:`.loss`, :mod:`.utils`, the
-single-device :class:`Trainer`, and the model zoo (BERT on these blocks,
-the Llama family as ``torch.nn.Module``s)."""
+single-device :class:`Trainer`, :mod:`.data` (datasets, samplers,
+``DataLoader``), ``gluon.metric`` (``mx.metric``), and the model zoo (the
+vision zoo and BERT on these blocks, the Llama family as
+``torch.nn.Module``s)."""
 
 from .block import Block, HybridBlock, ParameterDict
 from .parameter import Constant, DeferredInitializationError, Parameter
 from .trainer import Trainer
 from . import nn
 from . import loss
+from . import data
 from . import utils
 from . import model_zoo
+from .. import metric  # gluon.metric is the reference's home for metrics
 
 __all__ = ['Block', 'HybridBlock', 'ParameterDict', 'Constant',
            'DeferredInitializationError', 'Parameter', 'Trainer', 'nn',
-           'loss', 'utils', 'model_zoo']
+           'loss', 'data', 'utils', 'model_zoo', 'metric']

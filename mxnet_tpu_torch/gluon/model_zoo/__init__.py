@@ -1,9 +1,12 @@
-"""Model zoo of the PyTorch port: BERT on the port's Gluon blocks, and the
-Llama family as ``torch.nn.Module``s."""
+"""Model zoo of the PyTorch port: the vision zoo (``vision``, with
+``get_model``) and BERT on the port's Gluon blocks, and the Llama family
+as ``torch.nn.Module``s."""
 
+from . import vision
 from . import bert
 from . import llama
+from .vision import get_model
 from .bert import BERTModel, bert_12_768_12, bert_24_1024_16, get_bert_model
 
-__all__ = ['bert', 'llama', 'BERTModel', 'bert_12_768_12', 'bert_24_1024_16',
-           'get_bert_model']
+__all__ = ['vision', 'bert', 'llama', 'get_model', 'BERTModel',
+           'bert_12_768_12', 'bert_24_1024_16', 'get_bert_model']

@@ -1,6 +1,6 @@
 """``gluon.nn``: neural-network layers (counterpart of
-``mxnet_tpu/gluon/nn/``). The convolution layers wait for ResNet
-(ROADMAP A7)."""
+``mxnet_tpu/gluon/nn/``)."""
 
 from .activations import *  # noqa: F401,F403
 from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403

@@ -4,7 +4,9 @@ Counterpart of ``mxnet_tpu/ops/nn.py`` (reference src/operator/nn/):
 fully-connected, embedding, convolution and its transpose, pooling,
 activations, the softmax family, batch/layer/group/instance/RMS norms,
 dropout, resizing and im2col. The products and convolutions are cuBLAS and
-cuDNN through PyTorch, as the reference leaves them to XLA. A last-axis
+cuDNN through PyTorch, as the reference leaves them to XLA; the
+convolutions run in fp32 on a card whatever cuDNN's TF32 flag says
+(:class:`_Fp32Conv`), as the reference's fp32 ones do. A last-axis
 ``rms_norm`` or ``layer_norm`` with a 1-D gamma goes through the fused
 norm kernel (:mod:`.kernels.fused_norms`); other axes use plain PyTorch,
 as the reference uses XLA there. Where autograd records
@@ -17,6 +19,7 @@ Not ported yet (``ops/ledger.py``, ROADMAP A11): the fused ``rnn`` and
 ``ctc_loss``.
 """
 
+import contextlib
 import math
 
 import torch
@@ -78,23 +81,69 @@ def _to_nc(x, layout, ndim):
     return x.permute(perm), back
 
 
-_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
-_CONVT = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
-          3: F.conv_transpose3d}
+@contextlib.contextmanager
+def _fp32_cudnn():
+    """cuDNN in full fp32 for the span, whatever the process-wide flag
+    says: PyTorch lets cuDNN's convolutions run in TF32 by default
+    (``torch.backends.cudnn.allow_tf32`` is True), where the reference's
+    fp32 convolutions are fp32."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _Fp32Conv(torch.autograd.Function):
+    """``aten.convolution`` on a card with its forward and its backward
+    under :func:`_fp32_cudnn`: autograd runs the backward later, after the
+    forward's span has ended, so the flag must be set there again."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, args):
+        ctx.save_for_backward(x, w)
+        ctx.args, ctx.has_bias = args, b is not None
+        with _fp32_cudnn():
+            return torch.ops.aten.convolution(x, w, b, *args)
+
+    @staticmethod
+    def backward(ctx, go):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, transposed, out_pad, groups = ctx.args
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                ctx.has_bias and ctx.needs_input_grad[2]]
+        out_c = w.shape[1] * groups if transposed else w.shape[0]
+        with _fp32_cudnn():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                go, x, w, [out_c] if ctx.has_bias else None, stride,
+                padding, dilation, transposed, out_pad, groups, mask)
+        return gx, gw, gb, None
+
+
+def _conv(data, weight, bias, layout, stride, pad, dilate, groups,
+          transposed=False, adj=None):
+    ndim = data.dim() - 2
+    x, back = _to_nc(data, layout, ndim)
+    args = (list(_tuplize(stride, ndim) or (1,) * ndim),
+            list(_tuplize(pad, ndim) or (0,) * ndim),
+            list(_tuplize(dilate, ndim) or (1,) * ndim), transposed,
+            list(_tuplize(adj, ndim) or (0,) * ndim), groups)
+    if x.is_cuda:
+        out = _Fp32Conv.apply(x, weight, bias, args)
+    else:
+        out = torch.ops.aten.convolution(x, weight, bias, *args)
+    return out if back is None else out.permute(back)
 
 
 @register('convolution', aliases=('Convolution',))
 def convolution(data, weight, bias=None, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=None, num_group=1,
                 no_bias=False, layout=None):
-    """Grouped, dilated convolution; weights ``(O, I/groups, *k)``."""
-    ndim = data.dim() - 2
-    x, back = _to_nc(data, layout, ndim)
-    out = _CONV[ndim](x, weight, None if no_bias else bias,
-                      stride=_tuplize(stride, ndim) or 1,
-                      padding=_tuplize(pad, ndim) or 0,
-                      dilation=_tuplize(dilate, ndim) or 1, groups=num_group)
-    return out if back is None else out.permute(back)
+    """Grouped, dilated convolution; weights ``(O, I/groups, *k)``. On a
+    card cuDNN runs it in fp32, TF32 off (:class:`_Fp32Conv`)."""
+    return _conv(data, weight, None if no_bias else bias, layout, stride,
+                 pad, dilate, num_group)
 
 
 @register('deconvolution', aliases=('Deconvolution',))
@@ -102,16 +151,10 @@ def deconvolution(data, weight, bias=None, kernel=None, stride=None,
                   dilate=None, pad=None, adj=None, num_filter=None,
                   num_group=1, no_bias=False, layout=None,
                   target_shape=None):
-    """Transposed convolution; weights ``(I, O/groups, *k)``."""
-    ndim = data.dim() - 2
-    x, back = _to_nc(data, layout, ndim)
-    out = _CONVT[ndim](x, weight, None if no_bias else bias,
-                       stride=_tuplize(stride, ndim) or 1,
-                       padding=_tuplize(pad, ndim) or 0,
-                       output_padding=_tuplize(adj, ndim) or 0,
-                       groups=num_group,
-                       dilation=_tuplize(dilate, ndim) or 1)
-    return out if back is None else out.permute(back)
+    """Transposed convolution; weights ``(I, O/groups, *k)``; fp32 on a
+    card as :func:`convolution`."""
+    return _conv(data, weight, None if no_bias else bias, layout, stride,
+                 pad, dilate, num_group, transposed=True, adj=adj)
 
 
 # -------------------------------------------------------------------- pooling

@@ -30,7 +30,11 @@ eager steps at the same shapes, captured at warm-up and never again
 under mixed depths, its pool audit, a graph's launch counts over its
 replays, and ``generate()``'s replayed decode loop against its eager
 one, greedy and sampled, its cache of at most 16 graphs and their
-release when the layers are swapped or moved.
+release when the layers are swapped or moved; the port's ``Conv2D``
+against fp64 with cuDNN's TF32 flag left on (fp32 forward and
+gradients), ``io.PrefetchingIter`` onto the card against
+``NDArrayIter``'s batches across a reset, and ``DataLoader`` workers
+forked after CUDA was initialized.
 
 Every test needs a CUDA card and skips without one. The tests import no
 JAX, so on a machine without it they run with
@@ -1297,3 +1301,92 @@ def test_hybridized_graph_equals_eager_and_counts_replays(dev):
     assert net.capture_count == 1
     with pytest.raises(ValueError, match='keyword'):
         net(ids, token_types=tt)
+
+
+def test_conv2d_is_fp32_with_cudnn_tf32_left_on(dev):
+    """The port's Conv2D (forward, and the input and weight gradients)
+    against the same convolution in fp64 while cuDNN's TF32 flag is True,
+    PyTorch's default: errors of fp32, not of TF32's 10-bit mantissa (a
+    unit roundoff of 4.9e-4, against fp32's 6e-8). The bound, 5e-5 of the
+    largest value, takes the weight gradient's fp32 sum over the batch's
+    6272 positions; the flag is left as it was."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        conv = nn.Conv2D(64, 3, padding=1, in_channels=64)
+        conv.initialize(ctx=mx.gpu(0))
+        x = mx.NDArray(_randn(dev, 8, 64, 28, 28))
+        x.attach_grad()
+        cot = _randn(dev, 8, 64, 28, 28, seed=1)
+        with mx.autograd.record():
+            out = conv(x)
+            loss = (out * mx.NDArray(cot)).sum()
+        loss.backward()
+        assert torch.backends.cudnn.allow_tf32
+        x64 = x._data.double().requires_grad_()
+        w64 = conv.weight.data()._data.double().requires_grad_()
+        want = torch.nn.functional.conv2d(
+            x64, w64, conv.bias.data()._data.double(), padding=1)
+        gx, gw = torch.autograd.grad((want * cot.double()).sum(), (x64, w64))
+        for got, ref in ((out._data, want), (x.grad._data, gx),
+                         (conv.weight.grad()._data, gw)):
+            err = (got.double() - ref).abs().max() / ref.abs().max()
+            assert err < 5e-5, float(err)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_prefetching_iter_on_the_card_equals_ndarray_iter(dev):
+    """PrefetchingIter(ctx=gpu(0)) stages batches through pinned memory on
+    its own stream; what the consumer reads on its stream equals
+    NDArrayIter's batches, across a reset, and the batches are on the
+    card."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((10, 3, 16, 16)).astype(np.float32)
+    y = np.arange(10, dtype=np.float32)
+    with mx.cpu():
+        want = [(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
+                for b in io.NDArrayIter(x, y, batch_size=4)]
+    pref = io.PrefetchingIter(io.NDArrayIter(x, y, batch_size=4),
+                              ctx=mx.gpu(0), depth=3)
+    for _ in range(2):
+        got = []
+        for b in pref:
+            assert b.data[0].context == mx.gpu(0)
+            doubled = b.data[0]._data * 2       # read on the consumer's
+            got.append(((doubled / 2).cpu().numpy(),      # stream
+                        b.label[0].asnumpy(), b.pad))
+        assert len(got) == len(want)
+        for (gx, gy, gp), (wx, wy, wp) in zip(got, want):
+            np.testing.assert_array_equal(gx, wx)
+            np.testing.assert_array_equal(gy, wy)
+            assert gp == wp
+        pref.reset()
+    pref.close()
+
+
+def test_dataloader_forks_workers_after_cuda_is_initialized(dev):
+    """DataLoader workers forked after CUDA was initialized read host data
+    and build numpy only; the caller puts each batch on the current
+    context, the card."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import data
+    torch.zeros(1, device=dev).sum().item()         # CUDA is initialized
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((10, 4)).astype(np.float32)
+    y = np.arange(10, dtype=np.float32)
+    ds = data.ArrayDataset(mx.np.array(x, ctx=mx.cpu()), y).transform_first(
+        lambda v: v * 2)
+    loader = data.DataLoader(ds, batch_size=4, num_workers=2)
+    got = list(loader)
+    assert [b[0].context for b in got] == [mx.gpu(0)] * 3
+    np.testing.assert_array_equal(
+        np.concatenate([b[0].asnumpy() for b in got]), x * 2)
+    np.testing.assert_array_equal(
+        np.concatenate([b[1].asnumpy() for b in got]), y)

@@ -1,8 +1,18 @@
 """``mxnet_tpu_torch/ops/ledger.py`` accounts for every name of the JAX
 package's op registry exactly once: registered in the port, or pending
 under a ROADMAP label that ROADMAP.md names; and ``mx.np`` resolves no
-pending name to its host-numpy fallback."""
+pending name to its host-numpy fallback.
 
+The reference's names come from a fresh interpreter that imports
+``mxnet_tpu.ops.registry`` and nothing else: the registry the JAX package
+ships. Other tests register ops of their own into the live registry of
+their process (``tests/test_extensions.py`` loads an extension), and a
+test that shares that process must not see them."""
+
+import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -13,9 +23,22 @@ from mxnet_tpu_torch.ops import ledger, registry as treg
 
 ROOT = Path(__file__).resolve().parents[1]
 
+_SHIPPED = ('import json\n'
+            'from mxnet_tpu.ops.registry import list_ops\n'
+            'print(json.dumps(sorted(list_ops())))\n')
 
-def test_every_jax_op_is_registered_or_pending_exactly_once():
-    jax_names = set(jreg.list_ops())
+
+@pytest.fixture(scope='module')
+def jax_names():
+    """The op names of the JAX package's registry as it ships."""
+    env = dict(os.environ, JAX_PLATFORMS='cpu')
+    out = subprocess.run([sys.executable, '-c', _SHIPPED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    return set(json.loads(out.stdout.strip().splitlines()[-1]))
+
+
+def _check_ledger(jax_names):
     ported = set(treg.list_ops())
     pending = ledger.pending()
     assert not (set(pending) & ported), sorted(set(pending) & ported)
@@ -25,6 +48,32 @@ def test_every_jax_op_is_registered_or_pending_exactly_once():
     missing = jax_names - ported - set(pending)
     assert not missing, sorted(missing)
     assert ported <= jax_names, sorted(ported - jax_names)
+
+
+def test_every_jax_op_is_registered_or_pending_exactly_once(jax_names):
+    _check_ledger(jax_names)
+
+
+def test_ledger_ignores_an_extension_loaded_into_the_live_registry(
+        jax_names, tmp_path):
+    """An op that an extension registers into this process's JAX registry
+    (as ``tests/test_extensions.py`` does) is not one the reference ships:
+    the ledger check still passes, and the op is unregistered again."""
+    from mxnet_tpu import library
+    ext = tmp_path / 'ledger_ext.py'
+    ext.write_text('from mxnet_tpu.ops.registry import register\n'
+                   "@register('ledger_ext_triple')\n"
+                   'def ledger_ext_triple(x):\n'
+                   '    return 3 * x\n')
+    path = os.path.abspath(str(ext))
+    try:
+        library.load(path)
+        assert 'ledger_ext_triple' in jreg.list_ops()
+        _check_ledger(jax_names)
+    finally:
+        jreg._OPS.pop('ledger_ext_triple', None)
+        library._loaded.pop(path, None)
+    assert 'ledger_ext_triple' not in jreg.list_ops()
 
 
 def test_pending_labels_are_roadmap_items():
