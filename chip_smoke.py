@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases device,build,ndarray  # the frontend
     python3 chip_smoke.py --phases device,build,bert  # Gluon and BERT
     python3 chip_smoke.py --phases device,build,resnet  # ResNet-50 training
+    python3 chip_smoke.py --phases device,build,kernels,bert,resnet
+                                                  # compiled training
 
 Phases, each of which fails the run on any error:
 
@@ -40,7 +42,11 @@ Phases, each of which fails the run on any error:
                its designs are timed
                in turns with the launch floor (an empty kernel) and the
                copy floor (the regs grid and block writing x * gamma, no
-               reduction), both compiled through ``rtc``.
+               reduction), both compiled through ``rtc``. Adam and
+               SGD-momentum take their hyperparameters from a device
+               vector; an SGD-momentum update captured in a CUDA graph
+               is replayed with new learning rates written into its
+               vector and must follow the plain version at each.
 4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
                generator: one ``(1, 512)`` forward, finite logits, and
                exactly 65 RMSNorm and 32 flash-attention launches.
@@ -122,14 +128,30 @@ Phases, each of which fails the run on any error:
                ``Trainer(net.collect_params(), 'adam')`` under
                ``autograd.record()`` with ``SoftmaxCrossEntropyLoss``, and
                as many of a fresh SGD-momentum Trainer from the same
-               weights: losses finite and falling, 26 norm, 12 flash and
-               ``BERT_UPDATED`` optimizer launches a step, every parameter
-               but the pooler (no gradient from an MLM loss) moved; one
-               Adam step split into kernel time by group; a predict call
-               after training replays the same graph and sees the new
-               weights. Logged: host ms a step, samples/s, the step's
-               GEMM TFLOP against cuBLAS's measured fp32 rate, the plain
-               flash backward, graphed against eager predict ms and peak
+               weights, each run twice from the same weights: eagerly
+               (``hybridize(False)``) and graphed (the recorded call a
+               captured forward and backward graph, the update one
+               captured graph): losses finite and falling, 26 norm, 12
+               flash and ``BERT_UPDATED`` optimizer launches a step in
+               both, every parameter but the pooler (no gradient from an
+               MLM loss) moved; the graphed run captures 3 graphs for the
+               net (predict, forward, backward) and 1 for the Trainer and
+               runs no recorded call eagerly; its losses within rtol 1e-4
+               of the eager run's and each tensor's change within 1 % of
+               the eager change (2-norm); one Adam step of each split
+               into kernel time by group; a predict call after training
+               replays its graph and sees the new weights. Then the
+               graphed node's hazards: a Dense(1024) -> Dropout(0.5) net
+               draws a fresh mask every replay (kept share within 1 % of
+               0.5 over 1 M values, the input's gradient exactly the mask
+               x 2 x the head gradient), two recorded calls of one key
+               before one backward (the second runs eagerly, gradients
+               equal eager's), and ``create_graph=True`` through a
+               replayed call raises naming A5 rest. Logged: host ms a
+               step, samples/s and the busy share, eager and graphed, the
+               step's GEMM TFLOP against cuBLAS's measured fp32 rate, the
+               plain flash backward, graphed against eager predict ms and
+               peak
                memory. Then a small BERT (2 layers, 128 units, 2 heads of
                64) trains two Adam steps on the card and on the CPU, and
                the losses must agree.
@@ -146,17 +168,28 @@ Phases, each of which fails the run on any error:
                one capture and one key, outputs equal to the eager ones;
                ``metric.Accuracy`` and ``TopKAccuracy(5)`` on one batch.
                Then ``Trainer(net.collect_params(), 'sgd')`` (lr 0.05,
-               momentum 0.9) with ``SoftmaxCrossEntropyLoss``: 3 warm-up
+               momentum 0.9) with ``SoftmaxCrossEntropyLoss``, run eagerly
+               (``hybridize(False)``) and then graphed from the same
+               weights and statistics with a fresh Trainer: 3 warm-up
                steps, 6 back to back (img/s) and 6 synced one by one (host
                ms a step), each with exactly ``RESNET_UPDATED`` B6
                launches and no other kernel; losses finite; the last step
                split into kernel time by group against the unprofiled
                step before (the busy share); every updated parameter and
-               running statistic moved; a predict call after training
-               replays the same graph and equals an eager forward with
-               the new running statistics. The same steps fed by
+               running statistic moved; the graphed warm-up's losses
+               within rtol 1e-4 of the eager ones and each tensor's
+               three-step change within 1 % of the eager change; 3 graphs
+               for the net and 1 for the Trainer, no recorded call run
+               eagerly; a predict call after graphed training replays its
+               graph and equals an eager forward with the new running
+               statistics. The same steps fed by
                ``io.PrefetchingIter(NDArrayIter, ctx=gpu(0), depth=3)``,
-               whose first batch must equal ``NDArrayIter``'s. Logged
+               whose first batch must equal ``NDArrayIter``'s. Then
+               bench's primary number: K = 24 steps over
+               ``pure_function(x0, train=True)`` (log-softmax NLL, B6
+               through its device vector), one step captured and replayed
+               K times with no host sync between, its first three losses
+               within rtol 1e-4 of the same step run eagerly. Logged
                against the step's bound (3 x 7.72 GFLOP an image at the
                fp32 peak) with the card's name and power limit. Then a
                ``resnet18_v1`` thumbnail trains two steps on the card and
@@ -489,6 +522,7 @@ def phase_kernels(torch):
     _paged_cases(torch, randn, rows, sms)
 
     _optimizer_cases(torch, randn, rows)
+    _vector_replay_check(torch, randn)
     _int8_cases(torch, dev, rows)
     grads_ok = _gradient_checks(torch, randn)
 
@@ -838,13 +872,13 @@ def _optimizer_cases(torch, randn, rows):
         w, g = randn(*shape), randn(*shape, scale=3.0)   # the clip bites
         m, v = randn(*shape, scale=0.1), randn(*shape, scale=0.1).square()
         for t in (1, 1000):
-            bc = (1 - 0.9 ** t, 1 - 0.999 ** t)
+            vec = torch.tensor([lr, wd, 1 - 0.9 ** t, 1 - 0.999 ** t],
+                               device=w.device)
             kw = dict(**betas, **clip)
             ks = [x.clone() for x in (w, m, v)]
             ps = [x.clone() for x in (w, m, v)]
-            got = fo.adam_step(ks[0], g, ks[1], ks[2], lr, wd, *bc, **kw)
-            want = fo.adam_step_plain(ps[0], g, ps[1], ps[2], lr, wd, *bc,
-                                      **kw)
+            got = fo.adam_step(ks[0], g, ks[1], ks[2], vec, **kw)
+            want = fo.adam_step_plain(ps[0], g, ps[1], ps[2], vec, **kw)
             lib = None
             if t == 1:
                 p = torch.nn.Parameter(w.clone())
@@ -855,10 +889,9 @@ def _optimizer_cases(torch, randn, rows):
                 lib = adam.step
             rows['adam'].append(_case(
                 torch, 'adam', f'{shape} t={t}', got, want, tol, why,
-                lambda: fo.adam_step(ks[0], g, ks[1], ks[2], lr, wd, *bc,
-                                     **kw),
-                lambda: fo.adam_step_plain(ps[0], g, ps[1], ps[2], lr, wd,
-                                           *bc, **kw),
+                lambda: fo.adam_step(ks[0], g, ks[1], ks[2], vec, **kw),
+                lambda: fo.adam_step_plain(ps[0], g, ps[1], ps[2], vec,
+                                           **kw),
                 28 * n, 18 * n, lib,
                 library_call=lib and 'torch.optim.Adam(fused=True).step'))
             del ks, ps, got, want, lib
@@ -867,9 +900,9 @@ def _optimizer_cases(torch, randn, rows):
 
             ks = [x.clone() for x in (w, m)]
             ps = [x.clone() for x in (w, m)]
-            got = fo.sgd_mom_step(ks[0], g, ks[1], lr, wd, momentum=0.9,
+            got = fo.sgd_mom_step(ks[0], g, ks[1], vec, momentum=0.9,
                                   **clip)
-            want = fo.sgd_mom_step_plain(ps[0], g, ps[1], lr, wd,
+            want = fo.sgd_mom_step_plain(ps[0], g, ps[1], vec,
                                          momentum=0.9, **clip)
             lib = call = None
             if t == 1:
@@ -886,9 +919,9 @@ def _optimizer_cases(torch, randn, rows):
                 lib = sgd.step
             rows['sgd_mom'].append(_case(
                 torch, 'sgd_mom', f'{shape} t={t}', got, want, tol, why,
-                lambda: fo.sgd_mom_step(ks[0], g, ks[1], lr, wd,
+                lambda: fo.sgd_mom_step(ks[0], g, ks[1], vec,
                                         momentum=0.9, **clip),
-                lambda: fo.sgd_mom_step_plain(ps[0], g, ps[1], lr, wd,
+                lambda: fo.sgd_mom_step_plain(ps[0], g, ps[1], vec,
                                               momentum=0.9, **clip),
                 20 * n, 7 * n, lib, library_call=call))
             del ks, ps, got, want, lib
@@ -897,6 +930,35 @@ def _optimizer_cases(torch, randn, rows):
         del w, g, m, v
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+
+def _vector_replay_check(torch, randn):
+    """An SGD-momentum update captured in a CUDA graph reads its
+    hyperparameter vector when it replays: a learning rate written into
+    the vector between replays changes the update as it changes the plain
+    version's."""
+    from mxnet_tpu_torch import _graphs
+    from mxnet_tpu_torch.ops.kernels import fused_optimizer as fo
+    w, g, mom = randn(4096), randn(4096), randn(4096, scale=0.1)
+    vec = torch.tensor([1e-3, 1e-2], device=w.device)
+    ks, ps = [w.clone(), mom.clone()], [w.clone(), mom.clone()]
+    graph = _graphs.StepGraph(lambda: fo.sgd_mom_step(
+        ks[0], g, ks[1], vec, momentum=0.9), w.device)
+    graph.capture()                     # its warm-up: the step at lr 1e-3
+    fo.sgd_mom_step_plain(ps[0], g, ps[1], vec.clone(), momentum=0.9)
+    for lr in (0.5, 0.25, 0.125):
+        vec[0] = lr
+        graph.replay()
+        fo.sgd_mom_step_plain(ps[0], g, ps[1], vec.clone(), momentum=0.9)
+    errs = [compare(torch, a, b, 1e-6, 1e-7) for a, b in zip(ks, ps)]
+    log(f'[kernels] sgd_mom captured once and replayed at lr 0.5, 0.25, '
+        f'0.125 written into its device vector: weight and momentum against '
+        f'the plain version at each lr, max |diff| '
+        f'{[float(f"{e:.3g}") for e, _ in errs]} (rtol 1e-6, atol 1e-7)')
+    if not all(ok for _, ok in errs):
+        fail('kernels: a replayed optimizer update did not read its new '
+             'learning rate')
+    graph.release()
 
 
 def _int8_cases(torch, dev, rows):
@@ -2215,8 +2277,6 @@ def phase_bert(torch, seed):
     from mxnet_tpu_torch.gluon.model_zoo import bert
     from mxnet_tpu_torch.ops import kernels
     dev = mx.gpu(0).to_torch()
-    torch.cuda.reset_peak_memory_stats(dev)
-    base = torch.cuda.memory_allocated(dev)     # what earlier phases hold
     t0 = time.perf_counter()
     mx.random.seed(seed)
     net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
@@ -2273,67 +2333,247 @@ def phase_bert(torch, seed):
     del outs
 
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
-    steps = {}
+    steps, graphed_steps, busy, peaks = {}, {}, {}, {}
     for run, (opt, kernel, hyper) in enumerate(BERT_OPTS):
-        if run:
+        want = dict(want_fwd, **{kernel: BERT_UPDATED})
+        got_runs = {}
+        for graphed in (False, True):
+            # eager steps, then graphed steps from the same weights
             for k, p in params.items():
                 p.set_data(init[k])
-        trainer = gluon.Trainer(params, opt, dict(hyper))
-        want = dict(want_fwd, **{kernel: BERT_UPDATED})
-        losses, wall = [], []
-        for i in range(BERT_STEPS):
-            before = kernels.launch_counts()
-            _sync(torch, dev)
-            t1 = time.perf_counter()
-            last = run == 0 and i == BERT_STEPS - 1
-            with (profiled() if last else contextlib.nullcontext()) as prof:
-                loss = bert_step(mx, net, trainer, loss_fn, ids, tt, labels)
+            net.hybridize(graphed, static_alloc=True)
+            mem = _memory_start(torch, dev)
+            if graphed:         # a predict graph, replayed after training
+                net(ids, tt)
+            trainer = gluon.Trainer(params, opt, dict(hyper))
+            tag = 'graphed' if graphed else 'eager'
+            losses, wall = [], []
+            for i in range(BERT_STEPS):
+                before = kernels.launch_counts()
                 _sync(torch, dev)
-            wall.append((time.perf_counter() - t1) * 1e3)
-            losses.append(loss.item())
-            got = _counts_since(kernels, before)
-            if got != want:
-                fail(f'bert: {opt} step {i + 1} launches {got}, want {want}')
-            if last:    # against the step before, which no profiler slowed
-                bert_breakdown(torch, prof, wall[-2])
-            del loss
-        moved = [k for k, p in params.items()
-                 if not torch.equal(p.data()._data, init[k])]
-        still = sorted(set(params) - set(moved))
-        log(f'[bert] {opt} {hyper}: losses {losses}; host ms a step '
-            f'{[round(w, 2) for w in wall]}; '
-            f'{BERT_BATCH / wall[-2] * 1e3:.1f} samples/s at step '
-            f'{BERT_STEPS - 1}; launches a step {want}; {len(moved)} '
-            f'parameters moved, unchanged (no gradient from the MLM loss): '
-            f'{still}')
-        if not all(math.isfinite(v) for v in losses):
-            fail(f'bert: {opt} losses not finite: {losses}')
-        if not losses[-1] < losses[0]:
-            fail(f'bert: {opt} loss did not fall: {losses}')
-        if still != ['pooler.bias', 'pooler.weight']:
-            fail(f'bert: {opt} left {still} unchanged; only the pooler gets '
-                 f'no gradient from the MLM loss')
-        steps[opt] = wall
-        del trainer
+                t1 = time.perf_counter()
+                last = run == 0 and i == BERT_STEPS - 1
+                with (profiled() if last else contextlib.nullcontext()) \
+                        as prof:
+                    loss = bert_step(mx, net, trainer, loss_fn, ids, tt,
+                                     labels)
+                    _sync(torch, dev)
+                wall.append((time.perf_counter() - t1) * 1e3)
+                losses.append(loss.item())
+                got = _counts_since(kernels, before)
+                if got != want:
+                    fail(f'bert: {tag} {opt} step {i + 1} launches {got}, '
+                         f'want {want}')
+                if last:    # against the step before, which no profiler
+                    log(f'[bert] {tag} Adam step profiled:')     # slowed
+                    bert_breakdown(torch, prof, wall[-2])
+                    busy[tag] = _busy_share(prof, wall[-2])
+                del loss
+            state = {k: p.data()._data.detach().clone()
+                     for k, p in params.items()}
+            got_runs[graphed] = (losses, state)
+            moved = [k for k in params if not torch.equal(state[k], init[k])]
+            still = sorted(set(params) - set(moved))
+            log(f'[bert] {tag} {opt} {hyper}: losses {losses}; host ms a '
+                f'step {[round(w, 2) for w in wall]}; '
+                f'{BERT_BATCH / wall[-2] * 1e3:.1f} samples/s at step '
+                f'{BERT_STEPS - 1}; launches a step {want}; {len(moved)} '
+                f'parameters moved, unchanged (no gradient from the MLM '
+                f'loss): {still}')
+            if not all(math.isfinite(v) for v in losses):
+                fail(f'bert: {tag} {opt} losses not finite: {losses}')
+            if not losses[-1] < losses[0]:
+                fail(f'bert: {tag} {opt} loss did not fall: {losses}')
+            if still != ['pooler.bias', 'pooler.weight']:
+                fail(f'bert: {tag} {opt} left {still} unchanged; only the '
+                     f'pooler gets no gradient from the MLM loss')
+            (graphed_steps if graphed else steps)[opt] = wall
+            peaks[tag] = max(peaks.get(tag, (0.0, 0.0)),
+                             _memory_peaks(torch, dev, mem))
+            if graphed:
+                graph_counts(net, trainer, 'bert', want_captures=3)
+            del trainer
+        graphed_agrees('bert', opt, init, got_runs)
+        del got_runs
 
-    # a replay after Trainer.step reads the updated weights in place
+    # a predict replay after Trainer.step reads the updated weights in place
     before = kernels.launch_counts()
     outs = net(ids, tt)
     got = _counts_since(kernels, before)
     with mx.autograd.predict_mode():
         want_out = net.forward(ids, tt)
     err, ok = compare(torch, outs[2]._data, want_out[2]._data, 1e-5, 1e-6)
-    log(f'[bert] predict call after training: launches {got}, '
-        f'{net.capture_count} capture(s) in all, MLM logits against an eager '
+    log(f'[bert] predict call after graphed training: launches {got}, '
+        f'{net.capture_count} graph(s) in all, MLM logits against an eager '
         f'forward of the trained weights {err:.3g} -> '
         f'{"ok" if ok else "MISMATCH"}')
-    if not ok or net.capture_count != 1 or got != want_fwd:
+    if not ok or net.capture_count != 3 or got != want_fwd:
         fail('bert: the replayed graph did not see the trained weights, '
              'captured again or launched other kernels')
     del outs, want_out, eager
+    graphed_checks(torch, mx, dev)
     return dict(eager_ms=eager_ms, graph_ms=graph_ms, steps=steps,
-                peak=(torch.cuda.max_memory_allocated(dev) - base) / 2**30,
+                graphed_steps=graphed_steps, busy=busy, peaks=peaks,
                 net=net)
+
+
+def _memory_start(torch, dev):
+    """Empty the allocator's cache and start a run's memory window;
+    returns what :func:`_memory_peaks` measures from."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return (torch.cuda.memory_allocated(dev),
+            torch.cuda.memory_reserved(dev))
+
+
+def _memory_peaks(torch, dev, start):
+    """GiB above ``start`` at the run's peak: allocated tensors, and
+    reserved memory (a captured graph's activations live in its pool,
+    which counts as reserved but not as allocated once the capture's
+    tensors are freed)."""
+    return ((torch.cuda.max_memory_allocated(dev) - start[0]) / 2**30,
+            (torch.cuda.max_memory_reserved(dev) - start[1]) / 2**30)
+
+
+def _busy_share(prof, wall_ms):
+    """Kernel ms over host ms of one profiled step."""
+    from torch.autograd import DeviceType
+    ms = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0) / 1e3
+    return ms / wall_ms
+
+
+def graph_counts(net, trainer, tag, want_captures):
+    """A graphed run's captures: the net's forward and backward graphs
+    (and a predict graph), the Trainer's one update graph; no recorded
+    call ran eagerly."""
+    got = (net.capture_count, trainer.capture_count, net.eager_call_count)
+    log(f'[{tag}] graphs captured: net {got[0]} (a forward and a backward '
+        f'for the recorded key, one for the predict key), Trainer '
+        f'{got[1]} (the update); recorded calls run eagerly {got[2]}')
+    if got != (want_captures, 1, 0):
+        fail(f'{tag}: captures (net, Trainer, eager recorded calls) {got}, '
+             f'want ({want_captures}, 1, 0): a step captured again')
+
+
+def graphed_agrees(tag, what, init, runs, n=3):
+    """The graphed steps against the eager ones from the same state: the
+    first ``n`` losses at rtol 1e-4, and each tensor's change over the
+    steps within 1 % of the eager change in the 2-norm (the rule
+    :func:`resnet_parity` holds two fp32 libraries to)."""
+    (el, _), (gl, _) = runs[False], runs[True]
+    ok = all(math.isclose(a, b, rel_tol=1e-4)
+             for a, b in zip(gl[:n], el[:n]))
+    bad, worst = _change_gaps(init, runs)
+    log(f'[{tag}] {what}, graphed against eager: losses {gl[:n]} and '
+        f'{el[:n]} (rtol 1e-4); |graphed change - eager change| over |eager '
+        f'change|, worst {worst} (1e-2) -> '
+        f'{"ok" if ok and not bad else "MISMATCH"}')
+    if not ok or bad:
+        fail(f'{tag}: the graphed {what} steps train apart from the eager '
+             f'ones: losses {gl[:n]} against {el[:n]}; past tolerance {bad}')
+
+
+def _change_gaps(init, runs, tol=1e-2):
+    """Each tensor's change from ``init`` in ``runs[True]`` against
+    ``runs[False]``: ``|change - change| / |change|`` in the 2-norm.
+    Returns the tensors past ``tol`` and the worst three."""
+    (_, ew), (_, gw) = runs[False], runs[True]
+    rel = {}
+    for k, w0 in init.items():
+        de, dg = (ew[k] - w0).double(), (gw[k] - w0).double()
+        rel[k] = float((dg - de).norm()) / max(float(de.norm()), 1e-30)
+    bad = sorted(k for k, r in rel.items() if not r <= tol)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    return bad, [(k, float(f'{r:.3g}')) for k, r in worst]
+
+
+def graphed_checks(torch, mx, dev):
+    """The graphed node's hazards on the card: a Dropout drawing a fresh
+    mask on every replay, two recorded calls of one key before one
+    backward, and ``create_graph`` through a replayed call."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon import nn
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # Dense(1024) with an identity weight, then Dropout(0.5): the input's
+    # gradient is exactly the mask times 2 times the head gradient
+    net = nn.HybridSequential(nn.Dense(1024, in_units=1024),
+                              nn.Dropout(0.5))
+    net.initialize(ctx=mx.gpu(0))
+    params = net.collect_params()
+    params['0.weight'].set_data(torch.eye(1024, device=dev))
+    params['0.bias'].set_data(torch.zeros(1024, device=dev))
+    x = mx.NDArray(torch.randn(1024, 1024, device=dev, generator=g) + 8.0)
+    net(x)
+    net.hybridize()
+    masks, exact = [], []
+    for _ in range(4):
+        x.attach_grad()
+        head = torch.randn(1024, 1024, device=dev, generator=g)
+        with mx.autograd.record():
+            out = net(x)
+        out.backward(mx.NDArray(head))
+        mask = out._data != 0
+        masks.append(mask)
+        exact.append(torch.equal(x.grad._data, mask * 2.0 * head))
+    kept = float(masks[-1].float().mean())
+    fresh = not torch.equal(masks[-2], masks[-1])
+    log(f'[graphs] Dense(1024) -> Dropout(0.5) recorded 4 times (a capture, '
+        f'then replays; {net.capture_count} graphs): masks of the last two '
+        f'replays differ {fresh}, kept share {kept:.5f} of 1048576 (0.5 '
+        f'within 1 %), x.grad equal to mask x 2 x head gradient {exact}')
+    if not (fresh and abs(kept - 0.5) < 5e-3 and all(exact)
+            and net.capture_count == 2):
+        fail('graphs: a graphed Dropout replayed its mask, kept another '
+             'share, or its gradient is not its own mask\'s')
+    # two recorded calls of one key before one backward
+    grads = {}
+    x1 = mx.NDArray(torch.randn(64, 1024, device=dev, generator=g))
+    x2 = mx.NDArray(torch.randn(64, 1024, device=dev, generator=g))
+    net = nn.HybridSequential(nn.Dense(512, in_units=1024),
+                              nn.BatchNorm(in_channels=512),
+                              nn.Dense(16, in_units=512))
+    net.initialize(ctx=mx.gpu(0))
+    net(x1)
+    init = {k: p.data()._data.clone() for k, p in
+            net.collect_params().items()}
+    for graphed in (False, True):
+        for k, p in net.collect_params().items():
+            p.set_data(init[k])
+        net.hybridize(graphed)
+        for _ in range(2):
+            with mx.autograd.record():      # capture, then one replay
+                loss = (net(x1) ** 2).mean()
+            loss.backward()
+        with mx.autograd.record():
+            loss = (net(x1) ** 2).mean() + (net(x2) * 3).mean()
+        loss.backward()
+        grads[graphed] = {k: p.grad()._data.clone()
+                          for k, p in net.collect_params().items()
+                          if p.grad_req != 'null'}
+    errs = [compare(torch, grads[True][k], v, 1e-5, 1e-6)
+            for k, v in grads[False].items()]
+    log(f'[graphs] two recorded calls of one key before one backward: the '
+        f'second ran eagerly ({net.eager_call_count} counted); gradients '
+        f'against eager, max |diff| {max(e for e, _ in errs):.3g} (rtol '
+        f'1e-5) -> {"ok" if all(ok for _, ok in errs) else "MISMATCH"}')
+    if net.eager_call_count != 1 or not all(ok for _, ok in errs):
+        fail('graphs: a second recorded call of a key overwrote the first '
+             'call\'s activations')
+    # create_graph through a replayed call
+    with mx.autograd.record():
+        out = (net(x1) ** 2).sum()
+    try:
+        mx.autograd.grad(out, [net.collect_params()['0.weight'].data()],
+                         create_graph=True)
+        fail('graphs: create_graph=True through a replayed call did not '
+             'raise')
+    except MXNetError as e:
+        log(f'[graphs] create_graph=True through a replayed call raises: '
+            f'{str(e)[:100]}...')
+        if 'A5 rest' not in str(e):
+            fail(f'graphs: the create_graph error does not name A5 rest: {e}')
 
 
 def bert_breakdown(torch, prof, wall_ms):
@@ -2382,21 +2622,29 @@ def bert_costs(torch, got):
     q = torch.randn(BERT_BATCH * 12, BERT_SEQ, 64, device=dev)
     bwd_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(
         q, q, q, q, 0.125, False))
-    for opt, wall in got['steps'].items():
-        step = wall[-2]
-        log(f'[bert] {opt}: {step:.2f} host ms a step, '
-            f'{BERT_BATCH / step * 1e3:.1f} samples/s; the step\'s GEMMs are '
-            f'{flops / 1e12:.3f} TFLOP (6 x {sum(math.prod(p.shape) for p in mm) / 1e6:.1f} M '
-            f'weights in products x {tokens} tokens), '
-            f'{flops / step / 1e9:.1f} TFLOP/s over the host step against '
-            f'cuBLAS\'s fp32 (4096 x 768) @ (768 x 3072) at {rate:.1f} '
-            f'TFLOP/s ({gemm_ms:.4f} ms) in this run')
+    for tag, runs in (('eager', got['steps']),
+                      ('graphed', got['graphed_steps'])):
+        for opt, wall in runs.items():
+            step = wall[-2]
+            log(f'[bert] {tag} {opt}: {step:.2f} host ms a step, '
+                f'{BERT_BATCH / step * 1e3:.1f} samples/s; the step\'s GEMMs '
+                f'are {flops / 1e12:.3f} TFLOP (6 x '
+                f'{sum(math.prod(p.shape) for p in mm) / 1e6:.1f} M weights '
+                f'in products x {tokens} tokens), {flops / step / 1e9:.1f} '
+                f'TFLOP/s over the host step against cuBLAS\'s fp32 (4096 x '
+                f'768) @ (768 x 3072) at {rate:.1f} TFLOP/s ({gemm_ms:.4f} '
+                f'ms) in this run')
+    log(f'[bert] busy share of the profiled Adam step: eager '
+        f'{100 * got["busy"]["eager"]:.1f} %, graphed '
+        f'{100 * got["busy"]["graphed"]:.1f} %; peak memory above a run\'s '
+        f'start, allocated and reserved: eager '
+        f'{got["peaks"]["eager"][0]:.2f} and {got["peaks"]["eager"][1]:.2f} '
+        f'GiB, graphed {got["peaks"]["graphed"][0]:.2f} and '
+        f'{got["peaks"]["graphed"][1]:.2f} GiB')
     log(f'[bert] plain flash backward at the step\'s (384, 128, 64): '
         f'{bwd_ms:.4f} ms a call, x12 a step; hybridized predict '
         f'{got["graph_ms"][-1]:.2f} host ms against eager '
-        f'{got["eager_ms"][-1]:.2f}; peak memory {got["peak"]:.2f} GiB above '
-        f'the phase\'s start; card '
-        f'{smi_line()}')
+        f'{got["eager_ms"][-1]:.2f}; card {smi_line()}')
 
 
 def bert_parity(torch, seed, steps=2):
@@ -2508,8 +2756,9 @@ def _resnet_phase(torch, seed):
     from mxnet_tpu_torch.gluon.model_zoo import vision
     from mxnet_tpu_torch.ops import kernels
     dev = mx.gpu(0).to_torch()
-    torch.cuda.reset_peak_memory_stats(dev)
-    base = torch.cuda.memory_allocated(dev)     # what earlier phases hold
+    log(f'[resnet] at the phase\'s start: '
+        f'{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated, '
+        f'{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved')
     _tf32_conv_check(torch, mx, dev)
     t0 = time.perf_counter()
     mx.random.seed(seed)
@@ -2572,11 +2821,10 @@ def _resnet_phase(torch, seed):
         f'{top5.get()}; card {smi_line()}')
     del out
 
-    trainer = gluon.Trainer(params, RESNET_OPT[0], dict(RESNET_OPT[1]))
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     want = {'sgd_mom': RESNET_UPDATED}
 
-    def steps(n, get, tag, profile_last=False):
+    def steps(n, get, tag, trainer, profile_last=False):
         losses, wall, prof = [], [], None
         for i in range(n):
             x, y = get(i)
@@ -2602,50 +2850,118 @@ def _resnet_phase(torch, seed):
     def dev_get(i):
         return batches[i % len(batches)]
 
-    warm, warm_wall, _ = steps(RESNET_WARMUP, dev_get, 'warm-up')
-    # the timed steps run back to back as bench's loop does, one sync at
-    # the end; then the same steps synced one by one, for host ms a step
-    _sync(torch, dev)
-    t1 = time.perf_counter()
-    for i in range(RESNET_STEPS):
-        loss = resnet_step(mx, net, trainer, loss_fn, *dev_get(i))
-    loop_loss = loss.item()
-    loop_ms = (time.perf_counter() - t1) * 1e3
-    losses, wall, prof = steps(RESNET_STEPS, dev_get, 'timed',
-                               profile_last=True)
-    img_s = RESNET_STEPS * RESNET_BATCH / loop_ms * 1e3
-    log(f'[resnet] {RESNET_OPT}: warm-up losses {warm}, host ms '
-        f'{[round(t, 2) for t in warm_wall]}; {RESNET_STEPS} steps back to '
-        f'back {loop_ms:.2f} ms ({loop_ms / RESNET_STEPS:.2f} ms a step, '
-        f'{img_s:.1f} img/s, last loss {loop_loss}); then synced one by one: '
-        f'losses {losses}, host ms a step {[round(t, 2) for t in wall]} (the '
-        f'last profiled); launches a step {want}')
-    breakdown = resnet_breakdown(torch, prof, wall[-2])
+    # graphed against eager: three steps of each from the same weights,
+    # statistics and (fresh) slots, under deterministic cuDNN. Its default
+    # weight-gradient kernels sum with atomics in no fixed order, and at
+    # this learning rate two eager runs with them part by tens of per cent
+    # in some tensors' three-step change (logged first); with
+    # deterministic kernels two eager runs are bit-equal.
+    def three_steps(graphed, tag):
+        for k, p in params.items():
+            p.set_data(init[k])
+        net.hybridize(graphed, static_alloc=True)
+        trainer = gluon.Trainer(params, RESNET_OPT[0], dict(RESNET_OPT[1]))
+        losses, _, _ = steps(RESNET_WARMUP, dev_get, tag, trainer)
+        if graphed:
+            graph_counts(net, trainer, 'resnet', want_captures=2)
+        return losses, {k: p.data()._data.detach().clone()
+                        for k, p in params.items()}
 
-    moved = [k for k, p in params.items()
-             if not torch.equal(p.data()._data, init[k])]
-    still = sorted(set(params) - set(moved))
-    log(f'[resnet] {len(moved)} of {len(params)} parameters and running '
-        f'statistics moved; unchanged: {still}')
-    if still:
-        fail(f'resnet: {still} did not move over the training steps')
+    noise = {g: three_steps(False, 'eager (default cuDNN)')
+             for g in (False, True)}
+    _, worst = _change_gaps(init, noise)
+    log(f'[resnet] two eager runs with cuDNN\'s default kernels: losses '
+        f'{noise[True][0]} and {noise[False][0]}; |change - change| over '
+        f'|change|, worst {worst}')
+    del noise
+    torch.backends.cudnn.deterministic = True
+    try:
+        agree = {g: three_steps(g, f'{"graphed" if g else "eager"} '
+                                   f'(deterministic cuDNN)')
+                 for g in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    graphed_agrees('resnet', 'SGD-momentum (deterministic cuDNN)', init,
+                   agree)
+    del agree
 
-    # a replay after training reads the running statistics in place
-    before = kernels.launch_counts()
-    out = net(x0)
-    with mx.autograd.predict_mode():
-        want_out = net.forward(x0)
-    err, ok = compare(torch, out._data, want_out._data, 1e-5, 1e-6)
-    log(f'[resnet] predict call after training: launches '
-        f'{_counts_since(kernels, before)}, {net.capture_count} capture(s) '
-        f'in all, against an eager forward with the new running statistics '
-        f'{err:.3g} -> {"ok" if ok else "MISMATCH"}')
-    if not ok or net.capture_count != 1 or _counts_since(kernels, before):
-        fail('resnet: the replayed graph did not see the trained weights '
-             'and statistics, captured again or launched a kernel')
-    del out, want_out, eager
+    runs = {}
+    for graphed in (False, True):
+        # the timed runs, with cuDNN's default kernels: eager steps, then
+        # graphed steps from the same weights, statistics and fresh slots
+        tag = 'graphed' if graphed else 'eager'
+        for k, p in params.items():
+            p.set_data(init[k])
+        net.hybridize(graphed, static_alloc=True)
+        mem = _memory_start(torch, dev)
+        if graphed:             # a predict graph, replayed after training
+            net(x0)
+        trainer = gluon.Trainer(params, RESNET_OPT[0], dict(RESNET_OPT[1]))
+        warm, warm_wall, _ = steps(RESNET_WARMUP, dev_get,
+                                   f'{tag} warm-up', trainer)
+        # the timed steps run back to back as bench's loop does, one sync
+        # at the end; then the same steps synced one by one, for host ms
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        for i in range(RESNET_STEPS):
+            loss = resnet_step(mx, net, trainer, loss_fn, *dev_get(i))
+        loop_loss = loss.item()
+        loop_ms = (time.perf_counter() - t1) * 1e3
+        losses, wall, prof = steps(RESNET_STEPS, dev_get, f'{tag} timed',
+                                   trainer, profile_last=True)
+        img_s = RESNET_STEPS * RESNET_BATCH / loop_ms * 1e3
+        log(f'[resnet] {tag} {RESNET_OPT}: warm-up losses {warm}, host ms '
+            f'{[round(t, 2) for t in warm_wall]}; {RESNET_STEPS} steps back '
+            f'to back {loop_ms:.2f} ms ({loop_ms / RESNET_STEPS:.2f} ms a '
+            f'step, {img_s:.1f} img/s, last loss {loop_loss}); then synced '
+            f'one by one: losses {losses}, host ms a step '
+            f'{[round(t, 2) for t in wall]} (the last profiled); launches a '
+            f'step {want}')
+        log(f'[resnet] {tag} step profiled:')
+        breakdown = resnet_breakdown(torch, prof, wall[-2])
 
-    # the host feed: the same steps fed by PrefetchingIter (bench.py:463-485)
+        moved = [k for k, p in params.items()
+                 if not torch.equal(p.data()._data, init[k])]
+        still = sorted(set(params) - set(moved))
+        log(f'[resnet] {tag}: {len(moved)} of {len(params)} parameters and '
+            f'running statistics moved; unchanged: {still}')
+        if still:
+            fail(f'resnet: {tag}: {still} did not move over the steps')
+        if graphed:
+            # a predict replay after training reads the running
+            # statistics in place
+            before = kernels.launch_counts()
+            out = net(x0)
+            with mx.autograd.predict_mode():
+                want_out = net.forward(x0)
+            err, ok = compare(torch, out._data, want_out._data, 1e-5, 1e-6)
+            log(f'[resnet] predict call after graphed training: launches '
+                f'{_counts_since(kernels, before)}, against an eager forward '
+                f'with the new running statistics {err:.3g} -> '
+                f'{"ok" if ok else "MISMATCH"}')
+            if not ok or _counts_since(kernels, before):
+                fail('resnet: the replayed graph did not see the trained '
+                     'weights and statistics, or launched a kernel')
+            del out, want_out
+        fed_img_s = _resnet_host_fed(torch, mx, io, images, labels, x0, y0,
+                                     steps, trainer, net, loss_fn, tag)
+        if graphed:
+            graph_counts(net, trainer, 'resnet', want_captures=3)
+        runs[tag] = dict(loop_ms=loop_ms, img_s=img_s, fed_img_s=fed_img_s,
+                         wall=wall, breakdown=breakdown,
+                         peak=_memory_peaks(torch, dev, mem))
+        del trainer
+    del eager
+    kstep = resnet_kstep(torch, net, x0, dev)
+    return dict(runs=runs, kstep=kstep, eager_ms=eager_ms,
+                graph_ms=graph_ms)
+
+
+def _resnet_host_fed(torch, mx, io, images, labels, x0, y0, steps, trainer,
+                     net, loss_fn, tag):
+    """The same steps fed by ``PrefetchingIter`` (bench.py:463-485);
+    returns img/s."""
+    dev = x0._data.device
     pref = io.PrefetchingIter(
         io.NDArrayIter(images, labels, batch_size=RESNET_BATCH,
                        shuffle=False), ctx=x0.context, depth=3)
@@ -2666,7 +2982,7 @@ def _resnet_phase(torch, seed):
                 b = next(pref)
         return b.data[0], b.label[0]
 
-    steps(2, pref_get, 'host-fed warm-up')
+    steps(2, pref_get, f'{tag} host-fed warm-up', trainer)
     _sync(torch, dev)
     t1 = time.perf_counter()
     for i in range(RESNET_STEPS):
@@ -2675,14 +2991,109 @@ def _resnet_phase(torch, seed):
     fed_ms = (time.perf_counter() - t1) * 1e3
     pref.close()
     fed_img_s = RESNET_STEPS * RESNET_BATCH / fed_ms * 1e3
-    log(f'[resnet] host-fed (PrefetchingIter over NDArrayIter, ctx gpu(0), '
-        f'depth 3; the first batch equal to NDArrayIter\'s): '
-        f'{RESNET_STEPS} steps {fed_ms:.2f} ms, {fed_img_s:.1f} img/s '
-        f'against {img_s:.1f} from batches on the card')
-    return dict(loop_ms=loop_ms, img_s=img_s, fed_img_s=fed_img_s,
-                wall=wall, eager_ms=eager_ms, graph_ms=graph_ms,
-                breakdown=breakdown,
-                peak=(torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+    log(f'[resnet] {tag} host-fed (PrefetchingIter over NDArrayIter, ctx '
+        f'gpu(0), depth 3; the first batch equal to NDArrayIter\'s): '
+        f'{RESNET_STEPS} steps {fed_ms:.2f} ms, {fed_img_s:.1f} img/s')
+    return fed_img_s
+
+
+#: the reference's primary ResNet-50 number: K steps as one program
+#: (bench.py:302-370; K = bench's suite-mode iters, bench.py:962)
+RESNET_K = 24
+
+
+def resnet_kstep(torch, net, x0, dev, k=RESNET_K):
+    """bench_resnet_train's K-step loop over ``pure_function(x0,
+    train=True)``: one step (input ``x0 * (1 + 2**-6 * i)`` with ``i`` a
+    counter on the card, log-softmax NLL against labels ``arange(B) %
+    1000``, gradients from ``torch.autograd.grad``, SGD-momentum through
+    B6 and its device vector, the new running statistics written back) is
+    captured once and replayed ``k`` times with no host sync between. The
+    first three losses must equal the same step run eagerly (rtol 1e-4).
+    Returns img/s."""
+    from mxnet_tpu_torch import _graphs
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.kernels import fused_optimizer as fo
+    fn, ins, mains0, auxs0 = net.pure_function(x0, train=True)
+    batch = x0.shape[0]
+    labels = torch.arange(batch, device=dev) % 1000
+    rows = torch.arange(batch, device=dev)
+    opt = RESNET_OPT[1]
+    hyper = torch.tensor([opt['learning_rate'], 0.0], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def state():
+        return dict(mains=[t.clone().requires_grad_() for t in mains0],
+                    moms=[torch.zeros_like(t) for t in mains0],
+                    auxs=[t.clone() for t in auxs0],
+                    i=torch.zeros((), device=dev),
+                    losses=torch.zeros(k + 1, device=dev))
+
+    def make(st):
+        def step():
+            x = ins[0] * (1.0 + 2.0 ** -6 * st['i'])
+            outs, new_aux = fn(gen, (x,), st['mains'], st['auxs'])
+            logp = torch.log_softmax(outs[0], -1)
+            loss = -logp[rows, labels].mean()
+            grads = torch.autograd.grad(loss, st['mains'])
+            with torch.no_grad():
+                for w, g, m in zip(st['mains'], grads, st['moms']):
+                    fo.sgd_mom_step(w.detach(), g, m, hyper,
+                                    momentum=opt['momentum'])
+                for a, new in zip(st['auxs'], new_aux):
+                    a.copy_(new)
+                st['losses'].index_copy_(0, st['i'].long().view(1),
+                                         loss.detach().view(1))
+                st['i'].add_(1.0)
+        return step
+
+    # the first three losses against the eager step's, under deterministic
+    # cuDNN (see _resnet_phase), then the timed loop with its default
+    # kernels, captured anew
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = state()
+        step = make(eager)
+        for _ in range(3):
+            step()
+        want = eager['losses'][:3].tolist()
+        del eager, step
+        st = state()
+        graph = _graphs.StepGraph(make(st), dev, generators=(gen,))
+        graph.capture()             # its warm-up is step 0
+        graph.replay(times=2)
+        got = st['losses'][:3].tolist()
+        graph.release()
+        del graph, st
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ok = all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(got, want))
+    log(f'[resnet] K-step loop over pure_function, deterministic cuDNN: '
+        f'losses of its warm-up and two replays {got} against the eager '
+        f'step\'s {want} (rtol 1e-4) -> {"ok" if ok else "MISMATCH"}')
+    st = state()
+    before = kernels.launch_counts()
+    graph = _graphs.StepGraph(make(st), dev, generators=(gen,))
+    graph.capture()                 # its warm-up is step 0
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    graph.replay(times=k)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t1) * 1e3
+    losses = st['losses'].tolist()
+    launches = _counts_since(kernels, before)
+    img_s = k * batch / ms * 1e3
+    log(f'[resnet] K-step loop over pure_function (K = {k}, one captured '
+        f'step replayed K times, no host sync between): {ms:.2f} ms, '
+        f'{ms / k:.2f} ms a step, {img_s:.1f} img/s; launches {launches} '
+        f'over its warm-up and {k} replays; losses {losses[:4]}... last '
+        f'{losses[-1]}; card {smi_line()}')
+    if not ok or launches != {'sgd_mom': RESNET_UPDATED * (k + 1)} or \
+            not all(math.isfinite(v) for v in losses):
+        fail('resnet: the K-step loop parts from the eager steps, is not '
+             'finite, or launched other than B6 once a parameter a step')
+    graph.release()
+    return dict(ms=ms, img_s=img_s)
 
 
 #: kernel groups of a ResNet-50 step, matched on the kernel's name in order
@@ -2726,24 +3137,30 @@ def resnet_breakdown(torch, prof, wall_ms):
 
 
 def resnet_costs(torch, got):
-    """Log the resnet phase's numbers against the step's bound."""
+    """Log the resnet phase's numbers, eager and graphed, against the
+    step's bound."""
     flops = 3 * RESNET50_FWD_FLOPS * RESNET_BATCH
     bound_ms, _ = bound(0, flops)
-    step = got['loop_ms'] / RESNET_STEPS
-    b = got['breakdown']
-    log(f'[resnet] a step: {step:.2f} host ms back to back, '
-        f'{got["img_s"]:.1f} img/s ({got["fed_img_s"]:.1f} host-fed); '
-        f'{flops / 1e9:.0f} GFLOP (3 x {RESNET50_FWD_FLOPS / 1e9:.2f} x '
-        f'{RESNET_BATCH}) at the fp32 CUDA-core peak of '
-        f'{FP32_OPS_S / 1e12:.0f} TFLOP/s is {bound_ms:.2f} ms, a ceiling '
-        f'of {RESNET_BATCH / bound_ms * 1e3:.0f} img/s: the step is '
-        f'{100 * bound_ms / step:.1f} % of its bound '
-        f'({flops / step / 1e9:.1f} TFLOP/s); busy '
-        f'{100 * b["busy_ms"] / b["wall_ms"]:.0f} % of the profiled step '
-        f'({b["busy_ms"]:.2f} kernel ms over {b["wall_ms"]:.2f} host ms); '
-        f'graphed predict {got["graph_ms"][-1]:.2f} host ms against eager '
-        f'{got["eager_ms"][-1]:.2f}; peak memory {got["peak"]:.2f} GiB above '
-        f'the phase\'s start; card {smi_line()}')
+    for tag, run in got['runs'].items():
+        step = run['loop_ms'] / RESNET_STEPS
+        b = run['breakdown']
+        log(f'[resnet] {tag}: a step {step:.2f} host ms back to back, '
+            f'{run["img_s"]:.1f} img/s ({run["fed_img_s"]:.1f} host-fed); '
+            f'{flops / 1e9:.0f} GFLOP (3 x {RESNET50_FWD_FLOPS / 1e9:.2f} x '
+            f'{RESNET_BATCH}) at the fp32 CUDA-core peak of '
+            f'{FP32_OPS_S / 1e12:.0f} TFLOP/s is {bound_ms:.2f} ms, a '
+            f'ceiling of {RESNET_BATCH / bound_ms * 1e3:.0f} img/s: the step '
+            f'is {100 * bound_ms / step:.1f} % of its bound '
+            f'({flops / step / 1e9:.1f} TFLOP/s); busy '
+            f'{100 * b["busy_ms"] / b["wall_ms"]:.0f} % of the profiled step '
+            f'({b["busy_ms"]:.2f} kernel ms over {b["wall_ms"]:.2f} host '
+            f'ms); peak memory above the run\'s start {run["peak"][0]:.2f} '
+            f'GiB allocated, {run["peak"][1]:.2f} GiB reserved')
+    k = got['kstep']
+    log(f'[resnet] K-step loop over pure_function: {k["img_s"]:.1f} img/s '
+        f'({k["ms"] / RESNET_K:.2f} ms a step); graphed predict '
+        f'{got["graph_ms"][-1]:.2f} host ms against eager '
+        f'{got["eager_ms"][-1]:.2f}; card {smi_line()}')
 
 
 def resnet_parity(torch, seed, steps=2):

@@ -6,8 +6,15 @@ state; the JAX package hides explicit keys behind ``next_key()``. Here
 the resource is one ``torch.Generator`` per device: a stochastic op draws
 from :func:`generator` of its device, which ``mx.random.seed`` reseeds.
 A CUDA generator is made with ``torch.Generator(device=...)``, the kind
-that ``_graphs.StepGraph`` registers with a graph for capture.
+that a CUDA graph can register (:func:`graph_generators`): a hybridized
+block's captured call draws from it, and each replay draws anew, so a
+replay's numbers differ from an eager call's from the same seed (by design:
+ROADMAP). :func:`drawing_from` makes every stochastic op draw from a given
+generator instead, as the JAX package's trace provider hands out keys
+from the ``rng_key`` a pure function is given.
 """
+
+import contextlib
 
 import threading
 
@@ -15,7 +22,7 @@ import numpy as _np
 import torch
 
 __all__ = ['seed', 'generator', 'current_numpy_rng', 'get_state',
-           'set_state']
+           'set_state', 'graph_generators', 'drawing_from']
 
 _lock = threading.Lock()
 _gens = {}          # torch.device -> torch.Generator
@@ -29,10 +36,17 @@ def _key(device):
     return dev
 
 
+_override = threading.local()
+
+
 def generator(device):
     """The generator of ``device``, made and seeded on first use: from the
     last :func:`seed`, else from numpy's global stream, as the reference
-    draws its first key."""
+    draws its first key. Inside :func:`drawing_from`, that block's
+    generator."""
+    forced = getattr(_override, 'gen', None)
+    if forced is not None:
+        return forced
     dev = _key(device)
     with _lock:
         gen = _gens.get(dev)
@@ -43,6 +57,31 @@ def generator(device):
                             if s is None else s)
             _gens[dev] = gen
     return gen
+
+
+@contextlib.contextmanager
+def drawing_from(gen):
+    """Every stochastic op of this thread draws from ``gen`` inside the
+    block (a pure function's generator, the counterpart of its JAX
+    ``rng_key``)."""
+    prev = getattr(_override, 'gen', None)
+    _override.gen = gen
+    try:
+        yield gen
+    finally:
+        _override.gen = prev
+
+
+def graph_generators(device):
+    """The generators a CUDA graph captured on ``device`` registers, so
+    that its stochastic ops draw new numbers on every replay: the device's
+    generator, on a torch whose graphs take generators; else none, and a
+    replay repeats its capture's draws."""
+    from ._graphs import captures_generators
+    dev = torch.device(device)
+    if dev.type != 'cuda' or not captures_generators():
+        return ()
+    return (generator(dev),)
 
 
 def seed(seed_state, ctx='all'):

@@ -8,10 +8,16 @@ on (``ops.registry.apply_op``), so each result carries its ``grad_fn``.
 A variable (``attach_grad``, :func:`mark_variables`) is an NDArray whose
 payload is a leaf tensor that requires grad, with a hook that moves what
 torch accumulates into the variable's own grad buffer, as its
-``grad_req`` says: ``'write'`` replaces, ``'add'`` accumulates, ``'null'``
-records but never writes. A write into a variable (``x += 1``,
+``grad_req`` says: ``'write'`` copies into it, ``'add'`` adds into it,
+``'null'`` records but never writes. A write into a variable (``x += 1``,
 ``x[...] = v``) makes a fresh leaf of the new value, so the marking
 outlives it (``NDArray._rebind``).
+
+The grad buffer is written in place and keeps its address for its life,
+so that a captured update graph reads each new gradient there. A user's
+write through the buffer's handle (``p.grad()[:] = 0``) rebinds the
+handle, as NDArray writes do; :func:`sync_grad` copies that value back
+into the buffer before the buffer is read or written.
 
 :func:`backward` keeps the graph (``retain_graph=True`` to torch): the
 JAX tape re-linearizes a node whose residuals a first backward dropped,
@@ -55,14 +61,31 @@ def set_training(flag):
 
 class AGInfo:
     """A variable's autograd record (reference imperative.h:54): its grad
-    buffer (an NDArray) and ``grad_req``."""
+    buffer's handle (an NDArray), the buffer tensor itself, and
+    ``grad_req``."""
 
-    __slots__ = ('variable', 'grad', 'grad_req')
+    __slots__ = ('variable', 'grad', 'buf', 'grad_req')
 
     def __init__(self, grad=None, grad_req='write'):
         self.variable = True
         self.grad = grad
+        self.buf = None if grad is None else grad._data
         self.grad_req = grad_req
+
+
+def sync_grad(info):
+    """The grad buffer of ``info``, after copying back a value that a write
+    through its handle bound there; None without a buffer."""
+    if info.grad is None:
+        return None
+    nd = info.grad
+    if info.buf is None:
+        info.buf = nd._data
+    elif nd._data is not info.buf:
+        with torch.no_grad():
+            info.buf.copy_(nd._data)
+        nd._data = info.buf
+    return info.buf
 
 
 def _write_grad(info):
@@ -70,11 +93,12 @@ def _write_grad(info):
         g, leaf.grad = leaf.grad, None
         if g is None or info.grad is None or info.grad_req == 'null':
             return
-        g = g.detach().to(info.grad._data.dtype)
-        if info.grad_req == 'add':
-            info.grad._data = info.grad._data + g
-        else:
-            info.grad._data = g
+        buf = sync_grad(info)
+        with torch.no_grad():
+            if info.grad_req == 'add':
+                buf.add_(g.detach().to(buf.dtype))
+            else:
+                buf.copy_(g.detach())
     return hook
 
 
@@ -146,5 +170,8 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True,
                                   allow_unused=True)
     finally:
         set_training(prev)
-    return [NDArray(torch.zeros_like(v._data).detach() if g is None else g)
+    # a graphed call's backward hands out its static grad buffers, which
+    # the next replay overwrites: the caller gets copies
+    return [NDArray(torch.zeros_like(v._data).detach() if g is None
+                    else g.clone())
             for v, g in zip(variables, got)]

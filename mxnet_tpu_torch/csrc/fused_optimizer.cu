@@ -13,9 +13,15 @@
 //   SGD:  mom' = momentum * mom - lr * g';   w' = w + mom'
 // Each step is one fp32 operation rounded to nearest: the __f*_rn
 // intrinsics keep nvcc from contracting a multiply and an add into an FMA,
-// which would round once where the reference rounds twice. The bias
-// corrections bc1 = 1 - beta1^t and bc2 = 1 - beta2^t come from the host
-// (1 when the caller turns the correction off: x / 1 is exact).
+// which would round once where the reference rounds twice.
+//
+// The step-varying hyperparameters are read from device memory, as the TPU
+// kernels read them from a small fp32 vector operand: Adam's from
+// (lr, wd, bc1, bc2), SGD-momentum's from (lr, wd). bc1 = 1 - beta1^t and
+// bc2 = 1 - beta2^t are Adam's bias corrections (1 when the caller turns the
+// correction off: x / 1 is exact). A launch captured in a CUDA graph reads
+// whatever the vector holds when the graph replays, so a learning-rate
+// schedule or a new update count needs no new capture.
 //
 // Bound on the H100: bytes. Adam moves 28 bytes per element (4 reads, 3
 // writes) for 18 operations, SGD-momentum 20 bytes for 7; the card does
@@ -26,10 +32,9 @@
 // over the last n % 4 elements (over all of them when a pointer is not
 // aligned): the kernel masks its own tail, with no size gate. One wave of
 // 256-thread blocks (8 per SM on 132 SMs) keeps up to 17 MB of loads in
-// flight, far more than the memory system needs to run at its rate. The
-// scalars are kernel arguments: the TPU kernel reads them from a small device
-// vector so that XLA need not recompile when they change, and a CUDA launch
-// takes new arguments every time.
+// flight, far more than the memory system needs to run at its rate. Every
+// thread loads the 8 or 16 bytes of the vector once before its loop; they
+// come from L2 after the first block.
 #include "common.cuh"
 
 namespace {
@@ -37,6 +42,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;
 
+// The launch's constants; lr, wd, bc1 and bc2 are filled in on the card
+// from the hyperparameter vector.
 struct AdamHyper {
   float lr, wd, bc1, bc2, beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
   float rescale, clip;
@@ -80,7 +87,11 @@ __device__ __forceinline__ void sgd_one(float& w, float g, float& mom,
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(float* __restrict__ w, const float* __restrict__ g,
             float* __restrict__ m, float* __restrict__ v, int64_t n, int vec,
-            AdamHyper h) {
+            const float* __restrict__ hyper, AdamHyper h) {
+  h.lr = hyper[0];
+  h.wd = hyper[1];
+  h.bc1 = hyper[2];
+  h.bc2 = hyper[3];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads +
                         threadIdx.x;
@@ -115,7 +126,10 @@ adam_kernel(float* __restrict__ w, const float* __restrict__ g,
 
 __global__ void __launch_bounds__(kThreads)
 sgd_mom_kernel(float* __restrict__ w, const float* __restrict__ g,
-               float* __restrict__ mom, int64_t n, int vec, SgdHyper h) {
+               float* __restrict__ mom, int64_t n, int vec,
+               const float* __restrict__ hyper, SgdHyper h) {
+  h.lr = hyper[0];
+  h.wd = hyper[1];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads +
                         threadIdx.x;
@@ -156,40 +170,44 @@ int blocks_for(int64_t n, bool vec) {
 }  // namespace
 
 // w, g, m, v: n contiguous floats each, four distinct buffers; w, m and v
-// are updated in place. one_minus_beta1/2 come from the host, where the
-// reference computes 1 - beta in double before rounding it to fp32.
+// are updated in place. hyper: 4 floats on the card, (lr, wd, bc1, bc2),
+// read when the kernel runs. one_minus_beta1/2 come from the host, where
+// the reference computes 1 - beta in double before rounding it to fp32.
 // Returns the cudaError_t of the launch.
 extern "C" int adam_step_f32(float* w, const float* g, float* m, float* v,
-                             long long n, float lr, float wd, float bc1,
-                             float bc2, float beta1, float one_minus_beta1,
-                             float beta2, float one_minus_beta2, float eps,
-                             float rescale, float clip, int has_clip,
-                             void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                             long long n, const float* hyper, float beta1,
+                             float one_minus_beta1, float beta2,
+                             float one_minus_beta2, float eps, float rescale,
+                             float clip, int has_clip, void* stream) {
+  if (n <= 0 || hyper == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = mx_aligned16(w) && mx_aligned16(g) && mx_aligned16(m) &&
                    mx_aligned16(v);
-  const AdamHyper h{lr,    wd,
-                    bc1,   bc2,
+  const AdamHyper h{0.f,   0.f,
+                    1.f,   1.f,
                     beta1, one_minus_beta1,
                     beta2, one_minus_beta2,
                     eps,   rescale,
                     clip,  has_clip};
   adam_kernel<<<blocks_for(n, vec), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(w, g, m, v, n, vec, h);
+                static_cast<cudaStream_t>(stream)>>>(w, g, m, v, n, vec,
+                                                     hyper, h);
   return static_cast<int>(cudaGetLastError());
 }
 
 // w, g, mom: n contiguous floats each, three distinct buffers; w and mom
-// are updated in place. Returns the cudaError_t of the launch.
+// are updated in place. hyper: 2 floats on the card, (lr, wd), read when
+// the kernel runs. Returns the cudaError_t of the launch.
 extern "C" int sgd_mom_step_f32(float* w, const float* g, float* mom,
-                                long long n, float lr, float wd,
+                                long long n, const float* hyper,
                                 float momentum, float rescale, float clip,
                                 int has_clip, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || hyper == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = mx_aligned16(w) && mx_aligned16(g) && mx_aligned16(mom);
-  const SgdHyper h{lr, wd, momentum, rescale, clip, has_clip};
+  const SgdHyper h{0.f, 0.f, momentum, rescale, clip, has_clip};
   sgd_mom_kernel<<<blocks_for(n, vec), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(w, g, mom, n, vec,
-                                                        h);
+                                                        hyper, h);
   return static_cast<int>(cudaGetLastError());
 }

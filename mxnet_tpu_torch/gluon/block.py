@@ -13,21 +13,45 @@ torch leaves (:mod:`.parameter`).
 ``hybridize()`` gives a ``HybridBlock`` a :class:`_CachedGraph`, the
 port's ``CachedOp``. The JAX package compiles the forward per key (input
 shapes and dtypes, train mode, donation, argument structure) with
-``jax.jit``; here:
+``jax.jit`` and records a call as one ``_CachedOp`` node whose backward
+is that program's VJP; here, on a CUDA device:
 
-* a call in predict mode (not recording, not training) on a CUDA device
+* a call that is not recorded (predict mode, or ``train_mode()``)
   captures the forward once per key as a CUDA graph
   (``_graphs.StepGraph``) and replays it: the inputs are copied into the
   graph's static buffers, and the outputs are cloned out of its output
   tensors, which the next replay overwrites, since NDArrays have value
-  semantics. ``compile_count`` counts keys, and a key's graph is captured
-  once, again only if a parameter's leaf was replaced (``cast``,
-  ``reset_ctx``), since a graph reads the weights at their addresses;
-* a recorded or train-mode call runs the forward eagerly under
-  ``torch.autograd``, keyed and counted the same way (graphed training
-  steps are ROADMAP A5 rest);
-* on the CPU every call runs eagerly; a key's first call is its compile,
-  so the keying can be held against the JAX package's.
+  semantics;
+* a recorded call captures the forward and its backward as two graphs
+  per key (``_graphs.GraphedCall``) and replays them as one node on the
+  tape: ``loss.backward()`` replays the backward graph, which writes the
+  input and parameter gradients, and the parameters' hooks copy them into
+  their grad buffers. A second recorded call of a key while the first
+  still waits for its backward would overwrite the activations that
+  backward reads: it runs eagerly instead, and ``eager_call_count``
+  counts it. ``create_graph=True`` through a replayed node raises;
+* a key's first call is the capture's warm-up and the call's real answer
+  (BatchNorm's running statistics move once); the graphs of a key are
+  captured once, and again only if a parameter's leaf was replaced
+  (``cast``, ``reset_ctx``), since a graph reads the weights at their
+  addresses. ``compile_count`` counts keys, ``capture_count`` graphs;
+* the captured graphs register the device's generator
+  (``_rng.graph_generators``): a Dropout mask is drawn anew on every
+  replay, but not the mask an eager call would draw from the same seed.
+
+On the CPU every call runs eagerly under ``torch.autograd``, keyed and
+counted the same way, so the keying can be held against the JAX
+package's (``_graphs.emulated`` runs the graphed bookkeeping there in
+tests).
+
+``hybridize(remat=True)`` recomputes the forward in the backward: eagerly
+through ``torch.utils.checkpoint``, graphed by a backward graph that runs
+the forward again; the recomputation writes no running statistic and
+redraws the forward's random numbers eagerly, and a graphed call that
+draws random numbers raises under ``remat``. ``pure_function`` gives the
+forward as a function of explicit tensors (the JAX package's pure export,
+for K-step loops captured as one graph), ``prewarm`` builds keys ahead of
+traffic, and ``register_op_hook`` monitors whole cached calls.
 
 As in the reference, the first call after ``hybridize()`` on a block
 that never ran runs eagerly (deferred initialization finishes before any
@@ -39,24 +63,25 @@ the Trainer's update, BatchNorm's running statistics), so a replay sees
 it.
 
 Not ported (ROADMAP A5 rest): ``SymbolBlock``, ``export``,
-``pure_function``, ``prewarm``, ``register_op_hook``, ``optimize_for``
-beyond hybridize-and-call, and ``hybridize``'s ``check``/``remat``/
-``donate_inputs``, which raise.
+``optimize_for`` beyond hybridize-and-call, and ``hybridize``'s
+``check``/``donate_inputs``, which raise.
 """
 
+import contextlib
 import re
 import threading
 import warnings
 
+import numpy as _np
 import torch
 
-from .. import _tape
+from .. import _graphs, _rng, _tape
 from ..autograd import pause
 from ..base import MXNetError
 from ..context import cpu
 from ..ndarray.ndarray import NDArray, array, context_of
 from ..ops.registry import DynamicShapeError
-from .parameter import DeferredInitializationError, Parameter
+from .parameter import DeferredInitializationError, Parameter, substituted
 
 __all__ = ['Block', 'HybridBlock', 'ParameterDict', 'is_tracing',
            'record_aux_update']
@@ -83,11 +108,38 @@ def record_aux_update(param, value):
     """Write an auxiliary state (BatchNorm's running statistics) into the
     parameter's leaf in place, so that a captured graph and every later
     call read the new value (the JAX package rebinds eagerly and returns
-    the value from a compiled graph)."""
+    the value from a compiled graph). Inside a pure function the new value
+    is collected and returned instead (JAX ``block.py:53-70``), and a
+    remat recomputation writes nothing."""
     raw = value._data if isinstance(value, NDArray) else value
+    writes = getattr(_BLOCK_TRACE, 'aux_writes', None)
+    if writes is not None:
+        writes[id(param)] = raw.detach()
+        return
+    if getattr(_BLOCK_TRACE, 'recomputing', False):
+        return
     var = param._sync()
     with torch.no_grad():
         var.copy_(raw.detach())
+
+
+@contextlib.contextmanager
+def _recomputing(gen=None, state=None):
+    """A remat recomputation: no auxiliary state is written, and with
+    ``gen`` the forward's random draws are made again from ``state``, its
+    generator state before the forward."""
+    prev = getattr(_BLOCK_TRACE, 'recomputing', False)
+    _BLOCK_TRACE.recomputing = True
+    now = None
+    if gen is not None:
+        now = gen.get_state()
+        gen.set_state(state)
+    try:
+        yield
+    finally:
+        _BLOCK_TRACE.recomputing = prev
+        if now is not None:
+            gen.set_state(now)
 
 
 # ------------------------------------------------------------ argument trees
@@ -397,31 +449,50 @@ class Block:
 
 
 class _Entry:
-    """One key of a :class:`_CachedGraph`: its CUDA graph (predict mode on
-    a card), the leaves it captured, its static input buffers and its
-    output tree."""
+    """One key of a :class:`_CachedGraph`: the graph of its calls that are
+    not recorded, the leaves it captured, its static input buffers and its
+    output tree; and its recorded calls' :class:`_Recorded` graphs, by
+    which inputs and parameters require grad."""
 
-    __slots__ = ('graph', 'leaves', 'inputs', 'out_spec')
+    __slots__ = ('graph', 'leaves', 'inputs', 'out_spec', 'recorded')
 
     def __init__(self):
         self.graph = None
         self.leaves = ()
         self.inputs = ()
         self.out_spec = None
+        self.recorded = {}
+
+
+class _Recorded:
+    """The forward and backward graphs of a key's recorded calls."""
+
+    __slots__ = ('call', 'leaves', 'out')
+
+    def __init__(self, call, leaves, out):
+        self.call, self.leaves, self.out = call, leaves, out
+
+
+def _generator_state(dev):
+    return _rng.generator(dev).get_state()
 
 
 class _CachedGraph:
     """The cache of one hybridized block (the role of CachedOp, reference
     src/imperative/cached_op.h:463); see the module docstring."""
 
-    def __init__(self, block, static_alloc=True):
+    def __init__(self, block, static_alloc=True, remat=False):
         self.block = block
         self.static_alloc = static_alloc
-        self.compiles = 0   # keys built
-        self.captures = 0   # CUDA graphs captured
+        self.remat = remat
+        self.compiles = 0     # keys built
+        self.captures = 0     # CUDA graphs captured
+        self.eager_calls = 0  # recorded calls run eagerly while a replay
+        #                       of their key waited for its backward
         self._entries = {}
         self._param_order = None
         self._dynamic = False
+        self._monitor_callbacks = []
         self._lock = threading.RLock()
 
     def clear(self):
@@ -443,7 +514,7 @@ class _CachedGraph:
 
     def __call__(self, args):
         if self._dynamic:
-            return self.block.forward(*args)
+            return self._monitor(self.block.forward(*args))
         leaves, spec = _flatten(args, inputs=True)
         dev = next((x._data.device for x in leaves
                     if isinstance(x, NDArray)), None)
@@ -463,16 +534,60 @@ class _CachedGraph:
             if entry is None:
                 entry = self._entries[key] = _Entry()
                 self.compiles += 1
-            if recording or train_mode or dev is None or dev.type != 'cuda':
-                return self._eager(key, spec, in_nds)
-            return self._replay(key, entry, spec, in_nds, params, dev)
+            if not _graphs.can_capture(dev):
+                out = self._eager(key, spec, in_nds)
+            elif recording:
+                out = self._recorded(key, entry, spec, in_nds, params, dev)
+            else:
+                out = self._replay(key, entry, spec, in_nds, params, dev)
+        return self._monitor(out)
+
+    def _monitor(self, out):
+        for cb in self._monitor_callbacks:
+            cb(self.block, out)
+        return out
 
     def _eager(self, key, spec, in_nds):
         try:
+            if self.remat and _tape.is_recording():
+                return self._checkpointed(spec, in_nds)
             with _Tracing():
                 return self.block.forward(*_unflatten(spec, in_nds))
         except DynamicShapeError:
             return self._go_dynamic(key, spec, in_nds)
+
+    def _checkpointed(self, spec, in_nds):
+        """The forward under ``torch.utils.checkpoint``: its activations
+        are recomputed in the backward, with the same random draws and no
+        second write of the running statistics."""
+        from torch.utils.checkpoint import checkpoint
+        dev = in_nds[0]._data.device if in_nds else None
+        gen = None if dev is None else _rng.generator(dev)
+        state = None if gen is None else gen.get_state()
+        out_spec, runs = [], [0]
+        train = _tape.is_training()
+
+        def run(*raws):
+            again = runs[0] > 0
+            runs[0] += 1
+            # the recomputation runs in the backward: record it, in the
+            # forward's train mode
+            prev = (_tape.set_recording(True), _tape.set_training(train))
+            try:
+                with (_recomputing(gen, state) if again
+                      else contextlib.nullcontext()), _Tracing():
+                    out = self.block.forward(*_unflatten(
+                        spec, [NDArray(r) for r in raws]))
+            finally:
+                _tape.set_recording(prev[0])
+                _tape.set_training(prev[1])
+            outs, spec_out = _flatten(out, inputs=False)
+            out_spec[:] = [spec_out]
+            return tuple(o._data for o in outs)
+
+        raws = checkpoint(run, *[x._data for x in in_nds],
+                          use_reentrant=False, preserve_rng_state=False)
+        return _unflatten(out_spec[0], [NDArray(r) for r in raws])
 
     def _go_dynamic(self, key, spec, in_nds):
         # the reference's CachedOp with is_dynamic (cached_op.h:455): the
@@ -484,6 +599,13 @@ class _CachedGraph:
             'hybridize falls back to eager execution (reference CachedOp '
             'is_dynamic)', stacklevel=4)
         return self.block.forward(*_unflatten(spec, in_nds))
+
+    def _no_nesting(self, dev):
+        if dev.type == 'cuda' and torch.cuda.is_current_stream_capturing():
+            raise MXNetError(
+                f'{type(self.block).__name__}: a hybridized call inside '
+                f'another CUDA graph capture; nested captures are not '
+                f'supported')
 
     def _replay(self, key, entry, spec, in_nds, params, dev):
         leaves = tuple(p._sync() for p in params)
@@ -499,12 +621,7 @@ class _CachedGraph:
         return _unflatten(entry.out_spec, [NDArray(o.clone()) for o in outs])
 
     def _capture(self, key, entry, spec, in_nds, leaves, dev):
-        from .._graphs import StepGraph
-        if torch.cuda.is_current_stream_capturing():
-            raise MXNetError(
-                f'{type(self.block).__name__}: a hybridized call inside '
-                f'another CUDA graph capture; nested captures are not '
-                f'supported')
+        self._no_nesting(dev)
         entry.inputs = tuple(x._data.detach().clone() for x in in_nds)
 
         def body():
@@ -514,18 +631,78 @@ class _CachedGraph:
             outs, entry.out_spec = _flatten(out, inputs=False)
             return [o._data for o in outs]
 
-        graph = StepGraph(body, dev)
+        graph = _graphs.step_graph(body, dev, _rng.graph_generators(dev))
         try:
             graph.capture(keep_warmup=True)
         except DynamicShapeError:
             return self._go_dynamic(key, spec, in_nds)
         warm, graph.warmup_outputs = graph.warmup_outputs, None
-        cur = torch.cuda.current_stream(dev)
-        for t in warm:
-            t.record_stream(cur)
+        if dev.type == 'cuda':
+            cur = torch.cuda.current_stream(dev)
+            for t in warm:
+                t.record_stream(cur)
         entry.graph, entry.leaves = graph, leaves
         self.captures += 1
         return _unflatten(entry.out_spec, [NDArray(t) for t in warm])
+
+    def _recorded(self, key, entry, spec, in_nds, params, dev):
+        """A recorded call: the key's forward and backward graphs,
+        captured at its first call and replayed as one autograd node."""
+        leaves = tuple(p._sync() for p in params)
+        raws = [x._data for x in in_nds]
+        sub = (tuple(r.requires_grad for r in raws),
+               tuple(v.requires_grad for v in leaves))
+        rec = entry.recorded.get(sub)
+        if rec is not None and any(
+                a is not b for a, b in zip(rec.leaves, leaves)):
+            rec = None                  # a parameter's leaf was replaced
+        if rec is None:
+            return self._capture_recorded(key, entry, sub, spec, in_nds,
+                                          leaves, dev)
+        if rec.call.busy():
+            self.eager_calls += 1
+            return self._eager(key, spec, in_nds)
+        outs = rec.call(raws)
+        return _unflatten(rec.out[0], [NDArray(t) for t in outs])
+
+    def _capture_recorded(self, key, entry, sub, spec, in_nds, leaves, dev):
+        self._no_nesting(dev)
+        out = [None]
+
+        params = self._params()[0]
+
+        def fn(tensors, values):
+            # grad mode is off in a remat forward: record nothing there
+            prev = _tape.set_recording(torch.is_grad_enabled())
+            subst = contextlib.nullcontext() if values is None else \
+                substituted({id(p): NDArray(v)
+                             for p, v in zip(params, values)})
+            try:
+                with subst, _Tracing():
+                    res = self.block.forward(*_unflatten(
+                        spec, [NDArray(t) for t in tensors]))
+            finally:
+                _tape.set_recording(prev)
+            outs, out[0] = _flatten(res, inputs=False)
+            return [o._data for o in outs]
+
+        call = _graphs.GraphedCall(fn, leaves, dev,
+                                   _rng.graph_generators(dev),
+                                   remat=self.remat, recompute=_recomputing)
+        before = _generator_state(dev) if self.remat else None
+        try:
+            warm = call.first_call([x._data for x in in_nds])
+        except DynamicShapeError:
+            return self._go_dynamic(key, spec, in_nds)
+        if self.remat and not torch.equal(before, _generator_state(dev)):
+            raise MXNetError(
+                f'{type(self.block).__name__}: hybridize(remat=True) on a '
+                f'block that draws random numbers: a captured backward '
+                f'cannot draw the forward\'s numbers again (ROADMAP A5 '
+                f'rest); hybridize without remat')
+        entry.recorded[sub] = _Recorded(call, leaves, out)
+        self.captures += call.captures
+        return _unflatten(out[0], [NDArray(t) for t in warm])
 
 
 class HybridBlock(Block):
@@ -542,17 +719,19 @@ class HybridBlock(Block):
                   static_alloc=True, static_shape=False, inline_limit=2,
                   forward_bulk_size=None, backward_bulk_size=None,
                   remat=False, check=False, donate_inputs=False, **kwargs):
-        """Reference block.py:1217. ``backend``, ``remat``, ``check`` and
-        ``donate_inputs`` are not ported (ROADMAP A5 rest)."""
-        for flag, what in ((backend, 'backend='), (remat, 'remat=True'),
-                           (check, 'check=True'),
+        """Reference block.py:1217. ``remat=True`` recomputes the forward's
+        activations in the backward instead of keeping them (the
+        reference's backward mirroring, as a per-block switch; see the
+        module docstring). ``backend``, ``check`` and ``donate_inputs``
+        are not ported (ROADMAP A5 rest)."""
+        for flag, what in ((backend, 'backend='), (check, 'check=True'),
                            (donate_inputs, 'donate_inputs=True')):
             if flag:
                 _pending(f'hybridize({what})')
         self._clear_cache()
         self._active = active
         self._cached_graph = _CachedGraph(
-            self, static_alloc=static_alloc) if active else None
+            self, static_alloc=static_alloc, remat=remat) if active else None
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
 
@@ -567,6 +746,99 @@ class HybridBlock(Block):
         self.hybridize(True)
         return self(x, *args)
 
+    def pure_function(self, *args, train=False):
+        """This block's forward as a function of explicit tensors (JAX
+        ``block.py:758-786``), for training loops built outside the
+        Trainer, such as K steps captured as one CUDA graph.
+
+        Returns ``(fn, in_tensors, main_tensors, aux_tensors)``:
+        ``main_tensors`` are copies of the trained parameters (``grad_req``
+        not ``'null'``), ``aux_tensors`` of the rest (BatchNorm's running
+        statistics), in ``collect_params()`` order. ``fn(generator, ins,
+        mains, auxs) -> (outs, new_auxs)`` runs the forward with those
+        tensors in place of the parameters, in train mode if ``train``,
+        drawing random numbers from ``generator`` (a ``torch.Generator``,
+        the counterpart of the JAX ``rng_key``; None for the device's).
+        It writes no parameter: the new running statistics come back as
+        ``new_auxs`` (unchanged without ``train``). Gradients flow to the
+        ``mains`` that require grad (``torch.autograd.grad``)."""
+        if not isinstance(self._cached_graph, _CachedGraph):
+            self.hybridize(True)
+        if not self._first_forward_done:
+            self(*args)             # materialize deferred parameters
+        leaves, spec = _flatten(args, inputs=True)
+        in_tensors = tuple(x._data if isinstance(x, NDArray)
+                           else array(x)._data for x in leaves)
+        params = self._cached_graph._params()[0]
+        main = [p for p in params if p.grad_req != 'null']
+        aux = [p for p in params if p.grad_req == 'null']
+
+        def fn(generator, ins, mains, auxs):
+            values = {id(p): NDArray(t) for p, t in
+                      zip(main + aux, list(mains) + list(auxs))}
+            prev_writes = getattr(_BLOCK_TRACE, 'aux_writes', None)
+            _BLOCK_TRACE.aux_writes = writes = {}
+            prev_rec = _tape.set_recording(True)
+            prev_train = _tape.set_training(train)
+            try:
+                with substituted(values), (
+                        _rng.drawing_from(generator) if generator is not None
+                        else contextlib.nullcontext()), _Tracing():
+                    out = self.forward(*_unflatten(
+                        spec, [NDArray(t) for t in ins]))
+            finally:
+                _BLOCK_TRACE.aux_writes = prev_writes
+                _tape.set_recording(prev_rec)
+                _tape.set_training(prev_train)
+            outs, _ = _flatten(out, inputs=False)
+            return (tuple(o._data for o in outs),
+                    tuple(writes.get(id(p), t) for p, t in zip(aux, auxs)))
+
+        def copy(p):
+            return p.data()._data.detach().clone()
+
+        return (fn, in_tensors, tuple(copy(p) for p in main),
+                tuple(copy(p) for p in aux))
+
+    def prewarm(self, input_specs, dtype='float32'):
+        """Build the keys of declared input shapes before they see traffic
+        (JAX ``block.py:794-829``): one call that is not recorded for each
+        entry of ``input_specs`` (a shape for a one-input block, a
+        ``(shape, dtype)`` pair, or a tuple of shapes), on zeros of the
+        current context, whose output is dropped. On a card each new key
+        is captured. Returns the number of new keys."""
+        before = self.compile_count
+        for spec in input_specs:
+            d = dtype
+            if (isinstance(spec, tuple) and len(spec) == 2
+                    and isinstance(spec[0], tuple)
+                    and isinstance(spec[1], str)):
+                spec, d = spec
+            if isinstance(spec, tuple) and spec \
+                    and isinstance(spec[0], tuple):
+                shapes = spec
+            else:
+                shapes = (tuple(spec),)
+            args = [array(_np.zeros(s, dtype=_np.dtype(d))) for s in shapes]
+            prev = _tape.set_recording(False)
+            try:
+                first = not self._first_forward_done
+                self(*args)
+                if first:
+                    # the first call runs eagerly and builds no key: call
+                    # again so that this shape is warm
+                    self(*args)
+            finally:
+                _tape.set_recording(prev)
+        return self.compile_count - before
+
+    def register_op_hook(self, callback, monitor_all=False):
+        """``callback(block, out)`` after each cached call of this block
+        (reference cached_op.cc:1212 RegisterOpHook; a whole-graph monitor,
+        as in the JAX package). A later ``hybridize()`` drops it."""
+        if self._cached_graph is not None:
+            self._cached_graph._monitor_callbacks.append(callback)
+
     @property
     def compile_count(self):
         own = self._cached_graph.compiles if self._cached_graph else 0
@@ -575,8 +847,15 @@ class HybridBlock(Block):
     @property
     def capture_count(self):
         """CUDA graphs this block's cache captured since its last
-        ``hybridize()`` (0 on the CPU)."""
+        ``hybridize()``: one for each key's calls that are not recorded,
+        two (forward, backward) for its recorded calls (0 on the CPU)."""
         return self._cached_graph.captures if self._cached_graph else 0
+
+    @property
+    def eager_call_count(self):
+        """Recorded calls run eagerly because a replay of their key still
+        waited for its backward (see the module docstring)."""
+        return self._cached_graph.eager_calls if self._cached_graph else 0
 
     def infer_shape(self, *args):
         """Reference block.py:1278: resolve deferred parameter shapes from

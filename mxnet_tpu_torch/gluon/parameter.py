@@ -11,7 +11,11 @@ hands it out as an NDArray that is an autograd variable (``_tape``'s
 machinery): while ``autograd.record()`` records, torch accumulates into
 the leaf and a hook moves the gradient into the parameter's grad buffer
 as ``grad_req`` says. The buffer exists from initialization, as zeros
-(reference ``_init_grad``).
+(reference ``_init_grad``), and is written in place for its life: the
+hook copies or adds into it, ``zero_grad`` and ``set_data`` zero it, and
+a write through its handle (``p.grad()[:] = 0``) is copied back into it
+before it is next read or written (``_tape.sync_grad``). So a Trainer's
+captured update graph reads every new gradient at one address.
 
 The leaf keeps its address for the parameter's life, except where its
 dtype or device changes (``cast``, ``reset_ctx``): a CUDA graph reads a
@@ -24,6 +28,9 @@ copied back into the leaf the next time ``data()`` is read.
 One device: a list of several contexts raises (ROADMAP A10).
 """
 
+import contextlib
+import threading
+
 import numpy as _np
 import torch
 
@@ -34,6 +41,28 @@ from ..context import Context, current_context
 from ..ndarray.ndarray import NDArray
 
 __all__ = ['Parameter', 'Constant', 'DeferredInitializationError']
+
+_SUBST = threading.local()
+
+
+@contextlib.contextmanager
+def substituted(values):
+    """Inside the block, ``data()`` of a parameter ``p`` with ``id(p)`` in
+    ``values`` returns ``values[id(p)]`` (an NDArray) instead of its own
+    value, in this thread: ``HybridBlock.pure_function`` runs the forward
+    on the tensors it is given this way, and writes no parameter."""
+    prev = getattr(_SUBST, 'values', None)
+    _SUBST.values = values
+    try:
+        yield
+    finally:
+        _SUBST.values = prev
+
+
+def substitute(param):
+    """The value :func:`substituted` gives ``param`` here, or None."""
+    values = getattr(_SUBST, 'values', None)
+    return None if values is None else values.get(id(param))
 
 
 class DeferredInitializationError(MXNetError):
@@ -174,6 +203,12 @@ class Parameter:
         if not self._shape_known():
             raise DeferredInitializationError(
                 f'Parameter {self.name} has unknown shape {self._shape}')
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise MXNetError(
+                f'Parameter {self.name}: deferred initialization inside a '
+                f'CUDA graph capture; run the block once before it is '
+                f'captured (its first call after hybridize() does)')
         init, ctx, default_init = self._deferred_init
         self._finish_init(init, ctx, default_init)
 
@@ -193,16 +228,30 @@ class Parameter:
 
     def _init_grad(self):
         """A zero grad buffer and the variable's marking, or neither for
-        ``grad_req='null'`` (reference parameter.py:151 ``_init_grad``)."""
-        self._info.grad_req = self._grad_req
+        ``grad_req='null'`` (reference parameter.py:151 ``_init_grad``). A
+        buffer that fits the leaf is zeroed in place, so that it keeps its
+        address."""
+        info = self._info
+        info.grad_req = self._grad_req
         if self._grad_req == 'null':
             self._var.requires_grad_(False)
-            self._info.grad = None
+            info.grad = info.buf = None
             self._data._ag = None
             return
         self._var.requires_grad_(True)
-        self._info.grad = NDArray(torch.zeros_like(self._var).detach())
-        self._data._ag = self._info
+        buf = info.buf
+        if buf is not None and buf.shape == self._var.shape and \
+                buf.dtype == self._var.dtype and \
+                buf.device == self._var.device:
+            with torch.no_grad():
+                buf.zero_()
+            if info.grad is None:
+                info.grad = NDArray(buf)
+            info.grad._data = buf
+        else:
+            info.grad = NDArray(torch.zeros_like(self._var).detach())
+            info.buf = info.grad._data
+        self._data._ag = info
 
     # ------------------------------------------------------------------ access
     def _check_initialized(self):
@@ -231,6 +280,9 @@ class Parameter:
     def data(self, ctx=None):
         """The value as an NDArray that is an autograd variable (reference
         parameter.py:567)."""
+        sub = substitute(self)
+        if sub is not None:
+            return sub
         self._check_initialized()
         if ctx is not None and ctx != self._data.context:
             raise RuntimeError(
@@ -287,10 +339,17 @@ class Parameter:
             self._init_grad()
 
     def zero_grad(self):
+        """Zero the grad buffer in place."""
         if self._info is None or self._info.grad is None:
             return
-        g = self._info.grad
-        g._rebind(torch.zeros_like(g._data))
+        self._info.grad._data = self._info.buf
+        with torch.no_grad():
+            self._info.buf.zero_()
+
+    def _grad_buffer(self):
+        """The grad buffer, after taking back a value written through its
+        handle; None for ``grad_req='null'``."""
+        return _tape.sync_grad(self._info)
 
     def reset_ctx(self, ctx):
         """Move the value to ``ctx``: a new leaf there (a block's captured

@@ -4,13 +4,32 @@ Gluon :class:`.Parameter`s (``net.collect_params()``) or
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py`` (``__init__``,
 ``learning_rate``, ``set_learning_rate``, ``step``, ``allreduce_grads``,
-``update`` and the dense branch of ``_update``). ``step(batch_size)``
-rescales the gradients by ``1 / batch_size`` (``rescale_grad``) and runs
-the optimizer once per parameter; Adam and SGD with momentum each launch
-their fused kernel once per parameter. On one device there is nothing to
-reduce, so the kvstore may only be ``'device'`` or ``None``; the
-distributed kvstores, gradient compression, row-sparse gradients,
-``save_states``/``load_states`` and AMP are not ported yet.
+``update``, the dense branch of ``_update`` with its fused update, and
+``state_dict``/``load_state_dict``/``save_states``/``load_states``).
+``step(batch_size)`` rescales the gradients by ``1 / batch_size``
+(``rescale_grad``) and runs the optimizer once per parameter; Adam and SGD
+with momentum each launch their fused kernel once per parameter. On one
+device there is nothing to reduce, so the kvstore may only be
+``'device'`` or ``None``; the distributed kvstores, gradient compression,
+row-sparse gradients and AMP are not ported yet.
+
+The JAX Trainer runs every parameter's update as one jitted call whose
+hyperparameters are device vectors, uploaded only when they change
+(``trainer.py:412-415``, :497-533). Here the step's ``lr``, ``wd`` and
+update counts ``t`` live in static device buffers (one set for each set
+of live parameters): ``lr`` and ``wd`` are uploaded when their values
+change, and a uniform advance of ``t`` is one device add; the optimizer
+computes its bias corrections from ``t`` on the card
+(``Optimizer.fill_hyper``), and every kernel reads its row. On a card the
+updates of all live Gluon parameters are one CUDA graph
+(``_graphs.StepGraph``) for each key: the JAX key (the optimizer,
+``rescale_grad``, ``clip_gradient``, shapes and dtypes) and the addresses
+of the weights, grad buffers and slots, which all keep theirs. A key's
+first step is the capture's warm-up and the real update, and its later
+steps replay; ``capture_count`` counts captures. A value written through
+a handle (``p.data()[:] = v``, ``p.grad()[:] = 0``) is copied back into
+the captured buffer before each step, and :meth:`load_states` writes the
+slots and counts in place.
 
 A Gluon parameter is updated as the JAX Trainer updates it
 (``mxnet_tpu/gluon/trainer.py:241-243``): every one whose ``grad_req`` is
@@ -25,16 +44,24 @@ PyTorch's ``backward`` accumulates. So :meth:`Trainer.step` (and
 :meth:`Trainer.update`) set the ``.grad`` of every such parameter it
 updated to ``None`` after the update: the next backward writes a fresh
 gradient, as MXNet's ``grad_req='write'`` does, and one without a
-gradient since the last step raises unless ``ignore_stale_grad``.
+gradient since the last step raises unless ``ignore_stale_grad``. Since
+PyTorch gives such a parameter a new ``.grad`` on every backward, a graph
+could not read it at one address: these parameters (the ``torch.nn``
+Llama's) keep one launch each from Python, reading the same device
+vectors.
 """
 
+import copy
+import pickle
 import re
 
 import numpy as np
 import torch
 
+from .. import _graphs
 from ..base import MXNetError
 from .. import optimizer as opt
+from ..ops.kernels.fused_optimizer import hyper_vector
 from .parameter import Parameter
 
 __all__ = ['Trainer']
@@ -95,6 +122,8 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._states = {}
+        self._vectors = {}      # live indices -> _Vectors
+        self._graphs = {}       # key -> StepGraph of the Gluon updates
 
     # ------------------------------------------------------------ properties
     @property
@@ -104,6 +133,11 @@ class Trainer:
     @property
     def optimizer(self):
         return self._optimizer
+
+    @property
+    def capture_count(self):
+        """Update graphs captured (one a key; 0 on the CPU)."""
+        return sum(g.captures for g in self._graphs.values())
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
@@ -126,12 +160,12 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
-        live = []
+        live = []           # (index, weight, grad, torch.nn leaf or None)
         for i, param in enumerate(self._params):
             if isinstance(param, Parameter):
                 if param.grad_req != 'null' and param._var is not None:
                     live.append((i, param._sync().detach(),
-                                 param.grad()._data, None))
+                                 param._grad_buffer(), None))
                 continue
             if not param.requires_grad:          # grad_req='null'
                 continue
@@ -144,14 +178,118 @@ class Trainer:
                     f'by backward since the last step; call step with '
                     f'ignore_stale_grad=True to skip it')
             live.append((i, param.detach(), param.grad, param))
-        for i, weight, grad, leaf in live:
+        if not live:
+            return
+        optim = self._optimizer
+        for i, weight, _, _ in live:
             if i not in self._states:
                 self._states[i] = \
-                    self._optimizer.create_state_multi_precision(i, weight)
-            self._optimizer.update_multi_precision(i, weight, grad,
-                                                   self._states[i])
-            if leaf is not None:
-                leaf.grad = None                 # grad_req='write'
+                    optim.create_state_multi_precision(i, weight)
+        indices = tuple(i for i, _, _, _ in live)
+        device = live[0][1].device
+        vec = self._vectors.get(indices)
+        if vec is None:
+            vec = self._vectors[indices] = _Vectors(len(live), device)
+        vec.upload(*optim.step_values(indices))
+        rows = list(enumerate(live))
+        graphed = [(j, e) for j, e in rows
+                   if e[3] is None and _graphs.can_capture(device)]
+        eager = [(j, e) for j, e in rows
+                 if e[3] is not None or not _graphs.can_capture(device)]
+        if graphed:
+            self._graphed_update(vec, graphed, device)
+        else:
+            optim.fill_hyper(vec.hyper, vec.ts)
+        with torch.no_grad():
+            for j, (i, weight, grad, leaf) in eager:
+                optim.step(weight, grad, self._states[i], vec.hyper[j])
+                if leaf is not None:
+                    leaf.grad = None             # grad_req='write'
+
+    def _graphed_update(self, vec, graphed, device):
+        """The Gluon parameters' updates as one graph a key (see the module
+        docstring): a key's first step captures, later ones replay."""
+        optim = self._optimizer
+        slots = [_flat_state(self._states[e[0]]) for _, e in graphed]
+        key = (id(optim), optim.rescale_grad, optim.clip_gradient,
+               tuple((tuple(e[1].shape), str(e[1].dtype))
+                     for _, e in graphed),
+               tuple((e[1].data_ptr(), e[2].data_ptr()) for _, e in graphed),
+               tuple(t.data_ptr() for s in slots for t in s),
+               vec.hyper.data_ptr())
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            return
+        work = [(j, e[1], e[2], self._states[e[0]]) for j, e in graphed]
+
+        def body():
+            optim.fill_hyper(vec.hyper, vec.ts)
+            with torch.no_grad():
+                for j, weight, grad, state in work:
+                    optim.step(weight, grad, state, vec.hyper[j])
+
+        graph = self._graphs[key] = _graphs.step_graph(body, device)
+        graph.capture()
+
+    # ---------------------------------------------------------- save / load
+    def state_dict(self):
+        """The trainer's state as host data, in the JAX package's format
+        (``trainer.py:564-591``): the slots by parameter index (numpy, or
+        tuples of numpy), the global and per-index update counts, and the
+        learning-rate scheduler's attributes."""
+        optim = self._optimizer
+        sd = {'states': {i: _state_to_host(st)
+                         for i, st in self._states.items()},
+              'num_update': int(optim.num_update),
+              'index_update_count': {
+                  int(i): int(c)
+                  for i, c in optim._index_update_count.items()}}
+        sch = getattr(optim, 'lr_scheduler', None)
+        if sch is not None:
+            sd['lr_scheduler'] = copy.deepcopy(sch.__dict__)
+        return sd
+
+    def load_state_dict(self, sd):
+        """Restore :meth:`state_dict`'s data (from either package): the
+        next step is the uninterrupted trainer's. Slots that exist are
+        written in place, so that a captured update reads them; the device
+        vectors are uploaded anew at the next step."""
+        states = {}
+        for i, st in sd['states'].items():
+            i = int(i)
+            states[i] = _state_into(st, self._states.get(i),
+                                    _device(self._params[i]))
+        self._states = states
+        optim = self._optimizer
+        optim.num_update = int(sd['num_update'])
+        optim._index_update_count = {
+            int(i): int(c)
+            for i, c in sd.get('index_update_count', {}).items()}
+        sch = getattr(optim, 'lr_scheduler', None)
+        if sch is not None and 'lr_scheduler' in sd:
+            sch.__dict__.update(sd['lr_scheduler'])
+        for vec in self._vectors.values():
+            vec.forget()
+
+    def save_states(self, fname):
+        """Reference trainer.py:482, as the JAX package pickles it
+        (version 2)."""
+        with open(fname, 'wb') as f:
+            pickle.dump({'version': 2, **self.state_dict()}, f)
+
+    def load_states(self, fname):
+        """Reference trainer.py:511: a file :meth:`save_states` of either
+        package wrote, or the legacy ``(states, num_update)`` pickle."""
+        with open(fname, 'rb') as f:
+            payload = pickle.load(f)
+        if isinstance(payload, dict):
+            self.load_state_dict(payload)
+            return
+        states, num_update = payload
+        self.load_state_dict({'states': states, 'num_update': num_update,
+                              'index_update_count': dict(
+                                  self._optimizer._index_update_count)})
 
     # ---------------------------------------------------------- carry over
     def load_jax_state(self, states, counts):
@@ -181,6 +319,8 @@ class Trainer:
             optim._index_update_count[index[name]] = int(t)
         optim.num_update = max([optim.num_update,
                                 *optim._index_update_count.values()])
+        for vec in self._vectors.values():
+            vec.forget()
 
 
 def _device(param):
@@ -189,6 +329,77 @@ def _device(param):
     if isinstance(param, Parameter):
         return None if param._var is None else param._var.device
     return param.device
+
+
+class _Vectors:
+    """The device vectors of one set of live indices: ``hyper`` (``n x
+    4``: ``lr``, ``wd``, ``bc1``, ``bc2``; the kernels read its rows) and
+    the update counts ``ts``, with the host values last uploaded."""
+
+    def __init__(self, n, device):
+        self.hyper = torch.ones(n, 4, dtype=torch.float32, device=device)
+        self.ts = torch.zeros(n, dtype=torch.float32, device=device)
+        self.forget()
+
+    def forget(self):
+        self.lr_wd = self.t_vals = None
+
+    def upload(self, lrs, wds, ts):
+        """Bring the buffers to this step's values: ``lr`` and ``wd`` only
+        when they changed, ``t`` by one device add when every count
+        advanced by one (the JAX Trainer's ``_hyper_cache`` and
+        ``_t_cache``). Uploads go through pinned memory, without waiting
+        for the card."""
+        if (lrs, wds) != self.lr_wd:
+            _upload(self.hyper[:, :2], list(zip(lrs, wds)))
+            self.lr_wd = (lrs, wds)
+        if ts != self.t_vals:
+            if self.t_vals is not None and all(
+                    a == b + 1 for a, b in zip(ts, self.t_vals)):
+                self.ts.add_(1.0)
+            else:
+                _upload(self.ts, ts)
+            self.t_vals = ts
+
+
+def _upload(dst, values):
+    dst.copy_(hyper_vector(values, dst.device))
+
+
+def _flat_state(state):
+    if state is None:
+        return []
+    if torch.is_tensor(state):
+        return [state]
+    return [t for t in state if torch.is_tensor(t)]
+
+
+def _state_to_host(state):
+    if state is None:
+        return None
+    if torch.is_tensor(state):
+        return state.detach().cpu().numpy()
+    if isinstance(state, (list, tuple)):
+        return tuple(_state_to_host(s) for s in state)
+    return state
+
+
+def _state_into(host, old, device):
+    """``host`` (numpy, a tuple of them, or None) as a state on
+    ``device``, written into the tensors of ``old`` where they fit."""
+    if host is None:
+        return None
+    if isinstance(host, (list, tuple)):
+        olds = old if isinstance(old, (list, tuple)) and \
+            len(old) == len(host) else [None] * len(host)
+        return tuple(_state_into(h, o, device) for h, o in zip(host, olds))
+    src = torch.from_numpy(np.ascontiguousarray(np.asarray(host)))
+    if torch.is_tensor(old) and old.shape == src.shape and \
+            old.dtype == src.dtype:
+        with torch.no_grad():
+            old.copy_(src)
+        return old
+    return src.to(device)
 
 
 def _state_to_torch(name, state, param):

@@ -8,9 +8,12 @@ takes the plain version; a CUDA tensor launches the kernel, or raises on a
 dtype, shape or layout the kernel does not take. There is no size gate:
 the kernel masks its own tail.
 
-The step-varying scalars (``lr``, ``wd`` and Adam's bias corrections
-``bc1``, ``bc2``) are plain arguments, where the TPU kernel reads them from
-a device vector so that XLA need not recompile.
+The step-varying hyperparameters come in a small fp32 tensor on the
+weight's device, as the TPU kernels take them: ``(lr, wd, bc1, bc2)`` for
+Adam (``bc1``, ``bc2`` its bias corrections ``1 - beta**t``) and ``(lr,
+wd)`` for SGD-momentum. The kernels read it when they run, so an update
+captured in a CUDA graph takes a new learning rate or update count from
+the vector on every replay; the plain versions read the same vector.
 """
 
 import ctypes
@@ -21,12 +24,22 @@ from ...base import MXNetError
 from . import _build
 
 __all__ = ['adam_step', 'adam_step_plain', 'sgd_mom_step',
-           'sgd_mom_step_plain']
+           'sgd_mom_step_plain', 'hyper_vector']
 
-_ADAM_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + \
-    [ctypes.c_float] * 11 + [ctypes.c_int, ctypes.c_void_p]
-_SGD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
-    [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p]
+_ADAM_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p] + \
+    [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p]
+_SGD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p] + \
+    [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def hyper_vector(values, device):
+    """``values`` (a list, or a list of rows) as a float32 tensor on
+    ``device``; to a card through pinned memory, so that the host does not
+    wait for the kernels queued before the copy."""
+    src = torch.tensor(values, dtype=torch.float32)
+    if torch.device(device).type != 'cuda':
+        return src.to(device)
+    return src.pin_memory().to(device, non_blocking=True)
 
 
 def _prep_grad(g, w, wd, rescale_grad, clip_gradient):
@@ -38,34 +51,46 @@ def _prep_grad(g, w, wd, rescale_grad, clip_gradient):
 
 
 @torch.no_grad()
-def adam_step_plain(w, g, m, v, lr, wd, bc1, bc2, *, beta1, beta2, epsilon,
+def adam_step_plain(w, g, m, v, hyper, *, beta1, beta2, epsilon,
                     rescale_grad=1.0, clip_gradient=None):
     """The Adam kernel's function in plain PyTorch (``_adam_kernel`` of
-    the reference), in place on ``w``, ``m``, ``v``. The bias corrections
-    divide as 0-dim tensors: PyTorch on CUDA turns a division by a Python
-    number into a product with its reciprocal, 1 ulp off the division
-    that the reference and the kernel take."""
+    the reference), in place on ``w``, ``m``, ``v``; ``hyper`` holds
+    ``(lr, wd, bc1, bc2)``. Its entries act as 0-dim tensors, as the
+    reference's traced scalars do (the bias corrections divide: PyTorch
+    on CUDA would turn a division by a Python number into a product with
+    its reciprocal, 1 ulp off the division that the kernel takes)."""
+    lr, wd, bc1, bc2 = hyper[0], hyper[1], hyper[2], hyper[3]
     g = _prep_grad(g, w, wd, rescale_grad, clip_gradient)
     m.copy_(beta1 * m + (1 - beta1) * g)
     v.copy_(beta2 * v + (1 - beta2) * g * g)
-    mhat, vhat = m / m.new_full((), bc1), v / v.new_full((), bc2)
+    mhat, vhat = m / bc1, v / bc2
     w.copy_(w - lr * mhat / (torch.sqrt(vhat) + epsilon))
     return w, m, v
 
 
 @torch.no_grad()
-def sgd_mom_step_plain(w, g, mom, lr, wd, *, momentum, rescale_grad=1.0,
+def sgd_mom_step_plain(w, g, mom, hyper, *, momentum, rescale_grad=1.0,
                        clip_gradient=None):
     """The SGD-momentum kernel's function in plain PyTorch
-    (``_sgd_mom_kernel`` of the reference), in place on ``w``, ``mom``."""
+    (``_sgd_mom_kernel`` of the reference), in place on ``w``, ``mom``;
+    ``hyper`` holds ``(lr, wd)``."""
+    lr, wd = hyper[0], hyper[1]
     g = _prep_grad(g, w, wd, rescale_grad, clip_gradient)
     mom.copy_(momentum * mom - lr * g)
     w.add_(mom)
     return w, mom
 
 
-def _check(what, tensors):
+def _check(what, tensors, hyper, n_hyper):
     """Raise on what neither version takes; True when the kernel runs."""
+    if not (torch.is_tensor(hyper) and hyper.dtype == torch.float32
+            and hyper.is_contiguous() and hyper.numel() >= n_hyper
+            and hyper.device == tensors[0].device):
+        got = (f'{hyper.dtype}, {tuple(hyper.shape)} on {hyper.device}'
+               if torch.is_tensor(hyper) else repr(hyper))
+        raise MXNetError(f'{what}: the hyperparameters must be a contiguous '
+                         f'float32 tensor of {n_hyper} values on '
+                         f'{tensors[0].device}, got {got}')
     shape = tensors[0].shape
     if any(t.shape != shape for t in tensors):
         raise MXNetError(f'{what}: shapes differ: '
@@ -92,13 +117,15 @@ def _clip(clip_gradient):
     return (0.0, 0) if clip_gradient is None else (float(clip_gradient), 1)
 
 
-def adam_step(w, g, m, v, lr, wd, bc1, bc2, *, beta1, beta2, epsilon,
+def adam_step(w, g, m, v, hyper, *, beta1, beta2, epsilon,
               rescale_grad=1.0, clip_gradient=None):
     """One Adam update of ``w`` and its moments ``m``, ``v`` from ``g``, in
-    place; returns ``(w, m, v)``. ``bc1``/``bc2`` are the bias corrections
-    ``1 - beta**t`` (1 for none). fp32 and contiguous on the card."""
-    if not _check('adam_step', (w, g, m, v)):
-        return adam_step_plain(w, g, m, v, lr, wd, bc1, bc2, beta1=beta1,
+    place; returns ``(w, m, v)``. ``hyper`` is a float32 tensor on their
+    device holding ``(lr, wd, bc1, bc2)``, ``bc1``/``bc2`` the bias
+    corrections ``1 - beta**t`` (1 for none). fp32 and contiguous on the
+    card."""
+    if not _check('adam_step', (w, g, m, v), hyper, 4):
+        return adam_step_plain(w, g, m, v, hyper, beta1=beta1,
                                beta2=beta2, epsilon=epsilon,
                                rescale_grad=rescale_grad,
                                clip_gradient=clip_gradient)
@@ -107,7 +134,7 @@ def adam_step(w, g, m, v, lr, wd, bc1, bc2, *, beta1, beta2, epsilon,
     fn = _build.function('fused_optimizer', 'adam_step_f32', _ADAM_ARGS)
     with _build.on_device(w.device):
         rc = fn(w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                w.numel(), lr, wd, bc1, bc2, beta1, 1.0 - beta1, beta2,
+                w.numel(), hyper.data_ptr(), beta1, 1.0 - beta1, beta2,
                 1.0 - beta2, epsilon, rescale_grad, *_clip(clip_gradient),
                 torch.cuda.current_stream(w.device).cuda_stream)
     _build.check('fused_optimizer', rc, 'adam_step')
@@ -118,20 +145,22 @@ def adam_step(w, g, m, v, lr, wd, bc1, bc2, *, beta1, beta2, epsilon,
 adam_step.launches = 0
 
 
-def sgd_mom_step(w, g, mom, lr, wd, *, momentum, rescale_grad=1.0,
+def sgd_mom_step(w, g, mom, hyper, *, momentum, rescale_grad=1.0,
                  clip_gradient=None):
     """One SGD-with-momentum update of ``w`` and ``mom`` from ``g``, in
-    place; returns ``(w, mom)``. fp32 and contiguous on the card."""
-    if not _check('sgd_mom_step', (w, g, mom)):
-        return sgd_mom_step_plain(w, g, mom, lr, wd, momentum=momentum,
+    place; returns ``(w, mom)``. ``hyper`` is a float32 tensor on their
+    device holding ``(lr, wd)``. fp32 and contiguous on the card."""
+    if not _check('sgd_mom_step', (w, g, mom), hyper, 2):
+        return sgd_mom_step_plain(w, g, mom, hyper, momentum=momentum,
                                   rescale_grad=rescale_grad,
                                   clip_gradient=clip_gradient)
     if w.numel() == 0:
         return w, mom
     fn = _build.function('fused_optimizer', 'sgd_mom_step_f32', _SGD_ARGS)
     with _build.on_device(w.device):
-        rc = fn(w.data_ptr(), g.data_ptr(), mom.data_ptr(), w.numel(), lr,
-                wd, momentum, rescale_grad, *_clip(clip_gradient),
+        rc = fn(w.data_ptr(), g.data_ptr(), mom.data_ptr(), w.numel(),
+                hyper.data_ptr(), momentum, rescale_grad,
+                *_clip(clip_gradient),
                 torch.cuda.current_stream(w.device).cuda_stream)
     _build.check('fused_optimizer', rc, 'sgd_mom_step')
     sgd_mom_step.launches += 1

@@ -6,8 +6,18 @@ hyperparameters, multipliers, update counts and arithmetic. Updates are IN
 PLACE: :meth:`Optimizer.update` writes the new weight and the new state
 into the tensors it is given, where the reference rebinds its NDArrays to
 new arrays. SGD with momentum and Adam go through the fused kernels
-(:mod:`..ops.optimizer_ops`); plain SGD (``momentum=0``) is plain PyTorch,
-as the reference leaves it to XLA.
+(:mod:`..ops.kernels.fused_optimizer`); plain SGD (``momentum=0``) is
+plain PyTorch, as the reference leaves it to XLA.
+
+A step's hyperparameters reach :meth:`Optimizer.step` as a row of a
+float32 tensor on the weights' device, ``(lr, wd, bc1, bc2)``, as the JAX
+Trainer's fused update takes ``lr``, ``wd`` and ``t`` as device vectors
+(``mxnet_tpu/gluon/trainer.py:511-533``): :meth:`Optimizer.step_values`
+advances the update counts and gives ``lr``, ``wd`` and ``t`` of each
+live index, and :meth:`Optimizer.fill_hyper` computes the rest on the
+device from the counts (Adam's bias corrections ``1 - beta**t`` in fp32,
+as the reference's traced ``t`` gives them). So an update captured in a
+CUDA graph reads a new learning rate or count on every replay.
 
 Not ported yet: the other optimizers (AdamW, NAG, LAMB, ...), row-sparse
 (lazy) updates, and the multi-precision path.
@@ -16,9 +26,10 @@ Not ported yet: the other optimizers (AdamW, NAG, LAMB, ...), row-sparse
 import torch
 
 from ..base import MXNetError
-from ..ops.optimizer_ops import fused_adam_step, fused_sgd_mom_step
+from ..ops.kernels.fused_optimizer import adam_step, hyper_vector, \
+    sgd_mom_step
 
-__all__ = ['Optimizer', 'SGD', 'Adam', 'register', 'create']
+__all__ = ['Optimizer', 'SGD', 'Adam', 'register', 'create', 'hyper_tensor']
 
 
 class Optimizer:
@@ -123,28 +134,42 @@ class Optimizer:
             g = g.clamp(-self.clip_gradient, self.clip_gradient)
         return g
 
+    # --------------------------------------------------------- device vectors
+    def step_values(self, indices):
+        """Advance the update count of every index in ``indices`` and give
+        each one's ``(lrs, wds, ts)``, as the JAX Trainer assembles
+        ``lr_vals``, ``wd_vals`` and ``t_vals`` (with ``lr_mult``,
+        ``wd_mult`` and the ``lr_scheduler`` at the new count)."""
+        for i in indices:
+            self._update_count(i)
+        return (tuple(self._get_lr(i) for i in indices),
+                tuple(self._get_wd(i) for i in indices),
+                tuple(self._index_update_count[i] for i in indices))
+
+    def fill_hyper(self, hyper, ts):
+        """Write the columns of ``hyper`` (``n x 4`` float32: ``lr``,
+        ``wd``, ``bc1``, ``bc2``) that depend on the update counts ``ts``
+        (float32, ``n``), on their device: here none, so the bias
+        corrections stay 1."""
+        hyper[:, 2:].fill_(1.0)
+
     # ---------------------------------------------------------------- updates
     def update(self, index, weight, grad, state):
         """In-place update of ``weight`` and ``state`` from ``grad``.
         Accepts single values or lists (reference optimizer.py:295)."""
-        if isinstance(weight, (list, tuple)):
-            for i, w, g, s in zip(index, weight, grad, state):
-                self._update_one(i, w, g, s)
-        else:
-            self._update_one(index, weight, grad, state)
+        if not isinstance(weight, (list, tuple)):
+            index, weight, grad, state = [index], [weight], [grad], [state]
+        lrs, wds, ts = self.step_values(index)
+        hyper = hyper_tensor(self, lrs, wds, ts, weight[0].device)
+        with torch.no_grad():
+            for j, (w, g, s) in enumerate(zip(weight, grad, state)):
+                self.step(w, g, s, hyper[j])
 
     update_multi_precision = update
 
-    def _update_one(self, index, weight, grad, state):
-        self._update_count(index)
-        lr = self._get_lr(index)
-        wd = self._get_wd(index)
-        t = self._index_update_count[index]
-        with torch.no_grad():
-            self.step(weight, grad, state, lr, wd, t)
-
-    def step(self, w, g, state, lr, wd, t):
-        """Update ``w`` and ``state`` in place (no return value)."""
+    def step(self, w, g, state, hyper):
+        """Update ``w`` and ``state`` in place from ``g`` (no return
+        value); ``hyper`` is this index's row ``(lr, wd, bc1, bc2)``."""
         raise NotImplementedError
 
     def __repr__(self):
@@ -153,6 +178,15 @@ class Optimizer:
 
 register = Optimizer.register
 create = Optimizer.create_optimizer
+
+
+def hyper_tensor(optimizer, lrs, wds, ts, device):
+    """The ``n x 4`` float32 hyperparameters ``(lr, wd, bc1, bc2)`` of one
+    step on ``device``, from :meth:`Optimizer.step_values`."""
+    hyper = hyper_vector([[lr, wd, 1.0, 1.0] for lr, wd in zip(lrs, wds)],
+                         device)
+    optimizer.fill_hyper(hyper, hyper_vector(ts, device))
+    return hyper
 
 
 def _zeros_like(weight):
@@ -176,14 +210,14 @@ class SGD(Optimizer):
             return _zeros_like(weight)
         return None
 
-    def step(self, w, g, state, lr, wd, t):
+    def step(self, w, g, state, hyper):
         if self.momentum == 0.0:
-            g = self._prep(g) + wd * w
-            w.sub_(lr * g)
+            g = self._prep(g) + hyper[1] * w
+            w.sub_(hyper[0] * g)
             return
-        fused_sgd_mom_step(w, g, state, lr=lr, wd=wd, momentum=self.momentum,
-                           rescale_grad=self.rescale_grad,
-                           clip_gradient=self.clip_gradient)
+        sgd_mom_step(w, g, state, hyper, momentum=self.momentum,
+                     rescale_grad=self.rescale_grad,
+                     clip_gradient=self.clip_gradient)
 
 
 @register
@@ -205,10 +239,18 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (_zeros_like(weight), _zeros_like(weight))
 
-    def step(self, w, g, state, lr, wd, t):
-        fused_adam_step(w, g, state[0], state[1], lr=lr, wd=wd, t=t,
-                        beta1=self.beta1, beta2=self.beta2,
-                        epsilon=self.epsilon,
-                        rescale_grad=self.rescale_grad,
-                        clip_gradient=self.clip_gradient,
-                        correct_bias=self.correct_bias)
+    def fill_hyper(self, hyper, ts):
+        """Adam's bias corrections ``1 - beta**t`` from the counts ``ts``,
+        in fp32 on their device, as the JAX Trainer computes them from
+        its traced ``t`` (``1.0 - beta1 ** t``: an fp32 power)."""
+        if not self.correct_bias:
+            return super().fill_hyper(hyper, ts)
+        for col, beta in ((2, self.beta1), (3, self.beta2)):
+            hyper[:, col].copy_(1.0 - torch.pow(torch.full_like(ts, beta),
+                                                ts))
+
+    def step(self, w, g, state, hyper):
+        adam_step(w, g, state[0], state[1], hyper, beta1=self.beta1,
+                  beta2=self.beta2, epsilon=self.epsilon,
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=self.clip_gradient)

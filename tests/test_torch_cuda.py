@@ -296,18 +296,18 @@ def test_optimizer_kernels_match_plain(dev, n, offset, t):
     unaligned buffers, with rescale, clip and weight decay, in place."""
     hyper = dict(rescale_grad=0.5, clip_gradient=1.0)
     w, g, m, v = _slots(dev, n, offset, 2)
-    bc = (1 - 0.9 ** t, 1 - 0.999 ** t)
+    vec = torch.tensor([1e-3, 0.01, 1 - 0.9 ** t, 1 - 0.999 ** t],
+                       device=dev)
     kin = [_clone_at(x, offset) for x in (w, m, v)]
     pin = [x.clone() for x in (w, m, v)]
     ptrs = [x.data_ptr() for x in kin]
     launches = fused_optimizer.adam_step.launches
-    got = fused_optimizer.adam_step(kin[0], g, kin[1], kin[2], 1e-3, 0.01,
-                                    *bc, beta1=0.9, beta2=0.999,
+    got = fused_optimizer.adam_step(kin[0], g, kin[1], kin[2], vec,
+                                    beta1=0.9, beta2=0.999,
                                     epsilon=1e-8, **hyper)
-    want = fused_optimizer.adam_step_plain(pin[0], g, pin[1], pin[2], 1e-3,
-                                           0.01, *bc, beta1=0.9,
-                                           beta2=0.999, epsilon=1e-8,
-                                           **hyper)
+    want = fused_optimizer.adam_step_plain(pin[0], g, pin[1], pin[2], vec,
+                                           beta1=0.9, beta2=0.999,
+                                           epsilon=1e-8, **hyper)
     torch.cuda.synchronize()
     assert fused_optimizer.adam_step.launches == launches + 1
     assert [x.data_ptr() for x in got] == ptrs
@@ -316,9 +316,10 @@ def test_optimizer_kernels_match_plain(dev, n, offset, t):
     w, g, mom = _slots(dev, n, offset, 1)
     kin = [_clone_at(w, offset), _clone_at(mom, offset)]
     pin = [w.clone(), mom.clone()]
-    got = fused_optimizer.sgd_mom_step(kin[0], g, kin[1], 0.1, 0.01,
+    vec = torch.tensor([0.1, 0.01], device=dev)
+    got = fused_optimizer.sgd_mom_step(kin[0], g, kin[1], vec,
                                        momentum=0.9, **hyper)
-    want = fused_optimizer.sgd_mom_step_plain(pin[0], g, pin[1], 0.1, 0.01,
+    want = fused_optimizer.sgd_mom_step_plain(pin[0], g, pin[1], vec,
                                               momentum=0.9, **hyper)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
@@ -327,17 +328,21 @@ def test_optimizer_kernels_match_plain(dev, n, offset, t):
 
 def test_optimizer_kernels_refuse_what_they_do_not_take(dev):
     w = torch.zeros(4, 8, device=dev)
+    vec = torch.tensor([0.1, 0.0, 1.0, 1.0], device=dev)
     with pytest.raises(MXNetError, match='float32'):
-        fused_optimizer.sgd_mom_step(w.half(), w.half(), w.half(), 0.1, 0.0,
+        fused_optimizer.sgd_mom_step(w.half(), w.half(), w.half(), vec,
                                      momentum=0.9)
     with pytest.raises(MXNetError, match='contiguous'):
-        fused_optimizer.adam_step(w.t(), w.t(), w.t(), w.t(), 0.1, 0.0, 1.0,
-                                  1.0, beta1=0.9, beta2=0.999, epsilon=1e-8)
+        fused_optimizer.adam_step(w.t(), w.t(), w.t(), w.t(), vec,
+                                  beta1=0.9, beta2=0.999, epsilon=1e-8)
     with pytest.raises(MXNetError, match='distinct'):
-        fused_optimizer.sgd_mom_step(w, w.clone(), w, 0.1, 0.0, momentum=0.9)
+        fused_optimizer.sgd_mom_step(w, w.clone(), w, vec, momentum=0.9)
     with pytest.raises(MXNetError, match='device'):
-        fused_optimizer.sgd_mom_step(w, torch.zeros(4, 8), w.clone(), 0.1,
-                                     0.0, momentum=0.9)
+        fused_optimizer.sgd_mom_step(w, torch.zeros(4, 8), w.clone(), vec,
+                                     momentum=0.9)
+    with pytest.raises(MXNetError, match='hyperparameters'):
+        fused_optimizer.sgd_mom_step(w, w.clone(), w.clone(), vec.cpu(),
+                                     momentum=0.9)
 
 
 def _grads(fn, args, ct):
@@ -1011,17 +1016,19 @@ def test_kernels_launch_on_their_tensors_card(dev):
             assert torch.equal(int8_matmul.int8_matmul(xq, wq, scale),
                                int8_matmul.int8_matmul_plain(xq, wq, scale))
         w, g, m1, v1 = _slots(d, 4096 * 3 + 2, 0, 2)
+        vec = torch.tensor([1e-3, 0.0, 0.1, 0.001], device=d)
         want = fused_optimizer.adam_step_plain(
-            w.clone(), g, m1.clone(), v1.clone(), 1e-3, 0.0, 0.1, 0.001,
+            w.clone(), g, m1.clone(), v1.clone(), vec,
             beta1=0.9, beta2=0.999, epsilon=1e-8)
-        got = fused_optimizer.adam_step(w, g, m1, v1, 1e-3, 0.0, 0.1, 0.001,
+        got = fused_optimizer.adam_step(w, g, m1, v1, vec,
                                         beta1=0.9, beta2=0.999, epsilon=1e-8)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, **OPT_TOL)
         w, g, mom = _slots(d, 1001, 0, 1)
+        vec = torch.tensor([0.1, 0.0], device=d)
         want = fused_optimizer.sgd_mom_step_plain(w.clone(), g, mom.clone(),
-                                                  0.1, 0.0, momentum=0.9)
-        got = fused_optimizer.sgd_mom_step(w, g, mom, 0.1, 0.0, momentum=0.9)
+                                                  vec, momentum=0.9)
+        got = fused_optimizer.sgd_mom_step(w, g, mom, vec, momentum=0.9)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, **OPT_TOL)
         torch.cuda.synchronize(d)
@@ -1249,7 +1256,8 @@ def _eager_mlm(mx, net, ids, tt):
 def test_hybridized_predict_replays_see_in_place_writes(dev, tmp_path):
     """A predict call after hybridize() captures once; after a Trainer
     step, load_parameters and set_data the replay gives the new weights'
-    output, with no other capture; a cast captures again."""
+    output, with no other capture of the predict key (the recorded step
+    captures its own two); a cast captures again."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import gluon
     net, ids, tt = _small_bert(dev)
@@ -1279,10 +1287,11 @@ def test_hybridized_predict_replays_see_in_place_writes(dev, tmp_path):
     w.set_data(w.data() + 1.0)
     torch.testing.assert_close(net(ids, tt)[2]._data, first + 1.0,
                                rtol=1e-6, atol=1e-5)
-    assert net.capture_count == 1
+    # the recorded training call captured its own forward and backward
+    assert net.capture_count == 3
     net.cast('float32')         # new leaves: the next call captures again
     net(ids, tt)
-    assert net.capture_count == 2
+    assert net.capture_count == 4
 
 
 def test_hybridized_graph_equals_eager_and_counts_replays(dev):
@@ -1390,3 +1399,124 @@ def test_dataloader_forks_workers_after_cuda_is_initialized(dev):
         np.concatenate([b[0].asnumpy() for b in got]), x * 2)
     np.testing.assert_array_equal(
         np.concatenate([b[1].asnumpy() for b in got]), y)
+
+
+# ------------------------------------------------- Gluon's graphed training
+def _bert_steps(mx, net, trainer, ids, tt, steps):
+    from mxnet_tpu_torch import gluon
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for _ in range(steps):
+        with mx.autograd.record():
+            loss = loss_fn(net(ids, tt)[2], ids).mean()
+        loss.backward()
+        trainer.step(1)
+        losses.append(loss.item())
+    return losses
+
+
+@pytest.mark.parametrize('opt', ['adam', 'sgd'])
+def test_graphed_training_equals_the_eager_steps(dev, opt):
+    """Three recorded steps of a small BERT replay one forward, one
+    backward and one update graph, launch what the eager steps launch,
+    and train as they do, while a FactorScheduler halves the learning
+    rate under the replayed update graph at every step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, lr_scheduler
+    net, ids, tt = _small_bert(dev, seed=2)
+    params = net.collect_params()
+    init = {k: p.data()._data.clone() for k, p in params.items()}
+    kw = dict(learning_rate=1e-2) if opt == 'adam' else dict(
+        learning_rate=0.1, momentum=0.9)
+    runs = {}
+    for graphed in (False, True):
+        for k, p in params.items():
+            p.set_data(init[k])
+        net.hybridize(graphed)
+        trainer = gluon.Trainer(params, opt, dict(
+            kw, lr_scheduler=lr_scheduler.FactorScheduler(step=1,
+                                                          factor=0.5)))
+        before = kernels.launch_counts()
+        losses = _bert_steps(mx, net, trainer, ids, tt, 3)
+        counts = {k: v - before[k] for k, v in
+                  kernels.launch_counts().items() if v != before[k]}
+        runs[graphed] = (losses, counts, {k: p.data()._data.clone()
+                                          for k, p in params.items()})
+    (el, ec, ew), (gl, gc, gw) = runs[False], runs[True]
+    assert gc == ec
+    assert net.capture_count == 2 and trainer.capture_count == 1
+    torch.testing.assert_close(torch.tensor(gl), torch.tensor(el),
+                               rtol=1e-4, atol=0)
+    for k in ew:
+        step_e, step_g = ew[k] - init[k], gw[k] - init[k]
+        assert float((step_g - step_e).norm()) <= \
+            1e-2 * float(step_e.norm()) + 1e-12, k
+
+
+def _dropout_net(mx, dev):
+    """Dense(1024) with an identity weight and no bias, then Dropout(0.5):
+    the input's gradient is the mask times 2 times the head gradient,
+    exactly."""
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential(nn.Dense(1024, in_units=1024),
+                              nn.Dropout(0.5))
+    net.initialize(ctx=mx.gpu(0))
+    params = net.collect_params()
+    params['0.weight'].set_data(torch.eye(1024, device=dev))
+    params['0.bias'].set_data(torch.zeros(1024, device=dev))
+    return net
+
+
+def test_graphed_dropout_draws_a_fresh_mask_every_replay(dev):
+    import mxnet_tpu_torch as mx
+    net = _dropout_net(mx, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = mx.NDArray(torch.randn(1024, 1024, device=dev, generator=g) + 8.0)
+    net(x)
+    net.hybridize()
+    masks = []
+    for i in range(4):
+        x.attach_grad()
+        head = torch.randn(1024, 1024, device=dev, generator=g)
+        with mx.autograd.record():
+            out = net(x)
+        out.backward(mx.NDArray(head))
+        mask = out._data != 0
+        masks.append(mask)
+        assert torch.equal(x.grad._data, mask * 2.0 * head)
+    assert net.capture_count == 2
+    assert not torch.equal(masks[2], masks[3])
+    assert abs(float(masks[3].float().mean()) - 0.5) < 5e-3
+
+
+def test_two_recorded_calls_before_one_backward_keep_their_residuals(dev):
+    import mxnet_tpu_torch as mx
+    net, ids, tt = _small_bert(dev, seed=3)
+    x2 = mx.NDArray(torch.roll(ids._data, 1, 1).contiguous())
+    grads = {}
+    for graphed in (False, True):
+        net.hybridize(graphed)
+        for _ in range(2):
+            with mx.autograd.record():      # capture, then one replay
+                out = (net(ids, tt)[0] ** 2).mean()
+            out.backward()
+        with mx.autograd.record():
+            loss = (net(ids, tt)[0] ** 2).mean() + net(x2, tt)[0].mean()
+        loss.backward()
+        grads[graphed] = {k: p.grad()._data.clone()
+                          for k, p in net.collect_params().items()
+                          if p.grad_req != 'null'}
+    assert net.eager_call_count == 1
+    for k, g in grads[False].items():
+        torch.testing.assert_close(grads[True][k], g, rtol=1e-5, atol=1e-6)
+
+
+def test_create_graph_through_a_graphed_call_raises(dev):
+    import mxnet_tpu_torch as mx
+    net, ids, tt = _small_bert(dev, seed=4)
+    for _ in range(2):
+        with mx.autograd.record():
+            out = net(ids, tt)[0].sum()
+    w = net.collect_params()['encoder.cell0.ffn1.weight']
+    with pytest.raises(MXNetError, match='A5 rest'):
+        mx.autograd.grad(out, [w.data()], create_graph=True)

@@ -345,10 +345,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     q, kp, vp, pages = _paged_case()
     _paged_both(q, kp, vp, pages, onp.asarray([1, 2, 3], onp.int32))
     fused_optimizer.adam_step(x, x.clone(), x.clone(), x.clone() ** 2,
-                              1e-3, 0.0, 0.1, 0.001, beta1=0.9, beta2=0.999,
-                              epsilon=1e-8)
-    fused_optimizer.sgd_mom_step(x, x.clone(), x.clone(), 0.1, 0.0,
-                                 momentum=0.9)
+                              torch.tensor([1e-3, 0.0, 0.1, 0.001]),
+                              beta1=0.9, beta2=0.999, epsilon=1e-8)
+    fused_optimizer.sgd_mom_step(x, x.clone(), x.clone(),
+                                 torch.tensor([0.1, 0.0]), momentum=0.9)
     xq = torch.ones(4, 64, dtype=torch.int8)
     int8_matmul.int8_matmul(xq, xq[:3], torch.ones(3), None, 'bfloat16')
     assert kernels.launch_counts() == {
@@ -376,12 +376,12 @@ def test_tensors_off_the_cpu_never_take_the_plain_path():
             pages.to('meta'), torch.zeros(3, dtype=torch.int32,
                                           device='meta'), 0.25)
     w = torch.empty(4, 64, device='meta')
+    hyper = torch.empty(4, device='meta')
     with pytest.raises(MXNetError, match='CUDA'):
-        fused_optimizer.adam_step(w, w.clone(), w.clone(), w.clone(), 1e-3,
-                                  0.0, 1.0, 1.0, beta1=0.9, beta2=0.999,
-                                  epsilon=1e-8)
+        fused_optimizer.adam_step(w, w.clone(), w.clone(), w.clone(), hyper,
+                                  beta1=0.9, beta2=0.999, epsilon=1e-8)
     with pytest.raises(MXNetError, match='CUDA'):
-        fused_optimizer.sgd_mom_step(w, w.clone(), w.clone(), 0.1, 0.0,
+        fused_optimizer.sgd_mom_step(w, w.clone(), w.clone(), hyper,
                                      momentum=0.9)
     xq = torch.empty(4, 64, dtype=torch.int8, device='meta')
     with pytest.raises(MXNetError, match='CUDA'):

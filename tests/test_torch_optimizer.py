@@ -12,6 +12,7 @@ Pallas kernels tile by 128 lanes, so a ragged size meets the registered
 XLA fallback instead.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as onp
 import pytest
@@ -154,9 +155,77 @@ def test_cpu_optimizer_steps_count_no_launch():
 def test_wrappers_refuse_mismatched_or_strided_tensors():
     w = torch.zeros(4, 8)
     with pytest.raises(MXNetError, match='shapes'):
-        fused_optimizer.sgd_mom_step(w, torch.zeros(8, 4), w.clone(), 0.1,
-                                     0.0, momentum=0.9)
+        fused_optimizer.sgd_mom_step(w, torch.zeros(8, 4), w.clone(),
+                                     torch.tensor([0.1, 0.0]), momentum=0.9)
     strided = torch.zeros(8, 4).t()
     with pytest.raises(MXNetError, match='contiguous'):
-        fused_optimizer.adam_step(strided, w, w.clone(), w.clone(), 0.1,
-                                  0.0, 1.0, 1.0, **HYPER)
+        fused_optimizer.adam_step(strided, w, w.clone(), w.clone(),
+                                  torch.tensor([0.1, 0.0, 1.0, 1.0]),
+                                  **HYPER)
+
+
+# ------------------------------------------------ the device-vector interface
+def _traced(fn, arrs, *scalars):
+    """The Pallas kernel in interpret mode under ``jax.jit``, with the
+    step-varying scalars traced, as the JAX Trainer's fused update calls
+    it."""
+    return jax.jit(fn)(*(jnp.asarray(a) for a in arrs), *scalars)
+
+
+@pytest.mark.parametrize('t', [1, 2, 7, 300])
+def test_adam_vector_matches_the_traced_pallas_kernel(t):
+    """``(lr, wd, bc1, bc2)`` from ``Adam.fill_hyper`` (the bias
+    corrections from a float32 count, on the tensor's device) against the
+    JAX Trainer's ``1.0 - beta ** t`` with ``t`` a traced int32: within
+    one ulp. Through the plain version, the update against ``adam_step``
+    with that traced ``t`` at this file's tolerance: XLA contracts the
+    kernel's multiply-adds into FMAs on the CPU, with or without
+    ``jax.jit``, which leaves hundreds of ulps where ``w + update``
+    cancels."""
+    from mxnet_tpu_torch.optimizer import Adam
+    hyper = torch.tensor([[1e-3, 1e-2, 1.0, 1.0]])
+    Adam(**HYPER).fill_hyper(hyper, torch.tensor([float(t)]))
+    want_bc = jax.jit(lambda t: (1.0 - HYPER['beta1'] ** t,
+                                 1.0 - HYPER['beta2'] ** t))(jnp.int32(t))
+    for got_bc, bc in zip(hyper[0, 2:], want_bc):
+        onp.testing.assert_array_max_ulp(got_bc.numpy(), onp.asarray(bc), 1)
+    w, g, m, v = _slots((8, 128), 20 + t, 2)
+    kw = dict(rescale_grad=0.5, clip_gradient=0.1, **HYPER)
+    want = _traced(lambda w, g, m, v, lr, wd, t: adam_step(
+        w, g, m, v, lr, wd, t, interpret=True, **kw), (w, g, m, v),
+        jnp.float32(1e-3), jnp.float32(1e-2), jnp.int32(t))
+    got = fused_optimizer.adam_step_plain(*_torch((w, g, m, v)), hyper[0],
+                                          **kw)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_sgd_mom_vector_matches_the_traced_pallas_kernel():
+    w, g, mom = _slots((8, 128), 30, 1)
+    kw = dict(momentum=0.9, rescale_grad=0.5, clip_gradient=0.1)
+    want = _traced(lambda w, g, mom, lr, wd: sgd_mom_step(
+        w, g, mom, lr, wd, interpret=True, **kw), (w, g, mom),
+        jnp.float32(0.1), jnp.float32(1e-2))
+    got = fused_optimizer.sgd_mom_step_plain(
+        *_torch((w, g, mom)), torch.tensor([0.1, 1e-2]), **kw)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_optimizer_update_reads_each_rows_hyperparameters():
+    """``Optimizer.update`` over a list builds one vector for the step:
+    each index's ``lr_mult`` and count reach its own row."""
+    from mxnet_tpu_torch.optimizer import SGD
+    opt = SGD(learning_rate=0.1, momentum=0.9)
+    opt.set_lr_mult({0: 1.0, 1: 0.5})
+    ws = _torch(_slots((4, 128), 40, 0)) + _torch(_slots((4, 128), 41, 0))
+    ws, gs = ws[0::2], ws[1::2]
+    want = [w.clone() for w in ws]
+    moms = [torch.zeros_like(w) for w in ws]
+    opt.update([0, 1], ws, gs, moms)
+    for w, g, mult in zip(want, gs, (1.0, 0.5)):
+        optimizer_ops.fused_sgd_mom_step(w, g, torch.zeros_like(w),
+                                         lr=0.1 * mult, momentum=0.9)
+    for a, b in zip(ws, want):
+        assert torch.equal(a, b)
+    assert opt._index_update_count == {0: 1, 1: 1}
