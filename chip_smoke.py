@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,resnet  # ResNet-50 training
     python3 chip_smoke.py --phases device,build,kernels,bert,resnet
                                                   # compiled training
+    python3 chip_smoke.py --phases device,build,kernels,bf16  # bf16
 
 Phases, each of which fails the run on any error:
 
@@ -46,7 +47,13 @@ Phases, each of which fails the run on any error:
                SGD-momentum take their hyperparameters from a device
                vector; an SGD-momentum update captured in a CUDA graph
                is replayed with new learning rates written into its
-               vector and must follow the plain version at each.
+               vector and must follow the plain version at each. Then
+               the bf16 rows (``_bf16_cases``): B1 with bf16 x and
+               weights and with either one bf16 (fp32 out), B2, B3 (fp32
+               acc, m and l) and B4 on bf16 operands at the bf16 phase's
+               shapes, each bf16 output within one bf16 ulp plus the fp32
+               tolerance of its plain version, timed beside its bound at
+               2-byte elements and the library call in bf16.
 4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
                generator: one ``(1, 512)`` forward, finite logits, and
                exactly 65 RMSNorm and 32 flash-attention launches.
@@ -195,7 +202,32 @@ Phases, each of which fails the run on any error:
                ``resnet18_v1`` thumbnail trains two steps on the card and
                on the CPU: losses within rtol 1e-4, and each weight's and
                running statistic's change within 1 % of the CPU's (2-norm).
-11. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+11. bf16    -- the reference's default precision (``bench.py --dtype
+               bf16``: build, initialize, one forward, ``cast
+               ('bfloat16')``, hybridize). ``bert_12_768_12`` at (32, 128)
+               in bf16: ``BERT_STEPS`` Adam steps (lr ``BF16_BERT_LR``,
+               the MLM logits cast to fp32 for the loss) eagerly and then
+               graphed from the same weights, each with exactly 26 B1 and
+               12 B2 launches, all bf16 by the profiled step's kernel
+               names, no B5 and ``BERT_UPDATED`` plain updates (the
+               optimizer's dtype rule), fp32 slots, losses finite and
+               falling, graphed against eager at ``BF16_LOSS_RTOL``.
+               ``resnet50_v1`` at batch 32 in bf16: graphed predict (K
+               forwards back to back), graphed SGD-momentum steps with
+               ``RESNET_UPDATED`` plain updates and no kernel, and the K =
+               24 loop over ``pure_function``. ``llama3_8b`` at full width
+               and depth: one causal (1, 2048) forward in fp32, then cast
+               to bf16 (16 GB), the same forward with 65 B1 and 32 B2
+               launches, all bf16; ``generate()`` of 32 tokens from a
+               32-token prompt, teacher-forced through the forward (held
+               where the top-2 margin exceeds 0.25). Each path is logged
+               beside the fp32 run of the same process (``bf16_costs``:
+               host ms, busy share, samples/s, img/s or tok/s, peak memory,
+               kernel ms by group). Then a small BERT (two Adam steps) and
+               a resnet18 thumbnail (one SGD-momentum step) in bf16 on the
+               card and on the CPU: losses at ``BF16_LOSS_RTOL``, the
+               weights' change within ``BF16_CHANGE_GAP``.
+12. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -205,14 +237,15 @@ Phases, each of which fails the run on any error:
                flash forward over the whole sequence, and the ranks'
                plain blockwise path the flash path. Logs each rank's host
                ms, stats-kernel ms and transport ms.
-12. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+13. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
                the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8, train, ndarray, bert, resnet and rtc phases and read just after it, and in each
+int8, train, ndarray, bert, resnet, bf16 and rtc phases and read just after
+it (with the optimizer's plain-update counters), and in each
 rank just before and after its ring runs; the kernels' line reports their
 sum. A CUDA graph's replay counts the launches its capture saw
 (``_graphs.StepGraph``). A phase fails if the norm, the int8 product or flash attention (either
@@ -233,7 +266,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
-          'train', 'ndarray', 'bert', 'resnet', 'ring', 'rtc')
+          'train', 'ndarray', 'bert', 'resnet', 'bf16', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -353,18 +386,31 @@ def bound(nbytes, ops, ops_s=FP32_OPS_S):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def compare(torch, got, want, rtol, atol):
-    """max |got - want|; fails unless |got - want| <= atol + rtol*|want|
-    everywhere and both are finite. ``got``/``want`` may be tuples of
-    tensors (a kernel's several outputs), compared pairwise."""
+def bf16_ulp(torch, t):
+    """The spacing of bf16 values at ``|t|`` (2**(e - 7) for a value in
+    [2**e, 2**(e + 1)); the least normal's spacing below it), fp64."""
+    a = t.double().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def compare(torch, got, want, rtol, atol, ulps=0):
+    """max |got - want|; fails unless |got - want| <= atol + rtol*|want| +
+    ulps bf16 ulps of want everywhere and both are finite, and their
+    dtypes agree. ``got``/``want`` may be tuples of tensors (a kernel's
+    several outputs), compared pairwise."""
     if isinstance(got, tuple):
-        res = [compare(torch, a, b, rtol, atol) for a, b in zip(got, want)]
+        res = [compare(torch, a, b, rtol, atol, ulps)
+               for a, b in zip(got, want)]
         return max(e for e, _ in res), len(got) == len(want) and all(
             ok for _, ok in res)
-    if got.shape != want.shape:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        log(f'[compare] got {tuple(got.shape)} {got.dtype}, want '
+            f'{tuple(want.shape)} {want.dtype}')
         return math.inf, False
     err = (got.double() - want.double()).abs()
     tol = atol + rtol * want.double().abs()
+    if ulps:
+        tol = tol + ulps * bf16_ulp(torch, want)
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
     if not ok:      # say where: the worst element against its tolerance
         over = (err - tol).nan_to_num(math.inf)
@@ -408,15 +454,17 @@ def phase_build():
 
 def _case(torch, name, shape, got, want, tol, why, kernel, plain,
           nbytes, ops, library=None, library_call=None, ops_s=FP32_OPS_S,
-          path=None, earlier=None, fp32_bound=False):
+          path=None, earlier=None, design=None):
     """One row: the check, then the times. ``library_call`` names a
     library call that is timed launched from Python (``eager_ms``), for
     calls that a CUDA graph does not capture as they stand (an optimizer's
     ``step``); other library calls are timed as the kernel is. ``path``
     names the design the kernel's plan took; ``earlier`` is ``(call of
     the earlier design, what it is)``, timed here as the kernel is;
-    ``fp32_bound`` adds the bound at fp32 on the CUDA cores beside
-    ``ops_s``'s."""
+    ``ops_s`` is the card's peak for the operands' type; ``design`` is
+    ``(what, ops/s)``, a second bound beside it at another rate (the
+    CUDA cores' fp32 rate, or the rate of the design the kernel uses),
+    shown after a slash."""
     err, ok = compare(torch, got, want, *tol)
     launched_ms = eager_ms(torch, kernel)
     ms = cuda_ms(torch, kernel)
@@ -427,7 +475,8 @@ def _case(torch, name, shape, got, want, tol, why, kernel, plain,
         library_ms = (eager_ms if library_call else cuda_ms)(torch, library)
     bound_ms, bound_by = bound(nbytes, ops, ops_s)
     row = dict(name=name, shape=shape, max_abs_err=err, rtol=tol[0],
-               atol=tol[1], tolerance_reason=why, ok=ok, ms=ms,
+               atol=tol[1], bf16_ulps=tol[2] if len(tol) > 2 else 0,
+               tolerance_reason=why, ok=ok, ms=ms,
                launched_ms=launched_ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms)
@@ -435,10 +484,23 @@ def _case(torch, name, shape, got, want, tol, why, kernel, plain,
     if path is not None:
         row['path'] = path
         extra += f' path {path}'
-    if fp32_bound:
-        row['bound_fp32_ms'], _ = bound(nbytes, ops, FP32_OPS_S)
-        extra += (f' (3xTF32 tensor-core bound; at fp32 on the CUDA cores '
-                  f'{row["bound_fp32_ms"]:.4f})')
+    if len(tol) > 2:
+        # the error in ulps of the plain value alone, with no absolute
+        # term: where it peaks, and how far off that element is
+        e = (got.double() - want.double()).abs()
+        u = e / bf16_ulp(torch, want)
+        i = int(u.flatten().argmax())
+        row['max_ulps'] = float(u.flatten()[i])
+        row['max_ulps_at'] = [float(want.flatten()[i]), float(e.flatten()[i])]
+        row['past_1_ulp'] = int((u > 1).sum())
+        extra += (f' ulps of want alone: max {row["max_ulps"]:.0f} at want '
+                  f'{row["max_ulps_at"][0]:.3g}, {row["max_ulps_at"][1]:.3g} '
+                  f'off; {row["past_1_ulp"]} of {u.numel()} past 1 ulp')
+    if design is not None:
+        what, rate = design
+        row['bound_design_ms'], _ = bound(nbytes, ops, rate)
+        row['bound_design'] = f'{what} at {rate / 1e12:g} TFLOP/s'
+        extra += f' / {row["bound_design_ms"]:.4f} ({row["bound_design"]})'
     if earlier is not None:
         e_ms, e_from = earlier
         row['earlier_ms'] = cuda_ms(torch, e_ms)
@@ -449,8 +511,9 @@ def _case(torch, name, shape, got, want, tol, why, kernel, plain,
     lib = 'none' if library_ms is None else f'{library_ms:.4f}'
     if library_call:
         lib += f' ({library_call}, launched from Python)'
+    ulp = f' + {tol[2]} bf16 ulp' if len(tol) > 2 else ''
     log(f'[kernels] {name} {shape}: max_abs_err {err:.3e} '
-        f'(rtol {tol[0]:g}, atol {tol[1]:g}: {why}) kernel_ms {ms:.4f} '
+        f'(rtol {tol[0]:g}, atol {tol[1]:g}{ulp}: {why}) kernel_ms {ms:.4f} '
         f'(launched from Python {launched_ms:.4f}) '
         f'plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})'
         f'{extra} library_ms {lib} -> {"ok" if ok else "MISMATCH"}')
@@ -513,13 +576,16 @@ def phase_kernels(torch):
                                                         causal),
             lambda: flash_attention.flash_attention_plain(q, k, v, scale,
                                                           causal),
-            nbytes, ops, lib, ops_s=TF32X3_OPS_S, fp32_bound=True,
+            nbytes, ops, lib, ops_s=TF32X3_OPS_S,
+            design=('fp32 on the CUDA cores', FP32_OPS_S),
             path=flash_attention.plan(bh, t, s, d, sms).path))
         del got, want
     del q, k, v
     _stats_cases(torch, randn, rows)
 
     _paged_cases(torch, randn, rows, sms)
+
+    _bf16_cases(torch, randn, rows, sms)
 
     _optimizer_cases(torch, randn, rows)
     _vector_replay_check(torch, randn)
@@ -714,10 +780,12 @@ def _paged_cases(torch, randn, rows, sms):
     from mxnet_tpu_torch.ops.kernels import _build
     from mxnet_tpu_torch.ops.kernels import paged_attention as pa
     smem = _build.function('paged_attention', 'paged_attention_smem_bytes',
-                           [ctypes.c_int, ctypes.c_int])
-    log(f'[kernels] paged_attention_decode shared memory a block, bytes, '
-        f'by (head dim, group): '
-        f'{ {(d, g): smem(d, g) for d in pa.HEAD_DIMS for g in pa.GROUPS} }')
+                           [ctypes.c_int] * 3)
+    for bf, what in ((0, 'fp32'), (1, 'bf16')):
+        by = {(d, g): smem(d, g, bf) for d in pa.HEAD_DIMS
+              for g in pa.GROUPS}
+        log(f'[kernels] paged_attention_decode shared memory a block, '
+            f'bytes, by (head dim, group), {what}: {by}')
     kv, G, dh, psz = 8, 4, 128, 16
     tol, why = (1e-4, 1e-4), ('fp32 online softmax across tiles vs '
                               'one-pass softmax over the gathered cache')
@@ -848,9 +916,177 @@ def _stats_cases(torch, randn, rows):
                                                           causal),
             lambda: flash_attention.flash_attention_stats_plain(
                 q, k, v, scale, causal),
-            nbytes, ops, lib, ops_s=TF32X3_OPS_S, fp32_bound=True,
+            nbytes, ops, lib, ops_s=TF32X3_OPS_S,
+            design=('fp32 on the CUDA cores', FP32_OPS_S),
             path=flash_attention.plan(bh, t, t, d, sms).path))
         del q, k, v, got, want, q4, k4, v4, lib
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+#: the bound that bf16 outputs are held to: one bf16 ulp of the plain
+#: version's value (each side rounds its fp32 result once, half an ulp
+#: apiece) plus the fp32 kernel's own tolerance before that rounding,
+#: which decides where the rounded values differ by more than an ulp
+#: (values near zero, where cancellation leaves the fp32 difference above
+#: the value's ulp)
+BF16_ULPS = 1
+#: bytes a bf16 element
+BF2 = 2
+#: the card's dense bf16 tensor-core rate (the data sheet's 989 TFLOP/s):
+#: B2/B3's bound on bf16 operands, since a bf16 MMA with fp32 accumulation
+#: takes QK^T exactly (the scale applied after) and P V to 1e-4 in two
+#: bf16 products
+BF16_OPS_S = 989e12
+#: the rate of the design B2/B3 use on bf16: each product takes two TF32
+#: tensor-core products (a bf16 k or v is exact in TF32, so its low half
+#: is zero), shown beside the bound
+TF32X2_OPS_S = 495e12 / 2
+TF32X2 = ('the design used, 2xTF32', TF32X2_OPS_S)
+
+
+def _bf16_cases(torch, randn, rows, sms):
+    """The bf16 kernels against their plain versions at the bf16 phase's
+    shapes, timed beside their bound (2-byte elements at 3.35 TB/s, or
+    operations at the card's bf16 tensor-core rate for B2/B3/B4, with the
+    rate of the design used after a slash) and the library call in
+    bf16: B1 with bf16 x and weights (RMS at llama3_8b's (2048 / 32 / 4,
+    4096), LayerNorm at BERT-base's (4096, 768), eps 1e-12) and with the
+    two mixed pairs (fp32 out); B2 at BERT-base's BH 384, T = S = 128, d
+    64, llama's BH 32, T = S = 2048, d 128, causal, and T = 37, S = 2048
+    (SDPA in bf16 is a looser function: it rounds P to bf16 before P V);
+    B3 at BH 32, T = S = 2048, d 128, full and diagonal (fp32 acc at the
+    fp32 tolerance, m within 3e-6, l within 1e-5: a sum of 2048
+    exponentials taken by exp2f on the card and by exp in the plain
+    version, in other orders, of which 2.9e-6 was seen); B4 with bf16 q
+    and pool at a decode step's shape and at mixed depths."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.ops.kernels import fused_norms as fn
+    from mxnet_tpu_torch.ops.kernels import paged_attention as pa
+    bf, f32 = torch.bfloat16, torch.float32
+    ulp_why = ('1 bf16 ulp (one rounding of each fp32 result) plus the fp32 '
+               'kernel\'s tolerance')
+    # ---- B1
+    ntol = (1e-5, 1e-5, BF16_ULPS)
+    for n, d, rms, eps, xt, wt in (
+            (2048, 4096, True, 1e-5, bf, bf), (32, 4096, True, 1e-5, bf, bf),
+            (4, 4096, True, 1e-5, bf, bf), (4096, 768, False, 1e-12, bf, bf),
+            (2048, 4096, True, 1e-5, bf, f32),
+            (4096, 768, False, 1e-12, f32, bf)):
+        x = (randn(n, d, scale=2.0) + 0.3).to(xt)
+        g = (randn(d) + 1.0).to(wt)
+        beta = None if rms else randn(d).to(wt)
+        got = fn.fused_norm(x, g, beta, eps, rms)
+        want = fn.fused_norm_plain(x, g, beta, eps, rms)
+        lib = None
+        if xt == wt:
+            if rms:
+                lib = lambda: F.rms_norm(x, (d,), g, eps)  # noqa: E731
+            else:
+                lib = lambda: F.layer_norm(x, (d,), g, beta, eps)  # noqa
+        nbytes = (x.element_size() + got.element_size()) * n * d \
+            + g.element_size() * d * (1 if rms else 2)
+        rows['fused_norm'].append(_case(
+            torch, 'fused_norm',
+            f'bf16: {"rms" if rms else "layer"} ({n}, {d}) x {xt} weights '
+            f'{wt} -> {got.dtype}{" eps 1e-12" if eps != 1e-5 else ""}',
+            got, want, ntol, ulp_why + ' (1e-5, fp32 statistics)',
+            lambda: fn.fused_norm(x, g, beta, eps, rms),
+            lambda: fn.fused_norm_plain(x, g, beta, eps, rms),
+            nbytes, (4 if rms else 6) * n * d, lib,
+            path=fn.plan(n, d, True, sms, rms, 16 // x.element_size()).path))
+        del x, g, beta, got, want, lib
+    # ---- B2
+    atol = (1e-4, 1e-4, BF16_ULPS)
+    for bh, t, s, d, causal in ((384, 128, 128, 64, False),
+                                (32, 2048, 2048, 128, True),
+                                (32, 37, 2048, 128, True)):
+        q, k, v = (randn(bh, n_, d).to(bf) for n_ in (t, s, s))
+        scale = d ** -0.5
+        got = fa.flash_attention_fwd(q, k, v, scale, causal)
+        want = fa.flash_attention_plain(q, k, v, scale, causal)
+        pairs = sum(min(s, s - t + i + 1) for i in range(t)) if causal \
+            else t * s
+        q4, k4, v4 = q[None], k[None], v[None]
+        if t == s or not causal:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, is_causal=causal)
+        else:
+            mask = torch.ones(t, s, dtype=torch.bool, device=q.device).tril(
+                s - t)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=mask)
+        rows['flash_attention'].append(_case(
+            torch, 'flash_attention',
+            f'bf16: BH={bh} T={t} S={s} d={d} '
+            f'{"causal" if causal else "full"}',
+            got, want, atol, ulp_why + ' (1e-4: online softmax, 2xTF32)',
+            lambda: fa.flash_attention_fwd(q, k, v, scale, causal),
+            lambda: fa.flash_attention_plain(q, k, v, scale, causal),
+            BF2 * bh * d * (2 * t + 2 * s), 4 * bh * pairs * d, lib,
+            ops_s=BF16_OPS_S, design=TF32X2,
+            path=fa.plan(bh, t, s, d, sms).path))
+        del q, k, v, got, want, q4, k4, v4, lib
+    # ---- B3
+    for causal in (False, True):
+        bh, t, d = 32, 2048, 128
+        q, k, v = (randn(bh, t, d).to(bf) for _ in range(3))
+        scale = d ** -0.5
+        got = fa.flash_attention_stats(q, k, v, scale, causal)
+        want = fa.flash_attention_stats_plain(q, k, v, scale, causal)
+        ml = [compare(torch, got[1], want[1], 3e-6, 3e-6),
+              compare(torch, got[2], want[2], 1e-5, 1e-5)]
+        log(f'[kernels] flash_attention_stats bf16 BH={bh} T=S={t} d={d} '
+            f'{"diagonal" if causal else "full"}: m max_abs_err '
+            f'{ml[0][0]:.3e} (3e-6), l {ml[1][0]:.3e} (1e-5), both fp32 -> '
+            f'{"ok" if all(ok for _, ok in ml) else "MISMATCH"}')
+        row = _case(
+            torch, 'flash_attention_stats',
+            f'bf16: BH={bh} T=S={t} d={d} {"diagonal" if causal else "full"}'
+            f' (acc, m, l fp32; acc shown)',
+            got[0], want[0], (1e-4, 1e-4),
+            'fp32 acc as the fp32 form (online softmax, 2xTF32)',
+            lambda: fa.flash_attention_stats(q, k, v, scale, causal),
+            lambda: fa.flash_attention_stats_plain(q, k, v, scale, causal),
+            BF2 * 3 * bh * t * d + 4 * bh * t * (d + 2),
+            4 * bh * (t * (t + 1) // 2 if causal else t * t) * d, None,
+            ops_s=BF16_OPS_S, design=TF32X2,
+            path=fa.plan(bh, t, t, d, sms).path)
+        row['ok'] = row['ok'] and all(ok for _, ok in ml)
+        row['m_l_err'] = [e for e, _ in ml]
+        rows['flash_attention_stats'].append(row)
+        del q, k, v, got, want
+    # ---- B4
+    kv, G, dh, psz = 8, 4, 128, 16
+    for B, NP, depths in ((4, 128, [1024] * 4), (4, 128, [1, 700, 2047, 0])):
+        P = B * NP + 1
+        q = randn(B, kv, G, dh).to(bf)
+        kp, vp = (randn(P, psz, kv, dh).to(bf) for _ in range(2))
+        perm = torch.randperm(P - 1,
+                              generator=torch.Generator().manual_seed(1))
+        pages = (perm[:B * NP] + 1).reshape(B, NP).to(torch.int32).to(
+            q.device)
+        offset = torch.tensor(depths, dtype=torch.int32, device=q.device)
+        scale = dh ** -0.5
+        got = pa.paged_attention_decode(q, kp, vp, pages, offset, scale)
+        want = pa.paged_attention_decode_plain(q, kp, vp, pages, offset,
+                                               scale)
+        live = sum(o + 1 for o in depths)
+        rows['paged_attention_decode'].append(_case(
+            torch, 'paged_attention_decode',
+            f'bf16: B={B} kv={kv} G={G} dh={dh} page={psz} pages/seq={NP} '
+            f'depths={depths}', got, want, atol,
+            ulp_why + ' (1e-4: online softmax across tiles)',
+            lambda: pa.paged_attention_decode(q, kp, vp, pages, offset,
+                                              scale),
+            lambda: pa.paged_attention_decode_plain(q, kp, vp, pages,
+                                                    offset, scale),
+            BF2 * (2 * live * kv * dh + 2 * B * kv * G * dh)
+            + 4 * (pages.numel() + B), 4 * live * kv * G * dh, None,
+            ops_s=BF16_OPS_S, design=('fp32 on the CUDA cores', FP32_OPS_S),
+            path=f'splits{pa.plan(B, kv, NP, psz, sms)}'))
+        del q, kp, vp, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1416,6 +1652,7 @@ class _Merged:
                 m.count += e.count
                 m.self_device_time_total += e.self_device_time_total
         self._events = list(by.values())
+        self.profs = profs
 
     def key_averages(self):
         return self._events
@@ -2255,9 +2492,13 @@ def bert_batch(mx, seed, batch, seq, vocab):
 def bert_step(mx, net, trainer, loss_fn, ids, tt, labels):
     """One MLM training step through hybridize, record, backward and the
     Trainer, the reference's imperative path (bench.py:570-576); the loss
-    is the batch mean, so the Trainer steps with batch size 1."""
+    is the batch mean, so the Trainer steps with batch size 1. The MLM
+    logits of a bf16 net are cast to fp32 before the loss, as bench's bf16
+    train loop takes them (bench.py:548)."""
     with mx.autograd.record():
         _, _, mlm = net(ids, tt)
+        if mlm.dtype != 'float32':
+            mlm = mlm.astype('float32')
         loss = loss_fn(mlm, labels).mean()
     loss.backward()
     trainer.step(1)
@@ -2333,7 +2574,7 @@ def phase_bert(torch, seed):
     del outs
 
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
-    steps, graphed_steps, busy, peaks = {}, {}, {}, {}
+    steps, graphed_steps, busy, peaks, groups = {}, {}, {}, {}, {}
     for run, (opt, kernel, hyper) in enumerate(BERT_OPTS):
         want = dict(want_fwd, **{kernel: BERT_UPDATED})
         got_runs = {}
@@ -2366,7 +2607,7 @@ def phase_bert(torch, seed):
                          f'want {want}')
                 if last:    # against the step before, which no profiler
                     log(f'[bert] {tag} Adam step profiled:')     # slowed
-                    bert_breakdown(torch, prof, wall[-2])
+                    groups[tag] = bert_breakdown(torch, prof, wall[-2])
                     busy[tag] = _busy_share(prof, wall[-2])
                 del loss
             state = {k: p.data()._data.detach().clone()
@@ -2414,7 +2655,7 @@ def phase_bert(torch, seed):
     graphed_checks(torch, mx, dev)
     return dict(eager_ms=eager_ms, graph_ms=graph_ms, steps=steps,
                 graphed_steps=graphed_steps, busy=busy, peaks=peaks,
-                net=net)
+                groups=groups, net=net)
 
 
 def _memory_start(torch, dev):
@@ -2705,9 +2946,14 @@ def resnet_data(seed, n):
 
 def resnet_step(mx, net, trainer, loss_fn, x, y):
     """One step of bench_resnet_train's imperative loop (bench.py:413-426):
-    record, forward, the mean loss, backward, ``trainer.step(batch)``."""
+    record, forward, the mean loss, backward, ``trainer.step(batch)``; the
+    logits of a bf16 net are cast to fp32 before the loss, as the loop
+    does."""
     with mx.autograd.record():
-        loss = loss_fn(net(x), y).mean()
+        out = net(x)
+        if out.dtype != 'float32':
+            out = out.astype('float32')
+        loss = loss_fn(out, y).mean()
     loss.backward()
     trainer.step(x.shape[0])
     return loss
@@ -3009,13 +3255,17 @@ def resnet_kstep(torch, net, x0, dev, k=RESNET_K):
     1000``, gradients from ``torch.autograd.grad``, SGD-momentum through
     B6 and its device vector, the new running statistics written back) is
     captured once and replayed ``k`` times with no host sync between. The
-    first three losses must equal the same step run eagerly (rtol 1e-4).
-    Returns img/s."""
+    first three losses must equal the same step run eagerly (rtol 1e-4;
+    BF16_LOSS_RTOL for a bf16 net, whose weights take B6's plain version,
+    counted as plain updates, with fp32 momenta as bench keeps them,
+    bench.py:336-337). Returns img/s."""
     from mxnet_tpu_torch import _graphs
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.ops.kernels import fused_optimizer as fo
     fn, ins, mains0, auxs0 = net.pure_function(x0, train=True)
     batch = x0.shape[0]
+    bf16 = mains0[0].dtype != torch.float32
+    rtol = BF16_LOSS_RTOL if bf16 else 1e-4
     labels = torch.arange(batch, device=dev) % 1000
     rows = torch.arange(batch, device=dev)
     opt = RESNET_OPT[1]
@@ -3024,7 +3274,8 @@ def resnet_kstep(torch, net, x0, dev, k=RESNET_K):
 
     def state():
         return dict(mains=[t.clone().requires_grad_() for t in mains0],
-                    moms=[torch.zeros_like(t) for t in mains0],
+                    moms=[torch.zeros_like(t, dtype=torch.float32)
+                          for t in mains0],
                     auxs=[t.clone() for t in auxs0],
                     i=torch.zeros((), device=dev),
                     losses=torch.zeros(k + 1, device=dev))
@@ -3033,7 +3284,7 @@ def resnet_kstep(torch, net, x0, dev, k=RESNET_K):
         def step():
             x = ins[0] * (1.0 + 2.0 ** -6 * st['i'])
             outs, new_aux = fn(gen, (x,), st['mains'], st['auxs'])
-            logp = torch.log_softmax(outs[0], -1)
+            logp = torch.log_softmax(outs[0].float(), -1)
             loss = -logp[rows, labels].mean()
             grads = torch.autograd.grad(loss, st['mains'])
             with torch.no_grad():
@@ -3067,12 +3318,14 @@ def resnet_kstep(torch, net, x0, dev, k=RESNET_K):
         del graph, st
     finally:
         torch.backends.cudnn.deterministic = False
-    ok = all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(got, want))
-    log(f'[resnet] K-step loop over pure_function, deterministic cuDNN: '
-        f'losses of its warm-up and two replays {got} against the eager '
-        f'step\'s {want} (rtol 1e-4) -> {"ok" if ok else "MISMATCH"}')
+    ok = all(math.isclose(a, b, rel_tol=rtol) for a, b in zip(got, want))
+    log(f'[resnet] K-step loop over pure_function{" (bf16)" * bf16}, '
+        f'deterministic cuDNN: losses of its warm-up and two replays {got} '
+        f'against the eager step\'s {want} (rtol {rtol}) -> '
+        f'{"ok" if ok else "MISMATCH"}')
     st = state()
     before = kernels.launch_counts()
+    plain0 = kernels.plain_update_counts()
     graph = _graphs.StepGraph(make(st), dev, generators=(gen,))
     graph.capture()                 # its warm-up is step 0
     _sync(torch, dev)
@@ -3082,16 +3335,21 @@ def resnet_kstep(torch, net, x0, dev, k=RESNET_K):
     ms = (time.perf_counter() - t1) * 1e3
     losses = st['losses'].tolist()
     launches = _counts_since(kernels, before)
+    plain = _plain_since(kernels, plain0)
     img_s = k * batch / ms * 1e3
-    log(f'[resnet] K-step loop over pure_function (K = {k}, one captured '
-        f'step replayed K times, no host sync between): {ms:.2f} ms, '
-        f'{ms / k:.2f} ms a step, {img_s:.1f} img/s; launches {launches} '
-        f'over its warm-up and {k} replays; losses {losses[:4]}... last '
-        f'{losses[-1]}; card {smi_line()}')
-    if not ok or launches != {'sgd_mom': RESNET_UPDATED * (k + 1)} or \
+    log(f'[resnet] K-step loop over pure_function{" (bf16)" * bf16} (K = '
+        f'{k}, one captured step replayed K times, no host sync between): '
+        f'{ms:.2f} ms, {ms / k:.2f} ms a step, {img_s:.1f} img/s; launches '
+        f'{launches}, plain updates {plain} over its warm-up and {k} '
+        f'replays; losses {losses[:4]}... last {losses[-1]}; card '
+        f'{smi_line()}')
+    updates = {'sgd_mom': RESNET_UPDATED * (k + 1)}
+    if not ok or (launches, plain) != (({}, updates) if bf16 else
+                                       (updates, {})) or \
             not all(math.isfinite(v) for v in losses):
         fail('resnet: the K-step loop parts from the eager steps, is not '
-             'finite, or launched other than B6 once a parameter a step')
+             'finite, or took other than B6 (its plain version for bf16) '
+             'once a parameter a step')
     graph.release()
     return dict(ms=ms, img_s=img_s)
 
@@ -3224,6 +3482,635 @@ def resnet_parity(torch, seed, steps=2):
     if not ok or bad:
         fail(f'resnet: the card and the CPU train resnet18 apart: losses '
              f'{card} against {cpu}; tensors past tolerance {bad}')
+
+
+# ------------------------------------------------------------- bf16
+#: the bf16 phase follows ``bench.py --dtype bf16`` (bench.py:1084, the
+#: reference's default): build, initialize, one forward, ``cast
+#: ('bfloat16')``, then hybridize. llama3_8b's causal forward takes one
+#: seeded batch of this many tokens; generate() a prompt of BF16_PROMPT
+#: tokens and BF16_NEW new ones
+BF16_TOKENS = 2048
+BF16_PROMPT, BF16_NEW = 32, 32
+#: the bf16 losses (from fp32 logits) are held across runs at this
+#: relative tolerance: the logits are bf16 values (2**-7 of one an ulp at
+#: most), and two runs that round their products and sums in other places
+#: part by an ulp or two
+BF16_LOSS_RTOL = 1e-2
+#: card against CPU in bf16: the change of all the weights over the steps
+#: within this share of the CPU's change (the CPU tests hold the port to
+#: the JAX package at 0.15 for Adam and 0.1 for SGD, where 0.057 and 0.023
+#: were seen)
+BF16_CHANGE_GAP = 0.15
+#: seeds of the bf16 resnet18 card-against-CPU check (about 4.5 s each):
+#: two correct runs part by 0.05-6.4 % at a second step, so one seed
+#: shows little; eight show the spread
+BF16_RESNET_SEEDS = 8
+#: Adam's learning rate for bf16 BERT: at the bert phase's 1e-4 a step is
+#: below half a bf16 ulp of most weights and rounds away
+BF16_BERT_LR = 1e-3
+
+
+def _bf16_still(what, still, allowed):
+    """Fail unless the tensors a bf16 run left unchanged are among
+    ``allowed`` (names, or suffixes after a dot): a norm's gamma of 1.0
+    moves only by a step of 2**-8 or more (half its bf16 ulp)."""
+    bad = [k for k in still if k not in allowed
+           and not any(k.endswith('.' + a) for a in allowed)]
+    if bad:
+        fail(f'bf16 {what}: {bad} did not move')
+
+
+def _dtype_events(prof, parts=('fused_norm', 'flash_fwd', 'paged_decode')):
+    """``{kernel: {element type: events}}`` of a profiled window for the
+    kernels whose names hold ``parts``, by the kernel template's first
+    argument (the element type of x, or of q: ``float`` or
+    ``__nv_bfloat16``), so that a run shows the dtype each launch took."""
+    from torch.autograd import DeviceType
+    out = {p: {} for p in parts}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        part = next((p for p in parts if p in e.key), None)
+        if part is None:
+            continue
+        first = e.key.split('<', 1)[1].split(',', 1)[0] if '<' in e.key \
+            else ''
+        dt = 'bf16' if 'bfloat16' in first else 'fp32' if 'float' in first \
+            else first
+        out[part][dt] = out[part].get(dt, 0) + e.count
+    return out
+
+
+def _plain_since(kernels, before):
+    after = kernels.plain_update_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _bf16_dtypes(what, params, want='bfloat16'):
+    got = sorted({str(p.data().dtype) for p in params.values()})
+    if got != [want]:
+        fail(f'bf16: {what} holds {got} after cast(\'bfloat16\')')
+
+
+def _bf16_slots(what, trainer):
+    """The Trainer's slots of bf16 weights: fp32, as the JAX Trainer's
+    fp32 device scalars leave them after its first update."""
+    dts = sorted({str(t.dtype) for st in trainer._states.values()
+                  for t in (st if isinstance(st, (list, tuple)) else [st])
+                  if t is not None})
+    if dts != ['torch.float32']:
+        fail(f'bf16: {what} slots {dts}, want float32')
+
+
+def phase_bf16(torch, seed):
+    """BERT-base, ResNet-50 and llama3_8b in bf16 on the card: see the
+    module docstring. Returns what :func:`bf16_costs` logs."""
+    got = dict(bert=_bf16_bert(torch, seed))
+    torch.cuda.empty_cache()
+    got['resnet'] = _bf16_resnet(torch, seed + 1)
+    torch.cuda.empty_cache()
+    got['llama'] = _bf16_llama(torch, seed + 2)
+    torch.cuda.empty_cache()
+    return got
+
+
+def _bf16_bert(torch, seed):
+    """bert_12_768_12 at (32, 128) cast to bf16, BERT_STEPS Adam steps
+    eagerly and then graphed from the same weights: 26 B1 and 12 B2 launches
+    a step, all bf16 (the profiled step's kernel names), no B5 and
+    BERT_UPDATED plain updates a step, fp32 slots."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import kernels
+    dev = mx.gpu(0).to_torch()
+    mx.random.seed(seed)
+    net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
+                              use_classifier=False)
+    net.initialize(ctx=mx.gpu(0))
+    ids, tt, labels = bert_batch(mx, seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB)
+    net(ids, tt)                        # deferred initialization, fp32
+    net.cast('bfloat16')
+    params = net.collect_params()
+    _bf16_dtypes('bert', params)
+    init = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    want = dict(BERT_FORWARD)
+    runs, steps, busy, peaks, groups = {}, {}, {}, {}, {}
+    for graphed in (False, True):
+        tag = 'graphed' if graphed else 'eager'
+        for k, p in params.items():
+            p.set_data(init[k])
+        net.hybridize(graphed, static_alloc=True)
+        mem = _memory_start(torch, dev)
+        trainer = gluon.Trainer(params, 'adam',
+                                {'learning_rate': BF16_BERT_LR})
+        losses, wall = [], []
+        for i in range(BERT_STEPS):
+            before = kernels.launch_counts()
+            plain0 = kernels.plain_update_counts()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            last = i == BERT_STEPS - 1
+            with (profiled() if last else contextlib.nullcontext()) as prof:
+                loss = bert_step(mx, net, trainer, loss_fn, ids, tt, labels)
+                _sync(torch, dev)
+            wall.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss.item()))
+            got, plain = _counts_since(kernels, before), \
+                _plain_since(kernels, plain0)
+            if got != want or plain != {'adam': BERT_UPDATED}:
+                fail(f'bf16 bert: {tag} step {i + 1} launched {got} and '
+                     f'{plain} plain updates, want {want} and '
+                     f'{ {"adam": BERT_UPDATED} }')
+            if last:
+                log(f'[bf16] bert {tag} Adam step profiled:')
+                groups[tag] = bert_breakdown(torch, prof, wall[-2])
+                busy[tag] = _busy_share(prof, wall[-2])
+                dts = _dtype_events(prof)
+                log(f'[bf16] bert {tag}: kernel launches by element type '
+                    f'{dts}')
+                if dts['fused_norm'] != {'bf16': 26} or \
+                        dts['flash_fwd'] != {'bf16': 12}:
+                    fail(f'bf16 bert: the norm and flash launches of a step '
+                         f'were not all bf16: {dts}')
+            del loss
+        _bf16_slots(f'bert {tag}', trainer)
+        state = {k: p.data()._data.detach().clone()
+                 for k, p in params.items()}
+        runs[graphed] = (losses, state)
+        moved = [k for k in params if not torch.equal(state[k], init[k])]
+        still = sorted(set(params) - set(moved))
+        log(f'[bf16] bert {tag} Adam (lr {BF16_BERT_LR}): losses {losses}; '
+            f'host ms a step '
+            f'{[round(w, 2) for w in wall]} (the last profiled); '
+            f'{BERT_BATCH / wall[-2] * 1e3:.1f} samples/s at step '
+            f'{BERT_STEPS - 1}; launches a step {want} and '
+            f'{BERT_UPDATED} plain updates; unchanged: {still}')
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f'bf16 bert: {tag} losses not finite or not falling: '
+                 f'{losses}')
+        _bf16_still(f'bert {tag}', still, ('pooler.bias', 'pooler.weight',
+                                           'gamma'))
+        steps[tag] = wall
+        peaks[tag] = _memory_peaks(torch, dev, mem)
+        if graphed:
+            graph_counts(net, trainer, 'bf16 bert', want_captures=2)
+        _bf16_dtypes(f'bert after {tag} training', params)
+        del trainer
+    (el, _), (gl, _) = runs[False], runs[True]
+    ok = all(math.isclose(a, b, rel_tol=BF16_LOSS_RTOL)
+             for a, b in zip(gl, el))
+    _, worst = _change_gaps(init, runs)
+    log(f'[bf16] bert graphed against eager from the same weights: losses '
+        f'{gl} and {el} (rtol {BF16_LOSS_RTOL}); |graphed change - eager '
+        f'change| over |eager change|, worst {worst} (logged) -> '
+        f'{"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail('bf16 bert: the graphed steps train apart from the eager ones')
+    del net, init, runs
+    return dict(steps=steps, busy=busy, peaks=peaks, groups=groups)
+
+
+def _bf16_resnet(torch, seed):
+    """resnet50_v1 at batch 32, 224, cast to bf16 (bench_resnet and
+    bench_resnet_train): graphed predict, K forwards back to back; then
+    graphed SGD-momentum steps (the logits cast to fp32 for the loss, as
+    bench does), RESNET_UPDATED plain updates a step and no kernel; then
+    the K-step loop over ``pure_function``."""
+    from torch.autograd import DeviceType
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, io
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import kernels
+    dev = mx.gpu(0).to_torch()
+    mx.random.seed(seed)
+    net = vision.resnet50_v1()
+    net.initialize(ctx=mx.gpu(0))
+    net(mx.np.ones((1, 3, 224, 224), ctx=mx.gpu(0)))
+    net.cast('bfloat16')
+    params = net.collect_params()
+    _bf16_dtypes('resnet', params)
+    images, labels = resnet_data(seed, RESNET_BATCH * RESNET_BATCHES)
+    it = io.NDArrayIter(images, labels, batch_size=RESNET_BATCH,
+                        shuffle=False)
+    batches = [(b.data[0].astype('bfloat16').as_in_context(mx.gpu(0)),
+                b.label[0].as_in_context(mx.gpu(0))) for b in it]
+    x0, y0 = batches[0]
+    with mx.autograd.predict_mode():
+        eager = net(x0)
+    net.hybridize(static_alloc=True)
+    out = net(x0)                       # captures the predict graph
+    err, ok = compare(torch, out._data, eager._data, 0.0, 0.0)
+    if not ok or out.dtype != eager.dtype or str(out.dtype) != 'bfloat16':
+        fail(f'bf16 resnet: graphed predict parts from the eager forward '
+             f'({err:.3g}) or is not bf16 ({out.dtype})')
+    k = RESNET_K
+    before = kernels.launch_counts()
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for _ in range(k):
+        out = net(x0)
+    _sync(torch, dev)
+    infer_ms = (time.perf_counter() - t1) * 1e3 / k
+    # three calls, each in a profiler session of its own opening and
+    # closing on an idle card (one session around one call lost events
+    # once); each session's kernel count is logged, and a replay's device
+    # time by CUDA events stands beside the profiler's kernel time
+    prof = profiled_calls(torch, lambda: net(x0), 3)
+    infer_busy = kernel_breakdown('bf16', 'resnet50 graphed predict, batch '
+                                  f'{RESNET_BATCH}, bf16', prof, infer_ms,
+                                  reps=3, top=6)
+    counts = [sum(e.count for e in p.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0) for p in prof.profs]
+    infer_events = _events_ms(torch, lambda: net(x0), k)
+    log(f'[bf16] resnet graphed predict: kernels in each profiled call '
+        f'{counts}; device ms a call by CUDA events over {k} calls '
+        f'{infer_events:.2f}')
+    log(f'[bf16] resnet graphed predict: {k} forwards back to back '
+        f'{infer_ms:.2f} ms a forward, {RESNET_BATCH / infer_ms * 1e3:.1f} '
+        f'img/s; launches {_counts_since(kernels, before)}; equal to the '
+        f'eager forward ({err:.3g})')
+    del out, eager
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    init = {k_: p.data()._data.detach().clone() for k_, p in params.items()}
+    mem = _memory_start(torch, dev)
+    trainer = gluon.Trainer(params, RESNET_OPT[0], dict(RESNET_OPT[1]))
+    losses, wall, prof = [], [], None
+    n = RESNET_WARMUP + RESNET_STEPS
+    for i in range(n):
+        x, y = batches[i % len(batches)]
+        before = kernels.launch_counts()
+        plain0 = kernels.plain_update_counts()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        with (profiled() if i == n - 1 else contextlib.nullcontext()) as p:
+            loss = resnet_step(mx, net, trainer, loss_fn, x, y)
+            _sync(torch, dev)
+        wall.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss.item()))
+        got, plain = _counts_since(kernels, before), \
+            _plain_since(kernels, plain0)
+        if got or plain != {'sgd_mom': RESNET_UPDATED}:
+            fail(f'bf16 resnet: step {i + 1} launched {got} and {plain} '
+                 f'plain updates, want none and '
+                 f'{ {"sgd_mom": RESNET_UPDATED} }')
+        if i == n - 1:
+            prof = p
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for i in range(RESNET_STEPS):
+        loss = resnet_step(mx, net, trainer, loss_fn,
+                           *batches[i % len(batches)])
+    loop_loss = loss.item()
+    loop_ms = (time.perf_counter() - t1) * 1e3 / RESNET_STEPS
+    log(f'[bf16] resnet graphed SGD-momentum {RESNET_OPT[1]}: losses '
+        f'{losses}; host ms a step synced one by one '
+        f'{[round(w, 2) for w in wall]} (the last profiled); '
+        f'{RESNET_STEPS} steps back to back {loop_ms:.2f} ms a step, '
+        f'{RESNET_BATCH / loop_ms * 1e3:.1f} img/s, last loss {loop_loss}; '
+        f'{RESNET_UPDATED} plain updates a step, no kernel')
+    log('[bf16] resnet graphed step profiled:')
+    breakdown = resnet_breakdown(torch, prof, wall[-2])
+    if not all(math.isfinite(v) for v in losses + [loop_loss]):
+        fail(f'bf16 resnet: losses not finite: {losses}')
+    still = sorted(k_ for k_, p in params.items()
+                   if torch.equal(p.data()._data, init[k_]))
+    log(f'[bf16] resnet: unchanged over the steps: {still}')
+    _bf16_still('resnet', still, ('gamma',))
+    graph_counts(net, trainer, 'bf16 resnet', want_captures=3)
+    _bf16_slots('resnet', trainer)
+    _bf16_dtypes('resnet after training', params)
+    peak = _memory_peaks(torch, dev, mem)
+    del trainer, init
+    kstep = resnet_kstep(torch, net, x0, dev)
+    del net, batches
+    return dict(infer_ms=infer_ms, infer_busy=infer_busy,
+                infer_events=infer_events, loop_ms=loop_ms,
+                wall=wall, breakdown=breakdown, peak=peak, kstep=kstep)
+
+
+def _bf16_llama(torch, seed):
+    """llama3_8b at full width and depth, seeded fp32 weights cast to bf16
+    (16 GB): first one causal (1, BF16_TOKENS) forward in fp32, then the
+    same in bf16 (65 B1 in RMS mode and 32 B2 launches, all bf16 by their
+    kernel names; finite logits), generate() from a BF16_PROMPT-token
+    prompt (BF16_NEW new tokens), and the generated tokens teacher-forced
+    through the forward."""
+    from mxnet_tpu_torch.gluon.model_zoo.llama import llama3_8b
+    from mxnet_tpu_torch.ops import kernels
+    net = llama3_8b(device='cuda', seed=seed).eval()
+    cfg, dev = net.cfg, _device(net)
+    toks = torch.randint(0, cfg.vocab_size, (1, BF16_TOKENS),
+                         generator=torch.Generator().manual_seed(seed))
+    toks = toks.to(dev)
+    want = _want(fused_norm=2 * cfg.num_layers + 1,
+                 flash_attention=cfg.num_layers)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+        if dtype == torch.bfloat16:
+            net.to(torch.bfloat16)
+            torch.cuda.empty_cache()
+        mem = _memory_start(torch, dev)
+        before = kernels.launch_counts()
+        with torch.no_grad():
+            logits = net(toks)          # the first call: warm-up
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            logits = net(toks)
+            _sync(torch, dev)
+            ms = (time.perf_counter() - t1) * 1e3
+            with profiled() as prof:
+                net(toks)
+                _sync(torch, dev)
+        got = {k: v // 3 for k, v in _counts_since(kernels, before).items()}
+        dts = _dtype_events(prof)
+        log(f'[bf16] llama3_8b {tag} causal (1, {BF16_TOKENS}) forward: '
+            f'{ms:.2f} host ms, {BF16_TOKENS / ms * 1e3:.1f} tok/s, logits '
+            f'{tuple(logits.shape)} {logits.dtype}; launches a forward '
+            f'{got}; by element type {dts}')
+        busy = kernel_breakdown('bf16', f'llama3_8b {tag} forward', prof, ms,
+                                top=6)
+        b1 = sum(e.self_device_time_total for e in prof.key_averages()
+                 if 'fused_norm' in e.key) / 1e3
+        b2 = sum(e.self_device_time_total for e in prof.key_averages()
+                 if 'flash_fwd' in e.key) / 1e3
+        want_dt = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+        if got != {k: v for k, v in want.items() if v} or \
+                dts['fused_norm'] != {want_dt: want['fused_norm']} or \
+                dts['flash_fwd'] != {want_dt: want['flash_attention']}:
+            fail(f'bf16 llama: {tag} forward launched {got} ({dts}), want '
+                 f'{want}, all {want_dt}')
+        if logits.dtype != dtype or \
+                not bool(torch.isfinite(logits.float()).all()):
+            fail(f'bf16 llama: {tag} logits {logits.dtype} or not finite')
+        res[tag] = dict(ms=ms, busy_ms=busy, b1_ms=b1, b2_ms=b2,
+                        peak=_memory_peaks(torch, dev, mem))
+        del logits, prof
+    prompt = torch.randint(1, cfg.vocab_size, (1, BF16_PROMPT),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    prompt = prompt.to(dev)
+    net.generate(prompt, max_new_tokens=BF16_NEW)        # captures
+    before = kernels.launch_counts()
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    out = net.generate(prompt, max_new_tokens=BF16_NEW)
+    _sync(torch, dev)
+    gen_ms = (time.perf_counter() - t1) * 1e3
+    launches = _counts_since(kernels, before)
+    new = out[0, BF16_PROMPT:].tolist()
+    log(f'[bf16] llama3_8b bf16 generate(): {BF16_NEW} tokens from a '
+        f'{BF16_PROMPT}-token prompt in {gen_ms:.2f} ms, '
+        f'{BF16_NEW / gen_ms * 1e3:.1f} tok/s (one eager prefill, the '
+        f'decode steps replayed from a graph over the fp32 dense cache); '
+        f'launches {launches}; tokens {new}')
+    if launches != {'fused_norm': want['fused_norm'] * BF16_NEW}:
+        fail(f'bf16 llama: generate() launched {launches}, want '
+             f'{ {"fused_norm": want["fused_norm"] * BF16_NEW} }')
+    # the tokens teacher-forced through the flash forward: the two paths
+    # round bf16 in other places, so only positions whose top-2 logit
+    # margin exceeds 0.25 (a few bf16 ulps of a logit) are held
+    seq = out[:, :-1]
+    with torch.no_grad():
+        logits = net(seq)[0, BF16_PROMPT - 1:].float()
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    pick = logits.argmax(-1).tolist()
+    clear = [i for i, m in enumerate(margin) if m > 0.25]
+    bad = [i for i in clear if pick[i] != new[i]]
+    log(f'[bf16] llama3_8b teacher-forced check over {len(new)} tokens: '
+        f'{len(clear)} with margin > 0.25, {len(bad)} disagree; '
+        f'{sum(p == o for p, o in zip(pick, new))} of {len(new)} equal')
+    if bad:
+        fail(f'bf16 llama: teacher-forced argmax differs at {bad}')
+    res['generate'] = dict(ms=gen_ms, tok_s=BF16_NEW / gen_ms * 1e3)
+    net.release_graphs()
+    del net, logits, out
+    return res
+
+
+def _weights_gap(got, want, start):
+    """|got change - want change| over |want change| from ``start``, one
+    vector of every tensor (dicts of float64 CPU tensors)."""
+    num = sum(float(((got[k] - want[k]) ** 2).sum()) for k in start)
+    den = sum(float(((want[k] - w0) ** 2).sum()) for k, w0 in start.items())
+    return (num / den) ** 0.5
+
+
+def _host_weights(net):
+    return {k: p.data()._data.detach().double().cpu()
+            for k, p in net.collect_params().items()}
+
+
+def bf16_parity(torch, seed):
+    """A small BERT (two Adam steps) and a ``resnet18_v1`` thumbnail (two
+    SGD-momentum steps), each cast to bf16 after its first forward, train
+    on the card and on the CPU from the same weights. Held: the losses at
+    BF16_LOSS_RTOL, and the change of all the weights together within
+    BF16_CHANGE_GAP of the CPU's (|card change - CPU change| over |CPU
+    change|, one vector of every tensor): bf16 gradients part by rounding
+    noise, which a BatchNorm over four images and Adam's per-element
+    normalisation amplify in single elements. For the resnet see
+    :func:`_bf16_parity_resnet18`, run for BF16_RESNET_SEEDS seeds from
+    ``seed``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    steps = 2
+    losses, state, weights, start = {}, {}, None, None
+    for where in (mx.cpu(), mx.gpu(0)):
+        with where:
+            mx.random.seed(seed)
+            net = bert.get_bert_model(
+                'bert_12_768_12', vocab_size=1000, num_layers=2, units=128,
+                hidden_size=512, num_heads=2, max_length=32, dropout=0.0,
+                use_classifier=False)
+            batch = bert_batch(mx, seed, 4, 32, 1000)
+            net.initialize(ctx=where)
+            net(*batch[:2])
+            if weights is None:
+                weights = {k: p.data().asnumpy()
+                           for k, p in net.collect_params().items()}
+            else:
+                net.load_dict(weights)
+            net.cast('bfloat16')
+            if start is None:
+                start = _host_weights(net)
+            net.hybridize()
+            trainer = gluon.Trainer(net.collect_params(), 'adam',
+                                    {'learning_rate': BF16_BERT_LR})
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            losses[str(where)] = [
+                float(bert_step(mx, net, trainer, loss_fn, *batch).item())
+                for _ in range(steps)]
+            state[str(where)] = _host_weights(net)
+    cpu, card = losses['cpu(0)'], losses['gpu(0)']
+    gap = _weights_gap(state['gpu(0)'], state['cpu(0)'], start)
+    ok = all(math.isclose(a, b, rel_tol=BF16_LOSS_RTOL)
+             for a, b in zip(card, cpu)) and gap <= BF16_CHANGE_GAP
+    log(f'[bf16] bert, bf16, {steps} adam steps: losses on the card {card}, '
+        f'on the CPU {cpu} (rtol {BF16_LOSS_RTOL}); |card change - CPU '
+        f'change| over |CPU change| of all the weights {gap:.4f} '
+        f'({BF16_CHANGE_GAP}) -> {"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail('bf16: the card and the CPU train the small bert apart')
+    for s in range(seed, seed + BF16_RESNET_SEEDS):
+        _bf16_parity_resnet18(torch, s)
+
+
+def _bf16_parity_resnet18(torch, seed):
+    """A ``resnet18_v1`` thumbnail (four 32 x 32 images, RESNET_OPT) cast
+    to bf16 trains two steps on the CPU and on the card from the same
+    weights. Held: each step's loss at BF16_LOSS_RTOL and the weights'
+    change within BF16_CHANGE_GAP of the CPU's, (a) after step 1 and after
+    step 2 of the two free-running runs (the second loss only logged),
+    and (b) over a second step that the card takes from the CPU's state
+    after its first (weights, running statistics, momenta, update count).
+    Why the free-running second loss is not held: two correct runs part
+    there by more than BF16_LOSS_RTOL. The JAX package and the port, both
+    on the CPU, part by 0.05-6.4 % at step 2 over eight seeds in bf16
+    (0.00-0.09 % in fp32), where their weights' change after two steps
+    stays within 0.065-0.076 (``tests/torch_bf16_witness.py``): a bf16
+    step moves a weight by whole ulps or not at all, and a BatchNorm over
+    four images amplifies it. Step (b) starts both from one state, so its
+    loss is held as the first step's is."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rng = np.random.default_rng(seed)
+    xr = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    yr = np.array([1, 7, 3, 9], np.float32)
+    run, weights, start = {}, None, None
+    for tag, where in (('cpu', mx.cpu()), ('card', mx.gpu(0))):
+        with where:
+            mx.random.seed(seed)
+            net = vision.resnet18_v1(classes=10, thumbnail=True)
+            net.initialize(ctx=where)
+            net(mx.np.array(xr))
+            if weights is None:
+                weights = {k: p.data().asnumpy()
+                           for k, p in net.collect_params().items()}
+            else:
+                net.load_dict(weights)
+            net.cast('bfloat16')
+            if start is None:
+                start = _host_weights(net)
+            net.hybridize()
+            trainer = gluon.Trainer(net.collect_params(), RESNET_OPT[0],
+                                    dict(RESNET_OPT[1]))
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            x, y = mx.np.array(xr).astype('bfloat16'), mx.np.array(yr)
+            r = run[tag] = dict(net=net, trainer=trainer)
+            r['loss1'] = float(resnet_step(mx, net, trainer, loss_fn, x,
+                                           y).item())
+            r['w1'] = _host_weights(net)
+            r['trainer1'] = trainer.state_dict()
+            r['loss2'] = float(resnet_step(mx, net, trainer, loss_fn, x,
+                                           y).item())
+            r['w2'] = _host_weights(net)
+    cpu, card = run['cpu'], run['card']
+    # (b): the card's net and trainer take the CPU's state after step 1
+    dev = mx.gpu(0).to_torch()
+    with torch.no_grad():
+        for k, p in card['net'].collect_params().items():
+            p.data()._data.copy_(cpu['w1'][k].to(dev))
+    card['trainer'].load_state_dict(cpu['trainer1'])
+    with mx.gpu(0):
+        loss2b = float(resnet_step(
+            mx, card['net'], card['trainer'],
+            gluon.loss.SoftmaxCrossEntropyLoss(),
+            mx.np.array(xr).astype('bfloat16'), mx.np.array(yr)).item())
+    w2b = _host_weights(card['net'])
+    gaps = [_weights_gap(card['w1'], cpu['w1'], start),
+            _weights_gap(card['w2'], cpu['w2'], start),
+            _weights_gap(w2b, cpu['w2'], cpu['w1'])]
+    ok = math.isclose(card['loss1'], cpu['loss1'], rel_tol=BF16_LOSS_RTOL) \
+        and math.isclose(loss2b, cpu['loss2'], rel_tol=BF16_LOSS_RTOL) \
+        and max(gaps) <= BF16_CHANGE_GAP
+    log(f'[bf16] resnet18 seed {seed}, bf16, sgd: losses on the CPU '
+        f'{[cpu["loss1"], cpu["loss2"]]}, on the card '
+        f'{[card["loss1"], card["loss2"]]} (step 1 at rtol {BF16_LOSS_RTOL}; '
+        f'step 2 logged, {abs(card["loss2"] - cpu["loss2"]) / cpu["loss2"]:.4f}'
+        f' apart), step 2 from the CPU\'s step-1 state {loss2b} '
+        f'({abs(loss2b - cpu["loss2"]) / cpu["loss2"]:.4f} apart, rtol '
+        f'{BF16_LOSS_RTOL}); |card change - CPU change| over |CPU change| '
+        f'of all the weights after step 1 {gaps[0]:.4f}, after step 2 '
+        f'{gaps[1]:.4f}, over step 2 from the CPU\'s state {gaps[2]:.4f} '
+        f'({BF16_CHANGE_GAP}) -> {"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail(f'bf16: the card and the CPU train the small resnet18 apart '
+             f'(seed {seed})')
+
+
+def bf16_costs(torch, got, fp32):
+    """Each bf16 path beside the fp32 run of the same path in this process
+    (the bert, resnet phases; the llama forward of this phase): host ms a
+    step or call, busy share, samples/s, img/s or tok/s, peak memory
+    (allocated, reserved) and kernel ms by group."""
+    def pct(x):
+        return f'{100 * x:.1f} %'
+    b, fb = got['bert'], fp32.get('bert')
+    for tag in ('eager', 'graphed'):
+        step = b['steps'][tag][-2]
+        line = (f'[bf16] compare bert {tag} Adam step: bf16 {step:.2f} host '
+                f'ms, {BERT_BATCH / step * 1e3:.1f} samples/s, busy '
+                f'{pct(b["busy"][tag])}, peak {b["peaks"][tag][0]:.2f} / '
+                f'{b["peaks"][tag][1]:.2f} GiB, kernel ms by group '
+                f'{ {g: round(v, 2) for g, v in b["groups"][tag].items()} }')
+        if fb:
+            fs = (fb['graphed_steps'] if tag == 'graphed'
+                  else fb['steps'])['adam'][-2]
+            groups = {g: round(v, 2) for g, v in fb['groups'][tag].items()}
+            line += (f'; fp32 {fs:.2f} host ms, '
+                     f'{BERT_BATCH / fs * 1e3:.1f} samples/s, busy '
+                     f'{pct(fb["busy"][tag])}, peak '
+                     f'{fb["peaks"][tag][0]:.2f} / {fb["peaks"][tag][1]:.2f} '
+                     f'GiB, kernel ms by group {groups}')
+        else:
+            line += '; fp32 not run in this process'
+        log(line)
+    r, fr = got['resnet'], fp32.get('resnet')
+    bd = r['breakdown']
+    line = (f'[bf16] compare resnet50 graphed SGD-momentum step: bf16 '
+            f'{r["loop_ms"]:.2f} ms back to back, '
+            f'{RESNET_BATCH / r["loop_ms"] * 1e3:.1f} img/s, busy '
+            f'{pct(bd["busy_ms"] / bd["wall_ms"])}, peak {r["peak"][0]:.2f} '
+            f'/ {r["peak"][1]:.2f} GiB, kernel ms by group '
+            f'{ {g: round(v, 2) for g, v in bd["groups"].items()} }; K-step '
+            f'loop {r["kstep"]["img_s"]:.1f} img/s; graphed predict '
+            f'{r["infer_ms"]:.2f} ms a forward '
+            f'({RESNET_BATCH / r["infer_ms"] * 1e3:.1f} img/s, '
+            f'{r["infer_busy"]:.2f} kernel ms, {r["infer_events"]:.2f} device '
+            f'ms by CUDA events)')
+    if fr:
+        g = fr['runs']['graphed']
+        gb = g['breakdown']
+        line += (f'; fp32 {g["loop_ms"] / RESNET_STEPS:.2f} ms, '
+                 f'{g["img_s"]:.1f} img/s, busy '
+                 f'{pct(gb["busy_ms"] / gb["wall_ms"])}, peak '
+                 f'{g["peak"][0]:.2f} / {g["peak"][1]:.2f} GiB, kernel ms by '
+                 f'group {({k: round(v, 2) for k, v in gb["groups"].items()})}'
+                 f'; K-step {fr["kstep"]["img_s"]:.1f} img/s; graphed predict '
+                 f'{fr["graph_ms"][-1]:.2f} host ms (one call)')
+    else:
+        line += '; fp32 not run in this process'
+    log(line)
+    ll = got['llama']
+    for tag in ('fp32', 'bf16'):
+        x = ll[tag]
+        log(f'[bf16] compare llama3_8b (1, {BF16_TOKENS}) forward {tag}: '
+            f'{x["ms"]:.2f} host ms, {BF16_TOKENS / x["ms"] * 1e3:.1f} '
+            f'tok/s, busy {pct(x["busy_ms"] / x["ms"])}, B1 {x["b1_ms"]:.3f} '
+            f'ms (65), B2 {x["b2_ms"]:.3f} ms (32), peak {x["peak"][0]:.2f} '
+            f'/ {x["peak"][1]:.2f} GiB')
+    log(f'[bf16] llama3_8b bf16 generate(): '
+        f'{ll["generate"]["tok_s"]:.1f} tok/s; card {smi_line()}')
 
 
 # ------------------------------------------------------------- ring
@@ -3558,18 +4445,29 @@ def main(argv=None):
         ndarray_costs(torch, got)
         del got
         torch.cuda.empty_cache()
+    fp32 = {}       # the bert and resnet phases' numbers, for bf16's log
     if 'bert' in phases:
         got = window('bert', phase_bert, torch, SEED + 10)
         bert_costs(torch, got)
+        fp32['bert'] = {k: v for k, v in got.items() if k != 'net'}
         del got
         torch.cuda.empty_cache()
         bert_parity(torch, SEED + 11)
     if 'resnet' in phases:
         got = window('resnet', phase_resnet, torch, SEED + 12)
         resnet_costs(torch, got)
+        fp32['resnet'] = got
         del got
         torch.cuda.empty_cache()
         resnet_parity(torch, SEED + 13)
+    if 'bf16' in phases:
+        got = window('bf16', phase_bf16, torch, SEED + 14)
+        log(f'[bf16] plain updates in the window (the counters were set to '
+            f'0 at its start): {kernels.plain_update_counts()}')
+        bf16_costs(torch, got, fp32)
+        del got
+        torch.cuda.empty_cache()
+        bf16_parity(torch, SEED + 15)
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')
@@ -3601,7 +4499,7 @@ def main(argv=None):
                 library_ms=head['library_ms'], shape=head['shape'],
                 cases=rows[name]))
         if {'forward', 'serve', 'int8', 'train', 'ndarray', 'bert', 'resnet',
-                'ring', 'rtc'} <= set(phases):
+                'bf16', 'ring', 'rtc'} <= set(phases):
             idle = [k for k, n in launches.items() if n == 0]
             if idle:
                 fail(f'kernels of the main path never launched: {idle}')

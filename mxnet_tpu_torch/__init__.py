@@ -19,8 +19,8 @@ The imperative frontend is the reference's::
 (``ops/registry.py``); an NDArray holds one ``torch.Tensor``, and
 ``mx.autograd`` runs on ``torch.autograd``. ``mx.gluon`` has the blocks,
 layers, losses and Trainer, ``mx.init`` (``mx.initializer``) the
-initializers, ``mx.io`` the data iterators and ``mx.metric`` the
-evaluation metrics.
+initializers, ``mx.io`` the data iterators, ``mx.metric`` the
+evaluation metrics and ``mx.amp`` mixed precision.
 """
 
 from .base import MXNetError
@@ -41,8 +41,9 @@ from . import model
 from . import metric
 from . import io
 from . import gluon
+from . import amp
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'num_gpus',
            'current_context', 'np', 'npx', 'nd', 'autograd', 'random',
            'NDArray', 'waitall', 'initializer', 'init', 'model', 'metric',
-           'io', 'gluon']
+           'io', 'gluon', 'amp']

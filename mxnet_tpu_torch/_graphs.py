@@ -172,7 +172,7 @@ class StepGraph:
                 graph, stream=self.stream, capture_error_mode=_MODE):
             outputs = self.body()
         self.graph, self.outputs = graph, outputs
-        self.launches, self.paths = c.launches, c.by_path
+        self.launches, self.paths, self.plain = c.launches, c.by_path, c.plain
         self.captures += 1
         return outputs
 
@@ -181,7 +181,8 @@ class StepGraph:
         outputs of the last."""
         for _ in range(times):
             self.graph.replay()
-        kernels.add_launch_counts(self.launches, self.paths, times=times)
+        kernels.add_launch_counts(self.launches, self.paths, times=times,
+                                  plain=self.plain)
         return self.outputs
 
     def release(self):
@@ -228,6 +229,7 @@ class _Counted:
     def __enter__(self):
         self.counts = kernels.launch_counts()
         self.paths = kernels.path_counts()
+        self.plain0 = kernels.plain_update_counts()
         return self
 
     def __exit__(self, *exc):
@@ -235,7 +237,9 @@ class _Counted:
         by_path = {k: _diff(d, self.paths[k])
                    for k, d in kernels.path_counts().items()}
         self.by_path = {k: d for k, d in by_path.items() if d}
-        kernels.add_launch_counts(self.launches, self.by_path, times=-1)
+        self.plain = _diff(kernels.plain_update_counts(), self.plain0)
+        kernels.add_launch_counts(self.launches, self.by_path, times=-1,
+                                  plain=self.plain)
 
 
 class GraphedCall:

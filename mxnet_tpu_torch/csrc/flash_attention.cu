@@ -1,4 +1,5 @@
-// Flash-attention forward, fp32, in two forms from one kernel body.
+// Flash-attention forward over fp32 or bf16 q, k, v, in two forms from one
+// kernel body.
 //
 // Normalised form: replaces mxnet_tpu/ops/pallas/flash_attention.py:
 // _flash_fwd_kernel as _flash_fwd launches it (o = softmax(q k^T *
@@ -11,6 +12,17 @@
 // (in the units of the scaled scores, q pre-scaled as the reference does)
 // and sum l = sum_j exp(s_j - m). Its causal mask is the diagonal block:
 // q_offset = 0, T == S, key j kept for query i when i >= j.
+//
+// bf16 (as the Pallas kernel takes it: operands widened to fp32 on load,
+// q * sm_scale formed in fp32, the output of the normalised form stored in
+// q's dtype; the stats form's acc, m and l stay fp32, as the reference's
+// out_shape gives them): q, k and v are converted into the same fp32 tiles
+// in shared memory as they are loaded, with plain 16-byte loads in place
+// of cp.async (the load of tile j + 1 is issued before tile j computes, but
+// the thread waits for it). A bf16 value is exact in TF32, so the low
+// halves of k and v in the 3xTF32 split are zero, and their two products
+// are left out: each product takes two TF32 products, hi*hi + lo*hi of q
+// against k and of p against v, at the accuracy of three.
 //
 // Bound on the H100: operations. At T = S = 2048, d = 128 the 4*T*S*d
 // products take far longer than reading q, k and v once (half as many
@@ -54,6 +66,8 @@
 // guarded merge of parallel/ring_attention.py:_merge_stats, writes o, or
 // (acc, m, l) for the stats form, and sets the counter back to 0. One
 // launch a call.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -130,21 +144,47 @@ __device__ __forceinline__ void merge(float& m, float& l, float& o, float mb,
   m = mn;
 }
 
+// 16 bytes of global memory, 8 bf16, widened into two float4 of shared
+// memory (zeros when !ok).
+__device__ __forceinline__ void ld_bf16x8(float* dst, const void* src,
+                                          bool ok) {
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  if (ok) w = __ldg(reinterpret_cast<const uint4*>(src));
+  reinterpret_cast<float4*>(dst)[0] = make_float4(
+      mx_bf16_lo(w.x), mx_bf16_hi(w.x), mx_bf16_lo(w.y), mx_bf16_hi(w.y));
+  reinterpret_cast<float4*>(dst)[1] = make_float4(
+      mx_bf16_lo(w.z), mx_bf16_hi(w.z), mx_bf16_lo(w.w), mx_bf16_hi(w.w));
+}
+
+// Two fp32 values of a row of o stored in its type: 8 bytes of fp32 or 4
+// of bf16.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = mx_pack_bf16(a, b);
+}
+
 // Stats = false: o = acc / l. Stats = true: o = acc, m_out = m, l_out = l
 // (both (bh, T)), and the causal mask is the diagonal block (q_offset 0).
 // Grid: (bh * query blocks, splits); split s takes the key tiles s * chunk
 // .. (s + 1) * chunk - 1. With splits > 1, ws holds each split's (acc, m,
 // l) and counters one int a (bh, query block).
-template <int D, bool Stats>
+// TI: the element type of q, k, v (float or bf16); the normalised form
+// stores o in TI, the stats form in fp32.
+template <class TI, int D, bool Stats>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                 const TI* __restrict__ v,
+                 std::conditional_t<Stats, float, TI>* __restrict__ o,
                  float* __restrict__ m_out, float* __restrict__ l_out, int bh,
                  int T, int S, float sm_scale, int causal, int splits,
                  int chunk, float* __restrict__ ws,
                  int* __restrict__ counters) {
   using C = Cfg<D>;
   constexpr int BK = C::kBK;
+  // bf16 k and v are exact in TF32: their low halves are zero
+  constexpr bool kExactKV = sizeof(TI) == 2;
   extern __shared__ float4 smem4[];
   __shared__ int s_last;
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -159,12 +199,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;
   const int q_offset = Stats ? 0 : S - T;
 
-  const float* qb_ = q + static_cast<size_t>(b) * T * D;
-  const float* kb = k + static_cast<size_t>(b) * S * D;
-  const float* vb = v + static_cast<size_t>(b) * S * D;
+  const TI* qb_ = q + static_cast<size_t>(b) * T * D;
+  const TI* kb = k + static_cast<size_t>(b) * S * D;
+  const TI* vb = v + static_cast<size_t>(b) * S * D;
 
-  // q tile, pre-scaled as the reference does (q * sm_scale, then dot)
-  for (int i = tid; i < kBQ * D / 4; i += kThreads) {
+  // q tile, pre-scaled as the reference does (q * sm_scale in fp32, then
+  // dot)
+  if constexpr (kExactKV) {
+    for (int i = tid; i < kBQ * D / 8; i += kThreads) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      float* dst = sQ + r * C::kQS + c;
+      ld_bf16x8(dst, qb_ + static_cast<size_t>(q0 + r) * D + c, q0 + r < T);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] *= sm_scale;
+    }
+  } else for (int i = tid; i < kBQ * D / 4; i += kThreads) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < T) {
@@ -190,6 +239,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto load_kv = [&](int j, int buf) {
     float* sK = sKV + buf * C::kStageFloats;
     float* sV = sK + BK * C::kKS;
+    if constexpr (kExactKV) {   // widened on the way, no cp.async
+      for (int i = tid; i < BK * D / 8; i += kThreads) {
+        const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+        const int key = j * BK + r;
+        const bool ok = key < S;
+        const size_t off = ok ? static_cast<size_t>(key) * D + c : 0;
+        ld_bf16x8(sK + r * C::kKS + c, kb + off, ok);
+        ld_bf16x8(sV + r * C::kVS + c, vb + off, ok);
+      }
+      cp_async_commit();
+      return;
+    }
     for (int i = tid; i < BK * D / 4; i += kThreads) {
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
       const int key = j * BK + r;
@@ -258,8 +319,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             split_tf32(kv.x, bh[i][0], bl[i][0]);
             split_tf32(kv.y, bh[i][1], bl[i][1]);
           }
+          if constexpr (!kExactKV) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) mma_tf32(small[n + i], ah, bl[i]);
+            for (int i = 0; i < 4; ++i) mma_tf32(small[n + i], ah, bl[i]);
+          }
 #pragma unroll
           for (int i = 0; i < 4; ++i) mma_tf32(small[n + i], al, bh[i]);
 #pragma unroll
@@ -356,8 +419,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             split_tf32(vr[(n2 * 8 + 1) * C::kVS + (n0 + i) * 8], bh[i][1],
                        bl[i][1]);
           }
+          if constexpr (!kExactKV) {
 #pragma unroll
-          for (int i = 0; i < kNG; ++i) mma_tf32(acc[i], ph[n2], bl[i]);
+            for (int i = 0; i < kNG; ++i) mma_tf32(acc[i], ph[n2], bl[i]);
+          }
 #pragma unroll
           for (int i = 0; i < kNG; ++i) mma_tf32(acc[i], pl[n2], bh[i]);
 #pragma unroll
@@ -385,7 +450,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int h = 0; h < 2; ++h) {
       const int row = q0 + r0 + g + 8 * h;
       if (row >= T) continue;
-      float* orow = o + (static_cast<size_t>(b) * T + row) * D;
+      auto* orow = o + (static_cast<size_t>(b) * T + row) * D;
       const float lr = fmaxf(l[h], 1e-30f);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
@@ -394,7 +459,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           val.x = val.x / lr;
           val.y = val.y / lr;
         }
-        *reinterpret_cast<float2*>(orow + n * 8 + 2 * t4) = val;
+        store2(orow + n * 8 + 2 * t4, val.x, val.y);
       }
       if (Stats && t4 == 0) {
         m_out[static_cast<size_t>(b) * T + row] = m[h];
@@ -438,26 +503,27 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             __ldcg(pp + kBQ * D + kBQ + r), __ldcg(pp + i));
     }
     const size_t at = static_cast<size_t>(b) * T + row;
-    if (Stats) {
+    if constexpr (Stats) {
       o[at * D + c] = oo;
       if (c == 0) {
         m_out[at] = mm;
         l_out[at] = ll;
       }
     } else {
-      o[at * D + c] = oo / fmaxf(ll, 1e-30f);
+      o[at * D + c] = mx_from_f32<TI>(oo / fmaxf(ll, 1e-30f));
     }
   }
   if (tid == 0) counters[blk] = 0;     // zero again for the next call
 }
 
-template <int D, bool Stats>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* m, float* l, int bh, int T, int S, float sm_scale,
-           int causal, int block_k, int splits, int chunk, float* ws,
-           int* counters, cudaStream_t st) {
+template <class TI, int D, bool Stats>
+int launch(const void* q, const void* k, const void* v, void* o, float* m,
+           float* l, int bh, int T, int S, float sm_scale, int causal,
+           int block_k, int splits, int chunk, float* ws, int* counters,
+           cudaStream_t st) {
+  using TO = std::conditional_t<Stats, float, TI>;
   constexpr int bytes = static_cast<int>(Cfg<D>::kSmem);
-  auto kernel = flash_fwd_kernel<D, Stats>;
+  auto kernel = flash_fwd_kernel<TI, D, Stats>;
   static bool configured[kMxMaxDevices] = {};   // per device index
   const int rc = mx_smem_opt_in(kernel, bytes, configured);
   if (rc != 0) return rc;
@@ -470,13 +536,14 @@ int launch(const float* q, const float* k, const float* v, float* o,
       splits > 65535 || (splits > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<dim3(static_cast<unsigned>(blocks), splits), kThreads, bytes,
-           st>>>(q, k, v, o, m, l, bh, T, S, sm_scale, causal, splits, chunk,
-                 ws, counters);
+           st>>>(static_cast<const TI*>(q), static_cast<const TI*>(k),
+                 static_cast<const TI*>(v), static_cast<TO*>(o), m, l, bh, T,
+                 S, sm_scale, causal, splits, chunk, ws, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool Stats>
-int dispatch(const float* q, const float* k, const float* v, float* o,
+template <class TI, bool Stats>
+int dispatch(const void* q, const void* k, const void* v, void* o,
              float* m, float* l, int bh, int T, int S, int d, float sm_scale,
              int causal, int block_k, int splits, int chunk, float* ws,
              int* counters, void* stream) {
@@ -486,13 +553,13 @@ int dispatch(const float* q, const float* k, const float* v, float* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
+      return launch<TI, 32, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
                                block_k, splits, chunk, ws, counters, st);
     case 64:
-      return launch<64, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
+      return launch<TI, 64, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
                                block_k, splits, chunk, ws, counters, st);
     case 128:
-      return launch<128, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
+      return launch<TI, 128, Stats>(q, k, v, o, m, l, bh, T, S, sm_scale, causal,
                                 block_k, splits, chunk, ws, counters, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -500,7 +567,8 @@ int dispatch(const float* q, const float* k, const float* v, float* o,
 
 }  // namespace
 
-// q, o: (bh, T, d); k, v: (bh, S, d); all contiguous fp32, 16-byte aligned.
+// q, o: (bh, T, d); k, v: (bh, S, d); all contiguous, 16-byte aligned, of
+// one type: fp32 (the _f32 entries) or bf16 (_bf16), o of q's type.
 // d must be 32, 64 or 128. From the wrapper's plan: `block_k`, the key
 // rows of a tile (32 at d 128, 64 below, checked), and `splits` of the
 // ceil(S / block_k) key tiles, split s taking tiles s * chunk .. (s + 1) *
@@ -509,21 +577,33 @@ int dispatch(const float* q, const float* k, const float* v, float* o,
 // ws holds bh * ceil(T / 64) * splits * 64 * (d + 2) floats and counters
 // bh * ceil(T / 64) ints, zero (the kernel leaves them zero). Returns the
 // cudaError_t of the launch.
-extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
-                                       const float* v, float* o, int bh,
-                                       int T, int S, int d, float sm_scale,
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
+                                       const void* v, void* o, int bh, int T,
+                                       int S, int d, float sm_scale,
                                        int causal, int block_k, int splits,
                                        int chunk, float* ws, int* counters,
                                        void* stream) {
-  return dispatch<false>(q, k, v, o, nullptr, nullptr, bh, T, S, d, sm_scale,
-                         causal, block_k, splits, chunk, ws, counters,
-                         stream);
+  return dispatch<float, false>(q, k, v, o, nullptr, nullptr, bh, T, S, d,
+                                sm_scale, causal, block_k, splits, chunk, ws,
+                                counters, stream);
 }
 
-// The stats form: acc (bh, T, d) unnormalised, m and l (bh, T); causal is
-// the diagonal block and needs T == S. Same layout rules as above.
-extern "C" int flash_attention_stats_f32(const float* q, const float* k,
-                                         const float* v, float* acc, float* m,
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
+                                        const void* v, void* o, int bh,
+                                        int T, int S, int d, float sm_scale,
+                                        int causal, int block_k, int splits,
+                                        int chunk, float* ws, int* counters,
+                                        void* stream) {
+  return dispatch<__nv_bfloat16, false>(q, k, v, o, nullptr, nullptr, bh, T,
+                                        S, d, sm_scale, causal, block_k,
+                                        splits, chunk, ws, counters, stream);
+}
+
+// The stats form: acc (bh, T, d) unnormalised, m and l (bh, T), all fp32
+// whatever q's type; causal is the diagonal block and needs T == S. Same
+// layout rules as above.
+extern "C" int flash_attention_stats_f32(const void* q, const void* k,
+                                         const void* v, float* acc, float* m,
                                          float* l, int bh, int T, int S, int d,
                                          float sm_scale, int causal,
                                          int block_k, int splits, int chunk,
@@ -531,6 +611,21 @@ extern "C" int flash_attention_stats_f32(const float* q, const float* k,
                                          void* stream) {
   if (m == nullptr || l == nullptr || (causal && T != S))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(q, k, v, acc, m, l, bh, T, S, d, sm_scale, causal,
-                        block_k, splits, chunk, ws, counters, stream);
+  return dispatch<float, true>(q, k, v, acc, m, l, bh, T, S, d, sm_scale,
+                               causal, block_k, splits, chunk, ws, counters,
+                               stream);
+}
+
+extern "C" int flash_attention_stats_bf16(const void* q, const void* k,
+                                          const void* v, float* acc, float* m,
+                                          float* l, int bh, int T, int S,
+                                          int d, float sm_scale, int causal,
+                                          int block_k, int splits, int chunk,
+                                          float* ws, int* counters,
+                                          void* stream) {
+  if (m == nullptr || l == nullptr || (causal && T != S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<__nv_bfloat16, true>(q, k, v, acc, m, l, bh, T, S, d,
+                                       sm_scale, causal, block_k, splits,
+                                       chunk, ws, counters, stream);
 }

@@ -1,13 +1,18 @@
-// Row normalisation, RMS or LayerNorm, fp32.
+// Row normalisation, RMS or LayerNorm, over fp32 or bf16 data.
 //
 // Replaces mxnet_tpu/ops/pallas/fused_norms.py:_ln_kernel (launched by
 // _ln_pallas): y = x * rsqrt(mean(x^2) + eps) * gamma for RMS, and
 // y = (x - mean) * rsqrt(mean((x - mean)^2) + eps) * gamma + beta for
 // LayerNorm (the reference's centred second pass), with the statistics in
-// fp32.
+// fp32. As the Pallas kernel does, x and the weights (gamma, beta: one
+// type for both) are each fp32 or bf16, loaded and widened to fp32, and y
+// is stored in the reference's promotion of their types (_out_dtype): bf16
+// only when x and the weights are bf16, fp32 otherwise (bf16 x with fp32
+// weights, the mixed-precision case, gives fp32).
 //
 // What bounds it on the H100. At many rows, bytes: x and gamma read once,
-// y written once; (2048, 4096) moves 67 MB, 0.020 ms at 3.35 TB/s. At a
+// y written once; (2048, 4096) moves 67 MB in fp32, 0.020 ms at 3.35 TB/s,
+// and half that in bf16 (2 bytes an element of x and y). At a
 // decode step's shape, (4, 4096), or a prefill chunk's, (32, 4096), not
 // bytes but launch and latency: 128 KB is 0.04 us at that rate, while an
 // empty kernel in a CUDA graph takes about 1 us and a copy floor (a kernel
@@ -21,9 +26,16 @@
 // one from the shapes and the pointers' alignment alone, and the C entry
 // refuses a plan that does not fit.
 //
+// A vector is the 16 bytes of x a thread loads at once: E = 4 elements in
+// fp32, 8 in bf16. The weights and y of those E elements are loaded and
+// stored in their own types beside it (32 bytes of fp32 weights beside
+// bf16 x, 8 bytes of bf16 weights beside fp32 x), so the register designs
+// take d a multiple of E up to 2048 * E, and the plan sizes them in
+// vectors of E.
+//
 // regs: one block a row, T threads of V 16-byte vectors each (template
-//   parameters; T * V * 4 >= d, the tail masked; d a multiple of 4 up to
-//   8192, every pointer 16-byte aligned). Each thread issues all its loads
+//   parameters; T * V * E >= d, the tail masked; d a multiple of E up to
+//   2048 * E, every pointer 16-byte aligned). Each thread issues all its loads
 //   of x, gamma and beta at kernel start, so the row and the weights arrive
 //   in one round trip, and the row stays in registers: it is never read
 //   again. gamma and beta are read with ld.relaxed.cta, which the compiler
@@ -51,9 +63,10 @@
 //   LayerNorm too, but its two sums cross the cluster twice, which cost
 //   more than the split saved, so the plan gives LayerNorm regs.
 // general: the earlier design, for what the others do not take (d not a
-//   multiple of 4, d above 8192, pointers off 16-byte alignment): one block
-//   of 256 threads a row, strided loads (16-byte ones where it can), the
-//   statistics passes re-reading the row.
+//   multiple of E, d above 2048 * E, pointers off 16-byte alignment): one
+//   block of 256 threads a row, strided loads (16-byte ones where it can in
+//   fp32, one element at a time otherwise), the statistics passes
+//   re-reading the row.
 #include "common.cuh"
 
 namespace {
@@ -79,18 +92,20 @@ __device__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-template <bool VEC>
+// VEC (fp32 only, d % 4 == 0, aligned): float4 loads and stores; else one
+// element at a time, in the element types.
+template <class TX, class TW, class TY, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-fused_norm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, float* __restrict__ y, int d,
+fused_norm_kernel(const TX* __restrict__ x, const TW* __restrict__ gamma,
+                  const TW* __restrict__ beta, TY* __restrict__ y, int d,
                   float eps, int rms) {
   __shared__ float red[32];
-  const float* xr = x + static_cast<size_t>(blockIdx.x) * d;
-  float* yr = y + static_cast<size_t>(blockIdx.x) * d;
+  const TX* xr = x + static_cast<size_t>(blockIdx.x) * d;
+  TY* yr = y + static_cast<size_t>(blockIdx.x) * d;
   const float fd = static_cast<float>(d);
 
   float s = 0.f;
-  if (VEC) {
+  if constexpr (VEC) {
     const float4* x4 = reinterpret_cast<const float4*>(xr);
     for (int i = threadIdx.x; i < (d >> 2); i += kThreads) {
       const float4 v = x4[i];
@@ -99,7 +114,7 @@ fused_norm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     }
   } else {
     for (int i = threadIdx.x; i < d; i += kThreads) {
-      const float v = xr[i];
+      const float v = mx_to_f32(xr[i]);
       s += rms ? v * v : v;
     }
   }
@@ -111,7 +126,7 @@ fused_norm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   } else {
     mean = tot / fd;
     float s2 = 0.f;
-    if (VEC) {
+    if constexpr (VEC) {
       const float4* x4 = reinterpret_cast<const float4*>(xr);
       for (int i = threadIdx.x; i < (d >> 2); i += kThreads) {
         const float4 v = x4[i];
@@ -121,14 +136,14 @@ fused_norm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
       }
     } else {
       for (int i = threadIdx.x; i < d; i += kThreads) {
-        const float a = xr[i] - mean;
+        const float a = mx_to_f32(xr[i]) - mean;
         s2 += a * a;
       }
     }
     rstd = rsqrtf(block_sum(s2, red) / fd + eps);
   }
 
-  if (VEC) {
+  if constexpr (VEC) {
     const float4* x4 = reinterpret_cast<const float4*>(xr);
     const float4* g4 = reinterpret_cast<const float4*>(gamma);
     const float4* b4 = reinterpret_cast<const float4*>(beta);
@@ -151,9 +166,9 @@ fused_norm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     }
   } else {
     for (int i = threadIdx.x; i < d; i += kThreads) {
-      float o = (xr[i] - mean) * rstd * gamma[i];
-      if (beta != nullptr) o += beta[i];
-      yr[i] = o;
+      float o = (mx_to_f32(xr[i]) - mean) * rstd * mx_to_f32(gamma[i]);
+      if (beta != nullptr) o += mx_to_f32(beta[i]);
+      yr[i] = mx_from_f32<TY>(o);
     }
   }
 }
@@ -163,22 +178,80 @@ fused_norm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 constexpr int kMaxWarps = 16;    // 512 threads
 constexpr int kMaxCluster = 8;   // the largest portable cluster
 
-// 16 bytes of x, which the kernel does not write.
-__device__ __forceinline__ float4 ld_nc(const float4* p) {
-  float4 v;
-  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p));
+// E elements of type T, as the 32-bit words they were loaded in (8, 16 or
+// 32 bytes); element i widened to fp32 by v[i].
+template <class T, int E>
+struct Vec {
+  static constexpr int kWords = E * static_cast<int>(sizeof(T)) / 4;
+  uint32_t w[kWords];
+  __device__ __forceinline__ float operator[](int i) const {
+    if constexpr (sizeof(T) == 4)
+      return __uint_as_float(w[i]);
+    else
+      return (i & 1) ? mx_bf16_hi(w[i >> 1]) : mx_bf16_lo(w[i >> 1]);
+  }
+};
+
+// 16 bytes at p into w[0..3]: x with ld.global.nc (the kernel does not
+// write it), a weight with ld.relaxed.cta, which is issued before the
+// block's first barrier.
+template <bool NC>
+__device__ __forceinline__ void ld16(const void* p, uint32_t* w) {
+  if constexpr (NC)
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                 : "l"(p));
+  else
+    asm volatile("ld.relaxed.cta.global.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                 : "l"(p));
+}
+
+template <bool NC>
+__device__ __forceinline__ void ld8(const void* p, uint32_t* w) {
+  if constexpr (NC)
+    asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(w[0]), "=r"(w[1])
+                 : "l"(p));
+  else
+    asm volatile("ld.relaxed.cta.global.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(w[0]), "=r"(w[1])
+                 : "l"(p));
+}
+
+// Vector j (elements j * E .. j * E + E - 1) of p.
+template <bool NC, class T, int E>
+__device__ __forceinline__ Vec<T, E> load_vec(const T* p, int j) {
+  Vec<T, E> v;
+  const T* at = p + static_cast<size_t>(j) * E;
+  if constexpr (Vec<T, E>::kWords == 2) {
+    ld8<NC>(at, v.w);
+  } else {
+#pragma unroll
+    for (int i = 0; i < Vec<T, E>::kWords; i += 4)
+      ld16<NC>(reinterpret_cast<const char*>(at) + 4 * i, v.w + i);
+  }
   return v;
 }
 
-// 16 bytes of a weight, issued before the block's first barrier.
-__device__ __forceinline__ float4 ld_cta(const float4* p) {
-  float4 v;
-  asm volatile("ld.relaxed.cta.global.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p));
-  return v;
+// o[0..E) rounded to T into vector j of p.
+template <class T, int E>
+__device__ __forceinline__ void store_vec(T* p, int j, const float (&o)[E]) {
+  T* at = p + static_cast<size_t>(j) * E;
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < E; i += 4)
+      *reinterpret_cast<float4*>(at + i) =
+          make_float4(o[i], o[i + 1], o[i + 2], o[i + 3]);
+  } else if constexpr (E == 4) {
+    *reinterpret_cast<uint2*>(at) =
+        make_uint2(mx_pack_bf16(o[0], o[1]), mx_pack_bf16(o[2], o[3]));
+  } else {
+    static_assert(E == 8, "8 bf16 a vector");
+    *reinterpret_cast<uint4*>(at) =
+        make_uint4(mx_pack_bf16(o[0], o[1]), mx_pack_bf16(o[2], o[3]),
+                   mx_pack_bf16(o[4], o[5]), mx_pack_bf16(o[6], o[7]));
+  }
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -308,13 +381,14 @@ __device__ __forceinline__ float row_sum(float v, Sum<T, C>& sm,
 
 // One row (C = 1), or its slice in the block of rank `rank` of a cluster
 // of C: the vectors j = rank * T * V + k * T + threadIdx.x, k < V, that
-// are below nv = d / 4.
-template <int T, int V, bool RMS, int C>
-__device__ __forceinline__ void norm_row(const float4* __restrict__ x,
-                                         const float4* __restrict__ gamma,
-                                         const float4* __restrict__ beta,
-                                         float4* __restrict__ y, int nv,
+// are below nv = d / E, E = 16 / sizeof(TX) elements each.
+template <class TX, class TW, class TY, int T, int V, bool RMS, int C>
+__device__ __forceinline__ void norm_row(const TX* __restrict__ x,
+                                         const TW* __restrict__ gamma,
+                                         const TW* __restrict__ beta,
+                                         TY* __restrict__ y, int nv,
                                          float inv_d, float eps) {
+  constexpr int E = 16 / static_cast<int>(sizeof(TX));
   static_assert(T % 32 == 0 && T / 32 <= kMaxWarps, "1 to 16 warps");
   static_assert(C * (T / 32) >= 2 && C * (T / 32) <= 32, "2 to 32 parts");
   __shared__ Sum<T, C> sums[RMS ? 1 : 2];
@@ -336,31 +410,35 @@ __device__ __forceinline__ void norm_row(const float4* __restrict__ x,
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   }
   const size_t row = blockIdx.x / C;
-  const float4* xr = x + row * nv;
-  float4* yr = y + row * nv;
+  const TX* xr = x + row * nv * E;
+  TY* yr = y + row * nv * E;
   const int j0 =
       static_cast<int>(rank) * T * V + static_cast<int>(threadIdx.x);
 
   // every load of the thread, before any arithmetic; a slot past the row
   // loads the row's last vector, and is masked below
-  float4 xv[V], gv[V], bv[V];
+  Vec<TX, E> xv[V];
+  Vec<TW, E> gv[V], bv[V];
 #pragma unroll
-  for (int k = 0; k < V; ++k) xv[k] = ld_nc(xr + min(j0 + k * T, nv - 1));
+  for (int k = 0; k < V; ++k)
+    xv[k] = load_vec<true, TX, E>(xr, min(j0 + k * T, nv - 1));
 #pragma unroll
-  for (int k = 0; k < V; ++k) gv[k] = ld_cta(gamma + min(j0 + k * T, nv - 1));
+  for (int k = 0; k < V; ++k)
+    gv[k] = load_vec<false, TW, E>(gamma, min(j0 + k * T, nv - 1));
   if (!RMS && beta != nullptr) {
 #pragma unroll
     for (int k = 0; k < V; ++k)
-      bv[k] = ld_cta(beta + min(j0 + k * T, nv - 1));
+      bv[k] = load_vec<false, TW, E>(beta, min(j0 + k * T, nv - 1));
   }
 
   float s = 0.f;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     if (j0 + k * T < nv) {
-      const float4 v = xv[k];
-      s += RMS ? v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w
-               : v.x + v.y + v.z + v.w;
+      float t = RMS ? xv[k][0] * xv[k][0] : xv[k][0];
+#pragma unroll
+      for (int e = 1; e < E; ++e) t += RMS ? xv[k][e] * xv[k][e] : xv[k][e];
+      s += t;
     }
   }
   if constexpr (C > 1)
@@ -376,9 +454,13 @@ __device__ __forceinline__ void norm_row(const float4* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       if (j0 + k * T < nv) {
-        const float a = xv[k].x - mean, b = xv[k].y - mean,
-                    c = xv[k].z - mean, e = xv[k].w - mean;
-        s2 += a * a + b * b + c * c + e * e;
+        float t = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float a = xv[k][e] - mean;
+          t += a * a;
+        }
+        s2 += t;
       }
     }
     rstd = rsqrtf(row_sum<T, C>(s2, sums[RMS ? 0 : 1], rank) * inv_d + eps);
@@ -388,162 +470,180 @@ __device__ __forceinline__ void norm_row(const float4* __restrict__ x,
   for (int k = 0; k < V; ++k) {
     const int j = j0 + k * T;
     if (j < nv) {
-      const float4 v = xv[k], g = gv[k];
-      float4 o;
-      o.x = (v.x - mean) * rstd * g.x;
-      o.y = (v.y - mean) * rstd * g.y;
-      o.z = (v.z - mean) * rstd * g.z;
-      o.w = (v.w - mean) * rstd * g.w;
-      if (!RMS && beta != nullptr) {
-        o.x += bv[k].x;
-        o.y += bv[k].y;
-        o.z += bv[k].z;
-        o.w += bv[k].w;
+      float o[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        o[e] = (xv[k][e] - mean) * rstd * gv[k][e];
+        if (!RMS && beta != nullptr) o[e] += bv[k][e];
       }
-      yr[j] = o;
+      store_vec<TY, E>(yr, j, o);
     }
   }
 }
 
-template <int T, int V, bool RMS>
+template <class TX, class TW, class TY, int T, int V, bool RMS>
 __global__ void __launch_bounds__(T)
-fused_norm_regs_kernel(const float4* __restrict__ x,
-                       const float4* __restrict__ gamma,
-                       const float4* __restrict__ beta,
-                       float4* __restrict__ y, int nv, float inv_d,
-                       float eps) {
-  norm_row<T, V, RMS, 1>(x, gamma, beta, y, nv, inv_d, eps);
+fused_norm_regs_kernel(const TX* __restrict__ x, const TW* __restrict__ gamma,
+                       const TW* __restrict__ beta, TY* __restrict__ y,
+                       int nv, float inv_d, float eps) {
+  norm_row<TX, TW, TY, T, V, RMS, 1>(x, gamma, beta, y, nv, inv_d, eps);
 }
 
 // The cluster size is the kernel's own (__cluster_dims__): a plain launch
 // of n * C blocks makes n clusters.
-template <int T, int V, bool RMS, int C>
+template <class TX, class TW, class TY, int T, int V, bool RMS, int C>
 __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(T)
-fused_norm_cluster_kernel(const float4* __restrict__ x,
-                          const float4* __restrict__ gamma,
-                          const float4* __restrict__ beta,
-                          float4* __restrict__ y, int nv, float inv_d,
-                          float eps) {
-  norm_row<T, V, RMS, C>(x, gamma, beta, y, nv, inv_d, eps);
+fused_norm_cluster_kernel(const TX* __restrict__ x,
+                          const TW* __restrict__ gamma,
+                          const TW* __restrict__ beta, TY* __restrict__ y,
+                          int nv, float inv_d, float eps) {
+  norm_row<TX, TW, TY, T, V, RMS, C>(x, gamma, beta, y, nv, inv_d, eps);
 }
 
+template <class TX, class TW, class TY>
 struct Args {
-  const float4* x;
-  const float4* gamma;
-  const float4* beta;
-  float4* y;
+  const TX* x;
+  const TW* gamma;
+  const TW* beta;
+  TY* y;
   int n, nv;
   float inv_d, eps;
   cudaStream_t st;
 };
 
-template <int T, int V, bool RMS, int C>
-int launch(const Args& a) {
+template <class TX, class TW, class TY, int T, int V, bool RMS, int C>
+int launch(const Args<TX, TW, TY>& a) {
   if constexpr (C == 1)
-    fused_norm_regs_kernel<T, V, RMS><<<a.n, T, 0, a.st>>>(
+    fused_norm_regs_kernel<TX, TW, TY, T, V, RMS><<<a.n, T, 0, a.st>>>(
         a.x, a.gamma, a.beta, a.y, a.nv, a.inv_d, a.eps);
   else
-    fused_norm_cluster_kernel<T, V, RMS, C><<<a.n * C, T, 0, a.st>>>(
-        a.x, a.gamma, a.beta, a.y, a.nv, a.inv_d, a.eps);
+    fused_norm_cluster_kernel<TX, TW, TY, T, V, RMS, C>
+        <<<a.n * C, T, 0, a.st>>>(a.x, a.gamma, a.beta, a.y, a.nv, a.inv_d,
+                                  a.eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int T, bool RMS, int C>
-int launch_v(int vecs, const Args& a) {
+template <class TX, class TW, class TY, int T, bool RMS, int C>
+int launch_v(int vecs, const Args<TX, TW, TY>& a) {
   switch (vecs) {
-    case 1: return launch<T, 1, RMS, C>(a);
-    case 2: return launch<T, 2, RMS, C>(a);
-    case 3: return launch<T, 3, RMS, C>(a);
-    case 4: return launch<T, 4, RMS, C>(a);
+    case 1: return launch<TX, TW, TY, T, 1, RMS, C>(a);
+    case 2: return launch<TX, TW, TY, T, 2, RMS, C>(a);
+    case 3: return launch<TX, TW, TY, T, 3, RMS, C>(a);
+    case 4: return launch<TX, TW, TY, T, 4, RMS, C>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // the blocks built: regs 64 to 512 threads, cluster 32 to 256, and at
 // most 32 partials a sum
-template <bool RMS, int C, int T>
-int launch_t(int vecs, const Args& a) {
+template <class TX, class TW, class TY, bool RMS, int C, int T>
+int launch_t(int vecs, const Args<TX, TW, TY>& a) {
   constexpr int kParts = C * (T / 32);
   if constexpr ((C == 1 ? T >= 64 : T <= 256) && kParts <= 32)
-    return launch_v<T, RMS, C>(vecs, a);
+    return launch_v<TX, TW, TY, T, RMS, C>(vecs, a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool RMS, int C>
-int launch_tv(int threads, int vecs, const Args& a) {
+template <class TX, class TW, class TY, bool RMS, int C>
+int launch_tv(int threads, int vecs, const Args<TX, TW, TY>& a) {
   switch (threads) {
-    case 32: return launch_t<RMS, C, 32>(vecs, a);
-    case 64: return launch_t<RMS, C, 64>(vecs, a);
-    case 128: return launch_t<RMS, C, 128>(vecs, a);
-    case 256: return launch_t<RMS, C, 256>(vecs, a);
-    case 512: return launch_t<RMS, C, 512>(vecs, a);
+    case 32: return launch_t<TX, TW, TY, RMS, C, 32>(vecs, a);
+    case 64: return launch_t<TX, TW, TY, RMS, C, 64>(vecs, a);
+    case 128: return launch_t<TX, TW, TY, RMS, C, 128>(vecs, a);
+    case 256: return launch_t<TX, TW, TY, RMS, C, 256>(vecs, a);
+    case 512: return launch_t<TX, TW, TY, RMS, C, 512>(vecs, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool RMS>
-int launch_c(int cluster, int threads, int vecs, const Args& a) {
+template <class TX, class TW, class TY, bool RMS>
+int launch_c(int cluster, int threads, int vecs, const Args<TX, TW, TY>& a) {
   switch (cluster) {
-    case 1: return launch_tv<RMS, 1>(threads, vecs, a);
-    case 2: return launch_tv<RMS, 2>(threads, vecs, a);
-    case 4: return launch_tv<RMS, 4>(threads, vecs, a);
-    case 8: return launch_tv<RMS, 8>(threads, vecs, a);
+    case 1: return launch_tv<TX, TW, TY, RMS, 1>(threads, vecs, a);
+    case 2: return launch_tv<TX, TW, TY, RMS, 2>(threads, vecs, a);
+    case 4: return launch_tv<TX, TW, TY, RMS, 4>(threads, vecs, a);
+    case 8: return launch_tv<TX, TW, TY, RMS, 8>(threads, vecs, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
-// x, y: (n, d) row-major; gamma, beta: (d,); beta may be null, and must be
-// in RMS mode. The plan (ops/kernels/fused_norms.py plan): design 0
-// (general; threads 256, vecs 0, cluster 1), 1 (regs: cluster 1, threads
-// 64 to 512) or 2 (cluster: cluster 2, 4 or 8, threads 32 to 256), each
-// block `threads` threads of `vecs` (1 to 4) 16-byte vectors. A plan that
-// does not fit is refused: regs and cluster need d a multiple of 4, every
-// pointer 16-byte aligned, blocks that cover the row with no vector column
-// of the row's last block left empty (threads * vecs * cluster >= d / 4 >
-// threads * (vecs * cluster - 1)) and at most 32 partials a sum. Returns
-// the cudaError_t of the launch.
-extern "C" int fused_norm_f32(const float* x, const float* gamma,
-                              const float* beta, float* y, int n, int d,
-                              float eps, int rms, int design, int threads,
-                              int vecs, int cluster, void* stream) {
-  if (n <= 0 || d <= 0 || (rms && beta != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// One call in the element types TX (x), TW (gamma, beta) and TY (y).
+template <class TX, class TW, class TY>
+int run(const void* xp, const void* gp, const void* bp, void* yp, int n,
+        int d, float eps, int rms, int design, int threads, int vecs,
+        int cluster, cudaStream_t st) {
+  constexpr int E = 16 / static_cast<int>(sizeof(TX));
+  const TX* x = static_cast<const TX*>(xp);
+  const TW* gamma = static_cast<const TW*>(gp);
+  const TW* beta = static_cast<const TW*>(bp);
+  TY* y = static_cast<TY*>(yp);
   if (design == 0) {
     if (threads != kThreads || vecs != 0 || cluster != 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    const bool vec = (d % 4 == 0) && mx_aligned16(x) && mx_aligned16(gamma) &&
+    constexpr bool kF32 = sizeof(TX) == 4 && sizeof(TW) == 4 &&
+                          sizeof(TY) == 4;
+    const bool vec = kF32 && (d % 4 == 0) && mx_aligned16(x) &&
+                     mx_aligned16(gamma) &&
                      (beta == nullptr || mx_aligned16(beta)) &&
                      mx_aligned16(y);
     if (vec)
-      fused_norm_kernel<true><<<n, kThreads, 0, st>>>(x, gamma, beta, y, d,
-                                                       eps, rms);
+      fused_norm_kernel<TX, TW, TY, kF32><<<n, kThreads, 0, st>>>(
+          x, gamma, beta, y, d, eps, rms);
     else
-      fused_norm_kernel<false><<<n, kThreads, 0, st>>>(x, gamma, beta, y, d,
-                                                        eps, rms);
+      fused_norm_kernel<TX, TW, TY, false><<<n, kThreads, 0, st>>>(
+          x, gamma, beta, y, d, eps, rms);
     return static_cast<int>(cudaGetLastError());
   }
-  const long long nv = d / 4;
+  const long long nv = d / E;
   const long long slots = static_cast<long long>(threads) * vecs * cluster;
   if ((design == 1) != (cluster == 1) || (design != 1 && design != 2) ||
-      cluster > kMaxCluster || d % 4 != 0 || !mx_aligned16(x) ||
+      cluster > kMaxCluster || d % E != 0 || !mx_aligned16(x) ||
       !mx_aligned16(gamma) || (beta != nullptr && !mx_aligned16(beta)) ||
       !mx_aligned16(y) || threads <= 0 || vecs <= 0 || slots < nv ||
       slots - threads >= nv || cluster * (threads / 32) > 32 ||
       static_cast<long long>(n) * cluster > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{reinterpret_cast<const float4*>(x),
-               reinterpret_cast<const float4*>(gamma),
-               reinterpret_cast<const float4*>(beta),
-               reinterpret_cast<float4*>(y),
-               n,
-               static_cast<int>(nv),
-               1.0f / static_cast<float>(d),
-               eps,
-               st};
-  return rms ? launch_c<true>(cluster, threads, vecs, a)
-             : launch_c<false>(cluster, threads, vecs, a);
+  const Args<TX, TW, TY> a{x,  gamma, beta, y, n, static_cast<int>(nv),
+                           1.0f / static_cast<float>(d), eps, st};
+  return rms ? launch_c<TX, TW, TY, true>(cluster, threads, vecs, a)
+             : launch_c<TX, TW, TY, false>(cluster, threads, vecs, a);
+}
+
+}  // namespace
+
+// x, y: (n, d) row-major; gamma, beta: (d,); beta may be null, and must be
+// in RMS mode. x_type and w_type give the element types of x and of the
+// weights (gamma and beta): 0 fp32, 1 bf16; y is bf16 when both are bf16
+// and fp32 otherwise (the reference's promotion). The plan
+// (ops/kernels/fused_norms.py plan): design 0 (general; threads 256, vecs
+// 0, cluster 1), 1 (regs: cluster 1, threads 64 to 512) or 2 (cluster:
+// cluster 2, 4 or 8, threads 32 to 256), each block `threads` threads of
+// `vecs` (1 to 4) 16-byte vectors of x, E = 4 (fp32) or 8 (bf16) elements
+// each. A plan that does not fit is refused: regs and cluster need d a
+// multiple of E, every pointer 16-byte aligned, blocks that cover the row
+// with no vector column of the row's last block left empty (threads * vecs
+// * cluster >= d / E > threads * (vecs * cluster - 1)) and at most 32
+// partials a sum. Returns the cudaError_t of the launch.
+extern "C" int fused_norm_run(const void* x, const void* gamma,
+                              const void* beta, void* y, int n, int d,
+                              float eps, int rms, int x_type, int w_type,
+                              int design, int threads, int vecs, int cluster,
+                              void* stream) {
+  if (n <= 0 || d <= 0 || (rms && beta != nullptr) || x_type < 0 ||
+      x_type > 1 || w_type < 0 || w_type > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (x_type == 0 && w_type == 0)
+    return run<float, float, float>(x, gamma, beta, y, n, d, eps, rms,
+                                    design, threads, vecs, cluster, st);
+  if (x_type == 1 && w_type == 0)
+    return run<bf16, float, float>(x, gamma, beta, y, n, d, eps, rms, design,
+                                   threads, vecs, cluster, st);
+  if (x_type == 0 && w_type == 1)
+    return run<float, bf16, float>(x, gamma, beta, y, n, d, eps, rms, design,
+                                   threads, vecs, cluster, st);
+  return run<bf16, bf16, bf16>(x, gamma, beta, y, n, d, eps, rms, design,
+                               threads, vecs, cluster, st);
 }

@@ -1,5 +1,5 @@
-// Paged attention decode, fp32: one query token per row against a paged KV
-// pool, read through the block table.
+// Paged attention decode over fp32 or bf16: one query token per row against
+// a paged KV pool, read through the block table.
 //
 // Replaces mxnet_tpu/ops/pallas/paged_attention.py:_decode_kernel (launched
 // by paged_attention_decode_pallas at :120): for row b and KV head h, the G
@@ -7,10 +7,17 @@
 // logical cache, where position p lives at pool[pages[b, p / psz], p % psz,
 // h].
 //
-// Bound on the H100: bytes. Each live position's K and V head (2 * dh * 4
-// bytes) is read once for the G queries that share it: a decode step of
-// llama3_8b (4 rows at depth 1024, 8 KV heads of 128) reads 33.6 MB, 0.0101
-// ms at 3.35 TB/s. A few operations per byte, far below what the card needs
+// q, the pools and out share one type, fp32 or bf16 (the reference's gate
+// asks that the pool have q's dtype); a bf16 kernel keeps the fp32 one's
+// logic with 2-byte elements: a thread copies the same 4 elements of a row
+// (8 bytes with cp.async.ca in place of 16 with .cg), the tiles stay bf16
+// in shared memory, and every value is widened to fp32 as it is read; the
+// sums, the softmax and the merge are fp32, and out is rounded to bf16.
+//
+// Bound on the H100: bytes. Each live position's K and V head (2 * dh *
+// sizeof(element) bytes) is read once for the G queries that share it: a
+// decode step of llama3_8b (4 rows at depth 1024, 8 KV heads of 128) reads
+// 33.6 MB in fp32, 0.0101 ms at 3.35 TB/s, and half that in bf16. A few operations per byte, far below what the card needs
 // to be bound by operations; the products are fp32 FMAs on the CUDA cores
 // (TF32 would change the answer).
 //
@@ -77,7 +84,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Values: lane l of warp g keeps acc[h][4c .. 4c + 3] for every head h of
 //   the group over positions slot, slot + kSlots, ... of each tile,
 //   c = l % kCpr, slot = g * kVRows + l / kCpr.
-template <int DH, int G>
+// EB is the bytes of an element (4 fp32, 2 bf16); the ring holds elements,
+// the rest of shared memory floats.
+template <int DH, int G, int EB>
 struct Cfg {
   static constexpr int kGroups = (8 / G) < kMaxGroups ? (8 / G) : kMaxGroups;
   // steps in the shared-memory ring: two of two tiles, or three of one
@@ -87,33 +96,37 @@ struct Cfg {
   // blocks an SM must hold (launch bounds): 128 registers a thread, but
   // at G = 8 (8 query heads' accumulators) one block an SM, no spills
   static constexpr int kMinBlocks = G == 8 ? 1 : 512 / kThreads;
-  static constexpr int kCpr = DH / 4;                 // 16-byte chunks a row
+  static constexpr int kCpr = DH / 4;                 // 4-element chunks a row
   static constexpr int kRowStep = kThreads / kCpr;
   static constexpr int kRpt = kGroups * kTile / kRowStep;  // rows a thread
   static constexpr int kNq = kCpr / 2;                // float4 of q a lane
   static constexpr int kVRows = 32 / kCpr;            // rows a warp spans
   static constexpr int kSlots = G * kVRows;
   static constexpr int kPps = kTile / kSlots;         // positions a slot
-  // K rows padded by 8 floats: the 4 rows a quarter-warp reads fall in
-  // distinct banks
+  // K rows padded by 8 elements: in fp32 the 4 rows a quarter-warp reads
+  // fall in distinct banks
   static constexpr int kKS = DH + 8;
-  static constexpr int kTileF = kTile * (kKS + DH);   // floats a tile
-  static constexpr int kP = kStages * kGroups * kTileF;
-  // after the ring: p [kGroups][kTile][G], alpha [kGroups][G], then the
-  // box where the cluster's other splits put their (acc, m, l), and its
-  // mbarrier
-  static constexpr int kAlpha = kP + kGroups * kTile * G;
-  static constexpr int kPart = (G * DH + 2 * G + 3) / 4 * 4;  // floats a split
-  static constexpr int kBox = (kAlpha + kGroups * G + 3) / 4 * 4;
-  static constexpr int kBoxBar = kBox + (kMaxSplits - 1) * kPart;
-  static constexpr int kSmemBytes = kBoxBar * 4 + 16;
+  static constexpr int kTileE = kTile * (kKS + DH);   // elements a tile
+  static constexpr int kRing = kStages * kGroups * kTileE * EB / 4;  // floats
   // after the loop, over the ring: each warp's acc [warp][h][DH], each
   // group's (m, l) [kGroups][G], then the block's (acc, m, l), which the
   // cluster reads
   static constexpr int kGm = kWarps * G * DH;
   static constexpr int kRes = (kGm + 2 * kGroups * G + 3) / 4 * 4;
+  static constexpr int kPart = (G * DH + 2 * G + 3) / 4 * 4;  // floats a split
+  // the ring, or the merge area where that is larger (a bf16 ring)
+  static constexpr int kP =
+      (kRing > kRes + kPart ? kRing : kRes + kPart + 3) / 4 * 4;
+  // after that: p [kGroups][kTile][G], alpha [kGroups][G], then the box
+  // where the cluster's other splits put their (acc, m, l), and its
+  // mbarrier
+  static constexpr int kAlpha = kP + kGroups * kTile * G;
+  static constexpr int kBox = (kAlpha + kGroups * G + 3) / 4 * 4;
+  static constexpr int kBoxBar = kBox + (kMaxSplits - 1) * kPart;
+  static constexpr int kSmemBytes = kBoxBar * 4 + 16;
   static_assert(kRowStep <= kTile && kRpt >= 1 && kPps >= 1 && kNq >= 1,
                 "layout");
+  static_assert(kRing % 4 == 0 && (kTileE * EB) % 16 == 0, "ring alignment");
   static_assert(kRes % 4 == 0 && kRes + kPart <= kP, "merge area");
 };
 
@@ -121,12 +134,30 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared memory, or 16 zeros when !ok.
-__device__ __forceinline__ void cp_async16(unsigned dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
+// NB (16 or 8) bytes from global to shared memory, or zeros when !ok.
+template <int NB>
+__device__ __forceinline__ void cp_async(unsigned dst, const void* src,
+                                         bool ok) {
+  if constexpr (NB == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     dst),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(ok ? 8 : 0)
+                 : "memory");
+}
+
+// Four consecutive elements at p (16-byte aligned in fp32, 8 in bf16), as
+// fp32.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(mx_bf16_lo(w.x), mx_bf16_hi(w.x), mx_bf16_lo(w.y),
+                     mx_bf16_hi(w.y));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -202,16 +233,17 @@ __device__ __forceinline__ void load_g(const float* p, float (&v)[G]) {
   }
 }
 
-template <int DH, int G>
-__global__ void __launch_bounds__(Cfg<DH, G>::kThreads, Cfg<DH, G>::kMinBlocks)
-paged_decode_kernel(const float* __restrict__ q,
-                    const float* __restrict__ k_pool,
-                    const float* __restrict__ v_pool,
+template <class T, int DH, int G>
+__global__ void __launch_bounds__(Cfg<DH, G, sizeof(T)>::kThreads,
+                                  Cfg<DH, G, sizeof(T)>::kMinBlocks)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                    const T* __restrict__ v_pool,
                     const int* __restrict__ pages,
-                    const int* __restrict__ offset, float* __restrict__ out,
+                    const int* __restrict__ offset, T* __restrict__ out,
                     int kv, int num_pages, int psz, int psz_shift, int np,
                     float sm_scale) {
-  using C = Cfg<DH, G>;
+  constexpr int EB = sizeof(T);
+  using C = Cfg<DH, G, EB>;
   extern __shared__ __align__(16) float smem[];
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -252,11 +284,12 @@ paged_decode_kernel(const float* __restrict__ q,
   constexpr int kRpk = kTile / C::kRowStep;            // rows a tile
   const int lcol = 4 * (tid % C::kCpr), lrow = tid / C::kCpr;
   const int* table = pages + static_cast<size_t>(b) * np;
-  const long long rs = static_cast<long long>(kv) * DH;  // floats a row
-  const float* kb = k_pool + h * DH + lcol;
-  const float* vb = v_pool + h * DH + lcol;
-  const unsigned sk0 = smem_u32(smem) + 4 * (lrow * C::kKS + lcol);
-  const unsigned sv0 = smem_u32(smem) + 4 * (kTile * C::kKS + lrow * DH + lcol);
+  const long long rs = static_cast<long long>(kv) * DH;  // elements a row
+  const T* kb = k_pool + h * DH + lcol;
+  const T* vb = v_pool + h * DH + lcol;
+  const unsigned sk0 = smem_u32(smem) + EB * (lrow * C::kKS + lcol);
+  const unsigned sv0 =
+      smem_u32(smem) + EB * (kTile * C::kKS + lrow * DH + lcol);
   const bool page_tiles = psz_shift >= 4;
   long long src[C::kRpt];   // each row's offset in the pools
   bool live[C::kGroups];    // the step's tiles that hold live positions
@@ -292,15 +325,16 @@ paged_decode_kernel(const float* __restrict__ q,
     }
   };
   auto issue = [&](int stage) {
-    const unsigned sbase = stage * C::kGroups * C::kTileF * 4;
+    const unsigned sbase = stage * C::kGroups * C::kTileE * EB;
 #pragma unroll
     for (int k = 0; k < C::kGroups; ++k) {
 #pragma unroll
       for (int i = 0; i < kRpk; ++i) {
-        const unsigned d = sbase + k * C::kTileF * 4;
+        const unsigned d = sbase + k * C::kTileE * EB;
         const long long o = src[k * kRpk + i];
-        cp_async16(sk0 + d + i * C::kRowStep * C::kKS * 4, kb + o, live[k]);
-        cp_async16(sv0 + d + i * C::kRowStep * DH * 4, vb + o, live[k]);
+        cp_async<4 * EB>(sk0 + d + i * C::kRowStep * C::kKS * EB, kb + o,
+                         live[k]);
+        cp_async<4 * EB>(sv0 + d + i * C::kRowStep * DH * EB, vb + o, live[k]);
       }
     }
   };
@@ -309,10 +343,9 @@ paged_decode_kernel(const float* __restrict__ q,
   const int spos = lane >> 1, sj = lane & 1;
   const float scale2 = sm_scale * kLog2e;
   float4 qr[C::kNq];
-  const float* qh = q + (static_cast<size_t>(bh) * G + g) * DH;
+  const T* qh = q + (static_cast<size_t>(bh) * G + g) * DH;
 #pragma unroll
-  for (int i = 0; i < C::kNq; ++i)
-    qr[i] = *reinterpret_cast<const float4*>(qh + 4 * (sj + 2 * i));
+  for (int i = 0; i < C::kNq; ++i) qr[i] = ld4(qh + 4 * (sj + 2 * i));
   float m = MX_NEG_INF, l = 0.f;  // head g's running max (base 2); lane sum
 
   // ---- values: this lane's dims and position slot, every head
@@ -342,16 +375,17 @@ paged_decode_kernel(const float* __restrict__ q,
     wr = wr == C::kStages - 1 ? 0 : wr + 1;
 
     const int t = t0 + j * C::kGroups + grp;   // this group's tile
-    const float* sK = smem + (rd * C::kGroups + grp) * C::kTileF;
+    const T* sK =
+        reinterpret_cast<const T*>(smem) + (rd * C::kGroups + grp) * C::kTileE;
     rd = rd == C::kStages - 1 ? 0 : rd + 1;
-    const float* sV = sK + kTile * C::kKS;
+    const T* sV = sK + kTile * C::kKS;
     const int nvalid = t < t1 ? min(kTile, end - t * kTile) : 0;
     if (nvalid > 0) {
-      const float* kr = sK + spos * C::kKS + 4 * sj;
+      const T* kr = sK + spos * C::kKS + 4 * sj;
       float4 d4 = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int f = 0; f < C::kNq; ++f) {
-        const float4 kk = *reinterpret_cast<const float4*>(kr + 8 * f);
+        const float4 kk = ld4(kr + 8 * f);
         d4.x = fmaf(qr[f].x, kk.x, d4.x);
         d4.y = fmaf(qr[f].y, kk.y, d4.y);
         d4.z = fmaf(qr[f].z, kk.z, d4.z);
@@ -396,7 +430,7 @@ paged_decode_kernel(const float* __restrict__ q,
       for (int k = 0; k < C::kPps; ++k) {
         const int pos = slot + k * C::kSlots;
         if (pos < nvalid) {
-          const float4 vv = *reinterpret_cast<const float4*>(sV + pos * DH + vc);
+          const float4 vv = ld4(sV + pos * DH + vc);
           float pp[G];
           load_g<G>(s_p + pos * G, pp);
 #pragma unroll
@@ -494,17 +528,16 @@ paged_decode_kernel(const float* __restrict__ q,
       ll = fmaf(bx[G * DH + G + hg], c, ll);
       aa = fmaf(bx[e], c, aa);
     }
-    out[obase + e] = aa / fmaxf(ll, 1e-30f);
+    out[obase + e] = mx_from_f32<T>(aa / fmaxf(ll, 1e-30f));
   }
 }
 
-template <int DH, int G>
-int launch(const float* q, const float* k_pool, const float* v_pool,
-           const int* pages, const int* offset, float* out, int b, int kv,
-           int num_pages, int psz, int np, int nsplit, float sm_scale,
-           cudaStream_t st) {
-  using C = Cfg<DH, G>;
-  auto kernel = paged_decode_kernel<DH, G>;
+template <class T, int DH, int G>
+int launch(const T* q, const T* k_pool, const T* v_pool, const int* pages,
+           const int* offset, T* out, int b, int kv, int num_pages, int psz,
+           int np, int nsplit, float sm_scale, cudaStream_t st) {
+  using C = Cfg<DH, G, sizeof(T)>;
+  auto kernel = paged_decode_kernel<T, DH, G>;
   static bool smem_done[kMxMaxDevices] = {};
   int e = mx_smem_opt_in(kernel, C::kSmemBytes, smem_done);
   if (e != 0) return e;
@@ -529,49 +562,40 @@ int launch(const float* q, const float* k_pool, const float* v_pool,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
-int launch_g(int g, const float* q, const float* k_pool, const float* v_pool,
-             const int* pages, const int* offset, float* out, int b, int kv,
+template <class T, int DH>
+int launch_g(int g, const T* q, const T* k_pool, const T* v_pool,
+             const int* pages, const int* offset, T* out, int b, int kv,
              int num_pages, int psz, int np, int nsplit, float sm_scale,
              cudaStream_t st) {
   switch (g) {
-    case 1: return launch<DH, 1>(q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
-    case 2: return launch<DH, 2>(q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
-    case 4: return launch<DH, 4>(q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
-    case 8: return launch<DH, 8>(q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
+    case 1: return launch<T, DH, 1>(q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
+    case 2: return launch<T, DH, 2>(q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
+    case 4: return launch<T, DH, 4>(q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
+    case 8: return launch<T, DH, 8>(q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <int DH>
+template <int DH, int EB>
 int smem_bytes(int g) {
   switch (g) {
-    case 1: return Cfg<DH, 1>::kSmemBytes;
-    case 2: return Cfg<DH, 2>::kSmemBytes;
-    case 4: return Cfg<DH, 4>::kSmemBytes;
-    case 8: return Cfg<DH, 8>::kSmemBytes;
+    case 1: return Cfg<DH, 1, EB>::kSmemBytes;
+    case 2: return Cfg<DH, 2, EB>::kSmemBytes;
+    case 4: return Cfg<DH, 4, EB>::kSmemBytes;
+    case 8: return Cfg<DH, 8, EB>::kSmemBytes;
     default: return -1;
   }
 }
 
-}  // namespace
-
-// The dynamic shared memory of one block at head dim dh and group g, in
-// bytes; -1 for a pair the kernel is not built for.
-extern "C" int paged_attention_smem_bytes(int dh, int g) {
-  return dh == 64 ? smem_bytes<64>(g) : dh == 128 ? smem_bytes<128>(g) : -1;
-}
-
-// q, out: (b, kv, g, dh); k_pool, v_pool: (num_pages, psz, kv, dh);
-// pages: (b, np) int32; offset: (b,) int32. All contiguous, q, out and the
-// pools 16-byte aligned. dh must be 64 or 128, g one of 1, 2, 4, 8, and
-// nsplit (the plan's split count, the cluster size) 1..8. Returns the
-// cudaError_t of the launch.
-extern "C" int paged_attention_decode_f32(
-    const float* q, const float* k_pool, const float* v_pool, const int* pages,
-    const int* offset, float* out, int b, int kv, int g, int dh,
-    int num_pages, int psz, int np, int nsplit, float sm_scale,
-    void* stream) {
+template <class T>
+int run(const void* qp, const void* kp, const void* vp, const int* pages,
+        const int* offset, void* op, int b, int kv, int g, int dh,
+        int num_pages, int psz, int np, int nsplit, float sm_scale,
+        void* stream) {
+  const T* q = static_cast<const T*>(qp);
+  const T* k_pool = static_cast<const T*>(kp);
+  const T* v_pool = static_cast<const T*>(vp);
+  T* out = static_cast<T*>(op);
   if (b <= 0 || kv <= 0 || num_pages <= 0 || psz <= 0 || np <= 0 ||
       nsplit < 1 || nsplit > kMaxSplits ||
       static_cast<long long>(b) * kv * nsplit > 0x7fffffffLL ||
@@ -581,8 +605,43 @@ extern "C" int paged_attention_decode_f32(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 64: return launch_g<64>(g, q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
-    case 128: return launch_g<128>(g, q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
+    case 64: return launch_g<T, 64>(g, q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
+    case 128: return launch_g<T, 128>(g, q, k_pool, v_pool, pages, offset, out, b, kv, num_pages, psz, np, nsplit, sm_scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// The dynamic shared memory of one block at head dim dh and group g, for
+// fp32 (bf16 0) or bf16 (bf16 1) data, in bytes; -1 for a pair the kernel
+// is not built for.
+extern "C" int paged_attention_smem_bytes(int dh, int g, int bf16) {
+  if (bf16)
+    return dh == 64 ? smem_bytes<64, 2>(g) : dh == 128 ? smem_bytes<128, 2>(g) : -1;
+  return dh == 64 ? smem_bytes<64, 4>(g) : dh == 128 ? smem_bytes<128, 4>(g) : -1;
+}
+
+// q, out: (b, kv, g, dh); k_pool, v_pool: (num_pages, psz, kv, dh);
+// pages: (b, np) int32; offset: (b,) int32. q, the pools and out fp32
+// (the _f32 entry) or bf16 (_bf16), all contiguous, q, out and the pools
+// 16-byte aligned. dh must be 64 or 128, g one of 1, 2, 4, 8, and nsplit
+// (the plan's split count, the cluster size) 1..8. Returns the cudaError_t
+// of the launch.
+extern "C" int paged_attention_decode_f32(
+    const void* q, const void* k_pool, const void* v_pool, const int* pages,
+    const int* offset, void* out, int b, int kv, int g, int dh,
+    int num_pages, int psz, int np, int nsplit, float sm_scale,
+    void* stream) {
+  return run<float>(q, k_pool, v_pool, pages, offset, out, b, kv, g, dh,
+                    num_pages, psz, np, nsplit, sm_scale, stream);
+}
+
+extern "C" int paged_attention_decode_bf16(
+    const void* q, const void* k_pool, const void* v_pool, const int* pages,
+    const int* offset, void* out, int b, int kv, int g, int dh,
+    int num_pages, int psz, int np, int nsplit, float sm_scale,
+    void* stream) {
+  return run<__nv_bfloat16>(q, k_pool, v_pool, pages, offset, out, b, kv, g,
+                            dh, num_pages, psz, np, nsplit, sm_scale, stream);
 }

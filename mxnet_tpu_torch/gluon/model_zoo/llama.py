@@ -160,10 +160,12 @@ class LlamaAttention(nn.Module):
         these positions (``LlamaModel`` builds it once a forward); without
         it the layer builds its own.
 
-        The kernels take fp32: bf16 q, k, v (the projections of a
-        quantized net) are upcast at the calls, which is exact, and the
-        output leaves in q's dtype, as the reference's kernels return it.
-        The caches keep their own dtype."""
+        The kernels take q, k, v as they come, fp32 or bf16 (a net cast
+        to bf16, or the bf16 projections of a quantized net), and return
+        q's dtype, as the reference's kernels do. The caches keep their
+        own dtype: the per-slot decode takes q in the pool's (fp32 for
+        the server's pool, the reference's fp32 step), and the gathered
+        attention over a cache runs in fp32, as in the reference."""
         B, S, _ = x.shape
         q = self.q_proj(x).reshape(B, S, self._h, self._dh)
         k = self.k_proj(x).reshape(B, S, self._kv, self._dh)
@@ -178,11 +180,9 @@ class LlamaAttention(nn.Module):
             if rep > 1:
                 k = k.repeat_interleave(rep, dim=2)
                 v = v.repeat_interleave(rep, dim=2)
-            out = flash_attention(q.transpose(1, 2).float(),
-                                  k.transpose(1, 2).float(),
-                                  v.transpose(1, 2).float(), causal=True)
-            out = out.to(q.dtype).transpose(1, 2).reshape(
-                B, S, self._h * self._dh)
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True)
+            out = out.transpose(1, 2).reshape(B, S, self._h * self._dh)
             return self.o_proj(out)
 
         k_cache, v_cache = cache
@@ -199,7 +199,7 @@ class LlamaAttention(nn.Module):
                 k_cache[pid, off % psz] = k[:, 0].to(k_cache.dtype)
                 v_cache[pid, off % psz] = v[:, 0].to(v_cache.dtype)
                 out = paged_attention_decode(
-                    q[:, 0].float(), k_cache, v_cache, pages,
+                    q[:, 0].to(k_cache.dtype), k_cache, v_cache, pages,
                     offset.to(torch.int32).contiguous(),
                     sm_scale=self._dh ** -0.5)
                 out = out.to(q.dtype).reshape(B, S, self._h * self._dh)

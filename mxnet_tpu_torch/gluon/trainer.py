@@ -10,8 +10,16 @@ Counterpart of ``mxnet_tpu/gluon/trainer.py`` (``__init__``,
 (``rescale_grad``) and runs the optimizer once per parameter; Adam and SGD
 with momentum each launch their fused kernel once per parameter. On one
 device there is nothing to reduce, so the kvstore may only be
-``'device'`` or ``None``; the distributed kvstores, gradient compression,
-row-sparse gradients and AMP are not ported yet.
+``'device'`` or ``None``; the distributed kvstores, gradient compression
+and row-sparse gradients are not ported yet. ``mx.amp.unscale`` arms
+``_amp_skip_update`` after a gradient overflow, and the next step then
+updates nothing, as the reference's ``_update`` skips
+(``mxnet_tpu/gluon/trainer.py:234-237``): no weight, slot or update count
+moves, and no captured update graph replays.
+
+A weight that is not fp32 (a net cast to bf16) is updated by the plain
+version of its optimizer's kernel, in fp32, and its slots are fp32
+from the start (``Optimizer.create_state_multi_precision``).
 
 The JAX Trainer runs every parameter's update as one jitted call whose
 hyperparameters are device vectors, uploaded only when they change
@@ -160,6 +168,10 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        if getattr(self, '_amp_skip_update', False):
+            # amp.unscale found an overflow: this step updates nothing
+            self._amp_skip_update = False
+            return
         live = []           # (index, weight, grad, torch.nn leaf or None)
         for i, param in enumerate(self._params):
             if isinstance(param, Parameter):
@@ -377,8 +389,8 @@ def _flat_state(state):
 def _state_to_host(state):
     if state is None:
         return None
-    if torch.is_tensor(state):
-        return state.detach().cpu().numpy()
+    if torch.is_tensor(state):      # a copy: a later step writes in place
+        return state.detach().to('cpu', copy=True).numpy()
     if isinstance(state, (list, tuple)):
         return tuple(_state_to_host(s) for s in state)
     return state

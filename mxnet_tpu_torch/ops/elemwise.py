@@ -6,7 +6,8 @@ unary and broadcasting binary ops, each one PyTorch call. A binary op
 casts its operands to JAX's result type first (:func:`.._dtypes.
 result_type`: a Python scalar is weak, a numpy scalar strong), so that
 ``int32 * 2.5`` is float32 and ``uint8 + np.int64(3)`` is int32, as in the
-reference.
+reference. The AMP casts (``amp_cast``, ``amp_multicast``; the reference
+has them in ``ops/legacy_ops.py``) sit beside ``cast``.
 """
 
 import torch
@@ -148,6 +149,31 @@ def rtruediv(a, b):
 @register('cast', aliases=('Cast',), differentiable=True)
 def cast(x, dtype):
     return x.to(_dtypes.to_torch(dtype))
+
+
+@register('amp_cast')
+def amp_cast(data, dtype='float32'):
+    """The cast an AMP pass inserts (reference ``ops/legacy_ops.py``,
+    tensor/amp_cast.cc): ``data`` in ``dtype``, same values. Only floating
+    inputs are cast; integer ids and boolean masks pass through, as the
+    reference's float-only AMPCast leaves them."""
+    if not data.is_floating_point():
+        return data
+    return data.to(_dtypes.to_torch(dtype))
+
+
+@register('amp_multicast')
+def amp_multicast(*arrays, num_outputs=None, cast_narrow=False):
+    """Cast a group of tensors to one dtype (reference tensor/amp_cast.cc
+    amp_multicast): the widest one's, or with ``cast_narrow`` the
+    narrowest one's, by item size (the first on a tie, as the reference
+    picks)."""
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        arrays = tuple(arrays[0])
+    widths = [a.element_size() for a in arrays]
+    pick = min if cast_narrow else max
+    target = arrays[widths.index(pick(widths))].dtype
+    return tuple(a.to(target) for a in arrays)
 
 
 @register('clip')

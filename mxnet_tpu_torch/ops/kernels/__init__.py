@@ -10,7 +10,11 @@ Each kernel's wrapper counts its launches in a plain integer attribute
 :func:`reset_launch_counts` sets them to 0, and :func:`add_launch_counts`
 adds what a CUDA graph's replay launched. The norm, the int8 product,
 both flash forms and paged decode also count by the design their plan
-took (``launches_by_path``), which :func:`path_counts` reads.
+took (``launches_by_path``), which :func:`path_counts` reads. The
+optimizer wrappers count apart, in ``plain_updates``, the updates that
+their dtype rule sent to the plain version (a weight that is not fp32):
+:func:`plain_update_counts` reads them, and the other three functions set
+and add them beside the launches.
 """
 
 import torch
@@ -22,8 +26,9 @@ from .fused_optimizer import adam_step, sgd_mom_step
 from . import int8_matmul as _int8     # the module keeps its name here
 from . import _nvrtc
 
-__all__ = ['KERNELS', 'launch_counts', 'path_counts', 'reset_launch_counts',
-           'add_launch_counts', 'needs_grad']
+__all__ = ['KERNELS', 'PLAIN_UPDATES', 'launch_counts', 'path_counts',
+           'plain_update_counts', 'reset_launch_counts', 'add_launch_counts',
+           'needs_grad']
 
 #: kernel name -> the wrapper that launches it
 KERNELS = {'fused_norm': fused_norm,
@@ -34,6 +39,9 @@ KERNELS = {'fused_norm': fused_norm,
            'int8_matmul': _int8.int8_matmul,
            'flash_attention_stats': flash_attention_stats,
            'rtc': _nvrtc.launch}
+#: kernel name -> the optimizer wrapper whose ``plain_updates`` counts the
+#: updates it sent to the plain version by dtype
+PLAIN_UPDATES = {'adam': adam_step, 'sgd_mom': sgd_mom_step}
 
 
 def launch_counts():
@@ -48,18 +56,28 @@ def path_counts():
             if hasattr(fn, 'launches_by_path')}
 
 
+def plain_update_counts():
+    """``{kernel name: updates sent to its plain version by dtype}``."""
+    return {name: fn.plain_updates for name, fn in PLAIN_UPDATES.items()}
+
+
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
         if hasattr(fn, 'launches_by_path'):
             fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+    for fn in PLAIN_UPDATES.values():
+        fn.plain_updates = 0
 
 
-def add_launch_counts(counts, paths=None, times=1):
-    """Add ``times`` x ``counts`` (``{kernel name: launches}``) and
-    ``paths`` (``{kernel name: {design: launches}}``) to the counters:
-    the launches of a CUDA graph's replay, which no wrapper sees
-    (:class:`mxnet_tpu_torch._graphs.StepGraph`)."""
+def add_launch_counts(counts, paths=None, times=1, plain=None):
+    """Add ``times`` x ``counts`` (``{kernel name: launches}``), ``paths``
+    (``{kernel name: {design: launches}}``) and ``plain`` (``{kernel
+    name: plain updates}``) to the counters: what a CUDA graph's replay
+    ran, which no wrapper sees (:class:`mxnet_tpu_torch._graphs.
+    StepGraph`)."""
+    for name, n in (plain or {}).items():
+        PLAIN_UPDATES[name].plain_updates += times * n
     for name, n in counts.items():
         KERNELS[name].launches += times * n
     for name, by_design in (paths or {}).items():

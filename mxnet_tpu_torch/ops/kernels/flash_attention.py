@@ -6,7 +6,10 @@ its two forms and their plain PyTorch versions.
 :func:`flash_attention_stats`, the stats form that ring attention merges
 across ranks, of ``flash_attention_stats`` there. A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel, or raises on a dtype,
-shape or layout the kernel does not take.
+shape or layout the kernel does not take. As the Pallas kernel does, the
+kernel takes q, k and v in fp32 or bf16 (one dtype), computes in fp32 and
+stores the normalised form's output in q's dtype; the stats form's
+``(acc, m, l)`` are fp32 whatever q's dtype, as the reference gives them.
 
 :class:`FlashAttentionFunction` gives the op its gradient, as the
 reference's ``custom_vjp`` (``_flash3``) does: the forward is the wrapper
@@ -35,7 +38,7 @@ from . import _build
 __all__ = ['flash_attention_fwd', 'flash_attention_plain',
            'flash_attention_bwd', 'FlashAttentionFunction',
            'flash_attention_stats', 'flash_attention_stats_plain',
-           'HEAD_DIMS', 'PATHS', 'FlashPlan', 'plan']
+           'HEAD_DIMS', 'PATHS', 'DTYPES', 'FlashPlan', 'plan']
 
 #: head dims the kernel is built for
 HEAD_DIMS = (32, 64, 128)
@@ -46,6 +49,8 @@ PATHS = ('tf32x3', 'tf32x3_splitkv')
 BLOCK_Q = 64
 #: most key splits of one call
 MAX_SPLITS = 64
+#: the dtypes the kernel takes, by the suffix of its C entries
+DTYPES = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
 _NEG_INF = -1e30
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
@@ -174,9 +179,10 @@ def _check_cuda(what, q, k, v):
     if q.device.type != 'cuda' or k.device != q.device \
             or v.device != q.device:
         raise MXNetError(f'{what}: q, k, v must share one CUDA device')
-    if any(x.dtype != torch.float32 for x in (q, k, v)):
-        raise MXNetError(f'{what}: the kernel takes float32, got '
-                         f'{q.dtype}, {k.dtype}, {v.dtype}')
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise MXNetError(f'{what}: the kernel takes q, k, v of one dtype, '
+                         f'float32 or bfloat16, got {q.dtype}, {k.dtype}, '
+                         f'{v.dtype}')
     if q.shape[2] not in HEAD_DIMS:
         raise MXNetError(f'{what}: head dim {q.shape[2]} not in '
                          f'{HEAD_DIMS}')
@@ -200,7 +206,8 @@ def flash_attention_fwd(q, k, v, sm_scale, causal):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _build.function('flash_attention', 'flash_attention_fwd_f32', _ARGS)
+    fn = _build.function('flash_attention',
+                         f'flash_attention_fwd_{DTYPES[q.dtype]}', _ARGS)
     with _build.on_device(q.device):
         p, ws, counters, stream = _launch_args(q.device, bh, t, s, d)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -252,12 +259,13 @@ def flash_attention_stats(q, k, v, sm_scale, causal=False):
     if q.device.type == 'cpu':
         return flash_attention_stats_plain(q, k, v, sm_scale, causal)
     _check_cuda('flash_attention_stats', q, k, v)
-    acc = torch.empty_like(q)
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty(bh, t, dtype=torch.float32, device=q.device)
     l = torch.empty(bh, t, dtype=torch.float32, device=q.device)
     if acc.numel() == 0:
         return acc, m, l
-    fn = _build.function('flash_attention', 'flash_attention_stats_f32',
+    fn = _build.function('flash_attention',
+                         f'flash_attention_stats_{DTYPES[q.dtype]}',
                          _STATS_ARGS)
     with _build.on_device(q.device):
         p, ws, counters, stream = _launch_args(q.device, bh, t, s, d)

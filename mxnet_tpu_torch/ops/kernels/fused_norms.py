@@ -3,14 +3,19 @@
 
 Counterpart of ``mxnet_tpu/ops/pallas/fused_norms.py``. A CPU tensor takes
 the plain version; a CUDA tensor launches a kernel, or raises on a dtype,
-shape or layout the kernels do not take.
+shape or layout the kernels do not take. As the Pallas kernel does, the
+kernels take ``x`` and the weights (``gamma`` and ``beta``, one dtype) in
+fp32 or bf16, compute in fp32 and store the output in the reference's
+promotion of their dtypes (:func:`_out_dtype`).
 
 :func:`plan` picks the kernel's design from the shapes, the mode and the
 pointers' alignment alone: ``regs`` (one block a row, the row held in
 registers), ``cluster`` (each row of a short RMS batch split over a
 thread-block cluster, the slices held in registers) or ``general`` (the
-earlier design, for widths that are not a multiple of 4 or above
-:data:`MAX_D`, and for data off 16-byte alignment). Launches are counted
+earlier design, for widths that are not a multiple of a vector's elements
+or above :data:`MAX_VECS` vectors, and for data off 16-byte alignment). A
+vector is the 16 bytes of ``x`` a thread loads at once: 4 elements in
+fp32, 8 in bf16. Launches are counted
 in ``fused_norm.launches`` and, by design, in
 ``fused_norm.launches_by_path``.
 
@@ -32,7 +37,7 @@ from . import _build
 
 __all__ = ['fused_norm', 'fused_norm_plain', 'fused_norm_bwd',
            'FusedNormFunction', 'fused_rms_norm', 'fused_layer_norm',
-           'PATHS', 'Plan', 'plan']
+           'PATHS', 'DTYPES', 'Plan', 'plan']
 
 #: the kernel's designs, by the plan's name
 PATHS = ('regs', 'cluster', 'general')
@@ -42,8 +47,12 @@ _PATH_CODE = {'general': 0, 'regs': 1, 'cluster': 2}
 REGS_THREADS = (64, 128, 256, 512)
 CLUSTER_THREADS = (32, 64, 128, 256)
 VECS = (1, 2, 3, 4)
-#: widest row the register-resident designs hold
-MAX_D = 4 * REGS_THREADS[-1] * VECS[-1]
+#: most vectors of a row the register-resident designs hold, and the
+#: widest fp32 row (a bf16 row holds twice the elements)
+MAX_VECS = REGS_THREADS[-1] * VECS[-1]
+MAX_D = 4 * MAX_VECS
+#: the dtypes the kernels take, by their code in the C entry
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: most rows of a call whose rows are split over clusters, the cluster
 #: sizes built (the largest the portable limit) and the most partial sums
 #: (one a warp of a row's blocks) a sum adds
@@ -57,12 +66,12 @@ GENERAL_THREADS = 256
 #: block, ``vecs`` 16-byte vectors a thread (0 for general, which strides)
 #: and ``cluster`` blocks a row. Thread ``t`` of block ``r`` of a row takes
 #: the vectors ``r * threads * vecs + k * threads + t``, ``k < vecs``, that
-#: are below ``d / 4``.
+#: are below ``d / elems`` (``elems`` 4 in fp32, 8 in bf16).
 Plan = namedtuple('Plan', 'path threads vecs cluster')
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_float] + [ctypes.c_int] * 7 + [
+                                     ctypes.c_void_p]
 
 
 def _fit(nv, threads, c):
@@ -78,21 +87,23 @@ def _fit(nv, threads, c):
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(n, d, aligned, sm_count, rms):
+def plan(n, d, aligned, sm_count, rms, elems=4):
     """The design of a call over ``n`` rows of ``d`` on a card with
     ``sm_count`` SMs, RMS or (``rms`` False) LayerNorm; ``aligned`` says
-    that x, gamma, beta and the output start on 16-byte boundaries.
+    that x, gamma, beta and the output start on 16-byte boundaries, and
+    ``elems`` is the elements of x in a 16-byte vector (4 fp32, 8 bf16).
     ``cluster`` takes an RMS batch of at most :data:`CLUSTER_ROWS` rows, in
     the largest cluster of :data:`CLUSTERS` whose blocks fit one wave
     (``n * cluster <= sm_count``) and split the row evenly; ``regs`` the
-    other rows of up to :data:`MAX_D` that are a multiple of 4; ``general``
-    the rest. LayerNorm's two sums would cross the cluster twice, and on
-    the H100 that took longer than the split saved (PERF.md). Pure Python:
+    other rows of up to :data:`MAX_VECS` vectors that are a multiple of
+    ``elems``; ``general`` the rest. LayerNorm's two sums would cross the
+    cluster twice, and on the H100 that took longer than the split saved
+    (PERF.md). Pure Python:
     the CPU tests check it, and the C entry refuses a plan that does not
     fit."""
-    if not aligned or d % 4 or d > MAX_D:
+    if not aligned or d % elems or d > elems * MAX_VECS:
         return Plan('general', GENERAL_THREADS, 0, 1)
-    nv = d // 4
+    nv = d // elems
     if rms and n <= CLUSTER_ROWS:
         for c in CLUSTERS:
             tv = _fit(nv, CLUSTER_THREADS, c) if n * c <= sm_count else None
@@ -125,7 +136,9 @@ def fused_norm_plain(x, gamma, beta, eps, rms):
 
 def fused_norm(x, gamma, beta=None, eps=1e-5, rms=False):
     """Normalise contiguous ``x`` over its last axis: RMS (``rms=True``,
-    ``beta`` None) or LayerNorm. fp32 only on the card."""
+    ``beta`` None) or LayerNorm. On the card ``x`` and the weights are
+    fp32 or bf16, ``gamma`` and ``beta`` of one dtype; the output is bf16
+    when both are bf16, fp32 otherwise."""
     d = x.shape[-1]
     tensors = (x, gamma) if beta is None else (x, gamma, beta)
     if any(t.shape != (d,) for t in tensors[1:]):
@@ -140,17 +153,21 @@ def fused_norm(x, gamma, beta=None, eps=1e-5, rms=False):
                                       for t in tensors):
         raise MXNetError(f'fused_norm: tensors must share one CUDA device, '
                          f'got {[str(t.device) for t in tensors]}')
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise MXNetError(f'fused_norm: the kernel takes float32, got '
+    if x.dtype not in DTYPES or gamma.dtype not in DTYPES or (
+            beta is not None and beta.dtype != gamma.dtype):
+        raise MXNetError(f'fused_norm: the kernel takes float32 or bfloat16 '
+                         f'x and weights (gamma and beta of one dtype), got '
                          f'{[t.dtype for t in tensors]}')
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=_out_dtype(x, gamma, beta),
+                      device=x.device)
     n = x.numel() // d if d else 0
     if n == 0:
         return out
     if n >= 2 ** 31 or d >= 2 ** 31:
         raise MXNetError(f'fused_norm: shape {tuple(x.shape)} too large')
     aligned = all(t.data_ptr() % 16 == 0 for t in tensors + (out,))
-    p = plan(n, d, aligned, _build.sm_count(x.device), bool(rms))
+    p = plan(n, d, aligned, _build.sm_count(x.device), bool(rms),
+             16 // x.element_size())
     _launch(x, gamma, beta, out, eps, rms, p)
     fused_norm.launches += 1
     fused_norm.launches_by_path[p.path] += 1
@@ -161,13 +178,13 @@ def _launch(x, gamma, beta, out, eps, rms, p):
     """One launch of the kernel on checked tensors, in the design of plan
     ``p``."""
     d = x.shape[-1]
-    fn = _build.function('fused_norms', 'fused_norm_f32', _ARGS)
+    fn = _build.function('fused_norms', 'fused_norm_run', _ARGS)
     with _build.on_device(x.device):
         rc = fn(x.data_ptr(), gamma.data_ptr(),
                 None if beta is None else beta.data_ptr(), out.data_ptr(),
-                x.numel() // d, d, float(eps), int(rms), _PATH_CODE[p.path],
-                p.threads, p.vecs, p.cluster,
-                torch.cuda.current_stream(x.device).cuda_stream)
+                x.numel() // d, d, float(eps), int(rms), DTYPES[x.dtype],
+                DTYPES[gamma.dtype], _PATH_CODE[p.path], p.threads, p.vecs,
+                p.cluster, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check('fused_norms', rc, 'fused_norm')
 
 

@@ -8,6 +8,17 @@ takes the plain version; a CUDA tensor launches the kernel, or raises on a
 dtype, shape or layout the kernel does not take. There is no size gate:
 the kernel masks its own tail.
 
+The kernels take fp32 only, as the Pallas kernels do. A weight of another
+float dtype (a net cast to bf16) takes the plain version on any device,
+as the reference sends any non-fp32 weight to XLA
+(``mxnet_tpu/ops/pallas/fused_optimizer.py:64-71``): the choice is made
+from the dtypes alone, before any launch, and counted in the wrapper's
+``plain_updates``. Its gradient must have the weight's dtype and its slots
+that dtype or fp32; any other mix raises on the card. The plain version
+computes such an update in fp32, as the reference's Trainer does (its
+fp32 device scalars promote the arithmetic), and stores the weight back in
+its own dtype.
+
 The step-varying hyperparameters come in a small fp32 tensor on the
 weight's device, as the TPU kernels take them: ``(lr, wd, bc1, bc2)`` for
 Adam (``bc1``, ``bc2`` its bias corrections ``1 - beta**t``) and ``(lr,
@@ -43,7 +54,8 @@ def hyper_vector(values, device):
 
 
 def _prep_grad(g, w, wd, rescale_grad, clip_gradient):
-    # the reference's _prep_grad: rescale, clip, then + wd * w
+    # the reference's _prep_grad: rescale and clip in g's dtype, then
+    # + wd * w (w in fp32 for a weight of another dtype)
     g = g * rescale_grad
     if clip_gradient is not None:
         g = g.clamp(-clip_gradient, clip_gradient)
@@ -60,11 +72,14 @@ def adam_step_plain(w, g, m, v, hyper, *, beta1, beta2, epsilon,
     on CUDA would turn a division by a Python number into a product with
     its reciprocal, 1 ulp off the division that the kernel takes)."""
     lr, wd, bc1, bc2 = hyper[0], hyper[1], hyper[2], hyper[3]
-    g = _prep_grad(g, w, wd, rescale_grad, clip_gradient)
-    m.copy_(beta1 * m + (1 - beta1) * g)
-    v.copy_(beta2 * v + (1 - beta2) * g * g)
-    mhat, vhat = m / bc1, v / bc2
-    w.copy_(w - lr * mhat / (torch.sqrt(vhat) + epsilon))
+    wf = w.float()          # w itself when it is fp32, as are the slots
+    g = _prep_grad(g, wf, wd, rescale_grad, clip_gradient)
+    mf = beta1 * m.float() + (1 - beta1) * g
+    vf = beta2 * v.float() + (1 - beta2) * g * g
+    m.copy_(mf)
+    v.copy_(vf)
+    mhat, vhat = mf / bc1, vf / bc2
+    w.copy_(wf - lr * mhat / (torch.sqrt(vhat) + epsilon))
     return w, m, v
 
 
@@ -75,14 +90,18 @@ def sgd_mom_step_plain(w, g, mom, hyper, *, momentum, rescale_grad=1.0,
     (``_sgd_mom_kernel`` of the reference), in place on ``w``, ``mom``;
     ``hyper`` holds ``(lr, wd)``."""
     lr, wd = hyper[0], hyper[1]
-    g = _prep_grad(g, w, wd, rescale_grad, clip_gradient)
-    mom.copy_(momentum * mom - lr * g)
-    w.add_(mom)
+    wf = w.float()
+    g = _prep_grad(g, wf, wd, rescale_grad, clip_gradient)
+    mf = momentum * mom.float() - lr * g
+    mom.copy_(mf)
+    w.copy_(wf + mf)
     return w, mom
 
 
 def _check(what, tensors, hyper, n_hyper):
-    """Raise on what neither version takes; True when the kernel runs."""
+    """Raise on what neither version takes; True when the kernel runs,
+    False when the plain version does: for a CPU tensor, and by the dtype
+    rule (a weight that is not fp32, on any device)."""
     if not (torch.is_tensor(hyper) and hyper.dtype == torch.float32
             and hyper.is_contiguous() and hyper.numel() >= n_hyper
             and hyper.device == tensors[0].device):
@@ -97,14 +116,22 @@ def _check(what, tensors, hyper, n_hyper):
                          f'{[tuple(t.shape) for t in tensors]}')
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError(f'{what}: tensors must be contiguous')
-    if tensors[0].device.type == 'cpu':
+    w, g = tensors[0], tensors[1]
+    if w.device.type == 'cpu':
         return False
-    dev = tensors[0].device
+    dev = w.device
     if dev.type != 'cuda' or any(t.device != dev for t in tensors):
         raise MXNetError(f'{what}: tensors must share one CUDA device, got '
                          f'{[str(t.device) for t in tensors]}')
+    if w.dtype != torch.float32 and w.is_floating_point() \
+            and g.dtype == w.dtype \
+            and all(t.dtype in (w.dtype, torch.float32) for t in tensors[2:]):
+        return False
     if any(t.dtype != torch.float32 for t in tensors):
-        raise MXNetError(f'{what}: the kernel takes float32, got '
+        raise MXNetError(f'{what}: the kernel takes float32, and a weight '
+                         f'of another float dtype takes the plain update '
+                         f'with a gradient of its dtype and slots of its '
+                         f'dtype or float32; got '
                          f'{[t.dtype for t in tensors]}')
     if tensors[0].numel() and \
             len({t.data_ptr() for t in tensors}) != len(tensors):
@@ -122,9 +149,12 @@ def adam_step(w, g, m, v, hyper, *, beta1, beta2, epsilon,
     """One Adam update of ``w`` and its moments ``m``, ``v`` from ``g``, in
     place; returns ``(w, m, v)``. ``hyper`` is a float32 tensor on their
     device holding ``(lr, wd, bc1, bc2)``, ``bc1``/``bc2`` the bias
-    corrections ``1 - beta**t`` (1 for none). fp32 and contiguous on the
-    card."""
+    corrections ``1 - beta**t`` (1 for none). Contiguous; the kernel on
+    the card takes fp32, and a weight of another dtype takes the plain
+    version (see the module docstring)."""
     if not _check('adam_step', (w, g, m, v), hyper, 4):
+        if w.dtype != torch.float32:
+            adam_step.plain_updates += 1
         return adam_step_plain(w, g, m, v, hyper, beta1=beta1,
                                beta2=beta2, epsilon=epsilon,
                                rescale_grad=rescale_grad,
@@ -143,14 +173,18 @@ def adam_step(w, g, m, v, hyper, *, beta1, beta2, epsilon,
 
 
 adam_step.launches = 0
+adam_step.plain_updates = 0
 
 
 def sgd_mom_step(w, g, mom, hyper, *, momentum, rescale_grad=1.0,
                  clip_gradient=None):
     """One SGD-with-momentum update of ``w`` and ``mom`` from ``g``, in
     place; returns ``(w, mom)``. ``hyper`` is a float32 tensor on their
-    device holding ``(lr, wd)``. fp32 and contiguous on the card."""
+    device holding ``(lr, wd)``. Contiguous; dtypes as :func:`adam_step`
+    takes them."""
     if not _check('sgd_mom_step', (w, g, mom), hyper, 2):
+        if w.dtype != torch.float32:
+            sgd_mom_step.plain_updates += 1
         return sgd_mom_step_plain(w, g, mom, hyper, momentum=momentum,
                                   rescale_grad=rescale_grad,
                                   clip_gradient=clip_gradient)
@@ -168,3 +202,4 @@ def sgd_mom_step(w, g, mom, hyper, *, momentum, rescale_grad=1.0,
 
 
 sgd_mom_step.launches = 0
+sgd_mom_step.plain_updates = 0

@@ -5,7 +5,10 @@ Counterpart of ``paged_attention_decode_pallas`` in
 ``mxnet_tpu/ops/pallas/paged_attention.py``. The plain version is the
 gather math of the reference op (``ops/contrib.py:paged_attention_decode``
 off the TPU). A CPU tensor takes it; a CUDA tensor launches the kernel, or
-raises on a dtype, shape or layout the kernel does not take.
+raises on a dtype, shape or layout the kernel does not take. The kernel
+takes q and the pools in one dtype, fp32 or bf16, as the reference's gate
+asks that the pool have q's dtype (``use_pallas``); it computes in fp32 and
+returns q's dtype.
 
 :func:`plan` picks the split count of a call from its shapes alone; the
 kernel launches the splits of one (row, KV head) as one thread-block
@@ -25,7 +28,8 @@ from ...base import MXNetError
 from . import _build
 
 __all__ = ['paged_attention_decode', 'paged_attention_decode_plain',
-           'HEAD_DIMS', 'GROUPS', 'TILE', 'MAX_SPLITS', 'PATHS', 'plan']
+           'HEAD_DIMS', 'GROUPS', 'TILE', 'MAX_SPLITS', 'PATHS', 'DTYPES',
+           'plan']
 
 #: head dims and query-group sizes the kernel is built for
 HEAD_DIMS = (64, 128)
@@ -37,6 +41,8 @@ TILE = 16
 MAX_SPLITS = 8
 #: the kernel's designs by split count, as ``launches_by_path`` counts them
 PATHS = tuple(f'splits{n}' for n in range(1, MAX_SPLITS + 1))
+#: the dtypes the kernel takes, by the suffix of its C entries
+DTYPES = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
 _NEG_INF = -1e30
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
@@ -127,9 +133,11 @@ def paged_attention_decode(q, k_pool, v_pool, pages, offset, sm_scale):
                                       for t in tensors):
         raise MXNetError('paged_attention_decode: tensors must share one '
                          'CUDA device')
-    if any(t.dtype != torch.float32 for t in (q, k_pool, v_pool)):
-        raise MXNetError('paged_attention_decode: the kernel takes float32 '
-                         'q and pools')
+    if q.dtype not in DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise MXNetError(f'paged_attention_decode: the kernel takes q and '
+                         f'pools of one dtype, float32 or bfloat16, got '
+                         f'{q.dtype}, {k_pool.dtype}, {v_pool.dtype}')
     if dh not in HEAD_DIMS or G not in GROUPS:
         raise MXNetError(f'paged_attention_decode: head dim {dh} / group '
                          f'{G} not in {HEAD_DIMS} / {GROUPS}')
@@ -155,8 +163,8 @@ def _launch(q, k_pool, v_pool, pages, offset, out, sm_scale, splits):
     (the cluster size)."""
     B, kv, G, dh = q.shape
     P, psz = k_pool.shape[:2]
-    fn = _build.function('paged_attention', 'paged_attention_decode_f32',
-                         _ARGS)
+    fn = _build.function('paged_attention',
+                         f'paged_attention_decode_{DTYPES[q.dtype]}', _ARGS)
     with _build.on_device(q.device):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 pages.data_ptr(), offset.data_ptr(), out.data_ptr(), B, kv,

@@ -56,8 +56,8 @@ PENDING = {
         'permute_dims', 'pow', 'put_along_axis', 'select', 'trapezoid',
         'vecdot',
         # ops/legacy_ops.py: the broadcast_*/elemwise_* names, slice,
-        # broadcast_axis, the AMP casts and the small legacy ops
-        'amp_cast', 'amp_multicast', 'broadcast_add', 'broadcast_axes',
+        # broadcast_axis and the small legacy ops
+        'broadcast_add', 'broadcast_axes',
         'broadcast_axis', 'broadcast_div', 'broadcast_equal',
         'broadcast_greater', 'broadcast_greater_equal', 'broadcast_hypot',
         'broadcast_lesser', 'broadcast_lesser_equal',

@@ -129,7 +129,8 @@ def _conv(data, weight, bias, layout, stride, pad, dilate, groups,
             list(_tuplize(pad, ndim) or (0,) * ndim),
             list(_tuplize(dilate, ndim) or (1,) * ndim), transposed,
             list(_tuplize(adj, ndim) or (0,) * ndim), groups)
-    if x.is_cuda:
+    if x.is_cuda and x.dtype == torch.float32:
+        # TF32 off for fp32 only: a bf16 convolution runs cuDNN in bf16
         out = _Fp32Conv.apply(x, weight, bias, args)
     else:
         out = torch.ops.aten.convolution(x, weight, bias, *args)

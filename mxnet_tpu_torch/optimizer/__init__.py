@@ -6,8 +6,12 @@ hyperparameters, multipliers, update counts and arithmetic. Updates are IN
 PLACE: :meth:`Optimizer.update` writes the new weight and the new state
 into the tensors it is given, where the reference rebinds its NDArrays to
 new arrays. SGD with momentum and Adam go through the fused kernels
-(:mod:`..ops.kernels.fused_optimizer`); plain SGD (``momentum=0``) is
-plain PyTorch, as the reference leaves it to XLA.
+(:mod:`..ops.kernels.fused_optimizer`), whose wrappers send a weight that
+is not fp32 (a net cast to bf16) to their plain versions, as the
+reference sends it to XLA; plain SGD (``momentum=0``) is plain PyTorch, as
+the reference leaves it to XLA. Such a weight's update is computed in
+fp32, as the JAX Trainer's fp32 device scalars promote it, and stored back
+in the weight's dtype.
 
 A step's hyperparameters reach :meth:`Optimizer.step` as a row of a
 float32 tensor on the weights' device, ``(lr, wd, bc1, bc2)``, as the JAX
@@ -75,7 +79,12 @@ class Optimizer:
         return None
 
     def create_state_multi_precision(self, index, weight):
-        return self.create_state(index, weight)
+        """:meth:`create_state`, with fp32 slots for a weight that is not
+        fp32 (a net cast to bf16): the JAX Trainer creates them in the
+        weight's dtype, and its fp32 device scalars make them fp32 at the
+        first update, before anyone can read them (the values are the
+        zeros they were made with)."""
+        return _fp32_slots(self.create_state(index, weight), weight)
 
     # ------------------------------------------------------------------- meta
     def set_learning_rate(self, lr):
@@ -193,6 +202,16 @@ def _zeros_like(weight):
     return torch.zeros_like(weight, memory_format=torch.contiguous_format)
 
 
+def _fp32_slots(state, weight):
+    """``state`` with its floating slots in fp32 where ``weight`` is not
+    fp32."""
+    if weight.dtype == torch.float32 or state is None:
+        return state
+    if torch.is_tensor(state):
+        return state.float() if state.is_floating_point() else state
+    return type(state)(_fp32_slots(s, weight) for s in state)
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum (reference optimizer/sgd.py:111; fused kernel
@@ -212,8 +231,9 @@ class SGD(Optimizer):
 
     def step(self, w, g, state, hyper):
         if self.momentum == 0.0:
-            g = self._prep(g) + hyper[1] * w
-            w.sub_(hyper[0] * g)
+            wf = w.float()      # w itself when it is fp32
+            g = self._prep(g) + hyper[1] * wf
+            w.copy_(wf - hyper[0] * g)
             return
         sgd_mom_step(w, g, state, hyper, momentum=self.momentum,
                      rescale_grad=self.rescale_grad,

@@ -34,7 +34,13 @@ release when the layers are swapped or moved; the port's ``Conv2D``
 against fp64 with cuDNN's TF32 flag left on (fp32 forward and
 gradients), ``io.PrefetchingIter`` onto the card against
 ``NDArrayIter``'s batches across a reset, and ``DataLoader`` workers
-forked after CUDA was initialized.
+forked after CUDA was initialized; and the bf16 kernels against their
+plain versions (the norm in every (x, weights) dtype pair and design,
+both flash forms over head dims and masks, paged decode over head dims,
+groups, page sizes and split counts), a bf16 weight's plain update, and
+a bf16 Gluon LayerNorm and BERT encoder cell on the card against the CPU.
+bf16 outputs are held within one bf16 ulp plus the fp32 tolerance (each
+side rounds its fp32 result once; near zero the fp32 tolerance decides).
 
 Every test needs a CUDA card and skips without one. The tests import no
 JAX, so on a machine without it they run with
@@ -329,8 +335,10 @@ def test_optimizer_kernels_match_plain(dev, n, offset, t):
 def test_optimizer_kernels_refuse_what_they_do_not_take(dev):
     w = torch.zeros(4, 8, device=dev)
     vec = torch.tensor([0.1, 0.0, 1.0, 1.0], device=dev)
+    # an fp32 weight with a gradient of another dtype (a weight of another
+    # dtype takes the plain update: test_bf16_weights_take_the_plain_update)
     with pytest.raises(MXNetError, match='float32'):
-        fused_optimizer.sgd_mom_step(w.half(), w.half(), w.half(), vec,
+        fused_optimizer.sgd_mom_step(w, w.half(), w.clone(), vec,
                                      momentum=0.9)
     with pytest.raises(MXNetError, match='contiguous'):
         fused_optimizer.adam_step(w.t(), w.t(), w.t(), w.t(), vec,
@@ -1520,3 +1528,179 @@ def test_create_graph_through_a_graphed_call_raises(dev):
     w = net.collect_params()['encoder.cell0.ffn1.weight']
     with pytest.raises(MXNetError, match='A5 rest'):
         mx.autograd.grad(out, [w.data()], create_graph=True)
+
+
+# ------------------------------------------------------------------- bf16
+def _ulp(t):
+    """The spacing of bf16 values at ``|t|``, fp32."""
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _close_bf16(got, want, rtol, atol):
+    """The dtypes equal, and ``|got - want| <= atol + rtol * |want|`` plus
+    one bf16 ulp of ``want`` for a bf16 output: each side rounds its fp32
+    result once (half an ulp apiece), and the fp32 tolerance decides near
+    zero."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = atol + rtol * want.float().abs()
+    if got.dtype == torch.bfloat16:
+        tol = tol + _ulp(want)
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got.float()).all()
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.parametrize('rms', [True, False], ids=['rms', 'layer'])
+@pytest.mark.parametrize('xdt,wdt', [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16)], ids=['bf16', 'bf16-x', 'bf16-w'])
+@pytest.mark.parametrize('shape', [(3, 1000), (2, 5, 4096), (1, 130),
+                                   (4, 768), (3, 4104), (2, 12288),
+                                   (5, 6)])
+def test_fused_norm_in_bf16_matches_plain(dev, shape, xdt, wdt, rms):
+    """The norm on bf16 x or weights, the output in the reference's
+    promotion, counted under its plan's design; then every design that
+    takes the shape, forced (the register designs need d a multiple of 8
+    for bf16 x and of 4 for fp32 x)."""
+    d = shape[-1]
+    x = (_randn(dev, *shape) * 2 + 0.5).to(xdt)
+    g = (_randn(dev, d, seed=1) + 1).to(wdt)
+    beta = None if rms else _randn(dev, d, seed=2).to(wdt)
+    want = fused_norms.fused_norm_plain(x, g, beta, 1e-5, rms)
+    assert want.dtype == (torch.bfloat16 if xdt == wdt == torch.bfloat16
+                          else torch.float32)
+    elems = 16 // x.element_size()
+    path = fused_norms.plan(x.numel() // d, d, True, 132, rms, elems).path
+    n = fused_norms.fused_norm.launches_by_path[path]
+    got = fused_norms.fused_norm(x, g, beta, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert fused_norms.fused_norm.launches_by_path[path] == n + 1
+    _close_bf16(got, want, **NORM_TOL)
+    plans = {fused_norms.plan(m, d, True, 132, True, elems)
+             for m in (1, 64)} | {
+        fused_norms.Plan('general', fused_norms.GENERAL_THREADS, 0, 1)}
+    for p in plans:
+        out = torch.empty_like(want)
+        fused_norms._launch(x, g, beta, out, 1e-5, rms, p)
+        torch.cuda.synchronize()
+        _close_bf16(out, want, **NORM_TOL)
+
+
+@pytest.mark.parametrize('d', [32, 64, 128])
+@pytest.mark.parametrize('causal,t,s', [
+    (True, 100, 100), (False, 100, 100), (True, 37, 300), (False, 1, 129),
+    (True, 64, 2048)])
+def test_flash_attention_in_bf16_matches_plain(dev, d, causal, t, s):
+    """Both flash forms on bf16 q, k, v: the normalised output in bf16
+    (fp32 tolerance plus a bf16 ulp), the stats form's acc, m and l in
+    fp32 at the fp32 tolerance."""
+    q = _randn(dev, 3, t, d).to(torch.bfloat16)
+    k = _randn(dev, 3, s, d, seed=1).to(torch.bfloat16)
+    v = _randn(dev, 3, s, d, seed=2).to(torch.bfloat16)
+    got = flash_attention.flash_attention_fwd(q, k, v, d ** -0.5, causal)
+    want = flash_attention.flash_attention_plain(q, k, v, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    _close_bf16(got, want, **ATT_TOL)
+    if t == s:
+        got = flash_attention.flash_attention_stats(q, k, v, d ** -0.5,
+                                                    causal)
+        want = flash_attention.flash_attention_stats_plain(q, k, v,
+                                                           d ** -0.5, causal)
+        torch.cuda.synchronize()
+        assert [x.dtype for x in got] == [torch.float32] * 3
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **ATT_TOL)
+
+
+@pytest.mark.parametrize('dh', [64, 128])
+@pytest.mark.parametrize('groups', [1, 2, 4, 8])
+@pytest.mark.parametrize('psz,np_', [(4, 5), (16, 40)])
+def test_paged_attention_in_bf16_matches_plain(dev, dh, groups, psz, np_):
+    """Paged decode on a bf16 q and pool, at mixed depths and split
+    counts from 1 to 8, the output in bf16."""
+    B, kv = 3, 2
+    P = B * np_ + 1
+    q = _randn(dev, B, kv, groups, dh).to(torch.bfloat16)
+    kp = _randn(dev, P, psz, kv, dh, seed=1).to(torch.bfloat16)
+    vp = _randn(dev, P, psz, kv, dh, seed=2).to(torch.bfloat16)
+    pages = (torch.randperm(B * np_, device=dev) + 1).reshape(
+        B, np_).to(torch.int32)
+    offset = torch.tensor([0, psz * np_ // 2, psz * np_ - 1],
+                          dtype=torch.int32, device=dev)
+    want = paged_attention.paged_attention_decode_plain(q, kp, vp, pages,
+                                                        offset, dh ** -0.5)
+    for splits in (1, 3, 8):
+        out = torch.empty_like(q)
+        paged_attention._launch(q, kp, vp, pages, offset, out, dh ** -0.5,
+                                splits)
+        torch.cuda.synchronize()
+        _close_bf16(out, want, **ATT_TOL)
+    got = paged_attention.paged_attention_decode(q, kp, vp, pages, offset,
+                                                 dh ** -0.5)
+    torch.cuda.synchronize()
+    _close_bf16(got, want, **ATT_TOL)
+
+
+def test_bf16_weights_take_the_plain_update_on_the_card(dev):
+    """A bf16 weight goes to the plain update by its dtype (no launch,
+    one plain update counted), in fp32 arithmetic with fp32 slots, as the
+    CPU computes it; mixed dtypes raise."""
+    w = _randn(dev, 1000).to(torch.bfloat16)
+    g = _randn(dev, 1000, seed=1).to(torch.bfloat16)
+    m, v = torch.zeros(1000, device=dev), torch.zeros(1000, device=dev)
+    vec = torch.tensor([1e-2, 0.01, 0.1, 0.001], device=dev)
+    n, plain = (fused_optimizer.adam_step.launches,
+                fused_optimizer.adam_step.plain_updates)
+    cpu = [x.cpu() for x in (w, g, m, v)]
+    fused_optimizer.adam_step(w, g, m, v, vec, beta1=0.9, beta2=0.999,
+                              epsilon=1e-8)
+    fused_optimizer.adam_step(*cpu, vec.cpu(), beta1=0.9, beta2=0.999,
+                              epsilon=1e-8)
+    torch.cuda.synchronize()
+    assert fused_optimizer.adam_step.launches == n
+    assert fused_optimizer.adam_step.plain_updates == plain + 2
+    assert w.dtype == torch.bfloat16 and m.dtype == torch.float32
+    _close_bf16(w.cpu(), cpu[0], 0, 0)
+    for a, b in zip((m, v), cpu[2:]):
+        torch.testing.assert_close(a.cpu(), b, **OPT_TOL)
+    with pytest.raises(MXNetError, match='float32'):
+        fused_optimizer.adam_step(w, g.float(), m, v, vec, beta1=0.9,
+                                  beta2=0.999, epsilon=1e-8)
+
+
+@pytest.mark.parametrize('what', ['layernorm', 'bert_cell'])
+def test_bf16_gluon_blocks_run_on_the_card(dev, what):
+    """A Gluon LayerNorm and a BERT encoder cell cast to bf16 run on the
+    card, through the bf16 norm and flash kernels, and give the CPU's
+    output (the same layer through the plain versions) within 2 % of the
+    output's scale: cuBLAS's and the CPU's bf16 products round in other
+    places."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    x = _randn(dev, 2, 16, 128).cpu()
+    outs = {}
+    for where in (mx.cpu(), mx.gpu(0)):
+        with where:
+            mx.random.seed(0)
+            block = nn.LayerNorm(in_channels=128) if what == 'layernorm' \
+                else bert.BERTEncoderCell(128, 256, 2)
+            block.initialize(ctx=where)
+            xs = mx.np.array(x.numpy())
+            block(xs)
+            if outs:
+                block.load_dict(outs['weights'])
+            else:
+                outs['weights'] = {k: p.data().asnumpy() for k, p in
+                                   block.collect_params().items()}
+            block.cast('bfloat16')
+            norms = fused_norms.fused_norm.launches
+            out = block(xs.astype('bfloat16'))
+            assert str(out.dtype) == 'bfloat16'
+            if where.device_type == 'gpu':
+                assert fused_norms.fused_norm.launches > norms
+            outs[str(where)] = out._data.detach().float().cpu()
+    want, got = outs['cpu(0)'], outs['gpu(0)']
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+

@@ -163,8 +163,9 @@ def test_norm_cluster_plan_stays_within_the_cluster_limit(n, d, sms):
 
 def test_norm_plan_takes_shapes_only():
     import inspect
+    # elems: the elements of x in a 16-byte vector, from its dtype
     assert list(inspect.signature(fnorm.plan).parameters) == [
-        'n', 'd', 'aligned', 'sm_count', 'rms']
+        'n', 'd', 'aligned', 'sm_count', 'rms', 'elems']
     assert fnorm.PATHS == ('regs', 'cluster', 'general')
 
 
