@@ -12,6 +12,8 @@
     python3 chip_smoke.py --phases device,build,kernels,bert,resnet
                                                   # compiled training
     python3 chip_smoke.py --phases device,build,kernels,bf16  # bf16
+    python3 chip_smoke.py --phases device,build,qresnet  # int8 ResNet-50
+    python3 chip_smoke.py --phases device,build,optim  # the optimizers
 
 Phases, each of which fails the run on any error:
 
@@ -77,7 +79,7 @@ Phases, each of which fails the run on any error:
                layer; the norm's kernel time in each is logged apart.
 6. int8     -- the same net, quantized in place by ``quantize_net`` (naive
                calibration on one seeded (1, 512) batch, bf16
-               activations): 225 ``QuantizedDense`` layers. One (1, 512)
+               activations): 225 ``QuantizedLinear`` layers. One (1, 512)
                forward with exactly 225 int8, 65 norm and 32 flash
                launches; the six prompts served again, with 225 int8
                launches per decode step and per prefill chunk, through
@@ -227,7 +229,51 @@ Phases, each of which fails the run on any error:
                a resnet18 thumbnail (one SGD-momentum step) in bf16 on the
                card and on the CPU: losses at ``BF16_LOSS_RTOL``, the
                weights' change within ``BF16_CHANGE_GAP``.
-12. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+12. qresnet -- int8 ResNet-50 inference through Gluon quantization
+               (``bench_resnet_int8``, bench.py:745-800):
+               ``vision.resnet50_v1()`` at full width and depth, fp32,
+               seeded, on ``mx.gpu(0)``; its graphed predict at batch 32,
+               224, timed in fp32 and, as a bf16 copy of the same weights,
+               in bf16; then ``quantization.quantize_net`` in ``naive``
+               mode on one seeded batch of 8 at 224 (seeded images, not
+               the bench's constant 0.5): 53 ``QuantizedConv2D`` and a
+               ``QuantizedDense`` output, bf16 activations. An eager int8
+               forward and then ``hybridize(static_alloc=True)`` graphed
+               predict, K = 24 calls back to back: exactly 54 B7 launches
+               a forward (each convolution one product over its gathered
+               windows, and the Dense), one capture and one key, the
+               graphed output equal to the eager one bit for bit; then the
+               K-step loop over ``pure_function(x, train=False)``, one
+               captured forward replayed K times. Logged beside the fp32
+               and bf16 predicts: img/s, host and device ms a call, busy
+               share, kernel ms by group (B7, cuDNN's convolutions, the
+               quantize ops, copies, pooling, BatchNorm and elementwise),
+               peak allocated and reserved memory, top-1 of the int8 net
+               against the float net. Outside the window, B7 at the
+               output Dense's (32, 1000, 2048) and a first-stage 3 x 3
+               convolution's gathered shape against its plain version
+               (bit-equal, added to the kernel's rows), and that
+               convolution through ``quantized_conv2d`` against one
+               float64 convolution of the codes (bit-equal). Then a
+               ``resnet18_v1`` thumbnail quantized on the card and on the
+               CPU from the same weights and calibration batch:
+               calibration ranges at rtol 1e-5, int8 weights bit-equal,
+               logits within ``QRESNET_LOGIT_TOL`` of the CPU's largest.
+13. optim   -- ``bert_12_768_12`` at (32, 128), hybridized, trains
+               ``BERT_STEPS`` graphed steps with Adam, AdamW and LAMB from
+               the same seeded weights: 26 B1 and 12 B2 launches a step
+               (and 156 B5 for Adam; AdamW and LAMB are plain PyTorch, as
+               the reference leaves them to XLA), losses finite and
+               falling, the net's forward and backward graphs captured
+               once and replayed under every Trainer, one update graph a
+               Trainer, no recorded call run eagerly. Logged: host ms a
+               step, samples/s, busy share, and the update's device ms
+               (CUDA events around ``Trainer.step``). Then a small net
+               trains two steps with each of the 17 optimizers on the card
+               (its update a captured graph) and on the CPU: losses at
+               rtol 1e-4, each tensor's change within 1 % (SGLD: the
+               first loss only, its noise being each device's own draw).
+14. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -237,14 +283,14 @@ Phases, each of which fails the run on any error:
                flash forward over the whole sequence, and the ranks'
                plain blockwise path the flash path. Logs each rank's host
                ms, stats-kernel ms and transport ms.
-13. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+15. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
                the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8, train, ndarray, bert, resnet, bf16 and rtc phases and read just after
+int8, train, ndarray, bert, resnet, bf16, qresnet, optim and rtc phases and read just after
 it (with the optimizer's plain-update counters), and in each
 rank just before and after its ring runs; the kernels' line reports their
 sum. A CUDA graph's replay counts the launches its capture saw
@@ -266,7 +312,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
-          'train', 'ndarray', 'bert', 'resnet', 'bf16', 'ring', 'rtc')
+          'train', 'ndarray', 'bert', 'resnet', 'bf16', 'qresnet', 'optim',
+          'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -1797,7 +1844,7 @@ def phase_int8(torch, net, seed, float_logits=None, float_outs=None):
     launch counted. The float net's logits and tokens, where given, are
     compared in the log only. Returns what :func:`int8_checks` holds."""
     from mxnet_tpu_torch.ops import kernels
-    from mxnet_tpu_torch.quantization import QuantizedDense, quantize_net
+    from mxnet_tpu_torch.quantization import QuantizedLinear, quantize_net
     cfg = net.cfg
     L = cfg.num_layers
     n_dense = 7 * L + (0 if cfg.tie_word_embeddings else 1)
@@ -1812,16 +1859,16 @@ def phase_int8(torch, net, seed, float_logits=None, float_outs=None):
     after = kernels.launch_counts()
     delta = {k: after[k] - before[k] for k in after}
     torch.cuda.empty_cache()
-    layers = [m for m in net.modules() if isinstance(m, QuantizedDense)]
+    layers = [m for m in net.modules() if isinstance(m, QuantizedLinear)]
     int8_bytes = sum(m.qweight.numel() for m in layers)
     float_bytes = sum(p.numel() * p.element_size() for p in net.parameters())
     log(f'[int8] quantize_net (naive, one (1, 512) batch) in {dt:.1f} s: '
-        f'{len(layers)} QuantizedDense layers, {int8_bytes / 1e9:.3f} GB of '
+        f'{len(layers)} QuantizedLinear layers, {int8_bytes / 1e9:.3f} GB of '
         f'int8 weights, {float_bytes / 1e9:.3f} GB of float parameters '
         f'left, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; '
         f'calibration launches {delta}')
     if len(layers) != n_dense:
-        fail(f'int8: {len(layers)} QuantizedDense layers, want {n_dense}')
+        fail(f'int8: {len(layers)} QuantizedLinear layers, want {n_dense}')
     if delta != _want(fused_norm=2 * L + 1, flash_attention=L):
         fail(f'int8: the calibration forward launched {delta}')
     logits = phase_forward(torch, net, SEED + 1, int8_layers=n_dense,
@@ -4113,6 +4160,545 @@ def bf16_costs(torch, got, fp32):
         f'{ll["generate"]["tok_s"]:.1f} tok/s; card {smi_line()}')
 
 
+# ------------------------------------------------------------- qresnet
+#: qresnet phase: bench_resnet_int8 (bench.py:745-800): resnet50_v1 at
+#: full width and depth, fp32, seeded; quantized with naive calibration on
+#: one seeded batch of QRESNET_CALIB images at 224 (the bench's constant
+#: 0.5 would give every layer the range of one pixel value); graphed
+#: predict at RESNET_BATCH, and the K-step loop over pure_function
+QRESNET_CALIB = 8
+#: B7 launches a forward of the int8 resnet50_v1: its 53 convolutions (one
+#: group each, one launch over the gathered windows) and the output Dense
+QRESNET_B7 = 54
+#: the int8 resnet18 thumbnail card against CPU: the logits within this
+#: share of the CPU's largest. The two float paths (cuDNN, the CPU)
+#: round BatchNorm's and the convolutions' fp32 outputs in other places;
+#: an input one ulp from a code's .5 boundary takes the next code, and 20
+#: int8 layers compound such moves (the CPU test holds the port to the JAX
+#: package at the same share, where 0.018 was seen)
+QRESNET_LOGIT_TOL = 0.05
+#: kernel groups of a ResNet-50 predict, int8 or float, matched on the
+#: kernel's name in order
+QRESNET_GROUPS = (
+    ('B7 int8_matmul (int8 convolutions, Dense)', ('int8_',)),
+    ('cuDNN convolutions', ('fprop', 'Fprop', 'implicit_convolve', 'conv2d',
+                            'convolve', 'xmma', 'cudnn')),
+    ('conv layout transforms', ('nchwToNhwc', 'nhwcToNchw', 'NchwToNhwc',
+                                'NhwcToNchw')),
+    ('pooling', ('pool', 'Pool')),
+    ('quantize (divide, round, clamp)', ('round', 'clamp', 'DivFunctor',
+                                         'div_true')),
+    ('copies (window gathers, int8 casts, pads)', ('copy', 'Copy',
+                                                   'CatArray', 'pad')),
+    ('GEMM (float Dense)', ('gemm', 'Gemm', 'GEMM')),
+)
+
+
+def qresnet_breakdown(tag, what, prof, wall_ms, reps):
+    """Split ``reps`` profiled predict calls' kernel time by
+    :data:`QRESNET_GROUPS` (the rest: BatchNorm, ReLU, the residual adds
+    and other elementwise work). Returns the kernel ms a call and the ms
+    by group."""
+    from torch.autograd import DeviceType
+    busy = kernel_breakdown('qresnet', what, prof, wall_ms, reps=reps,
+                            top=8)
+    names = [g for g, _ in QRESNET_GROUPS] + [
+        'BatchNorm, ReLU, adds and other elementwise work']
+    sums, counts = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        g = next((g for g, keys in QRESNET_GROUPS
+                  if any(k in e.key for k in keys)), names[-1])
+        sums[g] += e.self_device_time_total / 1e3 / reps
+        counts[g] += e.count // reps
+    log(f'[{tag}] kernel ms a call by group: ' + ', '.join(
+        f'{g} {ms:.3f} ({100 * ms / max(busy, 1e-9):.1f} %, x{counts[g]})'
+        for g, ms in sums.items() if counts[g]))
+    return dict(busy_ms=busy, groups=sums)
+
+
+def _predict_costs(torch, net, x, dev, tag, want, k=RESNET_K):
+    """A hybridized net's graphed predict on ``x``: the capture (the first
+    call), ``k`` calls back to back on the host clock with exactly
+    ``want`` launches each, three profiled calls (kernel ms by group, the
+    busy share), the device ms a call by CUDA events, and peak memory
+    above the start."""
+    from mxnet_tpu_torch.ops import kernels
+    mem = _memory_start(torch, dev)
+    out = net(x)                        # captures the predict graph
+    before = kernels.launch_counts()
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for _ in range(k):
+        out = net(x)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t1) * 1e3 / k
+    got = _counts_since(kernels, before)
+    if got != {n: c * k for n, c in want.items()}:
+        fail(f'qresnet: {tag} graphed predict launched {got} over {k} '
+             f'calls, want {want} a call')
+    prof = profiled_calls(torch, lambda: net(x), 3)
+    b = qresnet_breakdown('qresnet', f'resnet50_v1 {tag} graphed predict, '
+                          f'batch {x.shape[0]}', prof, ms, reps=3)
+    events = _events_ms(torch, lambda: net(x), k)
+    peak = _memory_peaks(torch, dev, mem)
+    log(f'[qresnet] {tag} graphed predict: {ms:.3f} host ms a call over {k} '
+        f'back to back, {x.shape[0] / ms * 1e3:.1f} img/s; device ms a call '
+        f'by CUDA events {events:.3f}; busy {100 * b["busy_ms"] / ms:.0f} %; '
+        f'launches a call {want or "none"}; peak above the start '
+        f'{peak[0]:.2f} GiB allocated, {peak[1]:.2f} GiB reserved; card '
+        f'{smi_line()}')
+    return dict(ms=ms, img_s=x.shape[0] / ms * 1e3, events_ms=events,
+                busy=b['busy_ms'] / ms, groups=b['groups'], peak=peak,
+                out=out)
+
+
+def phase_qresnet(torch, seed):
+    """ResNet-50 quantized to int8 through the port's Gluon quantization
+    and predicted on ``mx.gpu(0)``: see the module docstring. Returns what
+    :func:`qresnet_costs` logs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import quantization as q
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import kernels
+    dev = mx.gpu(0).to_torch()
+    mx.random.seed(seed)
+    net = vision.resnet50_v1()
+    net.initialize(ctx=mx.gpu(0))
+    images, _ = resnet_data(seed, RESNET_BATCH + QRESNET_CALIB)
+    x = mx.np.array(images[:RESNET_BATCH], ctx=mx.gpu(0))
+    calib = mx.np.array(images[RESNET_BATCH:], ctx=mx.gpu(0))
+    net(calib)                          # deferred initialization
+    weights = {k_: p.data() for k_, p in net.collect_params().items()}
+    with mx.autograd.predict_mode():
+        float_logits = net(x)._data.clone()
+    costs = {}
+    net.hybridize(static_alloc=True)
+    costs['fp32'] = _predict_costs(torch, net, x, dev, 'fp32', {})
+    half = vision.resnet50_v1()
+    half.initialize(ctx=mx.gpu(0))
+    half(calib)
+    half.load_dict(weights)
+    half.cast('bfloat16')
+    half.hybridize(static_alloc=True)
+    costs['bf16'] = _predict_costs(torch, half, x.astype('bfloat16'), dev,
+                                   'bf16', {})
+    del half, weights
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    qnet = q.quantize_net(net, calib_data=[calib], calib_mode='naive')
+    _sync(torch, dev)
+    calib_s = time.perf_counter() - t0
+    kinds = [type(c).__name__ for _, _, _, c in q._gluon_walk(qnet)]
+    n_conv = kinds.count('QuantizedConv2D')
+    log(f'[qresnet] quantize_net(resnet50_v1, naive, one seeded batch of '
+        f'{QRESNET_CALIB} at 224) in {calib_s:.1f} s: {n_conv} '
+        f'QuantizedConv2D, output {type(qnet.output).__name__}, float '
+        f'Conv2D/Dense left {kinds.count("Conv2D") + kinds.count("Dense")}'
+        f'; {sum(str(p.data().dtype) == "int8" for p in qnet.collect_params().values())} '
+        f'int8 parameters')
+    if qnet is not net or n_conv != 53 or 'Conv2D' in kinds or \
+            'Dense' in kinds or \
+            not isinstance(qnet.output, q.QuantizedDense):
+        fail('qresnet: quantize_net did not swap the 53 convolutions and '
+             'the output Dense')
+    want = {'int8_matmul': QRESNET_B7}
+    before = kernels.launch_counts()
+    eager = qnet(x)
+    if _counts_since(kernels, before) != want:
+        fail(f'qresnet: an eager int8 forward launched '
+             f'{_counts_since(kernels, before)}, want {want}')
+    qnet.hybridize(static_alloc=True)
+    costs['int8'] = _predict_costs(torch, qnet, x, dev, 'int8', want)
+    out = costs['int8'].pop('out')
+    for c in costs.values():
+        c.pop('out', None)
+    same = torch.equal(out._data, eager._data)
+    top1 = float((out._data.float().argmax(-1) == float_logits.argmax(-1))
+                 .float().mean())
+    log(f'[qresnet] int8 graphed predict against the eager int8 forward: '
+        f'{"bit-equal" if same else "DIFFERS"}; logits {out.dtype}; top-1 '
+        f'of the int8 net against the float net on batch 0: {top1:.3f} '
+        f'(a random net: its classes are near ties); captures '
+        f'{qnet.capture_count}, cache keys {qnet.compile_count}')
+    if not same or str(out.dtype) != 'bfloat16' or \
+            (qnet.capture_count, qnet.compile_count) != (1, 1):
+        fail('qresnet: the graphed int8 predict parts from the eager one, '
+             'is not bf16, or captured again')
+    kloop = qresnet_kloop(torch, qnet, x, dev)
+    del out, eager, qnet, net
+    return dict(costs=costs, kloop=kloop, top1=top1, calib_s=calib_s)
+
+
+def qresnet_kloop(torch, net, x, dev, k=RESNET_K):
+    """bench_resnet_int8's device loop: ``k`` forwards over
+    ``pure_function(x, train=False)``, the input ``x * (1 + 2**-6 * i) +
+    acc * 1e-12`` (``i`` a counter on the card, ``acc`` the last call's
+    first logit), one step captured and replayed ``k`` times with no host
+    sync between, QRESNET_B7 B7 launches a step. Returns img/s."""
+    from mxnet_tpu_torch import _graphs
+    from mxnet_tpu_torch.ops import kernels
+    fn, ins, mains, auxs = net.pure_function(x, train=False)
+    st = dict(i=torch.zeros((), device=dev), acc=torch.zeros((), device=dev))
+
+    def step():
+        xi = ins[0] * (1.0 + 2.0 ** -6 * st['i']) + st['acc'] * 1e-12
+        outs, _ = fn(None, (xi,), mains, auxs)
+        st['acc'].copy_(outs[0][0, 0].float())
+        st['i'].add_(1.0)
+
+    graph = _graphs.StepGraph(step, dev)
+    graph.capture()                 # its warm-up is step 0
+    before = kernels.launch_counts()
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    graph.replay(times=k)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t1) * 1e3
+    got = _counts_since(kernels, before)
+    acc, i = float(st['acc']), float(st['i'])
+    img_s = k * x.shape[0] / ms * 1e3
+    log(f'[qresnet] K-step predict loop over pure_function (K = {k}, one '
+        f'captured forward replayed K times, no host sync between): '
+        f'{ms:.2f} ms, {ms / k:.3f} ms a forward, {img_s:.1f} img/s; '
+        f'launches {got}; last first logit {acc:.4f} after {i:.0f} steps; '
+        f'card {smi_line()}')
+    if got != {'int8_matmul': QRESNET_B7 * k} or not math.isfinite(acc) \
+            or i != k + 1:
+        fail('qresnet: the K-step loop launched other than QRESNET_B7 B7 '
+             'a step, or did not run its steps')
+    graph.release()
+    return dict(ms=ms, img_s=img_s)
+
+
+def qresnet_rows(torch):
+    """B7 at the int8 ResNet-50's shapes against its plain version (bit-
+    equal), timed beside its bound and ``torch._int_mm``: the output Dense
+    (M 32, N 1000, K 2048, bf16 out + bias) and the 3 x 3 convolutions of
+    the first stage as one product over their gathered windows (M 32 x 56
+    x 56, N 64, K 576). Then that convolution through
+    ``quantized_conv2d`` (gather and B7) against one float64 convolution
+    of the codes, bit-equal, both timed. Outside the phase's window: these
+    launches compare, they are not the main path's."""
+    from mxnet_tpu_torch.ops import quantization_ops as qo
+    from mxnet_tpu_torch.ops.kernels import int8_matmul as im
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
+    why = ('an exact int32 sum, then the plain version\'s rounded '
+           'operations one for one')
+    rows = []
+    for m, n, k, has_bias, what in (
+            (32, 1000, 2048, True, 'ResNet-50\'s output Dense'),
+            (32 * 56 * 56, 64, 576, False, 'ResNet-50\'s first-stage 3 x 3 '
+             'convolution, its gathered windows')):
+        x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand(n, generator=gen, device=dev) * 1e-4 + 1e-6
+        b = torch.randn(n, generator=gen, device=dev) if has_bias else None
+
+        def lib(x=x, wt=w.t(), scale=scale, b=b):
+            out = torch._int_mm(x, wt).float() * scale
+            return (out if b is None else out + b).to(bf16)
+        nbytes = m * k + n * k + 4 * n * (2 if has_bias else 1) + 2 * m * n
+        rows.append(_case(
+            torch, 'int8_matmul',
+            f'M={m} N={n} K={k} bfloat16 out{" + bias" if has_bias else ""}'
+            f' ({what})', im.int8_matmul(x, w, scale, b, bf16).float(),
+            im.int8_matmul_plain(x, w, scale, b, bf16).float(), (0.0, 0.0),
+            why, lambda: im.int8_matmul(x, w, scale, b, bf16),
+            lambda: im.int8_matmul_plain(x, w, scale, b, bf16), nbytes,
+            2 * m * n * k, lib, ops_s=INT8_OPS_S,
+            path=im.plan(m, n, k, True, sms).path))
+        del x, w
+    xq = torch.randint(-127, 128, (RESNET_BATCH, 64, 56, 56), generator=gen,
+                       device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (64, 64, 3, 3), generator=gen,
+                       device=dev, dtype=torch.int8)
+    scale = torch.rand(64, generator=gen, device=dev) * 1e-4 + 1e-6
+    args = (xq, wq, scale, None, 'bfloat16', (1, 1), (1, 1), (1, 1), 1,
+            'NCHW')
+    got, want = qo.quantized_conv2d(*args), qo.quantized_conv2d_plain(*args)
+    ms, plain_ms = cuda_ms(torch, lambda: qo.quantized_conv2d(*args)), \
+        cuda_ms(torch, lambda: qo.quantized_conv2d_plain(*args))
+    ok = torch.equal(got, want)
+    log(f'[qresnet] quantized_conv2d (32, 64, 56, 56) 3 x 3, pad 1: gather '
+        f'and B7 {ms:.4f} ms against one float64 cuDNN convolution of the '
+        f'codes {plain_ms:.4f} ms; {"bit-equal" if ok else "MISMATCH"}')
+    if not ok:
+        fail('qresnet: the gathered int8 convolution parts from the float64 '
+             'convolution of the codes')
+    return rows
+
+
+def qresnet_costs(torch, got):
+    """Log the qresnet phase's numbers side by side."""
+    c = got['costs']
+    for tag in ('fp32', 'bf16', 'int8'):
+        r = c[tag]
+        log(f'[qresnet] {tag} graphed predict, batch {RESNET_BATCH}: '
+            f'{r["img_s"]:.1f} img/s, {r["ms"]:.3f} host ms a call, '
+            f'{r["events_ms"]:.3f} device ms, busy {100 * r["busy"]:.0f} %, '
+            f'peak {r["peak"][0]:.2f} / {r["peak"][1]:.2f} GiB; kernel ms: '
+            + ', '.join(f'{g} {ms:.3f}' for g, ms in r['groups'].items()
+                        if ms))
+    int8_conv = c['int8']['groups'][QRESNET_GROUPS[0][0]]
+    log(f'[qresnet] the int8 convolutions (B7 over gathered windows, the '
+        f'Dense included) {int8_conv:.3f} ms a forward, plus their copies '
+        f'{c["int8"]["groups"][QRESNET_GROUPS[5][0]]:.3f}, against cuDNN\'s '
+        f'{c["bf16"]["groups"][QRESNET_GROUPS[1][0]]:.3f} in bf16 and '
+        f'{c["fp32"]["groups"][QRESNET_GROUPS[1][0]]:.3f} in fp32; K-step '
+        f'loop {got["kloop"]["img_s"]:.1f} img/s; card {smi_line()}')
+
+
+def qresnet_parity(torch, seed):
+    """A ``resnet18_v1(classes=10, thumbnail=True)`` quantized on the card
+    and on the CPU from the same weights and the same seeded calibration
+    batch (4, 3, 32, 32): per-layer calibration ranges equal (rtol 1e-5:
+    the two float forwards round in other places), int8 weights bit-equal,
+    the logits on a second seeded batch within QRESNET_LOGIT_TOL of the
+    CPU's largest; the int8 net's top-1 against the float net's on the
+    card is logged."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import quantization as q
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rng = np.random.default_rng(seed)
+    calib = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    x = rng.standard_normal((8, 3, 32, 32)).astype(np.float32)
+    got, weights = {}, None
+    for where in (mx.cpu(), mx.gpu(0)):
+        with where:
+            mx.random.seed(seed)
+            net = vision.resnet18_v1(classes=10, thumbnail=True)
+            net.initialize(ctx=where)
+            net(mx.np.array(calib))
+            if weights is None:
+                weights = {k: p.data().asnumpy()
+                           for k, p in net.collect_params().items()}
+            else:
+                net.load_dict(weights)
+            float_logits = net(mx.np.array(x)).asnumpy()
+            q.quantize_net(net, calib_data=[calib], calib_mode='naive')
+            net.hybridize(static_alloc=True)
+            net(mx.np.array(x))
+            logits = net(mx.np.array(x)).astype('float32').asnumpy()
+            got[str(where)] = dict(
+                ranges={p: c.collected_range
+                        for _, _, p, c in q._gluon_walk(net)
+                        if hasattr(c, 'collected_range')},
+                codes={k: p.data().asnumpy() for k, p in
+                       net.collect_params().items()
+                       if k.endswith('qweight')},
+                logits=logits, float_logits=float_logits)
+    cpu, card = got['cpu(0)'], got['gpu(0)']
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for p in cpu['ranges'] for a, b in zip(card['ranges'][p],
+                                                     cpu['ranges'][p]))
+    codes = all(np.array_equal(card['codes'][k], v)
+                for k, v in cpu['codes'].items())
+    gap = float(np.abs(card['logits'] - cpu['logits']).max()) / \
+        float(np.abs(cpu['logits']).max())
+    top1 = float((card['logits'].argmax(-1)
+                  == card['float_logits'].argmax(-1)).mean())
+    same_top1 = float((card['logits'].argmax(-1)
+                       == cpu['logits'].argmax(-1)).mean())
+    ok = set(card['ranges']) == set(cpu['ranges']) and rel <= 1e-5 and \
+        codes and len(cpu['codes']) == 21 and gap <= QRESNET_LOGIT_TOL
+    log(f'[qresnet] int8 resnet18_v1 thumbnail, card against CPU: '
+        f'{len(cpu["ranges"])} calibration ranges, worst relative gap '
+        f'{rel:.3g} (1e-5); {len(cpu["codes"])} int8 weights '
+        f'{"bit-equal" if codes else "DIFFER"}; logits max gap over the '
+        f'CPU\'s largest {gap:.4f} ({QRESNET_LOGIT_TOL}); top-1 card against '
+        f'CPU {same_top1:.3f}, int8 against float on the card {top1:.3f} -> '
+        f'{"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail('qresnet: the card and the CPU quantize resnet18 apart')
+
+
+# ------------------------------------------------------------- optim
+#: optim phase: bert_12_768_12 at (32, 128) trains BERT_STEPS graphed steps
+#: with each of these (Adam for the side-by-side, then AdamW and LAMB,
+#: the optimizers BERT users train it with)
+OPTIM_OPTS = (('adam', {'learning_rate': 1e-4}),
+              ('adamw', {'learning_rate': 1e-4, 'wd': 0.01}),
+              ('lamb', {'learning_rate': 1e-3, 'wd': 0.01}))
+#: the small net every optimizer trains card against CPU, and its settings
+OPTIM_PARITY = {
+    'sgd': {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-3},
+    'nag': {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-3},
+    'adam': {'learning_rate': 0.01, 'wd': 1e-3},
+    'adamw': {'learning_rate': 0.01, 'wd': 1e-2},
+    'adamax': {'learning_rate': 0.01},
+    'nadam': {'learning_rate': 0.01},
+    'adagrad': {'learning_rate': 0.05},
+    'adadelta': {'learning_rate': 1.0},
+    'rmsprop': {'learning_rate': 0.01, 'centered': True},
+    'ftrl': {'learning_rate': 0.1},
+    'ftml': {'learning_rate': 0.01},
+    'signum': {'learning_rate': 0.01},
+    'sgld': {'learning_rate': 0.01},
+    'dcasgd': {'learning_rate': 0.1, 'momentum': 0.9},
+    'lars': {'learning_rate': 0.1},
+    'lamb': {'learning_rate': 0.01, 'wd': 1e-2},
+    'lans': {'learning_rate': 0.01},
+}
+
+
+def phase_optim(torch, seed):
+    """BERT-base trained graphed with Adam, AdamW and LAMB on
+    ``mx.gpu(0)``: see the module docstring. Returns what
+    :func:`optim_costs` logs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import kernels
+    dev = mx.gpu(0).to_torch()
+    mx.random.seed(seed)
+    net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
+                              use_classifier=False)
+    net.initialize(ctx=mx.gpu(0))
+    ids, tt, labels = bert_batch(mx, seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB)
+    net(ids, tt)                    # deferred initialization
+    params = net.collect_params()
+    init = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    net.hybridize(static_alloc=True)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    for opt, hyper in OPTIM_OPTS:
+        for k, p in params.items():
+            p.set_data(init[k])
+        trainer = gluon.Trainer(params, opt, dict(hyper))
+        want = dict(BERT_FORWARD, **({'adam': BERT_UPDATED}
+                                     if opt == 'adam' else {}))
+        losses, wall, update_ms, busy, groups = [], [], [], None, None
+        for i in range(BERT_STEPS):
+            before = kernels.launch_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            last = i == BERT_STEPS - 1
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            with (profiled() if last else contextlib.nullcontext()) as prof:
+                with mx.autograd.record():
+                    _, _, mlm = net(ids, tt)
+                    loss = loss_fn(mlm, labels).mean()
+                loss.backward()
+                a.record()
+                trainer.step(1)
+                b.record()
+                _sync(torch, dev)
+            wall.append((time.perf_counter() - t1) * 1e3)
+            update_ms.append(a.elapsed_time(b))
+            losses.append(loss.item())
+            got = _counts_since(kernels, before)
+            if got != want:
+                fail(f'optim: {opt} step {i + 1} launched {got}, want '
+                     f'{want}')
+            if last:
+                log(f'[optim] graphed {opt} step profiled:')
+                groups = bert_breakdown(torch, prof, wall[-2])
+                busy = _busy_share(prof, wall[-2])
+        log(f'[optim] graphed {opt} {hyper}: losses {losses}; host ms a '
+            f'step {[round(w, 2) for w in wall]}; the update {[round(u, 3) for u in update_ms]} '
+            f'device ms (CUDA events around Trainer.step, a replayed graph '
+            f'after the first); launches a step {want}')
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f'optim: {opt} losses not finite or not falling: {losses}')
+        graph_counts(net, trainer, f'optim {opt}', want_captures=2)
+        runs[opt] = dict(wall=wall, update_ms=update_ms, busy=busy,
+                         groups=groups, losses=losses)
+        del trainer
+    return dict(runs=runs)
+
+
+def optim_costs(torch, got):
+    """Log the optim phase's numbers, AdamW and LAMB beside Adam."""
+    for opt, r in got['runs'].items():
+        step = r['wall'][-2]
+        log(f'[optim] BERT-base graphed {opt}: {step:.2f} host ms a step, '
+            f'{BERT_BATCH / step * 1e3:.1f} samples/s, busy '
+            f'{100 * r["busy"]:.1f} %, the update {r["update_ms"][-1]:.3f} '
+            f'device ms a step (replayed); card {smi_line()}')
+
+
+def optim_parity(torch, seed, steps=2):
+    """Every optimizer trains a small net (Dense 64 -> tanh -> Dense 10,
+    a seeded (16, 32) batch) ``steps`` steps on the card, its update a
+    replayed graph, and on the CPU from the same weights: the losses
+    within rtol 1e-4, and each tensor's change over the steps within 1 %
+    of the CPU's (2-norm). SGLD's noise is each device's own draw: only
+    its first loss is compared, and its weights must move and stay
+    finite."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((16, 32)).astype(np.float32)
+    y = rng.standard_normal((16, 10)).astype(np.float32)
+    bad = []
+    for opt, hyper in OPTIM_PARITY.items():
+        losses, state, weights, captures = {}, {}, None, None
+        for where in (mx.cpu(), mx.gpu(0)):
+            with where:
+                mx.random.seed(seed)
+                net = nn.HybridSequential(
+                    nn.Dense(64, in_units=32, activation='tanh'),
+                    nn.Dense(10, in_units=64))
+                net.initialize(ctx=where)
+                if weights is None:
+                    weights = {k: p.data().asnumpy()
+                               for k, p in net.collect_params().items()}
+                else:
+                    net.load_dict(weights)
+                trainer = gluon.Trainer(net.collect_params(), opt,
+                                        dict(hyper))
+                xs, ys = mx.np.array(x), mx.np.array(y)
+                out = []
+                for _ in range(steps):
+                    with mx.autograd.record():
+                        loss = ((net(xs) - ys) ** 2).mean()
+                    loss.backward()
+                    trainer.step(1)
+                    out.append(loss.item())
+                losses[str(where)] = out
+                state[str(where)] = {k: p.data().asnumpy().astype(np.float64)
+                                     for k, p in
+                                     net.collect_params().items()}
+                if where.device_type == 'gpu':
+                    captures = trainer.capture_count
+        cpu, card = losses['cpu(0)'], losses['gpu(0)']
+        n = 1 if opt == 'sgld' else steps
+        ok = all(math.isclose(a, b, rel_tol=1e-4)
+                 for a, b in zip(card[:n], cpu[:n])) and captures == 1
+        worst = 0.0
+        for k, w0 in weights.items():
+            d_cpu, d_card = state['cpu(0)'][k] - w0, state['gpu(0)'][k] - w0
+            if opt == 'sgld':
+                ok = ok and np.isfinite(d_card).all() and \
+                    np.abs(d_card).max() > 0
+                continue
+            r = float(np.linalg.norm(d_card - d_cpu)
+                      / max(np.linalg.norm(d_cpu), 1e-30))
+            worst = max(worst, r)
+            ok = ok and r <= 1e-2
+        log(f'[optim] {opt} {hyper}, {steps} steps card against CPU: '
+            f'losses {card} and {cpu}; worst change gap {worst:.3g} (1e-2); '
+            f'update graphs captured on the card {captures} -> '
+            f'{"ok" if ok else "MISMATCH"}')
+        if not ok:
+            bad.append(opt)
+    if bad:
+        fail(f'optim: the card and the CPU train apart with {bad}')
+
+
 # ------------------------------------------------------------- ring
 #: the ring phase: llama3_8b's attention widths (32 query heads of 128, K/V
 #: expanded to 32 heads) over its whole max_length, sharded over sp ranks
@@ -4468,6 +5054,21 @@ def main(argv=None):
         del got
         torch.cuda.empty_cache()
         bf16_parity(torch, SEED + 15)
+    if 'qresnet' in phases:
+        got = window('qresnet', phase_qresnet, torch, SEED + 16)
+        qresnet_costs(torch, got)
+        del got
+        torch.cuda.empty_cache()
+        b7 = qresnet_rows(torch)
+        if rows is not None:
+            rows['int8_matmul'].extend(b7)
+        qresnet_parity(torch, SEED + 17)
+    if 'optim' in phases:
+        got = window('optim', phase_optim, torch, SEED + 18)
+        optim_costs(torch, got)
+        del got
+        torch.cuda.empty_cache()
+        optim_parity(torch, SEED + 19)
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')

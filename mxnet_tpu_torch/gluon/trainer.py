@@ -34,7 +34,12 @@ updates of all live Gluon parameters are one CUDA graph
 ``rescale_grad``, ``clip_gradient``, shapes and dtypes) and the addresses
 of the weights, grad buffers and slots, which all keep theirs. A key's
 first step is the capture's warm-up and the real update, and its later
-steps replay; ``capture_count`` counts captures. A value written through
+steps replay; ``capture_count`` counts captures. This holds for every
+optimizer, SGLD and DCASGD too, where the JAX Trainer falls back to
+per-parameter updates (``trainer.py:18``, :278; their steps do not trace
+there): each of the port's updates is in place and reads its row, and the
+graph registers the device's generator, so SGLD draws new noise on each
+replay. A value written through
 a handle (``p.data()[:] = v``, ``p.grad()[:] = 0``) is copied back into
 the captured buffer before each step, and :meth:`load_states` writes the
 slots and counts in place.
@@ -66,10 +71,11 @@ import re
 import numpy as np
 import torch
 
-from .. import _graphs
+from .. import _graphs, _rng
 from ..base import MXNetError
 from .. import optimizer as opt
 from ..ops.kernels.fused_optimizer import hyper_vector
+from ..optimizer import states_into, states_to_host
 from .parameter import Parameter
 
 __all__ = ['Trainer']
@@ -201,7 +207,8 @@ class Trainer:
         device = live[0][1].device
         vec = self._vectors.get(indices)
         if vec is None:
-            vec = self._vectors[indices] = _Vectors(len(live), device)
+            vec = self._vectors[indices] = _Vectors(len(live), device,
+                                                    optim.hyper_width)
         vec.upload(*optim.step_values(indices))
         rows = list(enumerate(live))
         graphed = [(j, e) for j, e in rows
@@ -241,7 +248,8 @@ class Trainer:
                 for j, weight, grad, state in work:
                     optim.step(weight, grad, state, vec.hyper[j])
 
-        graph = self._graphs[key] = _graphs.step_graph(body, device)
+        graph = self._graphs[key] = _graphs.step_graph(
+            body, device, _rng.graph_generators(device))
         graph.capture()
 
     # ---------------------------------------------------------- save / load
@@ -251,7 +259,7 @@ class Trainer:
         tuples of numpy), the global and per-index update counts, and the
         learning-rate scheduler's attributes."""
         optim = self._optimizer
-        sd = {'states': {i: _state_to_host(st)
+        sd = {'states': {i: states_to_host(st)
                          for i, st in self._states.items()},
               'num_update': int(optim.num_update),
               'index_update_count': {
@@ -270,7 +278,7 @@ class Trainer:
         states = {}
         for i, st in sd['states'].items():
             i = int(i)
-            states[i] = _state_into(st, self._states.get(i),
+            states[i] = states_into(st, self._states.get(i),
                                     _device(self._params[i]))
         self._states = states
         optim = self._optimizer
@@ -345,11 +353,13 @@ def _device(param):
 
 class _Vectors:
     """The device vectors of one set of live indices: ``hyper`` (``n x
-    4``: ``lr``, ``wd``, ``bc1``, ``bc2``; the kernels read its rows) and
-    the update counts ``ts``, with the host values last uploaded."""
+    width``: ``lr``, ``wd``, ``bc1``, ``bc2`` and the optimizer's other
+    functions of ``t``; the kernels read its rows) and the update counts
+    ``ts``, with the host values last uploaded."""
 
-    def __init__(self, n, device):
-        self.hyper = torch.ones(n, 4, dtype=torch.float32, device=device)
+    def __init__(self, n, device, width=4):
+        self.hyper = torch.ones(n, width, dtype=torch.float32,
+                                device=device)
         self.ts = torch.zeros(n, dtype=torch.float32, device=device)
         self.forget()
 
@@ -384,34 +394,6 @@ def _flat_state(state):
     if torch.is_tensor(state):
         return [state]
     return [t for t in state if torch.is_tensor(t)]
-
-
-def _state_to_host(state):
-    if state is None:
-        return None
-    if torch.is_tensor(state):      # a copy: a later step writes in place
-        return state.detach().to('cpu', copy=True).numpy()
-    if isinstance(state, (list, tuple)):
-        return tuple(_state_to_host(s) for s in state)
-    return state
-
-
-def _state_into(host, old, device):
-    """``host`` (numpy, a tuple of them, or None) as a state on
-    ``device``, written into the tensors of ``old`` where they fit."""
-    if host is None:
-        return None
-    if isinstance(host, (list, tuple)):
-        olds = old if isinstance(old, (list, tuple)) and \
-            len(old) == len(host) else [None] * len(host)
-        return tuple(_state_into(h, o, device) for h, o in zip(host, olds))
-    src = torch.from_numpy(np.ascontiguousarray(np.asarray(host)))
-    if torch.is_tensor(old) and old.shape == src.shape and \
-            old.dtype == src.dtype:
-        with torch.no_grad():
-            old.copy_(src)
-        return old
-    return src.to(device)
 
 
 def _state_to_torch(name, state, param):

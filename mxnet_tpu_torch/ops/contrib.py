@@ -11,8 +11,9 @@ runs the plain PyTorch version for CPU tensors. Where autograd records,
 is the reference's ``_flash3_bwd``. ``multi_head_attention`` without a
 mask or dropout is ``flash_attention``; with them, plain PyTorch, as the
 reference leaves that case to XLA. ``calibrate_entropy`` reuses the
-calibration collector of :mod:`mxnet_tpu_torch.quantization`. The other
-contrib ops of the reference wait (``ops/ledger.py``).
+calibration collector of :mod:`mxnet_tpu_torch.quantization`.
+``group_adagrad_update`` is the reference's row-wise AdaGrad in plain
+PyTorch. The other contrib ops of the reference wait (``ops/ledger.py``).
 """
 
 import numpy as _np
@@ -25,7 +26,8 @@ from .kernels.paged_attention import paged_attention_decode as _paged
 from .registry import register
 
 __all__ = ['flash_attention', 'paged_attention_decode',
-           'multi_head_attention', 'calibrate_entropy']
+           'multi_head_attention', 'calibrate_entropy',
+           'group_adagrad_update']
 
 
 @register('flash_attention')
@@ -131,3 +133,21 @@ def calibrate_entropy(hist, hist_edges, num_quantized_bins=255):
     _, hi = c.entropy(num_quantized_bins=int(num_quantized_bins))
     return (torch.tensor(hi, dtype=torch.float32),
             torch.tensor(0.0, dtype=torch.float32))
+
+
+@register('group_adagrad_update')
+def group_adagrad_update(weight, grad, history, lr=0.01, rescale_grad=1.0,
+                         clip_gradient=-1.0, epsilon=1e-5):
+    """AdaGrad over each row's mean squared gradient (reference
+    src/operator/contrib/optimizer_op.cc ``_contrib_group_adagrad_update``):
+    ``history`` holds one value a row (``(rows, 1, ...)``); returns
+    ``(weight, history)``."""
+    g = grad * rescale_grad
+    if clip_gradient > 0:
+        g = g.clamp(-clip_gradient, clip_gradient)
+    if g.dim() > 1:
+        hist = history + torch.mean(g * g, dim=tuple(range(1, g.dim())),
+                                    keepdim=True)
+    else:
+        hist = history + g * g
+    return weight - lr * g / (torch.sqrt(hist) + epsilon), hist

@@ -11,10 +11,9 @@ never both. The labels are queue A's in ROADMAP.md:
 * ``A3 rest``: the op families not ported with NDArray (the linalg
   products other than ``dot``/``matmul`` and the decompositions, FFT, the
   numpy extras, the legacy-name ops, the contrib ops off the attention
-  path, the gamma-family samplers);
+  path, the gamma-family samplers; and, with ``ndarray/sparse.py``, the
+  optimizers' row-sparse lazy update, which no op name carries);
 * ``A4 rest``: the replayable creation ops of deferred compute;
-* ``A6 rest``: the optimizer update ops other than the fused Adam and
-  SGD-momentum steps;
 * ``A11``: the fused RNN, CTC loss, detection, image and probability ops.
 """
 
@@ -92,24 +91,6 @@ PENDING = {
         '_creation_full', '_creation_hamming', '_creation_hanning',
         '_creation_indices', '_creation_linspace', '_creation_logspace',
         '_creation_ones', '_creation_tri', '_creation_zeros',
-    ),
-    'A6 rest': (
-        # ops/optimizer_ops.py and the contrib group AdaGrad
-        'adam_update', 'adamw_update', 'ftml_update', 'ftrl_update',
-        'lamb_update_phase1', 'lamb_update_phase2', 'mp_adamw_update',
-        'mp_lamb_update_phase1', 'mp_lamb_update_phase2',
-        'mp_nag_mom_update', 'mp_sgd_mom_update', 'mp_sgd_update',
-        'multi_adamw_update', 'multi_all_finite', 'multi_lamb_update',
-        'multi_lans_update', 'multi_lars', 'multi_mp_adamw_update',
-        'multi_mp_lamb_update', 'multi_mp_lans_update',
-        'multi_mp_sgd_mom_update', 'multi_mp_sgd_update',
-        'multi_sgd_mom_update', 'multi_sgd_update', 'multi_sum_sq',
-        'nag_mom_update', 'preloaded_multi_mp_sgd_mom_update',
-        'preloaded_multi_mp_sgd_update', 'preloaded_multi_sgd_mom_update',
-        'preloaded_multi_sgd_update', 'reset_arrays', 'rmsprop_update',
-        'rmspropalex_update', 'sgd_mom_update', 'sgd_update',
-        'signsgd_update', 'signum_update', 'sparse_adagrad_update',
-        'group_adagrad_update',
     ),
     'A11': (
         # ops/nn.py: fused RNN and CTC loss (gluon/rnn)

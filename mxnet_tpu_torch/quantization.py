@@ -3,20 +3,32 @@
 Counterpart of ``mxnet_tpu/quantization.py``: run calibration batches
 through the float net with hooks that collect each quantizable layer's
 input, derive per-layer ranges (``naive``, ``percentile`` or ``entropy``),
-then swap each ``nn.Linear`` (the port's Gluon ``Dense``, ``flatten=False``)
-for a :class:`QuantizedDense`. Layer outputs stay float (bf16 by default),
-so only layer inputs need calibrated ranges and there is no int8 graph
-between layers.
+then swap each layer for its int8 twin. Layer outputs stay float (bf16 by
+default), so only layer inputs need calibrated ranges and there is no int8
+graph between layers.
+
+:func:`quantize_net` takes either kind of net the port has:
+
+* a Gluon :class:`~.gluon.Block` (the vision zoo, BERT, a user's blocks):
+  the reference's walk over ``_children``, which swaps each ``Dense`` for a
+  :class:`QuantizedDense` and each ``Conv2D`` for a
+  :class:`QuantizedConv2D`, both ``HybridBlock``s with the reference's
+  parameters (``qweight`` int8, ``grad_req='null'``, and ``bias``);
+* a ``torch.nn.Module`` (the Llama family, until it moves onto the blocks):
+  each ``nn.Linear`` becomes a :class:`QuantizedLinear`.
 
 Scheme: symmetric; per tensor for activations (scale = max(|min|, |max|) /
-127, zero point 0), per output channel for weights. The product runs
+127, zero point 0), per output channel for weights. The products run
 through the hand-written int8 kernel with the dequantize in its epilogue
-(:func:`.ops.quantization_ops.quantized_dense`).
+(:func:`.ops.quantization_ops.quantized_dense`; a convolution as its
+windows gathered into rows, :func:`.ops.quantization_ops.quantized_conv2d`).
+A layer's scales are device tensors made once when it is built: its forward
+copies nothing from the host, so a hybridized net's predict call can be
+captured as a CUDA graph.
 
 The calibration collector and ``calib_table`` are the reference's, in
-numpy. ``QuantizedConv2D`` is not ported yet: an ``nn.Conv2d`` that is not
-excluded raises (ROADMAP A7, with ResNet). :func:`load_jax_quantized`
-carries a JAX quantized net's per-layer state into a port net.
+numpy. :func:`load_jax_quantized` carries a JAX quantized Llama's per-layer
+state into a port net.
 """
 
 import re
@@ -25,11 +37,16 @@ import numpy as _np
 import torch
 from torch import nn
 
+from .gluon.block import Block, HybridBlock
+from .gluon.parameter import Parameter
+from .ndarray.ndarray import NDArray, array
 from .ops.quantization_ops import (quantize_v2, dequantize, requantize,
-                                   range_to_scale, quantized_dense)
+                                   range_to_scale, quantized_dense,
+                                   quantized_conv2d)
 
 __all__ = ['quantize_v2', 'dequantize', 'requantize', 'quantize_net',
-           'calib_table', 'QuantizedDense', 'load_jax_quantized']
+           'calib_table', 'QuantizedDense', 'QuantizedConv2D',
+           'QuantizedLinear', 'load_jax_quantized']
 
 
 # ------------------------------------------------------------ calibration
@@ -152,8 +169,127 @@ def calib_table(collectors, mode='entropy'):
 
 
 # ------------------------------------------------------- quantized layers
-class QuantizedDense(nn.Module):
-    """int8 fully connected layer (reference ``QuantizedDense``): the input
+def _torch_dtype(dtype):
+    return getattr(torch, str(dtype)) if isinstance(dtype, str) else dtype
+
+
+def _weight_scale(w):
+    """Per-output-channel scale ``max|w| / 127`` over every axis but 0 (1
+    where a channel is all zero) and the weight as int8 codes under it."""
+    w32 = w.detach().float()
+    red = tuple(range(1, w32.dim()))
+    amax = w32.abs().amax(dim=red) if red else w32.abs()
+    w_scale = torch.where(amax > 0, amax / torch.tensor(127.0,
+                                                         device=w.device),
+                          torch.ones_like(amax))
+    cshape = (-1,) + (1,) * (w32.dim() - 1)
+    q = (w32 / w_scale.reshape(cshape)).round_().clamp_(-127, 127)
+    return w_scale, q.to(torch.int8)
+
+
+def _quantize_input(x, x_scale):
+    """quantize_v2 under a calibrated range whose scale is the fp32 device
+    scalar ``x_scale``: no host value reaches the device."""
+    return torch.round(x.float() / x_scale).clamp_(-127, 127) \
+        .to(torch.int8)
+
+
+class _QuantizedLayer(HybridBlock):
+    """Shared int8 state of a Gluon twin (reference ``_QuantizedLayer``):
+    ``qweight`` (int8, ``grad_req='null'``), ``bias`` when the float layer
+    has one, the per-output-channel weight scale ``_w_scale``, the
+    calibrated input range ``collected_range`` and, made once on the
+    weight's device, the input scale ``_x_scale`` (an fp32 scalar) and the
+    combined scale ``_scale = _x_scale * _w_scale`` that the product's
+    epilogue applies. The scales are arrays, not Parameters, as in the
+    reference."""
+
+    def __init__(self, float_layer, in_min, in_max,
+                 activation_dtype='bfloat16', **kwargs):
+        super().__init__(**kwargs)
+        self._act_dtype = _torch_dtype(activation_dtype)
+        w = float_layer.weight.data()
+        ctx, dev = w.context, w._data.device
+        self._w_scale, qw = _weight_scale(w._data)
+        self.qweight = Parameter('qweight', shape=tuple(qw.shape),
+                                 dtype='int8', grad_req='null')
+        self.qweight.initialize(init='zeros', ctx=ctx)
+        self.qweight.set_data(qw)
+        self._has_bias = getattr(float_layer, 'bias', None) is not None and \
+            getattr(float_layer, '_use_bias', True)
+        if self._has_bias:
+            self.bias = Parameter('bias', shape=float_layer.bias.shape,
+                                  grad_req='null')
+            self.bias.initialize(init='zeros', ctx=ctx)
+            self.bias.set_data(float_layer.bias.data())
+        self.collected_range = (in_min, in_max)
+        # a range from the collector is float64; it rounds to fp32 here as
+        # the reference's quantize_v2 rounds it
+        rng = torch.tensor([float(in_min), float(in_max)],
+                           dtype=torch.float32, device=dev)
+        self._x_scale = range_to_scale(rng[0], rng[1])
+        self._scale = (self._x_scale * self._w_scale).contiguous()
+        self.act = float_layer.act
+
+    def _quantize_input(self, x):
+        xr = x._data if isinstance(x, NDArray) else x
+        return _quantize_input(xr.detach(), self._x_scale)
+
+    def _bias(self):
+        return self.bias.data()._data.detach().float().contiguous() \
+            if self._has_bias else None
+
+    def _finish(self, out):
+        out = NDArray(out)
+        return out if self.act is None else self.act(out)
+
+
+class QuantizedDense(_QuantizedLayer):
+    """int8 FullyConnected (reference ``QuantizedDense``, quantized_fully_
+    connected.cc): int8 x int8 -> int32 in the kernel, one fp32 rescale
+    per output channel with the bias, out in ``activation_dtype``, then the
+    float layer's activation. ``flatten`` as the float ``Dense``'s."""
+
+    def __init__(self, float_layer, in_min, in_max, **kwargs):
+        super().__init__(float_layer, in_min, in_max, **kwargs)
+        self._flatten = float_layer._flatten
+
+    def forward(self, x):
+        q = self._quantize_input(x)
+        if self._flatten and q.dim() > 2:
+            q = q.reshape(q.shape[0], -1)
+        return self._finish(quantized_dense(
+            q, self.qweight.data()._data.detach(), self._scale,
+            self._bias(), out_dtype=self._act_dtype))
+
+
+class QuantizedConv2D(_QuantizedLayer):
+    """int8 Convolution (reference ``QuantizedConv2D``, quantized_conv.cc)
+    with the float ``Conv2D``'s strides, padding, dilation, groups and
+    layout."""
+
+    def __init__(self, float_layer, in_min, in_max, **kwargs):
+        super().__init__(float_layer, in_min, in_max, **kwargs)
+        self._stride = float_layer._strides
+        self._pad = float_layer._padding
+        self._dilate = float_layer._dilation
+        self._groups = float_layer._groups
+        self._layout = float_layer._layout or 'NCHW'
+
+    def forward(self, x):
+        def pair(v):
+            return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+        return self._finish(quantized_conv2d(
+            self._quantize_input(x), self.qweight.data()._data.detach(),
+            self._scale, self._bias(), out_dtype=self._act_dtype,
+            strides=pair(self._stride), padding=pair(self._pad),
+            dilation=pair(self._dilate), groups=self._groups,
+            layout=self._layout))
+
+
+class QuantizedLinear(nn.Module):
+    """The int8 twin of a ``torch.nn.Linear`` (the reference's
+    ``QuantizedDense`` for the port's ``torch.nn`` Llama): the input
     is quantized per tensor under its calibrated range, the product runs
     int8 x int8 -> int32 in the kernel, and one fp32 rescale per output
     channel (with the bias) leaves in ``activation_dtype``.
@@ -169,17 +305,8 @@ class QuantizedDense(nn.Module):
     def __init__(self, float_layer, in_min, in_max,
                  activation_dtype='bfloat16'):
         super().__init__()
-        w = float_layer.weight.detach()
         bias = float_layer.bias
-        with torch.no_grad():
-            w32 = w.float()
-            amax = w32.abs().amax(dim=1)
-            w_scale = torch.where(
-                amax > 0, amax / torch.tensor(127.0, device=w.device),
-                torch.ones_like(amax))
-            q = w32 / w_scale[:, None]
-            qweight = q.round_().clamp_(-127, 127).to(torch.int8)
-            del q, w32
+        w_scale, qweight = _weight_scale(float_layer.weight)
         self._init_state(qweight, w_scale, (in_min, in_max),
                          None if bias is None else bias.detach().float(),
                          activation_dtype)
@@ -204,8 +331,7 @@ class QuantizedDense(nn.Module):
     def _init_state(self, qweight, w_scale, in_range, bias,
                     activation_dtype):
         dev = qweight.device
-        self._act_dtype = getattr(torch, activation_dtype) \
-            if isinstance(activation_dtype, str) else activation_dtype
+        self._act_dtype = _torch_dtype(activation_dtype)
         self.in_features = qweight.shape[1]
         self.out_features = qweight.shape[0]
         # a range from the collector is float64; it rounds to fp32 here as
@@ -226,9 +352,7 @@ class QuantizedDense(nn.Module):
         return tuple(float(v) for v in self.in_range.tolist())
 
     def forward(self, x):
-        # quantize_v2 under the calibrated range, with its scale kept
-        q = torch.round(x.float() / self.x_scale).clamp_(-127, 127) \
-            .to(torch.int8)
+        q = _quantize_input(x, self.x_scale)
         return quantized_dense(q, self.qweight, self.scale, self.bias,
                                out_dtype=self._act_dtype)
 
@@ -240,78 +364,192 @@ class QuantizedDense(nn.Module):
 
 
 # --------------------------------------------------------- graph rewrite
-def _quantizable(module, path):
+def _gluon_twin(block):
+    """The int8 twin class of a Gluon layer, or None (reference
+    ``_quantizable``)."""
+    from .gluon.nn.basic_layers import Dense
+    from .gluon.nn.conv_layers import Conv2D
+    if isinstance(block, Dense):
+        return QuantizedDense
+    if isinstance(block, Conv2D):
+        return QuantizedConv2D
+    return None
+
+
+def _torch_quantizable(module, path):
     """True for an ``nn.Linear``; raises on an ``nn.Conv2d``."""
     if isinstance(module, nn.Conv2d):
         raise NotImplementedError(
-            f'quantize_net: {path or "the net"} is an nn.Conv2d; the int8 '
-            f'convolution is not ported yet (ROADMAP A7). Exclude it with '
+            f'quantize_net: {path or "the net"} is a torch.nn.Conv2d; the '
+            f'int8 convolution twin is the Gluon QuantizedConv2D (ROADMAP '
+            f'A7): build the net from gluon.nn.Conv2D, or exclude it with '
             f'exclude_layers=[{path!r}] to keep it float.')
     return isinstance(module, nn.Linear)
 
 
-def _walk(module, prefix=''):
+def _gluon_walk(block, prefix=''):
+    for name, child in list(block._children.items()):
+        path = f'{prefix}{name}'
+        yield block, name, path, child
+        yield from _gluon_walk(child, path + '.')
+
+
+def _torch_walk(module, prefix=''):
     for name, child in list(module.named_children()):
         path = f'{prefix}{name}'
         yield module, name, path, child
-        yield from _walk(child, path + '.')
+        yield from _torch_walk(child, path + '.')
+
+
+def _batch(batch):
+    return batch[0] if isinstance(batch, (tuple, list)) else batch
+
+
+def _calibrate(net, targets, calib_data, num_calib_batches, hook_on,
+               run_batch):
+    """Run the calibration batches through ``net`` with a collecting hook
+    on every target (``hook_on(child, hook)`` installs one and returns its
+    remover); returns the collectors by path."""
+    collectors = {path: _HistogramCollector() for _, _, path, _ in targets}
+
+    def make_hook(path):
+        def hook(block, inputs):
+            x = inputs[0]
+            x = x._data if isinstance(x, NDArray) else x
+            collectors[path].collect(x.detach().float().cpu().numpy())
+        return hook
+
+    removers = []
+    try:
+        for _, _, path, child in targets:
+            removers.append(hook_on(child, make_hook(path)))
+        for n, batch in enumerate(calib_data, 1):
+            run_batch(_batch(batch))
+            if num_calib_batches is not None and n >= num_calib_batches:
+                break
+    finally:
+        for remove in removers:
+            remove()
+    return collectors
+
+
+def _log_table(logger, table):
+    if logger:
+        for path, (lo, hi) in table.items():
+            logger.info('calibrated %s: [%.5f, %.5f]', path, lo, hi)
 
 
 def quantize_net(net, calib_data=None, calib_mode='entropy',
                  quantized_dtype='int8', exclude_layers=None,
                  num_calib_batches=None, logger=None,
                  activation_dtype='bfloat16'):
-    """Quantize a float network for int8 inference, in place.
+    """Quantize a trained network for int8 inference, in place.
 
     Runs ``calib_data`` (an iterable of batches; a tuple or list batch
-    gives its first element) through ``net`` under ``no_grad`` with a
-    forward pre-hook on every quantizable child that collects its input,
-    derives per-layer ranges by ``calib_mode`` ('naive' | 'percentile' |
-    'entropy'), then swaps each ``nn.Linear`` for a :class:`QuantizedDense`
-    with ``setattr`` on its parent (``nn.ModuleList`` children too). The
-    float layer is dropped as soon as its twin is built. A layer that no
-    calibration batch reached stays float. If ``net`` itself is an
-    ``nn.Linear`` its twin is the return value: always use the returned
-    module. ``exclude_layers`` names paths (``model.layers.0.mlp.up_proj``)
-    to keep float; ``'.'`` is the net itself."""
+    gives its first element) through ``net`` with a forward pre-hook on
+    every quantizable layer that collects its input, derives per-layer
+    ranges by ``calib_mode`` ('naive' | 'percentile' | 'entropy'), then
+    swaps each layer for its int8 twin built from those ranges:
+
+    * a Gluon ``Block``: as the reference does, hybridization is cleared
+      first (a cached graph would bypass the hooks and keep serving the
+      float layers; re-hybridize afterwards), each ``Dense`` becomes a
+      :class:`QuantizedDense` and each ``Conv2D`` a
+      :class:`QuantizedConv2D`, swapped in the parent's ``_children`` and
+      in its attributes; paths are structural (``features.4.0.body.0``);
+    * a ``torch.nn.Module``: each ``nn.Linear`` becomes a
+      :class:`QuantizedLinear` (``setattr`` on its parent, ``nn.ModuleList``
+      children too), and the float layer is dropped as soon as its twin is
+      built; an ``nn.Conv2d`` raises; paths are ``named_modules`` names
+      (``model.layers.0.mlp.up_proj``).
+
+    A layer that no calibration batch reached stays float (with a warning
+    on ``logger``). If ``net`` itself is a quantizable layer its twin is
+    the return value: always use the returned net. ``exclude_layers``
+    names paths to keep float; ``'.'`` is the net itself."""
     if quantized_dtype != 'int8':
         raise ValueError('only int8 quantization is supported')
     if calib_data is None:
         raise ValueError('calib_data is required for post-training '
                          'quantization')
     exclude_layers = set(exclude_layers or ())
+    if isinstance(net, Block):
+        return _quantize_gluon(net, calib_data, calib_mode, exclude_layers,
+                               num_calib_batches, logger, activation_dtype)
+    return _quantize_torch(net, calib_data, calib_mode, exclude_layers,
+                           num_calib_batches, logger, activation_dtype)
+
+
+def _quantize_gluon(net, calib_data, calib_mode, exclude_layers,
+                    num_calib_batches, logger, activation_dtype):
+    """The reference's walk (``mxnet_tpu/quantization.py:265-370``)."""
+    net.hybridize(False)
     targets = [(parent, name, path, child)
-               for parent, name, path, child in _walk(net)
-               if path not in exclude_layers and _quantizable(child, path)]
-    if '.' not in exclude_layers and _quantizable(net, ''):
+               for parent, name, path, child in _gluon_walk(net)
+               if _gluon_twin(child) and path not in exclude_layers]
+    if _gluon_twin(net) is not None and '.' not in exclude_layers:
+        targets.append((None, None, '.', net))      # the net IS the layer
+    if not targets:
+        return net
+    ctx = next((p.list_ctx()[0] for p in net.collect_params().values()
+                if p._var is not None or p._deferred_init is not None),
+               None)
+
+    def hook_on(child, hook):
+        child._forward_pre_hooks.append(hook)
+        return lambda: child._forward_pre_hooks.remove(hook)
+
+    def run_batch(x):
+        net(x if isinstance(x, NDArray) else array(x, ctx=ctx))
+
+    table = calib_table(_calibrate(net, targets, calib_data,
+                                   num_calib_batches, hook_on, run_batch),
+                        calib_mode)
+    result = net
+    for parent, name, path, child in targets:
+        if path not in table:
+            if logger:
+                logger.warning('layer %s not exercised by calib_data; '
+                               'kept in float', path)
+            continue
+        lo, hi = table[path]
+        qlayer = _gluon_twin(child)(child, lo, hi,
+                                    activation_dtype=activation_dtype)
+        if parent is None:
+            result = qlayer     # the root swap happens via the return value
+            continue
+        parent._children[name] = qlayer
+        # attribute access must resolve to the new child too
+        for attr, value in list(parent.__dict__.items()):
+            if value is child:
+                object.__setattr__(parent, attr, qlayer)
+    _log_table(logger, table)
+    return result
+
+
+def _quantize_torch(net, calib_data, calib_mode, exclude_layers,
+                    num_calib_batches, logger, activation_dtype):
+    """The walk over ``torch.nn`` modules (the port's Llama)."""
+    targets = [(parent, name, path, child)
+               for parent, name, path, child in _torch_walk(net)
+               if path not in exclude_layers
+               and _torch_quantizable(child, path)]
+    if '.' not in exclude_layers and _torch_quantizable(net, ''):
         targets.append((None, None, '.', net))     # the net IS the layer
     if not targets:
         return net
-
-    collectors = {path: _HistogramCollector() for _, _, path, _ in targets}
-
-    def make_hook(path):
-        def hook(module, inputs):
-            collectors[path].collect(
-                inputs[0].detach().float().cpu().numpy())
-        return hook
-
     dev = next((p.device for p in net.parameters()), None)
-    handles = []
-    try:
-        for _, _, path, child in targets:
-            handles.append(child.register_forward_pre_hook(make_hook(path)))
-        with torch.no_grad():
-            for n, batch in enumerate(calib_data, 1):
-                x = batch[0] if isinstance(batch, (tuple, list)) else batch
-                net(torch.as_tensor(x, device=dev))
-                if num_calib_batches is not None and n >= num_calib_batches:
-                    break
-    finally:
-        for h in handles:
-            h.remove()
 
-    table = calib_table(collectors, calib_mode)
+    def hook_on(child, hook):
+        return child.register_forward_pre_hook(hook).remove
+
+    def run_batch(x):
+        with torch.no_grad():
+            net(torch.as_tensor(x, device=dev))
+
+    table = calib_table(_calibrate(net, targets, calib_data,
+                                   num_calib_batches, hook_on, run_batch),
+                        calib_mode)
     if hasattr(net, 'release_graphs'):      # they read the float layers
         net.release_graphs()
     result = net
@@ -323,16 +561,14 @@ def quantize_net(net, calib_data=None, calib_mode='entropy',
                                'kept in float', path)
             continue
         lo, hi = table[path]
-        qlayer = QuantizedDense(child, lo, hi,
-                                activation_dtype=activation_dtype)
+        qlayer = QuantizedLinear(child, lo, hi,
+                                 activation_dtype=activation_dtype)
         del child
         if parent is None:
             result = qlayer     # the root swap happens via the return value
         else:
             setattr(parent, name, qlayer)
-    if logger:
-        for path, (lo, hi) in table.items():
-            logger.info('calibrated %s: [%.5f, %.5f]', path, lo, hi)
+    _log_table(logger, table)
     return result
 
 
@@ -345,7 +581,7 @@ def load_jax_quantized(net, qstate, params=None,
     (``model.layers0.self_attn.q_proj``) to a dict of numpy arrays:
     ``qweight``, ``w_scale`` (the JAX layer's ``_w_scale``),
     ``collected_range`` and ``bias`` (None without one). Each named
-    ``nn.Linear`` of ``net`` is swapped for a :class:`QuantizedDense`
+    ``nn.Linear`` of ``net`` is swapped for a :class:`QuantizedLinear`
     built from that state. ``params`` optionally maps the JAX names of
     the float parameters that stay (the embedding and the norms, as
     ``from_jax_params`` takes them) to numpy arrays; every float
@@ -355,12 +591,12 @@ def load_jax_quantized(net, qstate, params=None,
         *head, name = path.split('.')
         parent = net.get_submodule('.'.join(head))
         old = getattr(parent, name)
-        if not isinstance(old, (nn.Linear, QuantizedDense)):
+        if not isinstance(old, (nn.Linear, QuantizedLinear)):
             raise TypeError(f'{jpath}: {path} is a {type(old).__name__}, '
                             f'not a Dense layer')
-        dev = next(old.buffers() if isinstance(old, QuantizedDense)
+        dev = next(old.buffers() if isinstance(old, QuantizedLinear)
                    else old.parameters()).device
-        q = QuantizedDense.from_state(st['qweight'], st['w_scale'],
+        q = QuantizedLinear.from_state(st['qweight'], st['w_scale'],
                                       st['collected_range'], st.get('bias'),
                                       activation_dtype)
         if tuple(q.qweight.shape) != (old.out_features, old.in_features):

@@ -68,7 +68,7 @@ from mxnet_tpu_torch.ops import contrib, kernels, nn as nn_ops
 from mxnet_tpu_torch.ops.kernels import (fused_norms, flash_attention,
                                          fused_optimizer, int8_matmul,
                                          paged_attention)
-from mxnet_tpu_torch.quantization import QuantizedDense, quantize_net
+from mxnet_tpu_torch.quantization import QuantizedLinear, quantize_net
 from mxnet_tpu_torch.serve import DecodeServer
 from mxnet_tpu_torch.serve.errors import ServerClosed
 
@@ -512,7 +512,7 @@ def test_small_quantized_llama_serves_the_same_tokens_on_the_card(dev, act):
     cpu_net = get_llama('llama_tiny', device='cpu', seed=3, **SMALL_LLAMA)
     quantize_net(cpu_net, calib_data=[calib], calib_mode='naive',
                  activation_dtype=act)
-    dense = [m for m in cpu_net.modules() if isinstance(m, QuantizedDense)]
+    dense = [m for m in cpu_net.modules() if isinstance(m, QuantizedLinear)]
     assert len(dense) == 15
     outs = {}
     for where in ('cpu', 'cuda'):
@@ -1704,3 +1704,104 @@ def test_bf16_gluon_blocks_run_on_the_card(dev, what):
     want, got = outs['cpu(0)'], outs['gpu(0)']
     assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
 
+
+
+def test_quantized_thumbnail_graphed_predict_on_the_card(dev):
+    """A resnet18 thumbnail quantized on the card (Gluon quantization,
+    naive calibration): its graphed predict equals its eager int8 forward
+    bit for bit over three calls, one capture, 21 B7 launches a call (20
+    convolutions over their gathered windows and the Dense), all in a
+    Hopper design; its int8 weights equal those quantized on the CPU."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rng = np.random.default_rng(3)
+    calib = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    x = rng.standard_normal((8, 3, 32, 32)).astype(np.float32)
+    codes, weights = {}, None
+    for where in (mx.cpu(), mx.gpu(0)):
+        with where:
+            net = vision.resnet18_v1(classes=10, thumbnail=True)
+            net.initialize(ctx=where)
+            net(mx.np.array(calib))
+            if weights is None:
+                weights = {k: p.data().asnumpy()
+                           for k, p in net.collect_params().items()}
+            else:
+                net.load_dict(weights)
+            quantize_net(net, calib_data=[calib], calib_mode='naive')
+            codes[str(where)] = {k: p.data().asnumpy() for k, p in
+                                 net.collect_params().items()
+                                 if k.endswith('qweight')}
+    assert len(codes['cpu(0)']) == 21
+    for k, v in codes['cpu(0)'].items():
+        assert (codes['gpu(0)'][k] == v).all(), k
+    xs = mx.np.array(x, ctx=mx.gpu(0))
+    eager = net(xs)._data
+    net.hybridize(static_alloc=True)
+    before = kernels.launch_counts()
+    paths = kernels.path_counts()['int8_matmul']
+    for _ in range(3):
+        torch.testing.assert_close(net(xs)._data, eager, rtol=0, atol=0)
+    got = {k: v - before[k] for k, v in kernels.launch_counts().items()
+           if v != before[k]}
+    assert got == {'int8_matmul': 63}
+    designs = {k: v - paths[k]
+               for k, v in kernels.path_counts()['int8_matmul'].items()}
+    assert designs['tma'] + designs['tma_splitk'] == 63
+    assert net.capture_count == 1 and eager.dtype == torch.bfloat16
+
+
+NEW_OPTIMIZERS = {
+    'nag': {'momentum': 0.9}, 'adamw': {'wd': 1e-2}, 'adamax': {},
+    'nadam': {}, 'adagrad': {}, 'adadelta': {}, 'rmsprop': {'centered': True},
+    'ftrl': {}, 'ftml': {}, 'signum': {}, 'sgld': {},
+    'dcasgd': {'momentum': 0.9}, 'lars': {}, 'lamb': {'wd': 1e-2},
+    'lans': {}}
+
+
+@pytest.mark.parametrize('opt', sorted(NEW_OPTIMIZERS))
+def test_replayed_update_graph_reads_a_new_learning_rate(dev, opt):
+    """A Gluon net's update under each optimizer the port added is one
+    graph, captured at the first step and replayed at the next two with
+    the learning rate changed before each; the weights equal the same
+    steps on the CPU (SGLD: its noise is each device's own, so its
+    weights must move and stay finite)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8, 16)).astype(np.float32)
+    y = rng.standard_normal((8, 4)).astype(np.float32)
+    out, weights = {}, None
+    for where in (mx.cpu(), mx.gpu(0)):
+        with where:
+            net = nn.HybridSequential(nn.Dense(32, in_units=16,
+                                               activation='tanh'),
+                                      nn.Dense(4, in_units=32))
+            net.initialize(ctx=where)
+            if weights is None:
+                weights = {k: p.data().asnumpy()
+                           for k, p in net.collect_params().items()}
+            else:
+                net.load_dict(weights)
+            trainer = gluon.Trainer(net.collect_params(), opt, dict(
+                NEW_OPTIMIZERS[opt], learning_rate=0.01))
+            for lr in (0.01, 0.03, 0.005):
+                trainer.set_learning_rate(lr)
+                with mx.autograd.record():
+                    loss = ((net(mx.np.array(x)) - mx.np.array(y)) ** 2) \
+                        .mean()
+                loss.backward()
+                trainer.step(1)
+            out[str(where)] = {k: p.data().asnumpy() for k, p in
+                               net.collect_params().items()}
+    assert trainer.capture_count == 1
+    for k, w0 in weights.items():
+        card, cpu = out['gpu(0)'][k], out['cpu(0)'][k]
+        if opt == 'sgld':
+            assert np.isfinite(card).all() and not np.array_equal(card, w0)
+        else:
+            np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-6,
+                                       err_msg=k)

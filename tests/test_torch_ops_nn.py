@@ -1,13 +1,13 @@
-"""Forward and gradient parity of the port's nn ops with the JAX
-package's, at the opperf rules' small sizes (tolerances and method:
-tests/test_torch_ops_sweep.py)."""
+"""Forward and gradient parity of the port's nn, contrib and optimizer
+update ops with the JAX package's, at the opperf rules' small sizes
+(tolerances and method: tests/test_torch_ops_sweep.py)."""
 
 import pytest
 
 from test_torch_ops_sweep import check_forward, check_grad, \
     differentiable, ruled
 
-NAMES = ruled('nn', 'contrib')
+NAMES = ruled('nn', 'contrib', 'optimizer_ops')
 
 
 @pytest.mark.parametrize('name', NAMES)

@@ -293,7 +293,7 @@ def calibrated():
 def test_quantize_net_matches_the_reference(calibrated):
     _, tnet, state, _ = calibrated
     layers = {_jax_path(path): m for path, m in tnet.named_modules()
-              if isinstance(m, tq.QuantizedDense)}
+              if isinstance(m, tq.QuantizedLinear)}
     assert set(layers) == set(state) and len(state) == 15
     for path, st in state.items():
         m = layers[path]
@@ -425,7 +425,7 @@ def test_quantize_net_swaps_in_module_lists_and_keeps_idle_layers_float():
                           exclude_layers=['blocks.1'], num_calib_batches=1,
                           activation_dtype='float32')
     assert out is net
-    assert isinstance(net.blocks[0], tq.QuantizedDense)
+    assert isinstance(net.blocks[0], tq.QuantizedLinear)
     assert net.blocks[0].bias is not None
     assert isinstance(net.blocks[1], torch.nn.Linear)     # excluded
     assert isinstance(net.idle, torch.nn.Linear)          # never reached
@@ -438,7 +438,7 @@ def test_quantize_net_swaps_a_root_layer_and_refuses_convolutions():
     lin = torch.nn.Linear(8, 4)
     x = torch.randn(3, 8)
     q = tq.quantize_net(lin, calib_data=[x], calib_mode='naive')
-    assert isinstance(q, tq.QuantizedDense) and q(x).dtype == torch.bfloat16
+    assert isinstance(q, tq.QuantizedLinear) and q(x).dtype == torch.bfloat16
     conv = torch.nn.Sequential(torch.nn.Conv2d(1, 2, 3), torch.nn.Flatten())
     with pytest.raises(NotImplementedError, match='A7'):
         tq.quantize_net(conv, calib_data=[torch.randn(1, 1, 5, 5)])

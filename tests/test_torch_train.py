@@ -298,8 +298,13 @@ def test_trainer_refuses_what_one_device_cannot_do():
         Trainer(params, 'sgd', kvstore='dist_sync')
     with pytest.raises(ValueError):
         Trainer([torch.zeros(3)], 'sgd')
-    with pytest.raises(MXNetError, match='multi_precision'):
-        Trainer(params, 'adam', {'multi_precision': True})
+    # multi_precision is accepted and kept, as the reference keeps it, and
+    # makes no fp32 master copy: an fp32 weight's state is its two moments
+    mp = Trainer(params, 'adam', {'multi_precision': True})
+    assert mp.optimizer.multi_precision is True
+    w = next(iter(params.values()))
+    st = mp.optimizer.create_state_multi_precision(0, w.detach())
+    assert len(st) == 2 and all(t.shape == w.shape for t in st)
     tr = Trainer(list(params.values()), 'adam')
     with pytest.raises(MXNetError, match='named'):
         tr.load_jax_state({}, {})
