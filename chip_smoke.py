@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases device,build,kernels,bf16  # bf16
     python3 chip_smoke.py --phases device,build,qresnet  # int8 ResNet-50
     python3 chip_smoke.py --phases device,build,optim  # the optimizers
+    python3 chip_smoke.py --phases device,build,dist,ring  # data parallel
 
 Phases, each of which fails the run on any error:
 
@@ -273,7 +274,42 @@ Phases, each of which fails the run on any error:
                (its update a captured graph) and on the CPU: losses at
                rtol 1e-4, each tensor's change within 1 % (SGLD: the
                first loss only, its noise being each device's own draw).
-14. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+14. dist    -- data-parallel training over ``torch.distributed``. (a) The
+               ``device`` kvstore's replica reduce at bench_kvstore's
+               shape (50 keys of 1 M fp32 values, 4 replicas, one out a
+               key) on cuda:0: ``fused_pushpull`` timed in a CUDA graph
+               against the 1.0 GB it must move, the sum within 1e-6 of
+               the largest float64 sum. Then ``DIST_RANKS`` ranks
+               (``parallel.launch.spawn``, gloo, all on cuda:0, CUDA
+               tensors staged through pinned host buffers), each counted
+               from 0 just before and read just after its main path:
+               (b) ``bert_12_768_12`` at (16, 128) a rank (the bert
+               phase's 32 sequences split), hybridized, ``BERT_STEPS``
+               Adam steps through ``Trainer(..., kvstore='dist_sync')``
+               with ``allreduce_grads`` and ``update`` as two calls:
+               exactly 26 B1, 12 B2 and 156 B5 a step in each rank, the
+               ranks' weights bit-equal after every step, the losses and
+               each tensor's change within rtol 1e-4 and 1 % of one
+               process over the 32 sequences (``kvstore='device'``,
+               ``step(1 / DIST_RANKS)``, since the kvstore sums); (c) the
+               same with ``update_on_kvstore=True``, the ZeRO-1 update:
+               B5 launches summed over the ranks exactly 156 a step, the
+               ranks bit-equal and within 1e-6 of (b)'s weights; (d) a
+               2-bit compressed pushpull of ``DIST_GC_SHAPES``: words
+               bit-equal to the CPU's, sums exact; (e) SyncBatchNorm on
+               8 images over the ranks against one process's BatchNorm
+               over the batch: one layer alone at rtol 1e-4 (output,
+               gradients, running statistics), and a resnet18 thumbnail
+               with SyncBatchNorm layers: logits and running statistics
+               at rtol 1e-4, each gradient within 1 % in the 2-norm
+               (``dist_sync_bn`` says why), its recorded call run eagerly
+               (collectives are not captured).
+               Logged beside the card's name and power limit: host ms a
+               step split into forward and backward, the all-reduce and
+               the update, the update's device ms, MB reduced a step,
+               samples/s over both ranks, rank 0's busy share, peak
+               memory a rank.
+15. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -281,9 +317,13 @@ Phases, each of which fails the run on any error:
                causal and 4 times full, and returns its counts; the
                gathered output must meet plain dense attention and the
                flash forward over the whole sequence, and the ranks'
-               plain blockwise path the flash path. Logs each rank's host
-               ms, stats-kernel ms and transport ms.
-15. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+               plain blockwise path the flash path. Then the backward on
+               the first ``RING_GRAD_HEADS`` heads: under autograd each
+               rank launches the same stats kernels, and the gathered q,
+               k and v gradients of a seeded cotangent must meet autograd
+               through plain dense attention (``ring_grad_checks``). Logs each rank's host ms,
+               stats-kernel ms and transport ms.
+16. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
@@ -292,8 +332,8 @@ Phases, each of which fails the run on any error:
 The launch counters are set to 0 just before each of the forward, serve,
 int8, train, ndarray, bert, resnet, bf16, qresnet, optim and rtc phases and read just after
 it (with the optimizer's plain-update counters), and in each
-rank just before and after its ring runs; the kernels' line reports their
-sum. A CUDA graph's replay counts the launches its capture saw
+rank just before and after its ring runs and its dist runs (b) and (c);
+the kernels' line reports their sum. A CUDA graph's replay counts the launches its capture saw
 (``_graphs.StepGraph``). A phase fails if the norm, the int8 product or flash attention (either
 form) ran another design than its Hopper ones on its main path
 (``NEW_DESIGNS``).
@@ -303,6 +343,7 @@ when every phase ran and passed. Exit code 0 only then.
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -313,7 +354,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
           'train', 'ndarray', 'bert', 'resnet', 'bf16', 'qresnet', 'optim',
-          'ring', 'rtc')
+          'dist', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -401,6 +442,20 @@ def eager_ms(torch, fn, budget_ms=100.0):
     return _events_ms(torch, fn, n)
 
 
+@contextlib.contextmanager
+def quiet_gc():
+    """Python's cyclic collector run before a capture and held off during
+    it: it would free the CUDA graphs of an earlier phase whose blocks
+    and Trainers are garbage in cycles, and destroying a graph while a
+    stream captures invalidates the capture."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 def cuda_ms(torch, fn, budget_ms=100.0):
     """Device time per call of ``fn()`` in ms: a run of calls captured in
     one CUDA graph and replayed, timed with CUDA events, so the host's
@@ -416,7 +471,7 @@ def cuda_ms(torch, fn, budget_ms=100.0):
     torch.cuda.synchronize()
     n = int(min(100, max(5, budget_ms / max(_events_ms(torch, fn, 1), 1e-3))))
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
+    with quiet_gc(), torch.cuda.graph(graph, stream=side):
         for _ in range(n):
             fn()
     graph.replay()
@@ -471,16 +526,21 @@ def compare(torch, got, want, rtol, atol, ulps=0):
 
 
 # ------------------------------------------------------------- phases
-def phase_device(torch):
-    if not torch.cuda.is_available():
-        fail('torch.cuda.is_available() is false: this script needs a '
-             'CUDA card')
-    # fp32 products in full fp32, like the reference's Dense layers
+def full_fp32(torch):
+    """fp32 products in full fp32, like the reference's Dense layers: the
+    flags this process and every rank it spawns run under."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.get_float32_matmul_precision() != 'highest':
         fail('fp32 matmuls would run in TF32')
+
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is false: this script needs a '
+             'CUDA card')
+    full_fp32(torch)
     log(f'[device] {smi_line()}')
     log(f'[device] torch {torch.__version__} cuda {torch.version.cuda} '
         f'devices {torch.cuda.device_count()} '
@@ -894,7 +954,7 @@ def _paged_cases(torch, randn, rows, sms):
         pa.paged_attention_decode(q, kp, vp, pages, offset, scale)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
+    with quiet_gc(), torch.cuda.graph(graph, stream=side):
         out = pa.paged_attention_decode(q, kp, vp, pages, offset, scale)
     depths = [2047, 0, 300, 0]
     new_pages = pages.flip(0).clone()
@@ -4699,15 +4759,532 @@ def optim_parity(torch, seed, steps=2):
         fail(f'optim: the card and the CPU train apart with {bad}')
 
 
+# ------------------------------------------------------------- dist
+#: the dist phase: bench_kvstore's replica reduce (bench.py:661-698, a
+#: 200 MB uniform key set of 50 keys, 4 replicas), BERT-base over two
+#: ranks (BERT_BATCH sequences in all, half a rank), the 2-bit keys and
+#: the SyncBatchNorm thumbnail's batch
+DIST_RANKS = 2
+DIST_KEYS, DIST_KEY_ELEMS, DIST_REPLICAS = 50, 1_000_000, 4
+DIST_STEPS = BERT_STEPS
+DIST_GC_SHAPES = ((1000,), (64, 33), (7,))
+DIST_BN_BATCH = 8
+
+
+def _digests(torch, tensors):
+    """One int a tensor that two tensors share only if their bits are
+    equal (a weighted sum of the 32-bit words, mod 2**64)."""
+    out = []
+    for t in tensors:
+        w = t.detach().contiguous().view(-1).view(torch.int32).long()
+        mult = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append(int((w * mult).sum()))
+    return out
+
+
+def dist_reduce(torch):
+    """(a) The ``device`` kvstore's replica reduce at bench_kvstore's shape
+    on cuda:0: ``fused_pushpull`` of 50 keys of 1 M fp32 values, 4
+    replicas each, into one out tensor a key. Returns the device ms, the
+    bound and the worst error against a float64 sum."""
+    from mxnet_tpu_torch import kvstore
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    vals = [[torch.rand(DIST_KEY_ELEMS, generator=gen, device='cuda') * 2 - 1
+             for _ in range(DIST_REPLICAS)] for _ in range(DIST_KEYS)]
+    outs = [torch.empty(DIST_KEY_ELEMS, device='cuda')
+            for _ in range(DIST_KEYS)]
+    kv = kvstore.create('device')
+    keys = list(range(DIST_KEYS))
+
+    def call():
+        kv.fused_pushpull(keys, vals, outs=[[o] for o in outs],
+                          priorities=[-k for k in keys])
+
+    call()
+    torch.cuda.synchronize()
+    worst = 0.0
+    for vs, o in zip(vals, outs):
+        want = sum(v.double() for v in vs)
+        worst = max(worst, float((o.double() - want).abs().max()
+                                 / want.abs().max()))
+    ms = cuda_ms(torch, call)
+    nbytes = (DIST_REPLICAS + 1) * DIST_KEYS * DIST_KEY_ELEMS * 4
+    bound_ms, _ = bound(nbytes, 3 * DIST_KEYS * DIST_KEY_ELEMS)
+    log(f'[dist] (a) device kvstore fused_pushpull, {DIST_KEYS} keys x '
+        f'{DIST_KEY_ELEMS * 4 / 1e6:.0f} MB x {DIST_REPLICAS} replicas on '
+        f'cuda:0: {ms:.4f} ms device (one call in a CUDA graph), '
+        f'{nbytes / ms / 1e6:.1f} GB/s of the {nbytes / 1e9:.1f} GB the sum '
+        f'must move (4 replicas read, one out written); bound {bound_ms:.4f} '
+        f'ms at {HBM_BYTES_S / 1e12:.2f} TB/s; plain PyTorch reads each '
+        f'replica once but reads and writes the out three times (1.8 GB); '
+        f'max |sum - float64 sum| / max |float64 sum| {worst:.3g} (1e-6); '
+        f'card {smi_line()}')
+    if not worst <= 1e-6:
+        fail(f'dist: the replica sum is off the float64 sum by {worst}')
+    del vals, outs
+    torch.cuda.empty_cache()
+    return dict(ms=ms, bound_ms=bound_ms, nbytes=nbytes)
+
+
+def _dist_bert(torch, mx, gluon, net, params, init, ids, tt, labels, zero1,
+               rank):
+    """(b) or (c) in one rank: DIST_STEPS Adam steps of BERT-base on this
+    rank's half of the batch through ``Trainer(kvstore='dist_sync')``,
+    from ``init``; ``zero1`` sets ``update_on_kvstore``. Host ms a step
+    split into forward and backward, the all-reduce (with its staging)
+    and the update (CUDA events around it for its device ms); the launch
+    counts a step and the weights' digests after each."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch.ops import kernels
+    for k, p in params.items():
+        p.set_data(init[k])
+    trainer = gluon.Trainer(params, 'adam', dict(BERT_OPTS[0][2]),
+                            kvstore='dist_sync', update_on_kvstore=zero1)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    dev = mx.gpu(0).to_torch()
+    res = dict(losses=[], split=[], update_ms=[], counts=[], digests=[])
+    for i in range(DIST_STEPS):
+        dist.barrier()
+        profile = rank == 0 and i == DIST_STEPS - 1 and not zero1
+        before = kernels.launch_counts()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with (profiled() if profile else contextlib.nullcontext()) as prof:
+            with mx.autograd.record():
+                _, _, mlm = net(ids, tt)
+                loss = loss_fn(mlm, labels).mean()
+            loss.backward()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            if zero1:
+                t2 = t1
+                a.record()
+                trainer.step(1)
+                b.record()
+            else:
+                trainer.allreduce_grads()
+                _sync(torch, dev)
+                t2 = time.perf_counter()
+                a.record()
+                trainer.update(1)
+                b.record()
+            _sync(torch, dev)
+            t3 = time.perf_counter()
+        res['split'].append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                             (t3 - t2) * 1e3))
+        res['update_ms'].append(a.elapsed_time(b))
+        res['losses'].append(loss.item())
+        res['counts'].append(_counts_since(kernels, before))
+        res['digests'].append(_digests(torch, [p.data()._data
+                                               for p in params.values()]))
+        if profile:
+            res['busy'] = _busy_share(prof, sum(res['split'][-2]))
+    res['graphs'] = (net.capture_count, trainer.capture_count,
+                     net.eager_call_count)
+    res['nbytes'] = sum(4 * math.prod(p.shape) for p in params.values())
+    return res
+
+
+def _dist_gc(torch, seed, rank):
+    """(d) A 2-bit compressed pushpull of DIST_GC_SHAPES keys over the
+    ranks on cuda:0: this rank's words against the CPU's, and the sums
+    against the decode-sum of every rank's words made on the CPU."""
+    from mxnet_tpu_torch import kvstore
+    from mxnet_tpu_torch.kvstore.gradient_compression import \
+        GradientCompression
+    params = {'type': '2bit', 'threshold': 0.5}
+
+    def grads(r):
+        gen = torch.Generator().manual_seed(seed + r)
+        return [torch.randn(*s, generator=gen) for s in DIST_GC_SHAPES]
+
+    mine = [g.cuda() for g in grads(rank)]
+    gpu_gc, cpu_gc = GradientCompression(), GradientCompression()
+    gpu_gc.set_params(params)
+    cpu_gc.set_params(params)
+    words_equal = all(torch.equal(gpu_gc.quantize(i, g).cpu(),
+                                  cpu_gc.quantize(i, g.cpu()))
+                      for i, g in enumerate(mine))
+    want = []
+    for i, s in enumerate(DIST_GC_SHAPES):
+        total = torch.zeros(s)
+        for r in range(DIST_RANKS):
+            gc = GradientCompression()
+            gc.set_params(params)
+            total += gc.dequantize(gc.quantize(i, grads(r)[i]), s)
+        want.append(total)
+    kv = kvstore.create('dist_tpu_sync')
+    kv.set_gradient_compression(params)
+    outs = [torch.empty_like(g) for g in mine]
+    kv.pushpull(list(range(len(mine))), mine, out=outs)
+    sums_equal = all(torch.equal(o.cpu(), w) for o, w in zip(outs, want))
+    return dict(words_equal=words_equal, sums_equal=sums_equal)
+
+
+def _bn_thumbnail(mx, vision, sync):
+    """resnet18_v1's thumbnail with SyncBatchNorm (``sync``) or BatchNorm
+    layers."""
+    from unittest import mock
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    with mock.patch.object(resnet, 'BatchNorm',
+                           nn.SyncBatchNorm if sync else nn.BatchNorm):
+        return vision.resnet18_v1(classes=10, thumbnail=True)
+
+
+def _bn_data(seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((DIST_BN_BATCH, 3, 32, 32)).astype(np.float32)
+    y = rng.integers(0, 10, DIST_BN_BATCH).astype(np.float32)
+    return x, y
+
+
+def _bn_step(mx, gluon, vision, seed, sync, rows):
+    """One recorded forward and backward of the thumbnail on ``rows`` of
+    the batch, hybridized, from the seed's weights; the loss is the sum
+    over the rows. Returns the logits, every gradient and the running
+    statistics (on the host) and the eager calls."""
+    x, y = _bn_data(seed)
+    mx.random.seed(seed)
+    net = _bn_thumbnail(mx, vision, sync)
+    net.initialize(ctx=mx.gpu(0))
+    xs, ys = mx.np.array(x[rows]), mx.np.array(y[rows])
+    net(xs)                 # deferred initialization, predict mode
+    net.hybridize()
+    with mx.autograd.record():
+        out = net(xs)
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(out, ys).sum()
+    loss.backward()
+    params = net.collect_params()
+    return dict(out=out._data.cpu(), eager=net.eager_call_count,
+                grads={k: p.grad()._data.cpu() for k, p in params.items()
+                       if p.grad_req != 'null'},
+                stats={k: p.data()._data.cpu() for k, p in params.items()
+                       if p.grad_req == 'null'})
+
+
+def _bn_layer(mx, nn, seed, sync, rows):
+    """One BatchNorm (``sync``: SyncBatchNorm) layer in training mode on
+    ``rows`` of a seeded (8, 64, 16, 16) batch, the loss the sum of its
+    output times a seeded cotangent: the output, the input's gradient,
+    gamma's and beta's gradients and the running statistics."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((DIST_BN_BATCH, 64, 16, 16)).astype(np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    layer = (nn.SyncBatchNorm if sync else nn.BatchNorm)(in_channels=64)
+    layer.initialize(ctx=mx.gpu(0))
+    layer.gamma.set_data(mx.np.array(1 + 0.1 * w[0, :, 0, 0]))
+    layer.beta.set_data(mx.np.array(0.1 * w[1, :, 0, 0]))
+    xs = mx.np.array(x[rows])
+    xs.attach_grad()
+    with mx.autograd.record():
+        out = layer(xs)
+        loss = (out * mx.np.array(w[rows])).sum()
+    loss.backward()
+    return {'out': out._data.cpu(), 'dx': xs.grad._data.cpu(),
+            ('g', 'gamma'): layer.gamma.grad()._data.cpu(),
+            ('g', 'beta'): layer.beta.grad()._data.cpu(),
+            ('s', 'mean'): layer.running_mean.data()._data.cpu(),
+            ('s', 'var'): layer.running_var.data()._data.cpu()}
+
+
+def _dist_rank(seed):
+    """One rank of the dist phase (run by ``parallel.launch.spawn``; the
+    ranks share cuda:0 over gloo): (b) and (c), each counted from 0 just
+    before and read just after, then (d) and (e)."""
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert, vision
+    from mxnet_tpu_torch.ops import kernels
+    full_fp32(torch)        # as the parent, whose references the ranks meet
+    rank = dist.get_rank()
+    half = BERT_BATCH // DIST_RANKS
+    rows = slice(rank * half, (rank + 1) * half)
+    mx.random.seed(seed)
+    net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
+                              use_classifier=False)
+    net.initialize(ctx=mx.gpu(0))
+    ids, tt, labels = (a[rows] for a in bert_batch(
+        mx, seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB))
+    net(ids, tt)                    # deferred initialization
+    params = net.collect_params()
+    init = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    net.hybridize(static_alloc=True)
+    dev = mx.gpu(0).to_torch()
+    res = {'rank': rank}
+    for zero1 in (False, True):
+        mem = _memory_start(torch, dev)
+        kernels.reset_launch_counts()           # the main path starts
+        run = _dist_bert(torch, mx, gluon, net, params, init, ids, tt,
+                         labels, zero1, rank)
+        run['launches'] = kernels.launch_counts()   # ... and ends
+        run['designs'] = kernels.path_counts()
+        run['peak'] = _memory_peaks(torch, dev, mem)
+        res['zero1' if zero1 else 'dp'] = run
+        if not zero1:
+            dp_state = {k: p.data()._data.detach().clone()
+                        for k, p in params.items()}
+            if rank == 0:
+                res['state'] = {k: t.cpu() for k, t in dp_state.items()}
+                res['init'] = {k: t.cpu() for k, t in init.items()}
+    gaps = [float((p.data()._data - dp_state[k]).double().norm()
+                  / max(float(dp_state[k].double().norm()), 1e-30))
+            for k, p in params.items()]
+    res['zero1_gap'] = max(gaps)
+    del net, params, init, dp_state
+    torch.cuda.empty_cache()
+    res['gc'] = _dist_gc(torch, seed + 1, rank)
+    half = DIST_BN_BATCH // DIST_RANKS
+    rows = slice(rank * half, (rank + 1) * half)
+    res['bn_layer'] = _bn_layer(mx, gluon.nn, seed + 2, True, rows)
+    res['bn'] = _bn_step(mx, gluon, vision, seed + 2, True, rows)
+    dist.barrier()
+    return res
+
+
+def phase_dist(torch, seed):
+    """Data-parallel training over ``torch.distributed``: see the module
+    docstring. (a) runs here, the rest in ``DIST_RANKS`` ranks that share
+    cuda:0 over gloo (NCCL refuses two ranks on one card); then the
+    one-process references. Returns the ranks' summed launch counts of
+    (b) and (c), in all and by design."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert, vision
+    from mxnet_tpu_torch.parallel import launch
+    got = {'reduce': dist_reduce(torch)}
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_dist_rank, DIST_RANKS, seed, backend='gloo',
+                         timeout=600)
+    log(f'[dist] {DIST_RANKS} ranks on cuda:0 over gloo in '
+        f'{time.perf_counter() - t0:.1f} s (spawn included)')
+    counts, by_design = dict.fromkeys(KERNELS, 0), {}
+    want_dp = dict(BERT_FORWARD, adam=BERT_UPDATED)
+    for r in ranks:
+        for run in ('dp', 'zero1'):
+            for name, c in r[run]['launches'].items():
+                counts[name] += c
+            for name, ds in r[run]['designs'].items():
+                for d, c in ds.items():
+                    by_design.setdefault(name, {}).setdefault(d, 0)
+                    by_design[name][d] += c
+        if any(c != want_dp for c in r['dp']['counts']):
+            fail(f'dist: rank {r["rank"]} (b) launched {r["dp"]["counts"]} '
+                 f'a step, want {want_dp}')
+        if any({k: v for k, v in c.items() if k != 'adam'} != BERT_FORWARD
+               for c in r['zero1']['counts']):
+            fail(f'dist: rank {r["rank"]} (c) launched '
+                 f'{r["zero1"]["counts"]} a step')
+        if r['dp']['graphs'] != (2, 1, 0) or \
+                r['zero1']['graphs'][0] != 2 or r['zero1']['graphs'][2]:
+            fail(f'dist: rank {r["rank"]} graphs (net, Trainer, eager '
+                 f'recorded calls) (b) {r["dp"]["graphs"]}, (c) '
+                 f'{r["zero1"]["graphs"]}: want (2, 1, 0) and (2, 0, 0)')
+    owned = [sum(c.get('adam', 0) for c in zip_c)
+             for zip_c in zip(*(r['zero1']['counts'] for r in ranks))]
+    if owned != [BERT_UPDATED] * DIST_STEPS:
+        fail(f'dist: (c) B5 launches summed over the ranks {owned} a step, '
+             f'want {BERT_UPDATED}')
+    for run in ('dp', 'zero1'):
+        digests = [r[run]['digests'] for r in ranks]
+        if any(d != digests[0] for d in digests):
+            fail(f'dist: ({"b" if run == "dp" else "c"}) the ranks\' weights '
+                 f'are not bit-equal after every step')
+    gap = max(r['zero1_gap'] for r in ranks)
+    log(f'[dist] (b) and (c): every rank {want_dp} a step in (b); (c) B5 '
+        f'launches by rank a step {[[c.get("adam", 0) for c in r["zero1"]["counts"]] for r in ranks]} '
+        f'(sum {BERT_UPDATED}: each key on its owner); the ranks\' weights '
+        f'bit-equal after every step in both; (c) against (b) after '
+        f'{DIST_STEPS} steps: worst |w_c - w_b| / |w_b| {gap:.3g} (1e-6); '
+        f'no collective in a captured graph (the transport refuses to run '
+        f'in a capture), graphs a rank (net, Trainer, eager recorded calls) '
+        f'(b) {ranks[0]["dp"]["graphs"]}, (c) {ranks[0]["zero1"]["graphs"]}')
+    if not gap <= 1e-6:
+        fail(f'dist: the ZeRO-1 weights part from (b)\'s by {gap}')
+    got['ranks'] = [{k: v for k, v in r.items()
+                     if k not in ('state', 'init')} for r in ranks]
+    dist_one_process(torch, mx, gluon, bert, seed, ranks)
+    for r in ranks:
+        if not (r['gc']['words_equal'] and r['gc']['sums_equal']):
+            fail(f'dist: (d) rank {r["rank"]}: 2-bit words equal the CPU\'s '
+                 f'{r["gc"]["words_equal"]}, sums exact '
+                 f'{r["gc"]["sums_equal"]}')
+    log(f'[dist] (d) 2-bit pushpull of {list(DIST_GC_SHAPES)} over '
+        f'{DIST_RANKS} ranks on cuda:0: every rank\'s words bit-equal to '
+        f'the CPU\'s, every sum equal to the CPU\'s decode-sum of the '
+        f'ranks\' words -> ok')
+    dist_sync_bn(torch, mx, gluon, vision, seed + 2, ranks)
+    return counts, by_design, got
+
+
+def dist_one_process(torch, mx, gluon, bert, seed, ranks):
+    """(b) against one process: the same BERT_BATCH sequences from the same
+    weights through ``kvstore='device'`` and ``step(1 / DIST_RANKS)``: the
+    ranks' mean losses are means over half the batch, which the kvstore
+    sums, so that rescale gives the same function. Losses at rtol 1e-4,
+    each tensor's change over the steps within 1 % (2-norm), as the bert
+    phase holds the card against the CPU."""
+    mx.random.seed(seed)
+    net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
+                              use_classifier=False)
+    net.initialize(ctx=mx.gpu(0))
+    ids, tt, labels = bert_batch(mx, seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB)
+    net(ids, tt)
+    params = net.collect_params()
+    init = ranks[0]['init']
+    for k, p in params.items():
+        p.set_data(init[k].cuda())
+    net.hybridize(static_alloc=True)
+    trainer = gluon.Trainer(params, 'adam', dict(BERT_OPTS[0][2]),
+                            kvstore='device')
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for _ in range(DIST_STEPS):
+        with mx.autograd.record():
+            _, _, mlm = net(ids, tt)
+            loss = loss_fn(mlm, labels).mean()
+        loss.backward()
+        trainer.step(1 / DIST_RANKS)
+        losses.append(loss.item())
+    state = {k: p.data()._data.detach().cpu() for k, p in params.items()}
+    ranked = [sum(r['dp']['losses'][i] for r in ranks) / DIST_RANKS
+              for i in range(DIST_STEPS)]
+    ok = all(math.isclose(a, b, rel_tol=1e-4)
+             for a, b in zip(ranked, losses))
+    bad, worst = _change_gaps(init, {False: (losses, state),
+                                     True: (ranked, ranks[0]['state'])})
+    log(f'[dist] (b) {DIST_RANKS} ranks against one process over the same '
+        f'{BERT_BATCH} sequences (kvstore device, step(1/{DIST_RANKS})): '
+        f'losses {ranked} and {losses} (rtol 1e-4); |ranks\' change - one '
+        f'process\'s change| over |one process\'s change|, worst {worst} '
+        f'(1e-2) -> {"ok" if ok and not bad else "MISMATCH"}')
+    if not ok or bad:
+        fail(f'dist: two ranks train BERT-base apart from one process: '
+             f'losses {ranked} against {losses}; past tolerance {bad}')
+    del net, params, trainer, state
+    torch.cuda.empty_cache()
+
+
+def _bn_gaps(torch, got, want, rtol=1e-4):
+    """``got`` against ``want`` (dicts of tensors), each at ``rtol`` and
+    an atol of ``rtol`` of its largest entry; returns the keys past it
+    and the worst max error over max |want|."""
+    bad, worst = [], 0.0
+    for k, w in want.items():
+        top = max(float(w.abs().max()), 1e-30)
+        err, ok = compare(torch, got[k], w, rtol, rtol * top)
+        worst = max(worst, err / top)
+        if not ok:
+            bad.append(k)
+    return bad, worst
+
+
+def dist_sync_bn(torch, mx, gluon, vision, seed, ranks):
+    """(e) SyncBatchNorm over the two ranks against one process's
+    BatchNorm over the whole batch. One layer alone: its output, its
+    input's gradient, gamma's and beta's gradients (the ranks' summed, as
+    the kvstore sums them) and the running statistics at rtol 1e-4 with
+    an atol of 1e-4 of each tensor's largest entry. The resnet18 thumbnail
+    (19 SyncBatchNorm layers): its logits and running statistics at the
+    same tolerance, and each gradient, summed over the ranks, within 1 %
+    of the one-process gradient in the 2-norm, the rule
+    :func:`resnet_parity` holds two fp32 runs to: the ranks' convolutions
+    run at batch 4 and the reference's at 8, whose fp32 sums part in the
+    last bits, and a ReLU whose input sits within those bits of 0 passes
+    its gradient on one side only, so single gradient entries of a ReLU
+    net part by more than 1e-4 of the largest (one card run saw 3.8 %,
+    where the same step on the CPU parts by 2.5e-6). Each rank's recorded
+    call ran eagerly (its collectives cannot be captured) and was
+    counted."""
+    from mxnet_tpu_torch.gluon import nn
+    layers = [r['bn_layer'] for r in ranks]
+    want = _bn_layer(mx, nn, seed, False, slice(None))
+    got = {k: (torch.cat([b[k] for b in layers]) if k in ('out', 'dx')
+               else sum(b[k] for b in layers) if k[0] == 'g'
+               else layers[0][k]) for k in want}
+    bad_layer, worst_layer = _bn_gaps(torch, got, want)
+    bns = [r['bn'] for r in ranks]
+    want = _bn_step(mx, gluon, vision, seed, False, slice(None))
+    ref = {'out': want['out']}
+    ref.update({('s', k): v for k, v in want['stats'].items()})
+    got = {'out': torch.cat([b['out'] for b in bns])}
+    got.update({('s', k): bns[0]['stats'][k] for k in want['stats']})
+    bad_net, worst_net = _bn_gaps(torch, got, ref)
+    grad_gap, grad_abs = {}, 0.0
+    for k, w in want['grads'].items():
+        g = sum(b['grads'][k] for b in bns).double()
+        grad_gap[k] = float((g - w.double()).norm()
+                            / max(float(w.double().norm()), 1e-30))
+        grad_abs = max(grad_abs, float((g - w.double()).abs().max()
+                                       / max(float(w.abs().max()), 1e-30)))
+    bad_net += sorted(k for k, r in grad_gap.items() if not r <= 1e-2)
+    worst = sorted(grad_gap.items(), key=lambda kv: -kv[1])[:3]
+    eager = [b['eager'] for b in bns]
+    ok = not bad_layer and not bad_net and eager == [1] * DIST_RANKS
+    log(f'[dist] (e) SyncBatchNorm over {DIST_RANKS} ranks against one '
+        f'process\'s BatchNorm over {DIST_BN_BATCH} images: one layer, '
+        f'(8, 64, 16, 16): output, input gradient, gamma and beta gradients '
+        f'and running statistics, worst max err / max |want| '
+        f'{worst_layer:.3g} (rtol 1e-4, atol 1e-4 of the largest); the '
+        f'resnet18 thumbnail: logits and {len(want["stats"])} running '
+        f'statistics {worst_net:.3g} (the same), {len(want["grads"])} '
+        f'gradients, |ranks\' sum - one process| over |one process| '
+        f'(2-norm), worst {[(k, float(f"{r:.3g}")) for k, r in worst]} '
+        f'(1e-2; max err over max |want| {grad_abs:.3g}); recorded calls '
+        f'run eagerly by rank {eager} -> {"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail(f'dist: SyncBatchNorm over two ranks parts from BatchNorm over '
+             f'the batch: the layer at {bad_layer}, the thumbnail at '
+             f'{bad_net[:5]}; eager calls {eager}')
+
+
+def dist_costs(torch, got):
+    """Log the dist phase's numbers beside the card's name and limit."""
+    card = smi_line()
+    for r in got['ranks']:
+        for run, tag in (('dp', '(b) dist_sync'), ('zero1', '(c) ZeRO-1')):
+            x = r[run]
+            fwd, red, upd = x['split'][-2]
+            step = fwd + red + upd
+            log(f'[dist] {tag} rank {r["rank"]}: host ms a step '
+                f'{step:.2f} = forward+backward {fwd:.2f} + all-reduce '
+                f'{red:.2f} (staging included) + update {upd:.2f} (step '
+                f'{DIST_STEPS - 1}; all steps {[[round(v, 2) for v in s] for s in x["split"]]}); '
+                f'update device ms {[round(u, 3) for u in x["update_ms"]]}; '
+                f'{x["nbytes"] / 1e6:.1f} MB reduced a step; '
+                f'{BERT_BATCH / step * 1e3:.1f} samples/s over both ranks; '
+                f'busy {100 * x["busy"]:.1f} %' if 'busy' in x else
+                f'[dist] {tag} rank {r["rank"]}: host ms a step '
+                f'{step:.2f} = forward+backward {fwd:.2f} + all-reduce '
+                f'{red:.2f} + update {upd:.2f}; update device ms '
+                f'{[round(u, 3) for u in x["update_ms"]]}; '
+                f'{BERT_BATCH / step * 1e3:.1f} samples/s over both ranks')
+            log(f'[dist] {tag} rank {r["rank"]}: peak memory allocated '
+                f'{x["peak"][0]:.2f} GiB, reserved {x["peak"][1]:.2f} GiB; '
+                f'losses {x["losses"]}; card {card}')
+
+
 # ------------------------------------------------------------- ring
 #: the ring phase: llama3_8b's attention widths (32 query heads of 128, K/V
 #: expanded to 32 heads) over its whole max_length, sharded over sp ranks
 RING = dict(heads=32, head_dim=128, tokens=8192, ranks=4)
+#: the heads the backward is checked on: the ring's backward and dense
+#: attention's autograd are plain fp32 PyTorch (about 100 GFLOP a head
+#: for the dense reference), so the check takes the first two heads of
+#: the same inputs, at the whole 8192 tokens
+RING_GRAD_HEADS = 2
 
 
 def _ring_inputs(torch, seed):
     """q, k, v (1, heads, tokens, head_dim) on cuda:0 from a seeded
-    generator: the same tensors in every rank and in the parent."""
+    generator: the same tensors in every rank and in the parent (with
+    ``seed + 1``, the backward's cotangent first)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     shape = (1, RING['heads'], RING['tokens'], RING['head_dim'])
     return [torch.randn(*shape, generator=gen, device='cuda')
@@ -4727,6 +5304,7 @@ def _ring_rank(seed):
     from mxnet_tpu_torch.parallel import make_mesh
     from mxnet_tpu_torch.parallel.ring_attention import _Ring, \
         ring_attention
+    full_fp32(torch)
     rank, world = dist.get_rank(), dist.get_world_size()
     full = _ring_inputs(torch, seed)
     sl = RING['tokens'] // world
@@ -4758,12 +5336,29 @@ def _ring_rank(seed):
             (plain.cpu() - res['out', causal]).abs().max())
         del plain
     torch.cuda.empty_cache()
+    # the backward: the ring under autograd, its gradient of a seeded
+    # cotangent; the forward's stats launches counted again
+    hg = RING_GRAD_HEADS
+    w = _ring_inputs(torch, seed + 1)[0][:, :hg, rank * sl:(rank + 1) * sl]
+    for causal in (True, False):
+        leaves = [x[:, :hg].detach().clone().requires_grad_()
+                  for x in (q, k, v)]
+        dist.barrier()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ring_attention(*leaves, mesh, causal=causal).backward(w)
+        torch.cuda.synchronize()
+        res['grad_ms', causal] = (time.perf_counter() - t0) * 1e3
+        res['grad_launches', causal] = kernels.launch_counts()
+        res['grads', causal] = [x.grad.cpu() for x in leaves]
+        del leaves
+        torch.cuda.empty_cache()
     # the rotation alone, every rank at once: the staging (two pinned
     # host buffers and the copy of this rank's K/V into one), then world -
     # 1 steps of the K/V block through gloo and back onto the card
     dist.barrier()
     t0 = time.perf_counter()
-    ring = _Ring(k, v, mesh.get_group('sp'))
+    ring = _Ring([k, v], mesh.get_group('sp'))
     t1 = time.perf_counter()
     for _ in range(world - 1):
         ring.start()
@@ -4813,11 +5408,12 @@ def phase_ring(torch, seed):
                     by_design.setdefault(name, {}).setdefault(d, 0)
                     by_design[name][d] += c
             got = r['launches', causal]['flash_attention_stats']
+            grad = r['grad_launches', causal]
             want = r['rank'] + 1 if causal else n
-            if got != want:
+            if got != want or grad != dict(r['launches', causal]):
                 fail(f'ring: rank {r["rank"]} launched the stats kernel '
                      f'{got} times {"causal" if causal else "full"}, want '
-                     f'{want}')
+                     f'{want}; under autograd {grad}')
             for name, c in r['launches', causal].items():
                 counts[name] += c
         log(f'[ring] rank {r["rank"]}: host ms causal '
@@ -4830,7 +5426,10 @@ def phase_ring(torch, seed):
             f'transport ms {r["transport_ms"]:.2f} for {n - 1} rotations '
             f'(after {r["staging_ms"]:.2f} ms of staging set-up); '
             f'flash vs plain max err {r["plain_err", True]:.3e} / '
-            f'{r["plain_err", False]:.3e}')
+            f'{r["plain_err", False]:.3e}; forward and backward under '
+            f'autograd host ms causal {r["grad_ms", True]:.2f} full '
+            f'{r["grad_ms", False]:.2f} (the same stats launches, a plain '
+            f'backward)')
     tol = (1e-4, 1e-4)
     q, k, v = (x.view(RING['heads'], RING['tokens'], RING['head_dim'])
                for x in _ring_inputs(torch, seed))
@@ -4857,9 +5456,47 @@ def phase_ring(torch, seed):
         if not perr <= 1e-4:
             fail(f'ring: the flash path and the plain path part by {perr}')
         del got
+        ring_grad_checks(torch, flash_attention, ranks, q, k, v, scale,
+                         causal, seed)
     del q, k, v
     torch.cuda.empty_cache()
     return counts, by_design
+
+
+def ring_grad_checks(torch, flash_attention, ranks, q, k, v, scale, causal,
+                     seed):
+    """The ranks' q, k and v gradients of the first ``RING_GRAD_HEADS``
+    heads, gathered, against autograd through plain dense attention over
+    the whole sequence, at rtol 1e-4 and an atol of 1e-4 of each gradient's largest
+    entry: the ring sums each gradient over 4 blocks of 2048 keys from
+    the 3xTF32 kernel's statistics, dense attention over 8192 keys in one
+    pass; fp32 sums of 8192 terms in two orders part by about 1e-6 of
+    their largest term, and the tolerance leaves two orders of margin."""
+    hg = RING_GRAD_HEADS
+    cot = _ring_inputs(torch, seed + 1)[0].view_as(q)[:hg]
+    leaves = [x[:hg].detach().clone().requires_grad_() for x in (q, k, v)]
+    flash_attention.flash_attention_plain(*leaves, scale,
+                                          causal).backward(cot)
+    errs, ok = [], True
+    for i, name in enumerate('qkv'):
+        got = torch.cat([r['grads', causal][i] for r in ranks],
+                        dim=2).cuda().view_as(leaves[i])
+        want = leaves[i].grad
+        err, good = compare(torch, got, want, 1e-4,
+                            1e-4 * float(want.abs().max()))
+        errs.append((f'd{name}', float(f'{err:.3g}'),
+                     float(f'{float(want.abs().max()):.3g}')))
+        ok = ok and good
+        del got
+    del leaves, cot
+    torch.cuda.empty_cache()
+    log(f'[ring] {"causal" if causal else "full"}: gathered gradients of '
+        f'heads 0-{hg - 1} vs autograd through plain dense attention over '
+        f'{RING["tokens"]} tokens, (max_abs_err, max |want|): {errs} (rtol '
+        f'1e-4, atol 1e-4 of the largest) -> {"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail('ring: the backward ring\'s gradients disagree with dense '
+             'attention\'s')
 
 
 # ------------------------------------------------------------- rtc
@@ -5069,6 +5706,13 @@ def main(argv=None):
         del got
         torch.cuda.empty_cache()
         optim_parity(torch, SEED + 19)
+    if 'dist' in phases:        # counted in the ranks, which return counts
+        paths['dist'], designs['dist'], got = phase_dist(torch, SEED + 20)
+        log(f'[dist] launches {paths["dist"]}; by design {designs["dist"]}')
+        check_designs('dist', paths['dist'], designs['dist'])
+        dist_costs(torch, got)
+        del got
+        torch.cuda.empty_cache()
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')

@@ -20,7 +20,8 @@ The imperative frontend is the reference's::
 ``mx.autograd`` runs on ``torch.autograd``. ``mx.gluon`` has the blocks,
 layers, losses and Trainer, ``mx.init`` (``mx.initializer``) the
 initializers, ``mx.io`` the data iterators, ``mx.metric`` the
-evaluation metrics and ``mx.amp`` mixed precision.
+evaluation metrics, ``mx.amp`` mixed precision and ``mx.kvstore``
+the key-value stores that data-parallel training reduces through.
 """
 
 from .base import MXNetError
@@ -42,8 +43,9 @@ from . import metric
 from . import io
 from . import gluon
 from . import amp
+from . import kvstore
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'num_gpus',
            'current_context', 'np', 'npx', 'nd', 'autograd', 'random',
            'NDArray', 'waitall', 'initializer', 'init', 'model', 'metric',
-           'io', 'gluon', 'amp']
+           'io', 'gluon', 'amp', 'kvstore']

@@ -29,7 +29,9 @@ is that program's VJP; here, on a CUDA device:
   their grad buffers. A second recorded call of a key while the first
   still waits for its backward would overwrite the activations that
   backward reads: it runs eagerly instead, and ``eager_call_count``
-  counts it. ``create_graph=True`` through a replayed node raises;
+  counts it, as it counts the training-mode calls of a block that runs
+  collectives (``SyncBatchNorm`` over several processes), which cannot
+  be captured. ``create_graph=True`` through a replayed node raises;
 * a key's first call is the capture's warm-up and the call's real answer
   (BatchNorm's running statistics move once); the graphs of a key are
   captured once, and again only if a parameter's leaf was replaced
@@ -536,11 +538,26 @@ class _CachedGraph:
                 self.compiles += 1
             if not _graphs.can_capture(dev):
                 out = self._eager(key, spec, in_nds)
+            elif train_mode and self._syncs():
+                # a collective (SyncBatchNorm) cannot be captured
+                self.eager_calls += 1
+                out = self._eager(key, spec, in_nds)
             elif recording:
                 out = self._recorded(key, entry, spec, in_nds, params, dev)
             else:
                 out = self._replay(key, entry, spec, in_nds, params, dev)
         return self._monitor(out)
+
+    def _syncs(self):
+        """True when a block of this one runs collectives in training
+        (``SyncBatchNorm`` over several processes)."""
+        stack = [self.block]
+        while stack:
+            b = stack.pop()
+            if getattr(b, 'syncs', None) is not None and b.syncs():
+                return True
+            stack.extend(b._children.values())
+        return False
 
     def _monitor(self, out):
         for cb in self._monitor_callbacks:
@@ -853,8 +870,9 @@ class HybridBlock(Block):
 
     @property
     def eager_call_count(self):
-        """Recorded calls run eagerly because a replay of their key still
-        waited for its backward (see the module docstring)."""
+        """Calls run eagerly on the card: recorded calls whose key's replay
+        still waited for its backward, and training-mode calls of a block
+        that runs collectives (see the module docstring)."""
         return self._cached_graph.eager_calls if self._cached_graph else 0
 
     def infer_shape(self, *args):

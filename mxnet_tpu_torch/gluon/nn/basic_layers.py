@@ -1,17 +1,21 @@
 """Core layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``,
 reference python/mxnet/gluon/nn/basic_layers.py): Sequential, Dense,
-Dropout, BatchNorm, LayerNorm, RMSNorm, GroupNorm, InstanceNorm,
+Dropout, BatchNorm, SyncBatchNorm, LayerNorm, RMSNorm, GroupNorm,
+InstanceNorm,
 Embedding, Flatten, Identity, Lambda and Concatenate. Each goes through
 the registered ops (``layer_norm`` and ``rms_norm`` reach the fused norm
 kernel on the card). Unknown ``in_units``/``in_channels`` (0) resolve at
 the first forward, as in the reference.
 """
 
+import torch
+import torch.distributed as dist
+
 from .activations import Activation
 from ..block import Block, HybridBlock, record_aux_update
 from ..parameter import Parameter
 from ...base import MXNetError
-from ...ops.registry import invoke
+from ...ops.registry import apply_op, get_op, invoke
 from ... import _tape
 
 __all__ = ['Sequential', 'HybridSequential', 'Dense', 'Dropout', 'BatchNorm',
@@ -193,13 +197,104 @@ class BatchNormReLU(BatchNorm):
         return _op('relu', super().forward(x))
 
 
+def _sync_world():
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _allreduce(t):
+    """The sum of ``t`` over the processes of the default group."""
+    from ...kvstore.fusion import CrossProcess
+    flat = t.reshape(-1).contiguous()
+    return CrossProcess.get().psum(flat).view(t.shape)
+
+
+class _SyncBatchNormFn(torch.autograd.Function):
+    """Training-mode BatchNorm over the whole batch of every rank: the
+    per-channel count, sum and sum of squares are all-reduced in the
+    forward, and the two per-channel sums of the backward (of dy and of dy
+    x xhat) in the backward. The gamma and beta gradients stay this
+    rank's share, as every gradient does until the kvstore sums them."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, axis, fix_gamma):
+        red = tuple(i for i in range(x.dim()) if i != axis)
+        shape = [1] * x.dim()
+        shape[axis] = -1
+        n = x.numel() // x.shape[axis]
+        stats = torch.cat([x.sum(red, dtype=torch.float64),
+                           (x * x).sum(red, dtype=torch.float64),
+                           x.new_full((1,), n, dtype=torch.float64)])
+        stats = _allreduce(stats)
+        c = x.shape[axis]
+        count = stats[2 * c]
+        mean = stats[:c] / count
+        var = (stats[c:2 * c] / count - mean * mean).clamp_min(0)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        g = torch.ones_like(gamma) if fix_gamma else gamma
+        out = xhat * g.view(shape) + beta.view(shape)
+        ctx.save_for_backward(xhat, invstd, g)
+        ctx.red, ctx.shape, ctx.count = red, shape, count
+        ctx.fix_gamma = fix_gamma
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, g = ctx.saved_tensors
+        red, shape = ctx.red, ctx.shape
+        sum_dy = dy.sum(red)
+        sum_dy_xhat = (dy * xhat).sum(red)
+        both = _allreduce(torch.cat([sum_dy, sum_dy_xhat]))
+        c = sum_dy.numel()
+        n = ctx.count.to(dy.dtype)
+        dx = (g * invstd).view(shape) * (
+            dy - (both[:c] / n).view(shape)
+            - xhat * (both[c:] / n).view(shape))
+        dgamma = torch.zeros_like(g) if ctx.fix_gamma else sum_dy_xhat
+        return dx, dgamma, sum_dy, None, None, None
+
+
 class SyncBatchNorm(BatchNorm):
-    """Cross-device BatchNorm: needs the distributed kvstore and its
-    collectives (ROADMAP A10)."""
+    """Cross-device BatchNorm (reference src/operator/contrib/
+    sync_batch_norm-inl.h). The JAX package runs SPMD, where the batch
+    axis is a mesh axis and plain BatchNorm's statistics are already over
+    the whole batch; the port runs one process a rank, so in training this
+    layer all-reduces the per-channel count, sum and sum of squares over
+    the default process group, and its backward the two per-channel sums
+    (:class:`_SyncBatchNormFn`). With one process it is ``BatchNorm``. The
+    collectives cannot run inside a CUDA graph capture: a hybridized net
+    that holds one runs its training-mode calls eagerly on the card, and
+    counts them in ``eager_call_count``."""
 
     def __init__(self, in_channels=0, num_devices=None, **kwargs):
-        raise MXNetError('SyncBatchNorm needs statistics across devices, '
-                         'which the port does not have yet (ROADMAP A10)')
+        super().__init__(in_channels=in_channels, **kwargs)
+
+    def syncs(self):
+        """True when a training-mode call runs collectives."""
+        return not self._use_global_stats and _sync_world() > 1
+
+    def forward(self, x):
+        if not (_tape.is_training() and self.syncs()):
+            return super().forward(x)
+        if self.gamma.shape[0] == 0:
+            _finish(x.shape[self._axis], self.gamma, self.beta,
+                    self.running_mean, self.running_var)
+        axis, eps, fix = self._axis % x.ndim, self._epsilon, not self._scale
+        out, mean, var = apply_op(
+            get_op('batch_norm_train'),
+            [x, self.gamma.data(), self.beta.data()],
+            lambda x_, g, b: _SyncBatchNormFn.apply(x_, g, b, eps, axis, fix))
+        m = self._momentum
+        record_aux_update(self.running_mean,
+                          self.running_mean.data() * m
+                          + mean.detach() * (1 - m))
+        record_aux_update(self.running_var,
+                          self.running_var.data() * m
+                          + var.detach() * (1 - m))
+        return out
 
 
 class LayerNorm(HybridBlock):

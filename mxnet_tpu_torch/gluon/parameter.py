@@ -25,7 +25,16 @@ into it, and a write through the NDArray handle (``p.data()[:] = v``),
 which rebinds the handle to a fresh tensor as NDArray writes do, is
 copied back into the leaf the next time ``data()`` is read.
 
-One device: a list of several contexts raises (ROADMAP A10).
+Several contexts (``initialize(ctx=[gpu(0), gpu(1)])``, the reference's
+single-process data parallelism, JAX ``parameter.py:150-265``) give one
+replica a context: the first context's is the leaf above, each other one
+a leaf of its own with its own grad buffer. ``data()`` and ``grad()``
+with no context are the first replica's, which blocks read, as the JAX
+package's blocks do; ``data(ctx)``, ``list_data()``, ``list_grad()`` and
+``list_ctx()`` reach the others, and ``set_data`` writes every one. The
+Trainer sums the replicas' gradients through its kvstore and writes the
+update to each. ``cpu(i)`` contexts are distinct replicas on the host,
+as the JAX package's virtual CPU devices are.
 """
 
 import contextlib
@@ -70,19 +79,83 @@ class DeferredInitializationError(MXNetError):
     parameter.py:DeferredInitializationError)."""
 
 
-def _one_ctx(ctx):
+def _ctx_list(ctx):
+    """``ctx`` (None for the current context, a Context or a list of
+    them) as a list of distinct Contexts."""
     if ctx is None:
-        return current_context()
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError(
-                f'parameters on several contexts {list(ctx)}: the port '
-                f'keeps a parameter on one device (data-parallel replicas '
-                f'are ROADMAP A10)')
-        ctx = ctx[0]
-    if not isinstance(ctx, Context):
-        raise TypeError(f'ctx must be a Context, got {ctx!r}')
-    return ctx
+        return [current_context()]
+    ctxs = list(ctx) if isinstance(ctx, (list, tuple)) else [ctx]
+    if not ctxs:
+        raise ValueError('ctx is an empty list')
+    for c in ctxs:
+        if not isinstance(c, Context):
+            raise TypeError(f'ctx must be a Context, got {c!r}')
+    if len(set(ctxs)) != len(ctxs):
+        raise ValueError(f'ctx lists a context twice: {ctxs}')
+    return ctxs
+
+
+def _new_leaf(value, grad_req):
+    """A leaf holding ``value`` (detached), its autograd record and its
+    NDArray handle; the record's hook moves each gradient into the grad
+    buffer."""
+    value = value.detach().clone()
+    floating = value.is_floating_point() or value.is_complex()
+    var = torch.nn.Parameter(value, requires_grad=floating)
+    info = _tape.AGInfo(grad=None, grad_req=grad_req)
+    if floating:
+        var.register_post_accumulate_grad_hook(_tape._write_grad(info))
+    return var, NDArray(var), info
+
+
+def _reset_grad(var, data, info, grad_req):
+    """A zero grad buffer and the variable's marking, or neither for
+    ``grad_req='null'``. A buffer that fits the leaf is zeroed in place,
+    so that it keeps its address."""
+    info.grad_req = grad_req
+    if grad_req == 'null':
+        var.requires_grad_(False)
+        info.grad = info.buf = None
+        data._ag = None
+        return
+    var.requires_grad_(True)
+    buf = info.buf
+    if buf is not None and buf.shape == var.shape and \
+            buf.dtype == var.dtype and buf.device == var.device:
+        with torch.no_grad():
+            buf.zero_()
+        if info.grad is None:
+            info.grad = NDArray(buf)
+        info.grad._data = buf
+    else:
+        info.grad = NDArray(torch.zeros_like(var).detach())
+        info.buf = info.grad._data
+    data._ag = info
+
+
+def _sync_leaf(var, data, info, grad_req):
+    """The leaf, after taking back a value written through its handle."""
+    if data._data is not var:
+        with torch.no_grad():
+            var.copy_(data._data)
+        data._data = var
+        data._ag = info if grad_req != 'null' else None
+    return var
+
+
+class _Replica:
+    """The leaf of a parameter on a context after the first."""
+
+    __slots__ = ('ctx', 'var', 'data', 'info')
+
+    def __init__(self, ctx, value, grad_req):
+        self.ctx = ctx
+        self.var, self.data, self.info = _new_leaf(
+            value.to(ctx.to_torch()), grad_req)
+        _reset_grad(self.var, self.data, self.info, grad_req)
+
+    def sync(self, grad_req):
+        return _sync_leaf(self.var, self.data, self.info, grad_req)
 
 
 class Parameter:
@@ -110,6 +183,8 @@ class Parameter:
         self._var = None    # the torch.nn.Parameter leaf
         self._data = None   # the NDArray handle over it
         self._info = None   # its autograd record: grad buffer, grad_req
+        self._ctxs = None   # its contexts, the leaf's first
+        self._replicas = []     # a _Replica for each context after it
         self._deferred_init = None
         self._structure_name = None  # set by Block.collect_params
 
@@ -171,7 +246,7 @@ class Parameter:
         if self._var is not None and not force_reinit:
             return
         default_init = default_init or initializer.Uniform()
-        ctx = _one_ctx(ctx)
+        ctx = _ctx_list(ctx)
         if not self._shape_known():
             if self._allow_deferred_init:
                 self._deferred_init = (init, ctx, default_init)
@@ -187,14 +262,14 @@ class Parameter:
             init = initializer.create(init)
         proto = NDArray(torch.zeros(self._shape,
                                     dtype=_dtypes.to_torch(self.dtype),
-                                    device=ctx.to_torch()))
+                                    device=ctx[0].to_torch()))
         desc = initializer.InitDesc(self.name, {'__init__': ''})
         if isinstance(init, initializer.Initializer):
             init(desc, proto)
         else:
             init(proto)
         self._deferred_init = None
-        self._bind(proto._data)
+        self._bind(proto._data, ctx)
 
     def _finish_deferred_init(self):
         """Reference parameter.py:336: called once the shape is known."""
@@ -212,46 +287,26 @@ class Parameter:
         init, ctx, default_init = self._deferred_init
         self._finish_init(init, ctx, default_init)
 
-    def _bind(self, value):
-        """Make a new leaf holding ``value`` (detached) the payload."""
-        value = value.detach().clone()
-        floating = value.is_floating_point() or value.is_complex()
-        if not floating:
+    def _bind(self, value, ctxs=None):
+        """Make a new leaf holding ``value`` (detached) the payload, and a
+        replica of it on each context of ``ctxs`` after the first
+        (default: the contexts it has)."""
+        if not (value.is_floating_point() or value.is_complex()):
             self._grad_req = 'null'
-        self._var = torch.nn.Parameter(value, requires_grad=floating)
-        self._info = _tape.AGInfo(grad=None, grad_req=self._grad_req)
-        if floating:
-            self._var.register_post_accumulate_grad_hook(
-                _tape._write_grad(self._info))
-        self._data = NDArray(self._var)
+        self._var, self._data, self._info = _new_leaf(value, self._grad_req)
+        ctxs = ctxs or self._ctxs or [self._data.context]
+        self._ctxs = list(ctxs)
+        self._replicas = [_Replica(c, self._var, self._grad_req)
+                          for c in ctxs[1:]]
         self._init_grad()
 
     def _init_grad(self):
-        """A zero grad buffer and the variable's marking, or neither for
-        ``grad_req='null'`` (reference parameter.py:151 ``_init_grad``). A
-        buffer that fits the leaf is zeroed in place, so that it keeps its
-        address."""
-        info = self._info
-        info.grad_req = self._grad_req
-        if self._grad_req == 'null':
-            self._var.requires_grad_(False)
-            info.grad = info.buf = None
-            self._data._ag = None
-            return
-        self._var.requires_grad_(True)
-        buf = info.buf
-        if buf is not None and buf.shape == self._var.shape and \
-                buf.dtype == self._var.dtype and \
-                buf.device == self._var.device:
-            with torch.no_grad():
-                buf.zero_()
-            if info.grad is None:
-                info.grad = NDArray(buf)
-            info.grad._data = buf
-        else:
-            info.grad = NDArray(torch.zeros_like(self._var).detach())
-            info.buf = info.grad._data
-        self._data._ag = info
+        """Zero grad buffers and the variables' marking, or neither for
+        ``grad_req='null'`` (reference parameter.py:151 ``_init_grad``),
+        on every replica; buffers keep their address."""
+        _reset_grad(self._var, self._data, self._info, self._grad_req)
+        for r in self._replicas:
+            _reset_grad(r.var, r.data, r.info, self._grad_req)
 
     # ------------------------------------------------------------------ access
     def _check_initialized(self):
@@ -269,49 +324,65 @@ class Parameter:
     def _sync(self):
         """The leaf, after taking back a value written through the NDArray
         handle (a write rebinds the handle; the leaf keeps its address)."""
-        nd = self._data
-        if nd._data is not self._var:
-            with torch.no_grad():
-                self._var.copy_(nd._data)
-            nd._data = self._var
-            nd._ag = self._info if self._grad_req != 'null' else None
-        return self._var
+        return _sync_leaf(self._var, self._data, self._info, self._grad_req)
+
+    def _replica(self, ctx):
+        """The replica of ``ctx``: None for the first context, else its
+        :class:`_Replica`; raises for a context the parameter is not on."""
+        if ctx is None or ctx == self._ctxs[0]:
+            return None
+        for r in self._replicas:
+            if r.ctx == ctx:
+                return r
+        raise RuntimeError(
+            f'Parameter {self.name} was not initialized on context {ctx}. '
+            f'It was only initialized on {self._ctxs}.')
 
     def data(self, ctx=None):
-        """The value as an NDArray that is an autograd variable (reference
+        """The value on ``ctx`` (default: the first context's) as an
+        NDArray that is an autograd variable (reference
         parameter.py:567)."""
         sub = substitute(self)
         if sub is not None:
             return sub
         self._check_initialized()
-        if ctx is not None and ctx != self._data.context:
-            raise RuntimeError(
-                f'Parameter {self.name} was not initialized on context '
-                f'{ctx}. It was only initialized on {[self._data.context]}.')
+        rep = self._replica(ctx)
+        if rep is not None:
+            rep.sync(self._grad_req)
+            return rep.data
         self._sync()
         return self._data
 
     def list_data(self):
-        return [self.data()]
+        """The value on every context, in ``list_ctx()``'s order."""
+        return [self.data(c) for c in self.list_ctx()]
+
+    def _datas(self):
+        """Every replica's leaf (synced), the first context's first."""
+        return [self._sync()] + [r.sync(self._grad_req)
+                                 for r in self._replicas]
 
     def grad(self, ctx=None):
-        """The gradient buffer (reference parameter.py:604)."""
+        """The gradient buffer on ``ctx`` (reference parameter.py:604)."""
         self._check_initialized()
         if self._info.grad is None:
             raise RuntimeError(
                 f'Cannot get gradient array for Parameter {self.name} '
                 'because grad_req="null"')
-        return self._info.grad
+        rep = self._replica(ctx)
+        return self._info.grad if rep is None else rep.info.grad
 
     def list_grad(self):
         self._check_initialized()
-        return [] if self._info.grad is None else [self._info.grad]
+        if self._info.grad is None:
+            return []
+        return [self._info.grad] + [r.info.grad for r in self._replicas]
 
     def list_ctx(self):
         if self._var is None and self._deferred_init is not None:
-            return [self._deferred_init[1]]
+            return list(self._deferred_init[1])
         self._check_initialized()
-        return [self._data.context]
+        return list(self._ctxs)
 
     def set_data(self, data):
         """Set the value (reference parameter.py:set_data): copied into the
@@ -325,44 +396,54 @@ class Parameter:
             else:
                 ctx = data.context if isinstance(data, NDArray) \
                     else current_context()
-                self._finish_init(initializer.Zero(), ctx, None)
+                self._finish_init(initializer.Zero(), [ctx], None)
         if isinstance(data, NDArray):
             src = data._data
         elif torch.is_tensor(data):
             src = data
         else:
             src = torch.from_numpy(_np.array(data))
-        self._sync()
         with torch.no_grad():
-            self._var.copy_(src.detach().reshape(self._var.shape))
+            for var in self._datas():
+                var.copy_(src.detach().reshape(var.shape))
         if self._grad_req != 'null':
             self._init_grad()
 
     def zero_grad(self):
-        """Zero the grad buffer in place."""
+        """Zero every grad buffer in place."""
         if self._info is None or self._info.grad is None:
             return
-        self._info.grad._data = self._info.buf
-        with torch.no_grad():
-            self._info.buf.zero_()
+        for info in [self._info] + [r.info for r in self._replicas]:
+            info.grad._data = info.buf
+            with torch.no_grad():
+                info.buf.zero_()
 
     def _grad_buffer(self):
         """The grad buffer, after taking back a value written through its
         handle; None for ``grad_req='null'``."""
         return _tape.sync_grad(self._info)
 
+    def _grad_buffers(self):
+        """Every replica's grad buffer (synced), the first context's
+        first; empty for ``grad_req='null'``."""
+        if self._info is None or self._info.grad is None:
+            return []
+        return [_tape.sync_grad(i) for i in
+                [self._info] + [r.info for r in self._replicas]]
+
     def reset_ctx(self, ctx):
-        """Move the value to ``ctx``: a new leaf there (a block's captured
-        graphs notice the new address and capture again)."""
-        ctx = _one_ctx(ctx)
+        """Move the value to ``ctx`` (a context or a list): new leaves
+        there (a block's captured graphs notice the new address and
+        capture again)."""
+        ctx = _ctx_list(ctx)
         if self._var is not None:
-            self._bind(self._sync().detach().to(ctx.to_torch()))
+            self._bind(self._sync().detach().to(ctx[0].to_torch()), ctx)
         elif self._deferred_init is not None:
             init, _, default_init = self._deferred_init
             self._deferred_init = (init, ctx, default_init)
 
     def cast(self, dtype):
-        """Cast the value to ``dtype``: a new leaf (see :meth:`reset_ctx`)."""
+        """Cast the value to ``dtype``: new leaves (see :meth:`reset_ctx`)."""
         self.dtype = dtype
         if self._var is None:
             return
@@ -397,6 +478,7 @@ class Constant(Parameter):
                    force_reinit=False):
         if self._var is not None and not force_reinit:
             return
-        ctx = _one_ctx(ctx)
+        ctx = _ctx_list(ctx)
         self._bind(torch.as_tensor(self._value).to(
-            device=ctx.to_torch(), dtype=_dtypes.to_torch(self.dtype)))
+            device=ctx[0].to_torch(), dtype=_dtypes.to_torch(self.dtype)),
+            ctx)

@@ -4,18 +4,38 @@ Gluon :class:`.Parameter`s (``net.collect_params()``) or
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py`` (``__init__``,
 ``learning_rate``, ``set_learning_rate``, ``step``, ``allreduce_grads``,
-``update``, the dense branch of ``_update`` with its fused update, and
+``update``, the dense branch of ``_update`` with its fused update, the
+kvstore path ``_init_kvstore``/``_init_params``/``_allreduce_grads`` and
 ``state_dict``/``load_state_dict``/``save_states``/``load_states``).
 ``step(batch_size)`` rescales the gradients by ``1 / batch_size``
-(``rescale_grad``) and runs the optimizer once per parameter; Adam and SGD
-with momentum each launch their fused kernel once per parameter. On one
-device there is nothing to reduce, so the kvstore may only be
-``'device'`` or ``None``; the distributed kvstores, gradient compression
-and row-sparse gradients are not ported yet. ``mx.amp.unscale`` arms
+(``rescale_grad``), reduces them through the kvstore and runs the
+optimizer once per parameter; Adam and SGD with momentum each launch their
+fused kernel once per parameter. Row-sparse gradients are not ported yet
+(ROADMAP A3 rest). ``mx.amp.unscale`` arms
 ``_amp_skip_update`` after a gradient overflow, and the next step then
 updates nothing, as the reference's ``_update`` skips
 (``mxnet_tpu/gluon/trainer.py:234-237``): no weight, slot or update count
 moves, and no captured update graph replays.
+
+The kvstore (``mxnet_tpu/gluon/trainer.py:82-221``) is made at the first
+step: ``kvstore='device'`` (the default) or ``'local'`` sums the gradients
+of a parameter's replicas (``initialize(ctx=[...])``), ``'dist_sync'``
+(``dist_tpu_sync``) also sums them over the processes of the default
+``torch.distributed`` group, one rank a process, with rank 0's initial
+weights broadcast to every rank first (``_init_params``). All dense
+gradients go through one ``fused_pushpull`` with ``priority=-i``, which
+writes the sums into the grad buffers in place, between ``backward()``
+and the update. On a card the update is a captured graph (below) and the
+collectives stay outside it: a collective under gloo cannot be captured
+(it waits for the card on the host), and the transport refuses to run
+inside a capture. With ``update_on_kvstore=True`` the kvstore runs the
+optimizer on its own copy of the weights (under ``dist_sync`` with more
+than one process, the ZeRO-1 update: each key on its owner rank) and
+writes them into the parameters; ``_update`` then skips, and
+``save_states``/``load_states`` go through the kvstore's updater.
+``compression_params`` turn on the kvstore's 2-bit compression. With one
+process, one replica a parameter, no compression and no update on the
+kvstore, the reduction is the identity and is skipped.
 
 A weight that is not fp32 (a net cast to bf16) is updated by the plain
 version of its optimizer's kernel, in fp32, and its slots are fp32
@@ -74,6 +94,9 @@ import torch
 from .. import _graphs, _rng
 from ..base import MXNetError
 from .. import optimizer as opt
+from ..kvstore import create as _create_kvstore
+from ..kvstore.base import KVStoreBase
+from ..ndarray.ndarray import context_of
 from ..ops.kernels.fused_optimizer import hyper_vector
 from ..optimizer import states_into, states_to_host
 from .parameter import Parameter
@@ -91,8 +114,9 @@ def _jax_name(name):
 class Trainer:
     """Apply ``optimizer`` (a name or an :class:`..optimizer.Optimizer`)
     to ``params``: a dict of named parameters (``net.collect_params()``,
-    ``dict(net.named_parameters())``) or a list of them, all on one
-    device."""
+    ``dict(net.named_parameters())``) or a list of them, all on the same
+    contexts, their gradients reduced through ``kvstore`` (a name or a
+    KVStore)."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore='device', compression_params=None,
@@ -106,23 +130,38 @@ class Trainer:
         for param in params:
             if not isinstance(param, (Parameter, torch.nn.Parameter)):
                 raise ValueError(f'invalid parameter {param!r}')
-        devices = sorted({str(_device(p)) for p in params
-                          if _device(p) is not None})
-        if len(devices) > 1:
-            raise MXNetError(f'the Trainer updates parameters on one device; '
-                             f'got {devices}')
-        if kvstore not in (None, '', 'device') or compression_params \
-                or update_on_kvstore:
-            raise MXNetError(
-                f'kvstore={kvstore!r}, compression_params='
-                f'{compression_params!r}, update_on_kvstore='
-                f'{update_on_kvstore!r}: the port trains on one device '
-                f'(kvstore "device" or None); the distributed kvstores '
-                f'are ROADMAP A10')
         self._params = params
         self._names = names
+        self._contexts = self._check_contexts()
         self._init_optimizer(optimizer, optimizer_params or {})
         self._scale = self._optimizer.rescale_grad
+        self._compression_params = compression_params
+        self._kvstore_params = {'kvstore': kvstore,
+                                'update_on_kvstore': update_on_kvstore}
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = None
+        self._params_to_init = list(params)
+
+    def _check_contexts(self):
+        """The contexts every parameter is on (reference trainer.py:
+        _check_contexts); raises when two differ."""
+        contexts = None
+        for i, param in enumerate(self._params):
+            if isinstance(param, Parameter):
+                if param._var is None and param._deferred_init is None:
+                    continue
+                ctx = param.list_ctx()
+            else:
+                ctx = [context_of(param.device)]
+            if contexts is not None and contexts != ctx:
+                name = self._names[i] if self._names else f'#{i}'
+                raise MXNetError(
+                    f'All Parameters must be initialized on the same set of '
+                    f'contexts, but Parameter {name} is on {ctx} while '
+                    f'previous ones are on {contexts}.')
+            contexts = ctx
+        return contexts or []
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -138,6 +177,84 @@ class Trainer:
         self._states = {}
         self._vectors = {}      # live indices -> _Vectors
         self._graphs = {}       # key -> StepGraph of the Gluon updates
+
+    # ---------------------------------------------------------------- kvstore
+    def _init_kvstore(self):
+        """Make the kvstore and decide ``update_on_kvstore`` (reference
+        trainer.py:188): none without a kvstore name or contexts."""
+        kv = self._kvstore_params['kvstore']
+        if kv is None or kv == '' or not self._contexts:
+            self._kvstore = None
+            self._update_on_kvstore = False
+        else:
+            self._kvstore = kv if isinstance(kv, KVStoreBase) else \
+                _create_kvstore(kv)
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
+            self._update_on_kvstore = \
+                bool(self._kvstore_params['update_on_kvstore'])
+            if self._update_on_kvstore:
+                self._kvstore.set_optimizer(self._optimizer)
+        self._kv_initialized = True
+
+    def _reduces(self):
+        """True when the kvstore has work: more than one process or
+        replica, compression, or the update on the kvstore."""
+        kv = self._kvstore
+        return kv is not None and (
+            kv.num_workers > 1 or len(self._contexts) > 1
+            or self._update_on_kvstore or kv.gradient_compression.active)
+
+    def _init_params(self):
+        """Broadcast the initial weights: rank 0's value, first replica,
+        into every replica of every rank (reference trainer.py:
+        _init_params). Parameters whose initialization is still deferred
+        wait for a later step."""
+        waiting = []
+        for param in self._params_to_init:
+            if isinstance(param, Parameter) and param._var is None:
+                if param._deferred_init is not None:
+                    waiting.append(param)
+                continue
+            if self._reduces():
+                vals = _datas(param)
+                self._kvstore.broadcast(self._index(param), vals[0], vals)
+        self._params_to_init = waiting
+
+    def _index(self, param):
+        return next(i for i, p in enumerate(self._params) if p is param)
+
+    def _prepare_kvstore(self):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._params_to_init:
+            self._init_params()
+
+    def _allreduce_grads(self):
+        """Reduce every dense gradient with one ``fused_pushpull``
+        (reference trainer.py:385, ``priority=-i``): the sums go into the
+        grad buffers in place, or, with ``update_on_kvstore``, the updated
+        weights into the parameters."""
+        if not self._reduces():
+            return
+        keys, grads, outs = [], [], []
+        for i, param in enumerate(self._params):
+            if isinstance(param, Parameter):
+                if param.grad_req == 'null' or param._var is None:
+                    continue
+                g = param._grad_buffers()
+            elif param.requires_grad and param.grad is not None:
+                g = [param.grad]
+            else:
+                continue
+            keys.append(i)
+            grads.append(g)
+            outs.append(_datas(param))
+        if keys:
+            self._kvstore.fused_pushpull(
+                keys, grads, outs=outs if self._update_on_kvstore else None,
+                priorities=[-i for i in keys])
 
     # ------------------------------------------------------------ properties
     @property
@@ -158,22 +275,44 @@ class Trainer:
 
     # ------------------------------------------------------------------ step
     def step(self, batch_size, ignore_stale_grad=False):
-        """Reduce the gradients (nothing to do on one device) and update
-        every parameter with ``rescale_grad = scale / batch_size``
-        (reference trainer.py:334)."""
-        self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
+        """Reduce the gradients through the kvstore and update every
+        parameter with ``rescale_grad = scale / batch_size`` (reference
+        trainer.py:334)."""
+        self._check_and_rescale_grad(self._scale / batch_size)
+        self._prepare_kvstore()
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
 
+    def _check_and_rescale_grad(self, scale):
+        if self._update_on_kvstore and self._kv_initialized and \
+                self._kvstore is not None and \
+                self._optimizer.rescale_grad != scale:
+            raise UserWarning('Possible change in the `batch_size` from '
+                              'previous `step` detected.')
+        self._optimizer.rescale_grad = scale
+
     def allreduce_grads(self):
-        """One device holds every gradient: nothing to reduce."""
+        """Reduce the gradients only (reference trainer.py:
+        allreduce_grads); :meth:`update` then applies them."""
+        self._prepare_kvstore()
+        self._allreduce_grads()
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update without reducing (reference trainer.py:update)."""
+        self._prepare_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError('update() cannot be called when '
+                             'update_on_kvstore is set')
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        if self._update_on_kvstore:
+            # the kvstore's updater wrote the weights
+            for param in self._params:
+                if not isinstance(param, Parameter):
+                    param.grad = None            # grad_req='write'
+            return
         if getattr(self, '_amp_skip_update', False):
             # amp.unscale found an overflow: this step updates nothing
             self._amp_skip_update = False
@@ -224,6 +363,10 @@ class Trainer:
                 optim.step(weight, grad, self._states[i], vec.hyper[j])
                 if leaf is not None:
                     leaf.grad = None             # grad_req='write'
+            for i, weight, _, leaf in live:      # the other replicas
+                if leaf is None:
+                    for r in self._params[i]._replicas:
+                        r.sync(self._params[i].grad_req).copy_(weight)
 
     def _graphed_update(self, vec, graphed, device):
         """The Gluon parameters' updates as one graph a key (see the module
@@ -294,13 +437,23 @@ class Trainer:
 
     def save_states(self, fname):
         """Reference trainer.py:482, as the JAX package pickles it
-        (version 2)."""
+        (version 2); with ``update_on_kvstore`` the kvstore's updater
+        states (rank-local under ZeRO-1)."""
+        self._prepare_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=False)
+            return
         with open(fname, 'wb') as f:
             pickle.dump({'version': 2, **self.state_dict()}, f)
 
     def load_states(self, fname):
         """Reference trainer.py:511: a file :meth:`save_states` of either
-        package wrote, or the legacy ``(states, num_update)`` pickle."""
+        package wrote, or the legacy ``(states, num_update)`` pickle; with
+        ``update_on_kvstore`` the kvstore's updater states."""
+        self._prepare_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, 'rb') as f:
             payload = pickle.load(f)
         if isinstance(payload, dict):
@@ -341,6 +494,14 @@ class Trainer:
                                 *optim._index_update_count.values()])
         for vec in self._vectors.values():
             vec.forget()
+
+
+def _datas(param):
+    """Every replica's weight tensor of a parameter, the first context's
+    first."""
+    if isinstance(param, Parameter):
+        return param._datas()
+    return [param.detach()]
 
 
 def _device(param):

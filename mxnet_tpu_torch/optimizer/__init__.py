@@ -789,6 +789,10 @@ class Updater:
         self.aggregate_updates = optimizer.aggregate_num > 0
 
     def __call__(self, index, grad, weight):
+        # the kvstore hands NDArrays, as the reference's does: update the
+        # tensor each holds, in place
+        grad, weight = getattr(grad, '_data', grad), \
+            getattr(weight, '_data', weight)
         state = self.states.get(index)
         if state is None or _is_host(state):
             made = self.optimizer.create_state_multi_precision(index, weight)

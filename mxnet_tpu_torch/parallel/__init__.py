@@ -1,24 +1,25 @@
 """``mx.parallel`` of the port: SPMD over ``torch.distributed``.
 
 Counterpart of the JAX package's ``parallel/``, for what the port has so
-far: the mesh (:mod:`.mesh`), sequence-parallel ring attention
-(:mod:`.ring_attention`), and a local launcher (:mod:`.launch`). The JAX
-package drives every device of a mesh from one program; the port runs one
-process per rank, each holding its own shards, and ranks meet through a
-process group. ``sharded``, ``pipeline``, ``moe``, ``checkpoint`` and
-``split_and_load`` are not ported yet.
+far: the mesh and ``split_and_load`` (:mod:`.mesh`), sequence-parallel
+ring attention with its backward (:mod:`.ring_attention`), and a local
+launcher (:mod:`.launch`). The JAX package drives every device of a mesh
+from one program; the port runs one process per rank, each holding its
+own shards, and ranks meet through a process group (the kvstore's
+``dist_sync`` reduces over the same group). ``sharded``, ``pipeline``,
+``moe`` and ``checkpoint`` are not ported yet (ROADMAP A10 rest).
 """
 
 import datetime as _dt
 import os as _os
 
 from .mesh import (MeshConfig, make_mesh, data_parallel_mesh,
-                   local_devices)
+                   local_devices, split_and_load)
 from . import ring_attention
 from . import launch
 
 __all__ = ['MeshConfig', 'make_mesh', 'data_parallel_mesh', 'local_devices',
-           'ring_attention', 'launch', 'init_distributed',
+           'split_and_load', 'ring_attention', 'launch', 'init_distributed',
            'DEFAULT_TIMEOUT_S']
 
 #: how long a collective may wait for a peer before it fails

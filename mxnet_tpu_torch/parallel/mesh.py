@@ -18,7 +18,8 @@ import torch.distributed as dist
 
 from ..base import MXNetError
 
-__all__ = ['MeshConfig', 'make_mesh', 'data_parallel_mesh', 'local_devices']
+__all__ = ['MeshConfig', 'make_mesh', 'data_parallel_mesh', 'local_devices',
+           'split_and_load']
 
 
 class MeshConfig:
@@ -69,3 +70,37 @@ def make_mesh(config=None, **axes):
 def data_parallel_mesh():
     """A one-dim ``'dp'`` mesh over every rank of the world."""
     return make_mesh(dp=_world())
+
+
+def split_and_load(data, ctx_list=None, batch_axis=0, even_split=True,
+                   mesh=None):
+    """Split a batch across devices (reference gluon/utils.py
+    split_and_load; JAX ``parallel/mesh.py:64-95``), in one of two forms:
+
+    * ``ctx_list``: one slice a context, copied there (the reference's
+      form; :func:`..gluon.utils.split_and_load`);
+    * ``mesh``: this rank's shard of the batch (dim 0) over the mesh's
+      ``'dp'`` dim, on the current context. The JAX package returns one
+      global array sharded on ``dp``; one process a rank holds its shard,
+      and the shards of the ranks in ``dp`` order are the batch. The
+      batch must divide evenly, as a JAX sharding requires.
+    """
+    from ..ndarray.ndarray import NDArray, array
+    if not isinstance(data, NDArray):
+        data = array(data)
+    if mesh is not None:
+        names = tuple(mesh.mesh_dim_names or ())
+        if 'dp' not in names:
+            raise ValueError(f'mesh {names} has no axis \'dp\'')
+        n, rank = mesh.size(names.index('dp')), \
+            mesh.get_local_rank('dp')
+        size = data.shape[0]
+        if size % n:
+            raise ValueError(f'a batch of {size} does not split evenly '
+                             f'over dp = {n}')
+        step = size // n
+        return data[rank * step:(rank + 1) * step]
+    if ctx_list is None:
+        raise ValueError('need ctx_list or mesh')
+    from ..gluon.utils import split_and_load as _split
+    return _split(data, ctx_list, batch_axis, even_split)

@@ -13,8 +13,11 @@ computed and waited for after it, so the transfer overlaps the compute.
 
 The JAX function takes global arrays sharded by ``shard_map``; here SPMD
 is one process per rank, so :func:`ring_attention` takes and returns this
-rank's shards. There is no gradient yet (the backward would rotate dK/dV
-the other way round the ring): under autograd the functions raise.
+rank's shards. Its gradient is the JAX function's (``jax.grad`` through
+the stats form's recomputing vjp and the transposed ``ppermute``): under
+autograd the ring is one node whose backward sends the K/V blocks round
+the ring the other way, each carrying its dK/dV, and recomputes every
+block's share in plain PyTorch.
 """
 
 import torch
@@ -23,6 +26,7 @@ import torch.distributed as dist
 from ..base import MXNetError
 from ..ops.kernels import needs_grad
 from ..ops.kernels.flash_attention import flash_attention_stats
+from ._staging import HostStage, refuse_capture, staged
 
 __all__ = ['ring_attention', 'ring_attention_kernel']
 
@@ -62,70 +66,64 @@ def _merge_stats(m, l, o, acc_b, m_b, l_b):
 
 
 class _Ring:
-    """The rotation of one packed K/V block, ``(2, B, H, S_local, D)``,
-    round the ranks of ``group``: :meth:`start` posts the receive from
-    rank - 1 and the send of the block held now to rank + 1, :meth:`finish`
-    waits for both and returns the block that arrived.
+    """The rotation of one packed block, ``(n, B, H, S_local, D)``, round
+    the ranks of ``group``: :meth:`start` posts the receive from the
+    neighbour on one side and the send of the block held now to the other,
+    :meth:`finish` waits for both and returns the block that arrived. The
+    forward's K/V travel to rank + 1; ``reverse`` sends them to rank - 1,
+    as the backward does.
 
-    The transport follows the group's backend. NCCL takes the CUDA tensors
-    as they are. Gloo takes host tensors: CPU tensors go as they are, and
-    CUDA tensors pass through two pinned host buffers allocated here, once
-    per call (one send, one receive; they swap after each step), with the
-    arrived block copied to the card without blocking the host. Any other
-    pairing raises."""
+    The transport follows the group's backend (``_staging.staged``): NCCL
+    takes the CUDA tensors as they are, gloo host tensors, and CUDA tensors
+    under gloo pass through two pinned host buffers (one send, one
+    receive; they swap after each step), with the arrived block copied to
+    the card without blocking the host."""
 
-    def __init__(self, k, v, group):
-        self.backend = dist.get_backend(group)
+    def __init__(self, parts, group, reverse=False):
         self.group = group
         rank, world = dist.get_rank(group), dist.get_world_size(group)
-        self.send_to = dist.get_global_rank(group, (rank + 1) % world)
-        self.recv_from = dist.get_global_rank(group, (rank - 1) % world)
-        self.device = k.device
-        if self.backend == 'nccl' and k.device.type == 'cuda':
-            self.staged = False
-        elif self.backend == 'gloo':
-            self.staged = k.device.type == 'cuda'
-        else:
-            raise MXNetError(f'ring_attention: backend {self.backend!r} '
-                             f'with {k.device.type} tensors is not taken '
-                             f'(NCCL moves CUDA tensors, gloo host ones)')
-        shape = (2,) + tuple(k.shape)
+        step = -1 if reverse else 1
+        self.send_to = dist.get_global_rank(group, (rank + step) % world)
+        self.recv_from = dist.get_global_rank(group, (rank - step) % world)
+        self.device = parts[0].device
+        self.staged = staged(group, self.device)
+        self.spec = ((len(parts),) + tuple(parts[0].shape), parts[0].dtype)
         if self.staged:
-            self.bufs = [torch.empty(shape, dtype=k.dtype, pin_memory=True)
-                         for _ in range(2)]
-            self.bufs[0][0].copy_(k)        # synchronous: sent next
-            self.bufs[0][1].copy_(v)
-            # the copies to the card that last read each buffer
-            self.copied = [None, None]
+            self.stage = HostStage()
+            self.stage.to_host(0, self.spec, parts)     # sent next
         else:
-            self.bufs = [torch.stack([k, v]), torch.empty(
-                shape, dtype=k.dtype, device=k.device)]
+            self.bufs = [torch.stack(parts), torch.empty(
+                *self.spec[0], dtype=self.spec[1], device=self.device)]
         self.cur = 0            # index of the buffer holding this block
         self.reqs = None
 
-    def start(self):
+    def start(self, held=None):
+        """Post the rotation of the block held now; ``held``, a block on
+        the device that was written since it arrived, replaces it."""
+        refuse_capture('ring_attention')
         nxt = 1 - self.cur
-        if self.staged and self.copied[nxt] is not None:
-            self.copied[nxt].synchronize()   # its last copy to the card
+        if self.staged:
+            # the receive waits until the card has read the buffer; the
+            # send may go while the card still copies from its buffer
+            send = self.stage.to_host(self.cur, held) if held is not None \
+                else self.stage.held(self.cur)
+            recv = self.stage.buffer(nxt, *self.spec)
+        else:
+            if held is not None:
+                self.bufs[self.cur] = held
+            send, recv = self.bufs[self.cur], self.bufs[nxt]
         self.reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.irecv, self.bufs[nxt], self.recv_from,
-                       self.group),
-            dist.P2POp(dist.isend, self.bufs[self.cur], self.send_to,
-                       self.group)])
+            dist.P2POp(dist.irecv, recv, self.recv_from, self.group),
+            dist.P2POp(dist.isend, send, self.send_to, self.group)])
 
     def finish(self):
         for r in self.reqs:
             r.wait()
         self.reqs = None
         self.cur = 1 - self.cur
-        buf = self.bufs[self.cur]
         if not self.staged:
-            return buf[0], buf[1]
-        blk = buf.to(self.device, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        self.copied[self.cur] = ev
-        return blk[0], blk[1]
+            return self.bufs[self.cur]
+        return self.stage.to_device(self.cur, self.device)
 
 
 def _flash_block(q, k, v, scale, diag, m, l, o):
@@ -137,36 +135,24 @@ def _flash_block(q, k, v, scale, diag, m, l, o):
                         lb.view(b, h, sl))
 
 
-def ring_attention_kernel(q, k, v, group, causal=False, use_flash=None):
-    """The per-rank body: attention of this rank's queries over the whole
-    ring's keys. q, k, v: (B, H, S_local, D), this rank's shards, equal
-    shapes; ``group`` the ring's process group (ranks in sequence order).
-
-    ``use_flash`` (default: on CUDA tensors) computes each block with the
-    flash-attention stats kernel; ``False`` takes the blockwise plain path.
-    Under ``causal`` the block of rank ``src`` is full below this rank,
-    diagonal at it and skipped above it, a choice made on the host: rank r
-    computes r + 1 blocks, and ``world`` without ``causal``."""
-    if needs_grad(q, k, v):
-        raise MXNetError('ring_attention has no gradient yet (its backward '
-                         'would rotate dK/dV back round the ring); call it '
-                         'under torch.no_grad() or on tensors that do not '
-                         'require grad')
+def _check(q, k, v):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise MXNetError(f'ring_attention: want q, k, v (B, H, S_local, D) '
                          f'of one shape, got {tuple(q.shape)}, '
                          f'{tuple(k.shape)}, {tuple(v.shape)}')
+
+
+def _ring_forward(q, k, v, group, causal, use_flash):
+    """The forward ring; returns the fp32 output and the final row
+    statistics (m, l) that the backward reads."""
     rank, world = dist.get_rank(group), dist.get_world_size(group)
     b, h, sl, d = q.shape
     scale = d ** -0.5
-    if use_flash is None:
-        use_flash = q.device.type == 'cuda'
-
     qf = q.float().contiguous()
     m = torch.full((b, h, sl), -torch.inf, device=q.device)
     l = torch.zeros((b, h, sl), device=q.device)
     o = torch.zeros((b, h, sl, d), device=q.device)
-    ring = _Ring(k, v, group) if world > 1 else None
+    ring = _Ring([k, v], group) if world > 1 else None
     kb, vb = k, v
     for i in range(world):
         if i < world - 1:       # the last block's successor is never read
@@ -178,14 +164,109 @@ def ring_attention_kernel(q, k, v, group, causal=False, use_flash=None):
             if use_flash:
                 m, l, o = _flash_block(qf, kf, vf, scale, diag, m, l, o)
             else:
-                mask = None
-                if diag:
-                    mask = torch.ones(sl, sl, dtype=torch.bool,
-                                      device=q.device).tril()
+                mask = _diag_mask(sl, q.device) if diag else None
                 m, l, o = _online_block(qf, kf, vf, m, l, o, scale, mask)
         if i < world - 1:
             kb, vb = ring.finish()
-    out = o / l.clamp_min(1e-30)[..., None]
+    return o / l.clamp_min(1e-30)[..., None], m, l
+
+
+def _diag_mask(sl, device):
+    return torch.ones(sl, sl, dtype=torch.bool, device=device).tril()
+
+
+def _block_grads(qf, g, lse, delta, kf, vf, scale, mask):
+    """One block's share of the gradient: the cotangents the merges pass
+    to the block's stats ``(acc_b, m_b, l_b)`` -- ``a_b g``, ``a_b
+    (<g, acc_b> - l_b delta)`` and ``-a_b delta``, with ``a_b = exp(m_b -
+    m) / l`` -- pushed back through the stats form. The terms of ``m_b``
+    cancel, which leaves the softmax's own vjp over the block's keys:
+    ``P = exp(s - lse)``, ``dS = P * (g v^T - delta)``. Returns (dq, dk,
+    dv) of the block, fp32."""
+    s = torch.einsum('bhqd,bhkd->bhqk', qf, kf) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, -torch.inf)
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum('bhqk,bhqd->bhkd', p, g)
+    ds = p * (torch.einsum('bhqd,bhkd->bhqk', g, vf) - delta[..., None])
+    dq = torch.einsum('bhqk,bhkd->bhqd', ds, kf) * scale
+    dk = torch.einsum('bhqk,bhqd->bhkd', ds, qf) * scale
+    return dq, dk, dv
+
+
+def _ring_backward(q, k, v, out, m, l, g, group, causal):
+    """The backward ring. The K/V blocks go round the other way
+    (rank r sends to r - 1), each carrying its dK/dV accumulator: a rank
+    adds its queries' share to the block it holds, so that after ``world``
+    rotations every block is home with the gradient of every query. dQ
+    accumulates where it is. The blocks the causal forward skipped are
+    skipped again. Recomputed in plain PyTorch from the final statistics,
+    as the JAX package's ``_stats_bwd`` recomputes through its XLA twin:
+    no kernel runs here."""
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    sl, d = q.shape[2], q.shape[3]
+    scale = d ** -0.5
+    qf, gf = q.float(), g.float()
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.inf)
+    delta = (gf * out).sum(-1)
+    mask = _diag_mask(sl, q.device) if causal else None
+    dq = torch.zeros_like(qf)
+    blk = torch.stack([k.float(), v.float(), torch.zeros_like(qf),
+                       torch.zeros_like(qf)])
+    ring = _Ring(list(blk), group, reverse=True) if world > 1 else None
+    for i in range(world):
+        src = (rank + i) % world            # whose K/V this rank holds now
+        if not (causal and src > rank):
+            bq, bk, bv = _block_grads(qf, gf, lse, delta, blk[0], blk[1],
+                                      scale, mask if src == rank else None)
+            dq += bq
+            blk[2] += bk
+            blk[3] += bv
+        if ring is not None:    # world rotations bring every block home
+            ring.start(held=blk)
+            blk = ring.finish()
+    return dq.to(q.dtype), blk[2].to(k.dtype), blk[3].to(v.dtype)
+
+
+class _RingAttention(torch.autograd.Function):
+    """The ring as one autograd node: the forward ring, and the backward
+    ring of :func:`_ring_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, use_flash):
+        out, m, l = _ring_forward(q, k, v, group, causal, use_flash)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.group, ctx.causal = group, causal
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _ring_backward(q, k, v, out, m, l, g, ctx.group,
+                                    ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def ring_attention_kernel(q, k, v, group, causal=False, use_flash=None):
+    """The per-rank body: attention of this rank's queries over the whole
+    ring's keys. q, k, v: (B, H, S_local, D), this rank's shards, equal
+    shapes; ``group`` the ring's process group (ranks in sequence order).
+
+    ``use_flash`` (default: on CUDA tensors) computes each block with the
+    flash-attention stats kernel; ``False`` takes the blockwise plain path.
+    Under ``causal`` the block of rank ``src`` is full below this rank,
+    diagonal at it and skipped above it, a choice made on the host: rank r
+    computes r + 1 blocks, and ``world`` without ``causal``.
+
+    Under autograd the ring is one node whose backward runs the ring the
+    other way (:func:`_ring_backward`): every rank must call the backward,
+    as every rank called the forward."""
+    _check(q, k, v)
+    if use_flash is None:
+        use_flash = q.device.type == 'cuda'
+    if needs_grad(q, k, v):
+        return _RingAttention.apply(q, k, v, group, causal, use_flash)
+    out, _, _ = _ring_forward(q, k, v, group, causal, use_flash)
     return out.to(q.dtype)
 
 

@@ -1805,3 +1805,89 @@ def test_replayed_update_graph_reads_a_new_learning_rate(dev, opt):
         else:
             np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-6,
                                        err_msg=k)
+
+
+# ------------------------------------------------ data parallel (gloo)
+def _dist_on_one_card(seed):
+    """A rank sharing cuda:0 with the other over gloo: a pushpull of CUDA
+    tensors through the pinned staging buffers, twice (the buffers are
+    reused), and a dist_sync Trainer whose update graph is replayed after
+    each all-reduce; returns what the parent checks."""
+    import numpy as np
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, kvstore
+    from mxnet_tpu_torch.gluon import nn
+    rank = dist.get_rank()
+    dev = torch.device('cuda', 0)
+    kv = kvstore.create('dist_sync')
+    out = {}
+    for rep in range(2):
+        vals = [_randn(dev, 1000 + 7 * i, seed=seed + rank * 10 + i + rep)
+                for i in range(3)]
+        ptrs = [v.data_ptr() for v in vals]
+        kv.fused_pushpull([0, 1, 2], vals, priorities=[0, -1, -2])
+        out['sums', rep] = [v.cpu() for v in vals]
+        out['kept', rep] = ptrs == [v.data_ptr() for v in vals]
+    out['stage'] = len(kvstore.fusion.CrossProcess.get()._stage._bufs)
+    rng = np.random.default_rng(seed + rank)
+    x = rng.standard_normal((4, 16)).astype(np.float32)
+    y = rng.standard_normal((4, 4)).astype(np.float32)
+    with mx.gpu(0):
+        mx.random.seed(seed)
+        net = nn.HybridSequential(nn.Dense(32, in_units=16,
+                                           activation='tanh'),
+                                  nn.Dense(4, in_units=32))
+        net.initialize(ctx=mx.gpu(0))
+        trainer = gluon.Trainer(net.collect_params(), 'adam',
+                                {'learning_rate': 0.01}, kvstore='dist_sync')
+        grads = []
+        for _ in range(3):
+            with mx.autograd.record():
+                loss = ((net(mx.np.array(x)) - mx.np.array(y)) ** 2).sum()
+            loss.backward()
+            trainer.allreduce_grads()
+            grads.append({k: p.grad()._data.cpu()
+                          for k, p in net.collect_params().items()})
+            trainer.update(4)
+        out['grads'] = grads
+        out['weights'] = {k: p.data()._data.cpu()
+                          for k, p in net.collect_params().items()}
+        out['captures'] = trainer.capture_count
+    return out
+
+
+def test_dist_sync_on_one_card_stages_and_replays(dev):
+    """Two gloo ranks on cuda:0: the pushpull sums of CUDA tensors,
+    written into them in place through reused pinned buffers; the
+    Trainer's update graph, captured once, replayed after each all-reduce
+    reading the reduced gradients (both ranks hold the same sums and the
+    same weights, bit for bit)."""
+    from mxnet_tpu_torch.parallel import launch
+    ranks = launch.spawn(_dist_on_one_card, 2, 3, timeout=300)
+    for rep in range(2):
+        want = [sum(_randn(dev, 1000 + 7 * i, seed=3 + r * 10 + i + rep)
+                    for r in range(2)).cpu() for i in range(3)]
+        for r in ranks:
+            assert r['kept', rep]
+            for got, w in zip(r['sums', rep], want):
+                torch.testing.assert_close(got, w, rtol=0, atol=0)
+    assert all(r['stage'] == ranks[0]['stage'] for r in ranks)
+    assert [r['captures'] for r in ranks] == [1, 1]
+    for step in range(3):
+        for k, g in ranks[0]['grads'][step].items():
+            assert torch.equal(g, ranks[1]['grads'][step][k])
+    for k, w in ranks[0]['weights'].items():
+        assert torch.equal(w, ranks[1]['weights'][k])
+
+
+def test_a_collective_inside_a_capture_raises(dev, monkeypatch):
+    """No captured graph holds a collective: the transport and the ring
+    refuse to run while a stream captures (a collective in a graph would
+    replay without its peers)."""
+    from mxnet_tpu_torch.parallel._staging import refuse_capture
+    refuse_capture('kvstore psum')              # not capturing: runs
+    monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing',
+                        lambda: True)
+    with pytest.raises(MXNetError, match='capture'):
+        refuse_capture('kvstore psum')

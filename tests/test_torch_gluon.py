@@ -283,8 +283,22 @@ def test_embedding_matches_the_jax_layer():
                                jnet(jmx.np.array(ids)).asnumpy(), **TOL)
     with pytest.raises(MXNetError, match='A3'):
         tnn.Embedding(10, 4, sparse_grad=True)
-    with pytest.raises(MXNetError, match='A10'):
-        tnn.SyncBatchNorm()
+    # SyncBatchNorm in one process is BatchNorm, as in the JAX package:
+    # the training-mode output and the running statistics at TOL
+    x = _x((4, 3, 5), 9)
+    jbn, tbn = jgl.nn.SyncBatchNorm(in_channels=3), \
+        tnn.SyncBatchNorm(in_channels=3)
+    jbn.initialize()
+    tbn.initialize()
+    with jag.record():
+        jout = jbn(jmx.np.array(x))
+    with tmx.autograd.record():
+        tout = tbn(tmx.np.array(x))
+    np.testing.assert_allclose(tout.asnumpy(), jout.asnumpy(), **TOL)
+    for name in ('running_mean', 'running_var'):
+        np.testing.assert_allclose(
+            getattr(tbn, name).data().asnumpy(),
+            getattr(jbn, name).data().asnumpy(), **TOL)
 
 
 def test_instancenorm_on_the_last_axis_is_the_moved_axis_1():
@@ -588,8 +602,11 @@ def test_no_card_and_no_ctx_raises(on_cpu):
     with tmx.gpu():
         with pytest.raises(MXNetError, match='CUDA'):
             tnn.Dense(2, in_units=3).initialize()
-    with pytest.raises(MXNetError, match='several'):
-        net.initialize(ctx=[tmx.cpu(), tmx.cpu(1)])
+    # two host contexts are two replicas, as the JAX package's virtual
+    # CPU devices are (tests/test_torch_dist.py holds them to it)
+    net.initialize(ctx=[tmx.cpu(), tmx.cpu(1)])
+    assert net.weight.list_ctx() == [tmx.cpu(0), tmx.cpu(1)]
+    assert len(net.weight.list_data()) == 2
 
 
 def test_cpu_arrays_never_reach_a_kernel():

@@ -93,3 +93,26 @@ def test_the_frontend_with_no_card_and_no_context_raises(monkeypatch):
         mx.np.random.normal(size=(2,))
     with mx.cpu():
         assert mx.np.ones((2, 3)).context == mx.cpu()
+
+
+def test_the_kvstore_package_is_checked_and_loads_no_jax():
+    """``mx.kvstore`` (ported from the JAX package's ``kvstore/``) is
+    among the sources checked above, and importing it with the
+    distributed layers loads no JAX."""
+    kv = sorted(p.name for p in (PACKAGE / 'kvstore').glob('*.py'))
+    assert {'__init__.py', 'base.py', 'kvstore.py', 'fusion.py',
+            'gradient_compression.py', 'tpu.py', 'plugins.py'} <= set(kv)
+    code = (
+        'import sys\n'
+        'from mxnet_tpu_torch import kvstore, parallel\n'
+        'from mxnet_tpu_torch.gluon import Trainer, nn\n'
+        'assert kvstore.create("dist_sync").type == "dist_tpu_sync"\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
