@@ -15,6 +15,8 @@
     python3 chip_smoke.py --phases device,build,qresnet  # int8 ResNet-50
     python3 chip_smoke.py --phases device,build,optim  # the optimizers
     python3 chip_smoke.py --phases device,build,dist,ring  # data parallel
+    python3 chip_smoke.py --phases device,build,dist_async  # the parameter
+                                                  # server
 
 Phases, each of which fails the run on any error:
 
@@ -309,7 +311,36 @@ Phases, each of which fails the run on any error:
                the update, the update's device ms, MB reduced a step,
                samples/s over both ranks, rank 0's busy share, peak
                memory a rank.
-15. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+15. dist_async -- the parameter server (``kvstore.create('dist_async')``)
+               training ``bert_12_768_12`` at (16, 128) a worker with
+               Adam 1e-4 through ``Trainer(kvstore='dist_async',
+               update_on_kvstore=True)``, each server updating its
+               weights on cuda:0 through B5. (a) One worker and its
+               server in this process, 3 steps: losses and weights
+               bit-equal to a ``kvstore=None`` Trainer's from the same
+               weights, with Adam, again under ``DIST_ASYNC_FAULTS``, and
+               with SGD-momentum (B6 on the server); 26 B1, 12 B2 and 156
+               B5 or B6 a step. (b) Two workers
+               (``parallel.launch.spawn``, both on cuda:0, each process
+               holding one of ``MXNET_KVSTORE_NUM_SERVERS=2`` servers, so
+               the word embedding and every other key of 1 MB or more is
+               split between them), 4 steps: the servers' ``push_applied``
+               summed equals workers x steps x (keys + the split keys'
+               extra chunks), and so do the B5 launches summed over both
+               processes; 26 B1 and 12 B2 in every step of every worker;
+               rank 0 captures its forward and backward graphs once, while
+               its server applies rank 1's pushes; after a final barrier
+               both workers pull bit-equal weights; losses finite and
+               falling. (c) (b) again under ``DIST_ASYNC_FAULTS`` (resets
+               after the server applied, a seeded lossy link):
+               ``push_applied`` exactly the fault-free count, retries
+               above 0. (d) Logged beside the card's name and power limit:
+               host ms a step split into forward and backward, push, pull
+               and the rest, the servers' update device ms (CUDA events
+               on each server's stream), MB over the wire, samples/s over
+               both workers, rank 0's busy share (its last step profiled
+               while rank 1 waits at a barrier), peak memory a process.
+16. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -323,7 +354,7 @@ Phases, each of which fails the run on any error:
                k and v gradients of a seeded cotangent must meet autograd
                through plain dense attention (``ring_grad_checks``). Logs each rank's host ms,
                stats-kernel ms and transport ms.
-16. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+17. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
@@ -332,8 +363,15 @@ Phases, each of which fails the run on any error:
 The launch counters are set to 0 just before each of the forward, serve,
 int8, train, ndarray, bert, resnet, bf16, qresnet, optim and rtc phases and read just after
 it (with the optimizer's plain-update counters), and in each
-rank just before and after its ring runs and its dist runs (b) and (c);
-the kernels' line reports their sum. A CUDA graph's replay counts the launches its capture saw
+rank just before and after its ring runs, its dist runs (b) and (c) and
+its dist_async runs (b) and (c) (the dist_async phase's (a) runs in this
+process); the kernels' line reports their sum. Every profiled call (a
+breakdown's step or call) runs in a ``torch.profiler`` session of its own
+whose kernel events must equal, kernel by kernel, the launch counters'
+change over the session: a short profile is taken again (a training step
+from its start, ``Rewind``), at most ``PROFILE_TRIES`` times, and then
+fails its phase; the sessions, and those that lost events, are logged at
+the end (ROADMAP C5). A CUDA graph's replay counts the launches its capture saw
 (``_graphs.StepGraph``). A phase fails if the norm, the int8 product or flash attention (either
 form) ran another design than its Hopper ones on its main path
 (``NEW_DESIGNS``).
@@ -354,7 +392,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
           'train', 'ndarray', 'bert', 'resnet', 'bf16', 'qresnet', 'optim',
-          'dist', 'ring', 'rtc')
+          'dist', 'dist_async', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -1725,7 +1763,8 @@ def profile_breakdown(torch, net, slots=4, depth=1024, chunk=32, reps=5,
                     call()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / reps
-                prof = profiled_calls(torch, call, reps)
+                prof = profiled_calls(torch, call, reps,
+                                      f'{tag} {how} {what}')
                 kernel_breakdown(tag, f'{how} {what}', prof, wall, reps)
                 norm_breakdown(tag, f'{how} {what}', prof, reps)
                 paged = sum(e.count for e in prof.key_averages()
@@ -1771,22 +1810,155 @@ class _Event:
         self.count, self.self_device_time_total = 0, 0.0
 
 
-def profiled_calls(torch, call, reps):
-    """``reps`` calls of ``call()``, each in a ``torch.profiler`` session
-    of its own that opens and closes on an idle card, merged. One session
-    over all of them once lost 2 of 160 paged-decode events of an eager
-    int8 decode step (ROADMAP C5); a session now holds one call's ~2700
-    kernels and no launch near its edges."""
-    profs = []
-    for _ in range(reps):
+def profiled_calls(torch, call, reps, what):
+    """``reps`` calls of ``call()`` (``what``), each in a checked profiler
+    session of its own (:func:`profile_checked`), merged. One session over
+    all of them once lost 2 of 160 paged-decode events of an eager int8
+    decode step; one a call lost events too (ROADMAP C5), hence the
+    check."""
+    def synced():
+        call()
         torch.cuda.synchronize()
-        with profiled() as prof:
-            time.sleep(0.005)
-            call()
-            torch.cuda.synchronize()
-            time.sleep(0.005)
-        profs.append(prof)
-    return _Merged(profs)
+    return _Merged([profile_checked(torch, what, synced)[0]
+                    for _ in range(reps)])
+
+
+#: how many times a profiled call runs before a profile that lost kernel
+#: events fails its phase (ROADMAP C5)
+PROFILE_TRIES = 3
+#: every profiled session of this run: (what, try, {kernel: (events,
+#: launches)} where the two differ; empty when the profile is whole)
+PROFILES = []
+#: a profiler event's kernel symbol -> the port kernel it is a launch of
+#: (flash_fwd_kernel is both forms of B2/B3, told apart by its Stats
+#: template argument; rtc launches a user's kernel, whose name the port
+#: does not know, and no profiled call launches one)
+KERNEL_SYMBOLS = {'fused_norm_kernel': 'fused_norm',
+                  'fused_norm_regs_kernel': 'fused_norm',
+                  'fused_norm_cluster_kernel': 'fused_norm',
+                  'paged_decode_kernel': 'paged_attention_decode',
+                  'adam_kernel': 'adam', 'sgd_mom_kernel': 'sgd_mom',
+                  'int8_matmul_kernel': 'int8_matmul',
+                  'int8_wgmma_kernel': 'int8_matmul',
+                  'flash_fwd_kernel': 'flash_attention'}
+
+
+def _kernel_of(key):
+    """The port kernel a profiler event named ``key`` launched, or None:
+    ``void (anonymous namespace)::flash_fwd_kernel<float, 64, true>(...)``
+    is B3 (the stats form), with ``false`` B2."""
+    name = key.replace('(anonymous namespace)::', '')
+    name = name[5:] if name.startswith('void ') else name
+    base = name.split('<', 1)[0].split('(', 1)[0].split('::')[-1].strip()
+    kernel = KERNEL_SYMBOLS.get(base)
+    if kernel == 'flash_attention' and '<' in name:
+        args = name.split('<', 1)[1].split('>', 1)[0].split(',')
+        if len(args) > 2 and args[2].strip() in ('true', '(bool)1', '1'):
+            return 'flash_attention_stats'
+    return kernel
+
+
+def kernel_events(prof):
+    """``{port kernel: kernel events}`` of a profiler session."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        kernel = _kernel_of(e.key) if e.device_type == DeviceType.CUDA \
+            else None
+        if kernel is not None:
+            out[kernel] = out.get(kernel, 0) + e.count
+    return out
+
+
+def profile_once(torch, what, call):
+    """``call()`` (which ends with a sync of the card) in a
+    ``torch.profiler`` session that opens and closes on an idle card.
+    Returns the profile, what ``call`` returned, its host ms, the launch
+    counters' change over the session, and ``{kernel: (events,
+    launches)}`` for every port kernel whose events differ from its
+    launches (empty when the profile is whole), which is recorded in
+    :data:`PROFILES`."""
+    from mxnet_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    with profiled() as prof:
+        time.sleep(0.005)
+        t0 = time.perf_counter()
+        out = call()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        time.sleep(0.005)
+    launched = _counts_since(kernels, before)
+    events = kernel_events(prof)
+    short = {k: (events.get(k, 0), launched.get(k, 0))
+             for k in sorted(set(events) | set(launched))
+             if k != 'rtc' and events.get(k, 0) != launched.get(k, 0)}
+    PROFILES.append((what, sum(1 for p in PROFILES if p[0] == what) + 1,
+                     short))
+    if short:
+        log(f'[profile] {what}: the session lost kernel events: '
+            + ', '.join(f'{k} {e} events for {n} launches'
+                        for k, (e, n) in short.items()))
+    return prof, out, ms, launched, short
+
+
+def profile_checked(torch, what, call, rewind=None, tries=PROFILE_TRIES):
+    """:func:`profile_once` until a session's kernel events equal the
+    launch counters' change for every port kernel, at most ``tries``
+    times; ``rewind()`` (when given) restores the state ``call`` changes
+    before it runs again. Fails the phase, naming the kernel and both
+    counts, when every try lost events: a short profile never reaches a
+    breakdown. Returns the whole session's profile, what ``call``
+    returned, its host ms and the launches."""
+    for n in range(1, tries + 1):
+        prof, out, ms, launched, short = profile_once(torch, what, call)
+        if not short:
+            return prof, out, ms, launched
+        if n < tries and rewind is not None:
+            rewind()
+    fail(f'{what}: all {tries} profiler sessions lost kernel events; the '
+         f'last: ' + ', '.join(f'{k} {e} events for {n_} launches'
+                               for k, (e, n_) in short.items()))
+
+
+class Rewind:
+    """The state a training step changes, copied aside, so that a step
+    whose profile lost events can run again from the same place: every
+    tensor of the Trainer's parameters (running statistics included) and
+    of its slots, written back in place (a captured graph reads them at
+    their addresses), and the optimizer's update counts. The Trainer's
+    device ``t`` vector then holds the counts the step runs at again, so
+    it uploads nothing."""
+
+    def __init__(self, torch, trainer):
+        from mxnet_tpu_torch.gluon.trainer import _datas, _flat_state
+        self.torch = torch
+        self.tensors = [t.detach() for p in trainer._params
+                        for t in _datas(p)]
+        self.tensors += [t for st in trainer._states.values()
+                         for t in _flat_state(st)]
+        self.saved = [t.clone() for t in self.tensors]
+        self.opt = trainer._optimizer
+        self.counts = (dict(self.opt._index_update_count),
+                       self.opt.num_update)
+
+    def __call__(self):
+        with self.torch.no_grad():
+            for t, s in zip(self.tensors, self.saved):
+                t.copy_(s)
+        self.opt._index_update_count = dict(self.counts[0])
+        self.opt.num_update = self.counts[1]
+
+
+def profile_summary():
+    """Log every profiled session of the run: how many, and which lost
+    kernel events (ROADMAP C5)."""
+    lost = [(w, n, s) for w, n, s in PROFILES if s]
+    log(f'[profile] {len(PROFILES)} profiler sessions, {len(lost)} lost '
+        f'kernel events' + ''.join(
+            f'; {w} (try {n}): ' + ', '.join(
+                f'{k} {e} events for {c} launches'
+                for k, (e, c) in s.items()) for w, n, s in lost))
 
 
 def kernel_breakdown(tag, what, prof, wall_ms, reps=1, top=8):
@@ -2098,29 +2270,37 @@ def phase_train(torch, seed, steps=3):
         want.update(fused_norm=2 * L + 1, flash_attention=L)
         want[kernel] = len(params)
         losses, wall = [], []
-        for i in range(steps):
-            before = kernels.launch_counts()
+
+        def step(check=False):
+            loss = loss_fn(net(x), y).mean()
+            loss.backward()
+            if check:
+                bad = _grad_faults(torch, params)
+                if bad:
+                    fail(f'train: after the first backward these '
+                         f'parameters have no finite nonzero gradient: '
+                         f'{bad}')
+                log(f'[train] after the first backward all '
+                    f'{len(params)} parameters have a finite gradient, '
+                    f'nonzero somewhere')
+            trainer.step(1)
             torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            with (profiled() if i == steps - 1
-                  else contextlib.nullcontext()) as prof:
-                loss = loss_fn(net(x), y).mean()
-                loss.backward()
-                if run == 0 and i == 0:
-                    bad = _grad_faults(torch, params)
-                    if bad:
-                        fail(f'train: after the first backward these '
-                             f'parameters have no finite nonzero gradient: '
-                             f'{bad}')
-                    log(f'[train] after the first backward all '
-                        f'{len(params)} parameters have a finite gradient, '
-                        f'nonzero somewhere')
-                trainer.step(1)
+            return loss
+
+        for i in range(steps):
+            if i == steps - 1:  # the profiled step; a retry is one more
+                prof, loss, ms, delta = profile_checked(
+                    torch, f'train {opt} step {steps}', step)
+                wall.append(ms)
+            else:
+                before = kernels.launch_counts()
                 torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t1) * 1e3)
+                t1 = time.perf_counter()
+                loss = step(check=run == 0 and i == 0)
+                wall.append((time.perf_counter() - t1) * 1e3)
+                delta = _counts_since(kernels, before)
             losses.append(float(loss.detach()))
-            after = kernels.launch_counts()
-            delta = {k: after[k] - before[k] for k in after}
+            delta = {k: delta.get(k, 0) for k in want}
             if delta != want:
                 fail(f'train: {opt} step {i + 1} launches {delta}, want '
                      f'{want}')
@@ -2696,19 +2876,27 @@ def phase_bert(torch, seed):
             trainer = gluon.Trainer(params, opt, dict(hyper))
             tag = 'graphed' if graphed else 'eager'
             losses, wall = [], []
-            for i in range(BERT_STEPS):
-                before = kernels.launch_counts()
+
+            def step():
+                loss = bert_step(mx, net, trainer, loss_fn, ids, tt, labels)
                 _sync(torch, dev)
-                t1 = time.perf_counter()
+                return loss
+
+            for i in range(BERT_STEPS):
                 last = run == 0 and i == BERT_STEPS - 1
-                with (profiled() if last else contextlib.nullcontext()) \
-                        as prof:
-                    loss = bert_step(mx, net, trainer, loss_fn, ids, tt,
-                                     labels)
+                if last:    # checked, and run again from its start if short
+                    prof, loss, ms, got = profile_checked(
+                        torch, f'bert {tag} Adam step', step,
+                        Rewind(torch, trainer))
+                    wall.append(ms)
+                else:
+                    before = kernels.launch_counts()
                     _sync(torch, dev)
-                wall.append((time.perf_counter() - t1) * 1e3)
+                    t1 = time.perf_counter()
+                    loss = step()
+                    wall.append((time.perf_counter() - t1) * 1e3)
+                    got = _counts_since(kernels, before)
                 losses.append(loss.item())
-                got = _counts_since(kernels, before)
                 if got != want:
                     fail(f'bert: {tag} {opt} step {i + 1} launches {got}, '
                          f'want {want}')
@@ -3181,21 +3369,28 @@ def _resnet_phase(torch, seed):
         losses, wall, prof = [], [], None
         for i in range(n):
             x, y = get(i)
-            before = kernels.launch_counts()
-            _sync(torch, dev)
-            t1 = time.perf_counter()
-            last = profile_last and i == n - 1
-            with (profiled() if last else contextlib.nullcontext()) as p:
+
+            def step():
                 loss = resnet_step(mx, net, trainer, loss_fn, x, y)
                 _sync(torch, dev)
-            wall.append((time.perf_counter() - t1) * 1e3)
+                return loss
+
+            if profile_last and i == n - 1:
+                prof, loss, ms, got = profile_checked(
+                    torch, f'resnet {tag} step', step,
+                    Rewind(torch, trainer))
+                wall.append(ms)
+            else:
+                before = kernels.launch_counts()
+                _sync(torch, dev)
+                t1 = time.perf_counter()
+                loss = step()
+                wall.append((time.perf_counter() - t1) * 1e3)
+                got = _counts_since(kernels, before)
             losses.append(loss.item())
-            got = _counts_since(kernels, before)
             if got != want:
                 fail(f'resnet: {tag} step {i + 1} launched {got}, want '
                      f'{want}')
-            if last:
-                prof = p
         if not all(math.isfinite(v) for v in losses):
             fail(f'resnet: {tag} losses not finite: {losses}')
         return losses, wall, prof
@@ -3714,19 +3909,32 @@ def _bf16_bert(torch, seed):
         trainer = gluon.Trainer(params, 'adam',
                                 {'learning_rate': BF16_BERT_LR})
         losses, wall = [], []
-        for i in range(BERT_STEPS):
-            before = kernels.launch_counts()
-            plain0 = kernels.plain_update_counts()
+
+        def step():
+            loss = bert_step(mx, net, trainer, loss_fn, ids, tt, labels)
             _sync(torch, dev)
-            t1 = time.perf_counter()
+            return loss
+
+        for i in range(BERT_STEPS):
             last = i == BERT_STEPS - 1
-            with (profiled() if last else contextlib.nullcontext()) as prof:
-                loss = bert_step(mx, net, trainer, loss_fn, ids, tt, labels)
+            if last:
+                rewind = Rewind(torch, trainer)
+                plain0 = kernels.plain_update_counts()
+                prof, loss, ms, got = profile_checked(
+                    torch, f'bf16 bert {tag} Adam step', step,
+                    lambda: (rewind(), plain0.update(
+                        kernels.plain_update_counts())))
+                wall.append(ms)
+            else:
+                before = kernels.launch_counts()
+                plain0 = kernels.plain_update_counts()
                 _sync(torch, dev)
-            wall.append((time.perf_counter() - t1) * 1e3)
+                t1 = time.perf_counter()
+                loss = step()
+                wall.append((time.perf_counter() - t1) * 1e3)
+                got = _counts_since(kernels, before)
             losses.append(float(loss.item()))
-            got, plain = _counts_since(kernels, before), \
-                _plain_since(kernels, plain0)
+            plain = _plain_since(kernels, plain0)
             if got != want or plain != {'adam': BERT_UPDATED}:
                 fail(f'bf16 bert: {tag} step {i + 1} launched {got} and '
                      f'{plain} plain updates, want {want} and '
@@ -3822,11 +4030,12 @@ def _bf16_resnet(torch, seed):
         out = net(x0)
     _sync(torch, dev)
     infer_ms = (time.perf_counter() - t1) * 1e3 / k
-    # three calls, each in a profiler session of its own opening and
-    # closing on an idle card (one session around one call lost events
-    # once); each session's kernel count is logged, and a replay's device
-    # time by CUDA events stands beside the profiler's kernel time
-    prof = profiled_calls(torch, lambda: net(x0), 3)
+    # three calls, each in a profiler session of its own, checked against
+    # the launch counters (ROADMAP C5); each session's kernel count is
+    # logged, and a replay's device time by CUDA events stands beside the
+    # profiler's kernel time
+    prof = profiled_calls(torch, lambda: net(x0), 3,
+                          'bf16 resnet50 graphed predict')
     infer_busy = kernel_breakdown('bf16', 'resnet50 graphed predict, batch '
                                   f'{RESNET_BATCH}, bf16', prof, infer_ms,
                                   reps=3, top=6)
@@ -3851,23 +4060,31 @@ def _bf16_resnet(torch, seed):
     n = RESNET_WARMUP + RESNET_STEPS
     for i in range(n):
         x, y = batches[i % len(batches)]
-        before = kernels.launch_counts()
-        plain0 = kernels.plain_update_counts()
-        _sync(torch, dev)
-        t1 = time.perf_counter()
-        with (profiled() if i == n - 1 else contextlib.nullcontext()) as p:
+
+        def step():
             loss = resnet_step(mx, net, trainer, loss_fn, x, y)
             _sync(torch, dev)
-        wall.append((time.perf_counter() - t1) * 1e3)
+            return loss
+
+        plain0 = kernels.plain_update_counts()
+        if i == n - 1:  # a retry is one more step: nothing compares after
+            prof, loss, ms, got = profile_checked(
+                torch, 'bf16 resnet graphed step', step,
+                lambda: plain0.update(kernels.plain_update_counts()))
+            wall.append(ms)
+        else:
+            before = kernels.launch_counts()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            loss = step()
+            wall.append((time.perf_counter() - t1) * 1e3)
+            got = _counts_since(kernels, before)
         losses.append(float(loss.item()))
-        got, plain = _counts_since(kernels, before), \
-            _plain_since(kernels, plain0)
+        plain = _plain_since(kernels, plain0)
         if got or plain != {'sgd_mom': RESNET_UPDATED}:
             fail(f'bf16 resnet: step {i + 1} launched {got} and {plain} '
                  f'plain updates, want none and '
                  f'{ {"sgd_mom": RESNET_UPDATED} }')
-        if i == n - 1:
-            prof = p
     _sync(torch, dev)
     t1 = time.perf_counter()
     for i in range(RESNET_STEPS):
@@ -3932,10 +4149,18 @@ def _bf16_llama(torch, seed):
             logits = net(toks)
             _sync(torch, dev)
             ms = (time.perf_counter() - t1) * 1e3
-            with profiled() as prof:
+            launched = _counts_since(kernels, before)
+
+            def forward():
                 net(toks)
                 _sync(torch, dev)
-        got = {k: v // 3 for k, v in _counts_since(kernels, before).items()}
+
+            prof, _, _, profiled_launches = profile_checked(
+                torch, f'bf16 llama3_8b {tag} forward', forward)
+        got = {k: v // 2 for k, v in launched.items()}
+        if profiled_launches != got:
+            fail(f'bf16 llama3_8b {tag}: the profiled forward launched '
+                 f'{profiled_launches}, the others {got} each')
         dts = _dtype_events(prof)
         log(f'[bf16] llama3_8b {tag} causal (1, {BF16_TOKENS}) forward: '
             f'{ms:.2f} host ms, {BF16_TOKENS / ms * 1e3:.1f} tok/s, logits '
@@ -4298,7 +4523,8 @@ def _predict_costs(torch, net, x, dev, tag, want, k=RESNET_K):
     if got != {n: c * k for n, c in want.items()}:
         fail(f'qresnet: {tag} graphed predict launched {got} over {k} '
              f'calls, want {want} a call')
-    prof = profiled_calls(torch, lambda: net(x), 3)
+    prof = profiled_calls(torch, lambda: net(x), 3,
+                          f'qresnet {tag} graphed predict')
     b = qresnet_breakdown('qresnet', f'resnet50_v1 {tag} graphed predict, '
                           f'batch {x.shape[0]}', prof, ms, reps=3)
     events = _events_ms(torch, lambda: net(x), k)
@@ -4637,26 +4863,36 @@ def phase_optim(torch, seed):
         want = dict(BERT_FORWARD, **({'adam': BERT_UPDATED}
                                      if opt == 'adam' else {}))
         losses, wall, update_ms, busy, groups = [], [], [], None, None
-        for i in range(BERT_STEPS):
-            before = kernels.launch_counts()
+
+        def step():
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            last = i == BERT_STEPS - 1
+            with mx.autograd.record():
+                _, _, mlm = net(ids, tt)
+                loss = loss_fn(mlm, labels).mean()
+            loss.backward()
+            a.record()
+            trainer.step(1)
+            b.record()
             _sync(torch, dev)
-            t1 = time.perf_counter()
-            with (profiled() if last else contextlib.nullcontext()) as prof:
-                with mx.autograd.record():
-                    _, _, mlm = net(ids, tt)
-                    loss = loss_fn(mlm, labels).mean()
-                loss.backward()
-                a.record()
-                trainer.step(1)
-                b.record()
+            return loss, a.elapsed_time(b)
+
+        for i in range(BERT_STEPS):
+            last = i == BERT_STEPS - 1
+            if last:
+                prof, (loss, upd), ms, got = profile_checked(
+                    torch, f'optim graphed {opt} step', step,
+                    Rewind(torch, trainer))
+                wall.append(ms)
+            else:
+                before = kernels.launch_counts()
                 _sync(torch, dev)
-            wall.append((time.perf_counter() - t1) * 1e3)
-            update_ms.append(a.elapsed_time(b))
+                t1 = time.perf_counter()
+                loss, upd = step()
+                wall.append((time.perf_counter() - t1) * 1e3)
+                got = _counts_since(kernels, before)
+            update_ms.append(upd)
             losses.append(loss.item())
-            got = _counts_since(kernels, before)
             if got != want:
                 fail(f'optim: {opt} step {i + 1} launched {got}, want '
                      f'{want}')
@@ -4843,43 +5079,73 @@ def _dist_bert(torch, mx, gluon, net, params, init, ids, tt, labels, zero1,
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     dev = mx.gpu(0).to_torch()
     res = dict(losses=[], split=[], update_ms=[], counts=[], digests=[])
-    for i in range(DIST_STEPS):
-        dist.barrier()
-        profile = rank == 0 and i == DIST_STEPS - 1 and not zero1
+
+    def step():
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            _, _, mlm = net(ids, tt)
+            loss = loss_fn(mlm, labels).mean()
+        loss.backward()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if zero1:
+            t2 = t1
+            a.record()
+            trainer.step(1)
+            b.record()
+        else:
+            trainer.allreduce_grads()
+            _sync(torch, dev)
+            t2 = time.perf_counter()
+            a.record()
+            trainer.update(1)
+            b.record()
+        _sync(torch, dev)
+        t3 = time.perf_counter()
+        return loss, ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3), \
+            a.elapsed_time(b)
+
+    def plain_step():
         before = kernels.launch_counts()
         _sync(torch, dev)
-        t0 = time.perf_counter()
-        with (profiled() if profile else contextlib.nullcontext()) as prof:
-            with mx.autograd.record():
-                _, _, mlm = net(ids, tt)
-                loss = loss_fn(mlm, labels).mean()
-            loss.backward()
-            _sync(torch, dev)
-            t1 = time.perf_counter()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            if zero1:
-                t2 = t1
-                a.record()
-                trainer.step(1)
-                b.record()
-            else:
-                trainer.allreduce_grads()
-                _sync(torch, dev)
-                t2 = time.perf_counter()
-                a.record()
-                trainer.update(1)
-                b.record()
-            _sync(torch, dev)
-            t3 = time.perf_counter()
-        res['split'].append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
-                             (t3 - t2) * 1e3))
-        res['update_ms'].append(a.elapsed_time(b))
+        out = step()
+        return out, _counts_since(kernels, before)
+
+    for i in range(DIST_STEPS):
+        dist.barrier()
+        profile = i == DIST_STEPS - 1 and not zero1
+        if not profile:
+            out, counts = plain_step()
+        else:
+            # rank 0's step is profiled and checked; when its profile lost
+            # events every rank runs the step again from its start (the
+            # all-reduce needs them all), at most PROFILE_TRIES times
+            rewind = Rewind(torch, trainer)
+            for n in range(1, PROFILE_TRIES + 1):
+                if rank == 0:
+                    prof, out, _, counts, short = profile_once(
+                        torch, '(b) dist_sync rank 0 step', step)
+                else:
+                    (out, counts), short = plain_step(), {}
+                again = [short]
+                dist.broadcast_object_list(again, src=0)
+                if not again[0]:
+                    break
+                if n == PROFILE_TRIES:
+                    fail(f'dist: all {n} profiler sessions of rank 0\'s '
+                         f'step lost kernel events; the last: {again[0]}')
+                rewind()
+                dist.barrier()
+        loss, split, upd = out
+        res['split'].append(split)
+        res['update_ms'].append(upd)
         res['losses'].append(loss.item())
-        res['counts'].append(_counts_since(kernels, before))
+        res['counts'].append(counts)
         res['digests'].append(_digests(torch, [p.data()._data
                                                for p in params.values()]))
-        if profile:
+        if profile and rank == 0:
             res['busy'] = _busy_share(prof, sum(res['split'][-2]))
     res['graphs'] = (net.capture_count, trainer.capture_count,
                      net.eager_call_count)
@@ -5039,6 +5305,7 @@ def _dist_rank(seed):
     res['zero1_gap'] = max(gaps)
     del net, params, init, dp_state
     torch.cuda.empty_cache()
+    res['profiles'] = list(PROFILES)
     res['gc'] = _dist_gc(torch, seed + 1, rank)
     half = DIST_BN_BATCH // DIST_RANKS
     rows = slice(rank * half, (rank + 1) * half)
@@ -5067,6 +5334,7 @@ def phase_dist(torch, seed):
     counts, by_design = dict.fromkeys(KERNELS, 0), {}
     want_dp = dict(BERT_FORWARD, adam=BERT_UPDATED)
     for r in ranks:
+        PROFILES.extend(r['profiles'])
         for run in ('dp', 'zero1'):
             for name, c in r[run]['launches'].items():
                 counts[name] += c
@@ -5268,6 +5536,447 @@ def dist_costs(torch, got):
             log(f'[dist] {tag} rank {r["rank"]}: peak memory allocated '
                 f'{x["peak"][0]:.2f} GiB, reserved {x["peak"][1]:.2f} GiB; '
                 f'losses {x["losses"]}; card {card}')
+
+
+# ------------------------------------------------------------- dist_async
+#: the dist_async phase: the dist phase's BERT-base (16 sequences of 128 a
+#: worker, Adam 1e-4) through the parameter server; (a) one worker this
+#: many steps, (b) and (c) two workers this many steps on this many
+#: servers
+DIST_ASYNC_PARITY_STEPS = 3
+DIST_ASYNC_STEPS = 4
+DIST_ASYNC_SERVERS = 2
+#: (c)'s fault plan, modelled on tests/nightly/dist_async_faults.py's
+#: (reset_every:push:3;drop:push:0.3:seed=rank over 6 pushes): a
+#: connection reset after the server applied every 25th push, and a lossy
+#: link dropping 5 % of the pushes before delivery, seeded by rank, over
+#: the 600-odd pushes a worker makes here
+DIST_ASYNC_FAULTS = 'reset_every:push:25;drop:push:0.05:seed={rank}'
+
+
+@contextlib.contextmanager
+def _environ(**env):
+    """``os.environ`` with ``env`` set inside the block (``None`` unsets
+    a name)."""
+    import os
+    old = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def async_parity(torch, mx, gluon, bert, seed):
+    """(a) One worker and its server in this process: DIST_ASYNC_PARITY_STEPS
+    steps of BERT-base on 16 sequences through ``Trainer(kvstore=
+    'dist_async', update_on_kvstore=True)`` from the same weights as a
+    ``kvstore=None`` Trainer's steps, with Adam (B5 on the server), again
+    under the fault plan, and with SGD-momentum (B6 on the server). The
+    server applies the fused update to the same gradient, copied to the
+    host and back, in the same order as the local update graph, so losses
+    and weights must be bit-equal; 26 B1, 12 B2 and 156 updates a step in
+    each run."""
+    from mxnet_tpu_torch.kvstore import dist_async, faults
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import launch
+    dev = mx.gpu(0).to_torch()
+    mx.random.seed(seed)
+    net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
+                              use_classifier=False)
+    net.initialize(ctx=mx.gpu(0))
+    ids, tt, labels = bert_batch(mx, seed, BERT_BATCH // DIST_RANKS,
+                                 BERT_SEQ, BERT_VOCAB)
+    net(ids, tt)
+    params = net.collect_params()
+    init = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    net.hybridize(static_alloc=True)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    spec = DIST_ASYNC_FAULTS.format(rank=0)
+
+    def run(opt, hyper, kv, faulted=False):
+        for k, p in params.items():
+            p.set_data(init[k])
+        port = launch.free_ports(1)
+        with _environ(MX_COORDINATOR=f'127.0.0.1:{launch.free_ports(1)}',
+                      MX_NPROC=1, MX_PROC_ID=0, MXNET_KVSTORE_ASYNC_PORT=port,
+                      MXNET_KVSTORE_NUM_SERVERS=None):
+            trainer = gluon.Trainer(params, opt, dict(hyper), kvstore=kv,
+                                    update_on_kvstore=True if kv else None)
+            if faulted:
+                faults.configure(spec)
+            out = dict(losses=[], counts=[])
+            try:
+                for _ in range(DIST_ASYNC_PARITY_STEPS):
+                    before = kernels.launch_counts()
+                    with mx.autograd.record():
+                        _, _, mlm = net(ids, tt)
+                        loss = loss_fn(mlm, labels).mean()
+                    loss.backward()
+                    trainer.step(1)
+                    _sync(torch, dev)
+                    out['losses'].append(loss.item())
+                    out['counts'].append(_counts_since(kernels, before))
+                if kv:
+                    out['transport'] = trainer._kvstore.transport_stats()
+                    out['health'] = trainer._kvstore.server_health()[0]
+            finally:
+                faults.clear()
+                if kv:
+                    trainer._kvstore.close()
+                    dist_async._SERVERS.pop(port).stop()
+        out['digests'] = _digests(torch, [p.data()._data
+                                          for p in params.values()])
+        return out
+
+    for (opt, kernel, hyper), faulted in ((BERT_OPTS[0], True),
+                                          (BERT_OPTS[1], False)):
+        want = dict(BERT_FORWARD, **{kernel: BERT_UPDATED})
+        runs = {'local': run(opt, hyper, None),
+                'dist_async': run(opt, hyper, 'dist_async')}
+        if faulted:
+            runs['under faults'] = run(opt, hyper, 'dist_async', True)
+        bad = {t: r['counts'] for t, r in runs.items()
+               if any(c != want for c in r['counts'])}
+        if bad:
+            fail(f'dist_async: (a) {opt} launched {bad}, want {want} a '
+                 f'step')
+        local, plain = runs['local'], runs['dist_async']
+        equal = {t: r['losses'] == local['losses']
+                 and r['digests'] == local['digests']
+                 for t, r in runs.items() if t != 'local'}
+        health = plain['health']
+        applied = health['counters']['push_applied']
+        faulted_run = runs.get('under faults')
+        log(f'[dist_async] (a) one worker, one server in this process, '
+            f'{DIST_ASYNC_PARITY_STEPS} {opt} {hyper} steps of '
+            f'bert_12_768_12 at ({BERT_BATCH // DIST_RANKS}, {BERT_SEQ}): '
+            f'losses {plain["losses"]}, kvstore=None {local["losses"]}; '
+            f'losses and weights bit-equal to kvstore=None {equal}'
+            + (f' (under {spec}: transport {faulted_run["transport"]}, '
+               f'injected {faulted_run["health"]["faults"]})'
+               if faulted_run else '')
+            + f'; pushes applied {applied}, the server on '
+            f'{health["device"]["device"]}, its update span '
+            f'{health["device"]["update_ms"]:.2f} device ms over '
+            f'{health["device"]["updates"]} pushes; launches a step {want} '
+            f'in each run')
+        if not all(equal.values()):
+            fail(f'dist_async: (a) {opt} through the server trains apart '
+                 f'from the local Trainer: {equal}')
+        if applied != DIST_ASYNC_PARITY_STEPS * BERT_UPDATED or \
+                health['device']['device'] != str(dev) or \
+                (faulted_run and not faulted_run['transport']['retries']):
+            fail(f'dist_async: (a) {opt}: {applied} pushes applied, server '
+                 f'on {health["device"]}, retries '
+                 f'{faulted_run and faulted_run["transport"]}')
+    del net, params, init
+    torch.cuda.empty_cache()
+
+
+def _async_train(torch, mx, gluon, net, params, batch, rank, spec,
+                 profile):
+    """(b) or (c) in one worker: DIST_ASYNC_STEPS Adam steps through
+    ``Trainer(kvstore='dist_async', update_on_kvstore=True)`` on two
+    servers. Rank 0 takes its first step, which captures the forward and
+    backward graphs, only once its server has begun applying rank 1's
+    pushes; with ``profile``, rank 0's last step runs alone (rank 1 waits
+    at a barrier) in a checked profiler session. Host ms a step split into
+    forward and backward, push, pull and the rest; then every weight
+    pulled after a final barrier."""
+    from mxnet_tpu_torch.kvstore import faults
+    from mxnet_tpu_torch.ops import kernels
+    ids, tt, labels = batch
+    dev = mx.gpu(0).to_torch()
+    trainer = gluon.Trainer(params, 'adam', dict(BERT_OPTS[0][2]),
+                            kvstore='dist_async', update_on_kvstore=True)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    # the optimizer to the servers (rank 0), then rank 0's weights to
+    # every rank (init, barrier, pull a key): what the first step does
+    # before its pushes
+    trainer._prepare_kvstore()
+    kv = trainer._kvstore
+    spent = dict(push=0.0, pull=0.0)
+
+    def timed(fn, what):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[what] += (time.perf_counter() - t) * 1e3
+        return call
+
+    kv.push, kv._pull = timed(kv.push, 'push'), timed(kv._pull, 'pull')
+    if spec:
+        faults.configure(spec)
+    res = dict(losses=[], split=[], counts=[], steps=0)
+
+    def step():
+        res['steps'] += 1
+        spent.update(push=0.0, pull=0.0)
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            _, _, mlm = net(ids, tt)
+            loss = loss_fn(mlm, labels).mean()
+        loss.backward()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        trainer.step(1)
+        _sync(torch, dev)
+        t2 = time.perf_counter()
+        push, pull = spent['push'], spent['pull']
+        return loss, ((t1 - t0) * 1e3, push, pull,
+                      (t2 - t1) * 1e3 - push - pull)
+
+    def plain():
+        before = kernels.launch_counts()
+        _sync(torch, dev)
+        out = step()
+        return out, _counts_since(kernels, before)
+
+    def keep(out, counts):
+        res['losses'].append(out[0].item())
+        res['split'].append(out[1])
+        res['counts'].append(counts)
+
+    def applied():
+        return kv.server_health()[0]['counters']['push_applied']
+
+    if rank == 0 and profile:
+        deadline = time.monotonic() + 300
+        while applied() == 0:
+            if time.monotonic() > deadline:
+                fail('dist_async: rank 1 pushed nothing in 300 s')
+            time.sleep(0.01)
+        a = applied()
+        keep(*plain())
+        res['during_capture'] = applied() - a
+    while len(res['losses']) < DIST_ASYNC_STEPS - 1:
+        keep(*plain())
+    kv.barrier()
+    if rank == 0:
+        if profile:     # a retry is one more step, counted in 'steps'
+            prof, out, _, counts = profile_checked(
+                torch, 'dist_async rank 0 step, rank 1 waiting', step)
+            keep(out, counts)
+            # over its own host ms (the profiler lengthens it a little):
+            # the step before ran beside the other worker's
+            res['busy'] = _busy_share(prof, sum(res['split'][-1]))
+            b5 = [e for e in prof.key_averages()
+                  if _kernel_of(e.key) == 'adam']
+            res['b5'] = (sum(e.self_device_time_total for e in b5) / 1e3,
+                         sum(e.count for e in b5))
+        else:
+            keep(*plain())
+    kv.barrier()
+    if rank != 0:
+        keep(*plain())
+    kv.barrier()        # every push of both workers applied
+    faults.clear()
+    res['transport'] = kv.transport_stats()
+    trained = [(i, p) for i, p in enumerate(trainer._params)
+               if p.grad_req != 'null']
+    for i, p in trained:
+        kv.pull(i, out=p.data()._data)
+    _sync(torch, dev)
+    res['digests'] = _digests(torch, [p.data()._data for _, p in trained])
+    res['nbytes'] = sum(4 * math.prod(p.shape) for _, p in trained)
+    res['chunks'] = sum(len(kv._plan(i, tuple(p.shape),
+                                     4 * math.prod(p.shape)))
+                        for i, p in trained)
+    res['keys'] = len(trained)
+    res['graphs'] = (net.capture_count, trainer.capture_count,
+                     net.eager_call_count)
+    if rank == 0:
+        res['health'] = kv.server_health()
+    kv.barrier()        # no store closes before every rank has pulled
+    return res
+
+
+def _async_rank(seed, base):
+    """One worker of (b) and (c) (run by ``parallel.launch.spawn``; the
+    workers share cuda:0, rank 0 and rank 1 each holding a server on it):
+    each part counted from 0 just before and read just after, on servers
+    of its own (ports ``base`` and ``base + 2``)."""
+    import os
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import kernels
+    full_fp32(torch)
+    rank = dist.get_rank()
+    mx.random.seed(seed)
+    net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
+                              use_classifier=False)
+    net.initialize(ctx=mx.gpu(0))
+    half = BERT_BATCH // DIST_RANKS
+    rows = slice(rank * half, (rank + 1) * half)
+    batch = [a[rows] for a in bert_batch(mx, seed, BERT_BATCH, BERT_SEQ,
+                                         BERT_VOCAB)]
+    net(*batch[:2])                 # deferred initialization
+    params = net.collect_params()
+    init = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    net.hybridize(static_alloc=True)
+    dev = mx.gpu(0).to_torch()
+    res = {'rank': rank}
+    for part, spec in (('b', None),
+                       ('c', DIST_ASYNC_FAULTS.format(rank=rank))):
+        os.environ['MXNET_KVSTORE_ASYNC_PORT'] = str(
+            base + DIST_ASYNC_SERVERS * (part == 'c'))
+        for k, p in params.items():
+            p.set_data(init[k])
+        mem = _memory_start(torch, dev)
+        kernels.reset_launch_counts()           # the main path starts
+        run = _async_train(torch, mx, gluon, net, params, batch, rank, spec,
+                           profile=part == 'b')
+        run['launches'] = kernels.launch_counts()   # ... and ends
+        run['designs'] = kernels.path_counts()
+        run['peak'] = _memory_peaks(torch, dev, mem)
+        res[part] = run
+    res['profiles'] = list(PROFILES)
+    return res
+
+
+def phase_dist_async(torch, seed):
+    """The parameter server: see the module docstring. (a) runs here, (b)
+    and (c) in DIST_RANKS workers that share cuda:0. Returns the launch
+    counts of (a), (b) and (c) summed, in all and by design, and the
+    workers' numbers."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import launch
+    kernels.reset_launch_counts()
+    async_parity(torch, mx, gluon, bert, seed)
+    counts, by_design = kernels.launch_counts(), kernels.path_counts()
+    t0 = time.perf_counter()
+    base = launch.free_ports(2 * DIST_ASYNC_SERVERS)
+    with _environ(MXNET_KVSTORE_NUM_SERVERS=DIST_ASYNC_SERVERS,
+                  MXNET_KVSTORE_RPC_DEADLINE_S=300):
+        ranks = launch.spawn(_async_rank, DIST_RANKS, seed, base,
+                             backend='gloo', timeout=600)
+    log(f'[dist_async] {DIST_RANKS} workers on cuda:0 in '
+        f'{time.perf_counter() - t0:.1f} s (spawn included)')
+    for r in ranks:
+        PROFILES.extend(r['profiles'])
+        for part in ('b', 'c'):
+            for name, c in r[part]['launches'].items():
+                counts[name] += c
+            for name, ds in r[part]['designs'].items():
+                for d, c in ds.items():
+                    by_design[name][d] = by_design[name].get(d, 0) + c
+    for part, tag in (('b', '(b)'), ('c', '(c) under faults')):
+        runs = [r[part] for r in ranks]
+        health = runs[0]['health']
+        applied = sum(h['counters']['push_applied'] for h in health.values())
+        chunks = runs[0]['chunks']
+        want = sum(x['steps'] for x in runs) * chunks
+        b5 = sum(x['launches']['adam'] for x in runs)
+        fwd = [{k: c.get(k, 0) for k in BERT_FORWARD} for x in runs
+               for c in x['counts']]
+        falls = all(all(math.isfinite(v) for v in x['losses'])
+                    and x['losses'][-1] < x['losses'][0] for x in runs)
+        equal = all(x['digests'] == runs[0]['digests'] for x in runs)
+        retries = sum(x['transport']['retries'] for x in runs)
+        devices = sorted({h['device']['device'] for h in health.values()})
+        log(f'[dist_async] {tag}: {DIST_RANKS} workers x steps '
+            f'{[x["steps"] for x in runs]} x {chunks} pushes a step '
+            f'({runs[0]["keys"]} keys, '
+            f'{chunks - runs[0]["keys"]} extra chunks of split keys) = '
+            f'{want}; the servers applied {applied} '
+            f'({[h["counters"]["push_applied"] for h in health.values()]}'
+            f' by server, on {devices}), B5 launched {b5} '
+            f'({[x["launches"]["adam"] for x in runs]} by process); B1/B2 '
+            f'a step {fwd[0]} in every step of every worker: '
+            f'{all(f == BERT_FORWARD for f in fwd)}; losses '
+            f'{[x["losses"] for x in runs]} finite and falling {falls}; '
+            f'weights pulled after the last barrier bit-equal {equal}; '
+            f'retries {retries}, injected '
+            f'{[h["faults"] for h in health.values()][:1]}')
+        if applied != want or b5 != want or \
+                any(f != BERT_FORWARD for f in fwd) or not falls or \
+                not equal or devices != ['cuda:0']:
+            fail(f'dist_async: {tag} pushes applied {applied}, B5 {b5}, '
+                 f'want {want}; forward launches {fwd}; losses falling '
+                 f'{falls}; ranks bit-equal {equal}; servers on {devices}')
+        if part == 'c' and (retries == 0 or applied != DIST_RANKS
+                            * DIST_ASYNC_STEPS * chunks):
+            fail(f'dist_async: (c) retries {retries}, pushes applied '
+                 f'{applied}, want the fault-free '
+                 f'{DIST_RANKS * DIST_ASYNC_STEPS * chunks}')
+    first = ranks[0]['b']
+    log(f'[dist_async] (b) rank 0 captured its forward and backward graphs '
+        f'while its server applied {first["during_capture"]} of rank 1\'s '
+        f'pushes; graphs (net, Trainer, eager recorded calls) '
+        f'{first["graphs"]}, rank 1 {ranks[1]["b"]["graphs"]}')
+    if not first['during_capture'] or \
+            any(r[p]['graphs'] != (2, 0, 0) for r in ranks for p in 'bc'):
+        fail(f'dist_async: the server applied {first["during_capture"]} '
+             f'pushes during rank 0\'s capture; graphs '
+             f'{[(r["b"]["graphs"], r["c"]["graphs"]) for r in ranks]}, '
+             f'want (2, 0, 0)')
+    return counts, by_design, ranks
+
+
+def dist_async_costs(torch, ranks):
+    """Log (d), the dist_async phase's costs, beside the card's name and
+    limit: per worker and step host ms split into forward and backward,
+    push, pull and the rest (step DIST_ASYNC_STEPS - 1: the one before
+    rank 0's profiled step), the servers' update device ms (CUDA events on
+    each server's stream) beside B5's kernel time in rank 0's profile, MB
+    over the wire, samples/s over both workers, rank 0's busy share and
+    the peak memory of each process."""
+    card = smi_line()
+    health = ranks[0]['b']['health']
+    steps = sum(r['b']['steps'] for r in ranks)
+    upd = sum(h['device']['update_ms'] for h in health.values())
+    b5_ms, b5_n = ranks[0]['b']['b5']
+    log(f'[dist_async] (d) the servers\' update device ms (CUDA events on '
+        f'the server stream before and after each update: its span there, '
+        f'which the host paces as it launches the update\'s small '
+        f'hyperparameter copy, bias-correction kernels and B5) '
+        f'{[round(h["device"]["update_ms"], 2) for h in health.values()]} '
+        f'over {[h["device"]["updates"] for h in health.values()]} pushes, '
+        f'{upd / steps:.3f} ms a worker step; B5 kernel time in rank 0\'s '
+        f'profiled step {b5_ms:.3f} ms over its {b5_n} launches on server '
+        f'0; card {card}')
+    # steps 2 .. DIST_ASYNC_STEPS - 1 run while the other worker steps too
+    # (the first captures; each worker's last runs while the other waits)
+    both = slice(1, DIST_ASYNC_STEPS - 1)
+    half = BERT_BATCH // DIST_RANKS
+    means = {r['rank']: [sum(col) / len(col) for col in
+                         zip(*r['b']['split'][both])] for r in ranks}
+    rate = sum(half / sum(m) * 1e3 for m in means.values())
+    for r in ranks:
+        x = r['b']
+        fwd, push, pull, rest = means[r['rank']]
+        log(f'[dist_async] (d) worker {r["rank"]}: host ms a step '
+            f'{fwd + push + pull + rest:.2f} = forward+backward {fwd:.2f} + '
+            f'push {push:.2f} + pull {pull:.2f} + the rest {rest:.2f} (the '
+            f'mean of steps 2 to {DIST_ASYNC_STEPS - 1}, both workers '
+            f'stepping; all '
+            f'{[[round(v, 2) for v in s] for s in x["split"]]}); '
+            f'{2 * x["nbytes"] / 1e6:.1f} MB over the wire a step (pushed '
+            f'and pulled); '
+            + (f'busy {100 * x["busy"]:.1f} % in its last step, alone; '
+               if 'busy' in x else '')
+            + f'peak {x["peak"][0]:.2f} GiB allocated, {x["peak"][1]:.2f} '
+            f'reserved; (c) host ms a step '
+            f'{[round(sum(s), 2) for s in r["c"]["split"]]}; card {card}')
+    log(f'[dist_async] (d) {rate:.1f} samples/s over both workers ({half} '
+        f'sequences a step each, at those steps\' host ms); card {card}')
 
 
 # ------------------------------------------------------------- ring
@@ -5713,6 +6422,16 @@ def main(argv=None):
         dist_costs(torch, got)
         del got
         torch.cuda.empty_cache()
+    if 'dist_async' in phases:  # (a) here, (b) and (c) in the workers
+        paths['dist_async'], designs['dist_async'], got = phase_dist_async(
+            torch, SEED + 21)
+        log(f'[dist_async] launches {paths["dist_async"]}; by design '
+            f'{designs["dist_async"]}')
+        check_designs('dist_async', paths['dist_async'],
+                      designs['dist_async'])
+        dist_async_costs(torch, got)
+        del got
+        torch.cuda.empty_cache()
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')
@@ -5722,6 +6441,8 @@ def main(argv=None):
             rows = {k: [] for k in KERNELS}
         rtc_checks(torch, rows, **window('rtc', phase_rtc, torch, SEED + 8))
 
+    if PROFILES:
+        profile_summary()
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS} \
         if paths else None
     if rows is not None:

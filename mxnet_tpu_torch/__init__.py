@@ -20,8 +20,10 @@ The imperative frontend is the reference's::
 ``mx.autograd`` runs on ``torch.autograd``. ``mx.gluon`` has the blocks,
 layers, losses and Trainer, ``mx.init`` (``mx.initializer``) the
 initializers, ``mx.io`` the data iterators, ``mx.metric`` the
-evaluation metrics, ``mx.amp`` mixed precision and ``mx.kvstore``
-the key-value stores that data-parallel training reduces through.
+evaluation metrics, ``mx.amp`` mixed precision, ``mx.kvstore``
+the key-value stores that data-parallel training reduces through (the
+``dist_async`` parameter server among them) and ``mx.train`` the elastic
+membership group that drives that server's worker-loss recovery.
 """
 
 from .base import MXNetError
@@ -44,8 +46,9 @@ from . import io
 from . import gluon
 from . import amp
 from . import kvstore
+from . import train
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'num_gpus',
            'current_context', 'np', 'npx', 'nd', 'autograd', 'random',
            'NDArray', 'waitall', 'initializer', 'init', 'model', 'metric',
-           'io', 'gluon', 'amp', 'kvstore']
+           'io', 'gluon', 'amp', 'kvstore', 'train']

@@ -11,9 +11,10 @@ tensors the body returned at capture, which each replay overwrites.
 
 The kernel wrappers count a launch when their Python runs, which under
 a graph happens at capture and never at replay. :class:`StepGraph` takes
-back what its capture counted and adds it on each replay, so that
-``ops.kernels.launch_counts()`` and ``path_counts()`` count what the
-card ran.
+back what its capture counted on its stream and adds it on each replay,
+so that ``ops.kernels.launch_counts()`` and ``path_counts()`` count what
+the card ran, whatever another thread launches meanwhile on its own
+stream.
 
 The warm-up runs on the stream the graph is captured on: the split
 kernels keep their counters per stream (``ops/kernels/_build.counters``),
@@ -42,6 +43,7 @@ import torch
 
 from .base import MXNetError
 from .ops import kernels
+from .ops.kernels import _build
 
 __all__ = ['StepGraph', 'GraphedCall', 'captures_generators', 'step_graph',
            'can_capture', 'emulated']
@@ -115,11 +117,6 @@ def captures_generators():
     return hasattr(torch.cuda.CUDAGraph, 'register_generator_state')
 
 
-def _diff(after, before):
-    return {k: after[k] - before.get(k, 0) for k in after
-            if after[k] != before.get(k, 0)}
-
-
 class StepGraph:
     """``body()`` captured once on ``device`` and replayed.
 
@@ -168,7 +165,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in d.drawn:
             graph.register_generator_state(gen)
-        with _Counted() as c, torch.cuda.graph(
+        with _Counted(self.stream) as c, torch.cuda.graph(
                 graph, stream=self.stream, capture_error_mode=_MODE):
             outputs = self.body()
         self.graph, self.outputs = graph, outputs
@@ -222,22 +219,32 @@ class _EmulatedStepGraph:
 
 
 class _Counted:
-    """Kernel launches between ``__enter__`` and ``__exit__`` (a capture,
-    which runs nothing), taken back from the counters: a replay adds
-    them."""
+    """Kernel launches on ``stream`` between ``__enter__`` and
+    ``__exit__`` (a capture, which runs nothing), taken back from the
+    counters: a replay adds them. Only that stream's are: a launch another
+    thread makes meanwhile on a stream of its own (a ``dist_async`` server
+    applying a push) ran, and stays counted (``_build.tally``)."""
+
+    def __init__(self, stream):
+        self._tally = _build.tally(stream)
 
     def __enter__(self):
-        self.counts = kernels.launch_counts()
-        self.paths = kernels.path_counts()
-        self.plain0 = kernels.plain_update_counts()
+        self._counted = self._tally.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.launches = _diff(kernels.launch_counts(), self.counts)
-        by_path = {k: _diff(d, self.paths[k])
-                   for k, d in kernels.path_counts().items()}
-        self.by_path = {k: d for k, d in by_path.items() if d}
-        self.plain = _diff(kernels.plain_update_counts(), self.plain0)
+        self._tally.__exit__(*exc)
+        names = {fn: name for name, fn in kernels.KERNELS.items()}
+        self.launches, self.by_path, self.plain = {}, {}, {}
+        for (fn, path, plain), n in self._counted.items():
+            name = names[fn]
+            if plain:
+                self.plain[name] = self.plain.get(name, 0) + n
+                continue
+            self.launches[name] = self.launches.get(name, 0) + n
+            if path is not None:
+                d = self.by_path.setdefault(name, {})
+                d[path] = d.get(path, 0) + n
         kernels.add_launch_counts(self.launches, self.by_path, times=-1,
                                   plain=self.plain)
 
@@ -322,7 +329,7 @@ class GraphedCall:
             with _Drawn(self.generators) as drew:
                 warm = self._run_fn(inputs, True)
             targets = [x for x, g in zip(inputs, self.in_grad) if g]
-            with _Counted():        # throwaway: its launches do not count
+            with _Counted(s):       # throwaway: its launches do not count
                 self._grads(warm, targets + self.params,
                             [torch.zeros_like(o) for o in warm
                              if o.requires_grad], retain=True)
@@ -332,7 +339,7 @@ class GraphedCall:
             fwd = torch.cuda.CUDAGraph()
             for gen in drew.drawn:
                 fwd.register_generator_state(gen)
-            with _Counted() as c:
+            with _Counted(s) as c:
                 with torch.cuda.graph(fwd, pool=pool, stream=s,
                                       capture_error_mode=_MODE):
                     outs = self._run_fn(self.static_in, not self.remat,
@@ -340,7 +347,7 @@ class GraphedCall:
             self.fwd_counts = (c.launches, c.by_path)
             self._set_outputs(outs)
             bwd = torch.cuda.CUDAGraph()
-            with _Counted() as c:
+            with _Counted(s) as c:
                 with torch.cuda.graph(bwd, pool=pool, stream=s,
                                       capture_error_mode=_MODE):
                     self.static_grads = self._backward_body()

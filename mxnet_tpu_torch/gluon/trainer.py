@@ -37,6 +37,18 @@ writes them into the parameters; ``_update`` then skips, and
 process, one replica a parameter, no compression and no update on the
 kvstore, the reduction is the identity and is skipped.
 
+``kvstore='dist_async'`` (the parameter server) is made on the
+parameters' context, so its server updates on their card. It has no
+fused path: each parameter is one ``pushpull`` (``priority=-i``), as in
+the JAX Trainer. Under ``update_on_kvstore=True`` the first step sends
+the optimizer to the server (pickled without its parameters or any
+tensor), and every step pushes the gradients and pulls the updated
+weights into the parameters in place; no update graph is captured.
+``update_on_kvstore`` left to None means False, as in the JAX Trainer,
+which then pushes each gradient into the server's copy of the weights
+and takes the sum back as the gradient (ROADMAP C10); the port does the
+same, so this store is never skipped.
+
 A weight that is not fp32 (a net cast to bf16) is updated by the plain
 version of its optimizer's kernel, in fp32, and its slots are fp32
 from the start (``Optimizer.create_state_multi_precision``).
@@ -187,8 +199,11 @@ class Trainer:
             self._kvstore = None
             self._update_on_kvstore = False
         else:
-            self._kvstore = kv if isinstance(kv, KVStoreBase) else \
-                _create_kvstore(kv)
+            if isinstance(kv, KVStoreBase):
+                self._kvstore = kv
+            else:       # dist_async's server takes the parameters' device
+                with self._contexts[0]:
+                    self._kvstore = _create_kvstore(kv)
             if self._compression_params:
                 self._kvstore.set_gradient_compression(
                     self._compression_params)
@@ -200,11 +215,14 @@ class Trainer:
 
     def _reduces(self):
         """True when the kvstore has work: more than one process or
-        replica, compression, or the update on the kvstore."""
+        replica, compression, the update on the kvstore, or a parameter
+        server (``dist_async``: its push adds into the store whatever the
+        world, so it is never skipped, as in the JAX Trainer)."""
         kv = self._kvstore
         return kv is not None and (
-            kv.num_workers > 1 or len(self._contexts) > 1
-            or self._update_on_kvstore or kv.gradient_compression.active)
+            kv.type == 'dist_async' or kv.num_workers > 1
+            or len(self._contexts) > 1 or self._update_on_kvstore
+            or kv.gradient_compression.active)
 
     def _init_params(self):
         """Broadcast the initial weights: rank 0's value, first replica,
@@ -251,10 +269,21 @@ class Trainer:
             keys.append(i)
             grads.append(g)
             outs.append(_datas(param))
-        if keys:
+        if not keys:
+            return
+        if hasattr(self._kvstore, 'fused_pushpull'):
             self._kvstore.fused_pushpull(
                 keys, grads, outs=outs if self._update_on_kvstore else None,
                 priorities=[-i for i in keys])
+            return
+        # a store without the fused path (dist_async): one pushpull a key,
+        # the weights pulled into the parameters under update_on_kvstore
+        # (reference trainer.py:385 out=data), else the result into the
+        # gradients, as the JAX Trainer does (trainer.py:212-219)
+        for i, g, o in zip(keys, grads, outs):
+            self._kvstore.pushpull(
+                i, g, out=o if self._update_on_kvstore else None,
+                priority=-i)
 
     # ------------------------------------------------------------ properties
     @property

@@ -38,12 +38,12 @@ class KVStoreBase:
         return register(klass)
 
     @staticmethod
-    def get_kvstore(name):
+    def get_kvstore(name, **kwargs):
         name = ALIASES.get(name.lower(), name.lower())
         if name not in KVSTORE_REGISTRY:
             raise ValueError(f'Unknown KVStore type {name!r}; registered: '
                              f'{sorted(KVSTORE_REGISTRY)}')
-        return KVSTORE_REGISTRY[name]()
+        return KVSTORE_REGISTRY[name](**kwargs)
 
     def broadcast(self, key, value, out, priority=0):
         raise NotImplementedError

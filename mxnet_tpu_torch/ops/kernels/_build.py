@@ -15,6 +15,13 @@ Every C entry point takes raw pointers and a ``cudaStream_t`` (all bound as
 :class:`MXNetError`. :func:`on_device` makes a launch go to its tensors'
 card. :func:`sm_count` and :func:`counters` serve the wrappers whose plans
 split a kernel's work across blocks.
+
+:func:`count` is how every wrapper counts a launch (or an update sent to
+its plain version): on the wrapper's plain-integer counters, and in the
+tally that :func:`tally` keeps open for the stream the launch went to. A
+graph capture opens one for its stream, so that it takes back exactly the
+launches it recorded, whatever another thread (a ``dist_async`` server
+applying pushes on a stream of its own) launches meanwhile.
 """
 
 import contextlib
@@ -31,7 +38,8 @@ import torch
 
 from ...base import MXNetError
 
-__all__ = ['CSRC', 'BUILD_DIR', 'NVCC_FLAGS', 'sources', 'build_all',
+__all__ = ['CSRC', 'BUILD_DIR', 'NVCC_FLAGS', 'sources', 'build_all', 'count',
+           'tally',
            'function', 'check', 'on_device', 'sm_count', 'counters']
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
@@ -164,6 +172,45 @@ def on_device(device):
     if torch.cuda.current_device() == device.index:
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+_tallies = {}       # cudaStream_t -> {(wrapper, design, plain): count}
+
+
+def count(fn, device=None, path=None, plain=False, stream=None):
+    """Count one launch of ``fn``'s kernel (``fn.launches``, and
+    ``fn.launches_by_path[path]`` for a design), or with ``plain`` one
+    update it sent to its plain version (``fn.plain_updates``), and add it
+    to the tally open for its stream: ``stream`` (a ``cudaStream_t``), or
+    ``device``'s current stream."""
+    if plain:
+        fn.plain_updates += 1
+    else:
+        fn.launches += 1
+        if path is not None:
+            fn.launches_by_path[path] += 1
+    if not _tallies:
+        return
+    if stream is None:
+        if device is None or torch.device(device).type != 'cuda':
+            return
+        stream = torch.cuda.current_stream(device).cuda_stream
+    tally_ = _tallies.get(stream)
+    if tally_ is not None:
+        key = (fn, path, plain)
+        tally_[key] = tally_.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def tally(stream):
+    """Inside the block, :func:`count` also adds the launches on
+    ``stream`` (a ``torch.cuda.Stream``) to the dict it yields, keyed by
+    ``(wrapper, design, plain)``."""
+    tally_ = _tallies[stream.cuda_stream] = {}
+    try:
+        yield tally_
+    finally:
+        del _tallies[stream.cuda_stream]
 
 
 _sm_counts = {}     # device index -> SMs

@@ -211,7 +211,7 @@ def launch(fn, grid, block, shared_mem, stream, params):
     _check_cu(_cuda().cuLaunchKernel(
         fn, *grid, *block, shared_mem, stream, ptrs, None),
         'cuLaunchKernel')
-    launch.launches += 1
+    _build.count(launch, stream=stream)
 
 
 launch.launches = 0

@@ -214,8 +214,7 @@ def flash_attention_fwd(q, k, v, sm_scale, causal):
                 bh, t, s, d, float(sm_scale), int(bool(causal)), p.block_k,
                 p.splits, p.chunk, _ptr(ws), _ptr(counters), stream)
     _build.check('flash_attention', rc, 'flash_attention')
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.launches_by_path[p.path] += 1
+    _build.count(flash_attention_fwd, q.device, p.path)
     return out
 
 
@@ -274,8 +273,7 @@ def flash_attention_stats(q, k, v, sm_scale, causal=False):
                 int(bool(causal)), p.block_k, p.splits, p.chunk, _ptr(ws),
                 _ptr(counters), stream)
     _build.check('flash_attention', rc, 'flash_attention_stats')
-    flash_attention_stats.launches += 1
-    flash_attention_stats.launches_by_path[p.path] += 1
+    _build.count(flash_attention_stats, q.device, p.path)
     return acc, m, l
 
 

@@ -169,8 +169,7 @@ def fused_norm(x, gamma, beta=None, eps=1e-5, rms=False):
     p = plan(n, d, aligned, _build.sm_count(x.device), bool(rms),
              16 // x.element_size())
     _launch(x, gamma, beta, out, eps, rms, p)
-    fused_norm.launches += 1
-    fused_norm.launches_by_path[p.path] += 1
+    _build.count(fused_norm, x.device, p.path)
     return out
 
 

@@ -154,7 +154,7 @@ def adam_step(w, g, m, v, hyper, *, beta1, beta2, epsilon,
     version (see the module docstring)."""
     if not _check('adam_step', (w, g, m, v), hyper, 4):
         if w.dtype != torch.float32:
-            adam_step.plain_updates += 1
+            _build.count(adam_step, w.device, plain=True)
         return adam_step_plain(w, g, m, v, hyper, beta1=beta1,
                                beta2=beta2, epsilon=epsilon,
                                rescale_grad=rescale_grad,
@@ -168,7 +168,7 @@ def adam_step(w, g, m, v, hyper, *, beta1, beta2, epsilon,
                 1.0 - beta2, epsilon, rescale_grad, *_clip(clip_gradient),
                 torch.cuda.current_stream(w.device).cuda_stream)
     _build.check('fused_optimizer', rc, 'adam_step')
-    adam_step.launches += 1
+    _build.count(adam_step, w.device)
     return w, m, v
 
 
@@ -184,7 +184,7 @@ def sgd_mom_step(w, g, mom, hyper, *, momentum, rescale_grad=1.0,
     takes them."""
     if not _check('sgd_mom_step', (w, g, mom), hyper, 2):
         if w.dtype != torch.float32:
-            sgd_mom_step.plain_updates += 1
+            _build.count(sgd_mom_step, w.device, plain=True)
         return sgd_mom_step_plain(w, g, mom, hyper, momentum=momentum,
                                   rescale_grad=rescale_grad,
                                   clip_gradient=clip_gradient)
@@ -197,7 +197,7 @@ def sgd_mom_step(w, g, mom, hyper, *, momentum, rescale_grad=1.0,
                 *_clip(clip_gradient),
                 torch.cuda.current_stream(w.device).cuda_stream)
     _build.check('fused_optimizer', rc, 'sgd_mom_step')
-    sgd_mom_step.launches += 1
+    _build.count(sgd_mom_step, w.device)
     return w, mom
 
 

@@ -151,8 +151,7 @@ def int8_matmul(x, w, scale, bias=None, out_dtype=torch.float32):
     p = plan(M, N, K, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
              _build.sm_count(x.device))
     _launch(x, w, scale, bias, out, M, N, K, p)
-    int8_matmul.launches += 1
-    int8_matmul.launches_by_path[p.path] += 1
+    _build.count(int8_matmul, x.device, p.path)
     return out
 
 

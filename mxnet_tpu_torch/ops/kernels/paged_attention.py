@@ -153,8 +153,7 @@ def paged_attention_decode(q, k_pool, v_pool, pages, offset, sm_scale):
         raise MXNetError('paged_attention_decode: batch or table too large')
     out = torch.empty_like(q)
     _launch(q, k_pool, v_pool, pages, offset, out, sm_scale, splits)
-    paged_attention_decode.launches += 1
-    paged_attention_decode.launches_by_path[PATHS[splits - 1]] += 1
+    _build.count(paged_attention_decode, q.device, PATHS[splits - 1])
     return out
 
 

@@ -84,8 +84,19 @@ class Optimizer:
         self.idx2name = param_idx2name or {}
 
     def __getstate__(self):
-        # the parameters stay with their net (a Trainer sets param_dict)
-        return dict(self.__dict__, param_dict={})
+        """The optimizer without its parameters (a Trainer sets
+        ``param_dict``) and without any tensor: what ``dist_async`` sends
+        its server, which makes its own slots and hyperparameter rows on
+        its device. A parameter's ``lr_mult`` and ``wd_mult`` are kept by
+        its index, where :meth:`_get_lr` and :meth:`_get_wd` find them
+        once ``param_dict`` is empty."""
+        state = {k: v for k, v in self.__dict__.items()
+                 if not torch.is_tensor(v)}
+        lr_mult, wd_mult = dict(self.lr_mult), dict(self.wd_mult)
+        for i, param in self.param_dict.items():
+            lr_mult[i] = getattr(param, 'lr_mult', 1.0)
+            wd_mult[i] = getattr(param, 'wd_mult', 1.0)
+        return dict(state, param_dict={}, lr_mult=lr_mult, wd_mult=wd_mult)
 
     @staticmethod
     def register(klass):

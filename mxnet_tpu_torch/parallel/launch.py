@@ -7,22 +7,55 @@ inherited), gives each the ``MX_COORDINATOR``/``MX_NPROC``/``MX_PROC_ID``
 environment, joins the world through a ``file://`` store in a temporary
 directory (no TCP port to clash with another run on the host), runs
 ``fn(*args)`` in every rank and hands back each rank's return value.
+
+A ``file://`` coordinator names no host and port for the ``dist_async``
+parameter server, which ``tools/launch.py``'s ranks find at
+``MX_COORDINATOR``'s ``host:port`` (+ 29, or ``MXNET_KVSTORE_ASYNC_PORT``).
+So unless the caller's environment sets ``MXNET_KVSTORE_ASYNC_PORT``,
+:func:`spawn` gives its ranks loopback ports that were free when it
+started: a base port and the ``nprocs - 1`` after it (server s listens at
+base + s).
 """
 
 import multiprocessing
 import multiprocessing.connection
 import os
+import socket
 import sys
 import tempfile
 import time
 import traceback
 
-__all__ = ['spawn']
+__all__ = ['spawn', 'free_ports']
 
 
-def _rank_main(fn, args, rank, nprocs, store, backend, timeout, outdir):
+def free_ports(n, host='127.0.0.1', tries=50):
+    """A port ``p`` of ``host`` such that ``p .. p + n - 1`` could all be
+    bound just now (the OS picks ``p``; nothing is held afterwards)."""
+    for _ in range(tries):
+        held = []
+        try:
+            s = socket.socket()
+            held.append(s)
+            s.bind((host, 0))
+            base = s.getsockname()[1]
+            for p in range(base + 1, base + n):
+                s = socket.socket()
+                held.append(s)
+                s.bind((host, p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in held:
+                s.close()
+    raise OSError(f'no {n} consecutive free ports on {host}')
+
+
+def _rank_main(fn, args, rank, nprocs, store, backend, timeout, outdir,
+               env):
     import torch
-    os.environ.update(MX_COORDINATOR=store, MX_NPROC=str(nprocs),
+    os.environ.update(env, MX_COORDINATOR=store, MX_NPROC=str(nprocs),
                       MX_PROC_ID=str(rank))
     out = os.path.join(outdir, f'{rank}.pt')
     try:
@@ -56,11 +89,13 @@ def spawn(fn, nprocs, *args, backend='gloo', timeout=600):
     import torch
 
     ctx = multiprocessing.get_context('spawn')
+    env = {} if 'MXNET_KVSTORE_ASYNC_PORT' in os.environ else \
+        {'MXNET_KVSTORE_ASYNC_PORT': str(free_ports(nprocs))}
     with tempfile.TemporaryDirectory(prefix='mx_spawn_') as tmp:
         store = f'file://{os.path.join(tmp, "store")}'
         procs = [ctx.Process(
             target=_rank_main, name=f'mx-rank-{r}',
-            args=(fn, args, r, nprocs, store, backend, timeout, tmp))
+            args=(fn, args, r, nprocs, store, backend, timeout, tmp, env))
             for r in range(nprocs)]
         deadline = time.monotonic() + timeout
         try:

@@ -1891,3 +1891,92 @@ def test_a_collective_inside_a_capture_raises(dev, monkeypatch):
                         lambda: True)
     with pytest.raises(MXNetError, match='capture'):
         refuse_capture('kvstore psum')
+
+
+def test_a_capture_takes_back_only_its_streams_launches(dev):
+    """A graph captured while another thread launches Adam on a stream of
+    its own (a dist_async server applying pushes): the capture takes back
+    its own norm launches only; the other thread's launches, which ran,
+    stay counted, and a replay adds the norm's alone."""
+    import threading
+    from mxnet_tpu_torch._graphs import StepGraph
+    x = _randn(dev, 8, 768)
+    g = _randn(dev, 768, seed=1) + 1
+    ws = [_randn(dev, 4096, seed=10 + i) for i in range(50)]
+    hyper = torch.tensor([1e-3, 0.0, 1.0, 1.0], device=dev)
+    slots = [(torch.randn_like(w), torch.zeros_like(w), torch.zeros_like(w))
+             for w in ws]
+    go, done = threading.Event(), []
+
+    def server():
+        side = torch.cuda.Stream(dev)
+        go.wait()
+        with torch.cuda.stream(side):
+            for w, (gr, m, v) in zip(ws, slots):
+                fused_optimizer.adam_step(w, gr, m, v, hyper, beta1=0.9,
+                                          beta2=0.999, epsilon=1e-8)
+        side.synchronize()
+        done.append(True)
+
+    def body():
+        go.set()
+        out = x
+        for _ in range(40):
+            out = fused_norms.fused_norm(out, g, None, 1e-5, True)
+        return [out]
+
+    th = threading.Thread(target=server)
+    th.start()
+    kernels.reset_launch_counts()
+    graph = StepGraph(body, dev)
+    graph.capture()
+    th.join()
+    assert done
+    after_capture = kernels.launch_counts()
+    assert after_capture['adam'] == len(ws)
+    assert after_capture['fused_norm'] == 40          # the warm-up's
+    graph.replay()
+    assert kernels.launch_counts()['fused_norm'] == 80
+    assert kernels.launch_counts()['adam'] == len(ws)
+
+
+def test_dist_async_server_updates_on_the_card(dev, monkeypatch):
+    """A dist_async store's server keeps its weights on the card and
+    applies a push through B5 on its own stream; the pulled weights equal
+    the plain Adam update of the same gradient."""
+    import socket
+    from contextlib import closing
+    from mxnet_tpu_torch import kvstore, optimizer
+    from mxnet_tpu_torch.kvstore import dist_async
+
+    def free():
+        with closing(socket.socket()) as s:
+            s.bind(('127.0.0.1', 0))
+            return s.getsockname()[1]
+
+    port = free()
+    monkeypatch.setenv('MX_COORDINATOR', f'127.0.0.1:{free()}')
+    monkeypatch.setenv('MXNET_KVSTORE_ASYNC_PORT', str(port))
+    monkeypatch.setenv('MX_PROC_ID', '0')
+    monkeypatch.setenv('MX_NPROC', '1')
+    kv = kvstore.create('dist_async', device=dev)
+    try:
+        w0, grad = _randn(dev, 1000), _randn(dev, 1000, seed=1)
+        kv.init(3, w0)
+        kv.set_optimizer(optimizer.create('adam', learning_rate=0.01))
+        before = kernels.launch_counts()['adam']
+        kv.push(3, grad)
+        out = torch.empty_like(w0)
+        kv.pull(3, out=out)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()['adam'] == before + 1
+        srv = dist_async._SERVERS[port]
+        assert srv._store[3].device == dev and srv._stream is not None
+        w, m, v = w0.clone(), torch.zeros_like(w0), torch.zeros_like(w0)
+        hyper = torch.tensor([0.01, 0.0, 1 - 0.9, 1 - 0.999], device=dev)
+        fused_optimizer.adam_step_plain(w, grad, m, v, hyper, beta1=0.9,
+                                        beta2=0.999, epsilon=1e-8)
+        torch.testing.assert_close(out, w, **OPT_TOL)
+    finally:
+        kv.close()
+        dist_async._SERVERS.pop(port).stop()

@@ -116,3 +116,29 @@ def test_the_kvstore_package_is_checked_and_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
+
+
+def test_the_parameter_server_and_train_are_checked_and_load_no_jax():
+    """The parameter server (``kvstore/faults.py``, ``rpc.py``,
+    ``dist_async.py``) and ``train/`` are among the sources checked above,
+    and making a ``dist_async`` store and an ``ElasticGroup`` class loads
+    no JAX."""
+    kv = {p.name for p in (PACKAGE / 'kvstore').glob('*.py')}
+    assert {'faults.py', 'rpc.py', 'dist_async.py'} <= kv
+    assert {p.name for p in (PACKAGE / 'train').glob('*.py')} == {
+        '__init__.py', 'elastic.py'}
+    code = (
+        'import sys\n'
+        'from mxnet_tpu_torch import kvstore, train\n'
+        'from mxnet_tpu_torch.kvstore import dist_async, faults, rpc\n'
+        'kv = kvstore.create("dist_async", device="cpu")\n'
+        'assert kv.type == "dist_async" and train.ElasticGroup\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
