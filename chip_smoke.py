@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases device,build,dist,ring  # data parallel
     python3 chip_smoke.py --phases device,build,dist_async  # the parameter
                                                   # server
+    python3 chip_smoke.py --phases device,build,sharding  # mx.sharding
 
 Phases, each of which fails the run on any error:
 
@@ -340,7 +341,40 @@ Phases, each of which fails the run on any error:
                on each server's stream), MB over the wire, samples/s over
                both workers, rank 0's busy share (its last step profiled
                while rank 1 waits at a barrier), peak memory a process.
-16. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+16. sharding -- ``mx.sharding`` (one process a rank, gloo ranks sharing
+               cuda:0, spawned by ``parallel.launch.spawn``). (a) Two
+               ranks serve ``llama3_8b`` at tp = 2, full width and depth,
+               with the serve phase's seeded weights (each rank draws
+               each weight whole in turn and keeps its half), settings
+               and six prompts: each rank must hold half the weights
+               (``memory_allocated``), 16 of 32 query and 4 of 8 KV
+               heads, launch exactly 65 B1 and 32 B4 a decode step, never
+               re-capture (its calls hold collectives and run eagerly),
+               find its pool written in place, and serve the tokens of
+               the one-process server (the serve phase's, else served
+               here); where they part, the two runs' teacher-forced
+               logits must show a near tie (``SHARD_TIE``). (b) Four
+               ranks at dp 2 x tp 2 serve the same prompts at
+               ``llama3_8b``'s widths and 4 layers, slots and pages split
+               on dp, against a one-process 4-layer server. (c) The four
+               train ``bert_12_768_12`` on the bert phase's (32, 128)
+               batch, hybridized, Adam 1e-4, three steps under
+               ``mesh(dp=2, tp=2)`` and three under ``mesh(dp=4)``
+               (``bert.bert_partition_rules``, ROADMAP C12): losses at
+               rtol 1e-4 and each tensor's change within 1 % of one
+               process's, the ranks' gathered weights equal, 26 B1, 12
+               B2 and 156 B5 a step a rank (B5 summed over the ranks
+               equal to the ZeRO-1 plan), slot bytes a quarter of one
+               process's a rank. (d) (c)'s dp 2 x tp 2 weights and
+               Trainer slots through ``SharedCheckpointManager``, read
+               back under ``mesh(dp=4)`` and in one process bit-equal
+               (sha256), and a crash at ``ckpt.renamed`` must leave the
+               previous step the latest. (e) Per rank: host ms a step
+               split into forward, backward and update, the collectives'
+               share (staging included), peak memory, rank 0's busy
+               share (its last step profiled, every rank running it
+               again if the profile lost events).
+17. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -354,7 +388,7 @@ Phases, each of which fails the run on any error:
                k and v gradients of a seeded cotangent must meet autograd
                through plain dense attention (``ring_grad_checks``). Logs each rank's host ms,
                stats-kernel ms and transport ms.
-17. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+18. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
@@ -363,9 +397,10 @@ Phases, each of which fails the run on any error:
 The launch counters are set to 0 just before each of the forward, serve,
 int8, train, ndarray, bert, resnet, bf16, qresnet, optim and rtc phases and read just after
 it (with the optimizer's plain-update counters), and in each
-rank just before and after its ring runs, its dist runs (b) and (c) and
-its dist_async runs (b) and (c) (the dist_async phase's (a) runs in this
-process); the kernels' line reports their sum. Every profiled call (a
+rank just before and after its ring runs, its dist runs (b) and (c), its
+dist_async runs (b) and (c) (the dist_async phase's (a) runs in this
+process) and its sharding runs (a), (b) and (c); the kernels' line
+reports their sum. Every profiled call (a
 breakdown's step or call) runs in a ``torch.profiler`` session of its own
 whose kernel events must equal, kernel by kernel, the launch counters'
 change over the session: a short profile is taken again (a training step
@@ -392,7 +427,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
           'train', 'ndarray', 'bert', 'resnet', 'bf16', 'qresnet', 'optim',
-          'dist', 'dist_async', 'ring', 'rtc')
+          'dist', 'dist_async', 'sharding', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -1604,6 +1639,7 @@ def phase_serve(torch, net, seed, int8_layers=0, tag='serve'):
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         stats = ds.stats()
+        stats['wall_s'] = wall
         after = kernels.launch_counts()
         audit = ds.audit_donation()
     finally:
@@ -5982,6 +6018,654 @@ def dist_async_costs(torch, ranks):
 # ------------------------------------------------------------- ring
 #: the ring phase: llama3_8b's attention widths (32 query heads of 128, K/V
 #: expanded to 32 heads) over its whole max_length, sharded over sp ranks
+#: the sharding phase: (a) llama3_8b at tp = 2, full depth, the serve
+#: phase's settings; (b) its widths at dp 2 x tp 2 and SHARD_LAYERS
+#: layers; (c) BERT-base at (32, 128) under mesh(dp=2, tp=2) and
+#: mesh(dp=4), SHARD_STEPS Adam steps each; (d) (c)'s dp 2 x tp 2 state
+#: through SharedCheckpointManager
+SHARD = dict(model='llama3_8b', layers=None, layers_b=4, slots=4,
+             max_length=2048, psz=16, chunk=32, n_new=32, dev='cuda',
+             bert='bert_12_768_12', bert_kw={}, batch=BERT_BATCH,
+             seq=BERT_SEQ, vocab=BERT_VOCAB, steps=BERT_STEPS,
+             ckpt=str(ROOT / 'build' / 'sharding_ckpt'))
+#: the near tie a parting token must show (the top two logits within this
+#: relative gap, and the two runs' logits there within it)
+SHARD_TIE = 1e-3
+
+
+def _serve_all(ds, prompts, n_new):
+    """Every prompt through a server stepped by hand (every rank steps its
+    own copy of the scheduler in lockstep); tokens, host seconds, stats."""
+    futs = [ds.submit(p, n_new) for p in prompts]
+    t0 = time.perf_counter()
+    while not all(f.done() for f in futs):
+        ds.step_once()
+    wall = time.perf_counter() - t0
+    return [f.result(1) for f in futs], wall, ds.stats()
+
+
+def _step_ms(torch, ds, dev, reps=5):
+    """Host ms of one decode step over every slot (an all-garbage block
+    table), the least of ``reps``, and its launch counts."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import kernels
+    n = ds.slots
+    bt = np.zeros((n, ds._max_pages), np.int32)
+    best = None
+    for _ in range(reps):
+        _sync(torch, dev)
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        ds._run_step([0] * n, [0] * n, bt)
+        _sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts_since(kernels, before)
+        best = ms if best is None else min(best, ms)
+    return best, counts
+
+
+def _first_part(got, want):
+    """``(prompt, position)`` of the first token where two runs part."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                return i, j
+    return None
+
+
+def _teacher_logits(torch, net, prompt, toks, j, dev):
+    """The logits of the whole vocabulary after ``prompt + toks[:j]``
+    (fp32, on the host): the token at ``j`` is picked from them."""
+    seq = torch.tensor([list(prompt) + list(toks[:j])], device=dev)
+    with torch.no_grad():
+        logits = net(seq)
+        if getattr(net, '_tp', None) is not None:
+            logits = net.gather_logits(logits)
+    return logits[0, -1].float().cpu()
+
+
+def _shard_llama_rank(cfg, axes, layers, prompts, want, num_pages=None):
+    """(a) or (b) in one rank: the Llama built under ``mesh(**axes)`` (this
+    rank's shard of each weight, drawn whole in turn from the seed), the
+    prompts served with the launch counters set to 0 just before and read
+    just after; then one decode step timed alone, and at the first token
+    where the run parts from ``want`` (the one-process server's), the
+    teacher-forced logits there."""
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.serve import DecodeServer
+    from mxnet_tpu_torch.sharding import _collectives as C
+    if cfg['dev'] == 'cuda':
+        full_fp32(torch)
+    dev = torch.device(cfg['dev'], 0) if cfg['dev'] == 'cuda' \
+        else torch.device('cpu')
+    res = {'rank': dist.get_rank()}
+    with mx.sharding.mesh(**axes) as ctx:
+        t0 = time.perf_counter()
+        kw = {} if layers is None else {'num_layers': layers}
+        net = get_llama(cfg['model'], device=cfg['dev'], seed=SEED,
+                        **kw).eval()
+        _sync(torch, dev)
+        res['build_s'] = time.perf_counter() - t0
+        res['weight_bytes'] = sum(p.numel() * p.element_size()
+                                  for p in net.parameters())
+        res['allocated'] = torch.cuda.memory_allocated(dev) \
+            if dev.type == 'cuda' else None
+        res['heads'] = net.model.layers[0].self_attn._heads()
+        res['coord'] = {a: ctx.coord(a) for a in ctx.axis_names}
+        if dev.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()           # the main path starts
+        C.reset_counters()
+        ds = DecodeServer(net, slots=cfg['slots'],
+                          max_length=cfg['max_length'],
+                          page_size=cfg['psz'], prefill_chunk=cfg['chunk'],
+                          num_pages=num_pages, start=False)
+        outs, wall, stats = _serve_all(ds, prompts, cfg['n_new'])
+        res['launches'] = kernels.launch_counts()   # ... and ends
+        res['designs'] = kernels.path_counts()
+        res['coll'] = C.counters()
+        res.update(outs=outs, wall=wall, steps=stats['steps'],
+                   chunks=stats['prefill_chunks'],
+                   recompiles=stats['recompiles'],
+                   compile_count=stats['compile_count'],
+                   pool=tuple(ds._pool[0][0].shape),
+                   pool_spec=tuple(ds.pool_spec),
+                   rows=ds._rows)
+        audit = ds.audit_donation()
+        res['audit'] = (audit.ok, dict(audit.stats))
+        res['step_ms'], res['step_counts'] = _step_ms(torch, ds, dev)
+        res['peak'] = torch.cuda.max_memory_allocated(dev) / 2**30 \
+            if dev.type == 'cuda' else None
+        ds.close()
+        part = _first_part(outs, want) if want is not None else None
+        res['part'] = part
+        if part is not None:
+            i, j = part
+            res['part_logits'] = _teacher_logits(torch, net, prompts[i],
+                                                 want[i], j, dev)
+    del net
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _bert_data(mx, cfg, seed):
+    with (mx.gpu(0) if cfg['dev'] == 'cuda' else mx.cpu()):
+        return bert_batch(mx, seed, cfg['batch'], cfg['seq'], cfg['vocab'])
+
+
+def _bert_net(mx, bert, cfg, seed, ctx):
+    mx.random.seed(seed)
+    net = bert.get_bert_model(cfg['bert'], max_length=cfg['seq'],
+                              dropout=0.0, use_classifier=False,
+                              vocab_size=cfg['vocab'], **cfg['bert_kw'])
+    net.initialize(ctx=ctx)
+    return net
+
+
+def _shard_bert(torch, mx, gluon, bert, cfg, seed, rules, axes, rank,
+                mgr=None):
+    """(c) in one rank: BERT from the seeded weights, hybridized, under
+    ``mesh(**axes, rules=rules)``, ``cfg['steps']`` Adam steps on the whole
+    batch (each rank its rows and shards). Per step: the losses, the
+    launch counts, host ms split into forward, backward and update, and
+    the collectives' host ms (staging included); the last step's profile
+    on rank 0 (every rank runs it again when that profile lost events).
+    Returns the gathered weights' digests, the slot bytes and, with
+    ``mgr``, the state saved as step ``cfg['steps']`` (d)."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.sharding import _collectives as C
+    ctxd = mx.gpu(0) if cfg['dev'] == 'cuda' else mx.cpu()
+    dev = ctxd.to_torch()
+    net = _bert_net(mx, bert, cfg, seed, ctxd)
+    ids, tt, labels = _bert_data(mx, cfg, seed)
+    net(ids, tt)                    # deferred initialization
+    net.hybridize(static_alloc=True)
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, 'adam', dict(BERT_OPTS[0][2]))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    res = dict(losses=[], split=[], counts=[], coll=[], axes=axes)
+
+    def step():
+        C.reset_counters()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            _, _, mlm = net(ids, tt)
+            loss = loss_fn(mlm, labels).mean()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        loss.backward()
+        _sync(torch, dev)
+        t2 = time.perf_counter()
+        trainer.step(1)
+        _sync(torch, dev)
+        t3 = time.perf_counter()
+        coll = sum(v[2] for v in C.counters().values()) * 1e3
+        return loss, ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                      coll)
+
+    with mx.sharding.mesh(rules=rules, **axes):
+        for i in range(cfg['steps']):
+            dist.barrier()
+            profile = i == cfg['steps'] - 1 and dev.type == 'cuda'
+            before = kernels.launch_counts()
+            if not profile:
+                out = step()
+                counts = _counts_since(kernels, before)
+            else:
+                rewind = Rewind(torch, trainer)
+                for n in range(1, PROFILE_TRIES + 1):
+                    before = kernels.launch_counts()
+                    if rank == 0:
+                        prof, out, _, counts, short = profile_once(
+                            torch, f'sharding (c) {axes} rank 0 step', step)
+                    else:
+                        out, counts, short = step(), None, {}
+                        counts = _counts_since(kernels, before)
+                    again = [short]
+                    dist.broadcast_object_list(again, src=0)
+                    if not again[0]:
+                        break
+                    if n == PROFILE_TRIES:
+                        fail(f'sharding: all {n} profiler sessions of rank '
+                             f'0\'s step lost kernel events; the last: '
+                             f'{again[0]}')
+                    rewind()
+                    dist.barrier()
+            loss, split = out
+            res['losses'].append(loss.item())
+            res['split'].append(split)
+            res['counts'].append(counts)
+            if profile and rank == 0:
+                res['busy'] = _busy_share(prof, sum(split[:3]))
+        res['slot_bytes'] = sum(t.numel() * t.element_size()
+                                for st in trainer._states.values()
+                                for t in (st if isinstance(st, (list, tuple))
+                                          else [st]) if torch.is_tensor(t))
+        res['param_bytes'] = sum(p._var.numel() * p._var.element_size()
+                                 for p in params.values())
+        res['updated'] = len(trainer._sharded_live())
+        res['qkv_local'] = tuple(
+            net.encoder.cells[0].attention.qkv.weight._var.shape)
+        res['graphs'] = (net.capture_count, trainer.capture_count,
+                         net.eager_call_count)
+        full = {k: p.data().asnumpy() for k, p in params.items()}
+        states = trainer.sharded_states()
+        sfull = {k: v.asnumpy() for k, v in states.items()}
+        res['digests'] = _np_digests(full)
+        res['state_digests'] = _np_digests(sfull)
+        if rank == 0:
+            res['state'] = {k: torch.from_numpy(v) for k, v in full.items()}
+        if mgr is not None:
+            mgr.save(cfg['steps'], {'params': dict(params),
+                                    'trainer': states})
+    return res
+
+
+def _np_digests(arrays):
+    import hashlib
+    return {k: hashlib.sha256(v.tobytes()).hexdigest()
+            for k, v in sorted(arrays.items())}
+
+
+def _shard_rank4(cfg, prompts, want_b):
+    """(b), (c) and (d) in one of four ranks."""
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.sharding.rules import PartitionSpec as P
+    if cfg['dev'] == 'cuda':
+        full_fp32(torch)
+    rank = dist.get_rank()
+    res = {'rank': rank}
+    # an even page count, so that the pages split on dp: each dp rank's
+    # range holds its garbage page and its two slots' whole lengths
+    pages = cfg['slots'] * cfg['max_length'] // cfg['psz'] + 2
+    res['b'] = _shard_llama_rank(cfg, dict(dp=2, tp=2), cfg['layers_b'],
+                                 prompts, want_b, num_pages=pages)
+    dev = torch.device(cfg['dev'], 0) if cfg['dev'] == 'cuda' \
+        else torch.device('cpu')
+    mgr = parallel.SharedCheckpointManager(cfg['ckpt'], max_to_keep=2)
+    runs = {}
+    for tag, axes, rules in (('dp2tp2', dict(dp=2, tp=2),
+                              bert.bert_partition_rules('tp')),
+                             ('dp4', dict(dp=4),
+                              bert.bert_partition_rules('fsdp'))):
+        if dev.type == 'cuda':
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()           # the main path starts
+        run = _shard_bert(torch, mx, gluon, bert, cfg, SEED + 22, rules,
+                          axes, rank, mgr if tag == 'dp2tp2' else None)
+        run['launches'] = kernels.launch_counts()   # ... and ends
+        run['designs'] = kernels.path_counts()
+        run['peak'] = torch.cuda.max_memory_allocated(dev) / 2**30 \
+            if dev.type == 'cuda' else None
+        runs[tag] = run
+    res['c'] = runs
+    # (d): the dp 2 x tp 2 checkpoint read back under dp 4, every leaf at
+    # P('dp') where it divides
+    with mx.sharding.mesh(dp=4) as ctx4:
+        meta = mgr.step_metadata(mgr.latest_step())
+        specs = {}
+        for path in meta:
+            group, name = path.split('/', 1)
+            specs.setdefault(group, {})[name] = P('dp')
+        back = mgr.restore(mesh=ctx4, specs=specs)
+        res['d'] = {'latest': mgr.latest_step(),
+                    'params': _np_digests({k: v.asnumpy() for k, v in
+                                           back['params'].items()}),
+                    'trainer': _np_digests(_flat_tree(back['trainer']))}
+    dist.barrier()
+    res['profiles'] = list(PROFILES)
+    return res
+
+
+def _flat_tree(tree, prefix=''):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f'{prefix}{k}/'))
+        else:
+            out[f'{prefix}{k}'] = v.asnumpy() if hasattr(v, 'asnumpy') \
+                else v
+    return out
+
+
+def shard_one_process_serve(torch, cfg, layers, prompts):
+    """The one-process server's tokens and tok/s for the same prompts, its
+    graphs captured (the serve phase's server)."""
+    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+    from mxnet_tpu_torch.serve import DecodeServer
+    kw = {} if layers is None else {'num_layers': layers}
+    net = get_llama(cfg['model'], device=cfg['dev'], seed=SEED, **kw).eval()
+    ds = DecodeServer(net, slots=cfg['slots'], max_length=cfg['max_length'],
+                      page_size=cfg['psz'], prefill_chunk=cfg['chunk'],
+                      start=False)
+    outs, wall, _ = _serve_all(ds, prompts, cfg['n_new'])
+    dev = net.model.embed_tokens.weight.device
+    step_ms, _ = _step_ms(torch, ds, dev)
+    ds.close()
+    return net, {'outs': outs, 'wall': wall, 'step_ms': step_ms,
+                 'tok_s': sum(map(len, outs)) / wall}
+
+
+def _near_tie(torch, tag, part, got_logits, want_logits):
+    """Where a sharded run parts from one process: the two top logits of
+    each within SHARD_TIE relative, and the two runs' logits there within
+    SHARD_TIE; else the phase fails."""
+    i, j = part
+    worst = float((got_logits - want_logits).abs().max()
+                  / want_logits.abs().max())
+    gaps = []
+    for lg in (got_logits, want_logits):
+        top = torch.topk(lg, 2).values
+        gaps.append(float((top[0] - top[1]) / top[0].abs()))
+    ok = worst <= SHARD_TIE and all(g <= SHARD_TIE for g in gaps)
+    log(f'[sharding] {tag}: prompt {i} parts from one process at token '
+        f'{j}: top-2 relative gaps {gaps}, the runs\' logits apart by '
+        f'{worst:.3g} of their largest (both within {SHARD_TIE}) -> '
+        f'{"a near tie" if ok else "MISMATCH"}')
+    if not ok:
+        fail(f'sharding: {tag} prompt {i} parts at token {j} without a '
+             f'near tie')
+
+
+def phase_sharding(torch, seed, cfg=None, serve_ref=None):
+    """``mx.sharding`` on the card: see the module docstring. (a) in two
+    ranks, (b) to (d) in four, all sharing cuda:0 over gloo, with the
+    one-process references run here before each (for (a), the serve
+    phase's tokens when it ran: ``serve_ref``). Returns the ranks' summed
+    launch counts, in all and by design, and what :func:`sharding_costs`
+    logs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.parallel import launch
+    cfg = dict(SHARD, **(cfg or {}))
+    dev = torch.device(cfg['dev'], 0) if cfg['dev'] == 'cuda' \
+        else torch.device('cpu')
+    cuda = dev.type == 'cuda'
+    counts, by_design = dict.fromkeys(KERNELS, 0), {}
+
+    def add(launches, designs):
+        for k, c in launches.items():
+            counts[k] = counts.get(k, 0) + c
+        for k, ds in designs.items():
+            for d, c in ds.items():
+                by_design.setdefault(k, {}).setdefault(d, 0)
+                by_design[k][d] += c
+
+    # ---- (a) tp = 2, full depth
+    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+    meta = get_llama(cfg['model'], device='meta',
+                     **({} if cfg['layers'] is None
+                        else {'num_layers': cfg['layers']}))
+    full_bytes = sum(p.numel() * 4 for p in meta.parameters())
+    L = meta.cfg.num_layers
+    prompts = _prompts(torch, meta.cfg.vocab_size, seed)
+    if serve_ref is None or cfg['layers'] is not None:
+        net, serve_ref = shard_one_process_serve(torch, cfg, cfg['layers'],
+                                                 prompts)
+        del net
+        if cuda:
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ra = launch.spawn(_shard_llama_rank, 2, cfg, dict(tp=2), cfg['layers'],
+                      prompts, serve_ref['outs'], backend='gloo',
+                      timeout=900)
+    log(f'[sharding] (a) 2 ranks on {dev} over gloo in '
+        f'{time.perf_counter() - t0:.1f} s (spawn included)')
+    for r in ra:
+        add(r['launches'], r['designs'])
+        calls = r['steps'] + r['chunks'] + 2
+        want = _want(fused_norm=(2 * L + 1) * calls,
+                     paged_attention_decode=L * (r['steps'] + 1))
+        if cuda and {k: r['launches'].get(k, 0) for k in want} != want:
+            fail(f'sharding: (a) rank {r["rank"]} launched '
+                 f'{r["launches"]}, want {want}')
+        step_want = {'fused_norm': 2 * L + 1, 'paged_attention_decode': L}
+        if cuda and r['step_counts'] != step_want:
+            fail(f'sharding: (a) a decode step launched '
+                 f'{r["step_counts"]}, want {step_want}')
+        half = r['weight_bytes'] / full_bytes
+        if not 0.49 <= half <= 0.51 or r['heads'] != (
+                meta.cfg.num_heads // 2, meta.cfg.num_kv_heads // 2) or \
+                r['pool'][2] != meta.cfg.num_kv_heads // 2:
+            fail(f'sharding: (a) rank {r["rank"]} holds {half:.4f} of the '
+                 f'weights, heads {r["heads"]}, pool {r["pool"]}')
+        if cuda and not r['weight_bytes'] <= r['allocated'] <= \
+                1.02 * r['weight_bytes'] or r['recompiles'] or \
+                not r['audit'][0]:
+            fail(f'sharding: (a) rank {r["rank"]} allocated '
+                 f'{r["allocated"]}, recompiles {r["recompiles"]}, audit '
+                 f'{r["audit"]}')
+        if r['outs'] != ra[0]['outs']:
+            fail('sharding: (a) the two ranks served other tokens')
+    part = ra[0]['part']
+    gen = sum(map(len, ra[0]['outs']))
+    log(f'[sharding] (a) {cfg["model"]} ({L} layers) at tp = 2: each rank '
+        f'holds {ra[0]["weight_bytes"] / 2**30:.2f} GiB of weights '
+        f'({ra[0]["weight_bytes"] / full_bytes:.4f} of them; '
+        f'memory_allocated {(ra[0]["allocated"] or 0) / 2**30:.2f} '
+        f'GiB, peak {ra[0]["peak"]} GiB), heads {ra[0]["heads"]} a rank, '
+        f'pool {ra[0]["pool"]}; {len(prompts)} requests, {gen} tokens in '
+        f'{ra[0]["wall"]:.2f} s ({gen / ra[0]["wall"]:.1f} tok/s), decode '
+        f'steps {ra[0]["steps"]}, prefill chunks {ra[0]["chunks"]}, eager '
+        f'(compile_count {ra[0]["compile_count"]}, recompiles '
+        f'{ra[0]["recompiles"]}), audit {ra[0]["audit"][1]}; a decode step '
+        f'{ra[0]["step_ms"]:.2f} host ms a rank and launches '
+        f'{ra[0]["step_counts"]}; the graphed one-process server: '
+        f'{serve_ref["tok_s"]:.1f} tok/s, a step '
+        + (f'{serve_ref["step_ms"]:.2f} ms'
+           if serve_ref['step_ms'] is not None
+           else '(the serve phase\'s graphed step, [profile] above)')
+        + f'; rank 0 collectives {ra[0]["coll"]}; tokens '
+        f'{"equal to one process" if part is None else f"part at {part}"}')
+    if part is not None:
+        net = get_llama(cfg['model'], device=cfg['dev'], seed=SEED,
+                        **({} if cfg['layers'] is None
+                           else {'num_layers': cfg['layers']})).eval()
+        i, j = part
+        want_l = _teacher_logits(torch, net, prompts[i],
+                                 serve_ref['outs'][i], j, dev)
+        del net
+        if cuda:
+            torch.cuda.empty_cache()
+        _near_tie(torch, '(a)', part, ra[0]['part_logits'], want_l)
+    got = {'a': [{k: v for k, v in r.items() if k != 'part_logits'}
+                 for r in ra], 'a_ref': serve_ref}
+    # ---- (b) to (d): four ranks
+    netb, ref_b = shard_one_process_serve(torch, cfg, cfg['layers_b'],
+                                          prompts)
+    del netb
+    bert_ref = shard_one_process_bert(torch, mx, gluon, bert, cfg)
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r4 = launch.spawn(_shard_rank4, 4, cfg, prompts, ref_b['outs'],
+                      backend='gloo', timeout=900)
+    log(f'[sharding] (b)-(d) 4 ranks on {dev} over gloo in '
+        f'{time.perf_counter() - t0:.1f} s (spawn included)')
+    for r in r4:
+        PROFILES.extend(r['profiles'])
+        b = r['b']
+        add(b['launches'], b['designs'])
+        if b['recompiles'] or not b['audit'][0] or \
+                b['pool'][2] != meta.cfg.num_kv_heads // 2 or \
+                b['pool_spec'][:3] != ('dp', None, 'tp') or \
+                b['pool'][0] != cfg['slots'] * cfg['max_length'] // \
+                cfg['psz'] // 2 + 1:
+            fail(f'sharding: (b) rank {r["rank"]}: pool {b["pool"]} '
+                 f'{b["pool_spec"]}, recompiles {b["recompiles"]}, audit '
+                 f'{b["audit"]}')
+        if b['part'] is not None:
+            fail(f'sharding: (b) rank {r["rank"]} tokens part from the '
+                 f'one-process {cfg["layers_b"]}-layer server at '
+                 f'{b["part"]}')
+    b0 = r4[0]['b']
+    gen = sum(map(len, b0['outs']))
+    log(f'[sharding] (b) {cfg["model"]} widths, {cfg["layers_b"]} layers, '
+        f'dp 2 x tp 2: pool {b0["pool"]} a rank ({b0["pool_spec"]}), slots '
+        f'{[r["b"]["rows"] for r in r4]} by rank, tokens equal to the '
+        f'one-process server\'s; {gen} tokens in {b0["wall"]:.2f} s '
+        f'({gen / b0["wall"]:.1f} tok/s; one process graphed '
+        f'{ref_b["tok_s"]:.1f}), a decode step {b0["step_ms"]:.2f} host ms '
+        f'(one process {ref_b["step_ms"]:.2f})')
+    got['b'] = [r['b'] for r in r4]
+    got['b_ref'] = ref_b
+    # ---- (c)
+    for tag in ('dp2tp2', 'dp4'):
+        runs = [r['c'][tag] for r in r4]
+        for r in runs:
+            add(r['launches'], r['designs'])
+        losses = runs[0]['losses']
+        ok = all(math.isclose(a, b, rel_tol=1e-4)
+                 for a, b in zip(losses, bert_ref['losses']))
+        bad, worst = _change_gaps(bert_ref['init'], {
+            False: (bert_ref['losses'], bert_ref['state']),
+            True: (losses, runs[0]['state'])})
+        same = all(r['digests'] == runs[0]['digests'] for r in runs)
+        tp = 2 if tag == 'dp2tp2' else 1
+        heads = 12 // tp
+        bh = cfg['batch'] // (4 // tp) * heads
+        per_step = [{k: c.get(k, 0) for k in ('fused_norm',
+                                               'flash_attention', 'adam')}
+                    for c in runs[0]['counts']]
+        want_step = {'fused_norm': 26, 'flash_attention': 12,
+                     'adam': runs[0]['updated']}
+        b5 = [sum(r['counts'][i].get('adam', 0) for r in runs)
+              for i in range(cfg['steps'])]
+        plan = sum(r['updated'] for r in runs)
+        full_slots = 2 * sum(v.numel() * 4
+                             for v in bert_ref['state'].values())
+        share = [r['slot_bytes'] / full_slots for r in runs]
+        log(f'[sharding] (c) BERT-base {tag}: losses {losses} against one '
+            f'process {bert_ref["losses"]} (rtol 1e-4); |sharded change - '
+            f'one process\'s change| / |one process\'s change|, worst '
+            f'{worst} (1e-2); the ranks\' gathered weights equal {same}; '
+            f'per step and rank {per_step} (want {want_step}; flash on BH '
+            f'{bh}); B5 summed over the ranks {b5} a step, the ZeRO-1 plan '
+            f'{plan}; slot bytes a rank {share} of one process\'s (1/4); '
+            f'qkv rows a rank {runs[0]["qkv_local"]}; graphs (net, '
+            f'Trainer, eager calls) {runs[0]["graphs"]}')
+        if not ok or bad or not same:
+            fail(f'sharding: (c) {tag} trains apart from one process: '
+                 f'losses {losses} against {bert_ref["losses"]}; past '
+                 f'tolerance {bad}; ranks equal {same}')
+        if cuda and any(c != want_step for c in per_step):
+            fail(f'sharding: (c) {tag} launches a step {per_step}, want '
+                 f'{want_step}')
+        if cuda and (b5 != [plan] * cfg['steps'] or not all(
+                0.24 <= s <= 0.26 for s in share)):
+            fail(f'sharding: (c) {tag} B5 {b5} against the plan {plan}, '
+                 f'slot shares {share}')
+        for r in runs:
+            r.pop('state', None)
+        got[f'c_{tag}'] = runs
+    # ---- (d)
+    want_p = r4[0]['c']['dp2tp2']['digests']
+    want_s = r4[0]['c']['dp2tp2']['state_digests']
+    if any(r['d']['params'] != {f'{k}': v for k, v in want_p.items()} or
+           r['d']['trainer'] != want_s for r in r4):
+        fail('sharding: (d) the checkpoint read under dp 4 is not the '
+             'dp 2 x tp 2 state bit for bit')
+    mgr = parallel.SharedCheckpointManager(cfg['ckpt'], max_to_keep=2)
+    one = mgr.restore()
+    import numpy as np
+    one_p = _np_digests({k: np.asarray(v) for k, v in one['params'].items()})
+    one_s = _np_digests({f'{k}': np.asarray(v)
+                         for k, v in _flat_tree(one['trainer']).items()})
+    if one_p != want_p or one_s != want_s:
+        fail('sharding: (d) the checkpoint read in one process is not the '
+             'dp 2 x tp 2 state bit for bit')
+    latest = mgr.latest_step()
+
+    class _Killed(BaseException):
+        pass
+
+    def hook(name):
+        if name == 'ckpt.renamed':
+            raise _Killed(name)
+    prev = parallel.checkpoint.install_crash_hook(hook)
+    try:
+        mgr.save(latest + 1, {'params': one['params']})
+        fail('sharding: (d) the crash hook did not fire')
+    except _Killed:
+        pass
+    finally:
+        parallel.checkpoint.install_crash_hook(prev)
+    after = parallel.SharedCheckpointManager(cfg['ckpt']).latest_step()
+    log(f'[sharding] (d) dp 2 x tp 2 weights ({len(want_p)} tensors) and '
+        f'Trainer slots ({len(want_s)}) saved by 4 ranks: read back under '
+        f'dp 4 and in one process bit-equal (sha256 of each tensor); a '
+        f'crash at ckpt.renamed of step {latest + 1} leaves latest_step() '
+        f'{after} (want {latest})')
+    if after != latest:
+        fail(f'sharding: (d) latest_step() {after} after a crash at '
+             f'ckpt.renamed, want {latest}')
+    got['d'] = {'latest': latest}
+    return counts, by_design, got
+
+
+def shard_one_process_bert(torch, mx, gluon, bert, cfg):
+    """(c)'s reference: the same seeded BERT, batch and Adam steps in one
+    process (hybridized, graphed on the card)."""
+    ctxd = mx.gpu(0) if cfg['dev'] == 'cuda' else mx.cpu()
+    net = _bert_net(mx, bert, cfg, SEED + 22, ctxd)
+    ids, tt, labels = _bert_data(mx, cfg, SEED + 22)
+    net(ids, tt)
+    params = net.collect_params()
+    init = {k: p.data()._data.detach().cpu().clone()
+            for k, p in params.items()}
+    net.hybridize(static_alloc=True)
+    trainer = gluon.Trainer(params, 'adam', dict(BERT_OPTS[0][2]))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for _ in range(cfg['steps']):
+        with mx.autograd.record():
+            _, _, mlm = net(ids, tt)
+            loss = loss_fn(mlm, labels).mean()
+        loss.backward()
+        trainer.step(1)
+        losses.append(loss.item())
+    state = {k: p.data()._data.detach().cpu().clone()
+             for k, p in params.items()}
+    return {'losses': losses, 'init': init, 'state': state}
+
+
+def sharding_costs(torch, got):
+    """(e): per rank, host ms a step split into forward, backward and
+    update, and the collectives' share (staging included); peak memory;
+    rank 0's busy share; beside the serving numbers of (a) and (b)."""
+    for tag in ('dp2tp2', 'dp4'):
+        runs = got[f'c_{tag}']
+        for r in runs:
+            last = r['split'][-1]
+            log(f'[sharding] (e) {tag} rank {runs.index(r)}: a step '
+                f'{sum(last[:3]):.1f} host ms = forward {last[0]:.1f} + '
+                f'backward {last[1]:.1f} + update {last[2]:.1f}, of which '
+                f'collectives {last[3]:.1f} (staging included); every '
+                f'step {[[round(x, 1) for x in s] for s in r["split"]]}; '
+                f'peak {r["peak"]} GiB' + (
+                    f'; busy share {r["busy"]:.3f}' if 'busy' in r else ''))
+    for key in ('a', 'b'):
+        for r in got[key]:
+            log(f'[sharding] (e) ({key}) rank {r["rank"]}: build '
+                f'{r["build_s"]:.1f} s, a decode step {r["step_ms"]:.2f} '
+                f'host ms, peak {r["peak"]} GiB, collectives '
+                f'{r["coll"]}')
+
+
 RING = dict(heads=32, head_dim=128, tokens=8192, ranks=4)
 #: the heads the backward is checked on: the ring's backward and dense
 #: attention's autograd are plain fp32 PyTorch (about 100 GFLOP a head
@@ -6326,6 +7010,7 @@ def main(argv=None):
     rows = phase_kernels(torch) if 'kernels' in phases else None
 
     paths = {}      # main path -> the launch counts of its run
+    serve_ref = None    # the serve phase's tokens, for the sharding phase
     designs = {}    # main path -> {kernel: {design: launches}}
 
     def window(path, fn, *args):
@@ -6350,8 +7035,12 @@ def main(argv=None):
         if 'forward' in phases:
             logits = window('forward', phase_forward, torch, net, SEED + 1)
         if 'serve' in phases:
-            prompts, outs, _ = window('serve', phase_serve, torch, net,
-                                      SEED + 2)
+            prompts, outs, served = window('serve', phase_serve, torch,
+                                           net, SEED + 2)
+            # the sharding phase's one-process reference (same weights,
+            # prompts and server settings)
+            serve_ref = {'outs': [list(o) for o in outs], 'step_ms': None,
+                         'tok_s': sum(map(len, outs)) / served['wall_s']}
             teacher_forced(torch, net, prompts[2], outs[2])
             graph_checks(torch, net, prompts[2], outs[2])
             profile_breakdown(torch, net)
@@ -6430,6 +7119,15 @@ def main(argv=None):
         check_designs('dist_async', paths['dist_async'],
                       designs['dist_async'])
         dist_async_costs(torch, got)
+        del got
+        torch.cuda.empty_cache()
+    if 'sharding' in phases:    # counted in the ranks, which return counts
+        paths['sharding'], designs['sharding'], got = phase_sharding(
+            torch, SEED + 2, serve_ref=serve_ref)
+        log(f'[sharding] launches {paths["sharding"]}; by design '
+            f'{designs["sharding"]}')
+        check_designs('sharding', paths['sharding'], designs['sharding'])
+        sharding_costs(torch, got)
         del got
         torch.cuda.empty_cache()
     if 'ring' in phases:        # counted in the ranks, which return counts

@@ -23,7 +23,9 @@ initializers, ``mx.io`` the data iterators, ``mx.metric`` the
 evaluation metrics, ``mx.amp`` mixed precision, ``mx.kvstore``
 the key-value stores that data-parallel training reduces through (the
 ``dist_async`` parameter server among them) and ``mx.train`` the elastic
-membership group that drives that server's worker-loss recovery.
+membership group that drives that server's worker-loss recovery, and
+``mx.sharding`` the partition rules and the mesh context under which a
+Gluon script trains and serves sharded over ranks.
 """
 
 from .base import MXNetError
@@ -47,8 +49,9 @@ from . import gluon
 from . import amp
 from . import kvstore
 from . import train
+from . import sharding
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'num_gpus',
            'current_context', 'np', 'npx', 'nd', 'autograd', 'random',
            'NDArray', 'waitall', 'initializer', 'init', 'model', 'metric',
-           'io', 'gluon', 'amp', 'kvstore', 'train']
+           'io', 'gluon', 'amp', 'kvstore', 'train', 'sharding']

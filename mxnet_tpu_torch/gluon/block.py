@@ -64,6 +64,17 @@ warning. Every write of a parameter is in place (``Parameter.set_data``,
 the Trainer's update, BatchNorm's running statistics), so a replay sees
 it.
 
+Under ``mx.sharding.mesh(...)`` (reference ``block.py:349``, :545-551) a
+hybridized call is sharded: its parameters are placed by the partition
+rules once for each mesh (``_sharding_plan``: this rank keeps its shards),
+its inputs are cut on the data axis by the context's ``batch_spec``, and
+the context's fingerprint joins the key, so the same mesh is warm and a
+new mesh is a new key. Such a call runs collectives (the gathers, the
+tensor-parallel sums), which cannot be captured: it runs eagerly on the
+card and counts in ``eager_call_count``, where the JAX package compiles one
+partitioned program. A call outside any mesh of a block whose parameters
+are sharded gathers them back first.
+
 Not ported (ROADMAP A5 rest): ``SymbolBlock``, ``export``,
 ``optimize_for`` beyond hybridize-and-call, and ``hybridize``'s
 ``check``/``donate_inputs``, which raise.
@@ -89,6 +100,19 @@ __all__ = ['Block', 'HybridBlock', 'ParameterDict', 'is_tracing',
            'record_aux_update']
 
 _BLOCK_TRACE = threading.local()
+
+
+@contextlib.contextmanager
+def current_unsharded():
+    """No sharding context inside the block (a whole forward)."""
+    from ..sharding import context as _ctx
+    stack = _ctx._stack()
+    saved = list(stack)
+    stack.clear()
+    try:
+        yield
+    finally:
+        stack[:] = saved
 
 
 def is_tracing():
@@ -493,6 +517,7 @@ class _CachedGraph:
         #                       of their key waited for its backward
         self._entries = {}
         self._param_order = None
+        self._planned = None    # fingerprint of the mesh placed for
         self._dynamic = False
         self._monitor_callbacks = []
         self._lock = threading.RLock()
@@ -514,9 +539,61 @@ class _CachedGraph:
                                  any(p.grad_req == 'null' for p in params))
         return self._param_order
 
+    def _sharding_plan(self, ctx):
+        """Place every parameter by the context's rules, once for each
+        mesh: names relative to this block, as the reference matches
+        them."""
+        fp = ctx.fingerprint()
+        if self._planned == fp:
+            return
+        rules = ctx.rules_for_block(self.block)
+        for name, p in self.block.collect_params().items():
+            if p._var is None:
+                p._finish_deferred_init()
+            p._shard_to(ctx, ctx.spec_for(name, p.shape, rules))
+        self._planned = fp
+
+    def _unplan(self):
+        """Outside any mesh: parameters held whole again."""
+        for p in self._params()[0]:
+            p._unshard()
+        self._planned = None
+
+    def _sharded(self, ctx, args):
+        """A call under a mesh: see the module docstring."""
+        from ..sharding import dispatch
+        self._sharding_plan(ctx)
+        leaves, spec = _flatten(args, inputs=True)
+        dev = next((x._data.device for x in leaves
+                    if isinstance(x, NDArray)), None)
+        in_nds = []
+        for x in leaves:
+            if not isinstance(x, NDArray):
+                x = array(x, ctx=None if dev is None else context_of(dev))
+            if not dispatch.is_sharded(x):
+                lay = dispatch.Layout(ctx, ctx.batch_spec(x.shape), x.shape)
+                if lay.sharded:
+                    x = dispatch.shard(dispatch.cut(x._data, lay, grad=True),
+                                       lay)
+            in_nds.append(x)
+        key = (tuple((x.shape, str(x.dtype)) for x in in_nds),
+               _tape.is_training(), (), spec, ctx.fingerprint())
+        with self._lock:
+            if key not in self._entries:
+                self._entries[key] = _Entry()
+                self.compiles += 1
+            self.eager_calls += 1
+            return self._eager(key, spec, in_nds)
+
     def __call__(self, args):
         if self._dynamic:
             return self._monitor(self.block.forward(*args))
+        from ..sharding import current
+        ctx = current()
+        if ctx is not None:
+            return self._monitor(self._sharded(ctx, args))
+        if self._planned is not None:
+            self._unplan()
         leaves, spec = _flatten(args, inputs=True)
         dev = next((x._data.device for x in leaves
                     if isinstance(x, NDArray)), None)
@@ -888,6 +965,17 @@ class HybridBlock(Block):
     def __call__(self, *args, **kwargs):
         for hook in self._forward_pre_hooks:
             hook(self, args)
+        if self._active and not self._first_forward_done and \
+                not is_tracing() and not kwargs:
+            from ..sharding import current
+            if current() is not None:
+                # a sharded first call: deferred shapes resolve on an
+                # unrecorded whole forward, then the call is sharded
+                if any(p._var is None
+                       for p in self.collect_params().values()):
+                    with current_unsharded():
+                        self.infer_shape(*args)
+                self._first_forward_done = True
         if self._active and self._first_forward_done and not is_tracing():
             if kwargs:
                 raise ValueError(

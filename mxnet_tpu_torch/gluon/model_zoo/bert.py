@@ -14,6 +14,15 @@ head dim must be one the kernel is built for, 32, 64 or 128), and, through
 the Trainer, the fused Adam or SGD-momentum step. With ``valid_length``
 the attention takes the masked plain path, as the reference leaves it to
 XLA.
+
+Under ``mx.sharding`` with tensor parallelism the fused ``qkv`` weight is
+laid out in three blocks (``shard_blocks``): each rank of ``tp`` holds its
+heads of Q, K and V, so that the split and the attention stay local (6 of
+BERT-base's 12 heads a rank at tp = 2). The registry's ``('bert', 'tp')``
+table, copied from the JAX package, matches no rule for ``qkv``, the pooler,
+the MLM transform, the classifier or ``decoder_bias``, and its ``fsdp``
+table none for ``decoder_bias`` (ROADMAP C12): :func:`bert_partition_rules`
+is the table with ``qkv`` column-parallel and the rest replicated.
 """
 
 from ..block import HybridBlock
@@ -23,7 +32,18 @@ from ... import initializer
 
 __all__ = ['BERTLayerNorm', 'BERTSelfAttention', 'BERTEncoderCell',
            'BERTEncoder', 'BERTModel', 'get_bert_model', 'bert_12_768_12',
-           'bert_24_1024_16', 'load_hf_state_dict']
+           'bert_24_1024_16', 'load_hf_state_dict', 'bert_partition_rules']
+
+
+def bert_partition_rules(mode='tp'):
+    """The registry's ``('bert', mode)`` rules, for ``tp`` with the fused
+    ``qkv`` projection column-parallel first, and every parameter they
+    leave unmatched replicated last."""
+    from ...sharding import rules as _rules
+    P = _rules.PartitionSpec
+    table = [(r'attention.*qkv.*weight$', P('tp', None))] \
+        if mode == 'tp' else []
+    return table + _rules.rules_for('bert', mode) + [(r'.*', P())]
 
 
 class BERTLayerNorm(nn.LayerNorm):
@@ -41,6 +61,9 @@ class BERTSelfAttention(HybridBlock):
         self._units = units
         self._num_heads = num_heads
         self.qkv = nn.Dense(3 * units, flatten=False)
+        # Q, K and V each split alike when the rows are sharded
+        self.qkv.weight.shard_blocks = {0: 3}
+        self.qkv.bias.shard_blocks = {0: 3}
         self.proj = nn.Dense(units, flatten=False)
         self.dropout = nn.Dropout(dropout) if dropout else None
 

@@ -21,6 +21,18 @@ key (``_graphs.StepGraph``); its prefill stays one eager call. A net
 quantized by :func:`mxnet_tpu_torch.quantization.quantize_net` runs every
 path unchanged, with bf16 activations between its int8 layers.
 
+Under ``mx.sharding`` with a ``tp`` axis (:meth:`LlamaForCausalLM.shard`,
+or a net built inside the context) every rank holds its shard of the
+weights by :func:`llama_partition_rules` (Megatron's layout): q, k, v,
+gate and up column-parallel, o and down row-parallel with a sum over
+``tp`` after each, ``embed_tokens`` and ``lm_head`` vocab-parallel (a
+masked lookup and a sum; logits of this rank's vocabulary slice, which
+:meth:`LlamaForCausalLM.pick` reduces to the global greedy token, ties to
+the lowest id as ``torch.argmax``). Attention runs on the local heads, the
+GQA ratio kept: ``llama3_8b`` at tp = 2 holds 16 of 32 query heads and 4
+of 8 KV heads a rank. The net keeps the spec's ``tp`` splits only and
+holds every other axis whole (data-parallel serving replicates it).
+
 The no-cache forward also trains: where autograd records, the norms and
 the flash attention go through their ``autograd.Function``s
 (``FusedNormFunction``, ``FlashAttentionFunction``), whose forward is the
@@ -42,7 +54,8 @@ from ...ops import nn as nn_ops
 from ...ops.contrib import flash_attention, paged_attention_decode
 
 __all__ = ['LlamaConfig', 'LlamaModel', 'LlamaForCausalLM', 'llama_tiny',
-           'llama2_7b', 'llama3_8b', 'get_llama', 'from_jax_params']
+           'llama2_7b', 'llama3_8b', 'get_llama', 'from_jax_params',
+           'llama_partition_rules', 'shard_params_for']
 
 _NEG_INF = -1e30
 
@@ -69,6 +82,24 @@ class LlamaConfig:
             raise ValueError(
                 f'units {units} must split over {num_heads} heads and the '
                 f'heads over {self.num_kv_heads} KV heads')
+
+
+def llama_partition_rules(axis='tp'):
+    """Megatron tensor-parallel rules for the Llama (JAX ``llama.py:518``):
+    the registry's ``('llama', 'tp')`` table with ``axis`` for ``tp``."""
+    from ...sharding import rules as _rules
+    P = _rules.PartitionSpec
+    return [(pat, P(*(axis if e == 'tp' else e for e in spec)))
+            for pat, spec in _rules.rules_for('llama', 'tp')]
+
+
+def _tp_sum(t, tp):
+    """``t`` summed over the ranks of ``tp`` (a ``(group, n, index)``
+    triple, or None for one rank)."""
+    if tp is None:
+        return t
+    from ...sharding import _collectives as C
+    return C.sum_over(t, tp[0])
 
 
 class RMSNorm(nn.Module):
@@ -132,6 +163,13 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(cfg.units, self._kv * self._dh, bias=False)
         self.v_proj = nn.Linear(cfg.units, self._kv * self._dh, bias=False)
         self.o_proj = nn.Linear(self._h * self._dh, cfg.units, bias=False)
+        self._tp = None     # (group, n, index) once sharded on tp
+
+    def _heads(self):
+        """The query and KV heads this rank holds."""
+        if self._tp is None:
+            return self._h, self._kv
+        return self._h // self._tp[1], self._kv // self._tp[1]
 
     def forward(self, x, cache=None, offset=0, pages=None, rope=None):
         """Without ``cache``: causal attention over the sequence (flash
@@ -167,14 +205,15 @@ class LlamaAttention(nn.Module):
         the server's pool, the reference's fp32 step), and the gathered
         attention over a cache runs in fp32, as in the reference."""
         B, S, _ = x.shape
-        q = self.q_proj(x).reshape(B, S, self._h, self._dh)
-        k = self.k_proj(x).reshape(B, S, self._kv, self._dh)
-        v = self.v_proj(x).reshape(B, S, self._kv, self._dh)
+        H, KV = self._heads()
+        q = self.q_proj(x).reshape(B, S, H, self._dh)
+        k = self.k_proj(x).reshape(B, S, KV, self._dh)
+        v = self.v_proj(x).reshape(B, S, KV, self._dh)
         if rope is None:
             rope = _rope_tables(S, self._dh, self._theta, offset, x.device)
         q = _rope(q, *rope)
         k = _rope(k, *rope)
-        rep = self._h // self._kv
+        rep = H // KV
 
         if cache is None:
             if rep > 1:
@@ -182,8 +221,8 @@ class LlamaAttention(nn.Module):
                 v = v.repeat_interleave(rep, dim=2)
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True)
-            out = out.transpose(1, 2).reshape(B, S, self._h * self._dh)
-            return self.o_proj(out)
+            out = out.transpose(1, 2).reshape(B, S, H * self._dh)
+            return _tp_sum(self.o_proj(out), self._tp)
 
         k_cache, v_cache = cache
         per_slot = torch.is_tensor(offset) and offset.dim() == 1
@@ -202,8 +241,9 @@ class LlamaAttention(nn.Module):
                     q[:, 0].to(k_cache.dtype), k_cache, v_cache, pages,
                     offset.to(torch.int32).contiguous(),
                     sm_scale=self._dh ** -0.5)
-                out = out.to(q.dtype).reshape(B, S, self._h * self._dh)
-                return self.o_proj(out), (k_cache, v_cache)
+                out = out.to(q.dtype).reshape(B, S, H * self._dh)
+                return _tp_sum(self.o_proj(out), self._tp), \
+                    (k_cache, v_cache)
             if B != 1:
                 raise ValueError('chunked prefill fills one sequence')
             pos = _positions(offset, S, x.device)
@@ -211,8 +251,8 @@ class LlamaAttention(nn.Module):
             k_cache[pid, pos % psz] = k[0].to(k_cache.dtype)
             v_cache[pid, pos % psz] = v[0].to(v_cache.dtype)
             idx = pages.long()
-            kf = k_cache[idx].reshape(B, L, self._kv, self._dh)
-            vf = v_cache[idx].reshape(B, L, self._kv, self._dh)
+            kf = k_cache[idx].reshape(B, L, KV, self._dh)
+            vf = v_cache[idx].reshape(B, L, KV, self._dh)
         else:
             L = k_cache.shape[1]
             if per_slot:
@@ -246,8 +286,8 @@ class LlamaAttention(nn.Module):
         scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum('bhsl,blhd->bshd', probs, vf.float()).to(x.dtype)
-        out = out.reshape(B, S, self._h * self._dh)
-        return self.o_proj(out), (k_cache, v_cache)
+        out = out.reshape(B, S, H * self._dh)
+        return _tp_sum(self.o_proj(out), self._tp), (k_cache, v_cache)
 
 
 class LlamaMLP(nn.Module):
@@ -258,9 +298,11 @@ class LlamaMLP(nn.Module):
         self.gate_proj = nn.Linear(cfg.units, cfg.hidden_size, bias=False)
         self.up_proj = nn.Linear(cfg.units, cfg.hidden_size, bias=False)
         self.down_proj = nn.Linear(cfg.hidden_size, cfg.units, bias=False)
+        self._tp = None
 
     def forward(self, x):
-        return self.down_proj(nn_ops.silu(self.gate_proj(x)) * self.up_proj(x))
+        return _tp_sum(self.down_proj(nn_ops.silu(self.gate_proj(x))
+                                      * self.up_proj(x)), self._tp)
 
 
 class LlamaBlock(nn.Module):
@@ -293,9 +335,19 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(LlamaBlock(cfg)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.units, cfg.rms_norm_eps)
+        self._tp = None
+
+    def embed(self, token_ids):
+        """The token embeddings: a vocab-parallel table looks up the rows
+        this rank holds and sums over ``tp``."""
+        if self._tp is None:
+            return self.embed_tokens(token_ids)
+        from ...sharding.dispatch import vocab_lookup
+        return vocab_lookup(token_ids, self.embed_tokens.weight,
+                            self._tp[0], self._tp[2])
 
     def forward(self, token_ids, caches=None, offset=0, pages=None):
-        x = self.embed_tokens(token_ids)
+        x = self.embed(token_ids)
         cfg = self.cfg
         # one set of RoPE tables for every layer's q and k
         rope = _rope_tables(x.shape[1], cfg.units // cfg.num_heads,
@@ -331,12 +383,20 @@ class LlamaForCausalLM(nn.Module):
             and torch.device(device).type == 'meta'
         dev = None if meta else resolve_device(device)
         self.cfg = cfg
+        self._tp = None
+        self._shard_ctx = None
         with torch.device('meta'):
             self.model = LlamaModel(cfg)
             if not cfg.tie_word_embeddings:
                 self.lm_head = nn.Linear(cfg.units, cfg.vocab_size,
                                          bias=False)
-        if dev is not None:
+        from ...sharding import current
+        ctx = current()
+        if dev is not None and ctx is not None and ctx.size('tp') > 1:
+            # this rank's shards only, each drawn whole in turn from the
+            # seeded generator (the values of the unsharded net)
+            self._draw_sharded(ctx, dev, seed)
+        elif dev is not None:
             self.to_empty(device=dev)
             self.reset_parameters(seed)
 
@@ -351,6 +411,96 @@ class LlamaForCausalLM(nn.Module):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=gen)
+
+    # -------------------------------------------------------------- sharding
+    def _specs(self, ctx):
+        """Each parameter's spec by the context's rules (the Llama's ``tp``
+        table by default), its ``tp`` splits only: ``{name: spec}``."""
+        from ...sharding.rules import PartitionSpec as P, match_spec, \
+            resolve_spec
+        rules = ctx.rules_for_block(self) if ctx.mode == 'tp' else \
+            llama_partition_rules()
+        out = {}
+        for name, p in self.named_parameters():
+            spec = resolve_spec(match_spec(name, p.shape, rules), p.shape,
+                                ctx, name=name)
+            out[name] = P(*('tp' if e == 'tp' or (isinstance(e, tuple)
+                                                  and 'tp' in e) else None
+                            for e in spec))
+        return out
+
+    def _mark(self, ctx):
+        tp = (ctx.group('tp'), ctx.size('tp'), ctx.coord('tp'))
+        self._tp = self.model._tp = tp
+        for blk in self.model.layers:
+            blk.self_attn._tp = blk.mlp._tp = tp
+        self._shard_ctx = ctx
+        self.release_graphs()
+
+    @torch.no_grad()
+    def _draw_sharded(self, ctx, dev, seed):
+        specs = self._specs(ctx)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        for name, p in list(self.named_parameters()):
+            full = torch.empty(p.shape, dtype=p.dtype, device=dev)
+            if name.endswith('norm.weight'):
+                full.fill_(1.0)
+            else:
+                full.normal_(0.0, 0.02, generator=gen)
+            local = _cut(full, specs[name], ctx)
+            del full
+            self._set_param(name, local)
+        self._mark(ctx)
+
+    def _set_param(self, name, value):
+        mod = self
+        *path, leaf = name.split('.')
+        for part in path:
+            mod = getattr(mod, part)
+        setattr(mod, leaf, nn.Parameter(value, requires_grad=True))
+
+    @torch.no_grad()
+    def shard(self, ctx=None):
+        """Keep this rank's ``tp`` shard of every weight (a net holding
+        whole weights; the whole ones are freed). ``ctx`` defaults to the
+        active ``mx.sharding`` context; a mesh without ``tp`` changes
+        nothing. Returns the net."""
+        from ...sharding import current
+        ctx = ctx or current()
+        if ctx is None or ctx.size('tp') == 1 or self._tp is not None:
+            return self
+        specs = self._specs(ctx)
+        for name, p in list(self.named_parameters()):
+            whole = p.detach()
+            local = _cut(whole, specs[name], ctx)
+            if local is not whole:
+                self._set_param(name, local)
+        self._mark(ctx)
+        return self
+
+    def gather_logits(self, logits):
+        """The logits of the whole vocabulary from this rank's slice (a
+        collective over ``tp``); the logits themselves unsharded."""
+        if self._tp is None:
+            return logits
+        from ...sharding import _collectives as C
+        return C.all_gather(logits.contiguous(), self._tp[0],
+                            logits.dim() - 1)
+
+    def pick(self, last):
+        """The greedy token of each row of ``last`` (``(B, V)`` logits, or
+        this rank's vocabulary slice of them): the fp32 argmax, over the
+        whole vocabulary, ties to the lowest id."""
+        last = last.float()
+        if self._tp is None:
+            return torch.argmax(last, dim=-1)
+        from ...sharding import _collectives as C
+        val, idx = last.max(dim=-1)
+        idx = idx + self._tp[2] * last.shape[-1]
+        vals = C.all_gather(val[None].contiguous(), self._tp[0], 0)
+        idxs = C.all_gather(idx[None].contiguous(), self._tp[0], 0)
+        best = torch.argmax(vals, dim=0)       # the first rank of a tie
+        return idxs.gather(0, best[None])[0]
 
     def forward(self, token_ids, caches=None, offset=0, pages=None):
         if caches is None:
@@ -375,7 +525,8 @@ class LlamaForCausalLM(nn.Module):
         place."""
         cfg = self.cfg
         L = max_length or cfg.max_length
-        shape = (batch_size, L, cfg.num_kv_heads, cfg.units // cfg.num_heads)
+        kv = cfg.num_kv_heads // (self._tp[1] if self._tp else 1)
+        shape = (batch_size, L, kv, cfg.units // cfg.num_heads)
         dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         return [(torch.zeros(shape, dtype=dt, device=self._device()),
                  torch.zeros(shape, dtype=dt, device=self._device()))
@@ -433,6 +584,8 @@ class LlamaForCausalLM(nn.Module):
                              f'and {max_new_tokens} new tokens')
         n_rest = max_new_tokens - 1
         B = toks.shape[0]
+        if self._tp is not None:
+            graph = False       # the picks hold collectives
         if graph and dev.type == 'cuda' and n_rest > 0 and (
                 temperature <= 0.0 or _graphs.captures_generators()):
             key = (B, S, L, float(temperature), min(n_pow2, L - S - 1))
@@ -452,13 +605,20 @@ class LlamaForCausalLM(nn.Module):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
         caches = self.init_caches(B, L)
         logits, caches = self(toks, caches=caches, offset=0)
-        nxt = _pick(logits, temperature, gen)
+        nxt = self._next(logits, temperature, gen)
         out = [toks, nxt[:, None]]
         for off in range(S, S + n_rest):
             logits, caches = self(nxt[:, None], caches=caches, offset=off)
-            nxt = _pick(logits, temperature, gen)
+            nxt = self._next(logits, temperature, gen)
             out.append(nxt[:, None])
         return torch.cat(out, dim=1)[:B_req]
+
+    def _next(self, logits, temperature, gen):
+        if self._tp is None:
+            return _pick(logits, temperature, gen)
+        if temperature <= 0.0:
+            return self.pick(logits[:, -1])
+        return _pick(self.gather_logits(logits), temperature, gen)
 
     def release_graphs(self):
         """Drop the CUDA graphs of :meth:`generate` and their caches."""
@@ -478,7 +638,8 @@ class LlamaForCausalLM(nn.Module):
         names through its block table (``forward(..., pages=...)``)."""
         cfg = self.cfg
         dh = cfg.units // cfg.num_heads
-        shape = (num_pages, page_size, cfg.num_kv_heads, dh)
+        kv = cfg.num_kv_heads // (self._tp[1] if self._tp else 1)
+        shape = (num_pages, page_size, kv, dh)
         dev = self._device()
         dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         return [(torch.zeros(shape, dtype=dt, device=dev),
@@ -612,3 +773,26 @@ def from_jax_params(params, cfg):
     if missing:
         raise ValueError(f'parameters missing: {missing}')
     return out
+
+
+def shard_params_for(params, spec_of, ctx):
+    """This rank's shard of each whole numpy parameter (``{name: array}``,
+    as :func:`from_jax_params` or ``collect_params()`` give them) under the
+    spec ``spec_of(name, shape)`` returns on the ``mx.sharding`` context
+    ``ctx``: the values a sharded net holds, to feed the JAX package's
+    weights to the port's ranks."""
+    out = {}
+    for name, value in params.items():
+        t = torch.as_tensor(np.asarray(value))
+        out[name] = _cut(t, spec_of(name, tuple(t.shape)), ctx)
+    return out
+
+
+def _cut(t, spec, ctx):
+    """This rank's shard of the whole tensor ``t`` under ``spec`` on the
+    ``mx.sharding`` context ``ctx``, a copy (a piece of dim 0 would be a
+    view that keeps all of ``t``); ``t`` itself where the spec splits
+    nothing."""
+    from ...sharding.dispatch import Layout, cut
+    lay = Layout(ctx, spec, t.shape)
+    return cut(t, lay).clone() if lay.sharded else t

@@ -35,6 +35,17 @@ package's blocks do; ``data(ctx)``, ``list_data()``, ``list_grad()`` and
 Trainer sums the replicas' gradients through its kvstore and writes the
 update to each. ``cpu(i)`` contexts are distinct replicas on the host,
 as the JAX package's virtual CPU devices are.
+
+Under ``mx.sharding`` (reference ``parameter.py:46-51``, :232-240) a
+hybridized call places the parameter by the partition rules
+(:meth:`Parameter._shard_to`): the leaf then holds only this rank's shard
+(a new leaf, and a grad buffer of the shard's shape), ``_sharding_spec``
+and ``_sharding_mesh`` name its spec and context, and ``data()`` is a
+sharded NDArray whose ``shape`` is the global shape and whose
+``asnumpy()`` gathers. ``set_data`` takes the global value and keeps this
+rank's shard of it. ``shard_blocks`` (``{dim: k}``) lays a dim out in
+``k`` blocks, each split alike (BERT's fused ``qkv``: every rank then holds
+its heads of Q, K and V).
 """
 
 import contextlib
@@ -105,7 +116,9 @@ def _new_leaf(value, grad_req):
     info = _tape.AGInfo(grad=None, grad_req=grad_req)
     if floating:
         var.register_post_accumulate_grad_hook(_tape._write_grad(info))
-    return var, NDArray(var), info
+    handle = NDArray(var)
+    handle._param = True    # for mx.sharding's check of whole values
+    return var, handle, info
 
 
 def _reset_grad(var, data, info, grad_req):
@@ -187,6 +200,10 @@ class Parameter:
         self._replicas = []     # a _Replica for each context after it
         self._deferred_init = None
         self._structure_name = None  # set by Block.collect_params
+        self._layout = None         # sharding.dispatch.Layout of the leaf
+        self._sharding_spec = None  # its PartitionSpec under a mesh
+        self._sharding_mesh = None  # and the ShardingContext
+        self.shard_blocks = {}
 
     # ------------------------------------------------------------------ props
     @property
@@ -351,6 +368,7 @@ class Parameter:
             rep.sync(self._grad_req)
             return rep.data
         self._sync()
+        self._data._layout = self._layout
         return self._data
 
     def list_data(self):
@@ -398,11 +416,16 @@ class Parameter:
                     else current_context()
                 self._finish_init(initializer.Zero(), [ctx], None)
         if isinstance(data, NDArray):
-            src = data._data
+            src = data._data if data._layout is None \
+                else torch.from_numpy(data.asnumpy())
         elif torch.is_tensor(data):
             src = data
         else:
             src = torch.from_numpy(_np.array(data))
+        if self._layout is not None:
+            from ..sharding.dispatch import cut
+            src = cut(src.detach().reshape(self._layout.gshape).to(
+                self._var.device), self._layout)
         with torch.no_grad():
             for var in self._datas():
                 var.copy_(src.detach().reshape(var.shape))
@@ -448,6 +471,48 @@ class Parameter:
         if self._var is None:
             return
         self._bind(self._sync().detach().to(_dtypes.to_torch(dtype)))
+
+    # --------------------------------------------------------------- sharding
+    def _full(self):
+        """The global value as a detached tensor (gathered where the leaf
+        is a shard: a collective)."""
+        var = self._sync().detach()
+        if self._layout is None:
+            return var
+        from ..sharding.dispatch import gather_tensor
+        with torch.no_grad():
+            return gather_tensor(var, self._layout)
+
+    def _shard_to(self, ctx, spec):
+        """Keep this rank's shard of the value at ``spec`` on the
+        :class:`..sharding.ShardingContext` ``ctx`` (a new leaf, its grad
+        buffer of the shard's shape); a spec that splits nothing keeps the
+        whole value."""
+        from ..sharding import dispatch as _dispatch
+        from ..sharding.dispatch import Layout, cut
+        lay = Layout(ctx, spec, self._shape, blocks=self.shard_blocks,
+                     param=True)
+        if self._layout is not None and self._layout.same(lay):
+            return
+        full = self._full()
+        if lay.sharded:
+            self._bind(cut(full, lay), self._ctxs)
+            self._layout = lay
+            _dispatch.made = True
+        else:
+            if self._layout is not None:
+                self._bind(full, self._ctxs)
+            self._layout = None
+        self._sharding_spec = lay.pspec()
+        self._sharding_mesh = ctx
+
+    def _unshard(self):
+        """Hold the whole value again (a gather where it is sharded)."""
+        if self._layout is not None:
+            full = self._full()
+            self._layout = None
+            self._bind(full, self._ctxs)
+        self._sharding_spec = self._sharding_mesh = None
 
     def var(self):
         raise NotImplementedError(

@@ -76,6 +76,32 @@ a handle (``p.data()[:] = v``, ``p.grad()[:] = 0``) is copied back into
 the captured buffer before each step, and :meth:`load_states` writes the
 slots and counts in place.
 
+Under ``mx.sharding`` (the parameters placed by a hybridized call inside
+a mesh; reference ``trainer.py:289``, :323, :363) the step is the
+reference's sharded update in the port's one-process-a-rank form:
+
+* each optimizer slot is split on ``dp`` by ``ShardingContext.zero1_spec``
+  (ZeRO-1): this rank updates only its tile of the weight (a piece of its
+  shard along the slot's split dim, copied once where it is not
+  contiguous), through B5 for Adam and B6 for SGD with momentum;
+* the gradients of the tiled parameters are summed over ``dp`` by one
+  reduce-scatter that gives this rank the sum on its tiles only, and one
+  all-gather over ``dp`` of the updated tiles writes every rank's weights
+  (``kvstore.fusion.zero1_exchange``, the exchange of
+  ``zero1_update_in_axis``); so after :meth:`step` such a parameter's
+  gradient holds this rank's part, where :meth:`allreduce_grads` sums it
+  whole in place before :meth:`update`;
+* the gradients of the other parameters that are not split on the data
+  axis are summed over it whole (one all-reduce); those split on it were
+  summed by their gather's backward already.
+
+The JAX package turns its Pallas optimizer kernels off under a mesh and
+lets XLA partition the update (``ops/pallas/fused_optimizer.py:38-53``);
+here the kernels run on the tiles, a difference by design. The sharded
+update runs eagerly (the collectives stay out of any captured graph), and
+the kvstore is not used. :meth:`Trainer.sharded_states` gives the slots as
+sharded NDArrays, for ``parallel.checkpoint``.
+
 A Gluon parameter is updated as the JAX Trainer updates it
 (``mxnet_tpu/gluon/trainer.py:241-243``): every one whose ``grad_req`` is
 not ``'null'`` and that is initialized, with whatever its grad buffer
@@ -97,6 +123,7 @@ vectors.
 """
 
 import copy
+import math
 import pickle
 import re
 
@@ -189,6 +216,9 @@ class Trainer:
         self._states = {}
         self._vectors = {}      # live indices -> _Vectors
         self._graphs = {}       # key -> StepGraph of the Gluon updates
+        self._tiles = {}        # index -> ZeRO-1 tile plan under a mesh
+        self._tiles_mesh = None     # the fingerprint the plans are for
+        self._grads_reduced = False
 
     # ---------------------------------------------------------------- kvstore
     def _init_kvstore(self):
@@ -307,6 +337,11 @@ class Trainer:
         """Reduce the gradients through the kvstore and update every
         parameter with ``rescale_grad = scale / batch_size`` (reference
         trainer.py:334)."""
+        ctx = self._shard_ctx()
+        if ctx is not None:
+            self._optimizer.rescale_grad = self._scale / batch_size
+            self._update_sharded(ctx)
+            return
         self._check_and_rescale_grad(self._scale / batch_size)
         self._prepare_kvstore()
         self._allreduce_grads()
@@ -323,11 +358,21 @@ class Trainer:
     def allreduce_grads(self):
         """Reduce the gradients only (reference trainer.py:
         allreduce_grads); :meth:`update` then applies them."""
+        ctx = self._shard_ctx()
+        if ctx is not None:
+            self._reduce_sharded(ctx, self._sharded_live())
+            self._grads_reduced = True
+            return
         self._prepare_kvstore()
         self._allreduce_grads()
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update without reducing (reference trainer.py:update)."""
+        ctx = self._shard_ctx()
+        if ctx is not None:
+            self._optimizer.rescale_grad = self._scale / batch_size
+            self._update_sharded(ctx, reduce=False)
+            return
         self._prepare_kvstore()
         if self._update_on_kvstore:
             raise MXNetError('update() cannot be called when '
@@ -396,6 +441,184 @@ class Trainer:
                 if leaf is None:
                     for r in self._params[i]._replicas:
                         r.sync(self._params[i].grad_req).copy_(weight)
+
+    # --------------------------------------------------------------- sharded
+    def _shard_ctx(self):
+        """The mesh of the parameters, where a hybridized call sharded
+        them over more than one rank; else None."""
+        for p in self._params:
+            ctx = getattr(p, '_sharding_mesh', None)
+            if ctx is not None and ctx.n_devices > 1:
+                return ctx
+        return None
+
+    def _sharded_live(self):
+        return [(i, p) for i, p in enumerate(self._params)
+                if isinstance(p, Parameter) and p.grad_req != 'null'
+                and p._var is not None]
+
+    def _reduce_sharded(self, ctx, live):
+        """Sum over ``dp`` the gradients not split on it: one
+        all-reduce of them all, written back in place."""
+        from ..sharding import _collectives as C
+        dp = ctx.data_axis
+        if dp is None:
+            return
+        grads = [p._grad_buffer() for _, p in live
+                 if p._layout is None or dp not in p._layout.axes()]
+        if not grads:
+            return
+        flat = C.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                            ctx.group(dp))
+        off = 0
+        with torch.no_grad():
+            for g in grads:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+
+    def _tile_plan(self, ctx, p):
+        """``(dim, n, index)``: the piece of this rank's shard that its
+        ZeRO-1 slots cover (``zero1_spec``'s new split), or None for the
+        whole shard."""
+        from ..sharding.rules import PartitionSpec as P
+        dp = ctx.data_axis
+        spec = p._sharding_spec if p._sharding_spec is not None else P()
+        z = ctx.zero1_spec(spec, p.shape)
+        if dp is None or tuple(z) == tuple(spec):
+            return None
+        ent = list(spec) + [None] * (len(p.shape) - len(spec))
+        zent = list(z) + [None] * (len(p.shape) - len(z))
+        d = next(k for k in range(len(p.shape)) if ent[k] != zent[k])
+        return d, ctx.size(dp), ctx.coord(dp)
+
+    def _tile(self, i, t, index=None):
+        """Piece ``index`` (default: this rank's) of ``t`` by parameter
+        ``i``'s ZeRO-1 tile plan; ``t`` itself when it has none."""
+        from ..sharding._collectives import take
+        plan = self._tiles.get(i)
+        if plan is None:
+            return t
+        d, n, idx = plan
+        return take(t, d, n, idx if index is None else index)
+
+    def _update_sharded(self, ctx, reduce=True):
+        """The sharded step: see the module docstring."""
+        from ..kvstore.fusion import CrossProcess, zero1_exchange
+        if getattr(self, '_amp_skip_update', False):
+            self._amp_skip_update = False
+            return
+        live = self._sharded_live()
+        if not live:
+            return
+        if self._tiles_mesh != ctx.fingerprint():
+            if self._states:
+                raise MXNetError(
+                    'Trainer: the optimizer slots are split for another '
+                    'mesh; make a new Trainer for this one')
+            self._tiles_mesh = ctx.fingerprint()
+        for i, p in live:
+            if i not in self._tiles:
+                self._tiles[i] = self._tile_plan(ctx, p)
+        reduce = reduce and not self._grads_reduced
+        self._grads_reduced = False
+        tiled = [(i, p) for i, p in live if self._tiles[i] is not None]
+        rest = [(i, p) for i, p in live if self._tiles[i] is None]
+        if reduce:
+            self._reduce_sharded(ctx, rest)
+        if not tiled:
+            self._step_shards(live, {})
+            return
+        n = ctx.size(ctx.data_axis)
+        grads = [p._grad_buffer() for _, p in tiled]
+        if reduce:
+            packed = torch.cat([self._tile(i, g, r).reshape(-1)
+                                for r in range(n)
+                                for (i, _), g in zip(tiled, grads)])
+        else:
+            packed = torch.cat([self._tile(i, g).reshape(-1)
+                                for (i, _), g in zip(tiled, grads)])
+        shapes = [self._tile(i, g).shape for (i, _), g in zip(tiled, grads)]
+
+        def update(g_flat):
+            tiles, off = {}, 0
+            for (i, _), shape in zip(tiled, shapes):
+                m = math.prod(shape)
+                tiles[i] = g_flat[off:off + m].view(shape)
+                off += m
+            self._step_shards(live, tiles)
+            return torch.cat([self._tile(i, p._sync().detach()).reshape(-1)
+                              for i, p in tiled])
+        with torch.no_grad():
+            rows = zero1_exchange(CrossProcess.get(ctx.group(ctx.data_axis)),
+                                  packed, update, reduce)
+            off = 0
+            for (i, p), shape in zip(tiled, shapes):
+                m = math.prod(shape)
+                parts = [rows[r, off:off + m].view(shape) for r in range(n)]
+                off += m
+                p._sync().detach().copy_(torch.cat(parts, self._tiles[i][0]))
+
+    def _step_shards(self, live, tiles):
+        """The optimizer on this rank's tile (or whole shard) of every
+        live parameter: the gradient is ``tiles[i]``, or the tile of its
+        grad buffer."""
+        optim = self._optimizer
+        work = []
+        for i, p in live:
+            w = self._tile(i, p._sync().detach())
+            g = tiles[i] if i in tiles else self._tile(i, p._grad_buffer())
+            if i not in self._states:
+                self._states[i] = optim.create_state_multi_precision(
+                    i, w.contiguous())
+            work.append((i, w, g))
+        indices = tuple(i for i, _, _ in work)
+        vec = self._vectors.get(indices)
+        if vec is None:
+            vec = self._vectors[indices] = _Vectors(
+                len(work), work[0][1].device, optim.hyper_width)
+        vec.upload(*optim.step_values(indices))
+        optim.fill_hyper(vec.hyper, vec.ts)
+        with torch.no_grad():
+            for j, (i, w, g) in enumerate(work):
+                if w.is_contiguous() and g.is_contiguous():
+                    optim.step(w, g, self._states[i], vec.hyper[j])
+                else:
+                    wc = w.contiguous()
+                    optim.step(wc, g.contiguous(), self._states[i],
+                               vec.hyper[j])
+                    w.copy_(wc)
+
+    def sharded_states(self):
+        """The optimizer slots as sharded NDArrays (each laid out as its
+        parameter, split on ``dp`` where ZeRO-1 tiles it), by
+        ``'{name}/{slot}'``; unsharded NDArrays outside a mesh."""
+        from ..ndarray.ndarray import NDArray
+        from ..sharding.dispatch import shard
+        out = {}
+        for i, st in self._states.items():
+            p = self._params[i]
+            name = self._names[i] if self._names else str(i)
+            lay = self._slot_layout(i, p)
+            for j, t in enumerate(_flat_state(st)):
+                out[f'{name}/{j}'] = shard(t, lay) if lay is not None \
+                    else NDArray(t)
+        return out
+
+    def _slot_layout(self, i, p):
+        lay = getattr(p, '_layout', None)
+        plan = self._tiles.get(i)
+        if plan is None:
+            return lay
+        ctx = p._sharding_mesh
+        from ..sharding.dispatch import Layout
+        if lay is None:
+            lay = Layout(ctx, (), p.shape, param=True)
+        d = plan[0]
+        spec = list(lay.spec)
+        blocks = list(lay.blocks)
+        spec[d] = spec[d] + (ctx.data_axis,)
+        blocks[d] = blocks[d] + (1,)
+        return lay.replace(spec=spec, blocks=blocks)
 
     def _graphed_update(self, vec, graphed, device):
         """The Gluon parameters' updates as one graph a key (see the module

@@ -12,7 +12,10 @@ A1 rest):
 * :class:`RpcServer` — a threaded TCP server owning the machinery every
   service needs and none of the semantics: per-connection handler loop,
   heartbeat ``_last_seen`` table with bye-tombstones, the ``(client,
-  seq)`` exactly-once dedup window (``MXNET_KVSTORE_DEDUP_WINDOW``),
+  seq)`` exactly-once dedup window (``MXNET_KVSTORE_DEDUP_WINDOW``; a
+  retry that arrives while its first attempt is still being applied
+  waits for that attempt's reply, where the JAX package applies it
+  again: ROADMAP C13),
   and a ``crash()`` switch for chaos tests. Services subclass and
   implement :meth:`RpcServer._handle_app`; built-in commands ``ping`` /
   ``bye`` / ``dead_nodes`` are answered here (``ping`` merges
@@ -138,6 +141,11 @@ class RpcServer(threading.Thread):
         # them: exactly-once under retry (≙ ps-lite resender dedup)
         self._dedup = {}
         self._dedup_order = collections.deque()
+        # (client, seq) -> Event of a request being applied now: a retry
+        # that arrives before the first attempt's reply is cached (the
+        # reply read died while the apply still ran) waits for it and
+        # replays it, instead of applying a second time
+        self._inflight = {}
         self._dedup_window = int(os.environ.get(
             'MXNET_KVSTORE_DEDUP_WINDOW', '512'))
         self._counters = {'dedup_replays': 0, 'stale_gen_rejects': 0}
@@ -318,10 +326,48 @@ class RpcServer(threading.Thread):
         """Bookkeeping envelope around :meth:`_handle`: heartbeat
         refresh (tombstone-gated), then the (client, seq) dedup window
         — a retried mutating RPC the server already applied gets its
-        cached reply replayed instead of a second apply."""
+        cached reply replayed instead of a second apply, and one that
+        arrives while its first attempt is still being applied waits for
+        that attempt's reply."""
         cmd = header['cmd']
         rank = header.get('rank')
         client, seq = header.get('client'), header.get('seq')
+        key = (client, int(seq)) \
+            if client is not None and seq is not None else None
+        while True:
+            got = self._admit(header, cmd, rank, key)
+            if got is None:
+                break
+            if not isinstance(got, threading.Event):
+                return got
+            # the same (client, seq) is being applied by another handler:
+            # once it ends, its cached reply is replayed (or, where it
+            # failed, this attempt applies)
+            got.wait()
+        try:
+            reply, rpayload = self._handle(header, payload, peer)
+            if key is not None and reply.get('ok'):
+                # only successful applies enter the window: a failed
+                # attempt must re-execute, not replay its error
+                with self._lock:
+                    if key not in self._dedup:
+                        self._dedup[key] = (reply, rpayload)
+                        self._dedup_order.append(key)
+                        while len(self._dedup_order) > self._dedup_window:
+                            self._dedup.pop(self._dedup_order.popleft(),
+                                            None)
+        finally:
+            if key is not None:
+                with self._lock:
+                    self._inflight.pop(key).set()
+        return reply, rpayload
+
+    def _admit(self, header, cmd, rank, key):
+        """The envelope's bookkeeping under the lock: the heartbeat, the
+        generation fence and the dedup window. Returns a reply to send
+        at once, the Event of an attempt of ``key`` still being applied
+        (to wait for), or None, with ``key`` now marked in flight, for
+        this attempt to apply."""
         gen = header.get('gen')
         with self._lock:
             if rank is not None:
@@ -347,25 +393,17 @@ class RpcServer(threading.Thread):
                                   're-formed; refresh via mesh_epoch '
                                   'and rejoin',
                          'mesh_gen': self._mesh_gen}, b'')
-            if client is not None and seq is not None:
-                cached = self._dedup.get((client, int(seq)))
+            if key is not None:
+                cached = self._dedup.get(key)
                 if cached is not None:
                     self._counters['dedup_replays'] += 1
                     _C_REPLAYS.inc()
                     return cached
-        reply, rpayload = self._handle(header, payload, peer)
-        if client is not None and seq is not None and reply.get('ok'):
-            # only successful applies enter the window: a failed
-            # attempt must re-execute, not replay its error
-            with self._lock:
-                key = (client, int(seq))
-                if key not in self._dedup:
-                    self._dedup[key] = (reply, rpayload)
-                    self._dedup_order.append(key)
-                    while len(self._dedup_order) > self._dedup_window:
-                        self._dedup.pop(self._dedup_order.popleft(),
-                                        None)
-        return reply, rpayload
+                ev = self._inflight.get(key)
+                if ev is not None:
+                    return ev
+                self._inflight[key] = threading.Event()
+        return None
 
     def _handle(self, header, payload, peer='127.0.0.1'):
         cmd = header['cmd']

@@ -109,10 +109,15 @@ class NDArray:
     def __init__(self, data):
         self._data = data
         self._ag = None
+        self._layout = None     # sharding.dispatch.Layout of a shard
 
     # ------------------------------------------------------------------ basic
     @property
     def shape(self):
+        """The global shape: a sharded array's payload is this rank's
+        shard (:mod:`..sharding.dispatch`)."""
+        if self._layout is not None:
+            return self._layout.gshape
         return tuple(self._data.shape)
 
     @property
@@ -121,11 +126,13 @@ class NDArray:
 
     @property
     def size(self):
+        if self._layout is not None:
+            return int(_np.prod(self._layout.gshape))
         return self._data.numel()
 
     @property
     def ndim(self):
-        return self._data.dim()
+        return len(self.shape)
 
     @property
     def context(self):
@@ -143,6 +150,7 @@ class NDArray:
         goes stale and is dropped; a variable's marking persists, its new
         value a fresh leaf."""
         self._data = raw.detach()
+        self._layout = None
         if self._ag is not None and self._ag.variable:
             _tape.track(self)
 
@@ -157,8 +165,14 @@ class NDArray:
         self.wait_to_read()
 
     def asnumpy(self):
-        """A host numpy copy: the sync point (reference ndarray.py:2574)."""
+        """A host numpy copy: the sync point (reference ndarray.py:2574).
+        A sharded array gathers its global value first: a collective, which
+        every rank of its mesh calls."""
         t = self._data.detach()
+        if self._layout is not None:
+            from ..sharding.dispatch import gather_tensor
+            with torch.no_grad():
+                t = gather_tensor(t, self._layout)
         if t.dtype == torch.bfloat16:
             bf = _dtypes.to_numpy(t.dtype)
             return t.float().cpu().numpy().astype(

@@ -16,8 +16,13 @@ its ``autograd.Function`` then and only then (``ops.kernels.needs_grad``),
 and an op outside ``record()`` builds no graph. Every result is narrowed
 to the 32-bit types the JAX package yields (:mod:`.._dtypes`).
 
+A call with a sharded argument (``mx.sharding``: an NDArray holding this
+rank's shard) goes to the dispatch that :func:`_bind_sharding` binds,
+``sharding.dispatch.invoke``, which runs the op on the shards, lifting
+fresh unsharded operands onto the mesh (the reference's ``lift_raws``).
+
 Left for later slices (ROADMAP A4 rest, A5): the bulked dispatch of
-``_bulk.py``, deferred compute, and the sharding lift.
+``_bulk.py`` and deferred compute.
 """
 
 import functools
@@ -31,6 +36,32 @@ __all__ = ['Op', 'register', 'get_op', 'list_ops', 'apply_op', 'invoke',
            'make_frontend', 'dispatch_count', 'DynamicShapeError']
 
 _OPS = {}
+#: ``sharding.dispatch``, once ``mx.sharding`` is imported: its
+#: ``made`` turns on the scan of a call's arguments for a shard, its
+#: ``seen`` the check of values gathered whole from a batch split on dp
+_DISPATCH = [None]
+
+
+def _bind_sharding():
+    """Route calls with a sharded argument to ``mx.sharding``'s dispatch
+    (the reference binds its context here the same way, without a
+    circular import at the top level)."""
+    from ..sharding import dispatch
+    _DISPATCH[0] = dispatch
+
+
+def _any_sharded(args, kwargs):
+    """True when an NDArray argument (also inside a list) is sharded."""
+    for group in (args, kwargs.values()):
+        for a in group:
+            if getattr(a, '_layout', None) is not None:
+                return True
+            if isinstance(a, (list, tuple)) and any(
+                    getattr(e, '_layout', None) is not None for e in a):
+                return True
+    return False
+
+
 #: ops dispatched through :func:`apply_op` since the process started
 _dispatched = [0]
 
@@ -130,8 +161,13 @@ def apply_op(op, arrays, fn):
     with torch.set_grad_enabled(grad):
         outs = fn(*raws)
     if isinstance(outs, (tuple, list)):
-        return tuple(NDArray(_narrow(o, grad)) for o in outs)
-    return NDArray(_narrow(outs, grad))
+        res = tuple(NDArray(_narrow(o, grad)) for o in outs)
+    else:
+        res = NDArray(_narrow(outs, grad))
+    sh = _DISPATCH[0]
+    if grad and sh is not None and sh.seen and sh.check_whole(arrays):
+        sh._mark_whole(res)
+    return res
 
 
 def _first_device(args, kwargs):
@@ -168,6 +204,9 @@ def invoke(op_name, args, kwargs):
             raise DynamicShapeError(
                 f'op {op.name!r} has a data-dependent output shape and '
                 f'cannot run in a cached call; the block runs eagerly')
+    sh = _DISPATCH[0]
+    if sh is not None and sh.made and _any_sharded(args, kwargs):
+        return sh.invoke(op, args, kwargs)
     kwargs = dict(kwargs)
     out = kwargs.pop('out', None)
     dev = _first_device(args, kwargs)

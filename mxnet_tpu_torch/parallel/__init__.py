@@ -1,13 +1,17 @@
 """``mx.parallel`` of the port: SPMD over ``torch.distributed``.
 
 Counterpart of the JAX package's ``parallel/``, for what the port has so
-far: the mesh and ``split_and_load`` (:mod:`.mesh`), sequence-parallel
-ring attention with its backward (:mod:`.ring_attention`), and a local
+far: the mesh and ``split_and_load`` (:mod:`.mesh`), sharded placement
+and data-parallel steps (:mod:`.sharded`: ``shard_params``,
+``replicate``, ``make_sharded_train_step``), sharded checkpoints with a
+crash-atomic manager (:mod:`.checkpoint`), sequence-parallel ring
+attention with its backward (:mod:`.ring_attention`), and a local
 launcher (:mod:`.launch`). The JAX package drives every device of a mesh
 from one program; the port runs one process per rank, each holding its
 own shards, and ranks meet through a process group (the kvstore's
-``dist_sync`` reduces over the same group). ``sharded``, ``pipeline``,
-``moe`` and ``checkpoint`` are not ported yet (ROADMAP A10 rest).
+``dist_sync`` and ``mx.sharding``'s collectives reduce over the same
+world). ``pipeline``, ``gluon_pipeline`` and ``moe`` are not ported yet
+(ROADMAP A10 rest).
 """
 
 import datetime as _dt
@@ -15,12 +19,18 @@ import os as _os
 
 from .mesh import (MeshConfig, make_mesh, data_parallel_mesh,
                    local_devices, split_and_load)
+from .sharded import shard_params, replicate, make_sharded_train_step
 from . import ring_attention
 from . import launch
+from . import checkpoint
+from .checkpoint import (save_sharded, restore_sharded,
+                         SharedCheckpointManager, restore_or_init)
 
 __all__ = ['MeshConfig', 'make_mesh', 'data_parallel_mesh', 'local_devices',
            'split_and_load', 'ring_attention', 'launch', 'init_distributed',
-           'DEFAULT_TIMEOUT_S']
+           'DEFAULT_TIMEOUT_S', 'shard_params', 'replicate',
+           'make_sharded_train_step', 'checkpoint', 'save_sharded',
+           'restore_sharded', 'SharedCheckpointManager', 'restore_or_init']
 
 #: how long a collective may wait for a peer before it fails
 DEFAULT_TIMEOUT_S = 600

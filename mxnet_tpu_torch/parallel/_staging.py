@@ -82,11 +82,13 @@ class HostStage:
             dst.copy_(src)
         return buf
 
-    def to_device(self, key, device, out=None):
-        """The buffer of ``key`` copied to ``device`` (into ``out`` when
-        given) without blocking the host; the buffer is held until the copy
-        has run."""
+    def to_device(self, key, device, out=None, part=None):
+        """The buffer of ``key`` (its slice ``part`` when given) copied to
+        ``device`` (into ``out`` when given) without blocking the host;
+        the buffer is held until the copy has run."""
         buf = self._bufs[key]
+        if part is not None:
+            buf = buf[part]
         if out is None:
             out = buf.to(device, non_blocking=True)
         else:

@@ -41,6 +41,27 @@ scatter into page 0, which nothing reads. Prefix-cache pages are the one
 exception, and they hold exactly the K/V the same tokens would have
 produced (the cache key covers the entire prefix).
 
+Under ``mx.sharding.mesh(dp=..., tp=...)`` (reference :245-312) the server
+is SPMD: every rank runs this scheduler on the same submitted requests.
+The net keeps its ``tp`` shards (``LlamaForCausalLM.shard``: the Llama
+rules), and the pool ``P('dp', None, 'tp', None)`` through
+``resolve_spec``: each rank holds its ``tp`` share of the KV heads, and the
+slots and pages split on ``dp`` (slot ``s`` belongs to ``dp`` rank ``s //
+(slots / dp)``, whose own range of the pool, with its own allocator and
+garbage page, holds its pages). A decode step computes this ``dp`` rank's
+slots (B4 reads this rank's KV heads), picks the global greedy token over
+``tp`` and all-gathers the tokens over ``dp``; a prefill chunk runs on the
+ranks of its slot's ``dp`` index and its token is all-gathered. The calls
+hold collectives, so a sharded server runs them eagerly (no CUDA graph;
+``compile_count`` 0); the unsharded server keeps its graphs.
+
+The ranks' collectives pair up only while every rank admits, prefills and
+steps in the same order, so a sharded server's schedule must not hang on
+a thread's wake-ups or a rank's own clock: it has no scheduler thread
+(``start=True`` raises: each rank calls :meth:`step_once`, and ``close``
+drains by it, with no time bound) and no queue deadlines (they raise).
+The reference is one program and needs neither rule.
+
 Locking: ``_cv`` (``serve.queue``) guards admission, the page allocator's
 lock (``serve.pages``, taken inside the queue lock during admission)
 guards the free list / refcounts / prefix cache, and ``_slot_lock``
@@ -75,6 +96,28 @@ from .metrics import ServingMetrics, register as _register, \
 from .pages import PageAllocator
 
 __all__ = ['DecodeServer']
+
+
+class _Allocators:
+    """The page allocators of the ``dp`` groups of a sharded server, seen
+    as one for the whole-server checks and stats: capacity is a group's,
+    counts are summed."""
+
+    def __init__(self, allocs):
+        self.allocs = allocs
+        self.page_size = allocs[0].page_size
+        self.num_pages = sum(a.num_pages for a in allocs)
+        self.usable = allocs[0].usable
+
+    def pages_for(self, positions):
+        return self.allocs[0].pages_for(positions)
+
+    def stats(self):
+        out = {}
+        for a in self.allocs:
+            for k, v in a.stats().items():
+                out[k] = v if k == 'page_size' else out.get(k, 0) + v
+        return out
 
 
 def _drain_deadline_s():
@@ -203,6 +246,18 @@ class DecodeServer:
             deadline_ms = float(
                 os.environ.get('MXNET_SERVE_DEADLINE_MS', '') or 0.0)
         self.default_deadline = (deadline_ms / 1e3) or None
+        from ..sharding import current
+        mesh = current()
+        self._spmd = mesh is not None and mesh.n_devices > 1
+        if self._spmd and start:
+            raise ServeError(
+                'under a mesh of more than one rank the server has no '
+                'scheduler thread: every rank must admit and step in one '
+                'order, so build it with start=False and call step_once() '
+                'on every rank')
+        if self._spmd and self.default_deadline:
+            raise ServeError('under a mesh of more than one rank a request '
+                             'has no deadline: each rank has its own clock')
         self._clock = clock
         self.name = name or f'decode:{type(net).__name__}'
         self._prefix_on = prefix_cache if prefix_cache is not None \
@@ -225,9 +280,12 @@ class DecodeServer:
 
         self.metrics = ServingMetrics(self.name)
         self._metrics_name = _register(self.name, self.metrics)
-        self._alloc = PageAllocator(num_pages, self.page_size,
-                                    name=self.name, metrics=self.metrics)
-        self._pool = net.init_paged_pool(num_pages, self.page_size)
+        self._shard_ctx = self._shard(net, num_pages)
+        if self._shard_ctx is None:
+            self._alloc = PageAllocator(num_pages, self.page_size,
+                                        name=self.name, metrics=self.metrics)
+            self._allocs = [self._alloc]
+            self._pool = net.init_paged_pool(num_pages, self.page_size)
 
         # the model calls: their static inputs, staged in one pinned host
         # buffer, and the graphs (step and prefill) captured over them;
@@ -250,6 +308,45 @@ class DecodeServer:
             self._thread = threading.Thread(
                 target=self._loop, daemon=True, name=f'{self.name}-sched')
             self._thread.start()
+
+    def _shard(self, net, num_pages):
+        """Under a mesh of more than one rank: the net's ``tp`` shards, the
+        ``dp`` groups' allocators and this rank's pool; returns the
+        context (None unsharded)."""
+        from ..sharding import current
+        from ..sharding.rules import PartitionSpec as P, resolve_spec
+        ctx = current()
+        self._dp = (None, 1, 0)
+        self._rows = (0, self.slots)
+        self._owner = 0
+        if ctx is None or ctx.n_devices == 1:
+            return None
+        net.shard(ctx)
+        dp = ctx.size('dp')
+        if self.slots % dp:
+            raise ServeError(f'{self.slots} slots do not split over '
+                             f'dp = {dp}')
+        cfg = net.cfg
+        spec = resolve_spec(P('dp', None, 'tp', None),
+                            (num_pages, self.page_size, cfg.num_kv_heads,
+                             cfg.units // cfg.num_heads), ctx,
+                            name='kv_pool')
+        self.pool_spec = spec
+        local = num_pages // dp if spec and spec[0] == 'dp' else num_pages
+        allocs = [PageAllocator(local, self.page_size, name=self.name,
+                                metrics=self.metrics) for _ in range(dp)]
+        self._allocs = allocs
+        self._alloc = _Allocators(allocs)
+        self._pool = net.init_paged_pool(local, self.page_size)
+        d = ctx.coord('dp')
+        per = self.slots // dp
+        self._dp = (ctx.group('dp') if dp > 1 else None, dp, d)
+        self._rows = (d * per, (d + 1) * per)
+        return ctx
+
+    def _alloc_of(self, slot):
+        """The page allocator of ``slot``'s ``dp`` group."""
+        return self._allocs[slot // (self.slots // len(self._allocs))]
 
     # ------------------------------------------------------- model calls
     def _stage_inputs(self):
@@ -287,17 +384,39 @@ class DecodeServer:
     @torch.no_grad()
     def _step_body(self):
         i = self._in['step']
-        logits, pool = self.net(i['toks'][:, None], caches=self._pool,
-                                offset=i['offs'], pages=i['pages'])
-        return torch.argmax(logits[:, -1].float(), dim=-1), pool
+        if self._shard_ctx is None:
+            logits, pool = self.net(i['toks'][:, None], caches=self._pool,
+                                    offset=i['offs'], pages=i['pages'])
+            return torch.argmax(logits[:, -1].float(), dim=-1), pool
+        lo, hi = self._rows
+        logits, pool = self.net(i['toks'][lo:hi, None], caches=self._pool,
+                                offset=i['offs'][lo:hi],
+                                pages=i['pages'][lo:hi])
+        nxt = self.net.pick(logits[:, -1])
+        if self._dp[0] is not None:
+            from ..sharding import _collectives as C
+            nxt = C.all_gather(nxt, self._dp[0], 0)
+        return nxt, pool
 
     @torch.no_grad()
     def _prefill_body(self):
         i = self._in['prefill']
-        logits, pool = self.net(i['toks'], caches=self._pool,
-                                offset=i['off'], pages=i['pages'])
-        last = logits[0].index_select(0, i['last'])
-        return torch.argmax(last.float(), dim=-1), pool
+        if self._shard_ctx is None:
+            logits, pool = self.net(i['toks'], caches=self._pool,
+                                    offset=i['off'], pages=i['pages'])
+            last = logits[0].index_select(0, i['last'])
+            return torch.argmax(last.float(), dim=-1), pool
+        group, _, d = self._dp
+        pool = self._pool
+        nxt = torch.full((1,), -1, dtype=torch.long, device=self.device)
+        if self._owner == d:
+            logits, pool = self.net(i['toks'], caches=self._pool,
+                                    offset=i['off'], pages=i['pages'])
+            nxt = self.net.pick(logits[0].index_select(0, i['last']))
+        if group is not None:
+            from ..sharding import _collectives as C
+            nxt = C.all_gather(nxt, group, 0)[self._owner:self._owner + 1]
+        return nxt, pool
 
     def _capture(self, call):
         if self._released:
@@ -313,7 +432,7 @@ class DecodeServer:
         the card (captured here if warm-up did not), its body on the CPU.
         Returns the picked tokens, on the device."""
         self._upload(call)
-        if self.device.type != 'cuda':
+        if self.device.type != 'cuda' or self._shard_ctx is not None:
             nxt, pool = (self._step_body if call == 'step'
                          else self._prefill_body)()
         else:
@@ -333,18 +452,19 @@ class DecodeServer:
                 host.zero_()
                 if call == 'prefill':
                     fields['last'][0] = self.prefill_chunk - 1
-                if self.device.type == 'cuda':
+                if self.device.type == 'cuda' and self._shard_ctx is None:
                     self._upload(call)
                     self._returned[call] = self._capture(call).outputs[1]
                 else:
                     self._call(call)
         return self._captures - before
 
-    def _run_prefill(self, toks, start, row, last):
+    def _run_prefill(self, toks, start, row, last, slot=0):
         """One prompt chunk ``(1, prefill_chunk)`` at absolute position
-        ``start`` through block-table row ``row``; returns the greedy
-        token at chunk index ``last`` (float32 argmax)."""
+        ``start`` through block-table row ``row`` (of ``slot``); returns
+        the greedy token at chunk index ``last`` (float32 argmax)."""
         with self._run_lock:
+            self._owner = slot // (self.slots // self._dp[1])
             _, f = self._host['prefill']
             f['toks'][0] = toks
             f['off'][()] = start
@@ -384,6 +504,9 @@ class DecodeServer:
                 f'request needs {self._alloc.pages_for(worst)} KV pages '
                 f'but the pool holds {self._alloc.usable} '
                 f'(MXNET_SERVE_PAGES)')
+        if deadline_ms is not None and self._spmd:
+            raise ServeError('under a mesh of more than one rank a request '
+                             'has no deadline: each rank has its own clock')
         now = self._clock()
         if deadline_ms is None:
             dl = now + self.default_deadline if self.default_deadline \
@@ -421,7 +544,7 @@ class DecodeServer:
         self._table[i] = seq
 
     # -------------------------------------------------------- page plans
-    def _plan_pages(self, req):
+    def _plan_pages(self, req, alloc):
         """Prefix-cache probe + page allocation for a request's whole
         lifetime (padded prompt span and decode budget — admission is
         the gate, so decode can never die of page starvation).
@@ -439,7 +562,7 @@ class DecodeServer:
             while filled // c < limit:
                 chunk = tuple(req.prompt[filled:filled + c])
                 key = _pages.chain_key(ckey, chunk)
-                got = self._alloc.lookup(key)
+                got = alloc.lookup(key)
                 if got is None:
                     break
                 pages.extend(got)
@@ -449,11 +572,11 @@ class DecodeServer:
         n_left = -(-(alen - filled) // c)
         span_end = filled + n_left * c      # chunk padding writes too
         lifetime = max(span_end, alen + req.max_new)
-        need = self._alloc.pages_for(lifetime) - len(pages)
+        need = alloc.pages_for(lifetime) - len(pages)
         try:
-            pages.extend(self._alloc.alloc(need))
+            pages.extend(alloc.alloc(need))
         except PagesExhausted:
-            self._alloc.release(pages)      # roll back the prefix pins
+            alloc.release(pages)            # roll back the prefix pins
             raise
         self.metrics.on_prefix(hits, n_left)
         return pages, ckey, filled
@@ -470,7 +593,7 @@ class DecodeServer:
     def _retire(self, seq, result=None, error=None):
         """Return a sequence's pages to the pool (prefix-cache pins
         survive), free its slot and resolve its future."""
-        self._alloc.release(seq.pages)
+        self._alloc_of(seq.slot).release(seq.pages)
         seq.pages = []
         with self._slot_lock:
             self._set_slot(seq.slot, None)
@@ -499,7 +622,8 @@ class DecodeServer:
             _faults.on('prefill')
             toks = req.prompt[start:start + real] + [0] * (c - real)
             nxt = self._run_prefill(toks, start, self._block_rows([seq]),
-                                    real - 1 if is_final else c - 1)
+                                    real - 1 if is_final else c - 1,
+                                    seq.slot)
             self.metrics.on_prefill_chunk()
         except Exception as e:              # noqa: BLE001
             self.metrics.on_failed()
@@ -514,7 +638,7 @@ class DecodeServer:
             # chain key of the entire prefix through this chunk
             key = _pages.chain_key(
                 seq.ckey, tuple(req.prompt[start:start + c]))
-            self._alloc.insert(
+            self._alloc_of(seq.slot).insert(
                 key, seq.pages[start // psz:(start + c) // psz])
             seq.ckey = key
         seq.filled = start + real
@@ -551,7 +675,8 @@ class DecodeServer:
                     expired.append(self._queue.popleft())
                     continue
                 try:
-                    pages, ckey, filled = self._plan_pages(req)
+                    pages, ckey, filled = self._plan_pages(
+                        req, self._alloc_of(free[0]))
                 except PagesExhausted:
                     # transient shortage: the request stays queued
                     # (FIFO backpressure) until sequences retire and
@@ -675,7 +800,7 @@ class DecodeServer:
             for s in live:
                 self._set_slot(s.slot, None)
         for s in live:      # page release outside serve.slots
-            self._alloc.release(s.pages)
+            self._alloc_of(s.slot).release(s.pages)
             s.pages = []
             self._fail(s.request, ServerClosed(f'{self.name} {why}'))
 
@@ -712,7 +837,7 @@ class DecodeServer:
         else:
             deadline = time.monotonic() + timeout
             while drain and self.step_once():
-                if time.monotonic() > deadline:
+                if time.monotonic() > deadline and not self._spmd:
                     break
             with self._cv:
                 if not self._closed:
@@ -728,7 +853,8 @@ class DecodeServer:
                 self._graphs.clear()
                 self._returned.clear()
                 self._released = True
-        self._alloc.detach()
+        for a in self._allocs:
+            a.detach()
         _unregister(self._metrics_name)
 
     @property

@@ -1980,3 +1980,119 @@ def test_dist_async_server_updates_on_the_card(dev, monkeypatch):
     finally:
         kv.close()
         dist_async._SERVERS.pop(port).stop()
+
+
+# ------------------------------------------------- mx.sharding (gloo)
+def _sharded_dense_on_one_card(seed):
+    """A rank of a tp 2 mesh on cuda:0 (gloo): a column- then row-parallel
+    Dense pair, two Adam steps; returns the outputs and weights."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.sharding.rules import PartitionSpec as P
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rules = [(lambda name, shape: len(shape) <= 1, P()),
+             (r'.*0\.weight', P('tp', None)),
+             (r'.*1\.weight', P(None, 'tp')), (r'.*', P())]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((8, 64)).astype(np.float32)
+    y = rng.standard_normal((8, 16)).astype(np.float32)
+    with mx.gpu(0):
+        mx.random.seed(seed)
+        net = nn.HybridSequential(nn.Dense(32, in_units=64,
+                                           activation='relu'),
+                                  nn.Dense(16, in_units=32))
+        net.initialize(ctx=mx.gpu(0))
+        net.hybridize()
+        tr = gluon.Trainer(net.collect_params(), 'adam',
+                           {'learning_rate': 0.01})
+        out = {}
+        with mx.sharding.mesh(tp=2, rules=rules):
+            out['forward'] = net(mx.np.array(x)).asnumpy()
+            out['local'] = tuple(net[0].weight._var.shape)
+            out['device'] = str(net[0].weight._var.device)
+            before = kernels.launch_counts()
+            for _ in range(2):
+                with autograd.record():
+                    loss = ((net(mx.np.array(x)) - mx.np.array(y)) ** 2) \
+                        .sum()
+                loss.backward()
+                tr.step(8)
+            out['adam'] = kernels.launch_counts()['adam'] - before['adam']
+            out['weights'] = {k: p.data().asnumpy()
+                              for k, p in net.collect_params().items()}
+    return out
+
+
+def test_sharded_dense_pair_on_one_card_matches_one_process(dev):
+    """Two gloo ranks on cuda:0 at tp 2: the column- and row-parallel Dense
+    pair's forward and two Adam steps (through B5 on each rank's tiles)
+    against the same net in this process, at 1e-5 (the row-parallel sum
+    adds in another order)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import launch
+    ranks = launch.spawn(_sharded_dense_on_one_card, 2, 5, timeout=300)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8, 64)).astype(np.float32)
+    y = rng.standard_normal((8, 16)).astype(np.float32)
+    with mx.gpu(0):
+        mx.random.seed(5)
+        net = nn.HybridSequential(nn.Dense(32, in_units=64,
+                                           activation='relu'),
+                                  nn.Dense(16, in_units=32))
+        net.initialize(ctx=mx.gpu(0))
+        want = net(mx.np.array(x)).asnumpy()
+        tr = gluon.Trainer(net.collect_params(), 'adam',
+                           {'learning_rate': 0.01})
+        for _ in range(2):
+            with autograd.record():
+                loss = ((net(mx.np.array(x)) - mx.np.array(y)) ** 2).sum()
+            loss.backward()
+            tr.step(8)
+        weights = {k: p.data().asnumpy()
+                   for k, p in net.collect_params().items()}
+    for r in ranks:
+        assert r['local'] == (16, 64) and r['device'] == 'cuda:0'
+        np.testing.assert_allclose(r['forward'], want, rtol=1e-5, atol=1e-5)
+        assert r['adam'] == 2 * 4       # four parameters, two steps
+        for k, w in weights.items():
+            np.testing.assert_allclose(r['weights'][k], w, rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+
+
+def _dtensor_probe(seed):
+    """DTensor over a gloo 'cpu' DeviceMesh with shards on cuda:0: the
+    redistributions the port needs, and where their results live."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    import torch.distributed as dist
+    r = dist.get_rank()
+    mesh = DeviceMesh('cpu', torch.arange(2))
+    x = torch.arange(8.0, device='cuda:0').reshape(4, 2) + seed
+    full = DTensor.from_local(x[2 * r:2 * r + 2].clone(), mesh,
+                              [Shard(0)]).redistribute(
+                                  mesh, [Replicate()]).to_local()
+    part = DTensor.from_local(x.clone(), mesh, [Partial()]).redistribute(
+        mesh, [Shard(0)]).to_local()
+    return {'full': full.cpu(), 'full_device': str(full.device),
+            'part': part.cpu(), 'part_device': str(part.device)}
+
+
+def test_dtensor_over_gloo_moves_cuda_shards_to_the_host(dev):
+    """The design question of ``mx.sharding``'s carrier: DTensor over the
+    gloo 'cpu' mesh that ranks sharing one card use computes the right
+    values but hands back host tensors (and over a 'cuda' mesh with gloo,
+    Shard to Replicate ended the process with SIGSEGV on the H100, torch
+    2.11), so the port carries a sharded value as its own shard and
+    layout, which keeps shards on the card."""
+    from mxnet_tpu_torch.parallel import launch
+    ranks = launch.spawn(_dtensor_probe, 2, 1, timeout=300)
+    x = torch.arange(8.0).reshape(4, 2) + 1
+    for i, r in enumerate(ranks):
+        torch.testing.assert_close(r['full'], x)
+        torch.testing.assert_close(r['part'], 2 * x[2 * i:2 * i + 2])
+        assert r['full_device'] == r['part_device'] == 'cpu'

@@ -142,3 +142,38 @@ def test_the_parameter_server_and_train_are_checked_and_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
+
+
+def test_sharding_and_the_sharded_parallel_modules_load_no_jax():
+    """``mx.sharding`` (``sharding/*``), ``parallel/sharded.py`` and
+    ``parallel/checkpoint.py`` are among the sources checked above, and
+    using them (rules, a mesh context, a checkpoint manager) loads no
+    JAX."""
+    assert {p.name for p in (PACKAGE / 'sharding').glob('*.py')} == {
+        '__init__.py', 'rules.py', 'context.py', 'dispatch.py',
+        '_collectives.py'}
+    par = {p.name for p in (PACKAGE / 'parallel').glob('*.py')}
+    assert {'sharded.py', 'checkpoint.py'} <= par
+    code = (
+        'import sys, tempfile\n'
+        'import mxnet_tpu_torch as mx\n'
+        'from mxnet_tpu_torch import parallel, sharding\n'
+        'from mxnet_tpu_torch.parallel import checkpoint, sharded\n'
+        'P = sharding.PartitionSpec\n'
+        'assert sharding.match_spec("a.weight", (4, 4), '
+        '[(r".*", P("dp"))]) == P("dp")\n'
+        'with sharding.mesh(dp=1) as ctx:\n'
+        '    assert sharding.current() is ctx\n'
+        'with tempfile.TemporaryDirectory() as d:\n'
+        '    m = parallel.SharedCheckpointManager(d)\n'
+        '    m.save(0, {"w": [1.0, 2.0]})\n'
+        '    assert m.latest_step() == 0\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'LOADED []'

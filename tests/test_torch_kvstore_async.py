@@ -249,6 +249,56 @@ def test_dedup_replays_cached_reply_without_reapply(bare_server):
     onp.testing.assert_allclose(srv._store['w'].numpy(), 2.0)
 
 
+def _retry_while_applying(srv):
+    """A push whose retry arrives while its first attempt is still being
+    applied (the client's reply read died at once, as under
+    ``reset_every:push``): returns how often the server applied it and
+    how often it replayed the reply."""
+    gate, inside = threading.Event(), threading.Event()
+    handle = srv._handle
+
+    def slow(header, payload, peer='127.0.0.1'):
+        if header['cmd'] == 'push' and not inside.is_set():
+            inside.set()
+            gate.wait(10)
+        return handle(header, payload, peer)
+    srv._handle = slow
+    srv._dispatch({'cmd': 'init', 'rank': 0, 'key': 'w', 'client': 'c1',
+                   'seq': 1, 'dtype': 'float32', 'shape': [2]},
+                  onp.zeros(2, 'f').tobytes())
+    first = threading.Thread(target=_push, args=(srv, 2, 1.0), daemon=True)
+    first.start()
+    assert inside.wait(5)
+    retry = threading.Thread(target=_push, args=(srv, 2, 1.0), daemon=True)
+    retry.start()
+    retry.join(0.5)         # done at once, or waiting for the first
+    gate.set()
+    first.join(5)
+    retry.join(5)
+    assert not first.is_alive() and not retry.is_alive()
+    return srv._counters['push_applied'], srv._counters['dedup_replays']
+
+
+def test_dedup_replays_a_retry_that_arrives_while_applying(bare_server):
+    """Exactly once also for a retry of a push still being applied: it
+    waits for the first attempt and replays its reply (the JAX package
+    applies it twice, ROADMAP C13)."""
+    assert _retry_while_applying(bare_server) == (1, 1)
+    onp.testing.assert_allclose(bare_server._store['w'].numpy(), 1.0)
+
+
+def test_C13_jax_dedup_applies_an_in_flight_retry_twice():
+    """ROADMAP C13: the JAX package's dedup window holds a reply only
+    once its apply has finished, so a retry that arrives meanwhile is
+    applied a second time."""
+    srv = jda._AsyncServer(0, bind_host='127.0.0.1', sid=0)
+    try:
+        assert _retry_while_applying(srv) == (2, 0)
+        onp.testing.assert_allclose(_np(srv._store['w']), 2.0)
+    finally:
+        srv._server.server_close()
+
+
 def test_dedup_window_prunes_oldest_entries(monkeypatch):
     monkeypatch.setenv('MXNET_KVSTORE_DEDUP_WINDOW', '4')
     srv = _AsyncServer(0, bind_host='127.0.0.1', sid=0)
