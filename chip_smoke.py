@@ -18,6 +18,9 @@
     python3 chip_smoke.py --phases device,build,dist_async  # the parameter
                                                   # server
     python3 chip_smoke.py --phases device,build,sharding  # mx.sharding
+    python3 chip_smoke.py --phases device,build,elastic,pipeline,moe
+                                                  # elastic training,
+                                                  # pipelines and MoE
 
 Phases, each of which fails the run on any error:
 
@@ -343,12 +346,14 @@ Phases, each of which fails the run on any error:
                while rank 1 waits at a barrier), peak memory a process.
 16. sharding -- ``mx.sharding`` (one process a rank, gloo ranks sharing
                cuda:0, spawned by ``parallel.launch.spawn``). (a) Two
-               ranks serve ``llama3_8b`` at tp = 2, full width and depth,
-               with the serve phase's seeded weights (each rank draws
-               each weight whole in turn and keeps its half), settings
-               and six prompts: each rank must hold half the weights
-               (``memory_allocated``), 16 of 32 query and 4 of 8 KV
-               heads, launch exactly 65 B1 and 32 B4 a decode step, never
+               ranks serve ``llama3_8b`` at tp = 2, full width cut to 8
+               layers (its 32 took 88 s of the run's time limit), against
+               a one-process server of those 8, with seeded weights
+               (each rank draws each weight whole in turn and keeps its
+               half), the serve phase's settings and six prompts: each
+               rank must hold half the weights (``memory_allocated``), 16
+               of 32 query and 4 of 8 KV heads, launch exactly 2L + 1 B1
+               and L B4 a decode step (17 and 8 at L = 8 layers), never
                re-capture (its calls hold collectives and run eagerly),
                find its pool written in place, and serve the tokens of
                the one-process server (the serve phase's, else served
@@ -374,7 +379,42 @@ Phases, each of which fails the run on any error:
                share (staging included), peak memory, rank 0's busy
                share (its last step profiled, every rank running it
                again if the profile lost events).
-17. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+17. elastic -- ``mx.train``. (a) ``bert_12_768_12`` at (32,
+               128), fp32, Dropout 0.1, Adam, hybridized, batches from a
+               shuffled ``DataLoader.resumable()``, in three processes of
+               this script (``--elastic-worker``), each under
+               ``deterministic``: six steps straight; three with
+               ``MXNET_CKPT_ASYNC=1``, saving after each, SIGKILLed
+               inside the daemon's save of step 3 (``latest_step()`` must
+               be 2); a fresh process that compiles its graphs on a zero
+               batch, restores and trains steps 3-6. Weights, Adam slots,
+               the update count and the losses must be bit-equal to the
+               straight run's; 26 B1, 12 B2, 156 B5 a step. (b) Four
+               ranks as two hosts of two (``MeshGroup(2, devices=[0, 1,
+               2, 3])``), ``ELASTIC_B['layers']`` layers at BERT-base's
+               widths under FSDP through ``MeshElasticTrainer`` over a
+               ``dist_async`` store: host 1 dies after step 2 is
+               committed, at its barrier of step 3 and, in a second run,
+               inside that step's second collective; host 0 must re-form
+               on two ranks, restore step 2 re-sharded and finish five
+               steps, bit-equal to the planned scale-down (two ranks
+               restoring the first run's step-2 checkpoint); logs the
+               death-to-first-step seconds (detect, drain, restore,
+               rejoin), step ms before and after, launches a rank a step.
+18. pipeline -- the 12 ``BERTEncoderCell``s of ``bert_12_768_12`` split
+               by ``split_sequential`` into 4 stages over 4 ranks, 8
+               microbatches of (8, 128, 768), squared error, Adam, two
+               steps each of ``'1f1b'`` and ``'gpipe'``
+               (``PipelineTrainer``) against one process running the
+               cells eagerly: losses within rtol 1e-4, each stage's first
+               step held by ``_pipe_first_step``; 48 B1, 24 B2 and 36 B5 a
+               step a stage; step ms and the send/recv share.
+19. moe    -- ``parallel.moe_ffn`` at Mixtral-8x7B's FFN widths over ep
+               = 4 ranks (0.94 GB of experts a rank), forward and
+               backward: the output within rtol 1e-5 of each token shard
+               through ep = 1 here, finite gradients; forward and
+               backward ms and the all-to-all's share.
+20. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -388,7 +428,7 @@ Phases, each of which fails the run on any error:
                k and v gradients of a seeded cotangent must meet autograd
                through plain dense attention (``ring_grad_checks``). Logs each rank's host ms,
                stats-kernel ms and transport ms.
-18. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+21. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
@@ -399,7 +439,8 @@ int8, train, ndarray, bert, resnet, bf16, qresnet, optim and rtc phases and read
 it (with the optimizer's plain-update counters), and in each
 rank just before and after its ring runs, its dist runs (b) and (c), its
 dist_async runs (b) and (c) (the dist_async phase's (a) runs in this
-process) and its sharding runs (a), (b) and (c); the kernels' line
+process), its sharding runs (a), (b) and (c), and each process of the
+elastic, pipeline and moe phases; the kernels' line
 reports their sum. Every profiled call (a
 breakdown's step or call) runs in a ``torch.profiler`` session of its own
 whose kernel events must equal, kernel by kernel, the launch counters'
@@ -419,6 +460,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -427,7 +469,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
           'train', 'ndarray', 'bert', 'resnet', 'bf16', 'qresnet', 'optim',
-          'dist', 'dist_async', 'sharding', 'ring', 'rtc')
+          'dist', 'dist_async', 'sharding', 'elastic', 'pipeline', 'moe',
+          'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -6018,12 +6061,12 @@ def dist_async_costs(torch, ranks):
 # ------------------------------------------------------------- ring
 #: the ring phase: llama3_8b's attention widths (32 query heads of 128, K/V
 #: expanded to 32 heads) over its whole max_length, sharded over sp ranks
-#: the sharding phase: (a) llama3_8b at tp = 2, full depth, the serve
-#: phase's settings; (b) its widths at dp 2 x tp 2 and SHARD_LAYERS
+#: the sharding phase: (a) llama3_8b at tp = 2, full width at 8 layers,
+#: the serve phase's settings; (b) its widths at dp 2 x tp 2 and SHARD_LAYERS
 #: layers; (c) BERT-base at (32, 128) under mesh(dp=2, tp=2) and
 #: mesh(dp=4), SHARD_STEPS Adam steps each; (d) (c)'s dp 2 x tp 2 state
 #: through SharedCheckpointManager
-SHARD = dict(model='llama3_8b', layers=None, layers_b=4, slots=4,
+SHARD = dict(model='llama3_8b', layers=8, layers_b=4, slots=4,
              max_length=2048, psz=16, chunk=32, n_new=32, dev='cuda',
              bert='bert_12_768_12', bert_kw={}, batch=BERT_BATCH,
              seq=BERT_SEQ, vocab=BERT_VOCAB, steps=BERT_STEPS,
@@ -6405,7 +6448,7 @@ def phase_sharding(torch, seed, cfg=None, serve_ref=None):
                 by_design.setdefault(k, {}).setdefault(d, 0)
                 by_design[k][d] += c
 
-    # ---- (a) tp = 2, full depth
+    # ---- (a) tp = 2, full width at SHARD['layers'] layers
     from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
     meta = get_llama(cfg['model'], device='meta',
                      **({} if cfg['layers'] is None
@@ -6968,6 +7011,809 @@ def rtc_checks(torch, rows, x, y, n, grid, kernels, got):
 #: register-resident designs do not take; no main path gives them those.
 #: Paged decode has one design, counted by the split count of its plan (1
 #: to 8)
+# ------------------------------------------------------------ elastic
+#: elastic (a): bert_12_768_12 in one process, fp32, (32, 128) batches of
+#: a shuffled resumable loader over this many seeded samples, Adam, Dropout
+#: 0.1, hybridized; steps are numbered from 1, a run of ELASTIC_STEPS
+#: straight against one killed inside its save of step ELASTIC_KILL_AT
+ELASTIC_STEPS, ELASTIC_KILL_AT = 6, 3
+ELASTIC_A = dict(samples=256, batch=BERT_BATCH, seq=BERT_SEQ,
+                 vocab=BERT_VOCAB, bert_kw={}, dev='cuda')
+#: elastic (b): four ranks as two hosts of two, bert_12_768_12's widths
+#: at this depth under FSDP (bert_partition_rules('fsdp')), Adam; host 1
+#: dies after step ``commit`` is committed (at the barrier of the next
+#: step, or inside its second collective); ``deadline_s`` is
+#: MXNET_KVSTORE_DEADLINE_S, which bounds the detection
+ELASTIC_B = dict(layers=4, steps=5, commit=2, deadline_s=6, bert_kw={},
+                 dev='cuda')
+ELASTIC_DIR = ROOT / 'build' / 'elastic'
+#: CHIP_SMOKE_REHEARSE=1 runs the elastic, pipeline and moe phases' code
+#: on the CPU at tiny widths (a check of the script, not of the card)
+REHEARSE = os.environ.get('CHIP_SMOKE_REHEARSE') == '1'
+_TINY_BERT = dict(units=32, hidden_size=64, num_heads=4, num_layers=2)
+if REHEARSE:
+    ELASTIC_A.update(samples=48, batch=8, seq=16, vocab=100,
+                     bert_kw=_TINY_BERT, dev='cpu')
+    ELASTIC_B.update(deadline_s=3, bert_kw=_TINY_BERT, dev='cpu')
+
+
+def deterministic(torch):
+    """Bit-exact runs on the card: deterministic algorithms (the backward
+    of an embedding lookup adds its rows with atomics otherwise, in an
+    order that changes from run to run) and cuBLAS's fixed workspace,
+    which must be set before cuBLAS starts."""
+    os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
+    torch.use_deterministic_algorithms(True)
+
+
+def _ctxd(mx, dev):
+    return mx.gpu(0) if dev == 'cuda' else mx.cpu()
+
+
+def _sync_all(torch, dev):
+    if dev == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _elastic_a_build(torch, mx, gluon, bert, parallel, ElasticTrainer, ckpt,
+                     seed):
+    import numpy as np
+    a = ELASTIC_A
+    mx.random.seed(seed)
+    net = bert.get_bert_model('bert_12_768_12', max_length=a['seq'],
+                              dropout=0.1, use_classifier=False,
+                              vocab_size=a['vocab'], **a['bert_kw'])
+    net.initialize(ctx=_ctxd(mx, a['dev']))
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, a['vocab'], (a['samples'], a['seq']))
+    labels = rng.integers(0, a['vocab'], (a['samples'], a['seq']))
+    zeros = mx.np.zeros((a['batch'], a['seq']), dtype='int32')
+    with mx.autograd.predict_mode():
+        net(zeros, zeros)           # deferred initialization
+    net.hybridize(static_alloc=True)
+    loader = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(ids.astype('int32'), labels.astype('int32')),
+        batch_size=a['batch'], shuffle=True)
+    it = loader.resumable(shuffle_seed=5)
+    trainer = gluon.Trainer(net.collect_params(), 'adam',
+                            dict(BERT_OPTS[0][2]))
+    et = ElasticTrainer(dict(net.collect_params()), trainer,
+                        parallel.SharedCheckpointManager(ckpt, max_to_keep=2),
+                        data_iter=it, name='bert')
+    return net, trainer, it, et, zeros
+
+
+def elastic_worker(mode, ckpt, out):
+    """One process of elastic (a): ``straight`` trains ELASTIC_STEPS steps;
+    ``crash`` trains with the asynchronous daemon, saving after every step,
+    and is SIGKILLed inside the daemon's save of step ELASTIC_KILL_AT (at
+    ``ckpt.staged``: staged, not committed); ``resume`` compiles its graphs
+    on a zero batch (a recorded call and a Trainer step twice: eager, then
+    captured), restores the newest checkpoint over them and trains the rest.
+    Dumps weights, Adam slots, the update count, the losses and the launch
+    counts to ``out``."""
+    import os
+    import signal
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import checkpoint
+    from mxnet_tpu_torch.train import ElasticTrainer
+    if ELASTIC_A['dev'] == 'cuda':
+        full_fp32(torch)
+        deterministic(torch)
+    kernels.reset_launch_counts()
+    ctx = _ctxd(mx, ELASTIC_A['dev'])
+    ctx.__enter__()         # this process's arrays and batches go there
+    net, trainer, it, et, zeros = _elastic_a_build(
+        torch, mx, gluon, bert, parallel, ElasticTrainer, ckpt, SEED + 30)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    res = {'losses': {}, 'counts': {}}
+
+    def step(n):
+        ids, labels = next(it)
+        before = kernels.launch_counts()
+        loss = bert_step(mx, net, trainer, loss_fn, ids,
+                         mx.np.zeros(ids.shape, dtype='int32'), labels)
+        res['losses'][n] = loss.item()
+        res['counts'][n] = _counts_since(kernels, before)
+
+    if mode == 'crash':
+        def hook(point):
+            if point == 'ckpt.staged' and os.path.isdir(
+                    os.path.join(ckpt, f'.staging-{ELASTIC_KILL_AT}')):
+                os.kill(os.getpid(), signal.SIGKILL)
+        checkpoint.install_crash_hook(hook)
+        for n in range(1, ELASTIC_KILL_AT + 1):
+            step(n)
+            # durable before the next step: nothing is coalesced away
+            et.save(n, block=True)
+            log('ELASTIC_STATS ' + json.dumps(et.stats()))
+        fail('elastic: the save of the last step did not kill')
+    start = 0
+    if mode == 'resume':
+        for _ in range(2):
+            bert_step(mx, net, trainer, loss_fn, zeros, zeros, zeros)
+        start = et.restore()
+    for n in range(start + 1, ELASTIC_STEPS + 1):
+        step(n)
+    _sync_all(torch, ELASTIC_A['dev'])
+    res['start'] = start
+    res['weights'] = {k: p.data()._data.cpu().clone()
+                      for k, p in net.collect_params().items()}
+    res['slots'] = {i: [t.cpu().clone() for t in (st if isinstance(st, tuple)
+                                          else (st,)) if torch.is_tensor(t)]
+                    for i, st in trainer._states.items()}
+    res['num_update'] = trainer._optimizer.num_update
+    res['launches'] = kernels.launch_counts()
+    res['designs'] = kernels.path_counts()
+    res['graphs'] = (net.capture_count, trainer.capture_count)
+    torch.save(res, out)
+    et.close()
+    return 0
+
+
+def _elastic_a(torch):
+    """Elastic (a) through three processes of this script; returns the
+    straight and resumed dumps and the crashed run's last stats."""
+    import os
+    import shutil
+    from mxnet_tpu_torch import parallel
+    base = ELASTIC_DIR / 'a'
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    ckpt = str(base / 'ckpt')
+    got = {}
+    for mode in ('straight', 'crash', 'resume'):
+        env = dict(os.environ)
+        if mode == 'crash':
+            env['MXNET_CKPT_ASYNC'] = '1'
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(ROOT / 'chip_smoke.py'), '--elastic-worker',
+             mode, '--ckpt', ckpt, '--out', str(base / f'{mode}.pt')],
+            capture_output=True, text=True, timeout=600, env=env)
+        dt = time.perf_counter() - t0
+        want_rc = -9 if mode == 'crash' else 0
+        if r.returncode != want_rc:
+            fail(f'elastic: (a) {mode} exited {r.returncode} (want '
+                 f'{want_rc}):\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}')
+        stats = [json.loads(line.split(' ', 1)[1])
+                 for line in r.stdout.splitlines()
+                 if line.startswith('ELASTIC_STATS ')]
+        got[mode] = (torch.load(base / f'{mode}.pt', weights_only=False)
+                     if mode != 'crash' else stats[-1] if stats else None)
+        log(f'[elastic] (a) {mode} process: {dt:.1f} s')
+        if mode == 'crash':
+            latest = parallel.SharedCheckpointManager(ckpt).latest_step()
+            if latest != ELASTIC_KILL_AT - 1:
+                fail(f'elastic: (a) after the kill latest_step() is '
+                     f'{latest}, want {ELASTIC_KILL_AT - 1}')
+    return got
+
+
+def _elastic_a_checks(torch, got):
+    a, b, st = got['straight'], got['resume'], got['crash']
+    if b['start'] != ELASTIC_KILL_AT - 1:
+        fail(f'elastic: (a) resumed from {b["start"]}')
+    bad = [k for k in a['weights']
+           if not torch.equal(a['weights'][k], b['weights'][k])]
+    bad += [f'slot {i}' for i in a['slots']
+            if len(a['slots'][i]) != len(b['slots'][i]) or not all(
+                torch.equal(x, y)
+                for x, y in zip(a['slots'][i], b['slots'][i]))]
+    losses = [n for n in range(ELASTIC_KILL_AT, ELASTIC_STEPS + 1)
+              if a['losses'][n] != b['losses'][n]]
+    if bad or losses or a['num_update'] != b['num_update'] or \
+            a['slots'].keys() != b['slots'].keys():
+        fail(f'elastic: (a) the resumed run is not bit-equal to the '
+             f'straight one: tensors {bad[:5]} ({len(bad)}), losses at '
+             f'steps {losses}, num_update {a["num_update"]} / '
+             f'{b["num_update"]}')
+    per_step = a['counts'][ELASTIC_STEPS]
+    want = {'fused_norm': BERT_FORWARD['fused_norm'],
+            'flash_attention': BERT_FORWARD['flash_attention'],
+            'adam': BERT_UPDATED}
+    if not REHEARSE and {k: per_step.get(k, 0) for k in want} != want:
+        fail(f'elastic: (a) a step launched {per_step}, want {want}')
+    log(f'[elastic] (a) bert_12_768_12 ({ELASTIC_A["batch"]}, '
+        f'{ELASTIC_A["seq"]}) Adam Dropout 0.1, '
+        f'hybridized (captures net/trainer {a["graphs"]}): {ELASTIC_STEPS} '
+        f'steps straight against a run SIGKILLed inside its save of step '
+        f'{ELASTIC_KILL_AT} and resumed from step {b["start"]}: weights, '
+        f'{sum(len(v) for v in a["slots"].values())} Adam slots, '
+        f'num_update {a["num_update"]} and the losses of steps '
+        f'{ELASTIC_KILL_AT}-{ELASTIC_STEPS} bit-equal; losses '
+        f'{[round(a["losses"][n], 6) for n in sorted(a["losses"])]}; a '
+        f'step launches B1 {per_step.get("fused_norm")} B2 '
+        f'{per_step.get("flash_attention")} B5 {per_step.get("adam")}; the '
+        f'crashed run\'s async saves: blocked_ms avg '
+        f'{st["blocked_ms_avg"]:.2f} max {st["blocked_ms_max"]:.2f}, '
+        f'serialize_ms avg {st["serialize_ms_avg"]:.1f} max '
+        f'{st["serialize_ms_max"]:.1f} ({st["async_saves"]} saves)')
+
+
+def _elastic_b_rank(mode, ckpt, seed):
+    """One rank of elastic (b). ``mode``: ``barrier`` (host 1's ranks die
+    at their elastic barrier before step commit + 1), ``collective``
+    (inside that step's second collective) or ``planned`` (two ranks
+    restore the ``barrier`` run's checkpoint of step ``commit`` and train
+    to the end, the planned scale-down). Returns digests of the final
+    weights, per-step host ms and launches, and the re-formation's
+    timings."""
+    import os
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, kvstore, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.kvstore import faults
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import launch
+    from mxnet_tpu_torch.sharding.context import MeshGroup, local_group, use
+    from mxnet_tpu_torch.train import ElasticTrainer, MeshElasticTrainer
+    os.environ.update(MXNET_KVSTORE_DEADLINE_S=str(ELASTIC_B['deadline_s']),
+                      MXNET_KVSTORE_HEARTBEAT_S='0.5')
+    dev = ELASTIC_B['dev']
+    if dev == 'cuda':
+        full_fp32(torch)
+        deterministic(torch)
+    else:
+        torch.set_num_threads(1)
+    kernels.reset_launch_counts()
+    rank = dist.get_rank()
+    cfg = dict(SHARD, dev=dev, bert_kw=dict(
+        ELASTIC_B['bert_kw'], num_layers=ELASTIC_B['layers']))
+    if dev != 'cuda':
+        cfg.update(batch=8, seq=16, vocab=100)
+    kill = ELASTIC_B['commit'] + 1
+    rules = bert.bert_partition_rules('fsdp')
+    steps = []
+    opts = dict(BERT_OPTS[0][2])
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def build(ctx):
+        ctxd = _ctxd(mx, dev)
+        net = _bert_net(mx, bert, cfg, seed, ctxd)
+        ids, tt, labels = _bert_data(mx, cfg, seed)
+        with mx.autograd.predict_mode():
+            net(ids, tt)            # deferred initialization, whole
+        params = net.collect_params()
+        init = {k: p.data().asnumpy() for k, p in params.items()}
+        net.hybridize(static_alloc=True)
+        trainer = gluon.Trainer(params, 'adam', dict(opts))
+        bert_step(mx, net, trainer, loss_fn, ids, tt, labels)  # places
+        for k, p in params.items():
+            p.set_data(init[k])
+        trainer = gluon.Trainer(params, 'adam', dict(opts))
+
+        def step(s):
+            if mode == 'collective' and s == kill and rank >= 2:
+                faults.configure(f'kill_host:collective:2:rank={rank}')
+            ids, tt, labels = _bert_data(mx, cfg, seed + 100 + s)
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            loss = bert_step(mx, net, trainer, loss_fn, ids, tt, labels)
+            loss = loss.item()
+            steps.append(dict(step=s, ranks=ctx.n_devices, loss=loss,
+                              ms=(time.perf_counter() - t0) * 1e3,
+                              counts=_counts_since(kernels, before)))
+        return {'params': dict(params), 'trainer': trainer, 'step': step}
+
+    out = {'rank': rank, 'steps': steps}
+    if mode == 'planned':
+        g = MeshGroup(2, devices=[0, 1, 2, 3], live=[0])
+        ctx = g.context(rules=rules, group=local_group([0, 1]))
+        with _ctxd(mx, dev), use(ctx):
+            st = build(ctx)
+            et = ElasticTrainer(st['params'], st['trainer'],
+                                parallel.SharedCheckpointManager(ckpt),
+                                name='planned', async_save=False)
+            out['restored'] = et.restore(ELASTIC_B['commit'])
+            for s in range(ELASTIC_B['commit'] + 1, ELASTIC_B['steps']):
+                st['step'](s)
+            weights = {k: p.data().asnumpy() for k, p in st['params'].items()}
+            et.close()
+    else:
+        with _ctxd(mx, dev):
+            store = kvstore.create('dist_async', device='cpu')
+            if mode == 'barrier':
+                n = 2 * kill + 1   # its elastic_barrier sends to pre(kill)
+                faults.configure(';'.join(
+                    f'kill_host:elastic_barrier:{n}:rank={r}'
+                    for r in (2, 3)))
+            d = MeshElasticTrainer(store, MeshGroup(2, devices=[0, 1, 2, 3]),
+                                   build, ckpt, rules=rules, name='bert')
+            dist.barrier()
+            t0 = time.perf_counter()
+            try:
+                out['done'] = d.run(ELASTIC_B['steps'])
+            except faults.InjectedHostDeath:
+                launch.die()
+            out['wall'] = time.perf_counter() - t0
+            out['timings'] = d.timings
+            out['committed'] = d.committed
+            out['group'] = d.group.describe()
+            out['table'] = store.mesh_table()
+            weights = {k: p.data().asnumpy()
+                       for k, p in d.state['params'].items()}
+            d.close()
+    out['digests'] = _np_digests(weights)
+    out['launches'] = kernels.launch_counts()
+    out['designs'] = kernels.path_counts()
+    return out
+
+
+def _elastic_b(torch, seed):
+    """Elastic (b): the two deaths and the planned scale-down; returns the
+    ranks' results by run."""
+    import shutil
+    from mxnet_tpu_torch.parallel import launch
+    base = ELASTIC_DIR / 'b'
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    got = {}
+    for mode, n, ckpt in (('barrier', 4, 'barrier'),
+                          ('collective', 4, 'collective'),
+                          ('planned', 2, 'barrier')):
+        t0 = time.perf_counter()
+        got[mode] = launch.spawn(_elastic_b_rank, n, mode,
+                                 str(base / ckpt), seed, backend='gloo',
+                                 timeout=900, may_die=mode != 'planned')
+        log(f'[elastic] (b) {mode}: {n} ranks on cuda:0 over gloo in '
+            f'{time.perf_counter() - t0:.1f} s (spawn included)')
+    return got
+
+
+def _elastic_b_checks(got):
+    commit, steps = ELASTIC_B['commit'], ELASTIC_B['steps']
+    layers = ELASTIC_B['layers']
+    # a rank's launches a step: two LayerNorms a cell, the embedding's and
+    # the decoder's; one attention a cell; every parameter's update (12 a
+    # cell and 12 outside the cells, as BERT_UPDATED counts them)
+    want_b = {'fused_norm': 2 * layers + 2, 'flash_attention': layers,
+              'adam': 12 * layers + 12}
+    want = got['planned'][0]['digests']
+    if got['planned'][0]['restored'] != commit:
+        fail(f'elastic: (b) the planned run restored '
+             f'{got["planned"][0]["restored"]}, want {commit}')
+    for mode in ('barrier', 'collective'):
+        ranks = got[mode]
+        if ranks[2:] != [None, None] or None in ranks[:2]:
+            fail(f'elastic: (b) {mode}: host 1 did not die alone')
+        for r in ranks[:2]:
+            if r['done'] != steps or r['group']['live'] != [0]:
+                fail(f'elastic: (b) {mode} rank {r["rank"]}: done '
+                     f'{r["done"]}, live hosts {r["group"]["live"]}')
+            if r['digests'] != want:
+                bad = [k for k in want if r['digests'].get(k) != want[k]]
+                fail(f'elastic: (b) {mode} rank {r["rank"]}: weights not '
+                     f'bit-equal to the planned scale-down: {bad[:5]} '
+                     f'({len(bad)})')
+            t = r['timings'][0]
+            if sum(t.values()) > 120:
+                fail(f'elastic: (b) {mode}: the re-formation took {t}')
+            per = {s['ranks']: {k: s['counts'].get(k, 0) for k in want_b}
+                   for s in r['steps']}
+            if not REHEARSE and per != {4: want_b, 2: want_b}:
+                fail(f'elastic: (b) {mode}: a step launched {per} by mesh '
+                     f'size, want {want_b} at 4 and at 2 ranks')
+    for mode in ('barrier', 'collective'):
+        r = got[mode][0]
+        t = r['timings'][0]
+        before = [s['ms'] for s in r['steps'] if s['ranks'] == 4]
+        after = [s['ms'] for s in r['steps'] if s['ranks'] == 2]
+        first = after[0]
+        where = 'at the barrier of' if mode == 'barrier' else \
+            'inside the second collective of'
+        log(f'[elastic] (b) host 1 dies {where} '
+            f'step {commit + 1} ({ELASTIC_B["layers"]}-layer '
+            f'bert_12_768_12 widths, FSDP, Adam): death to the first step '
+            f'on the new mesh {sum(t.values()) + first / 1e3:.2f} s = '
+            f'detect {t["detect"]:.2f} + drain {t["drain"]:.3f} + restore '
+            f'{t["restore"]:.2f} + rejoin {t["rejoin"]:.3f} + first step '
+            f'{first / 1e3:.2f} (MXNET_KVSTORE_DEADLINE_S '
+            f'{ELASTIC_B["deadline_s"]}); step host ms at 4 ranks '
+            f'{[round(x, 1) for x in before]}, at 2 '
+            f'{[round(x, 1) for x in after]}; a step launches '
+            f'{r["steps"][-1]["counts"]} a rank; mesh table {r["table"]}; '
+            f'weights bit-equal to the planned scale-down (4 ranks to step {commit}, its checkpoint '
+            f'restored on 2)')
+
+
+def phase_elastic(torch, seed):
+    """``mx.train``'s elastic trainers on the card: see the module
+    docstring. Returns the processes' summed launch counts, by kernel and
+    by design."""
+    got_a = _elastic_a(torch)
+    _elastic_a_checks(torch, got_a)
+    got_b = _elastic_b(torch, seed)
+    _elastic_b_checks(got_b)
+    counts, designs = dict.fromkeys(KERNELS, 0), {}
+    runs = [got_a['straight'], got_a['resume']] + [
+        r for rs in got_b.values() for r in rs if r is not None]
+    for r in runs:
+        for k, c in r['launches'].items():
+            counts[k] = counts.get(k, 0) + c
+        for k, ds in r['designs'].items():
+            for d, c in ds.items():
+                designs.setdefault(k, {}).setdefault(d, 0)
+                designs[k][d] += c
+    return counts, designs
+
+
+# ----------------------------------------------------------- pipeline
+#: the pipeline phase: bert_12_768_12's 12 encoder cells (768 wide, 12
+#: heads, 3072 hidden, no dropout) split into 4 stages of 3 over 4 ranks;
+#: 8 microbatches of (8, 128, 768), squared error against seeded targets,
+#: Adam 1e-4, 2 steps a schedule
+PIPE = dict(cells=12, stages=4, micro=8, mb=8, seq=128, units=768,
+            hidden=3072, heads=12, steps=2, dev='cuda')
+if REHEARSE:
+    PIPE.update(micro=4, mb=2, seq=8, units=32, hidden=64, heads=4,
+                dev='cpu')
+
+
+def _pipe_net(mx, bert, seed):
+    from mxnet_tpu_torch.gluon import nn
+    mx.random.seed(seed)
+    net = nn.HybridSequential()
+    for _ in range(PIPE['cells']):
+        net.add(bert.BERTEncoderCell(PIPE['units'], PIPE['hidden'],
+                                     PIPE['heads'], dropout=0.0))
+    net.initialize(ctx=_ctxd(mx, PIPE['dev']))
+    with mx.autograd.predict_mode():
+        net(mx.np.zeros((PIPE['mb'], PIPE['seq'], PIPE['units'])))
+    return net
+
+
+def _pipe_data(seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shape = (PIPE['micro'], PIPE['mb'], PIPE['seq'], PIPE['units'])
+    return (rng.standard_normal(shape).astype('float32'),
+            rng.standard_normal(shape).astype('float32') * 0.5)
+
+
+def pipe_reference(torch, seed, path):
+    """One process: the 12 cells eagerly over the same microbatches, the
+    summed squared error, Adam over every parameter; saves the first
+    step's gradients, the weights after the last step and the losses."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    with _ctxd(mx, PIPE['dev']):
+        net = _pipe_net(mx, bert, seed)
+        xs, ys = (mx.np.array(a) for a in _pipe_data(seed))
+        params = net.collect_params()
+        tr = gluon.Trainer(params, 'adam', dict(BERT_OPTS[0][2]))
+        ref = {'losses': []}
+        for s in range(PIPE['steps']):
+            with mx.autograd.record():
+                total = None
+                for t in range(PIPE['micro']):
+                    e = ((net(xs[t]) - ys[t]) ** 2).sum()
+                    total = e if total is None else total + e
+            total.backward()
+            ref['losses'].append(total.item())
+            if s == 0:
+                ref['grads'] = {k: p.grad()._data.cpu().clone()
+                                for k, p in params.items()}
+            tr.step(PIPE['micro'] * PIPE['mb'])
+            if s == 0:
+                ref['weights'] = {k: p.data()._data.cpu().clone()
+                                  for k, p in params.items()}
+    torch.save(ref, path)
+    return ref['losses']
+
+
+def _pipe_first_step(torch, ref, mine, res):
+    """Hold a stage's first step to one process's: the gradients within
+    rtol 1e-4 and 1e-6 of each tensor's largest (the summation orders
+    differ), the weights after Adam's update within rtol 1e-4 and a
+    hundredth of lr. Adam divides each gradient by its own size, so an
+    element whose gradient is under 1e-4 of its tensor's largest (within
+    a hundred times the rounding the gradient check allows) may move
+    anywhere within lr: those are counted and held to that. After the
+    first step the weights differ there, and every later gradient with
+    them: only the losses are held."""
+    lr = BERT_OPTS[0][2]['learning_rate']
+    res['ill'] = [0, 0]
+    for k, p in mine.items():
+        g, got = p.grad()._data, p.data()._data
+        want_g = ref['grads'][k].to(g.device)
+        err, ok = compare(torch, g, want_g, 1e-4,
+                          1e-6 * float(want_g.abs().max()))
+        res['grad_err'] = max(res['grad_err'], err)
+        want = ref['weights'][k].to(got.device)
+        a = want_g.abs()
+        ill = (a < 1e-4 * float(a.max())) & (a != 0)
+        err, ok_w = compare(torch, got[~ill], want[~ill], 1e-4, 1e-2 * lr)
+        gap = float((got[ill] - want[ill]).abs().max()) \
+            if bool(ill.any()) else 0.0
+        res['ill'][0] += int(ill.sum())
+        res['ill'][1] += ill.numel()
+        res['weight_err'] = max(res['weight_err'], err)
+        res['noise_gap'] = max(res.get('noise_gap', 0.0), gap)
+        res['ok'] &= ok and ok_w and gap <= lr
+
+
+def _pipe_rank(seed, ref_path):
+    """One stage of the pipeline phase: both schedules, each from the
+    seeded net; checks its stage's gradients and weights against the
+    reference here and returns the errors, losses, ms and counts."""
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.kvstore import fusion
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.sharding import ShardingContext
+    from mxnet_tpu_torch.sharding.context import local_group
+    dev = PIPE['dev']
+    if dev == 'cuda':
+        full_fp32(torch)
+    else:
+        torch.set_num_threads(1)
+    kernels.reset_launch_counts()
+    rank = dist.get_rank()
+    ref = torch.load(ref_path, weights_only=False)
+    ctx = ShardingContext({'pp': PIPE['stages']},
+                          group=local_group(range(PIPE['stages'])))
+    out = {'rank': rank}
+    with _ctxd(mx, dev):
+        xs, ys = (mx.np.array(a) for a in _pipe_data(seed))
+        for sched in ('1f1b', 'gpipe'):
+            net = _pipe_net(mx, bert, seed)
+            names = {id(p): k for k, p in net.collect_params().items()}
+            tr = parallel.PipelineTrainer(
+                net, ctx, example=xs[0], optimizer='adam',
+                optimizer_params=dict(BERT_OPTS[0][2]), schedule=sched)
+            mine = {names[id(p)]: p for p in tr._params}
+            res = {'losses': [], 'ms': [], 'hops_ms': [], 'counts': [],
+                   'grad_err': 0.0, 'weight_err': 0.0, 'ok': True}
+            for s in range(PIPE['steps']):
+                dist.barrier()
+                fusion.reset_counters()
+                before = kernels.launch_counts()
+                _sync_all(torch, dev)
+                t0 = time.perf_counter()
+                res['losses'].append(tr.step(xs, ys))
+                _sync_all(torch, dev)
+                res['ms'].append((time.perf_counter() - t0) * 1e3)
+                c = fusion.counters()
+                res['hops_ms'].append(sum(c.get(k, [0, 0, 0.0])[2]
+                                          for k in ('send', 'recv')) * 1e3)
+                res['counts'].append(_counts_since(kernels, before))
+                if s == 0:      # from the same weights: hold the step
+                    _pipe_first_step(torch, ref, mine, res)
+            res['params'] = len(mine)
+            out[sched] = res
+            del net, tr
+    out['launches'] = kernels.launch_counts()
+    out['designs'] = kernels.path_counts()
+    return out
+
+
+def phase_pipeline(torch, seed):
+    """The pipeline phase: see the module docstring. Returns the ranks'
+    summed launch counts, by kernel and by design."""
+    from mxnet_tpu_torch.parallel import launch
+    ELASTIC_DIR.mkdir(parents=True, exist_ok=True)
+    path = ELASTIC_DIR / 'pipeline_ref.pt'
+    t0 = time.perf_counter()
+    losses = pipe_reference(torch, seed, path)
+    log(f'[pipeline] one-process reference: {time.perf_counter() - t0:.1f} '
+        f's, losses {losses}')
+    if PIPE['dev'] == 'cuda':
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_pipe_rank, PIPE['stages'], seed, str(path),
+                         backend='gloo', timeout=900)
+    log(f'[pipeline] {PIPE["stages"]} ranks on cuda:0 over gloo in '
+        f'{time.perf_counter() - t0:.1f} s (spawn included)')
+    per = PIPE['cells'] // PIPE['stages']
+    want = {'fused_norm': 2 * per * PIPE['micro'],
+            'flash_attention': per * PIPE['micro'], 'adam': 12 * per}
+    counts, designs = dict.fromkeys(KERNELS, 0), {}
+    for r in ranks:
+        for sched in ('1f1b', 'gpipe'):
+            res = r[sched]
+            if not res['ok']:
+                fail(f'pipeline: {sched} stage {r["rank"]}: gradients '
+                     f'(max err {res["grad_err"]:.3g}) or weights (max err '
+                     f'{res["weight_err"]:.3g}) part from one process')
+            for got, ref in zip(res['losses'], losses):
+                if abs(got - ref) > 1e-4 * abs(ref):
+                    fail(f'pipeline: {sched} losses {res["losses"]}, one '
+                         f'process {losses}')
+            for c in res['counts']:
+                if not REHEARSE and {k: c.get(k, 0) for k in want} != want:
+                    fail(f'pipeline: {sched} stage {r["rank"]} launched '
+                         f'{c} a step, want {want}')
+        for k, c in r['launches'].items():
+            counts[k] = counts.get(k, 0) + c
+        for k, ds in r['designs'].items():
+            for d, c in ds.items():
+                designs.setdefault(k, {}).setdefault(d, 0)
+                designs[k][d] += c
+    for sched in ('1f1b', 'gpipe'):
+        ms = [r[sched]['ms'][-1] for r in ranks]
+        hops = [r[sched]['hops_ms'][-1] for r in ranks]
+        log(f'[pipeline] {sched}: {PIPE["cells"]} BERT-base cells as '
+            f'{PIPE["stages"]} stages of {per}, {PIPE["micro"]} microbatches '
+            f'of ({PIPE["mb"]}, {PIPE["seq"]}, {PIPE["units"]}), Adam: losses '
+            f'{ranks[0][sched]["losses"]} (one process {losses}), each '
+            f'stage\'s first-step gradients within rtol 1e-4 (max err '
+            f'{max(r[sched]["grad_err"] for r in ranks):.3g}) and weights '
+            f'after it (max err '
+            f'{max(r[sched]["weight_err"] for r in ranks):.3g}; '
+            f'{sum(r[sched]["ill"][0] for r in ranks)} of '
+            f'{sum(r[sched]["ill"][1] for r in ranks)} elements, whose '
+            f'gradient fell under 1e-4 of its tensor\'s largest, within lr: '
+            f'max gap '
+            f'{max(r[sched].get("noise_gap", 0.0) for r in ranks):.3g}); '
+            f'step host ms by stage {[round(x, 1) for x in ms]}, send/recv '
+            f'host ms {[round(x, 1) for x in hops]} '
+            f'({100 * sum(hops) / sum(ms):.1f} % of the stages\' steps: a '
+            f'receive waits for the stage before it, the bubble included); '
+            f'launches a step a stage {ranks[0][sched]["counts"][-1]}')
+    return counts, designs
+
+
+# ---------------------------------------------------------------- moe
+#: the moe phase: Mixtral-8x7B's FFN widths (D 4096, F 14336, 8 experts,
+#: top-2, capacity factor 1.25; the reference's tanh-approximated gelu),
+#: T tokens over ep = 4 ranks, fp32
+MOE = dict(T=4096, D=4096, F=14336, E=8, ep=4, scale=0.02, dev='cuda')
+if REHEARSE:
+    MOE.update(T=64, D=8, F=16, dev='cpu')
+
+
+def _moe_weights(torch, seed, experts, dev):
+    """The seeded weights: the router whole and the given experts' w_in
+    and w_out (each expert from its own seed, so any rank draws its own)."""
+    g = torch.Generator(device=dev)
+    D, F, s = MOE['D'], MOE['F'], MOE['scale']
+
+    def randn(seed_, *shape):
+        g.manual_seed(seed_)
+        return torch.randn(*shape, generator=g, device=dev) * s
+    wg = randn(seed + 1, D, MOE['E'])
+    w_in = torch.stack([randn(seed + 100 + e, D, F) for e in experts])
+    w_out = torch.stack([randn(seed + 200 + e, F, D) for e in experts])
+    return wg, w_in, w_out
+
+
+def _moe_tokens(torch, seed, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(MOE['T'], MOE['D'], generator=g, device=dev)
+
+
+def _moe_rank(seed):
+    """One rank of the moe phase: its tokens and experts, a warm-up and a
+    timed forward and backward; returns its output, the timings and the
+    gradients' finiteness."""
+    import torch
+    import torch.distributed as dist
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.kvstore import fusion
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.sharding import ShardingContext
+    from mxnet_tpu_torch.sharding.context import local_group
+    from mxnet_tpu_torch.sharding.dispatch import Layout, shard
+    from mxnet_tpu_torch.sharding.rules import PartitionSpec as P
+    if MOE['dev'] == 'cuda':
+        full_fp32(torch)
+    else:
+        torch.set_num_threads(1)
+    kernels.reset_launch_counts()
+    rank, ep = dist.get_rank(), MOE['ep']
+    dev = torch.device(MOE['dev'], 0) if MOE['dev'] == 'cuda' \
+        else torch.device('cpu')
+    ctx = ShardingContext({'ep': ep}, group=local_group(range(ep)))
+    el, tl = MOE['E'] // ep, MOE['T'] // ep
+    wg, w_in, w_out = _moe_weights(torch, seed, range(rank * el,
+                                                      (rank + 1) * el), dev)
+    x = _moe_tokens(torch, seed, dev)[rank * tl:(rank + 1) * tl].clone()
+    out = {'rank': rank, 'expert_bytes': (w_in.numel() + w_out.numel()) * 4}
+    wg.requires_grad_(True)
+    w_in.requires_grad_(True)
+    w_out.requires_grad_(True)
+
+    def nd(t, gshape):
+        return shard(t, Layout(ctx, P('ep'), gshape))
+    for it in range(2):
+        for w in (wg, w_in, w_out):
+            w.grad = None
+        dist.barrier()
+        fusion.reset_counters()
+        _sync_all(torch, MOE['dev'])
+        t0 = time.perf_counter()
+        y, aux = parallel.moe_ffn(
+            nd(x, (MOE['T'], MOE['D'])), wg,
+            nd(w_in, (MOE['E'], MOE['D'], MOE['F'])),
+            nd(w_out, (MOE['E'], MOE['F'], MOE['D'])), ctx)
+        _sync_all(torch, MOE['dev'])
+        t1 = time.perf_counter()
+        a2a_f = fusion.counters().get('all_to_all', [0, 0, 0.0])[2]
+        loss = (y._data ** 2).sum() / (MOE['T'] * MOE['D']) + \
+            0.01 * aux / ep
+        loss.backward()
+        _sync_all(torch, MOE['dev'])
+        t2 = time.perf_counter()
+        c = fusion.counters().get('all_to_all', [0, 0, 0.0])
+    out.update(fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3,
+               a2a_fwd_ms=a2a_f * 1e3, a2a_ms=c[2] * 1e3, a2a_calls=c[0],
+               a2a_bytes=c[1], aux=float(aux.detach()),
+               y=y._data.detach().cpu(),
+               finite=all(bool(torch.isfinite(w.grad).all()) and
+                          float(w.grad.abs().sum()) > 0
+                          for w in (wg, w_in, w_out)),
+               peak=torch.cuda.max_memory_allocated() / 2**30
+               if MOE['dev'] == 'cuda' else 0.0)
+    out['launches'] = kernels.launch_counts()
+    out['designs'] = kernels.path_counts()
+    return out
+
+
+def phase_moe(torch, seed):
+    """The moe phase: see the module docstring. Returns the ranks' summed
+    launch counts (no kernel of the port runs: the products are
+    ``torch.matmul``/``bmm``, as the reference's are XLA einsums)."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_moe_rank, MOE['ep'], seed, backend='gloo',
+                         timeout=600)
+    log(f'[moe] {MOE["ep"]} ranks on cuda:0 over gloo in '
+        f'{time.perf_counter() - t0:.1f} s (spawn included)')
+    dev = torch.device('cuda', 0) if MOE['dev'] == 'cuda' \
+        else torch.device('cpu')
+    wg, w_in, w_out = _moe_weights(torch, seed, range(MOE['E']), dev)
+    x = _moe_tokens(torch, seed, dev)
+    tl = MOE['T'] // MOE['ep']
+    worst = 0.0
+    with torch.no_grad():
+        for r in ranks:
+            want, _ = parallel.moe_ffn(x[r['rank'] * tl:(r['rank'] + 1) * tl],
+                                       wg, w_in, w_out, None)
+            want = want._data
+            err, ok = compare(torch, r['y'].to(dev), want, 1e-5,
+                              1e-5 * float(want.abs().max()))
+            worst = max(worst, err)
+            if not ok or not r['finite']:
+                fail(f'moe: rank {r["rank"]}: output against ep = 1 max err '
+                     f'{err:.3g} (ok {ok}), gradients finite {r["finite"]}')
+    del wg, w_in, w_out, x
+    if MOE['dev'] == 'cuda':
+        torch.cuda.empty_cache()
+    r0 = ranks[0]
+    tot = r0['fwd_ms'] + r0['bwd_ms']
+    log(f'[moe] Mixtral-8x7B FFN widths (D {MOE["D"]}, F {MOE["F"]}, E '
+        f'{MOE["E"]}, top-2, cf 1.25), T {MOE["T"]} over ep {MOE["ep"]}, '
+        f'fp32: experts {r0["expert_bytes"] / 1e9:.3f} GB a rank; output '
+        f'within rtol 1e-5 of each token shard through ep = 1 (max err '
+        f'{worst:.3g}); gradients finite; aux {r0["aux"]:.6f}; rank 0 '
+        f'forward {r0["fwd_ms"]:.1f} ms, backward {r0["bwd_ms"]:.1f} ms, '
+        f'all_to_all {r0["a2a_ms"]:.1f} ms of them '
+        f'({100 * r0["a2a_ms"] / tot:.1f} %; {r0["a2a_calls"]} exchanges '
+        f'of {r0["a2a_bytes"] / r0["a2a_calls"] / 1e6:.1f} MB, forward '
+        f'{r0["a2a_fwd_ms"]:.1f} ms); by rank forward '
+        f'{[round(r["fwd_ms"], 1) for r in ranks]}, backward '
+        f'{[round(r["bwd_ms"], 1) for r in ranks]} ms; peak '
+        f'{[round(r["peak"], 2) for r in ranks]} GiB')
+    counts, designs = dict.fromkeys(KERNELS, 0), {}
+    for r in ranks:
+        for k, c in r['launches'].items():
+            counts[k] = counts.get(k, 0) + c
+    return counts, designs
+
+
 NEW_DESIGNS = {'fused_norm': ('regs', 'cluster'),
                'int8_matmul': ('tma_splitk', 'tma'),
                'flash_attention': ('tf32x3', 'tf32x3_splitkv'),
@@ -6990,7 +7836,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(PHASES),
                     help=f'comma-separated subset of {",".join(PHASES)}')
+    ap.add_argument('--elastic-worker', choices=('straight', 'crash',
+                                                 'resume'),
+                    help=argparse.SUPPRESS)   # a process of elastic (a)
+    ap.add_argument('--ckpt', help=argparse.SUPPRESS)
+    ap.add_argument('--out', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.elastic_worker:
+        sys.path.insert(0, str(ROOT))
+        return elastic_worker(args.elastic_worker, args.ckpt, args.out)
     phases = args.phases.split(',')
     if not set(phases) <= set(PHASES):
         ap.error(f'unknown phase in {phases}')
@@ -7130,6 +7984,16 @@ def main(argv=None):
         sharding_costs(torch, got)
         del got
         torch.cuda.empty_cache()
+    for name, fn, seed in (('elastic', phase_elastic, SEED + 30),
+                           ('pipeline', phase_pipeline, SEED + 40),
+                           ('moe', phase_moe, SEED + 50)):
+        if name in phases:      # counted in the processes, which return
+            t0 = time.perf_counter()
+            paths[name], designs[name] = fn(torch, seed)
+            log(f'[{name}] launches {paths[name]}; by design '
+                f'{designs[name]}; {time.perf_counter() - t0:.1f} s')
+            check_designs(name, paths[name], designs[name])
+            torch.cuda.empty_cache()
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')

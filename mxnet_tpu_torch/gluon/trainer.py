@@ -604,6 +604,57 @@ class Trainer:
                     else NDArray(t)
         return out
 
+    def load_sharded_states(self, values):
+        """Restore the optimizer slots from global host values keyed as
+        :meth:`sharded_states` gives them (``'{name}/{slot}'``), the
+        inverse of that method: under a mesh each is cut to this rank's
+        piece on the parameters' current mesh, which may differ from the
+        mesh that wrote them (a checkpoint restored after the mesh
+        re-formed); outside one each is the whole slot. A slot that exists
+        with that shape is written in place (a captured update reads it
+        there). The counters come from :meth:`load_state_dict`."""
+        from ..sharding.dispatch import cut
+        ctx = self._shard_ctx()
+        if ctx is not None:
+            if self._states and self._tiles_mesh != ctx.fingerprint():
+                raise MXNetError('Trainer: the optimizer slots are split '
+                                 'for another mesh; make a new Trainer for '
+                                 'this one')
+            self._tiles_mesh = ctx.fingerprint()
+            live = self._sharded_live()
+        else:
+            live = [(i, p) for i, p in enumerate(self._params)
+                    if isinstance(p, Parameter) and p.grad_req != 'null'
+                    and p._var is not None]
+        optim = self._optimizer
+        for i, p in live:
+            name = self._names[i] if self._names else str(i)
+            slots = sorted((int(k.rsplit('/', 1)[1]), v)
+                           for k, v in values.items()
+                           if k.rsplit('/', 1)[0] == name)
+            if not slots:
+                continue
+            if ctx is not None and i not in self._tiles:
+                self._tiles[i] = self._tile_plan(ctx, p)
+            lay = self._slot_layout(i, p) if ctx is not None else None
+            state = self._states.get(i)
+            srcs = []
+            for _, v in slots:
+                src = torch.from_numpy(np.ascontiguousarray(v))
+                srcs.append(cut(src, lay) if lay is not None else src)
+            have = _flat_state(state)
+            if len(have) != len(srcs) or any(
+                    t.shape != src.shape for t, src in zip(have, srcs)):
+                w = self._tile(i, p._sync().detach())
+                state = optim.create_state_multi_precision(
+                    i, w.contiguous())
+            with torch.no_grad():
+                for t, src in zip(_flat_state(state), srcs):
+                    t.copy_(src.to(t.device, t.dtype))
+            self._states[i] = state
+        for vec in self._vectors.values():
+            vec.forget()
+
     def _slot_layout(self, i, p):
         lay = getattr(p, '_layout', None)
         plan = self._tiles.get(i)
@@ -648,18 +699,21 @@ class Trainer:
         graph.capture()
 
     # ---------------------------------------------------------- save / load
-    def state_dict(self):
+    def state_dict(self, states=True):
         """The trainer's state as host data, in the JAX package's format
         (``trainer.py:564-591``): the slots by parameter index (numpy, or
         tuples of numpy), the global and per-index update counts, and the
-        learning-rate scheduler's attributes."""
+        learning-rate scheduler's attributes. ``states=False`` leaves the
+        slots out (``load_state_dict`` then keeps the Trainer's own; a
+        checkpoint carries them as ``sharded_states()``)."""
         optim = self._optimizer
-        sd = {'states': {i: states_to_host(st)
-                         for i, st in self._states.items()},
-              'num_update': int(optim.num_update),
+        sd = {'num_update': int(optim.num_update),
               'index_update_count': {
                   int(i): int(c)
                   for i, c in optim._index_update_count.items()}}
+        if states:
+            sd['states'] = {i: states_to_host(st)
+                            for i, st in self._states.items()}
         sch = getattr(optim, 'lr_scheduler', None)
         if sch is not None:
             sd['lr_scheduler'] = copy.deepcopy(sch.__dict__)
@@ -669,13 +723,15 @@ class Trainer:
         """Restore :meth:`state_dict`'s data (from either package): the
         next step is the uninterrupted trainer's. Slots that exist are
         written in place, so that a captured update reads them; the device
-        vectors are uploaded anew at the next step."""
-        states = {}
-        for i, st in sd['states'].items():
-            i = int(i)
-            states[i] = states_into(st, self._states.get(i),
-                                    _device(self._params[i]))
-        self._states = states
+        vectors are uploaded anew at the next step. Without ``'states'``
+        (``state_dict(states=False)``) the slots stay as they are."""
+        if 'states' in sd:
+            states = {}
+            for i, st in sd['states'].items():
+                i = int(i)
+                states[i] = states_into(st, self._states.get(i),
+                                        _device(self._params[i]))
+            self._states = states
         optim = self._optimizer
         optim.num_update = int(sd['num_update'])
         optim._index_update_count = {

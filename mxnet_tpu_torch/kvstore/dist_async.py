@@ -192,6 +192,7 @@ class _AsyncServer(RpcServer):
         self._elastic_arrivals = {}      # (phase, step) -> set of ranks
         self._elastic_rel = {}           # (phase, step) -> release count
         self._elastic_reply = {}         # (phase, step) -> last release reply
+        self._elastic_released = {}      # rank -> clock at its last release
         self._elastic_cv = threading.Condition()
         self._race = None
         from ..analysis import race as _race
@@ -491,8 +492,12 @@ class _AsyncServer(RpcServer):
                 for r, m in self._elastic_members.items():
                     if r in arr:
                         continue
-                    if r in tombs or \
-                            now - seen.get(r, m['joined']) > deadline:
+                    # a member released from a barrier was alive then,
+                    # though its heartbeats waited behind its barrier
+                    # call on the one socket
+                    last = max(seen.get(r, m['joined']),
+                               self._elastic_released.get(r, m['joined']))
+                    if r in tombs or now - last > deadline:
                         dead.append(r)
                 for r in dead:
                     del self._elastic_members[r]
@@ -510,6 +515,8 @@ class _AsyncServer(RpcServer):
                              'changed': self._elastic_gen != entry_gen}
                     self._elastic_rel[key] = \
                         self._elastic_rel.get(key, 0) + 1
+                    for r in arr:
+                        self._elastic_released[r] = now
                     self._elastic_reply[key] = reply
                     self._elastic_arrivals[key] = set()
                     self._elastic_cv.notify_all()
@@ -714,8 +721,12 @@ class KVStoreDistAsync(KVStoreBase):
                         st._rpc_to(0, {'cmd': 'ping'}, attempts=1,
                                    deadline_s=5)
                     except Exception:
-                        return        # job shutting down
-                    del st
+                        # a beat lost behind a long call on the socket
+                        # (a barrier) is no reason to stop beating
+                        if stop.is_set():
+                            return    # job shutting down
+                    finally:
+                        del st
 
             self._hb_thread = threading.Thread(target=beat, daemon=True)
             self._hb_thread.start()

@@ -27,7 +27,18 @@ Counterpart of ``mxnet_tpu/kvstore/fusion.py``, the transport under
   a tile of every tensor instead of whole keys).
 * **Counters**: every collective of :class:`CrossProcess` adds to
   :func:`counters` (calls, bytes, host seconds with the staging), whoever
-  calls it: the kvstore, ``SyncBatchNorm`` or ``mx.sharding``.
+  calls it: the kvstore, ``SyncBatchNorm``, ``mx.sharding``, the
+  pipeline's hops or the MoE exchange.
+* **Watched waits** (:func:`watching`): a gloo collective whose peer died
+  fails only on the ranks connected to that peer; a rank waiting on a
+  live peer that already gave up would wait out the group's timeout.
+  Inside ``watching(check)`` every collective is issued asynchronously
+  and waited for in slices, and ``check()`` runs between slices (the
+  elastic trainer's: has the formation's generation moved?), so such a
+  rank raises :class:`FormationLost` instead. Each collective also passes
+  the ``dist_async`` fault hook as command ``collective`` (so a
+  ``kill_host:collective:N`` rule kills a rank inside a step's
+  collective).
 
 The in-axis forms of the JAX module (:func:`zero1_update_in_axis`,
 :func:`bucketed_allreduce_in_axis`), which run inside a ``shard_map`` there,
@@ -37,6 +48,8 @@ split and decode here are plain PyTorch, as the JAX package leaves them
 to XLA.
 """
 
+import contextlib
+import datetime
 import functools
 import math
 import os
@@ -46,17 +59,72 @@ import numpy as _np
 import torch
 import torch.distributed as dist
 
+from ..base import MXNetError
 from ..parallel._staging import HostStage, refuse_capture, staged
+from . import faults as _faults
 
 __all__ = ['fusion_buffer_bytes', 'make_buckets', 'plan_buckets',
            'zero1_layout', 'assign_owners', 'CrossProcess',
            'zero1_exchange', 'zero1_update_in_axis',
-           'bucketed_allreduce_in_axis', 'counters', 'reset_counters']
+           'bucketed_allreduce_in_axis', 'counters', 'reset_counters',
+           'FormationLost', 'watching', 'issue', 'wait']
 
 _PAD_QUANTUM = 65536  # elements
 #: collectives run, bytes sent and host seconds spent (staging included),
 #: by kind, in this process
 _COUNT = {}
+
+
+#: the active watch's check, or None
+_WATCH = [None]
+#: how long a watched collective waits between two checks
+_WATCH_SLICE_S = 0.2
+
+
+class FormationLost(MXNetError):
+    """A collective was given up: a peer of its group is gone (raised by
+    a :func:`watching` check while the collective waited)."""
+
+
+@contextlib.contextmanager
+def watching(check):
+    """Inside the block, every collective waits in slices of
+    ``_WATCH_SLICE_S`` seconds and calls ``check()`` between them;
+    ``check`` raises (a :class:`FormationLost`) to give the collective
+    up."""
+    prev, _WATCH[0] = _WATCH[0], check
+    try:
+        yield
+    finally:
+        _WATCH[0] = prev
+
+
+def wait(work):
+    """Wait for an asynchronous op's ``work``: in slices under
+    :func:`watching`, calling its check between them."""
+    check = _WATCH[0]
+    if check is None:
+        work.wait()
+        return
+    while True:
+        try:
+            work.wait(timeout=datetime.timedelta(seconds=_WATCH_SLICE_S))
+            return
+        except RuntimeError as e:
+            if 'timed out' not in str(e).lower():
+                raise
+        check()
+
+
+def issue(fn, *args, **kwargs):
+    """Run the ``torch.distributed`` call ``fn(*args, **kwargs)`` through
+    the fault hook and, under :func:`watching`, as an asynchronous op
+    waited for in slices (:func:`wait`); returns when it completed."""
+    if _faults._PLAN is not None:
+        _faults.on_send({'cmd': 'collective', 'rank': dist.get_rank()})
+    if _WATCH[0] is None:
+        return fn(*args, **kwargs)
+    return wait(fn(*args, async_op=True, **kwargs))
 
 
 def counters():
@@ -73,9 +141,9 @@ def reset_counters():
 def _counted(kind):
     def wrap(fn):
         @functools.wraps(fn)
-        def run(self, t, *args):
+        def run(self, t, *args, **kwargs):
             t0 = time.perf_counter()
-            out = fn(self, t, *args)
+            out = fn(self, t, *args, **kwargs)
             c = _COUNT.setdefault(kind, [0, 0, 0.0])
             c[0] += 1
             c[1] += t.numel() * t.element_size()
@@ -252,7 +320,7 @@ class CrossProcess:
         """All-reduce (sum) of ``flat`` in place: every process gets the
         sum over processes."""
         buf, key = self._host('psum', flat)
-        dist.all_reduce(buf, group=self._group)
+        issue(dist.all_reduce, buf, group=self._group)
         if key is not None:
             self._stage.to_device(key, flat.device, out=flat)
         return flat
@@ -272,13 +340,13 @@ class CrossProcess:
             # take this rank's tile back to the card
             if key is None:
                 buf = buf.clone()
-            dist.all_reduce(buf, group=self._group)
+            issue(dist.all_reduce, buf, group=self._group)
             mine = slice(dist.get_rank(self._group) * m,
                          (dist.get_rank(self._group) + 1) * m)
             return buf[mine].clone() if key is None else \
                 self._stage.to_device(key, flat.device, part=mine)
         tile = flat.new_empty(m)
-        dist.reduce_scatter_tensor(tile, buf, group=self._group)
+        issue(dist.reduce_scatter_tensor, tile, buf, group=self._group)
         return tile
 
     @_counted('all_gather')
@@ -288,10 +356,10 @@ class CrossProcess:
         buf, _ = self._host('ag', tile)
         full, key = self._result('ag_full', tile.numel() * self._nproc, tile)
         if dist.get_backend(self._group) == 'nccl':
-            dist.all_gather_into_tensor(full, buf, group=self._group)
+            issue(dist.all_gather_into_tensor, full, buf, group=self._group)
         else:
-            dist.all_gather(list(full.chunk(self._nproc)), buf,
-                            group=self._group)
+            issue(dist.all_gather, list(full.chunk(self._nproc)), buf,
+                  group=self._group)
         return full if key is None else \
             self._stage.to_device(key, tile.device)
 
@@ -311,10 +379,58 @@ class CrossProcess:
         buf, key = self._host('bcast', t.reshape(-1))
         src = 0 if self._group is None else \
             dist.get_global_rank(self._group, 0)
-        dist.broadcast(buf, src=src, group=self._group)
+        issue(dist.broadcast, buf, src=src, group=self._group)
         if key is not None:
             self._stage.to_device(key, t.device, out=t.view(-1))
         return t
+
+    @_counted('all_to_all')
+    def all_to_all(self, t):
+        """``t`` cut into nproc equal chunks along dim 0, chunk j sent to
+        process j; returns the chunks received, process i's at position i
+        (``all_to_all_single``, which gloo implements for host tensors:
+        a CUDA tensor goes through pinned buffers)."""
+        flat = t.contiguous().view(-1)
+        buf, _ = self._host('a2a', flat)
+        out, key = self._result('a2a_out', flat.numel(), flat)
+        issue(dist.all_to_all_single, out, buf, group=self._group)
+        if key is not None:
+            out = self._stage.to_device(key, t.device)
+        return out.view(t.shape)
+
+    def peer(self, i):
+        """The world rank of this group's rank ``i``."""
+        return i if self._group is None else \
+            dist.get_global_rank(self._group, i)
+
+    @_counted('send')
+    def send(self, t, i, tag=0, key=None):
+        """Start sending ``t`` to this group's rank ``i``; returns the
+        work to wait for. Under gloo a CUDA tensor is copied into the
+        pinned buffer named ``key``, which must not be sent from again
+        before that work completed."""
+        if _faults._PLAN is not None:
+            _faults.on_send({'cmd': 'collective', 'rank': dist.get_rank()})
+        refuse_capture('send')
+        buf = t.contiguous()
+        if staged(self._group, t.device):
+            buf = self._stage.to_host(('send', key, t.numel(), t.dtype), buf)
+        return dist.isend(buf, dst=self.peer(i), group=self._group, tag=tag)
+
+    @_counted('recv')
+    def recv(self, t, i, tag=0, key=None):
+        """Receive into a tensor like ``t`` (shape, dtype, device) from
+        this group's rank ``i``; returns it. ``key`` names a pinned buffer
+        to receive into under gloo."""
+        if staged(self._group, t.device):
+            k = ('recv', key, t.numel(), t.dtype)
+            buf = self._stage.buffer(k, t.shape, t.dtype)
+            issue(dist.recv, buf, src=self.peer(i), group=self._group,
+                  tag=tag)
+            return self._stage.to_device(k, t.device)
+        out = torch.empty_like(t)
+        issue(dist.recv, out, src=self.peer(i), group=self._group, tag=tag)
+        return out
 
 
 def _axis(axis_name):

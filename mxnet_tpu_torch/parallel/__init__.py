@@ -5,13 +5,14 @@ far: the mesh and ``split_and_load`` (:mod:`.mesh`), sharded placement
 and data-parallel steps (:mod:`.sharded`: ``shard_params``,
 ``replicate``, ``make_sharded_train_step``), sharded checkpoints with a
 crash-atomic manager (:mod:`.checkpoint`), sequence-parallel ring
-attention with its backward (:mod:`.ring_attention`), and a local
+attention with its backward (:mod:`.ring_attention`), the GPipe and 1F1B
+pipeline schedules (:mod:`.pipeline`) with their Gluon trainer
+(:mod:`.gluon_pipeline`), expert-parallel MoE (:mod:`.moe`), and a local
 launcher (:mod:`.launch`). The JAX package drives every device of a mesh
 from one program; the port runs one process per rank, each holding its
 own shards, and ranks meet through a process group (the kvstore's
 ``dist_sync`` and ``mx.sharding``'s collectives reduce over the same
-world). ``pipeline``, ``gluon_pipeline`` and ``moe`` are not ported yet
-(ROADMAP A10 rest).
+world; a pipeline's stages pass activations point to point).
 """
 
 import datetime as _dt
@@ -25,12 +26,23 @@ from . import launch
 from . import checkpoint
 from .checkpoint import (save_sharded, restore_sharded,
                          SharedCheckpointManager, restore_or_init)
+from . import pipeline
+from .pipeline import (pipeline_apply, pipeline_train_1f1b,
+                       stack_stage_params, pipeline_stats, onef1b_stats)
+from . import gluon_pipeline
+from .gluon_pipeline import PipelineTrainer, split_sequential
+from . import moe
+from .moe import moe_ffn
 
 __all__ = ['MeshConfig', 'make_mesh', 'data_parallel_mesh', 'local_devices',
            'split_and_load', 'ring_attention', 'launch', 'init_distributed',
            'DEFAULT_TIMEOUT_S', 'shard_params', 'replicate',
            'make_sharded_train_step', 'checkpoint', 'save_sharded',
-           'restore_sharded', 'SharedCheckpointManager', 'restore_or_init']
+           'restore_sharded', 'SharedCheckpointManager', 'restore_or_init',
+           'pipeline', 'pipeline_apply', 'pipeline_train_1f1b',
+           'stack_stage_params', 'pipeline_stats', 'onef1b_stats',
+           'gluon_pipeline', 'PipelineTrainer', 'split_sequential', 'moe',
+           'moe_ffn']
 
 #: how long a collective may wait for a peer before it fails
 DEFAULT_TIMEOUT_S = 600

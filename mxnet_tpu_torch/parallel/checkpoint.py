@@ -6,8 +6,8 @@ writes its own shards and restore places them again, on the same mesh or
 a new one. The JAX package wraps orbax, which the port does not have: a
 checkpoint here is a directory of one ``torch.save`` file a rank
 (``rank{r}.pt``: each leaf's shard and its layout, the unsharded leaves in
-rank 0's only) and ``meta.json`` (the leaves' global shapes and dtypes and
-the writing world), written by the ranks together.
+the first rank's only) and ``meta.json`` (the leaves' global shapes and
+dtypes and the writing world), written by the ranks together.
 
 Restore assembles each leaf's global value on the host from the writers'
 shards (each shard's global indices follow from its layout, so any mesh
@@ -52,17 +52,22 @@ def _crash_point(name):
         _CRASH_HOOK(name)
 
 
-def _world():
+def _world(group=None):
+    """``(size, rank)`` of ``group`` (default: the world); ``(1, 0)``
+    without a process group."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
+        return dist.get_world_size(group), dist.get_rank(group)
     return 1, 0
 
 
-def _barrier():
+def _barrier(group=None):
+    """A barrier over ``group``; a watched one under
+    ``kvstore.fusion.watching`` (a rank whose peer died gives it up)."""
     import torch.distributed as dist
-    if _world()[0] > 1:
-        dist.barrier()
+    from ..kvstore.fusion import issue
+    if _world(group)[0] > 1:
+        issue(dist.barrier, group=group)
 
 
 # ----------------------------------------------------------------- trees
@@ -128,10 +133,11 @@ def _indices(n_global, axes, blocks, coords, sizes):
 
 
 # ------------------------------------------------------------ save/restore
-def _write(directory, tree):
-    """Every rank writes its shards under ``directory``; rank 0 the
-    unsharded leaves and ``meta.json``."""
-    world, rank = _world()
+def _write(directory, tree, group=None):
+    """Every rank of ``group`` writes its shards under ``directory`` (as
+    ``rank{r}.pt``, ``r`` its rank in the group); the group's first rank
+    the unsharded leaves and ``meta.json``."""
+    world, rank = _world(group)
     _os.makedirs(directory, exist_ok=True)
     leaves, meta = {}, {}
     for path, x in _flatten(tree).items():
@@ -148,7 +154,7 @@ def _write(directory, tree):
         with open(_os.path.join(directory, 'meta.json'), 'w',
                   encoding='utf-8') as f:
             _json.dump({'world': world, 'leaves': meta}, f)
-    _barrier()
+    _barrier(group)
 
 
 def _read(directory):
@@ -200,20 +206,22 @@ def _place(value, like=None, ctx=None, spec=None):
     return NDArray(t)
 
 
-def save_sharded(directory, tree, force=True):
+def save_sharded(directory, tree, force=True, group=None):
     """Write ``tree`` (a dict, possibly nested, of NDArrays, sharded or
     not, Parameters, tensors or arrays) under ``directory``, every rank
-    its own shards; the ranks call it together. ``force`` replaces an
-    existing checkpoint."""
+    its own shards; the ranks of ``group`` (default: the world) call it
+    together. ``force`` replaces an existing checkpoint."""
     directory = _os.path.abspath(directory)
-    if _world()[1] == 0 and force:
+    if _world(group)[1] == 0 and force:
         _shutil.rmtree(directory, ignore_errors=True)
-    _barrier()
-    _write(directory, tree)
+    _barrier(group)
+    _write(directory, tree, group)
 
 
 def restore_sharded(directory, template=None, mesh=None, specs=None):
-    """Read a checkpoint of :func:`save_sharded`:
+    """Read a checkpoint of :func:`save_sharded` (written by a world or a
+    group of any size: each rank reads every writer's file and waits for
+    nobody):
 
     * ``template`` (a tree like the saved one): each leaf placed as the
       template's (this rank's shard under its layout, on its device);
@@ -245,23 +253,29 @@ class SharedCheckpointManager:
     leaves ``latest_step()`` on the previous complete checkpoint:
 
     1. every rank writes to ``<dir>/.staging-<step>``,
-    2. rank 0 renames it to ``<dir>/<step>`` (``os.replace``),
+    2. the primary (the group's first rank) renames it to
+       ``<dir>/<step>`` (``os.replace``),
     3. rewrites the manifest (``.MANIFEST.tmp``, ``fsync``, ``os.replace``
        to ``MANIFEST.json``, a directory fsync),
     4. prunes the steps dropped from the manifest.
 
     ``latest_step()``/``all_steps()`` read only the manifest (or, without
     one, the integer step directories); staging left by a crashed save is
-    swept at construction. The ranks of a world call ``save`` together;
-    the others wait for rank 0's commit."""
+    swept at construction. The ranks of ``group`` (default: the world)
+    call ``save`` together, and the group's first rank (its lowest world
+    rank: ``new_group`` sorts them) is the primary that commits while the
+    others wait at the group's barrier. So after a rank died, the
+    survivors commit through a group of their own; nothing waits for a
+    rank outside it, whichever rank of the world that is."""
 
     MANIFEST = 'MANIFEST.json'
 
-    def __init__(self, directory, max_to_keep=5):
+    def __init__(self, directory, max_to_keep=5, group=None):
         self._dir = _os.path.abspath(directory)
         self._keep = int(max_to_keep) if max_to_keep else 0
+        self.group = group
         _os.makedirs(self._dir, exist_ok=True)
-        if _world()[1] == 0:
+        if _world(group)[1] == 0:
             try:
                 names = _os.listdir(self._dir)
             except OSError:
@@ -312,11 +326,11 @@ class SharedCheckpointManager:
         step = int(step)
         staging = _os.path.join(self._dir, f'.staging-{step}')
         final = _os.path.join(self._dir, str(step))
-        primary = _world()[1] == 0
+        primary = _world(self.group)[1] == 0
         if primary:
             _shutil.rmtree(staging, ignore_errors=True)
-        _barrier()
-        _write(staging, tree)
+        _barrier(self.group)
+        _write(staging, tree, self.group)
         _crash_point('ckpt.staged')
         if primary:
             committed = self._manifest_steps()
@@ -338,7 +352,7 @@ class SharedCheckpointManager:
             for s in dropped:
                 _shutil.rmtree(_os.path.join(self._dir, str(s)),
                                ignore_errors=True)
-        _barrier()
+        _barrier(self.group)
 
     def restore(self, step=None, template=None, mesh=None, specs=None):
         if step is None:
@@ -347,6 +361,13 @@ class SharedCheckpointManager:
             raise ValueError(f'no committed checkpoint under {self._dir}')
         return restore_sharded(_os.path.join(self._dir, str(int(step))),
                                template=template, mesh=mesh, specs=specs)
+
+    def for_group(self, group):
+        """A manager of the same directory and rotation whose ranks are
+        ``group``'s (no sweep: the directory is this manager's)."""
+        other = object.__new__(type(self))
+        other.__dict__.update(self.__dict__, group=group)
+        return other
 
     def step_metadata(self, step):
         """``{path: {'shape', 'dtype', 'sharded'}}`` of the checkpoint at

@@ -26,7 +26,10 @@ import tempfile
 import time
 import traceback
 
-__all__ = ['spawn', 'free_ports']
+__all__ = ['spawn', 'free_ports', 'die', 'DIED']
+
+#: the exit code of a rank that left through :func:`die`
+DIED = 75
 
 
 def free_ports(n, host='127.0.0.1', tries=50):
@@ -52,6 +55,15 @@ def free_ports(n, host='127.0.0.1', tries=50):
     raise OSError(f'no {n} consecutive free ports on {host}')
 
 
+def die():
+    """Leave this rank at once, as a killed host does: no result, no
+    cleanup, its sockets closed by the exit. :func:`spawn` with
+    ``may_die=True`` reports the rank's result as None."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(DIED)
+
+
 def _rank_main(fn, args, rank, nprocs, store, backend, timeout, outdir,
                env):
     import torch
@@ -67,14 +79,15 @@ def _rank_main(fn, args, rank, nprocs, store, backend, timeout, outdir,
     torch.save(result, out + '.tmp')
     os.replace(out + '.tmp', out)
     import torch.distributed as dist
-    if result[0] == 'ok' and dist.is_initialized():
+    from ..sharding.context import abandoned
+    if result[0] == 'ok' and dist.is_initialized() and not abandoned():
         dist.destroy_process_group()
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(0 if result[0] == 'ok' else 1)
 
 
-def spawn(fn, nprocs, *args, backend='gloo', timeout=600):
+def spawn(fn, nprocs, *args, backend='gloo', timeout=600, may_die=False):
     """Run ``fn(*args)`` in ``nprocs`` new processes, one rank each, in one
     world (``backend``, default gloo); returns the list of their return
     values, rank by rank (passed back through ``torch.save``, so tensors
@@ -84,7 +97,8 @@ def spawn(fn, nprocs, *args, backend='gloo', timeout=600):
     must finish within ``timeout`` seconds, which also bounds each
     collective. If a rank fails or the time runs out, every rank still
     running is killed and :class:`MXNetError` is raised with the failed
-    rank's traceback."""
+    rank's traceback. With ``may_die``, a rank that left through
+    :func:`die` is no failure: its result is None."""
     from ..base import MXNetError
     import torch
 
@@ -102,8 +116,9 @@ def spawn(fn, nprocs, *args, backend='gloo', timeout=600):
             for p in procs:
                 p.start()
             while True:
+                ok = (None, 0, DIED) if may_die else (None, 0)
                 bad = [(r, p.exitcode) for r, p in enumerate(procs)
-                       if p.exitcode not in (None, 0)]
+                       if p.exitcode not in ok]
                 if bad:
                     r, code = bad[0]
                     path = os.path.join(tmp, f'{r}.pt')
@@ -121,9 +136,10 @@ def spawn(fn, nprocs, *args, backend='gloo', timeout=600):
                         f'finish within {timeout} s')
                 multiprocessing.connection.wait(
                     [p.sentinel for p in running], timeout=min(left, 1.0))
-            return [torch.load(os.path.join(tmp, f'{r}.pt'),
+            return [None if p.exitcode == DIED else
+                    torch.load(os.path.join(tmp, f'{r}.pt'),
                                weights_only=False)[1]
-                    for r in range(nprocs)]
+                    for r, p in enumerate(procs)]
         finally:
             for p in procs:
                 if p.is_alive():

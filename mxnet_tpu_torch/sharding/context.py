@@ -11,6 +11,14 @@ cut on the data axis, the Trainer splits optimizer slots on ``dp``
 (ZeRO-1) and ``DecodeServer`` shards its page pool; all with no change to
 the model's code (``gluon/block.py`` reads the ambient context).
 
+A context may instead be given a process group of its own (``group=``,
+a formation's group: :class:`MeshGroup.context`): its ranks are then that
+group's, and the groups of its axes are made inside it, each by the ranks
+of one line only (``new_group(..., use_local_synchronization=True)``), so
+that no call reaches a rank outside the formation. A ``DeviceMesh`` over
+the default world would call ``new_group`` over every rank of the world,
+which waits forever once one of them has died.
+
 The context is thread-local and reentrant (a stack). Its
 :meth:`ShardingContext.fingerprint` (axis names, sizes, ranks, mode, arch
 and rule table) joins a hybridized block's cache key: the same mesh is
@@ -32,11 +40,40 @@ from .rules import PartitionSpec as P
 from ..base import MXNetError
 
 __all__ = ['ShardingContext', 'MeshGroup', 'mesh', 'current', 'constrain',
-           'batch_spec', 'use', 'lift_raws']
+           'batch_spec', 'use', 'lift_raws', 'local_group', 'abandon',
+           'abandoned']
 
 _STACK = threading.local()
 #: DeviceMeshes by (ranks, axis names, sizes): each is made once a process
 _MESHES = {}
+#: process groups given up after a peer died inside one of their
+#: collectives: a gloo worker thread may wait in them for good, so the
+#: process must not destroy them (``ProcessGroupGloo``'s destructor joins
+#: its threads)
+_ABANDONED = []
+
+
+def local_group(ranks):
+    """A new process group of ``ranks`` (world ranks), made by those ranks
+    only: every one of them calls this at the same point, and no other
+    rank takes part, dead or alive. Its rank order is ``sorted(ranks)``."""
+    import torch.distributed as dist
+    return dist.new_group(sorted(int(r) for r in ranks),
+                          use_local_synchronization=True)
+
+
+def abandon(group):
+    """Give up ``group`` after a peer died in one of its collectives (it
+    is kept referenced and never destroyed; see :func:`abandoned`)."""
+    if group is not None:
+        _ABANDONED.append(group)
+
+
+def abandoned():
+    """True when this process gave up a process group: it must leave
+    without ``destroy_process_group`` (``os._exit``), whose join of the
+    group's worker threads could wait for good."""
+    return bool(_ABANDONED)
 
 
 def _stack():
@@ -61,14 +98,22 @@ def _world():
 class ShardingContext:
     """One mesh (named axis sizes over a list of ranks), its rule table and
     the placement helpers. ``ranks`` default to the first ones of the
-    world; rank ``ranks[i]`` sits at the row-major mesh coordinate ``i``."""
+    world, or to ``group``'s ranks; rank ``ranks[i]`` sits at the
+    row-major mesh coordinate ``i``. With ``group`` (a process group
+    over exactly these ranks) the axes' groups are made inside it, by the
+    ranks of each line alone (see the module docstring)."""
 
     def __init__(self, axis_sizes, ranks=None, rules=None, mode=None,
-                 arch=None, data_axis='dp'):
+                 arch=None, data_axis='dp', group=None):
         sizes = {str(k): int(v) for k, v in axis_sizes.items()}
         self.axis_sizes = sizes
         self.axis_names = tuple(sizes)
         self.n_devices = math.prod(sizes.values())
+        self.base_group = group
+        self._lines = {}
+        if group is not None and ranks is None:
+            import torch.distributed as dist
+            ranks = dist.get_process_group_ranks(group)
         self.ranks = tuple(range(self.n_devices)) if ranks is None \
             else tuple(int(r) for r in ranks)
         if len(self.ranks) != self.n_devices:
@@ -83,7 +128,8 @@ class ShardingContext:
         self._mesh = None
         self._fp = (self.axis_names, tuple(self.axis_sizes.values()),
                     self.ranks, self.mode, self.arch,
-                    id(self._rules) if self._rules else None)
+                    id(self._rules) if self._rules else None,
+                    None if group is None else group.group_name)
 
     @classmethod
     def from_mesh(cls, mesh, **kwargs):
@@ -105,15 +151,19 @@ class ShardingContext:
 
     def same_mesh(self, other):
         """True when ``other`` lays values out over the same ranks and
-        axes."""
+        axes (and process group)."""
         return other is self or (other is not None and
-                                 self._fp[:3] == other._fp[:3])
+                                 self._fp[:3] == other._fp[:3] and
+                                 self._fp[6] == other._fp[6])
 
     # ---------------------------------------------------------------- ranks
     @property
     def mesh(self):
         """The ``torch.distributed`` ``DeviceMesh`` over :attr:`ranks`,
         made at first use (every rank of the world makes it together)."""
+        if self.base_group is not None:
+            raise MXNetError('sharding: a context over a process group of '
+                             'its own has no DeviceMesh; use group(axis)')
         if self._mesh is None:
             import torch
             import torch.distributed as dist
@@ -143,20 +193,38 @@ class ShardingContext:
         """The size of ``axis`` (1 for an axis the mesh does not have)."""
         return self.axis_sizes.get(axis, 1)
 
+    def _stride(self, axis):
+        """This rank's position in :attr:`ranks` and ``axis``'s stride."""
+        _, rank = _world()
+        names = self.axis_names
+        return self.ranks.index(rank), math.prod(
+            self.axis_sizes[n] for n in names[names.index(axis) + 1:])
+
     def coord(self, axis):
         """This rank's index along ``axis``."""
         if self.size(axis) == 1:
             return 0
-        _, rank = _world()
-        i = self.ranks.index(rank)
-        names = self.axis_names
-        stride = math.prod(self.axis_sizes[n]
-                           for n in names[names.index(axis) + 1:])
+        i, stride = self._stride(axis)
         return (i // stride) % self.axis_sizes[axis]
 
     def group(self, axis):
         """The process group of this rank's line along ``axis``."""
-        return self.mesh.get_group(axis)
+        if self.base_group is None:
+            return self.mesh.get_group(axis)
+        g = self._lines.get(axis)
+        if g is None:
+            i, stride = self._stride(axis)
+            base = i - self.coord(axis) * stride
+            line = [self.ranks[base + j * stride]
+                    for j in range(self.axis_sizes[axis])]
+            if line != sorted(line):
+                raise MXNetError(f'sharding: the ranks of a line along '
+                                 f'{axis!r} must ascend, got {line}')
+            g = self.base_group if len(line) == len(self.ranks) \
+                else local_group(line)
+            self._lines[axis] = g
+        return g
+
 
     # ------------------------------------------------------------ rule match
     def rules_for_block(self, block=None, arch=None):
@@ -281,6 +349,10 @@ class MeshGroup:
         """Lowest live host: it drives re-formation."""
         return self._live[0]
 
+    def host_of(self, device):
+        """The host that owns rank ``device``."""
+        return self._devices.index(int(device)) // self.devices_per_proc
+
     def devices_for(self, rank):
         """The contiguous block of ranks host ``rank`` owns (dead or
         alive: ownership is topology, liveness is membership)."""
@@ -300,9 +372,12 @@ class MeshGroup:
         return MeshGroup(self.n_procs, self._devices,
                          generation=self.generation + 1, live=live)
 
-    def context(self, tp=None, rules=None, mode=None, arch=None):
+    def context(self, tp=None, rules=None, mode=None, arch=None,
+                group=None):
         """A :class:`ShardingContext` over the live hosts' ranks: ``dp`` =
-        live ranks / ``tp`` (default tp=1). Enter it with :func:`use`."""
+        live ranks / ``tp`` (default tp=1). Enter it with :func:`use`.
+        ``group`` is the formation's process group over exactly those
+        ranks: the context's collectives then stay inside it."""
         devs = self.live_devices()
         tp = int(tp) if tp else 1
         if tp > 1 and len(devs) % tp:
@@ -317,7 +392,7 @@ class MeshGroup:
         if not sizes:
             sizes = {'dp': len(devs)}
         return ShardingContext(sizes, ranks=devs, rules=rules, mode=mode,
-                               arch=arch)
+                               arch=arch, group=group)
 
     def describe(self):
         """Registration-record form."""

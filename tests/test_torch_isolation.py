@@ -177,3 +177,49 @@ def test_sharding_and_the_sharded_parallel_modules_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
+
+
+def test_elastic_pipeline_and_moe_modules_load_no_jax():
+    """``train/elastic.py`` (``ElasticTrainer``, ``MeshElasticTrainer``),
+    ``parallel/pipeline.py``, ``parallel/gluon_pipeline.py`` and
+    ``parallel/moe.py`` are among the sources checked above, and using them
+    in one process (a checkpointed save and restore, one-stage schedules,
+    an ep = 1 MoE) loads no JAX."""
+    par = {p.name for p in (PACKAGE / 'parallel').glob('*.py')}
+    assert {'pipeline.py', 'gluon_pipeline.py', 'moe.py'} <= par
+    code = (
+        'import sys, tempfile, torch\n'
+        'import mxnet_tpu_torch as mx\n'
+        'from mxnet_tpu_torch import parallel, train\n'
+        'from mxnet_tpu_torch.sharding import ShardingContext\n'
+        'assert train.MeshElasticTrainer and parallel.PipelineTrainer\n'
+        'with mx.cpu(), tempfile.TemporaryDirectory() as d:\n'
+        '    net = mx.gluon.nn.Dense(4, in_units=4)\n'
+        '    net.initialize(ctx=mx.cpu())\n'
+        '    et = train.ElasticTrainer(dict(net.collect_params()), None,\n'
+        '                              parallel.SharedCheckpointManager(d))\n'
+        '    et.save(0, block=True)\n'
+        '    assert et.restore() == 0\n'
+        '    et.close()\n'
+        '    one = ShardingContext({"pp": 1})\n'
+        '    w = parallel.stack_stage_params([{"w": torch.eye(3)}])\n'
+        '    xs = torch.ones(2, 1, 3)\n'
+        '    y = parallel.pipeline_apply(lambda p, x: x @ p["w"], w, xs, one)\n'
+        '    assert torch.equal(y._data, xs)\n'
+        '    g, l = parallel.pipeline_train_1f1b(\n'
+        '        lambda p, x: x @ p["w"], lambda y, t: ((y - t).pow(2).sum(),\n'
+        '        2 * (y - t)), w, xs, xs, one)\n'
+        '    assert float(l) == 0.0\n'
+        '    y, aux = parallel.moe_ffn(torch.ones(4, 2), torch.ones(2, 2),\n'
+        '                              torch.ones(2, 2, 3),\n'
+        '                              torch.ones(2, 3, 2), None)\n'
+        '    assert y.shape == (4, 2) and float(aux) > 0\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'LOADED []'

@@ -8,8 +8,9 @@ optimizer computes them. The bucket, ZeRO-1 and owner plans must equal
 the JAX functions' for the same sizes, and the 2-bit words must be the
 JAX ``GradientCompression.quantize``'s bit for bit (the JAX words are
 ``uint32``, the port's ``int32`` with the same bits). The named-axis
-forms wait for ``sharding/`` (ROADMAP A10 rest) and have no case here;
-``dist_async`` has its own files, ``tests/test_torch_kvstore_async.py``
+forms (``zero1_update_in_axis``, ``bucketed_allreduce_in_axis``) run over
+an ``mx.sharding`` axis and are held to the JAX package in
+``tests/test_torch_sharding.py``; ``dist_async`` has its own files, ``tests/test_torch_kvstore_async.py``
 and ``tests/test_torch_dist_async.py``.
 
 The horovod/byteps delegation cases inject the same duck-typed mocks as
