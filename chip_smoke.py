@@ -21,6 +21,8 @@
     python3 chip_smoke.py --phases device,build,elastic,pipeline,moe
                                                   # elastic training,
                                                   # pipelines and MoE
+    python3 chip_smoke.py --phases device,build,sparse  # row-sparse
+                                                  # training, A3 ops
 
 Phases, each of which fails the run on any error:
 
@@ -346,14 +348,15 @@ Phases, each of which fails the run on any error:
                while rank 1 waits at a barrier), peak memory a process.
 16. sharding -- ``mx.sharding`` (one process a rank, gloo ranks sharing
                cuda:0, spawned by ``parallel.launch.spawn``). (a) Two
-               ranks serve ``llama3_8b`` at tp = 2, full width cut to 8
-               layers (its 32 took 88 s of the run's time limit), against
-               a one-process server of those 8, with seeded weights
+               ranks serve ``llama3_8b`` at tp = 2, full width cut to 4
+               layers (its 32 took 88 s of the run's time limit, its 8
+               up to 51 s), against
+               a one-process server of those 4, with seeded weights
                (each rank draws each weight whole in turn and keeps its
                half), the serve phase's settings and six prompts: each
                rank must hold half the weights (``memory_allocated``), 16
                of 32 query and 4 of 8 KV heads, launch exactly 2L + 1 B1
-               and L B4 a decode step (17 and 8 at L = 8 layers), never
+               and L B4 a decode step (9 and 4 at L = 4 layers), never
                re-capture (its calls hold collectives and run eagerly),
                find its pool written in place, and serve the tokens of
                the one-process server (the serve phase's, else served
@@ -414,7 +417,45 @@ Phases, each of which fails the run on any error:
                backward: the output within rtol 1e-5 of each token shard
                through ep = 1 here, finite gradients; forward and
                backward ms and the all-to-all's share.
-20. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+20. sparse  -- row-sparse training and the A3 op families
+               (``ndarray/sparse.py``, ``Embedding(sparse_grad=True)``,
+               the lazy update). (a) ``examples/sparse_embedding.py`` at
+               its own sizes: two ``Embedding(1,000,000, 16,
+               sparse_grad=True)`` tables from numpy, one seeded batch of
+               512 ids each, 40 steps of ``((u . i).sum(-1) - y)**2``'s
+               mean, under AdaGrad (lr 0.5), Adam (lr 0.01, lazy) and
+               SGD (lr 0.5, momentum 0.9, lazy), each held against the
+               same program run by the port on the host from the same
+               tables: every loss at rtol 1e-5, the touched rows of both
+               tables and their slots at rtol 1e-5 / atol 1e-6 (AdaGrad
+               at lr 0.5 at 3e-4 and 3e-3: it amplifies rounding past
+               1e-5 on the host alone, which the same run with each
+               16-term sum reversed shows, printed beside), and a control
+               run with the learning rate moved by 1e-4 must fail that
+               check; every other row bit-equal to its start; host ms a
+               step over steps 2-40; exactly 2 B5 launches a
+               step under Adam and 2 B6 under SGD; a ``row_sparse_pull``
+               of 4 rows from a ``'device'`` kvstore is a
+               ``RowSparseNDArray`` of (4, 16). (b) ``Embedding(10,000,000,
+               64, sparse_grad=True)`` under lazy Adam, 10 steps of 8192
+               ids drawn Zipf(1.1): after step 1 the allocated memory
+               rises by at most 64 MB over steps 2-10, and over a
+               ``row_sparse_pull`` of 1024 rows after the store's
+               ``init``; one B5 a step; untouched rows bit-equal; B5 timed
+               at the merged-row shape (8192, 64) against its bound (a row
+               of the kernels' line). (c) The oracle's 10M x 512 CSR (2
+               values a row) on the card: ``dot(csr, v)`` and
+               ``dot(csr, out, transpose_a=True)`` against host math,
+               ``_dense`` never set, row slicing and scalar math in
+               O(nnz); each call's ms against its bytes bound. (d) Every op
+               name of the A3 slice (``tests/torch_a3_cases.py``) on CUDA
+               inputs against the port on the host at its CPU test's
+               tolerance (factors unique up to sign by their invariants),
+               every output a CUDA tensor; the gamma-family samplers at
+               their moments; ``foreach`` (captured) and ``cond`` with
+               ``while_loop`` (decided on the host: eager, counted) in a
+               hybridized block, eager and graphed outputs equal.
+21. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -428,14 +469,15 @@ Phases, each of which fails the run on any error:
                k and v gradients of a seeded cotangent must meet autograd
                through plain dense attention (``ring_grad_checks``). Logs each rank's host ms,
                stats-kernel ms and transport ms.
-21. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+22. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
                the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8, train, ndarray, bert, resnet, bf16, qresnet, optim and rtc phases and read just after
+int8, train, ndarray, bert, resnet, bf16, qresnet, optim, sparse and rtc
+phases and read just after
 it (with the optimizer's plain-update counters), and in each
 rank just before and after its ring runs, its dist runs (b) and (c), its
 dist_async runs (b) and (c) (the dist_async phase's (a) runs in this
@@ -470,7 +512,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
           'train', 'ndarray', 'bert', 'resnet', 'bf16', 'qresnet', 'optim',
           'dist', 'dist_async', 'sharding', 'elastic', 'pipeline', 'moe',
-          'ring', 'rtc')
+          'sparse', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -6061,12 +6103,12 @@ def dist_async_costs(torch, ranks):
 # ------------------------------------------------------------- ring
 #: the ring phase: llama3_8b's attention widths (32 query heads of 128, K/V
 #: expanded to 32 heads) over its whole max_length, sharded over sp ranks
-#: the sharding phase: (a) llama3_8b at tp = 2, full width at 8 layers,
+#: the sharding phase: (a) llama3_8b at tp = 2, full width at 4 layers,
 #: the serve phase's settings; (b) its widths at dp 2 x tp 2 and SHARD_LAYERS
 #: layers; (c) BERT-base at (32, 128) under mesh(dp=2, tp=2) and
 #: mesh(dp=4), SHARD_STEPS Adam steps each; (d) (c)'s dp 2 x tp 2 state
 #: through SharedCheckpointManager
-SHARD = dict(model='llama3_8b', layers=8, layers_b=4, slots=4,
+SHARD = dict(model='llama3_8b', layers=4, layers_b=4, slots=4,
              max_length=2048, psz=16, chunk=32, n_new=32, dev='cuda',
              bert='bert_12_768_12', bert_kw={}, batch=BERT_BATCH,
              seq=BERT_SEQ, vocab=BERT_VOCAB, steps=BERT_STEPS,
@@ -7814,6 +7856,653 @@ def phase_moe(torch, seed):
     return counts, designs
 
 
+# ------------------------------------------------------------------ sparse
+#: the sparse phase: (a) ``examples/sparse_embedding.py`` at its own sizes,
+#: (b) one table at deployment scale, (c) the oracle's CSR at scale
+SPARSE = dict(rows=1_000_000, dim=16, batch=512, steps=40,
+              big_rows=10_000_000, big_dim=64, big_ids=8192, big_steps=10,
+              zipf=1.1, pull=1024, csr_rows=10_000_000, csr_cols=512,
+              mem_mb=64, dev='cuda')
+#: (a)'s three runs: optimizer, its settings, the kernel each sparse table's
+#: update must launch once a step (AdaGrad's update is plain PyTorch, as the
+#: reference leaves it to XLA), and the relative limits of the card's losses
+#: and of its touched rows against the host run. AdaGrad at lr 0.5 drives
+#: the loss to 1e-5, where the host parts from itself by 4.45e-05 (losses)
+#: and 7.09e-04 (rows) when each 16-term sum is only reversed: its limits
+#: are about four times those gaps
+SPARSE_RUNS = (('adagrad', {'learning_rate': 0.5}, None, (3e-4, 3e-3)),
+               ('adam', {'learning_rate': 0.01, 'lazy_update': True},
+                'adam', (1e-5, 1e-5)),
+               ('sgd', {'learning_rate': 0.5, 'momentum': 0.9,
+                        'lazy_update': True}, 'sgd_mom', (1e-5, 1e-5)))
+#: the control of each run of (a): the host run with the learning rate
+#: moved by this much (relative) must fail the check against the host run
+SPARSE_CONTROL_LR = 1e-4
+
+
+if REHEARSE:
+    SPARSE.update(rows=2000, batch=64, steps=4, big_rows=5000, big_dim=8,
+                  big_ids=256, big_steps=3, pull=16, csr_rows=20_000,
+                  csr_cols=64, dev='cpu')
+
+
+def _mf_run(mx, opt, kw, tables, u, i, y, steps, reorder=False):
+    """The matrix-factorization program of ``examples/sparse_embedding.py``
+    through the port in the current context: two row-sparse embedding
+    tables from ``tables``, ``steps`` Trainer steps on one batch. Returns
+    the nets, the Trainer, the losses (tensors), the host seconds a step
+    over steps 2 on (ended by a sync) and the last gradient. ``reorder`` sums each
+    row's products in the reverse order (the same function, rounded in
+    another order: what two summation orders alone part by)."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    nets = []
+    for w in tables:
+        net = gluon.nn.Embedding(w.shape[0], w.shape[1], sparse_grad=True)
+        net.initialize()
+        net.weight.set_data(mx.np.array(w))
+        nets.append(net)
+    params = {f'{k}_{n}': p for k, net in zip('ui', nets)
+              for n, p in net.collect_params().items()}
+    tr = gluon.Trainer(params, opt, dict(kw), kvstore=None)
+    u, i, y = mx.np.array(u), mx.np.array(i), mx.np.array(y)
+    losses = []
+    dev = nets[0].weight._var.device.type
+    for s in range(steps):
+        if s == 1:      # the first step loads the card's code: not timed
+            _sync_all(torch, dev)
+            t0 = time.perf_counter()
+        with autograd.record():
+            prod = nets[0](u) * nets[1](i)
+            pred = (prod[:, ::-1] if reorder else prod).sum(-1)
+            loss = ((pred - y) ** 2).mean()
+        loss.backward()
+        tr.step(1)
+        losses.append(loss._data.detach())
+    _sync_all(torch, dev)
+    secs = (time.perf_counter() - t0) / (steps - 1)
+    return nets, tr, losses, secs, nets[0].weight.grad()
+
+
+def _mf_gaps(torch, run, ref, ids):
+    """How far ``run`` parts from ``ref`` (two results of ``_mf_run``):
+    each step's loss as a relative gap, and over the touched rows of both
+    tables and of their slots the largest gap past atol 1e-6 relative to
+    the reference value."""
+    lr = torch.stack([x.cpu() for x in run[2]]).double()
+    lf = torch.stack([x.cpu() for x in ref[2]]).double()
+    loss_rel = ((lr - lf).abs() / lf.abs()).tolist()
+    row_rel = row_abs = 0.0
+    for k, idx in enumerate(ids):
+        touched = torch.unique(torch.as_tensor(idx, dtype=torch.int64))
+        for got, want in zip(_mf_tensors(run, k), _mf_tensors(ref, k)):
+            g = got[touched.to(got.device)].cpu().double()
+            w = want[touched.to(want.device)].cpu().double()
+            e = (g - w).abs()
+            row_abs = max(row_abs, float(e.max()))
+            row_rel = max(row_rel, float(((e - 1e-6).clamp_min(0)
+                                          / w.abs().clamp_min(1e-30))
+                                         .max()))
+    return dict(loss_rel=loss_rel, loss_max=max(loss_rel),
+                row_rel=row_rel, row_abs=row_abs)
+
+
+def _mf_tensors(res, k):
+    """Table ``k``'s weight and its optimizer slots in a ``_mf_run``
+    result."""
+    from mxnet_tpu_torch.optimizer import _flat_slots
+    nets, tr = res[0], res[1]
+    p = nets[k].weight
+    j = next(j for j, q in enumerate(tr._params) if q is p)
+    w = p.data()._data.detach()
+    return [w] + _flat_slots(tr._states.get(j), w.shape[0])
+
+
+def _mf_untouched(torch, what, res, tables, ids):
+    """Fail unless every row no id names, of both tables and of their
+    slots, is bit-equal to its start (slots start at zero)."""
+    for k, (w0, idx) in enumerate(zip(tables, ids)):
+        got = _mf_tensors(res, k)
+        dev = got[0].device
+        untouched = torch.ones(w0.shape[0], dtype=torch.bool, device=dev)
+        untouched[torch.as_tensor(idx, dtype=torch.int64).to(dev)] = False
+        if not torch.equal(got[0][untouched],
+                           torch.as_tensor(w0).to(dev)[untouched]):
+            fail(f'sparse (a) {what}: table {k} rows no id names moved')
+        for s_ in got[1:]:
+            if bool((s_[untouched] != 0).any()):
+                fail(f'sparse (a) {what}: a slot of table {k} moved on '
+                     f'untouched rows')
+
+
+def _sparse_examples(torch, mx, seed):
+    """(a): see the module docstring."""
+    import numpy as np
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    from mxnet_tpu_torch.ops import kernels
+    c = SPARSE
+    rng = np.random.default_rng(seed)
+    tables = [(rng.standard_normal((c['rows'], c['dim'])) * 0.1).astype(
+        np.float32) for _ in range(2)]
+    u = rng.integers(0, c['rows'], c['batch'])
+    i = rng.integers(0, c['rows'], c['batch'])
+    y = rng.uniform(0.5, 1.5, c['batch']).astype(np.float32)
+    out, problems = {}, []
+    card_ctx = _ctxd(mx, c['dev'])
+    for opt, kw, kern, (tol_l, tol_r) in SPARSE_RUNS:
+        before = kernels.launch_counts()
+        with card_ctx:
+            card = _mf_run(mx, opt, kw, tables, u, i, y, c['steps'])
+        after = kernels.launch_counts()
+        moved = dict(kw, learning_rate=kw['learning_rate'] * (
+            1 + SPARSE_CONTROL_LR))
+        with mx.cpu():
+            host = _mf_run(mx, opt, kw, tables, u, i, y, c['steps'])
+            again = _mf_run(mx, opt, kw, tables, u, i, y, c['steps'],
+                            reorder=True)
+            ctl = _mf_run(mx, opt, moved, tables, u, i, y, c['steps'])
+        g = card[4]
+        per = {k: (after[k] - before[k]) / c['steps'] for k in
+               ('adam', 'sgd_mom')}
+        want = {k: (2.0 if k == kern else 0.0) for k in per}
+        if per != want and not REHEARSE:
+            fail(f'sparse (a) {opt}: launches a step {per}, want {want}')
+        if not isinstance(g, sp.RowSparseNDArray) or \
+                g.data.shape[0] > c['batch']:
+            fail(f'sparse (a) {opt}: the gradient is {type(g).__name__} '
+                 f'of {getattr(g, "data", g).shape} entries')
+        _mf_untouched(torch, opt, card, tables, (u, i))
+        _mf_untouched(torch, opt, host, tables, (u, i))
+        gap = _mf_gaps(torch, card, host, (u, i))
+        noise = _mf_gaps(torch, again, host, (u, i))    # printed only
+        control = _mf_gaps(torch, ctl, host, (u, i))
+        if control['loss_max'] <= tol_l and control['row_rel'] <= tol_r:
+            problems.append(
+                f'{opt}: the control (lr x (1 + {SPARSE_CONTROL_LR:g})) '
+                f'passes: it parts from the host run by only '
+                f'{control["loss_max"]:.3g} (losses) and '
+                f'{control["row_rel"]:.3g} (rows), within the limits '
+                f'{tol_l:g} and {tol_r:g}')
+        if gap['loss_max'] > tol_l or gap['row_rel'] > tol_r:
+            first = next((j for j, e in enumerate(gap['loss_rel'])
+                          if e > 1e-5), None)
+            problems.append(
+                f'{opt}: card against host: losses {gap["loss_max"]:.3g} '
+                f'(rtol {tol_l:.3g}; first past 1e-5 at step {first}), '
+                f'rows {gap["row_rel"]:.3g} (rtol {tol_r:.3g}); host '
+                f'reordered against host: losses {noise["loss_max"]:.3g}, '
+                f'rows {noise["row_rel"]:.3g}')
+        lerr, werr = gap['loss_max'], gap['row_rel']
+        out[opt] = dict(step_ms=1e3 * card[3],
+                        host_cpu_step_ms=1e3 * host[3],
+                        per_step=per, entries=int(g.data.shape[0]),
+                        grad=type(g).__name__,
+                        loss0=float(card[2][0]), loss=float(card[2][-1]),
+                        loss_err=lerr, row_err=werr,
+                        sparse_updates=card[1].sparse_update_count,
+                        tol_loss=tol_l, tol_row=tol_r,
+                        noise_loss=noise['loss_max'],
+                        noise_row=noise['row_rel'],
+                        control_loss=control['loss_max'],
+                        control_row=control['row_rel'],
+                        loss_rel=gap['loss_rel'],
+                        noise_loss_rel=noise['loss_rel'])
+        log(f'[sparse] (a) {opt} {kw}: 2 x Embedding({c["rows"]:,}, '
+            f'{c["dim"]}, sparse_grad=True), batch {c["batch"]}, '
+            f'{c["steps"]} steps: mse {out[opt]["loss0"]:.5f} -> '
+            f'{out[opt]["loss"]:.5f}; gradient {out[opt]["grad"]} of '
+            f'{out[opt]["entries"]} entries; B5 {per["adam"]:g} and B6 '
+            f'{per["sgd_mom"]:g} launches a step; host {out[opt]["step_ms"]:.3f}'
+            f' ms a step on the card over steps 2-{c["steps"]} (the same '
+            f'program on the host CPU {out[opt]["host_cpu_step_ms"]:.3f}); '
+            f'against the host run: '
+            f'losses within {lerr:.3g} relative (rtol {tol_l:.3g}), touched '
+            f'rows and slots within {werr:.3g} relative past atol 1e-6 '
+            f'(rtol {tol_r:.3g}); the host run with each 16-term sum '
+            f'reversed: {noise["loss_max"]:.3g} and {noise["row_rel"]:.3g}; '
+            f'the control, lr x (1 + {SPARSE_CONTROL_LR:g}): '
+            f'{control["loss_max"]:.3g} and {control["row_rel"]:.3g}; '
+            f'untouched rows bit-equal')
+        log(f'[sparse] (a) {opt} relative loss gaps by step, card: '
+            f'{[float(f"{e:.2g}") for e in gap["loss_rel"]]}; reversed '
+            f'sums: {[float(f"{e:.2g}") for e in noise["loss_rel"]]}')
+        if opt == 'adagrad':
+            users = card[0][0]
+            with card_ctx:
+                kv = mx.kvstore.create('device')
+                kv.init('users', users.weight.data())
+                pulled = kv.row_sparse_pull('users',
+                                            row_ids=mx.np.array(u[:4]))
+            if not isinstance(pulled, sp.RowSparseNDArray) or \
+                    tuple(pulled.data.shape) != (4, c['dim']) or \
+                    not torch.equal(pulled.data._data, users.weight.data()
+                                    ._data[torch.as_tensor(u[:4]).to(
+                                        pulled.data._data.device)]):
+                fail(f'sparse (a): row_sparse_pull gave '
+                     f'{type(pulled).__name__} {pulled.data.shape}')
+            log(f'[sparse] (a) row_sparse_pull of 4 rows from a \'device\' '
+                f'kvstore: {type(pulled).__name__}, data '
+                f'{tuple(pulled.data.shape)}')
+            del kv, pulled, users
+        del card, host, again, ctl, g
+        _empty_cache(torch)
+    if problems:
+        out['problems'] = problems
+    return out
+
+
+def _empty_cache(torch):
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _memory(torch, dev, peak=False):
+    """Bytes allocated on the card (the peak since the last reset with
+    ``peak``), after a sync; 0 on the host (a rehearsal)."""
+    if dev != 'cuda':
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() if peak else \
+        torch.cuda.memory_allocated()
+
+
+def _reset_peak(torch, dev):
+    if dev == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _sparse_big(torch, mx, seed):
+    """(b): see the module docstring."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    from mxnet_tpu_torch.ops import kernels
+    c = SPARSE
+    N, D, n = c['big_rows'], c['big_dim'], c['big_ids']
+    limit = c['mem_mb'] * 2 ** 20
+    mx.random.seed(seed)
+    rng = np.random.default_rng(seed)
+    card_ctx = _ctxd(mx, c['dev'])
+    with card_ctx:
+        emb = gluon.nn.Embedding(N, D, sparse_grad=True)
+        emb.initialize(init=mx.init.Normal(0.1))
+        w0 = emb.weight.data()._data.detach().clone()
+        tr = gluon.Trainer(emb.collect_params(), 'adam',
+                           {'learning_rate': 0.01, 'lazy_update': True},
+                           kvstore=None)
+        batches = [((rng.zipf(c['zipf'], n) - 1) % N,
+                    rng.standard_normal(n).astype(np.float32))
+                   for _ in range(c['big_steps'])]
+        ids = [mx.np.array(b[0]) for b in batches]
+        ys = [mx.np.array(b[1]) for b in batches]
+    dev = w0.device
+
+    def step(s):
+        with autograd.record():
+            out = emb(ids[s])
+            loss = ((out.sum(-1) - ys[s]) ** 2).mean()
+        loss.backward()
+        tr.step(1)
+
+    b5 = kernels.launch_counts()['adam']
+    step(0)
+    level = _memory(torch, c['dev'])
+    _reset_peak(torch, c['dev'])
+    t0 = time.perf_counter()
+    for s in range(1, c['big_steps']):
+        step(s)
+    _sync_all(torch, c['dev'])
+    step_ms = 1e3 * (time.perf_counter() - t0) / (c['big_steps'] - 1)
+    rise = _memory(torch, c['dev'], peak=True) - level
+    b5 = kernels.launch_counts()['adam'] - b5
+    merged = [len(np.unique(b[0])) for b in batches]
+    if rise > limit:
+        fail(f'sparse (b): steps 2-{c["big_steps"]} allocated '
+             f'{rise / 2**20:.1f} MB past the level after step 1 (limit '
+             f'{c["mem_mb"]} MB)')
+    if b5 != c['big_steps'] and not REHEARSE:
+        fail(f'sparse (b): {b5} B5 launches in {c["big_steps"]} steps')
+    touched = torch.zeros(N, dtype=torch.bool, device=dev)
+    for b in batches:
+        touched[torch.as_tensor(b[0], device=dev)] = True
+    w = emb.weight.data()._data.detach()
+    moved = (w != w0).any(1)
+    if bool((moved & ~touched).any()):
+        fail('sparse (b): a row no id names moved')
+    if not bool(moved[touched].all()):
+        log('[sparse] (b) note: some touched rows did not move')
+    del w0, moved
+    # the pull: the store's init copies the table; the pull itself must
+    # stay under the same limit
+    with card_ctx:
+        kv = mx.kvstore.create('device')
+        kv.init('emb', emb.weight.data())
+        rows = mx.np.array(batches[0][0][:c['pull']])
+        level = _memory(torch, c['dev'])
+        _reset_peak(torch, c['dev'])
+        pulled = kv.row_sparse_pull('emb', row_ids=rows)
+    pull_rise = _memory(torch, c['dev'], peak=True) - level
+    if pull_rise > limit or not isinstance(pulled, sp.RowSparseNDArray) or \
+            tuple(pulled.data.shape) != (c['pull'], D):
+        fail(f'sparse (b): row_sparse_pull of {c["pull"]} rows gave '
+             f'{type(pulled).__name__} {tuple(pulled.data.shape)} and '
+             f'allocated {pull_rise / 2**20:.1f} MB')
+    if not torch.equal(pulled.data._data, w[rows._data.long()]):
+        fail('sparse (b): the pulled rows are not the table\'s')
+    del kv, pulled, w, emb, tr, touched
+    _empty_cache(torch)
+    out = dict(step_ms=step_ms, rise_mb=rise / 2 ** 20,
+               pull_rise_mb=pull_rise / 2 ** 20, b5=b5, merged=merged)
+    log(f'[sparse] (b) Embedding({N:,}, {D}, sparse_grad=True), Adam '
+        f'lazy, {c["big_steps"]} steps of {n} ids drawn Zipf({c["zipf"]}) '
+        f'(distinct ids a step {min(merged)}-{max(merged)}): host '
+        f'{step_ms:.3f} ms a step over steps 2-{c["big_steps"]}; memory '
+        f'past the level after step 1 {out["rise_mb"]:.2f} MB (limit '
+        f'{c["mem_mb"]} MB); {b5} B5 launches; rows no id named bit-equal; '
+        f'row_sparse_pull of {c["pull"]} rows: RowSparseNDArray '
+        f'({c["pull"]}, {D}), {out["pull_rise_mb"]:.2f} MB allocated')
+    return out
+
+
+def sparse_rows(torch, seed):
+    """B5 at the sparse phase's (b) merged-row shape against its plain
+    version, timed beside its bound and ``torch.optim``'s fused Adam:
+    the static-size merge hands the kernel one row an id, 8192 x 64.
+    Outside the phase's window: these launches compare, they are not the
+    main path's."""
+    from mxnet_tpu_torch.ops.kernels import fused_optimizer as fo
+    n, D = SPARSE['big_ids'], SPARSE['big_dim']
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (n, D)
+    wr, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+    m = torch.randn(shape, generator=gen, device=dev) * 0.1
+    v = (torch.randn(shape, generator=gen, device=dev) * 0.1).square()
+    vec = torch.tensor([0.01, 0.0, 1 - 0.9 ** 5, 1 - 0.999 ** 5],
+                       device=dev)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8)
+    ks = [x.clone() for x in (wr, m, v)]
+    ps = [x.clone() for x in (wr, m, v)]
+    got = fo.adam_step(ks[0], g, ks[1], ks[2], vec, **kw)
+    want = fo.adam_step_plain(ps[0], g, ps[1], ps[2], vec, **kw)
+    p = torch.nn.Parameter(wr.clone())
+    p.grad = g
+    adam = torch.optim.Adam([p], lr=0.01, fused=True)
+    row = _case(torch, 'adam', f'({n}, {D}) t=5, the merged rows of (b)',
+                got, want, (1e-6, 1e-7),
+                'fp32, the same operations in the same order, none '
+                'contracted',
+                lambda: fo.adam_step(ks[0], g, ks[1], ks[2], vec, **kw),
+                lambda: fo.adam_step_plain(ps[0], g, ps[1], ps[2], vec,
+                                           **kw),
+                28 * n * D, 18 * n * D, adam.step,
+                library_call='torch.optim.Adam(fused=True).step')
+    if not row['ok']:
+        fail('sparse (b): B5 at the merged-row shape parts from its plain '
+             'version')
+    log(f'[sparse] B5 at ({n}, {D}), the merged rows of (b): '
+        f'{row["ms"]:.4f} ms for {28 * n * D / 1e6:.2f} MB (bound '
+        f'{row["bound_ms"]:.4f} ms at 3.35 TB/s, '
+        f'{100 * row["bound_ms"] / row["ms"]:.0f} %; L2-warm: the '
+        f'{28 * n * D / 1e6:.1f} MB fit the 50 MB L2)')
+    return row
+
+
+def _sparse_csr(torch, mx, seed):
+    """(c): see the module docstring."""
+    import numpy as np
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    sys.path.insert(0, str(ROOT / 'tests'))
+    from torch_a3_cases import scipy_like_csr
+    c = SPARSE
+    R, C = c['csr_rows'], c['csr_cols']
+    rng = np.random.default_rng(seed)
+    data, indptr, cols, rows = scipy_like_csr(rng, R, C, 2)
+    nnz = len(data)
+    dev = torch.device('cuda', 0) if c['dev'] == 'cuda' else \
+        torch.device('cpu')
+    csr = sp.CSRNDArray(torch.from_numpy(data).to(dev),
+                        torch.from_numpy(indptr).to(dev),
+                        torch.from_numpy(cols).to(dev), (R, C))
+    v = rng.standard_normal(C).astype(np.float32)
+    with _ctxd(mx, c['dev']):
+        vd = mx.nd.array(v)
+        out = sp.dot(csr, vd)
+        got = out.asnumpy()
+        out_t = sp.dot(csr, out, transpose_a=True)
+        got_t = out_t.asnumpy()
+    for r in (0, min(123, R - 1), R - 1):
+        lo, hi = indptr[r], indptr[r + 1]
+        want = float((data[lo:hi].astype(np.float64)
+                      * v[cols[lo:hi]]).sum())
+        if not abs(got[r] - want) <= 1e-4 + 3e-4 * abs(want):
+            fail(f'sparse (c): row {r} of csr . v is {got[r]}, host {want}')
+    want_t = np.bincount(cols, weights=data.astype(np.float64) * got[rows],
+                         minlength=C)
+    for col in (0, min(123, C - 1), C - 1):
+        if not abs(got_t[col] - want_t[col]) <= 1e-3 + 3e-4 * abs(
+                want_t[col]):
+            fail(f'sparse (c): column {col} of csr^T . out is '
+                 f'{got_t[col]}, host {want_t[col]}')
+    if csr.__dict__.get('_dense') is not None:
+        fail('sparse (c): the CSR array was made dense')
+    half = (csr * 0.5)[R // 2:R // 2 + 100]
+    if half.shape != (100, C) or half.data.shape[0] > 400 or \
+            csr.__dict__.get('_dense') is not None:
+        fail('sparse (c): scalar math and row slicing left O(nnz) storage')
+    timed = (eager_ms if c['dev'] == 'cuda' else
+             lambda torch, fn, budget_ms: math.nan)
+    ms = timed(torch, lambda: sp.dot(csr, vd), budget_ms=200.0)
+    ms_t = timed(torch, lambda: sp.dot(csr, out, transpose_a=True),
+                 budget_ms=200.0)
+    # each input read once, each output written once
+    nbytes = 4 * nnz + 8 * nnz + 8 * (R + 1) + 4 * C + 4 * R
+    bnd, _ = bound(nbytes, 2 * nnz)
+    log(f'[sparse] (c) CSR ({R:,} x {C}), {nnz:,} stored values (dense '
+        f'fp32 would be {4 * R * C / 1e9:.1f} GB): csr . v {ms:.4f} ms, '
+        f'csr^T . out {ms_t:.4f} ms, each against a bound of {bnd:.4f} ms '
+        f'for {nbytes / 1e6:.0f} MB at 3.35 TB/s; rows 0, 123, {R - 1:,} and '
+        f'columns 0, 123, {C - 1} at the host\'s values; _dense never set; '
+        f'(csr * 0.5)[{R // 2:,}:{R // 2 + 100:,}] holds '
+        f'{half.data.shape[0]} values')
+    del csr, out, out_t, vd, half
+    _empty_cache(torch)
+    return dict(nnz=nnz, ms=ms, ms_t=ms_t, bound_ms=bnd)
+
+
+def _case_outs(mx, name, args, kw, ctx):
+    """The outputs (tensors) of op ``name`` on the case's inputs in
+    ``ctx``."""
+    import numpy as np
+
+    def conv(a):
+        if isinstance(a, np.ndarray):
+            return mx.np.array(a)
+        if isinstance(a, list):
+            return [conv(e) for e in a]
+        return a
+    with ctx:
+        fn = getattr(mx.npx, name, None) or getattr(mx.np, name, None) or \
+            getattr(mx.nd, name)
+        out = fn(*[conv(a) for a in args], **kw)
+    outs = out if isinstance(out, (tuple, list)) else [out]
+    return [o._data for o in outs]
+
+
+def _invariants(torch, name, outs, args):
+    """What of a factorization is unique: eigenvalues and the matrix
+    rebuilt from its factors; sorted eigenvalues of ``eig``."""
+    import numpy as np
+    if name in ('linalg_eig', 'linalg_eigvals'):
+        vals = np.sort_complex(outs[0].detach().cpu().numpy().astype(
+            np.complex128))
+        return [torch.from_numpy(vals.real.copy()),
+                torch.from_numpy(vals.imag.copy())]
+    o = [x.detach().cpu().double() for x in outs]
+    if name in ('linalg_eigh', 'linalg_syevd'):
+        w, v = o
+        return [w, v @ torch.diag(w) @ v.T]
+    if name == 'linalg_svd':
+        u, s, vh = o
+        k = s.shape[0]
+        return [s, (u[:, :k] * s) @ vh[:k]]
+    q, r = o        # qr, gelqf
+    return [q @ r, r.abs()]
+
+
+def _sparse_ops(torch, mx, seed):
+    """(d): see the module docstring. The loop block: a Dense layer, then
+    ``foreach``, and with ``host_stop`` ``cond`` and ``while_loop``."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / 'tests'))
+    import torch_a3_cases as cases
+    from mxnet_tpu_torch import autograd, gluon
+    host, card = mx.cpu(), _ctxd(mx, SPARSE['dev'])
+    exercised, worst, n_out = set(), 0.0, 0
+    groups = [(cases.LINALG_PRODUCTS, 1e-5, 1e-5),
+              (cases.LINALG_TRIANGULAR, 1e-4, 1e-5),
+              (cases.LINALG_SOLVERS, 1e-4, 1e-5),
+              (cases.EXTRAS, 1e-5, 1e-5), (cases.LEGACY, 1e-5, 1e-5),
+              (cases.CONTRIB, 1e-5, 1e-5),
+              ([('fft_' + n, (x,), kw) for n, x, kw in cases.FFT], 1e-5,
+               1e-5),
+              (cases.MISC, 1e-5, 1e-5), (cases.FACTORS, 1e-4, 1e-4)]
+    factors = {f[0] for f in cases.FACTORS}
+    for group, rtol, atol in groups:
+        for name, args, kw in group:
+            want = _case_outs(mx, name, args, kw, host)
+            got = _case_outs(mx, name, args, kw, card)
+            on_host = [i for i, g in enumerate(got)
+                       if g.device.type != SPARSE['dev']]
+            if on_host:
+                fail(f'sparse (d): {name} left outputs {on_host} on the '
+                     f'host')
+            n_out += len(got)
+            if name in factors:
+                got = _invariants(torch, name, got, args)
+                want = _invariants(torch, name, want, args)
+            for g, w in zip(got, want):
+                g = g.detach().cpu()
+                if g.is_complex():
+                    g, w = torch.view_as_real(g), torch.view_as_real(w)
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    fail(f'sparse (d): {name}: card {g.dtype} '
+                         f'{tuple(g.shape)}, host {w.dtype} '
+                         f'{tuple(w.shape)}')
+                if g.is_floating_point():
+                    tol = atol * max(1.0, float(w.abs().max())) \
+                        if name.startswith('fft_') else atol
+                    fin = torch.isfinite(w)
+                    ok = torch.equal(fin, torch.isfinite(g)) and bool(
+                        ((g[fin].double() - w[fin].double()).abs() <=
+                         tol + rtol * w[fin].double().abs()).all())
+                    err = float((g[fin].double() - w[fin].double()).abs()
+                                .max()) if fin.any() else 0.0
+                else:
+                    ok, err = torch.equal(g, w), 0.0
+                worst = max(worst, err)
+                if not ok:
+                    fail(f'sparse (d): {name}{kw}: the card parts from the '
+                         f'host (max err {err:.3g}, rtol {rtol}, atol '
+                         f'{atol})')
+            exercised.add(name)
+    for name, kw, mean, var in cases.SAMPLERS:
+        with card:
+            mx.random.seed(seed)
+            fn = getattr(mx.npx, name)
+            x = fn(shape=(20_000,), **kw) if name.startswith('sample_') \
+                else fn(size=20_000, **kw)
+        if x._data.device.type != SPARSE['dev']:
+            fail(f'sparse (d): {name} drew on the host')
+        ok, zm, zv = cases.moments_ok(x.asnumpy(), mean, var)
+        if not ok:
+            fail(f'sparse (d): {name} {kw}: mean {zm:.2f} and variance '
+                 f'{zv:.2f} standard errors off')
+        exercised.add(name)
+    missing = sorted(set(cases.A3_NAMES) - exercised)
+    if missing:
+        fail(f'sparse (d): A3 names not run on the card: {missing}')
+    log(f'[sparse] (d) {len(exercised)} op names on the card (every A3 '
+        f'name), {n_out} outputs, every one a CUDA tensor; against the '
+        f'host at each case\'s tolerance, max err {worst:.3g}; the eight '
+        f'gamma-family samplers at their moments (n = 20,000, 5 standard '
+        f'errors)')
+
+    class Loops(gluon.HybridBlock):
+        def __init__(self, host_stop):
+            super().__init__()
+            self.host_stop = host_stop
+            self.dense = gluon.nn.Dense(3, in_units=3)
+
+        def forward(self, x):
+            def body(v, states):
+                acc = states[0] + v
+                return acc, [acc]
+            h = self.dense(x)
+            outs, (acc,) = mx.npx.foreach(body, h, [h[0] * 0])
+            if not self.host_stop:
+                return outs
+            y = mx.npx.cond(acc.sum() > -1e9, lambda a: a * 2.0,
+                            lambda a: a, [outs])
+            _, (_, z) = mx.npx.while_loop(
+                lambda i, z: i < 2, lambda i, z: (z, (i + 1, z + 1.0)),
+                (mx.np.array(0), y), max_iterations=4)
+            return z
+
+    x = np.random.default_rng(seed).standard_normal((4, 3)).astype('f')
+    figures = {}
+    for host_stop in (False, True):
+        with card:
+            net = Loops(host_stop)
+            net.initialize()
+            xd = mx.np.array(x)
+            eager = net(xd)._data.clone()
+            net.hybridize()
+            outs = []
+            for _ in range(2):
+                outs.append(net(xd)._data.clone())
+                with autograd.record():
+                    loss = net(xd).sum()
+                loss.backward()
+            _sync_all(torch, SPARSE['dev'])
+        for o in outs:
+            err, ok = compare(torch, o, eager, 1e-6, 1e-6)
+            if not ok:
+                fail(f'sparse (d): the hybridized control-flow block parts '
+                     f'from its eager call (host_stop {host_stop})')
+        figures[host_stop] = (net.capture_count, net.eager_call_count)
+        if host_stop and net.eager_call_count == 0 and not REHEARSE:
+            fail('sparse (d): a host-stopped loop was captured')
+    log(f'[sparse] (d) control flow in a hybridized block on the card, two '
+        f'predict and two recorded calls each: foreach alone '
+        f'capture_count {figures[False][0]}, eager_call_count '
+        f'{figures[False][1]}; with cond and while_loop (decided on the '
+        f'host) capture_count {figures[True][0]}, eager_call_count '
+        f'{figures[True][1]}; outputs equal to the eager calls')
+    return dict(ops=len(exercised), outputs=n_out, worst=worst,
+                control_flow=figures)
+
+
+def phase_sparse(torch, seed):
+    """The sparse phase: see the module docstring. Returns its numbers."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    got = {'a': _sparse_examples(torch, mx, seed)}
+    t_a = time.perf_counter()
+    got['b'] = _sparse_big(torch, mx, seed + 1)
+    t_b = time.perf_counter()
+    got['c'] = _sparse_csr(torch, mx, seed + 2)
+    t_c = time.perf_counter()
+    got['d'] = _sparse_ops(torch, mx, seed + 3)
+    if got['a'].get('problems'):
+        fail('sparse (a): past the tolerance: ' +
+             '; '.join(got['a']['problems']))
+    card = 'host (a rehearsal)' if REHEARSE else smi_line()
+    log(f'[sparse] {card}; (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} '
+        f's, (c) {t_c - t_b:.1f} s, (d) {time.perf_counter() - t_c:.1f} s')
+    return got
+
+
 NEW_DESIGNS = {'fused_norm': ('regs', 'cluster'),
                'int8_matmul': ('tma_splitk', 'tma'),
                'flash_attention': ('tf32x3', 'tf32x3_splitkv'),
@@ -7856,12 +8545,17 @@ def main(argv=None):
     import torch
 
     t_start = time.perf_counter()
+
+    def at():
+        return f'at {time.perf_counter() - t_start:.1f} s of the run'
+
     phase_device(torch)         # always: no card, no run
     from mxnet_tpu_torch.ops import kernels
 
     if 'build' in phases:
         phase_build()
     rows = phase_kernels(torch) if 'kernels' in phases else None
+    log(f'[time] device, build and kernels done {at()}')
 
     paths = {}      # main path -> the launch counts of its run
     serve_ref = None    # the serve phase's tokens, for the sharding phase
@@ -7872,7 +8566,8 @@ def main(argv=None):
         out = fn(*args)
         paths[path] = kernels.launch_counts()   # ... and ends here
         designs[path] = kernels.path_counts()
-        log(f'[{path}] launches {paths[path]}; by design {designs[path]}')
+        log(f'[{path}] launches {paths[path]}; by design {designs[path]}; '
+            f'{at()}')
         check_designs(path, paths[path], designs[path])
         return out
 
@@ -7960,7 +8655,8 @@ def main(argv=None):
         optim_parity(torch, SEED + 19)
     if 'dist' in phases:        # counted in the ranks, which return counts
         paths['dist'], designs['dist'], got = phase_dist(torch, SEED + 20)
-        log(f'[dist] launches {paths["dist"]}; by design {designs["dist"]}')
+        log(f'[dist] launches {paths["dist"]}; by design {designs["dist"]}; '
+            f'{at()}')
         check_designs('dist', paths['dist'], designs['dist'])
         dist_costs(torch, got)
         del got
@@ -7969,7 +8665,7 @@ def main(argv=None):
         paths['dist_async'], designs['dist_async'], got = phase_dist_async(
             torch, SEED + 21)
         log(f'[dist_async] launches {paths["dist_async"]}; by design '
-            f'{designs["dist_async"]}')
+            f'{designs["dist_async"]}; {at()}')
         check_designs('dist_async', paths['dist_async'],
                       designs['dist_async'])
         dist_async_costs(torch, got)
@@ -7979,7 +8675,7 @@ def main(argv=None):
         paths['sharding'], designs['sharding'], got = phase_sharding(
             torch, SEED + 2, serve_ref=serve_ref)
         log(f'[sharding] launches {paths["sharding"]}; by design '
-            f'{designs["sharding"]}')
+            f'{designs["sharding"]}; {at()}')
         check_designs('sharding', paths['sharding'], designs['sharding'])
         sharding_costs(torch, got)
         del got
@@ -7991,12 +8687,20 @@ def main(argv=None):
             t0 = time.perf_counter()
             paths[name], designs[name] = fn(torch, seed)
             log(f'[{name}] launches {paths[name]}; by design '
-                f'{designs[name]}; {time.perf_counter() - t0:.1f} s')
+                f'{designs[name]}; {time.perf_counter() - t0:.1f} s, '
+                f'{at()}')
             check_designs(name, paths[name], designs[name])
             torch.cuda.empty_cache()
+    if 'sparse' in phases:
+        window('sparse', phase_sparse, torch, SEED + 60)
+        torch.cuda.empty_cache()
+        row = sparse_rows(torch, SEED + 61)
+        if rows is not None:
+            rows['adam'].append(row)
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
-        log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}')
+        log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}; '
+            f'{at()}')
         check_designs('ring', paths['ring'], designs['ring'])
     if 'rtc' in phases:
         if rows is None:

@@ -19,6 +19,14 @@ write through the buffer's handle (``p.grad()[:] = 0``) rebinds the
 handle, as NDArray writes do; :func:`sync_grad` copies that value back
 into the buffer before the buffer is read or written.
 
+A row-sparse gradient (``Embedding(sparse_grad=True)``, whose lookup
+gives torch a sparse COO gradient: one entry a token occurrence) is never
+written into the buffer under ``grad_req='write'``: the hook keeps it as a
+``RowSparseNDArray`` in ``AGInfo.rsp`` (the reference's ``RowSparseCot``,
+``mxnet_tpu/_tape.py:77``), which ``Parameter.grad()`` returns. Under
+``'add'`` it is added into the buffer, which is then what counts, as the
+reference densifies there.
+
 :func:`backward` keeps the graph (``retain_graph=True`` to torch): the
 JAX tape re-linearizes a node whose residuals a first backward dropped,
 so a second ``backward()`` over the same heads gives the same gradients
@@ -64,13 +72,14 @@ class AGInfo:
     buffer's handle (an NDArray), the buffer tensor itself, and
     ``grad_req``."""
 
-    __slots__ = ('variable', 'grad', 'buf', 'grad_req')
+    __slots__ = ('variable', 'grad', 'buf', 'grad_req', 'rsp')
 
     def __init__(self, grad=None, grad_req='write'):
         self.variable = True
         self.grad = grad
         self.buf = None if grad is None else grad._data
         self.grad_req = grad_req
+        self.rsp = None     # the last row-sparse gradient, if it was one
 
 
 def sync_grad(info):
@@ -88,14 +97,34 @@ def sync_grad(info):
     return info.buf
 
 
+def row_sparse(g, dtype=None):
+    """A sparse COO gradient of a table as a ``RowSparseNDArray`` of its
+    entries, repeats kept (``_may_have_duplicates``): no dense copy."""
+    from .ndarray.ndarray import NDArray
+    from .ndarray.sparse import RowSparseNDArray
+    vals = g._values().detach()
+    rsp = RowSparseNDArray(NDArray(vals if dtype is None else
+                                   vals.to(dtype)),
+                           NDArray(g._indices()[0]), tuple(g.shape))
+    rsp._may_have_duplicates = True
+    return rsp
+
+
 def _write_grad(info):
     def hook(leaf):
         g, leaf.grad = leaf.grad, None
         if g is None or info.grad is None or info.grad_req == 'null':
             return
+        if g.is_sparse and info.grad_req != 'add':
+            info.rsp = row_sparse(g, info.grad._data.dtype)
+            return
+        info.rsp = None
         buf = sync_grad(info)
         with torch.no_grad():
-            if info.grad_req == 'add':
+            if g.is_sparse:
+                buf.index_add_(0, g._indices()[0],
+                               g._values().detach().to(buf.dtype))
+            elif info.grad_req == 'add':
                 buf.add_(g.detach().to(buf.dtype))
             else:
                 buf.copy_(g.detach())
@@ -172,6 +201,6 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True,
         set_training(prev)
     # a graphed call's backward hands out its static grad buffers, which
     # the next replay overwrites: the caller gets copies
-    return [NDArray(torch.zeros_like(v._data).detach() if g is None
-                    else g.clone())
+    return [NDArray(torch.zeros_like(v._data).detach()) if g is None
+            else row_sparse(g) if g.is_sparse else NDArray(g.clone())
             for v, g in zip(variables, got)]

@@ -30,8 +30,12 @@ is that program's VJP; here, on a CUDA device:
   still waits for its backward would overwrite the activations that
   backward reads: it runs eagerly instead, and ``eager_call_count``
   counts it, as it counts the training-mode calls of a block that runs
-  collectives (``SyncBatchNorm`` over several processes), which cannot
-  be captured. ``create_graph=True`` through a replayed node raises;
+  collectives (``SyncBatchNorm`` over several processes), the recorded
+  calls of a block with a row-sparse gradient (``Embedding(sparse_grad=
+  True)``: a sparse tensor of new size each backward) and every call of
+  a block whose ``npx.while_loop`` or ``npx.cond`` decides on the host
+  (``HostStopError`` inside a capture), none of which can be captured.
+  ``create_graph=True`` through a replayed node raises;
 * a key's first call is the capture's warm-up and the call's real answer
   (BatchNorm's running statistics move once); the graphs of a key are
   captured once, and again only if a parameter's leaf was replaced
@@ -93,7 +97,7 @@ from ..autograd import pause
 from ..base import MXNetError
 from ..context import cpu
 from ..ndarray.ndarray import NDArray, array, context_of
-from ..ops.registry import DynamicShapeError
+from ..ops.registry import DynamicShapeError, HostStopError
 from .parameter import DeferredInitializationError, Parameter, substituted
 
 __all__ = ['Block', 'HybridBlock', 'ParameterDict', 'is_tracing',
@@ -120,6 +124,25 @@ def is_tracing():
     there, and an op with a data-dependent output shape raises
     ``DynamicShapeError``."""
     return getattr(_BLOCK_TRACE, 'depth', 0) > 0
+
+
+_CAPTURE = threading.local()
+
+
+def capturing():
+    """True inside a hybridized block's capture of a CUDA graph (its
+    warm-up included): an op that must decide on the host raises
+    ``HostStopError`` there."""
+    return getattr(_CAPTURE, 'depth', 0) > 0
+
+
+@contextlib.contextmanager
+def _capturing():
+    _CAPTURE.depth = getattr(_CAPTURE, 'depth', 0) + 1
+    try:
+        yield
+    finally:
+        _CAPTURE.depth -= 1
 
 
 class _Tracing:
@@ -519,6 +542,7 @@ class _CachedGraph:
         self._param_order = None
         self._planned = None    # fingerprint of the mesh placed for
         self._dynamic = False
+        self._host_stop = False   # a control-flow op stopped on the host
         self._monitor_callbacks = []
         self._lock = threading.RLock()
 
@@ -615,8 +639,12 @@ class _CachedGraph:
                 self.compiles += 1
             if not _graphs.can_capture(dev):
                 out = self._eager(key, spec, in_nds)
-            elif train_mode and self._syncs():
-                # a collective (SyncBatchNorm) cannot be captured
+            elif (train_mode and self._syncs()) or self._host_stop or (
+                    recording and self._sparse_grads()):
+                # a collective (SyncBatchNorm), a loop that stops on the
+                # host (npx.while_loop, npx.cond) and a row-sparse
+                # gradient (a sparse COO tensor each backward) cannot be
+                # captured
                 self.eager_calls += 1
                 out = self._eager(key, spec, in_nds)
             elif recording:
@@ -635,6 +663,12 @@ class _CachedGraph:
                 return True
             stack.extend(b._children.values())
         return False
+
+    def _sparse_grads(self):
+        """True when a parameter of the block takes row-sparse gradients
+        (``Embedding(sparse_grad=True)``)."""
+        return any(p._grad_stype == 'row_sparse' and p.grad_req != 'null'
+                   for p in self._params()[0])
 
     def _monitor(self, out):
         for cb in self._monitor_callbacks:
@@ -694,6 +728,13 @@ class _CachedGraph:
             'is_dynamic)', stacklevel=4)
         return self.block.forward(*_unflatten(spec, in_nds))
 
+    def _stop_on_host(self, key, spec, in_nds):
+        # a loop or branch decided on the host cannot be captured: this
+        # call and every later one of the block run eagerly, counted
+        self._host_stop = True
+        self.eager_calls += 1
+        return self._eager(key, spec, in_nds)
+
     def _no_nesting(self, dev):
         if dev.type == 'cuda' and torch.cuda.is_current_stream_capturing():
             raise MXNetError(
@@ -727,7 +768,10 @@ class _CachedGraph:
 
         graph = _graphs.step_graph(body, dev, _rng.graph_generators(dev))
         try:
-            graph.capture(keep_warmup=True)
+            with _capturing():
+                graph.capture(keep_warmup=True)
+        except HostStopError:
+            return self._stop_on_host(key, spec, in_nds)
         except DynamicShapeError:
             return self._go_dynamic(key, spec, in_nds)
         warm, graph.warmup_outputs = graph.warmup_outputs, None
@@ -785,7 +829,10 @@ class _CachedGraph:
                                    remat=self.remat, recompute=_recomputing)
         before = _generator_state(dev) if self.remat else None
         try:
-            warm = call.first_call([x._data for x in in_nds])
+            with _capturing():
+                warm = call.first_call([x._data for x in in_nds])
+        except HostStopError:
+            return self._stop_on_host(key, spec, in_nds)
         except DynamicShapeError:
             return self._go_dynamic(key, spec, in_nds)
         if self.remat and not torch.equal(before, _generator_state(dev)):

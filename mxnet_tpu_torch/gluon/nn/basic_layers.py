@@ -14,7 +14,6 @@ import torch.distributed as dist
 from .activations import Activation
 from ..block import Block, HybridBlock, record_aux_update
 from ..parameter import Parameter
-from ...base import MXNetError
 from ...ops.registry import apply_op, get_op, invoke
 from ... import _tape
 
@@ -392,23 +391,30 @@ class InstanceNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Reference basic_layers.py:Embedding. Row-sparse gradients
-    (``sparse_grad=True``) wait for the sparse module (ROADMAP A3 rest)."""
+    """Reference basic_layers.py:Embedding. With ``sparse_grad=True`` the
+    weight's gradient is row-sparse (``grad_stype='row_sparse'``): a
+    recorded lookup gives a ``RowSparseNDArray`` of one entry a token
+    occurrence, and no backward writes a table-shaped gradient."""
 
     def __init__(self, input_dim, output_dim, dtype='float32',
                  weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
-        if sparse_grad:
-            raise MXNetError('Embedding(sparse_grad=True) needs row-sparse '
-                             'gradients (ROADMAP A3 rest)')
         self._input_dim = input_dim
         self._output_dim = output_dim
-        self.weight = Parameter('weight', shape=(input_dim, output_dim),
-                                init=weight_initializer, dtype=dtype)
+        self.weight = Parameter(
+            'weight', shape=(input_dim, output_dim),
+            init=weight_initializer, dtype=dtype,
+            grad_stype='row_sparse' if sparse_grad else 'default')
 
     def forward(self, x):
-        return _op('embedding', x, self.weight.data(),
-                   input_dim=self._input_dim, output_dim=self._output_dim)
+        w = self.weight.data()
+        if self.weight._grad_stype == 'row_sparse' and \
+                _tape.is_recording() and w._data.requires_grad:
+            from ...ops.nn import sparse_grad_embedding
+            return apply_op(get_op('embedding'), [x, w],
+                            sparse_grad_embedding)
+        return _op('embedding', x, w, input_dim=self._input_dim,
+                   output_dim=self._output_dim)
 
 
 class Flatten(HybridBlock):

@@ -126,6 +126,7 @@ def _reset_grad(var, data, info, grad_req):
     ``grad_req='null'``. A buffer that fits the leaf is zeroed in place,
     so that it keeps its address."""
     info.grad_req = grad_req
+    info.rsp = None
     if grad_req == 'null':
         var.requires_grad_(False)
         info.grad = info.buf = None
@@ -144,6 +145,12 @@ def _reset_grad(var, data, info, grad_req):
         info.grad = NDArray(torch.zeros_like(var).detach())
         info.buf = info.grad._data
     data._ag = info
+
+
+def _surface(info):
+    """A variable's gradient as the user sees it: the row-sparse one the
+    last backward left, else the grad buffer's handle."""
+    return info.rsp if info.rsp is not None else info.grad
 
 
 def _sync_leaf(var, data, info, grad_req):
@@ -178,10 +185,9 @@ class Parameter:
                  dtype='float32', lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype='default', grad_stype='default'):
-        if stype != 'default' or grad_stype != 'default':
-            raise MXNetError(f'{name}: sparse storage ({stype!r}, '
-                             f'{grad_stype!r}) is not ported (ROADMAP A3 '
-                             f'rest)')
+        for what, st in (('stype', stype), ('grad_stype', grad_stype)):
+            if st not in ('default', 'row_sparse', 'csr'):
+                raise ValueError(f'{name}: unknown {what} {st!r}')
         self._name = name
         self._grad_req = grad_req if differentiable else 'null'
         self._shape = tuple(shape) if shape is not None else None
@@ -381,20 +387,24 @@ class Parameter:
                                  for r in self._replicas]
 
     def grad(self, ctx=None):
-        """The gradient buffer on ``ctx`` (reference parameter.py:604)."""
+        """The gradient on ``ctx`` (reference parameter.py:604): the grad
+        buffer, or the ``RowSparseNDArray`` the last backward gave a
+        ``grad_stype='row_sparse'`` parameter (the buffer is then not
+        written)."""
         self._check_initialized()
         if self._info.grad is None:
             raise RuntimeError(
                 f'Cannot get gradient array for Parameter {self.name} '
                 'because grad_req="null"')
         rep = self._replica(ctx)
-        return self._info.grad if rep is None else rep.info.grad
+        return _surface(self._info if rep is None else rep.info)
 
     def list_grad(self):
         self._check_initialized()
         if self._info.grad is None:
             return []
-        return [self._info.grad] + [r.info.grad for r in self._replicas]
+        return [_surface(i) for i in
+                [self._info] + [r.info for r in self._replicas]]
 
     def list_ctx(self):
         if self._var is None and self._deferred_init is not None:
@@ -437,6 +447,7 @@ class Parameter:
         if self._info is None or self._info.grad is None:
             return
         for info in [self._info] + [r.info for r in self._replicas]:
+            info.rsp = None
             info.grad._data = info.buf
             with torch.no_grad():
                 info.buf.zero_()

@@ -10,8 +10,16 @@ kvstore path ``_init_kvstore``/``_init_params``/``_allreduce_grads`` and
 ``step(batch_size)`` rescales the gradients by ``1 / batch_size``
 (``rescale_grad``), reduces them through the kvstore and runs the
 optimizer once per parameter; Adam and SGD with momentum each launch their
-fused kernel once per parameter. Row-sparse gradients are not ported yet
-(ROADMAP A3 rest). ``mx.amp.unscale`` arms
+fused kernel once per parameter. A parameter with row-sparse gradients
+(``Embedding(sparse_grad=True)``) takes the optimizer's lazy update of the
+rows its gradient names (``Optimizer.update``; B5 for Adam, B6 for
+SGD-momentum, one launch a parameter a step), eagerly and outside the
+captured update graph, whose addresses a new sparse gradient would not
+keep; ``sparse_update_count`` counts those updates (the reference's sparse
+branch, ``mxnet_tpu/gluon/trainer.py:240-275``). The kvstore never reduces
+such a gradient: under a kvstore of several workers it is applied on each
+rank alone, with a warning, and ``update_on_kvstore=True`` warns that it
+loses the lazy semantics, as in the reference. ``mx.amp.unscale`` arms
 ``_amp_skip_update`` after a gradient overflow, and the next step then
 updates nothing, as the reference's ``_update`` skips
 (``mxnet_tpu/gluon/trainer.py:234-237``): no weight, slot or update count
@@ -126,6 +134,7 @@ import copy
 import math
 import pickle
 import re
+import warnings
 
 import numpy as np
 import torch
@@ -135,7 +144,7 @@ from ..base import MXNetError
 from .. import optimizer as opt
 from ..kvstore import create as _create_kvstore
 from ..kvstore.base import KVStoreBase
-from ..ndarray.ndarray import context_of
+from ..ndarray.ndarray import NDArray, context_of
 from ..ops.kernels.fused_optimizer import hyper_vector
 from ..optimizer import states_into, states_to_host
 from .parameter import Parameter
@@ -219,6 +228,8 @@ class Trainer:
         self._tiles = {}        # index -> ZeRO-1 tile plan under a mesh
         self._tiles_mesh = None     # the fingerprint the plans are for
         self._grads_reduced = False
+        self._sparse_updates = 0    # eager row-sparse updates
+        self._warned_sparse_dist = False
 
     # ---------------------------------------------------------------- kvstore
     def _init_kvstore(self):
@@ -240,6 +251,13 @@ class Trainer:
             self._update_on_kvstore = \
                 bool(self._kvstore_params['update_on_kvstore'])
             if self._update_on_kvstore:
+                if any(_row_sparse(p) for p in self._params):
+                    warnings.warn(
+                        'update_on_kvstore=True densifies row_sparse '
+                        'gradients: lazy row-wise update semantics (no '
+                        'wd/momentum on untouched rows) are lost. Use '
+                        'update_on_kvstore=False to keep the sparse path.',
+                        UserWarning, stacklevel=4)
                 self._kvstore.set_optimizer(self._optimizer)
         self._kv_initialized = True
 
@@ -291,6 +309,19 @@ class Trainer:
             if isinstance(param, Parameter):
                 if param.grad_req == 'null' or param._var is None:
                     continue
+                if _row_sparse(param):
+                    # a dense reduction of a table-sized gradient is what
+                    # the sparse path avoids: applied on this rank alone
+                    if self._kvstore.num_workers > 1 and \
+                            not self._warned_sparse_dist:
+                        warnings.warn(
+                            'row_sparse gradients are applied rank-locally '
+                            'under a distributed kvstore (no sparse '
+                            'allreduce); replicate embeddings or use '
+                            'dist_async for server-side sparse updates.',
+                            UserWarning)
+                        self._warned_sparse_dist = True
+                    continue
                 g = param._grad_buffers()
             elif param.requires_grad and param.grad is not None:
                 g = [param.grad]
@@ -323,6 +354,12 @@ class Trainer:
     @property
     def optimizer(self):
         return self._optimizer
+
+    @property
+    def sparse_update_count(self):
+        """Row-sparse lazy updates run (eagerly, one a parameter a
+        step)."""
+        return self._sparse_updates
 
     @property
     def capture_count(self):
@@ -392,9 +429,13 @@ class Trainer:
             self._amp_skip_update = False
             return
         live = []           # (index, weight, grad, torch.nn leaf or None)
+        sparse = []
         for i, param in enumerate(self._params):
             if isinstance(param, Parameter):
                 if param.grad_req != 'null' and param._var is not None:
+                    if _row_sparse(param):
+                        sparse.append((i, param))
+                        continue
                     live.append((i, param._sync().detach(),
                                  param._grad_buffer(), None))
                 continue
@@ -409,6 +450,8 @@ class Trainer:
                     f'by backward since the last step; call step with '
                     f'ignore_stale_grad=True to skip it')
             live.append((i, param.detach(), param.grad, param))
+        if sparse:
+            self._update_sparse(sparse)
         if not live:
             return
         optim = self._optimizer
@@ -671,6 +714,30 @@ class Trainer:
         blocks[d] = blocks[d] + (1,)
         return lay.replace(spec=spec, blocks=blocks)
 
+    def _update_sparse(self, sparse):
+        """The row-sparse parameters' updates (reference trainer.py:
+        252-273): the gradient the last backward left, or, under
+        ``grad_req='add'`` or with no backward, the grad buffer, compressed
+        to its nonzero rows where the optimizer updates by rows."""
+        from ..ndarray.sparse import cast_storage
+        optim = self._optimizer
+        by_rows = getattr(optim, 'lazy_update', False) or \
+            optim._sparse_rowwise
+        for i, param in sparse:
+            weight = param._sync().detach()
+            if i not in self._states:
+                self._states[i] = \
+                    optim.create_state_multi_precision(i, weight)
+            g = param._info.rsp
+            if g is None:
+                g = NDArray(param._grad_buffer())
+                if by_rows:
+                    g = cast_storage(g, 'row_sparse')
+            optim.update(i, weight, g, self._states[i])
+            self._sparse_updates += 1
+            for r in param._replicas:
+                r.sync(param.grad_req).copy_(weight)
+
     def _graphed_update(self, vec, graphed, device):
         """The Gluon parameters' updates as one graph a key (see the module
         docstring): a key's first step captures, later ones replay."""
@@ -802,6 +869,12 @@ class Trainer:
                                 *optim._index_update_count.values()])
         for vec in self._vectors.values():
             vec.forget()
+
+
+def _row_sparse(param):
+    """True for a Gluon parameter whose gradients are row-sparse."""
+    return isinstance(param, Parameter) and \
+        param._grad_stype == 'row_sparse'
 
 
 def _datas(param):

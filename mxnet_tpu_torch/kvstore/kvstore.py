@@ -14,7 +14,11 @@ passes its buffers as tensors). An NDArray is rebound, as the JAX package
 rebinds its immutable arrays: NDArray payloads are never written in place
 (``ndarray/ndarray.py``), so a view taken from the old value keeps it.
 The store holds its own copy of each key's value, which the updater
-writes in place.
+writes in place. A row-sparse or CSR value (``ndarray.sparse``) is kept in
+its storage; a push into it adds to its dense equivalent and compresses the
+sum again, as the reference does, and ``row_sparse_pull`` returns the rows
+asked for as a ``RowSparseNDArray`` of those rows only, from a sparse or a
+dense stored value, never a table-sized array.
 """
 
 import warnings
@@ -112,8 +116,11 @@ class KVStoreLocal(KVStoreBase):
 
     # ------------------------------------------------------ classic surface
     def init(self, key, value):
+        from ..ndarray.sparse import BaseSparseNDArray
         for k, vals in _group(key, value):
-            self._store[k] = NDArray(_raw(vals[0]).clone())
+            v = vals[0]
+            self._store[k] = v.copy() if isinstance(v, BaseSparseNDArray) \
+                else NDArray(_raw(v).clone())
 
     def push(self, key, value, priority=0):
         """Sum the replicas into the stored value (accumulate), or hand
@@ -128,6 +135,9 @@ class KVStoreLocal(KVStoreBase):
             self._updater(k, NDArray(merged), self._store[k])
         elif k in self._store:
             stored = self._store[k]
+            if stored.stype != 'default':   # re-compressed, as rebinding
+                stored._rebind(stored._data + merged.to(stored._data.dtype))
+                return
             with torch.no_grad():
                 stored._data.add_(merged.to(stored._data.dtype))
         else:
@@ -208,12 +218,13 @@ class KVStoreLocal(KVStoreBase):
             self._finish(k, m, t)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        """Pull the rows ``row_ids`` of a dense stored table (reference
-        PullRowSparse, include/mxnet/kvstore.h:221): written into the
-        same rows of each ``out``; with no ``out`` they come back as an
-        array of the table's shape holding those rows and zeros elsewhere,
-        the value of the JAX package's ``RowSparseNDArray``. Row-sparse
-        storage itself waits for ROADMAP A3 rest."""
+        """Pull the rows ``row_ids`` of a stored table (reference
+        PullRowSparse, include/mxnet/kvstore.h:221). A row-sparse stored
+        value gives its retained rows; a dense one gathers the rows.
+        Without ``out`` they come back as a ``RowSparseNDArray`` of those
+        rows only; a row-sparse ``out`` takes them as its components, and
+        a dense ``out`` in the same rows."""
+        from ..ndarray.sparse import RowSparseNDArray, retain
         if isinstance(key, (list, tuple)):
             rids = row_ids if isinstance(row_ids, (list, tuple)) else \
                 [row_ids] * len(key)
@@ -222,20 +233,29 @@ class KVStoreLocal(KVStoreBase):
             return [self.row_sparse_pull(k, out=o, priority=priority,
                                          row_ids=r)
                     for k, o, r in zip(key, outs, rids)]
-        value = self._store[key]._data
+        stored = self._store[key]
         if row_ids is None:
             self.pull(key, out=out, priority=priority)
             return out
-        rows = torch.as_tensor(_raw(row_ids) if isinstance(
-            row_ids, NDArray) else row_ids, device=value.device).long()
-        gathered = value[rows]
+        if isinstance(stored, RowSparseNDArray):
+            res = retain(stored, row_ids)
+        else:
+            value = stored._data
+            rows = torch.as_tensor(_raw(row_ids) if isinstance(
+                row_ids, NDArray) else row_ids, device=value.device).long()
+            with torch.no_grad():
+                res = RowSparseNDArray(value.index_select(0, rows), rows,
+                                       value.shape)
         if out is None:
-            dense = torch.zeros_like(value)
-            dense[rows] = gathered
-            return NDArray(dense)
+            return res
         for o in _as_list(out):
+            if isinstance(o, RowSparseNDArray):
+                o.data, o.indices = res.data, res.indices
+                o._invalidate()
+                continue
             cur = _raw(o).clone()
-            cur[rows.to(cur.device)] = gathered.to(cur.device, cur.dtype)
+            cur[res.indices._data.to(cur.device)] = res.data._data.to(
+                cur.device, cur.dtype)
             _write(o, cur, fresh=True)
         return out
 

@@ -30,6 +30,8 @@ for _n, _f in _CREATORS.items():
 _register.populate(_mod.__dict__, 'nd')
 
 from .ndarray import array as from_numpy  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401  (mx.nd.sparse)
+from . import contrib  # noqa: E402,F401  (mx.nd.contrib.foreach, ...)
 
 
 def save(fname, data):

@@ -486,10 +486,13 @@ class NDArray:
         return self._op('any', axis=axis, keepdims=keepdims)
 
     def tostype(self, stype):
-        if stype != 'default':
-            raise NotImplementedError('sparse storage arrives with the '
-                                      'sparse module')
-        return self
+        """This array in storage ``stype``: ``'default'`` is itself,
+        ``'row_sparse'`` and ``'csr'`` its compression
+        (:func:`.sparse.cast_storage`)."""
+        if stype == 'default':
+            return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     def zeros_like(self):
         return self._op('zeros_like')

@@ -140,18 +140,22 @@ class random:
     """``mx.np.random`` namespace (reference numpy/random.py)."""
 
 
+class fft:
+    """``mx.np.fft`` namespace (reference numpy/__init__.py:143-160): the
+    ``fft_*`` ops, on the arrays' device (complex outputs included)."""
+
+
 def _build_sub_namespaces():
     from ..ops import registry as _reg
+    subs = {'linalg_': linalg, 'random_': random, 'fft_': fft}
     for name, op in _reg.list_ops().items():
-        if name.startswith('linalg_'):
-            setattr(linalg, name[len('linalg_'):], staticmethod(
-                _reg.make_frontend(op.name)))
-        if name.startswith('random_'):
-            setattr(random, name[len('random_'):], staticmethod(
-                _reg.make_frontend(op.name)))
+        for prefix, ns in subs.items():
+            if name.startswith(prefix):
+                setattr(ns, name[len(prefix):], staticmethod(
+                    _reg.make_frontend(op.name)))
     from ..ops.random_ops import seed as _seed
     random.seed = staticmethod(_seed)
-    linalg.norm = staticmethod(_reg.make_frontend('norm'))
+    linalg.norm = staticmethod(_reg.make_frontend('linalg_norm'))
 
 
 _build_sub_namespaces()

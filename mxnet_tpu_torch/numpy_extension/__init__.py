@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/numpy_extension/__init__.py`` (reference
 python/mxnet/numpy_extension/): every registered op is reachable here
 (``npx.rms_norm``, ``npx.flash_attention``, ``npx.fused_adam_step``, ...),
 beside the ``set_np`` switches, the device helpers and ``save``/``load``
-(the NDArray-map files of :mod:`..model`). Control flow (``cond``,
-``foreach``, ``while_loop``) is not ported yet (``ops/ledger.py``).
+(the NDArray-map files of :mod:`..model`), and the control flow
+(``cond``, ``foreach``, ``while_loop``: plain functions over Python
+callables, ``ops/control_flow.py``).
 """
 
 import sys as _sys
@@ -18,6 +19,7 @@ _mod = _sys.modules[__name__]
 _register.populate(_mod.__dict__, 'np')
 _register.populate(_mod.__dict__, 'nd')
 
+from ..ops.control_flow import cond, foreach, while_loop  # noqa: E402
 from ..model import save_ndarray_map as save     # noqa: E402
 from ..model import load_ndarray_map as load     # noqa: E402
 

@@ -276,3 +276,10 @@ def smooth_l1(x, scalar=1.0):
     s2 = scalar * scalar
     absx = torch.abs(x)
     return torch.where(absx < 1.0 / s2, 0.5 * s2 * x * x, absx - 0.5 / s2)
+
+
+@register('softsign')
+def softsign(data):
+    """x / (1 + |x|) (reference mshadow_op softsign, registered in
+    ``mxnet_tpu/ops/legacy_ops.py``; an activation, so it sits here)."""
+    return data / (1 + torch.abs(data))

@@ -57,8 +57,21 @@ def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
     """Rows of ``weight`` at ``data``: a negative index wraps once and an
     index still out of range gives a row of NaN, as the reference's
     ``jnp.take`` fills it."""
+    return _rows(data, weight)
+
+
+def sparse_grad_embedding(data, weight):
+    """:func:`embedding` whose backward gives ``weight`` torch's sparse COO
+    gradient, one entry a token occurrence, and writes nothing
+    table-shaped (the reference's ``_sparse_grad_embedding``,
+    ``mxnet_tpu/gluon/nn/basic_layers.py:352``); ``Embedding(sparse_grad=
+    True)`` calls it while autograd records."""
+    return _rows(data, weight, sparse=True)
+
+
+def _rows(data, weight, sparse=False):
     idx, valid = gather_index(data, weight.shape[0], 'fill')
-    out = F.embedding(idx, weight)
+    out = F.embedding(idx, weight, sparse=sparse)
     return torch.where(valid[..., None], out,
                        torch.full_like(out, fill_value(out.dtype)))
 

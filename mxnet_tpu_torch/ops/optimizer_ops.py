@@ -313,9 +313,9 @@ def mp_lamb_update_phase2(weight, g, r1, r2, weight32, lr=0.001,
 @register('sparse_adagrad_update')
 def sparse_adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7,
                           wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
-    """The dense-input form of the reference's row-sparse AdaGrad kernel;
-    the row-wise lazy update waits for row-sparse arrays (ROADMAP A3
-    rest)."""
+    """The dense-input form of the reference's row-sparse AdaGrad kernel,
+    as the reference registers it; a ``RowSparseNDArray`` gradient takes
+    ``AdaGrad``'s row-wise update (``Optimizer.update``)."""
     g = _rescale_clip(grad, rescale_grad, clip_gradient)
     if wd > 0:
         g = g + wd * weight

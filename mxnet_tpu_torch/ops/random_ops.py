@@ -6,9 +6,10 @@ passes ``key=``, the ``torch.Generator`` of the op's device
 (:mod:`.._rng`), so user code never handles generator state, and
 ``mx.random.seed`` makes a run reproduce. The streams are torch's, not
 JAX's: the same seed gives other numbers than the reference, from the same
-distributions. Not ported yet (``ops/ledger.py``): the gamma family
-(``gamma``, ``beta``, ``chisquare``, ``negative_binomial``), whose torch
-samplers take no generator.
+distributions. The gamma family (``gamma``, ``beta``, ``chisquare``,
+``negative_binomial``) draws through :func:`standard_gamma`, Marsaglia and
+Tsang's rejection method over the same generator (``torch._standard_gamma``
+takes none).
 """
 
 import math
@@ -250,6 +251,76 @@ def multivariate_normal(mean, cov, size=None, key=None):
     chol = torch.linalg.cholesky(cov.float())
     z = _normal01(shp + (mean.shape[-1],), 'float32', key)
     return mean + (chol @ z[..., None])[..., 0]
+
+
+# ------------------------------------------------------------ gamma family
+def standard_gamma(shape_param, key):
+    """Gamma(``shape_param``, 1) draws of ``shape_param``'s shape (a
+    float tensor on the generator's device), by Marsaglia and Tsang's
+    rejection (ACM TOMS 26(3), 2000) over ``key``: a shape below 1 draws at
+    shape + 1 and scales by ``U**(1/shape)``. Each round draws for every
+    element and keeps the first acceptance; rounds go on until every
+    element has one (each accepts with probability above 0.95)."""
+    a = shape_param.float()
+    boost = a < 1
+    d = torch.where(boost, a + 1, a) - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    out = torch.zeros_like(a)
+    todo = torch.ones_like(a, dtype=torch.bool)
+    while bool(todo.any()):
+        x = _normal01(a.shape, 'float32', key)
+        u = _open01(_uniform01(a.shape, 'float32', key))
+        v = (1 + c * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
+                        + d * torch.log(torch.clamp(v, min=1e-30)))
+        take = todo & ok
+        out = torch.where(take, d * v, out)
+        todo = todo & ~take
+    u = _open01(_uniform01(a.shape, 'float32', key))
+    return torch.where(boost, out * u ** (1.0 / a), out)
+
+
+@register('random_gamma', stochastic=True, differentiable=False,
+          aliases=('gamma_sample',))
+def gamma_sample(shape_param=1.0, scale=1.0, size=None, dtype='float32',
+                 key=None):
+    k = _t(shape_param, torch.float32, key.device)
+    scale = _t(scale, torch.float32, key.device)
+    shp = _shape(size, k, scale)
+    g = standard_gamma(torch.broadcast_to(k, shp).contiguous(), key)
+    return (g * scale).to(_dtypes.to_torch(dtype))
+
+
+@register('random_negative_binomial', stochastic=True, differentiable=False)
+def negative_binomial(k=1, p=0.5, size=None, dtype='float32', key=None):
+    """Failures before the ``k``-th success: Poisson of a Gamma(k)
+    rate scaled by ``(1 - p) / p``."""
+    shp = _shape(size)
+    kk = torch.full(shp, float(k), device=key.device)
+    lam = standard_gamma(kk, key) * ((1 - p) / p)
+    return torch.poisson(lam, generator=key).to(_dtypes.to_torch(dtype))
+
+
+@register('random_beta', stochastic=True, differentiable=False,
+          aliases=('beta_sample',))
+def beta_sample(a, b, size=None, dtype='float32', key=None):
+    """``X / (X + Y)`` of X ~ Gamma(a) and Y ~ Gamma(b)."""
+    a = _t(a, torch.float32, key.device)
+    b = _t(b, torch.float32, key.device)
+    shp = _shape(size, a, b)
+    x = standard_gamma(torch.broadcast_to(a, shp).contiguous(), key)
+    y = standard_gamma(torch.broadcast_to(b, shp).contiguous(), key)
+    return (x / (x + y)).to(_dtypes.to_torch(dtype))
+
+
+@register('random_chisquare', stochastic=True, differentiable=False,
+          aliases=('chisquare',))
+def chisquare(df, size=None, dtype='float32', key=None):
+    """``2 Gamma(df / 2)``."""
+    df = _t(df, torch.float32, key.device)
+    shp = _shape(size, df)
+    g = standard_gamma(torch.broadcast_to(df / 2, shp).contiguous(), key)
+    return (2 * g).to(_dtypes.to_torch(dtype))
 
 
 def seed(seed_state, ctx='all'):

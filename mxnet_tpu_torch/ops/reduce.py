@@ -39,6 +39,13 @@ def sum_(x, axis=None, dtype=None, keepdims=False, initial=None, where=None):
     return out if initial is None else out + initial
 
 
+@register('square_sum')
+def square_sum(data, axis=None, keepdims=False):
+    """x^2 summed (reference tensor/square_sum.cc, registered in
+    ``mxnet_tpu/ops/legacy_ops.py``; a reduction, so it sits here)."""
+    return _reduce(torch.sum, data * data, axis, keepdims)
+
+
 @register('mean')
 def mean(x, axis=None, dtype=None, keepdims=False):
     out = _reduce(torch.mean, _float_in(x), axis, keepdims)

@@ -33,7 +33,8 @@ import torch
 from .. import _dtypes, _rng, _tape
 
 __all__ = ['Op', 'register', 'get_op', 'list_ops', 'apply_op', 'invoke',
-           'make_frontend', 'dispatch_count', 'DynamicShapeError']
+           'make_frontend', 'dispatch_count', 'DynamicShapeError',
+           'HostStopError']
 
 _OPS = {}
 #: ``sharding.dispatch``, once ``mx.sharding`` is imported: its
@@ -64,6 +65,13 @@ def _any_sharded(args, kwargs):
 
 #: ops dispatched through :func:`apply_op` since the process started
 _dispatched = [0]
+
+
+class HostStopError(TypeError):
+    """A control-flow op that decides on the host (``npx.while_loop``'s
+    exit, ``npx.cond``'s branch) was called while a hybridized block
+    captures a CUDA graph (``gluon.block.capturing()``); the block then
+    runs its calls eagerly and counts them in ``eager_call_count``."""
 
 
 def dispatch_count():

@@ -36,8 +36,18 @@ of its schedule in its state, a device scalar a replay advances
 from the device's registered generator (``_rng``), so a replayed update
 draws anew.
 
-Not ported: row-sparse gradients and the lazy update
-(``_update_one_lazy``, ROADMAP A3 rest, with ``ndarray/sparse.py``).
+A row-sparse gradient (``ndarray.sparse.RowSparseNDArray``, what
+``Embedding(sparse_grad=True)`` gives) takes the reference's lazy update
+(``_update_one_lazy``, ``mxnet_tpu/optimizer/__init__.py:160-218``) when
+the optimizer has ``lazy_update=True`` or always updates by rows
+(AdaGrad's ``_sparse_rowwise``): its repeated ids are summed at a static
+size (``ndarray.sparse.merge_rows``), the rows of the weight and of every
+slot are gathered into contiguous tensors, :meth:`Optimizer.step` updates
+those in place (so Adam's rows go through B5 and SGD-momentum's through
+B6, one launch a parameter), and they are written back. A row no id names
+sees no weight decay, no momentum decay and no slot change. Without
+``lazy_update`` the gradient is made dense first (the reference's
+``std_update``).
 """
 
 import pickle
@@ -46,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import _rng
+from ..ndarray import sparse as _sparse
 from ..ops.kernels.fused_optimizer import adam_step, hyper_vector, \
     sgd_mom_step
 
@@ -199,16 +210,68 @@ class Optimizer:
         hyper[:, 2:].fill_(1.0)
 
     # ---------------------------------------------------------------- updates
+    #: True: a row-sparse gradient always takes the row-wise update, even
+    #: without ``lazy_update`` (reference adagrad.py:125)
+    _sparse_rowwise = False
+
     def update(self, index, weight, grad, state):
         """In-place update of ``weight`` and ``state`` from ``grad``.
-        Accepts single values or lists (reference optimizer.py:295)."""
+        Accepts single values or lists (reference optimizer.py:295).
+        Weights and slots are tensors (or NDArrays, whose payloads are
+        updated); a gradient may be a ``RowSparseNDArray`` (see the module
+        docstring)."""
         if not isinstance(weight, (list, tuple)):
             index, weight, grad, state = [index], [weight], [grad], [state]
-        lrs, wds, ts = self.step_values(index)
-        hyper = hyper_tensor(self, lrs, wds, ts, weight[0].device)
+        weight = [_raw(w) for w in weight]
+        state = [_raw(s) for s in state]
+        dense = []
+        for i, w, g, s in zip(index, weight, grad, state):
+            if isinstance(g, _sparse.RowSparseNDArray):
+                if getattr(self, 'lazy_update', False) or \
+                        self._sparse_rowwise:
+                    self._update_rows(i, w, g, s)
+                    continue
+                g = g._to_dense_raw()       # std_update: every row
+            dense.append((i, w, _raw(g), s))
+        if not dense:
+            return
+        lrs, wds, ts = self.step_values([e[0] for e in dense])
+        hyper = hyper_tensor(self, lrs, wds, ts, dense[0][1].device)
         with torch.no_grad():
-            for j, (w, g, s) in enumerate(zip(weight, grad, state)):
+            for j, (_, w, g, s) in enumerate(dense):
                 self.step(w, g, s, hyper[j])
+
+    def _update_rows(self, index, weight, grad, state):
+        """The lazy update of ``weight`` and ``state`` from the
+        row-sparse ``grad`` (reference ``_update_one_lazy``)."""
+        lrs, wds, ts = self.step_values([index])
+        # the reference runs this update eagerly, its lr and t Python
+        # numbers: the functions of t are taken in double precision, and
+        # rounded once to the fp32 row the kernels read
+        host = torch.ones(1, self.hyper_width, dtype=torch.float64)
+        host[0, 0], host[0, 1] = lrs[0], wds[0]
+        self.fill_hyper(host, torch.tensor(ts, dtype=torch.float64))
+        hyper = hyper_vector(host.float().tolist(), weight.device)[0]
+        ids = grad.indices._data.to(weight.device)
+        vals = grad.data._data.detach().to(weight.device)
+        if ids.numel() == 0:
+            return
+        valid = None
+        if grad._may_have_duplicates:
+            ids, vals, valid = _sparse.merge_rows(ids, vals)
+        n = weight.shape[0]
+        with torch.no_grad():
+            rows = [weight.index_select(0, ids)]
+            slots = _flat_slots(state, n)
+            rows += [s.index_select(0, ids) for s in slots]
+            self.step(rows[0], vals.to(weight.dtype).contiguous(),
+                      _rows_state(state, rows[1:], n), hyper)
+            for dst, src in zip([weight] + slots, rows):
+                if valid is not None:
+                    # padding repeats the first row: write its value
+                    mask = valid.view((-1,) + (1,) * (src.dim() - 1))
+                    src = torch.where(mask, src, src[:1])
+                dst.index_copy_(0, ids, src)
 
     update_multi_precision = update
 
@@ -234,6 +297,42 @@ def hyper_tensor(optimizer, lrs, wds, ts, device):
                          device)
     optimizer.fill_hyper(hyper, hyper_vector(ts, device))
     return hyper
+
+
+def _raw(x):
+    """The tensor of an NDArray (its payload), a tensor or a structure of
+    them, as it is."""
+    from ..ndarray.ndarray import NDArray
+    if isinstance(x, NDArray):
+        return x._data.detach()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_raw(e) for e in x)
+    return x
+
+
+def _flat_slots(state, n):
+    """The slot tensors of ``state`` with a row a weight row (``n``
+    rows): the ones the lazy update gathers and writes back; a scalar slot
+    (Nadam's running product) is not one."""
+    if state is None:
+        return []
+    if torch.is_tensor(state):
+        return [state] if state.dim() and state.shape[0] == n else []
+    return [t for s in state for t in _flat_slots(s, n)]
+
+
+def _rows_state(state, rows, n):
+    """``state`` with each row-shaped slot replaced by its gathered rows
+    from ``rows``, in :func:`_flat_slots`'s order."""
+    it = iter(rows)
+
+    def sub(s):
+        if s is None:
+            return None
+        if torch.is_tensor(s):
+            return next(it) if s.dim() and s.shape[0] == n else s
+        return type(s)(sub(e) for e in s)
+    return sub(state)
 
 
 def _zeros_like(weight):
@@ -266,7 +365,7 @@ def _fp32_slots(state, weight):
 class SGD(Optimizer):
     """SGD with momentum (reference optimizer/sgd.py:111; fused kernel
     src/operator/optimizer_op.cc sgd_mom_update). ``lazy_update`` acts on
-    row-sparse gradients only, which the port does not have yet."""
+    row-sparse gradients only (the module docstring)."""
 
     def __init__(self, learning_rate=0.01, momentum=0.0, lazy_update=False,
                  **kwargs):
@@ -293,8 +392,8 @@ class SGD(Optimizer):
 @register
 class Adam(Optimizer):
     """Reference optimizer/adam.py; fused kernel adam_update.
-    ``lazy_update`` acts on row-sparse gradients only, which the port does
-    not have yet."""
+    ``lazy_update`` acts on row-sparse gradients only (the module
+    docstring)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, correct_bias=True, lazy_update=False,
@@ -450,7 +549,10 @@ class Nadam(Optimizer):
 
 @register
 class AdaGrad(Optimizer):
-    """Reference optimizer/adagrad.py (dense gradients)."""
+    """Reference optimizer/adagrad.py; a row-sparse gradient always
+    takes the row-wise update (reference adagrad.py:125)."""
+
+    _sparse_rowwise = True
 
     def __init__(self, learning_rate=0.01, epsilon=1e-7, **kw):
         super().__init__(learning_rate=learning_rate, **kw)
@@ -802,6 +904,7 @@ class Updater:
     def __call__(self, index, grad, weight):
         # the kvstore hands NDArrays, as the reference's does: update the
         # tensor each holds, in place
+        held = weight
         grad, weight = getattr(grad, '_data', grad), \
             getattr(weight, '_data', weight)
         state = self.states.get(index)
@@ -811,6 +914,10 @@ class Updater:
                 states_into(state, made, weight.device)
             self.states[index] = state
         self.optimizer.update_multi_precision(index, weight, grad, state)
+        if isinstance(held, _sparse.BaseSparseNDArray):
+            # the step wrote the dense value: compress it into the
+            # components again, as the reference's rebinding write does
+            held._rebind(weight)
 
     def get_states(self, dump_optimizer=False):
         """The states (and the optimizer) pickled, with the slots as numpy

@@ -281,8 +281,21 @@ def test_embedding_matches_the_jax_layer():
     ids = np.array([[1, 9, 0], [3, 3, 2]], np.int32)
     np.testing.assert_allclose(tnet(tmx.np.array(ids)).asnumpy(),
                                jnet(jmx.np.array(ids)).asnumpy(), **TOL)
-    with pytest.raises(MXNetError, match='A3'):
-        tnn.Embedding(10, 4, sparse_grad=True)
+    # sparse_grad=True: a recorded lookup gives a row-sparse gradient, one
+    # entry a token occurrence, whose dense value is the JAX layer's
+    sparse = []
+    for mx, nn_, ag in ((jmx, jgl.nn, jag), (tmx, tnn, tmx.autograd)):
+        net = nn_.Embedding(10, 4, sparse_grad=True)
+        net.initialize()
+        net.weight.set_data(w)
+        with ag.record():
+            loss = (net(mx.np.array(ids)) ** 2).sum()
+        loss.backward()
+        sparse.append(net.weight.grad())
+    jg, tg = sparse
+    assert type(tg).__name__ == 'RowSparseNDArray' and \
+        tg._may_have_duplicates and tg.data.shape == (6, 4)
+    np.testing.assert_allclose(tg.asnumpy(), jg.asnumpy(), **TOL)
     # SyncBatchNorm in one process is BatchNorm, as in the JAX package:
     # the training-mode output and the running statistics at TOL
     x = _x((4, 3, 5), 9)

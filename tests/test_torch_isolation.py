@@ -51,6 +51,25 @@ def test_the_package_exports_the_frontend_and_loads_no_jax():
                                                     'LOADED []']
 
 
+def test_the_sparse_fft_and_control_flow_surfaces_load_no_jax():
+    code = (
+        'import sys\n'
+        'import mxnet_tpu_torch as mx\n'
+        'have = [mx.nd.sparse.RowSparseNDArray, mx.nd.sparse.csr_matrix,\n'
+        '        mx.np.fft.fft, mx.np.linalg.eigh, mx.npx.foreach,\n'
+        '        mx.npx.while_loop, mx.nd.contrib.cond,\n'
+        '        mx.np.random.gamma]\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
+
+
 @pytest.mark.parametrize('path', sorted(
     str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')))
 def test_no_source_imports_jax_or_the_jax_package(path):

@@ -177,8 +177,8 @@ def test_row_sparse_pull_fallback():
 
 def test_row_sparse_pull_rows_of_a_dense_table():
     """The dense-table branch with row ids: into ``out``'s rows, and with
-    no out the rows in an array of the table's shape (the value of JAX's
-    RowSparseNDArray, which the port does not have: A3 rest)."""
+    no out a ``RowSparseNDArray`` of those rows only, whose value is the
+    JAX package's."""
     table = np.arange(8, dtype=np.float32).reshape(4, 2)
 
     def run(mx, kv):
@@ -190,6 +190,8 @@ def test_row_sparse_pull_rows_of_a_dense_table():
     (j_out, j_rows), (t_out, t_rows) = _both(run)
     np.testing.assert_array_equal(t_out.asnumpy(), j_out.asnumpy())
     np.testing.assert_array_equal(t_rows.asnumpy(), j_rows.asnumpy())
+    assert type(t_rows).__name__ == 'RowSparseNDArray'
+    assert t_rows.data.shape == j_rows.data.shape == (2, 2)
 
 
 def test_optimizer_states_save_load(tmp_path):

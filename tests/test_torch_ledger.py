@@ -94,15 +94,21 @@ def test_ported_ops_reach_their_namespaces():
 
 
 def test_pending_put_along_axis_raises_instead_of_a_host_copy():
-    # numpy's put_along_axis on a host copy would return None and leave
-    # the array as it was
+    """``put_along_axis``, once pending so that no host copy stood in for
+    it, is a registered op of the port: a device op, not the host
+    fallback, whose result is the JAX package's."""
+    import mxnet_tpu as jmx
     import mxnet_tpu_torch as mx
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    idx = np.array([[2], [0]], np.int32)
+    want = jmx.np.put_along_axis(jmx.np.array(a), jmx.np.array(idx), 9.0,
+                                 1).asnumpy()
     with mx.cpu():
-        a = mx.np.zeros((2, 3))
-        with pytest.raises(NotImplementedError, match='A3 rest'):
-            mx.np.put_along_axis(a, mx.np.zeros((2, 1), dtype='int32'),
-                                 1.0, 1)
-    assert not hasattr(mx.np, 'put_along_axis')
+        got = mx.np.put_along_axis(mx.np.array(a), mx.np.array(idx), 9.0, 1)
+    assert 'put_along_axis' in treg.list_ops()
+    assert not (mx.np.put_along_axis.__doc__ or '').startswith(
+        'Official-numpy HOST')
+    np.testing.assert_array_equal(got.asnumpy(), want)
 
 
 def test_no_pending_name_reaches_the_host_fallback():
