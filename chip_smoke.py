@@ -23,6 +23,11 @@
                                                   # pipelines and MoE
     python3 chip_smoke.py --phases device,build,sparse  # row-sparse
                                                   # training, A3 ops
+    python3 chip_smoke.py --phases device,build,symbol  # export, import,
+                                                  # amp.convert_model, bulking
+    python3 chip_smoke.py --host-cost build/parent  # mx.np.add's host
+                                                  # cost against another
+                                                  # checkout's, in turns
 
 Phases, each of which fails the run on any error:
 
@@ -326,14 +331,16 @@ Phases, each of which fails the run on any error:
                bit-equal to a ``kvstore=None`` Trainer's from the same
                weights, with Adam, again under ``DIST_ASYNC_FAULTS``, and
                with SGD-momentum (B6 on the server); 26 B1, 12 B2 and 156
-               B5 or B6 a step. (b) Two workers
+               B5 or B6 a step. (b) Two workers of BERT-base's widths at
+               ``DIST_ASYNC_LAYERS`` (4) of its 12 layers (cut to keep the
+               run inside its time limit)
                (``parallel.launch.spawn``, both on cuda:0, each process
                holding one of ``MXNET_KVSTORE_NUM_SERVERS=2`` servers, so
                the word embedding and every other key of 1 MB or more is
                split between them), 4 steps: the servers' ``push_applied``
                summed equals workers x steps x (keys + the split keys'
                extra chunks), and so do the B5 launches summed over both
-               processes; 26 B1 and 12 B2 in every step of every worker;
+               processes; 10 B1 and 4 B2 in every step of every worker;
                rank 0 captures its forward and backward graphs once, while
                its server applies rank 1's pushes; after a final barrier
                both workers pull bit-equal weights; losses finite and
@@ -365,13 +372,15 @@ Phases, each of which fails the run on any error:
                ranks at dp 2 x tp 2 serve the same prompts at
                ``llama3_8b``'s widths and 4 layers, slots and pages split
                on dp, against a one-process 4-layer server. (c) The four
-               train ``bert_12_768_12`` on the bert phase's (32, 128)
+               train ``bert_12_768_12``'s widths at 4 of its 12 layers
+               (``SHARD['bert_kw']``, cut to keep the run inside its time
+               limit) on the bert phase's (32, 128)
                batch, hybridized, Adam 1e-4, three steps under
                ``mesh(dp=2, tp=2)`` and three under ``mesh(dp=4)``
                (``bert.bert_partition_rules``, ROADMAP C12): losses at
                rtol 1e-4 and each tensor's change within 1 % of one
-               process's, the ranks' gathered weights equal, 26 B1, 12
-               B2 and 156 B5 a step a rank (B5 summed over the ranks
+               process's, the ranks' gathered weights equal, 10 B1, 4
+               B2 and 60 B5 a step a rank (B5 summed over the ranks
                equal to the ZeRO-1 plan), slot bytes a quarter of one
                process's a rank. (d) (c)'s dp 2 x tp 2 weights and
                Trainer slots through ``SharedCheckpointManager``, read
@@ -382,8 +391,10 @@ Phases, each of which fails the run on any error:
                share (staging included), peak memory, rank 0's busy
                share (its last step profiled, every rank running it
                again if the profile lost events).
-17. elastic -- ``mx.train``. (a) ``bert_12_768_12`` at (32,
-               128), fp32, Dropout 0.1, Adam, hybridized, batches from a
+17. elastic -- ``mx.train``. (a) ``bert_12_768_12``'s widths at
+               ``ELASTIC_A['layers']`` (4) of its 12 layers (cut to keep the
+               run inside its time limit), (32, 128), fp32, Dropout 0.1,
+               Adam, hybridized, batches from a
                shuffled ``DataLoader.resumable()``, in three processes of
                this script (``--elastic-worker``), each under
                ``deterministic``: six steps straight; three with
@@ -392,7 +403,7 @@ Phases, each of which fails the run on any error:
                be 2); a fresh process that compiles its graphs on a zero
                batch, restores and trains steps 3-6. Weights, Adam slots,
                the update count and the losses must be bit-equal to the
-               straight run's; 26 B1, 12 B2, 156 B5 a step. (b) Four
+               straight run's; 10 B1, 4 B2, 60 B5 a step. (b) Four
                ranks as two hosts of two (``MeshGroup(2, devices=[0, 1,
                2, 3])``), ``ELASTIC_B['layers']`` layers at BERT-base's
                widths under FSDP through ``MeshElasticTrainer`` over a
@@ -455,7 +466,55 @@ Phases, each of which fails the run on any error:
                their moments; ``foreach`` (captured) and ``cond`` with
                ``while_loop`` (decided on the host: eager, counted) in a
                hybridized block, eager and graphed outputs equal.
-21. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+21. symbol  -- the export path (``HybridBlock.export``, ``mx.sym``,
+               ``SymbolBlock``, ``amp.convert_model``), files under
+               ``build/symbol/``. (a) ``bert_12_768_12`` (no dropout, no
+               NSP head) at the bert phase's (32, 128), hybridized,
+               predicts once and is exported (its trace abstract, on meta
+               tensors); ``SymbolBlock.imports(..., ctx=mx.gpu(0))``
+               predicts the same batch: outputs bit-equal to the Gluon
+               net's (else within 1e-6 of the largest value, logged), 26
+               B1 and 12 B2 a predict and no other kernel; hybridized, one
+               capture over three calls with equal outputs; host ms a
+               graphed predict beside the Gluon net's. Then a fresh import
+               and the Gluon net from the exported weights train three
+               Adam steps in lockstep, both hybridized: 26 B1, 12 B2 and
+               156 B5 a step in each, losses and weights bit-equal, else
+               the losses at rtol 1e-4 and each tensor's change within 1 %
+               of the Gluon net's (2-norm), the Gluon net run twice beside
+               (an embedding's backward adds its rows with atomics on the
+               card, so two runs of one net part in the last bits). (b)
+               ``amp.convert_model`` of that symbol to bf16 by the
+               reference's lists (B2 in bf16; ``layer_norm`` is on the
+               fp32 list, so B1 stays fp32), and with ``layer_norm`` moved
+               to the target list (B1 in bf16 too), each launch's element
+               type read from its profiled kernel's name; each converted
+               block on the card held to the same converted symbol run by
+               the port on the host, on the first ``SYMBOL_BF16_ROWS``
+               sequences: each output's largest gap from the host's fp32
+               output (over its largest value) at most twice the host's
+               bf16 gap plus 1e-3, the card-host gap logged (bf16 rounds
+               in other places on each side, and 12 layers carry it to a
+               few bf16 ulps); host ms a predict beside (a)'s fp32. (c) The JAX package's committed
+               ``tests/fixtures/format/mobilenet0_25`` files imported on
+               the card reproduce its recorded output at rtol 1e-4; then
+               ``resnet50_v1`` at batch 32 exported and imported: the
+               imported block's graphed predict (one capture over three
+               calls, no kernel of the eight) equal to the Gluon net's.
+               (d) The bulking engine (``mx.engine``): the ndarray phase's
+               imperative ``llama3_8b`` block step (:func:`frontend_loss`,
+               three Adam steps) eagerly and with its recorded forward
+               and backward under ``engine.bulk(n)`` for each n of
+               ``SYMBOL_BULK``, from the same weights: the launches of
+               every step equal kernel by kernel, losses and weights
+               bit-equal (else losses at rtol 1e-4 and each tensor's
+               change within 1 %, logged), segment shapes captured in the
+               first step only; host ms a step for each. Then chains of
+               ``SYMBOL_CHAINS`` elementwise ops on (4, 4096): host us an
+               op, eager and bulked (one captured segment a chain,
+               replayed), equal results. These figures set bulking's
+               default on the card (off: PERF.md).
+22. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -469,15 +528,15 @@ Phases, each of which fails the run on any error:
                k and v gradients of a seeded cotangent must meet autograd
                through plain dense attention (``ring_grad_checks``). Logs each rank's host ms,
                stats-kernel ms and transport ms.
-22. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+23. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
                the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8, train, ndarray, bert, resnet, bf16, qresnet, optim, sparse and rtc
-phases and read just after
+int8, train, ndarray, bert, resnet, bf16, qresnet, optim, sparse, symbol
+and rtc phases and read just after
 it (with the optimizer's plain-update counters), and in each
 rank just before and after its ring runs, its dist runs (b) and (c), its
 dist_async runs (b) and (c) (the dist_async phase's (a) runs in this
@@ -512,7 +571,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
           'train', 'ndarray', 'bert', 'resnet', 'bf16', 'qresnet', 'optim',
           'dist', 'dist_async', 'sharding', 'elastic', 'pipeline', 'moe',
-          'sparse', 'ring', 'rtc')
+          'sparse', 'symbol', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -2785,6 +2844,90 @@ def _decode_ops(torch, mx, dev):
         fail('ndarray: a kernel-backed op parts from its plain version')
 
 
+def add_us(torch, mx, rounds=5, calls=2000):
+    """Host us a call of ``mx.np.add`` of (4, 4) and of ``torch.add`` on
+    the same payloads, each the least of ``rounds`` rounds of ``calls``."""
+    a, b = mx.np.ones((4, 4)), mx.np.ones((4, 4))
+    ta, tb = a._data, b._data
+
+    def per_call_us(fn):
+        best = math.inf
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        return best
+
+    for _ in range(100):
+        mx.np.add(a, b)
+        torch.add(ta, tb)
+    return per_call_us(lambda: mx.np.add(a, b)), \
+        per_call_us(lambda: torch.add(ta, tb))
+
+
+def host_cost(other, rounds=31, calls=2000):
+    """``--host-cost DIR``: the host us of ``mx.np.add`` of (4, 4) with
+    this tree's ``mxnet_tpu_torch`` and with the one of the checkout
+    ``DIR``, each loaded in this process under a name of its own (the
+    package imports itself only relatively), timed in turns (the order
+    reversed every other round), ``rounds`` rounds of ``calls`` each, the
+    least of each kept; ``torch.add`` on the same payloads beside them,
+    and the op's own function (the same code in both trees) as a control
+    of the measurement."""
+    import importlib.util
+    import torch
+
+    def load(root, name):
+        src = Path(root).resolve() / 'mxnet_tpu_torch'
+        spec = importlib.util.spec_from_file_location(
+            name, src / '__init__.py', submodule_search_locations=[str(src)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        return mod
+
+    # both under names of their own, loaded alike
+    mine = load(ROOT, 'mxnet_tpu_torch_this')
+    theirs = load(other, 'mxnet_tpu_torch_other')
+    pairs = {}
+    for name, mx in (('this tree', mine), (other, theirs)):
+        a, b = mx.np.ones((4, 4)), mx.np.ones((4, 4))
+        pairs[name] = (lambda a=a, b=b, mx=mx: mx.np.add(a, b))
+        # the op's own function, unchanged between the trees: a control
+        # for what the measurement itself makes of two loaded packages
+        fn = sys.modules[mx.__name__ + '.ops.registry'].get_op('add').fn
+        pairs[f'{name}: the op alone'] = (
+            lambda a=a._data, b=b._data, fn=fn: fn(a, b))
+    ta, tb = torch.ones(4, 4, device='cuda'), torch.ones(4, 4, device='cuda')
+    pairs['torch.add'] = lambda: torch.add(ta, tb)
+    best = dict.fromkeys(pairs, math.inf)
+    for fn in pairs.values():
+        for _ in range(200):
+            fn()
+    order = list(pairs.items())
+    for r in range(rounds):
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            best[name] = min(best[name],
+                             (time.perf_counter() - t0) / calls * 1e6)
+    front = best['this tree'] - best[other]
+    control = best['this tree: the op alone'] - best[f'{other}: the op alone']
+    log(f'[host cost] host us a call, the least of {rounds} rounds of '
+        f'{calls} in turns: ' + ', '.join(
+            f'{k} {v:.3f}' for k, v in best.items()) +
+        f'; this tree against {other}: mx.np.add {front:+.3f} us, the op '
+        f'alone {control:+.3f} us, the frontend\'s own '
+        f'{front - control:+.3f} us ({smi_line()})')
+    return best
+
+
 def ndarray_costs(torch, got, rounds=5, calls=2000):
     """What the frontend costs on the host, beside the card's name and
     power limit: ms per imperative step against the module path's, µs per
@@ -2803,25 +2946,7 @@ def ndarray_costs(torch, got, rounds=5, calls=2000):
             f'dispatched a step; all steps imperative '
             f'{[round(r[4], 2) for r in rows]} module '
             f'{[round(r[5], 2) for r in rows]} ({smi})')
-    a, b = mx.np.ones((4, 4)), mx.np.ones((4, 4))
-    ta, tb = a._data, b._data
-
-    def per_call_us(fn):
-        best = math.inf
-        for _ in range(rounds):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            best = min(best, (time.perf_counter() - t0) / calls * 1e6)
-        return best
-
-    for _ in range(100):
-        mx.np.add(a, b)
-        torch.add(ta, tb)
-    us_mx = per_call_us(lambda: mx.np.add(a, b))
-    us_t = per_call_us(lambda: torch.add(ta, tb))
+    us_mx, us_t = add_us(torch, mx, rounds, calls)
     log(f'[ndarray] host us per dispatched op, mx.np.add (4, 4): {us_mx:.2f}; '
         f'torch.add: {us_t:.2f}; the frontend adds {us_mx - us_t:.2f} us '
         f'({smi})')
@@ -2883,6 +3008,15 @@ RESNET_OPT = ('sgd', {'learning_rate': 0.05, 'momentum': 0.9})
 #: the 106 running statistics; tests/test_torch_vision.py holds it to
 #: both packages)
 RESNET_UPDATED = 193
+
+
+def bert_launches(layers):
+    """A BERT-base training step's launches at ``layers`` layers: two
+    LayerNorms a cell, the embedding's and the decoder's; one attention a
+    cell; every parameter's update (12 a cell and 12 outside the cells,
+    as BERT_UPDATED counts them)."""
+    return {'fused_norm': 2 * layers + 2, 'flash_attention': layers,
+            'adam': 12 * layers + 12}
 
 
 def bert_batch(mx, seed, batch, seq, vocab):
@@ -5667,6 +5801,9 @@ def dist_costs(torch, got):
 DIST_ASYNC_PARITY_STEPS = 3
 DIST_ASYNC_STEPS = 4
 DIST_ASYNC_SERVERS = 2
+#: (b) and (c): BERT-base's widths at this depth, not its 12 layers:
+#: their pushes and pulls of its 440 MB took most of the phase's time
+DIST_ASYNC_LAYERS = 4
 #: (c)'s fault plan, modelled on tests/nightly/dist_async_faults.py's
 #: (reset_every:push:3;drop:push:0.3:seed=rank over 6 pushes): a
 #: connection reset after the server applied every 25th push, and a lossy
@@ -5939,7 +6076,8 @@ def _async_rank(seed, base):
     rank = dist.get_rank()
     mx.random.seed(seed)
     net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
-                              use_classifier=False)
+                              use_classifier=False,
+                              num_layers=DIST_ASYNC_LAYERS)
     net.initialize(ctx=mx.gpu(0))
     half = BERT_BATCH // DIST_RANKS
     rows = slice(rank * half, (rank + 1) * half)
@@ -6005,7 +6143,9 @@ def phase_dist_async(torch, seed):
         chunks = runs[0]['chunks']
         want = sum(x['steps'] for x in runs) * chunks
         b5 = sum(x['launches']['adam'] for x in runs)
-        fwd = [{k: c.get(k, 0) for k in BERT_FORWARD} for x in runs
+        want_fwd = {k: v for k, v in bert_launches(
+            DIST_ASYNC_LAYERS).items() if k != 'adam'}
+        fwd = [{k: c.get(k, 0) for k in want_fwd} for x in runs
                for c in x['counts']]
         falls = all(all(math.isfinite(v) for v in x['losses'])
                     and x['losses'][-1] < x['losses'][0] for x in runs)
@@ -6021,13 +6161,13 @@ def phase_dist_async(torch, seed):
             f' by server, on {devices}), B5 launched {b5} '
             f'({[x["launches"]["adam"] for x in runs]} by process); B1/B2 '
             f'a step {fwd[0]} in every step of every worker: '
-            f'{all(f == BERT_FORWARD for f in fwd)}; losses '
+            f'{all(f == want_fwd for f in fwd)}; losses '
             f'{[x["losses"] for x in runs]} finite and falling {falls}; '
             f'weights pulled after the last barrier bit-equal {equal}; '
             f'retries {retries}, injected '
             f'{[h["faults"] for h in health.values()][:1]}')
         if applied != want or b5 != want or \
-                any(f != BERT_FORWARD for f in fwd) or not falls or \
+                any(f != want_fwd for f in fwd) or not falls or \
                 not equal or devices != ['cuda:0']:
             fail(f'dist_async: {tag} pushes applied {applied}, B5 {b5}, '
                  f'want {want}; forward launches {fwd}; losses falling '
@@ -6105,12 +6245,13 @@ def dist_async_costs(torch, ranks):
 #: expanded to 32 heads) over its whole max_length, sharded over sp ranks
 #: the sharding phase: (a) llama3_8b at tp = 2, full width at 4 layers,
 #: the serve phase's settings; (b) its widths at dp 2 x tp 2 and SHARD_LAYERS
-#: layers; (c) BERT-base at (32, 128) under mesh(dp=2, tp=2) and
-#: mesh(dp=4), SHARD_STEPS Adam steps each; (d) (c)'s dp 2 x tp 2 state
-#: through SharedCheckpointManager
+#: layers; (c) BERT-base's widths at 4 of its 12 layers
+#: at (32, 128) under mesh(dp=2, tp=2) and mesh(dp=4), SHARD_STEPS Adam
+#: steps each; (d) (c)'s dp 2 x tp 2 state through SharedCheckpointManager
 SHARD = dict(model='llama3_8b', layers=4, layers_b=4, slots=4,
              max_length=2048, psz=16, chunk=32, n_new=32, dev='cuda',
-             bert='bert_12_768_12', bert_kw={}, batch=BERT_BATCH,
+             bert='bert_12_768_12', bert_kw={'num_layers': 4},
+             batch=BERT_BATCH,
              seq=BERT_SEQ, vocab=BERT_VOCAB, steps=BERT_STEPS,
              ckpt=str(ROOT / 'build' / 'sharding_ckpt'))
 #: the near tie a parting token must show (the top two logits within this
@@ -6626,8 +6767,9 @@ def phase_sharding(torch, seed, cfg=None, serve_ref=None):
         per_step = [{k: c.get(k, 0) for k in ('fused_norm',
                                                'flash_attention', 'adam')}
                     for c in runs[0]['counts']]
-        want_step = {'fused_norm': 26, 'flash_attention': 12,
-                     'adam': runs[0]['updated']}
+        want_step = dict(bert_launches(cfg['bert_kw'].get('num_layers',
+                                                          12)),
+                         adam=runs[0]['updated'])
         b5 = [sum(r['counts'][i].get('adam', 0) for r in runs)
               for i in range(cfg['steps'])]
         plan = sum(r['updated'] for r in runs)
@@ -7059,8 +7201,10 @@ def rtc_checks(torch, rows, x, y, n, grid, kernels, got):
 #: 0.1, hybridized; steps are numbered from 1, a run of ELASTIC_STEPS
 #: straight against one killed inside its save of step ELASTIC_KILL_AT
 ELASTIC_STEPS, ELASTIC_KILL_AT = 6, 3
+#: at BERT-base's widths cut to ``layers`` of its 12 (its three processes
+#: at 12 layers took most of the phase's 251 s in the run before)
 ELASTIC_A = dict(samples=256, batch=BERT_BATCH, seq=BERT_SEQ,
-                 vocab=BERT_VOCAB, bert_kw={}, dev='cuda')
+                 vocab=BERT_VOCAB, layers=4, bert_kw={}, dev='cuda')
 #: elastic (b): four ranks as two hosts of two, bert_12_768_12's widths
 #: at this depth under FSDP (bert_partition_rules('fsdp')), Adam; host 1
 #: dies after step ``commit`` is committed (at the barrier of the next
@@ -7075,7 +7219,8 @@ REHEARSE = os.environ.get('CHIP_SMOKE_REHEARSE') == '1'
 _TINY_BERT = dict(units=32, hidden_size=64, num_heads=4, num_layers=2)
 if REHEARSE:
     ELASTIC_A.update(samples=48, batch=8, seq=16, vocab=100,
-                     bert_kw=_TINY_BERT, dev='cpu')
+                     layers=_TINY_BERT['num_layers'], bert_kw=_TINY_BERT,
+                     dev='cpu')
     ELASTIC_B.update(deadline_s=3, bert_kw=_TINY_BERT, dev='cpu')
 
 
@@ -7104,7 +7249,8 @@ def _elastic_a_build(torch, mx, gluon, bert, parallel, ElasticTrainer, ckpt,
     mx.random.seed(seed)
     net = bert.get_bert_model('bert_12_768_12', max_length=a['seq'],
                               dropout=0.1, use_classifier=False,
-                              vocab_size=a['vocab'], **a['bert_kw'])
+                              vocab_size=a['vocab'], **dict(
+                                  a['bert_kw'], num_layers=a['layers']))
     net.initialize(ctx=_ctxd(mx, a['dev']))
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, a['vocab'], (a['samples'], a['seq']))
@@ -7255,13 +7401,11 @@ def _elastic_a_checks(torch, got):
              f'steps {losses}, num_update {a["num_update"]} / '
              f'{b["num_update"]}')
     per_step = a['counts'][ELASTIC_STEPS]
-    want = {'fused_norm': BERT_FORWARD['fused_norm'],
-            'flash_attention': BERT_FORWARD['flash_attention'],
-            'adam': BERT_UPDATED}
+    want = bert_launches(ELASTIC_A['layers'])
     if not REHEARSE and {k: per_step.get(k, 0) for k in want} != want:
         fail(f'elastic: (a) a step launched {per_step}, want {want}')
-    log(f'[elastic] (a) bert_12_768_12 ({ELASTIC_A["batch"]}, '
-        f'{ELASTIC_A["seq"]}) Adam Dropout 0.1, '
+    log(f'[elastic] (a) bert_12_768_12 at {ELASTIC_A["layers"]} layers '
+        f'({ELASTIC_A["batch"]}, {ELASTIC_A["seq"]}) Adam Dropout 0.1, '
         f'hybridized (captures net/trainer {a["graphs"]}): {ELASTIC_STEPS} '
         f'steps straight against a run SIGKILLed inside its save of step '
         f'{ELASTIC_KILL_AT} and resumed from step {b["start"]}: weights, '
@@ -7412,11 +7556,7 @@ def _elastic_b(torch, seed):
 def _elastic_b_checks(got):
     commit, steps = ELASTIC_B['commit'], ELASTIC_B['steps']
     layers = ELASTIC_B['layers']
-    # a rank's launches a step: two LayerNorms a cell, the embedding's and
-    # the decoder's; one attention a cell; every parameter's update (12 a
-    # cell and 12 outside the cells, as BERT_UPDATED counts them)
-    want_b = {'fused_norm': 2 * layers + 2, 'flash_attention': layers,
-              'adam': 12 * layers + 12}
+    want_b = bert_launches(layers)
     want = got['planned'][0]['digests']
     if got['planned'][0]['restored'] != commit:
         fail(f'elastic: (b) the planned run restored '
@@ -8503,6 +8643,492 @@ def phase_sparse(torch, seed):
     return got
 
 
+# ------------------------------------------------------------------ symbol
+#: the symbol phase's files (build/ is git-ignored) and sizes: BERT-base at
+#: the bert phase's batch, ResNet-50 at the resnet phase's; (b) holds the
+#: card to the host on the first SYMBOL_BF16_ROWS sequences
+SYMBOL_DIR = ROOT / 'build' / 'symbol'
+SYMBOL = dict(dev='cuda', bert_kw={}, batch=BERT_BATCH, seq=BERT_SEQ,
+              vocab=BERT_VOCAB, resnet='resnet50_v1', images=32, side=224)
+SYMBOL_BF16_ROWS = 2
+if REHEARSE:
+    SYMBOL.update(dev='cpu', bert_kw=_TINY_BERT, batch=4, seq=16, vocab=100,
+                  resnet='resnet18_v1', images=2, side=32)
+
+
+def _outs(res):
+    return list(res) if isinstance(res, (tuple, list)) else [res]
+
+
+def _equal_outs(torch, what, got, want, rtol):
+    """Bit-equal, else within ``rtol`` of the largest |want| (logged):
+    True when bit-equal."""
+    got, want = _outs(got), _outs(want)
+    same = len(got) == len(want) and all(
+        torch.equal(g._data, w._data) for g, w in zip(got, want))
+    if same:
+        return True
+    gaps = [float((g._data.double() - w._data.double()).abs().max()
+                  / w._data.double().abs().max().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+    log(f'[symbol] {what}: not bit-equal; largest gap over the largest '
+        f'|value| {gaps} (limit {rtol})')
+    if not all(math.isfinite(x) and x <= rtol for x in gaps):
+        fail(f'symbol: {what} parts from its reference: {gaps}')
+    return False
+
+
+def _predict_ms(torch, dev, call, n=3):
+    """Host ms of ``n`` synced calls."""
+    out = []
+    for _ in range(n):
+        _sync_all(torch, dev.type)
+        t0 = time.perf_counter()
+        call()
+        _sync_all(torch, dev.type)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _symbol_bert(torch, mx, seed):
+    """(a): BERT-base exported, imported, predicted, hybridized and trained
+    in lockstep with the Gluon net. Returns the numbers and the files."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import kernels
+    a = SYMBOL
+    card = a['dev'] == 'cuda'
+    ctx = _ctxd(mx, a['dev'])
+    dev = ctx.to_torch()
+    mx.random.seed(seed)
+    net = bert.get_bert_model('bert_12_768_12', max_length=a['seq'],
+                              dropout=0.0, use_classifier=False,
+                              vocab_size=a['vocab'], **a['bert_kw'])
+    net.initialize(ctx=ctx)
+    ids, tt, labels = bert_batch(mx, seed, a['batch'], a['seq'], a['vocab'])
+    eager = net(ids, tt)            # deferred initialization; the reference
+    net.hybridize(static_alloc=True)
+    net(ids, tt)                    # the capture
+    gluon_ms = _predict_ms(torch, dev, lambda: net(ids, tt))
+    t0 = time.perf_counter()
+    sym_file, param_file = net.export(str(SYMBOL_DIR / 'bert'))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imp = SymbolBlock.imports(sym_file, ['data0', 'data1'], param_file,
+                              ctx=ctx)
+    import_s = time.perf_counter() - t0
+    ops = {}
+    for n in imp._sym._topo():
+        ops[n.op] = ops.get(n.op, 0) + 1
+    want_fwd = dict(BERT_FORWARD) if card else {}
+    before = kernels.launch_counts()
+    out = imp(ids, tt)
+    _sync_all(torch, a['dev'])
+    got = _counts_since(kernels, before)
+    if got != want_fwd:
+        fail(f'symbol: (a) an imported predict launched {got}, want '
+             f'{want_fwd}')
+    bit = _equal_outs(torch, '(a) imported predict against the Gluon net',
+                      out, eager, 1e-6)
+    imp.hybridize(static_alloc=True)
+    graphed = []
+    for i in range(3):
+        before = kernels.launch_counts()
+        res = imp(ids, tt)
+        _sync_all(torch, a['dev'])
+        graphed.append(_counts_since(kernels, before))
+        _equal_outs(torch, f'(a) hybridized imported predict {i + 1}', res,
+                    eager, 1e-6)
+    want_caps = 1 if card else 0
+    if graphed != [want_fwd] * 3 or imp.capture_count != want_caps or \
+            imp.compile_count != 1:
+        fail(f'symbol: (a) the hybridized imported block launched '
+             f'{graphed}, captured {imp.capture_count} and keyed '
+             f'{imp.compile_count} (want {want_fwd} a call, {want_caps}, 1)')
+    imp_ms = _predict_ms(torch, dev, lambda: imp(ids, tt))
+    log(f'[symbol] (a) bert_12_768_12 ({a["batch"]}, {a["seq"]}) exported in '
+        f'{export_s:.1f} s ({os.path.getsize(sym_file) / 1e3:.1f} kB of '
+        f'symbol, {os.path.getsize(param_file) / 1e6:.1f} MB of parameters) '
+        f'and imported in {import_s:.1f} s: {len(imp.collect_params())} '
+        f'parameters; graph ops {dict(sorted(ops.items()))}; a predict '
+        f'launches {want_fwd}; outputs '
+        f'{"bit-equal to" if bit else "within 1e-6 of"} the Gluon net\'s; '
+        f'hybridized: {imp.capture_count} capture over 3 calls; host ms a '
+        f'graphed predict: imported {[round(x, 3) for x in imp_ms]}, Gluon '
+        f'{[round(x, 3) for x in gluon_ms]}; card '
+        f'{smi_line() if card else "host (a rehearsal)"}')
+
+    # three Adam steps in lockstep from the exported weights
+    params = net.collect_params()
+    start = mx.model.load_ndarray_map(param_file, ctx=ctx)
+    for k, p in params.items():
+        p.set_data(start[k])
+    trained = SymbolBlock.imports(sym_file, ['data0', 'data1'], param_file,
+                                  ctx=ctx)
+    trained(ids, tt)
+    trained.hybridize(static_alloc=True)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    hyper = dict(BERT_OPTS[0][2])
+    runs = {}
+    init = {k: v._data.detach().clone() for k, v in start.items()}
+    # the Gluon net twice: on the card an embedding's backward adds its
+    # rows with atomics, so two runs of one net part in the last bits,
+    # which Adam's division carries into the weights
+    for tag, blk in (('gluon', net), ('imported', trained),
+                     ('gluon again', net)):
+        if tag == 'gluon again':
+            for k, p in params.items():
+                p.set_data(start[k])
+        tr = gluon.Trainer(blk.collect_params(), 'adam', dict(hyper))
+        losses, counts = [], []
+        for _ in range(BERT_STEPS):
+            before = kernels.launch_counts()
+            loss = bert_step(mx, blk, tr, loss_fn, ids, tt, labels)
+            losses.append(loss.item())
+            counts.append(_counts_since(kernels, before))
+        runs[tag] = (losses, counts, {
+            k: p.data()._data.detach().clone()
+            for k, p in blk.collect_params().items()})
+    want_step = dict(BERT_FORWARD, adam=BERT_UPDATED) if card else {}
+    (gl, gc, gw), (il, ic, iw) = runs['gluon'], runs['imported']
+    if ic != [want_step] * BERT_STEPS or gc != ic:
+        fail(f'symbol: (a) a training step launched {ic} (the Gluon net '
+             f'{gc}), want {want_step}')
+    if sorted(gw) != sorted(iw):
+        fail('symbol: (a) the imported block has other parameters than the '
+             'Gluon net')
+    bit_w = all(torch.equal(gw[k], iw[k]) for k in gw) and gl == il
+    bad, worst = _change_gaps(init, {False: (gl, gw), True: (il, iw)})
+    _, control = _change_gaps(init, {False: (gl, gw),
+                                     True: runs['gluon again'][::2]})
+    same_loss = all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(il, gl))
+    log(f'[symbol] (a) {BERT_STEPS} Adam steps in lockstep: losses Gluon '
+        f'{gl}, imported {il}, Gluon again {runs["gluon again"][0]}; '
+        f'{"bit-equal" if bit_w else "not bit-equal"}; |imported change - '
+        f'Gluon change| over |Gluon change|, worst {worst} (1e-2; the Gluon '
+        f'net against itself: {control}); a step launches {ic[-1]}; '
+        f'captures imported {trained.capture_count}')
+    if not bit_w and (bad or not same_loss):
+        fail(f'symbol: (a) the imported block trained apart from the Gluon '
+             f'net: losses {il} against {gl} (rtol 1e-4); past 1e-2 {bad}')
+    moved = sum(not torch.equal(iw[k], init[k]) for k in iw)
+    if not il[-1] < il[0] or not moved:
+        fail(f'symbol: (a) the imported block did not train: {il}')
+    del runs, gw, iw, start, init
+    return dict(imp_ms=imp_ms, gluon_ms=gluon_ms, sym_file=sym_file,
+                param_file=param_file, ids=ids, tt=tt, bit=bit,
+                bit_train=bit_w)
+
+
+def _symbol_bf16(torch, mx, got):
+    """(b): ``amp.convert_model`` of (a)'s symbol, run on the card and held
+    to the same converted symbol on the host."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.amp import lists
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    card = SYMBOL['dev'] == 'cuda'
+    ctx = _ctxd(mx, SYMBOL['dev'])
+    dev = ctx.to_torch()
+    sym = mx.sym.load(got['sym_file'])
+    args = mx.model.load_ndarray_map(got['param_file'], ctx=ctx)
+    host_args = {k: v.as_in_context(mx.cpu()) for k, v in args.items()}
+    ids, tt = got['ids'], got['tt']
+    rows = slice(0, SYMBOL_BF16_ROWS)
+    h_ids, h_tt = (x[rows].as_in_context(mx.cpu()) for x in (ids, tt))
+    # the fp32 symbol on the host: how far bf16 is from it on each side
+    h32 = _outs(SymbolBlock(sym, ['data0', 'data1'], params=host_args)(
+        h_ids, h_tt))
+    res = {}
+    # the reference's lists (layer_norm in fp32), then layer_norm moved to
+    # the target list, so that B1 takes its bf16 entry too
+    for tag, kw in (('lists', {}), ('norm_bf16', dict(
+            target_dtype_ops=lists.TARGET_DTYPE_OPS | {'layer_norm'},
+            fp32_ops=lists.FP32_OPS - {'layer_norm'}))):
+        csym, cargs, _ = amp.convert_model(sym, args, **kw)
+        casts = sum(n.op == 'amp_cast' for n in csym._topo())
+        blk = SymbolBlock(csym, ['data0', 'data1'], params=cargs)
+        blk(ids, tt)
+        eager_ms = _predict_ms(torch, dev, lambda: blk(ids, tt))
+        blk.hybridize(static_alloc=True)
+        blk(ids, tt)                    # the capture
+        ms = _predict_ms(torch, dev, lambda: blk(ids, tt))
+        # a replayed predict, profiled: each launch's element type. In a
+        # full run the first port-kernel events of this session went
+        # missing (ROADMAP C5; never with the phase alone): a short run of
+        # small kernels opens it, and it is taken again up to twice as often
+        pad = torch.zeros(1, device=dev)
+
+        def call():
+            for _ in range(64):
+                pad.add_(1.0)
+            res = blk(ids, tt)
+            torch.cuda.synchronize()
+            return res
+
+        if card:
+            prof, out, _, launched = profile_checked(
+                torch, f'symbol bf16 {tag} graphed predict', call,
+                tries=2 * PROFILE_TRIES)
+            dtypes = _dtype_events(prof, ('fused_norm', 'flash_fwd'))
+        else:
+            out, launched, dtypes = blk(ids, tt), {}, {}
+        want_norm = 'bf16' if tag == 'norm_bf16' else 'fp32'
+        if card and (dtypes['flash_fwd'] != {'bf16': BERT_FORWARD[
+                'flash_attention']} or dtypes['fused_norm'] != {
+                want_norm: BERT_FORWARD['fused_norm']}):
+            fail(f'symbol: (b) {tag}: the kernels ran in {dtypes}; want B2 '
+                 f'in bf16 and B1 in {want_norm}')
+        # the same converted symbol on the host, on the first rows
+        hblk = SymbolBlock(csym, ['data0', 'data1'],
+                           params=amp.convert_model(sym, host_args, **kw)[1])
+        want = _outs(hblk(h_ids, h_tt))
+
+        def gap(a, b):
+            a, b = a.double().cpu(), b.double().cpu()
+            return float((a - b).abs().max() / b.abs().max())
+
+        dev_out = [g._data[rows] for g in _outs(out)]
+        e_card = [gap(g, f._data) for g, f in zip(dev_out, h32)]
+        e_host = [gap(w._data, f._data) for w, f in zip(want, h32)]
+        gaps = [gap(g, w._data) for g, w in zip(dev_out, want)]
+        # each side's bf16 rounds in its own places: the card's output is
+        # held to be as near the fp32 output as the host's bf16 one is
+        ok = all(math.isfinite(c) and c <= 2 * h + 1e-3
+                 for c, h in zip(e_card, e_host))
+
+        def r3(xs):
+            return [float(f'{x:.3g}') for x in xs]
+
+        res[tag] = ms
+        log(f'[symbol] (b) amp.convert_model ({tag}): {casts} amp_cast '
+            f'nodes; a graphed predict launches {launched}, element types '
+            f'{dtypes}; on {SYMBOL_BF16_ROWS} sequences, largest gap over '
+            f'the largest |value|: card bf16 against host bf16 {r3(gaps)}, '
+            f'against host fp32 {r3(e_card)} (limit 2x the host bf16\'s '
+            f'{r3(e_host)} + 1e-3) -> {"ok" if ok else "MISMATCH"}; host '
+            f'ms a predict: eager {[round(x, 3) for x in eager_ms]}, '
+            f'graphed {[round(x, 3) for x in ms]} against (a)\'s graphed '
+            f'fp32 imported {[round(x, 3) for x in got["imp_ms"]]}')
+        if not ok:
+            fail(f'symbol: (b) {tag}: the card\'s bf16 outputs are farther '
+                 f'from fp32 ({e_card}) than twice the host\'s ({e_host})')
+        del blk, hblk, out, want, dev_out
+    return res
+
+
+def _symbol_files(torch, mx, seed):
+    """(c): the JAX package's committed mobilenet files on the card, and
+    ResNet-50 exported and imported."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import kernels
+    card = SYMBOL['dev'] == 'cuda'
+    ctx = _ctxd(mx, SYMBOL['dev'])
+    fixdir = ROOT / 'tests' / 'fixtures' / 'format'
+    fixed = SymbolBlock.imports(str(fixdir / 'mobilenet0_25-symbol.json'),
+                                'data', str(fixdir /
+                                            'mobilenet0_25-0000.params.npz'),
+                                ctx=ctx)
+    x = mx.np.array(np.load(fixdir / 'mobilenet0_25.input.npy'), ctx=ctx)
+    want = torch.from_numpy(np.load(fixdir / 'mobilenet0_25.output.npy'))
+    err, ok = compare(torch, fixed(x)._data.cpu(), want, 1e-4, 1e-20)
+    log(f'[symbol] (c) the JAX package\'s mobilenet0_25 files on '
+        f'{x.context}: max |diff| against its recorded output {err:.3g} '
+        f'(rtol 1e-4) -> {"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail('symbol: (c) the committed mobilenet files part from their '
+             'recorded output')
+    mx.random.seed(seed)
+    net = vision.get_model(SYMBOL['resnet'])
+    net.initialize(ctx=ctx)
+    rng = np.random.default_rng(seed)
+    x = mx.np.array(rng.standard_normal(
+        (SYMBOL['images'], 3, SYMBOL['side'], SYMBOL['side'])).astype('f'),
+        ctx=ctx)
+    net(x)
+    net.hybridize(static_alloc=True)
+    ref = net(x)
+    t0 = time.perf_counter()
+    files = net.export(str(SYMBOL_DIR / 'resnet'))
+    imp = SymbolBlock.imports(*files[:1], 'data', files[1], ctx=ctx)
+    dt = time.perf_counter() - t0
+    imp(x)
+    imp.hybridize(static_alloc=True)
+    outs = []
+    for _ in range(3):
+        before = kernels.launch_counts()
+        outs.append(imp(x))
+        if _counts_since(kernels, before):
+            fail(f'symbol: (c) an imported resnet predict launched '
+                 f'{_counts_since(kernels, before)}, want no kernel')
+    bit = all(_equal_outs(torch, f'(c) {SYMBOL["resnet"]} imported graphed '
+                          f'predict', o, ref, 1e-6) for o in outs)
+    if imp.capture_count != (1 if card else 0):
+        fail(f'symbol: (c) the imported resnet captured '
+             f'{imp.capture_count} graphs')
+    log(f'[symbol] (c) {SYMBOL["resnet"]} at {tuple(x.shape)} exported and '
+        f'imported in {dt:.1f} s; graphed imported predict '
+        f'{"bit-equal to" if bit else "within 1e-6 of"} the Gluon net\'s '
+        f'graphed predict, {imp.capture_count} capture over 3 calls')
+
+
+#: (d): the ndarray phase's step under engine.bulk(n) for these n, and
+#: chains of these many elementwise ops on a (4, 4096) array
+SYMBOL_BULK = (8, 4096)
+SYMBOL_CHAINS = (8, 64)
+
+
+def _bulk_step_run(torch, mx, p0, tokens, w, n):
+    """``NDARRAY_STEPS`` Adam steps of :func:`frontend_loss` from the
+    weights ``p0``: eagerly (``n`` None) or with the recorded forward and
+    its backward under ``engine.bulk(n)`` (the update eager, outside the
+    scope). Returns (losses, weights, launches a step, host ms a step,
+    segment shapes captured a step)."""
+    from mxnet_tpu_torch import _bulk, engine
+    from mxnet_tpu_torch.ops import kernels
+    dev = tokens.context.to_torch()
+    hyper = dict(FRONTEND_OPTS[0][1])
+    p = {k: mx.NDArray(v.clone()) for k, v in p0.items()}
+    for a in p.values():
+        a.attach_grad()
+    slots = frontend_slots(mx, p, 'adam')
+    _bulk.reset()
+    losses, counts, ms, caps = [], [], [], []
+    for t in range(1, NDARRAY_STEPS + 1):
+        before = kernels.launch_counts()
+        c0 = _bulk.stats()['compiles']
+        _sync_all(torch, dev.type)
+        t1 = time.perf_counter()
+        with (engine.bulk(n) if n else contextlib.nullcontext()):
+            loss = frontend_backward(mx, p, tokens, w)
+        frontend_update(mx, p, slots, 'adam', hyper, t)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t1) * 1e3)
+        counts.append(_counts_since(kernels, before))
+        caps.append(_bulk.stats()['compiles'] - c0)
+        del loss
+    weights = {k: v._data.detach() for k, v in p.items()}
+    del p, slots
+    _bulk.reset()           # the captured segments go with their pools
+    gc.collect()
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    return losses, weights, counts, ms, caps
+
+
+def _bulk_chain_us(torch, mx, n_ops, rounds=5, reps=20):
+    """Host us an op of a chain of ``n_ops`` elementwise ops (alternately
+    ``* 0.5`` and ``+ 1.0``) on a (4, 4096) array, eager and under
+    ``engine.bulk(n_ops)`` (one segment a chain, replayed after its
+    first), the least of ``rounds`` rounds of ``reps`` chains, each chain
+    ending in a read of its result's payload and a sync."""
+    from mxnet_tpu_torch import _bulk, engine
+    x0 = mx.np.ones((4, 4096))
+    dev = x0.context.to_torch()
+
+    def chain():
+        x = x0
+        for i in range(n_ops):
+            x = x * 0.5 if i % 2 == 0 else x + 1.0
+        return x._data
+
+    def per_op(bulked):
+        best = math.inf
+        for _ in range(rounds + 1):       # the first round warms up
+            _sync_all(torch, dev.type)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                with (engine.bulk(n_ops) if bulked
+                      else contextlib.nullcontext()):
+                    out = chain()
+            _sync_all(torch, dev.type)
+            best = min(best, (time.perf_counter() - t0) / reps / n_ops
+                       * 1e6)
+        return best, out
+
+    _bulk.reset()
+    eager_us, want = per_op(False)
+    c0 = _bulk.stats()['compiles']
+    bulk_us, got = per_op(True)
+    if not torch.equal(got, want):
+        fail('symbol: (d) the bulked chain parts from the eager one')
+    return eager_us, bulk_us, _bulk.stats()['compiles'] - c0
+
+
+def _symbol_bulk(torch, mx, seed):
+    """(d): the bulking engine against eager dispatch."""
+    card = SYMBOL['dev'] == 'cuda'
+    w = FRONTEND_WIDTHS['llama3_8b'] if card else FRONTEND_WIDTHS['llama_tiny']
+    mx.random.seed(seed)
+    p0 = {n: (mx.np.ones(shape) if len(shape) == 1 else
+              mx.np.random.normal(0.0, 0.02, size=shape))._data
+          for n, shape in frontend_shapes(w).items()}
+    tokens = mx.np.random.randint(0, w['vocab'],
+                                  size=(1, NDARRAY_TOKENS + 1))
+    el, ew, ec, ems, _ = _bulk_step_run(torch, mx, p0, tokens, w, None)
+    smi = smi_line() if card else 'host (a rehearsal)'
+    log(f'[symbol] (d) eager: losses {el}, launches a step {ec[-1]}, host '
+        f'ms a step {[round(x, 2) for x in ems]} ({smi})')
+    steps = {None: ems}
+    for n in SYMBOL_BULK:
+        bl, bw, bc, bms, caps = _bulk_step_run(torch, mx, p0, tokens, w, n)
+        if bc != ec:
+            fail(f'symbol: (d) bulk({n}) launched {bc}, eagerly {ec}')
+        if caps[1:] != [0] * (len(caps) - 1) or not caps[0]:
+            fail(f'symbol: (d) bulk({n}) captured {caps} segment shapes a '
+                 f'step; want some in the first step and none after it')
+        bit = bl == el and all(torch.equal(bw[k], ew[k]) for k in ew)
+        bad, worst = _change_gaps(p0, {False: (el, ew), True: (bl, bw)})
+        del bw
+        steps[n] = bms
+        log(f'[symbol] (d) bulk({n}): losses {bl}; '
+            f'{"bit-equal to eager" if bit else "not bit-equal"} (worst '
+            f'change gap {worst}); launches a step as eager; segment shapes '
+            f'captured a step {caps}; host ms a step '
+            f'{[round(x, 2) for x in bms]} ({smi})')
+        if not bit and (bad or not all(
+                math.isclose(a, b, rel_tol=1e-4) for a, b in zip(bl, el))):
+            fail(f'symbol: (d) bulk({n}) trained apart from eager: {bl} '
+                 f'against {el}; past 1e-2 {bad}')
+    del ew, p0
+    chains = {}
+    for n_ops in SYMBOL_CHAINS:
+        eager_us, bulk_us, caps = _bulk_chain_us(torch, mx, n_ops)
+        chains[n_ops] = (eager_us, bulk_us)
+        log(f'[symbol] (d) a chain of {n_ops} elementwise ops on (4, 4096): '
+            f'host us an op eager {eager_us:.2f}, bulked {bulk_us:.2f} '
+            f'({caps} capture; {eager_us / bulk_us:.2f}x); {smi}')
+    return dict(chains=chains, steps=steps)
+
+
+def phase_symbol(torch, seed):
+    """The symbol phase: see the module docstring."""
+    import shutil
+    import mxnet_tpu_torch as mx
+    shutil.rmtree(SYMBOL_DIR, ignore_errors=True)
+    SYMBOL_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    with _ctxd(mx, SYMBOL['dev']):
+        got = _symbol_bert(torch, mx, seed)
+        t_a = time.perf_counter()
+        got['bf16'] = _symbol_bf16(torch, mx, got)
+        t_b = time.perf_counter()
+        _symbol_files(torch, mx, seed + 1)
+        t_c = time.perf_counter()
+        gc.collect()            # (a)-(c)'s nets and their graphs' pools
+        if SYMBOL['dev'] == 'cuda':
+            torch.cuda.empty_cache()
+        got['bulk'] = _symbol_bulk(torch, mx, seed + 2)
+    t_d = time.perf_counter()
+    card = 'host (a rehearsal)' if REHEARSE else smi_line()
+    log(f'[symbol] {card}; (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, '
+        f'(c) {t_c - t_b:.1f} s, (d) {t_d - t_c:.1f} s')
+    shutil.rmtree(SYMBOL_DIR, ignore_errors=True)
+    return got
+
+
 NEW_DESIGNS = {'fused_norm': ('regs', 'cluster'),
                'int8_matmul': ('tma_splitk', 'tma'),
                'flash_attention': ('tf32x3', 'tf32x3_splitkv'),
@@ -8530,7 +9156,14 @@ def main(argv=None):
                     help=argparse.SUPPRESS)   # a process of elastic (a)
     ap.add_argument('--ckpt', help=argparse.SUPPRESS)
     ap.add_argument('--out', help=argparse.SUPPRESS)
+    ap.add_argument('--host-cost', metavar='DIR',
+                    help='time mx.np.add\'s host cost against the package '
+                         'of the checkout DIR, in turns (no phases run)')
     args = ap.parse_args(argv)
+    if args.host_cost:
+        sys.path.insert(0, str(ROOT))
+        host_cost(args.host_cost)
+        return 0
     if args.elastic_worker:
         sys.path.insert(0, str(ROOT))
         return elastic_worker(args.elastic_worker, args.ckpt, args.out)
@@ -8697,6 +9330,9 @@ def main(argv=None):
         row = sparse_rows(torch, SEED + 61)
         if rows is not None:
             rows['adam'].append(row)
+    if 'symbol' in phases:
+        window('symbol', phase_symbol, torch, SEED + 70)
+        torch.cuda.empty_cache()
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)
         log(f'[ring] launches {paths["ring"]}; by design {designs["ring"]}; '

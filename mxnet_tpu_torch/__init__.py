@@ -25,7 +25,10 @@ the key-value stores that data-parallel training reduces through (the
 ``dist_async`` parameter server among them) and ``mx.train`` the elastic
 membership group that drives that server's worker-loss recovery, and
 ``mx.sharding`` the partition rules and the mesh context under which a
-Gluon script trains and serves sharded over ranks.
+Gluon script trains and serves sharded over ranks. ``mx.sym``
+(``mx.symbol``) holds the symbolic graphs that ``HybridBlock.export``
+writes and ``gluon.SymbolBlock.imports`` runs, and ``mx.engine`` the
+engine's controls: op bulking into captured segments, ``naive_engine``.
 """
 
 from .base import MXNetError
@@ -50,8 +53,12 @@ from . import amp
 from . import kvstore
 from . import train
 from . import sharding
+from . import symbol
+from . import symbol as sym
+from . import engine
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'num_gpus',
            'current_context', 'np', 'npx', 'nd', 'autograd', 'random',
            'NDArray', 'waitall', 'initializer', 'init', 'model', 'metric',
-           'io', 'gluon', 'amp', 'kvstore', 'train', 'sharding']
+           'io', 'gluon', 'amp', 'kvstore', 'train', 'sharding', 'symbol',
+           'sym', 'engine']

@@ -37,16 +37,18 @@ CPU. Nothing else turns it on.
 """
 
 import contextlib
+import threading
 import weakref
 
 import torch
 
+from . import _modes
 from .base import MXNetError
 from .ops import kernels
 from .ops.kernels import _build
 
 __all__ = ['StepGraph', 'GraphedCall', 'captures_generators', 'step_graph',
-           'can_capture', 'emulated']
+           'can_capture', 'emulated', 'uncaptured', 'is_uncaptured']
 
 _emulate = [False]
 
@@ -72,11 +74,43 @@ def emulated():
         _emulate.pop()
 
 
+#: threads inside :func:`uncaptured` (``engine.naive_engine``), and how
+#: many of them there are (0: the dispatch checks nothing)
+_naive = threading.local()
+_naive_threads = [0]
+_naive_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def uncaptured():
+    """Inside the block this thread captures and replays no graph: a
+    hybridized block's calls run eagerly (``engine.naive_engine``)."""
+    depth = getattr(_naive, 'depth', 0)
+    _naive.depth = depth + 1
+    if not depth:
+        with _naive_lock:
+            _naive_threads[0] += 1
+        _modes.add(1)
+    try:
+        yield
+    finally:
+        _naive.depth = depth
+        if not depth:
+            with _naive_lock:
+                _naive_threads[0] -= 1
+            _modes.add(-1)
+
+
+def is_uncaptured():
+    """True inside :func:`uncaptured` in this thread."""
+    return _naive_threads[0] > 0 and getattr(_naive, 'depth', 0) > 0
+
+
 def can_capture(device):
     """True where calls on ``device`` are captured: a CUDA device, or any
-    inside :func:`emulated`."""
+    inside :func:`emulated`; never inside :func:`uncaptured`."""
     return device is not None and (torch.device(device).type == 'cuda'
-                                   or _emulate[-1])
+                                   or _emulate[-1]) and not is_uncaptured()
 
 
 def step_graph(body, device, generators=()):

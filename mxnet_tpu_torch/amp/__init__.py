@@ -8,11 +8,9 @@ scaling. ``init()`` records the policy, :func:`convert_hybrid_block`
 casts a block's parameters so that its forward computes in that dtype,
 and ``init_trainer``/``scale_loss``/``unscale`` give an fp16 run dynamic
 loss scaling, a step after an overflow updating nothing
-(``gluon.Trainer`` honours ``_amp_skip_update``).
-
-Not ported yet: :func:`convert_symbol` and :func:`convert_model`, the
-op-list graph rewrite of ``pass_.py``, which walks a ``Symbol``; the
-port has no ``symbol/`` yet (ROADMAP A11), so they raise.
+(``gluon.Trainer`` honours ``_amp_skip_update``). :func:`convert_symbol`
+and :func:`convert_model` (:mod:`.pass_`) rewrite a ``Symbol`` by the op
+lists, the reference's ReducePrecision pass.
 """
 
 import contextlib
@@ -156,17 +154,4 @@ def convert_hybrid_block(block, target_dtype='bfloat16', **kwargs):
     return block
 
 
-def convert_symbol(sym, *args, **kwargs):
-    """The op-list rewrite of a ``Symbol`` (reference ``amp/pass_.py``):
-    not ported yet, since the port has no ``symbol/`` (ROADMAP A11)."""
-    raise NotImplementedError(
-        'amp.convert_symbol walks a Symbol, and symbol/ is not ported yet '
-        '(ROADMAP A11 (symbol/))')
-
-
-def convert_model(sym, arg_params, aux_params, *args, **kwargs):
-    """The op-list rewrite of a model's ``Symbol`` and its parameters
-    (reference ``amp/pass_.py``): not ported yet (ROADMAP A11)."""
-    raise NotImplementedError(
-        'amp.convert_model walks a Symbol, and symbol/ is not ported yet '
-        '(ROADMAP A11 (symbol/))')
+from .pass_ import convert_symbol, convert_model  # noqa: E402,F401

@@ -14,7 +14,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ['Context', 'cpu', 'gpu', 'num_gpus', 'current_context',
-           'resolve_device']
+           'resolve_device', 'abstract_context']
 
 
 class Context:
@@ -73,6 +73,24 @@ class Context:
         return stack[-1] if stack else Context('gpu', 0)
 
 
+class _Abstract(Context):
+    """The context of an abstract evaluation (``_deferred_compute``):
+    arrays made there are ``torch.device('meta')`` tensors, with a shape
+    and a dtype and no storage."""
+
+    def __init__(self):
+        self.device_type = 'meta'
+        self.device_id = 0
+
+    def to_torch(self):
+        return torch.device('meta')
+
+
+def abstract_context():
+    """The context whose arrays are meta tensors."""
+    return _Abstract()
+
+
 def cpu(device_id=0):
     """Return a CPU context."""
     return Context('cpu', device_id)
@@ -103,7 +121,7 @@ def resolve_device(device=None):
     if isinstance(device, Context):
         return device.to_torch()
     dev = torch.device(device)
-    if dev.type == 'cpu':
+    if dev.type in ('cpu', 'meta'):
         return dev
     if dev.type != 'cuda':
         raise MXNetError(f'unsupported device {dev}')

@@ -1,13 +1,15 @@
 """Gluon of the PyTorch port (counterpart of ``mxnet_tpu/gluon/``):
 :class:`Parameter`, :class:`Block` and :class:`HybridBlock` (whose
-``hybridize()`` replays predict-mode calls from CUDA graphs on the card),
+``hybridize()`` replays predict-mode calls from CUDA graphs on the card
+and whose ``export()`` writes a symbol file), :class:`SymbolBlock`
+(an imported symbol run as a block),
 the layers of :mod:`.nn`, the losses of :mod:`.loss`, :mod:`.utils`, the
 single-device :class:`Trainer`, :mod:`.data` (datasets, samplers,
 ``DataLoader``), ``gluon.metric`` (``mx.metric``), and the model zoo (the
 vision zoo and BERT on these blocks, the Llama family as
 ``torch.nn.Module``s)."""
 
-from .block import Block, HybridBlock, ParameterDict
+from .block import Block, HybridBlock, ParameterDict, SymbolBlock
 from .parameter import Constant, DeferredInitializationError, Parameter
 from .trainer import Trainer
 from . import nn
@@ -17,6 +19,6 @@ from . import utils
 from . import model_zoo
 from .. import metric  # gluon.metric is the reference's home for metrics
 
-__all__ = ['Block', 'HybridBlock', 'ParameterDict', 'Constant',
+__all__ = ['Block', 'HybridBlock', 'ParameterDict', 'SymbolBlock', 'Constant',
            'DeferredInitializationError', 'Parameter', 'Trainer', 'nn',
            'loss', 'data', 'utils', 'model_zoo', 'metric']

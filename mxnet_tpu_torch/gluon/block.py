@@ -79,9 +79,23 @@ card and counts in ``eager_call_count``, where the JAX package compiles one
 partitioned program. A call outside any mesh of a block whose parameters
 are sharded gathers them back first.
 
-Not ported (ROADMAP A5 rest): ``SymbolBlock``, ``export``,
-``optimize_for`` beyond hybridize-and-call, and ``hybridize``'s
-``check``/``donate_inputs``, which raise.
+Export and import (reference ``block.py:1299``, :1485):
+``_trace_symbol`` captures the forward in inference mode as a
+:class:`..symbol.Symbol` by deferred compute, evaluating it abstractly:
+the inputs and, through :func:`.parameter.substituted`, the parameters
+are meta tensors inside the trace, so no FLOP runs and no parameter's
+leaf is touched (the graphs captured from those leaves, and the Trainer's,
+still read the trained weights after it). Under a capture a hybridized
+block and its children run ``forward``, never a graph replay.
+``export()`` writes ``{path}-symbol.json`` and
+``{path}-{epoch:04d}.params.npz`` in the JAX package's formats;
+:class:`SymbolBlock` runs a symbol as a block, its free variables
+parameters, its forward the symbol's replay through the op registry, so
+autograd, ``hybridize()`` and the Trainer work on it.
+
+Not ported (ROADMAP A5 rest): ``hybridize``'s ``backend``/``check``/
+``donate_inputs``, which raise, and the StableHLO export of a graph with
+an opaque op, which waits with ``gluon/rnn`` (A11).
 """
 
 import contextlib
@@ -92,6 +106,7 @@ import warnings
 import numpy as _np
 import torch
 
+from .. import _deferred_compute as _dc
 from .. import _graphs, _rng, _tape
 from ..autograd import pause
 from ..base import MXNetError
@@ -100,8 +115,8 @@ from ..ndarray.ndarray import NDArray, array, context_of
 from ..ops.registry import DynamicShapeError, HostStopError
 from .parameter import DeferredInitializationError, Parameter, substituted
 
-__all__ = ['Block', 'HybridBlock', 'ParameterDict', 'is_tracing',
-           'record_aux_update']
+__all__ = ['Block', 'HybridBlock', 'SymbolBlock', 'ParameterDict',
+           'is_tracing', 'record_aux_update']
 
 _BLOCK_TRACE = threading.local()
 
@@ -881,9 +896,9 @@ class HybridBlock(Block):
             self._cached_graph.clear()
 
     def optimize_for(self, x, *args, backend=None, clear=True, **kwargs):
-        """Reference block.py:1038: hybridize and call."""
-        if backend is not None:
-            _pending(f'optimize_for(backend={backend!r})')
+        """Reference block.py:1038, partition for a backend: the port
+        captures the whole forward as CUDA graphs, so this hybridizes and
+        calls, as the JAX package does."""
         self.hybridize(True)
         return self(x, *args)
 
@@ -1001,17 +1016,34 @@ class HybridBlock(Block):
 
     def infer_shape(self, *args):
         """Reference block.py:1278: resolve deferred parameter shapes from
-        the inputs. The port has no abstract evaluation: the forward runs
-        once on ``args``, unrecorded, and its output is dropped."""
+        the inputs by abstract evaluation, the forward on meta tensors of
+        the inputs' shapes and dtypes (no FLOP runs; the parameters are
+        initialized on their own contexts as their shapes become known).
+        A forward whose shapes depend on its data (``DynamicShapeError``)
+        runs once on ``args`` instead, unrecorded."""
+        metas = [NDArray(_dc.meta_like(a.shape, a._data.dtype))
+                 if isinstance(a, NDArray) else a for a in args]
         try:
             with pause():
-                self.forward(*args)
+                try:
+                    with _dc.abstract():
+                        self.forward(*metas)
+                except DynamicShapeError:
+                    self.forward(*args)
         except DeferredInitializationError:
             pass
 
     def __call__(self, *args, **kwargs):
         for hook in self._forward_pre_hooks:
             hook(self, args)
+        if args and all(isinstance(a, NDArray) for a in args):
+            self._last_in_specs = [(a.shape, a._data.dtype) for a in args]
+        if _dc.is_deferred_compute():
+            # a capture records the forward's ops, never a graph replay
+            out = self.forward(*args, **kwargs)
+            for hook in self._forward_hooks:
+                hook(self, args, out)
+            return out
         if self._active and not self._first_forward_done and \
                 not is_tracing() and not kwargs:
             from ..sharding import current
@@ -1045,3 +1077,153 @@ class HybridBlock(Block):
             return self.hybrid_forward(F, *args, **pdata)
         raise NotImplementedError(
             f'{type(self).__name__} must implement forward')
+
+    def _trace_device(self, args):
+        """Where a trace makes its concrete arrays (constants, fresh
+        creations): the parameters' context, else the inputs', else the
+        current one."""
+        for p in self.collect_params().values():
+            if p._var is not None:
+                return context_of(p._var.device)
+        for a in args:
+            if isinstance(a, NDArray) and not a._data.is_meta:
+                return a.context
+        return None
+
+    def _trace_symbol(self, *args):
+        """The inference-mode forward as a Symbol, captured by deferred
+        compute (the reference's ``_get_graph_v2``, block.py:959).
+
+        ``args``: example NDArrays or shape tuples (float32) of the data
+        inputs, named ``data`` (one) or ``data0``, ``data1``, ... The
+        parameters become variables named by their structural names, so
+        the params file's keys match ``list_arguments()``. Abstract: the
+        inputs and parameters are meta tensors inside the trace."""
+        in_specs = [(a.shape, a._data.dtype) if isinstance(a, NDArray)
+                    else (tuple(a), 'float32') for a in args]
+        in_names = ['data'] if len(args) == 1 else \
+            [f'data{i}' for i in range(len(args))]
+        p_items = list(self.collect_params().items())
+        for name, p in p_items:
+            if p._var is None:
+                raise DeferredInitializationError(
+                    f'Parameter {name} is not initialized: run a forward '
+                    f'before exporting')
+        where = self._trace_device(args)
+        prev_rec = _tape.set_recording(False)
+        prev_train = _tape.set_training(False)
+        prev_aux = getattr(_BLOCK_TRACE, 'aux_writes', None)
+        _BLOCK_TRACE.aux_writes = {}
+        try:
+            with (where if where is not None else contextlib.nullcontext()), \
+                    _dc.abstract(), _dc.context():
+                nds = [NDArray(_dc.meta_like(shp, dt)) for shp, dt in in_specs]
+                _dc.set_variable(nds, in_names)
+                values = {}
+                for name, p in p_items:
+                    nd = NDArray(_dc.meta_like(p.shape, p._var.dtype))
+                    _dc.set_variable(nd, name)
+                    values[id(p)] = nd
+                with substituted(values):
+                    out = self.forward(*nds)
+                outs = out if isinstance(out, (list, tuple)) else [out]
+                return _dc.get_symbol(list(outs))
+        finally:
+            _tape.set_recording(prev_rec)
+            _tape.set_training(prev_train)
+            _BLOCK_TRACE.aux_writes = prev_aux
+
+    def export(self, path, epoch=0, remove_amp_cast=True, input_shapes=None):
+        """Reference block.py:1299: the graph and the parameters for
+        deployment, ``{path}-symbol.json`` (loaded back by
+        :meth:`SymbolBlock.imports`) and ``{path}-{epoch:04d}.params.npz``
+        (hoisted constants beside the weights). The input shapes are the
+        last call's, or ``input_shapes=[...]`` (NDArrays or shape
+        tuples). Returns the two paths."""
+        from ..model import save_ndarray_map
+        if input_shapes is None:
+            specs = getattr(self, '_last_in_specs', None)
+            if not specs:
+                raise ValueError(
+                    'export() needs input shapes: run a forward first, or '
+                    'pass input_shapes=[...] (the reference has the same '
+                    'run-before-export requirement, block.py:1299)')
+            args = [NDArray(_dc.meta_like(shp, dt)) for shp, dt in specs]
+        else:
+            args = list(input_shapes)
+        sym = self._trace_symbol(*args)
+        opaque = sorted({n.attrs['__opaque_name__'] for n in sym._topo()
+                         if n.op == '_opaque'})
+        if opaque:
+            raise MXNetError(
+                f'{type(self).__name__}: the graph holds closure-based ops '
+                f'{opaque}, which do not serialize to a symbol file; their '
+                f'StableHLO-style export waits with gluon/rnn (ROADMAP A11)')
+        param_path = f'{path}-{epoch:04d}.params.npz'
+        data = {k: v.data() for k, v in self.collect_params().items()}
+        data.update(sym._aux)
+        save_ndarray_map(param_path, data)
+        sym.save(f'{path}-symbol.json', remove_amp_cast)
+        return f'{path}-symbol.json', param_path
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol run as a block (reference block.py:1485).
+
+    Every variable of the symbol that is not an input becomes a
+    :class:`Parameter` of its ``__shape__``/``__dtype__``, set from
+    ``params`` (name -> NDArray or array) or from the symbol's hoisted
+    constants, else initialized as any parameter. ``forward`` replays the
+    graph through the op registry, so autograd, ``hybridize()`` (one
+    capture a key, then replays) and the Trainer work on an imported
+    model."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__()
+        from ..symbol.symbol import Group, Symbol
+        if not isinstance(outputs, Symbol):
+            outputs = Group(list(outputs))
+        self._sym = outputs
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._input_names = [i if isinstance(i, str) else i.name
+                             for i in inputs]
+        shape_attrs = {n.name: (n.attrs.get('__shape__'),
+                                n.attrs.get('__dtype__', 'float32'))
+                       for n in self._sym._topo() if n.op == 'null'}
+        self._sym_param_names = [n for n in self._sym.list_arguments()
+                                 if n not in self._input_names]
+        # a traced symbol's hoisted constants are parameters too
+        params = dict(outputs._aux, **(params or {}))
+        for name in self._sym_param_names:
+            shape, dtype = shape_attrs.get(name, (None, 'float32'))
+            p = Parameter(name, shape=shape, dtype=dtype,
+                          allow_deferred_init=True)
+            if name in params:
+                v = params[name]
+                if not isinstance(v, NDArray):
+                    v = array(v)
+                p.dtype = str(v.dtype)
+                p.set_data(v)
+            self._reg_params[name] = p
+
+    @staticmethod
+    def imports(symbol_file, input_names='data', param_file=None, ctx=None):
+        """Load an exported model (reference SymbolBlock.imports): its
+        parameters on ``ctx``, the current context by default."""
+        from ..model import load_ndarray_map
+        from ..symbol import load as sym_load
+        sym = sym_load(symbol_file)
+        params = load_ndarray_map(param_file, ctx=ctx) if param_file else {}
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        return SymbolBlock(sym, list(input_names), params=params)
+
+    def forward(self, *args):
+        bindings = {}
+        for name, a in zip(self._input_names, args):
+            bindings[name] = a if isinstance(a, NDArray) else array(a)
+        for name in self._sym_param_names:
+            bindings[name] = self._reg_params[name].data()
+        outs = self._sym._execute(bindings)
+        return outs[0] if len(outs) == 1 else tuple(outs)

@@ -526,8 +526,12 @@ class Parameter:
         self._sharding_spec = self._sharding_mesh = None
 
     def var(self):
+        """Refused, as the JAX package refuses it: a symbol's variables
+        come from ``HybridBlock.export``'s trace, which names them by the
+        parameters' structural names."""
         raise NotImplementedError(
-            'Symbol variables are not ported (ROADMAP A11: symbol/)')
+            'Parameter.var is not supported; use HybridBlock.export (or '
+            '_trace_symbol) for graph capture, as the JAX package does')
 
     def __repr__(self):
         return (f'Parameter {self.name} (shape={self._shape}, '

@@ -22,7 +22,8 @@ import numpy as _np
 import torch
 
 from .. import _dtypes, _tape
-from ..context import Context, current_context, resolve_device
+from ..context import Context, abstract_context, current_context, \
+    resolve_device
 
 __all__ = ['NDArray', 'array', 'context_of', 'index_key']
 
@@ -30,9 +31,12 @@ _INT_TYPES = (int, _np.integer)
 
 
 def context_of(device):
-    """The :class:`Context` of a ``torch.device``."""
+    """The :class:`Context` of a ``torch.device`` (a meta tensor's is the
+    abstract context of ``_deferred_compute``)."""
     if device.type == 'cuda':
         return Context('gpu', device.index or 0)
+    if device.type == 'meta':
+        return abstract_context()
     return Context('cpu', 0)
 
 
@@ -105,6 +109,9 @@ class NDArray:
 
     # NDArray operators win over numpy scalars on the left
     __array_priority__ = 1000.0
+    #: the pending value of a bulked segment (``_bulk.LazyRef``) for a
+    #: :class:`_LazyNDArray`, kept once settled; None for any other array
+    _lazy = None
 
     def __init__(self, data):
         self._data = data
@@ -154,6 +161,19 @@ class NDArray:
         if self._ag is not None and self._ag.variable:
             _tape.track(self)
 
+    def _adopt_lazy(self, res):
+        """Take the pending value of ``res`` (a :class:`_LazyNDArray`) as
+        this array's new value, inside its segment (a write, as
+        :meth:`_rebind`); a variable settles it first, since its new value
+        becomes a leaf."""
+        if self._ag is not None and self._ag.variable:
+            self._rebind(res._data)
+            return
+        self.__dict__.pop('_data', None)
+        self._layout = None
+        self._lazy = res._lazy
+        self.__class__ = _LazyNDArray
+
     # ------------------------------------------------------------- sync points
     def wait_to_read(self):
         """Block until the value is computed; a deferred device error is
@@ -197,7 +217,8 @@ class NDArray:
     # ------------------------------------------------------------ conversions
     def astype(self, dtype, copy=True):
         from ..ops.registry import get_op, invoke
-        if _dtypes.to_torch(dtype) == self._data.dtype and not copy:
+        if not copy and _dtypes.to_torch(dtype) == _dtypes.to_torch(
+                self.dtype):
             return self
         return invoke(get_op('cast'), (self,), {'dtype': dtype})
 
@@ -268,6 +289,12 @@ class NDArray:
             invoke(get_op('_npi_setitem'), (self, value),
                    {'key': key, 'out': self})
             return
+        from .. import _deferred_compute as _dc
+        if _dc.is_deferred_compute():
+            raise NotImplementedError(
+                'in-place assignment with array/boolean indices cannot be '
+                'recorded for export; use static indices or np.where '
+                'instead (reference deferred compute has the same limit)')
         x = self._data.detach()
         v = value._data.detach() if isinstance(value, NDArray) else value
         new = x.clone()
@@ -361,7 +388,10 @@ class NDArray:
             raise TypeError(
                 f'unsupported operand type for in-place {opname}: '
                 f'{type(other).__name__}')
-        self._rebind(res._data)
+        if res._lazy is not None and res._lazy.value is None:
+            self._adopt_lazy(res)       # the write stays in the segment
+        else:
+            self._rebind(res._data)
         return self
 
     def __iadd__(self, o): return self._inplace(o, 'add')
@@ -499,6 +529,59 @@ class NDArray:
 
     def ones_like(self):
         return self._op('ones_like')
+
+
+class _LazyNDArray(NDArray):
+    """An NDArray whose value a bulked segment computes at its flush
+    (:mod:`.._bulk`): its shape, dtype and context come from the record;
+    reading ``_data`` settles it (a sync point: the segment is flushed,
+    whichever thread recorded it) and makes it a plain NDArray. A plain
+    NDArray's ``_data`` stays an attribute of its own, read with no
+    check."""
+
+    def __getattr__(self, name):
+        if name != '_data':
+            raise AttributeError(name)
+        from .. import _bulk
+        value = _bulk.materialize(self.__dict__['_lazy'])
+        self.__dict__['_data'] = value
+        self.__class__ = NDArray
+        return value
+
+    @classmethod
+    def _of(cls, ref):
+        nd = object.__new__(cls)
+        nd._ag = None
+        nd._layout = None
+        nd._lazy = ref
+        return nd
+
+    @property
+    def shape(self):
+        return self._lazy.shape
+
+    @property
+    def dtype(self):
+        return _dtypes.to_numpy(self._lazy.dtype)
+
+    @property
+    def size(self):
+        n = 1
+        for d in self._lazy.shape:
+            n *= d
+        return n
+
+    @property
+    def context(self):
+        return context_of(self._lazy.device)
+
+    ctx = context
+    device = context
+
+    def _rebind(self, raw):
+        self.__class__ = NDArray
+        self._lazy = None
+        NDArray._rebind(self, raw)
 
 
 def _host_dtype(source_array, dtype):

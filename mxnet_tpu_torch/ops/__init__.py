@@ -29,3 +29,6 @@ from . import fft_ops       # noqa: F401
 from . import numpy_extras  # noqa: F401
 from . import legacy_ops    # noqa: F401
 from . import control_flow  # noqa: F401
+from . import arity
+
+arity.apply()

@@ -4,16 +4,23 @@ Counterpart of ``mxnet_tpu/ops/creation.py`` (reference
 src/operator/tensor/init_op.cc). The creators are frontends, not
 dispatched ops: they make a fresh array on a context (``ctx=``/
 ``device=``, else the current context, which raises with no card) and
-bypass autograd. ``zeros_like`` and friends go through the registry. The
-JAX package's replayable ``_creation_*`` ops serve deferred compute,
-which is not ported yet (``ops/ledger.py``).
+bypass autograd. ``zeros_like`` and friends go through the registry.
+
+Under a deferred-compute capture (``HybridBlock.export``) a creator
+records a ``_creation_<name>`` node with its static arguments only, as
+the reference's ``_creator`` does (``creation.py:29-49``), so that a
+forward that makes fresh arrays (BERT's position ids) exports. The
+twelve ``_creation_*`` ops replay such a node: the same function, on the
+current context's device (a symbol's execution enters its bindings'
+context).
 """
 
 import torch
 
+from .. import _deferred_compute as _dc
 from .. import _dtypes
 from ..context import resolve_device
-from .registry import register
+from .registry import get_op, register
 
 
 def _dev(ctx, device):
@@ -31,22 +38,124 @@ def _out(t, dtype=None):
     return NDArray(t.to(want))
 
 
+def _zeros(shape, dtype='float32', device=None):
+    return torch.zeros(_shape(shape), device=device,
+                       dtype=_dtypes.to_torch(dtype or 'float32'))
+
+
+def _ones(shape, dtype='float32', device=None):
+    return torch.ones(_shape(shape), device=device,
+                      dtype=_dtypes.to_torch(dtype or 'float32'))
+
+
+def _full(shape, fill_value, dtype=None, device=None):
+    if dtype is None:
+        dtype = _dtypes.result_type(fill_value)
+    return torch.full(_shape(shape), fill_value, device=device,
+                      dtype=_dtypes.to_torch(dtype))
+
+
+def _arange(start, stop=None, step=1, dtype=None, device=None):
+    if stop is None:
+        start, stop = 0, start
+    if step is None:
+        step = 1
+    if dtype is None:
+        dtype = _dtypes.result_type(start, stop, step)
+    t = torch.arange(start, stop, step, device=device,
+                     dtype=torch.float64 if _dtypes.to_torch(
+                         dtype).is_floating_point else None)
+    return t.to(_dtypes.to_torch(dtype))
+
+
+def _linspace(start, stop, num=50, endpoint=True, dtype=None, device=None):
+    n = int(num)
+    if endpoint:
+        t = torch.linspace(start, stop, n, device=device, dtype=torch.float64)
+    else:
+        t = torch.linspace(start, stop, n + 1, device=device,
+                           dtype=torch.float64)[:-1]
+    return t.to(_dtypes.to_torch(dtype or 'float32'))
+
+
+def _logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None,
+              device=None):
+    t = _linspace(start, stop, num, endpoint, 'float32', device)
+    return torch.pow(torch.as_tensor(base, dtype=torch.float32,
+                                     device=t.device), t).to(
+        _dtypes.to_torch(dtype or 'float32'))
+
+
+def _eye(N, M=None, k=0, dtype='float32', device=None):
+    M = N if M is None else M
+    i = torch.arange(N, device=device)[:, None]
+    j = torch.arange(M, device=device)[None, :]
+    return (j - i == k).to(_dtypes.to_torch(dtype or 'float32'))
+
+
+def _tri(N, M=None, k=0, dtype='float32', device=None):
+    M = N if M is None else M
+    i = torch.arange(N, device=device)[:, None]
+    j = torch.arange(M, device=device)[None, :]
+    return (j - i <= k).to(_dtypes.to_torch(dtype or 'float32'))
+
+
+def _indices(dimensions, dtype='int32', device=None):
+    grids = torch.meshgrid(*[torch.arange(d, device=device)
+                             for d in dimensions], indexing='ij')
+    t = torch.stack(grids) if grids else torch.zeros((0,), device=device)
+    return t.to(_dtypes.to_torch(dtype or 'int32'))
+
+
+def _windowed(torch_fn):
+    def make(M, device=None):
+        return torch_fn(int(M), periodic=False, dtype=torch.float32,
+                        device=device)
+    return make
+
+
+_MAKERS = {
+    'zeros': _zeros, 'ones': _ones, 'full': _full, 'arange': _arange,
+    'linspace': _linspace, 'logspace': _logspace, 'eye': _eye, 'tri': _tri,
+    'indices': _indices, 'blackman': _windowed(torch.blackman_window),
+    'hamming': _windowed(torch.hamming_window),
+    'hanning': _windowed(torch.hann_window),
+}
+
+
+def _replayable(name, make):
+    def fn(*args, **kwargs):
+        return make(*args, device=resolve_device(None), **kwargs)
+    fn.__name__ = f'_creation_{name}'
+    fn.__doc__ = f'``{name}`` on the current context (a replayed node).'
+    register(f'_creation_{name}', namespaces=(), differentiable=False)(fn)
+
+
+for _name, _make in _MAKERS.items():
+    _replayable(_name, _make)
+
+
+def _create(name, args, kwargs, ctx, device):
+    """``name``'s array on the context; recorded under a capture with the
+    static ``args``/``kwargs`` its replay takes."""
+    out = _out(_MAKERS[name](*args, device=_dev(ctx, device), **kwargs))
+    if _dc.is_deferred_compute():
+        _dc.record(get_op(f'_creation_{name}'), args, kwargs, [], [], out,
+                   None)
+    return out
+
+
 def zeros(shape, dtype='float32', ctx=None, device=None, order='C'):
-    return _out(torch.zeros(_shape(shape), device=_dev(ctx, device),
-                            dtype=_dtypes.to_torch(dtype or 'float32')))
+    return _create('zeros', (shape,), {'dtype': dtype}, ctx, device)
 
 
 def ones(shape, dtype='float32', ctx=None, device=None, order='C'):
-    return _out(torch.ones(_shape(shape), device=_dev(ctx, device),
-                           dtype=_dtypes.to_torch(dtype or 'float32')))
+    return _create('ones', (shape,), {'dtype': dtype}, ctx, device)
 
 
 def full(shape, fill_value, dtype=None, ctx=None, device=None):
-    if dtype is None:
-        dtype = _dtypes.result_type(fill_value)
-    return _out(torch.full(_shape(shape), fill_value,
-                           device=_dev(ctx, device),
-                           dtype=_dtypes.to_torch(dtype)))
+    return _create('full', (shape, fill_value), {'dtype': dtype}, ctx,
+                   device)
 
 
 def empty(shape, dtype='float32', ctx=None, device=None):
@@ -54,42 +163,25 @@ def empty(shape, dtype='float32', ctx=None, device=None):
 
 
 def arange(start, stop=None, step=1, dtype=None, ctx=None, device=None):
-    if stop is None:
-        start, stop = 0, start
-    if dtype is None:
-        dtype = _dtypes.result_type(start, stop, step)
-    return _out(torch.arange(start, stop, step, device=_dev(ctx, device),
-                             dtype=torch.float64 if _dtypes.to_torch(
-                                 dtype).is_floating_point else None),
-                dtype)
+    return _create('arange', (start, stop, step), {'dtype': dtype}, ctx,
+                   device)
 
 
 def linspace(start, stop, num=50, endpoint=True, dtype=None, ctx=None,
              device=None):
-    dev = _dev(ctx, device)
-    n = int(num)
-    if endpoint:
-        t = torch.linspace(start, stop, n, device=dev, dtype=torch.float64)
-    else:
-        t = torch.linspace(start, stop, n + 1, device=dev,
-                           dtype=torch.float64)[:-1]
-    return _out(t, dtype or 'float32')
+    return _create('linspace', (start, stop, num),
+                   {'endpoint': endpoint, 'dtype': dtype}, ctx, device)
 
 
 def logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None,
              ctx=None, device=None):
-    t = linspace(start, stop, num, endpoint, 'float32', ctx, device)._data
-    return _out(torch.pow(torch.as_tensor(base, dtype=torch.float32,
-                                          device=t.device), t),
-                dtype or 'float32')
+    return _create('logspace', (start, stop, num),
+                   {'endpoint': endpoint, 'base': base, 'dtype': dtype},
+                   ctx, device)
 
 
 def eye(N, M=None, k=0, dtype='float32', ctx=None, device=None):
-    dev = _dev(ctx, device)
-    M = N if M is None else M
-    i = torch.arange(N, device=dev)[:, None]
-    j = torch.arange(M, device=dev)[None, :]
-    return _out(j - i == k, dtype or 'float32')
+    return _create('eye', (N, M), {'k': k, 'dtype': dtype}, ctx, device)
 
 
 def identity(n, dtype='float32', ctx=None, device=None):
@@ -97,19 +189,11 @@ def identity(n, dtype='float32', ctx=None, device=None):
 
 
 def tri(N, M=None, k=0, dtype='float32', ctx=None, device=None):
-    dev = _dev(ctx, device)
-    M = N if M is None else M
-    i = torch.arange(N, device=dev)[:, None]
-    j = torch.arange(M, device=dev)[None, :]
-    return _out(j - i <= k, dtype or 'float32')
+    return _create('tri', (N, M), {'k': k, 'dtype': dtype}, ctx, device)
 
 
 def indices(dimensions, dtype='int32', ctx=None, device=None):
-    dev = _dev(ctx, device)
-    grids = torch.meshgrid(*[torch.arange(d, device=dev)
-                             for d in dimensions], indexing='ij')
-    return _out(torch.stack(grids) if grids else
-                torch.zeros((0,), device=dev), dtype)
+    return _create('indices', (dimensions,), {'dtype': dtype}, ctx, device)
 
 
 # *_like ops go through the registry (no gradient: their values do not
@@ -150,20 +234,19 @@ def vander(x, N=None, increasing=False):
     return x[:, None] ** p[None, :].to(x.dtype)
 
 
-def _window(fn_name, torch_fn):
+def _window(fn_name):
     def wrapper(M, dtype='float32', ctx=None, device=None):
-        t = torch_fn(int(M), periodic=False, dtype=torch.float32,
-                     device=_dev(ctx, device))
-        return _out(t, dtype or 'float32')
+        out = _create(fn_name, (M,), {}, ctx, device)
+        return out.astype(dtype) if dtype else out
     wrapper.__name__ = fn_name
     wrapper.__doc__ = (f'The {fn_name} window function (reference '
                        f'_npi_{fn_name}, src/operator/numpy/np_window_op.cc).')
     return wrapper
 
 
-blackman = _window('blackman', torch.blackman_window)
-hamming = _window('hamming', torch.hamming_window)
-hanning = _window('hanning', torch.hann_window)
+blackman = _window('blackman')
+hamming = _window('hamming')
+hanning = _window('hanning')
 
 FRONTEND_CREATORS.update(blackman=blackman, hamming=hamming,
                          hanning=hanning)

@@ -15,6 +15,14 @@ optimizer wrappers count apart, in ``plain_updates``, the updates that
 their dtype rule sent to the plain version (a weight that is not fp32):
 :func:`plain_update_counts` reads them, and the other three functions set
 and add them beside the launches.
+
+A wrapper given meta tensors inside an abstract evaluation (the trace of
+an export, ``infer_shape``: :mod:`mxnet_tpu_torch._deferred_compute`)
+takes its plain version's path, which on meta tensors computes its
+output's shape and dtype and nothing else (``_build.plain_here``): no
+value is made there, so it is no fallback from the kernel, and nothing is
+counted. Outside one a meta tensor raises, as any tensor off the CPU that
+the kernel cannot take.
 """
 
 import torch

@@ -161,6 +161,19 @@ def check(name, rc, what):
         raise MXNetError(f'{what}: CUDA error {rc} ({msg})')
 
 
+def plain_here(t):
+    """True where a wrapper takes its plain version: a CPU tensor, or a
+    meta tensor inside an abstract evaluation (``_deferred_compute.
+    abstract``: shapes only, nothing computed). Elsewhere a tensor goes
+    to the kernel or raises."""
+    if t.device.type == 'cpu':
+        return True
+    if t.device.type == 'meta':
+        from ... import _deferred_compute
+        return _deferred_compute.is_abstract()
+    return False
+
+
 def on_device(device):
     """A context in which ``device`` (a CUDA ``torch.device``) is the
     current device, for a launch on its tensors. A stream handle (the

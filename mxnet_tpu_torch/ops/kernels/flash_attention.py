@@ -200,7 +200,7 @@ def flash_attention_fwd(q, k, v, sm_scale, causal):
     if causal and t > s:
         raise MXNetError('flash_attention: causal with T > S leaves rows '
                          'with no key; the op takes the plain path there')
-    if q.device.type == 'cpu':
+    if _build.plain_here(q):
         return flash_attention_plain(q, k, v, sm_scale, causal)
     _check_cuda('flash_attention', q, k, v)
     out = torch.empty_like(q)
@@ -255,7 +255,7 @@ def flash_attention_stats(q, k, v, sm_scale, causal=False):
         raise MXNetError(f'flash_attention_stats: the causal mask is the '
                          f'diagonal block and needs T == S, got T={t}, '
                          f'S={s}')
-    if q.device.type == 'cpu':
+    if _build.plain_here(q):
         return flash_attention_stats_plain(q, k, v, sm_scale, causal)
     _check_cuda('flash_attention_stats', q, k, v)
     acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)

@@ -147,7 +147,7 @@ def fused_norm(x, gamma, beta=None, eps=1e-5, rms=False):
         raise MXNetError('fused_norm: tensors must be contiguous')
     if rms and beta is not None:
         raise MXNetError('fused_norm: RMS mode takes no beta')
-    if x.device.type == 'cpu':
+    if _build.plain_here(x):
         return fused_norm_plain(x, gamma, beta, eps, rms)
     if x.device.type != 'cuda' or any(t.device != x.device
                                       for t in tensors):

@@ -102,7 +102,7 @@ def int8_matmul_plain(x, w, scale, bias=None, out_dtype=torch.float32):
     card, which has no integer matmul and holds every sum exactly
     (|sum| <= 128**2 * K < 2**53). Then one rounding to fp32, ``* scale``,
     ``+ bias`` and the cast, each its own op as in the reference."""
-    if x.device.type == 'cpu':
+    if _build.plain_here(x):
         acc = torch.matmul(x.long(), w.long().t())
     else:
         acc = torch.matmul(x.double(), w.double().t())
@@ -136,7 +136,7 @@ def int8_matmul(x, w, scale, bias=None, out_dtype=torch.float32):
     tensors = [t for t in (x, w, scale, bias) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError('int8_matmul: tensors must be contiguous')
-    if x.device.type == 'cpu':
+    if _build.plain_here(x):
         return int8_matmul_plain(x, w, scale, bias, out_dtype)
     if x.device.type != 'cuda' or any(t.device != x.device for t in tensors):
         raise MXNetError('int8_matmul: tensors must share one CUDA device')

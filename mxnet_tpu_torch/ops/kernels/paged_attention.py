@@ -126,7 +126,7 @@ def paged_attention_decode(q, k_pool, v_pool, pages, offset, sm_scale):
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError('paged_attention_decode: tensors must be '
                          'contiguous')
-    if q.device.type == 'cpu':
+    if _build.plain_here(q):
         return paged_attention_decode_plain(q, k_pool, v_pool, pages,
                                             offset, sm_scale)
     if q.device.type != 'cuda' or any(t.device != q.device

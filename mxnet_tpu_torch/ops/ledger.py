@@ -7,9 +7,9 @@ list_ops()``, aliases included) is either registered here
 that will port it; ``tests/test_torch_ledger.py`` holds the two lists
 against the JAX registry, so an unported op stays visible and a name is
 never both. The labels are queue A's in ROADMAP.md (A3 rest, the op
-families not ported with NDArray, is done and has no entry left):
+families not ported with NDArray, and A4 rest, the replayable creation
+ops of deferred compute, are done and have no entry left):
 
-* ``A4 rest``: the replayable creation ops of deferred compute;
 * ``A11``: the fused RNN, CTC loss, detection, image and probability ops.
 """
 
@@ -21,13 +21,6 @@ class PendingOpError(NotImplementedError, AttributeError):
     ``AttributeError`` too, so ``hasattr(mx.np, name)`` is False for it."""
 
 PENDING = {
-    'A4 rest': (
-        # ops/creation.py: replayable creation for deferred compute
-        '_creation_arange', '_creation_blackman', '_creation_eye',
-        '_creation_full', '_creation_hamming', '_creation_hanning',
-        '_creation_indices', '_creation_linspace', '_creation_logspace',
-        '_creation_ones', '_creation_tri', '_creation_zeros',
-    ),
     'A11': (
         # ops/nn.py: fused RNN and CTC loss (gluon/rnn)
         'RNN', 'rnn', 'CTCLoss', 'ctc_loss',

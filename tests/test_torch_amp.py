@@ -8,10 +8,14 @@ clean window) and its one-sync overflow check, ``scale_loss`` then
 unscales the gradients and updates, and a step after an overflow zeroes
 the gradients and updates nothing (weights, momentum slots and update
 counts as they were), as ``tests/test_misc.py`` holds the JAX package to.
-``convert_hybrid_block`` casts every parameter, and ``convert_symbol``/
-``convert_model`` raise naming ROADMAP A11, since the port has no
-``symbol/``.
+``convert_hybrid_block`` casts every parameter. ``convert_symbol`` and
+``convert_model`` on ``tests/test_profiler_amp.py``'s traced MLP put their
+casts where the JAX package's do (excluded and conditional nodes too),
+drop them from the file unless told to keep them, compute in bf16 within
+bf16 tolerance of the JAX package, and cast the same optional parameters.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -223,7 +227,104 @@ def test_convert_hybrid_block_casts_as_the_jax_one():
                                rtol=1e-2)
 
 
+def _traced_mlp():
+    """``tests/test_profiler_amp.py``'s traced MLP (Dense, LayerNorm,
+    Dense) in both packages with the JAX net's weights."""
+    nets = []
+    for mx, gl in ((jmx, jgl), (tmx, tgl)):
+        net = gl.nn.HybridSequential(
+            gl.nn.Dense(16, in_units=8), gl.nn.LayerNorm(),
+            gl.nn.Dense(4, in_units=16))
+        net.initialize()
+        nets.append((mx, net))
+    x = np.random.default_rng(2).standard_normal((2, 8)).astype(np.float32)
+    (jm, jnet), (tm, tnet) = nets
+    jnet(jm.np.array(x))
+    tnet(tm.np.array(x))
+    tnet.load_dict({k: p.data().asnumpy()
+                    for k, p in jnet.collect_params().items()})
+    return [(mx, net, net._trace_symbol(mx.np.array(x)),
+             {k: p.data() for k, p in net.collect_params().items()}, x)
+            for mx, net in nets]
+
+
+def _casts(sym):
+    """Each op node's inputs as (source op, cast dtype) pairs, by node
+    order: where the rewrite put its casts."""
+    return [(n.op, [(i.op, str(i.kwargs.get('dtype'))
+                     if i.op == 'amp_cast' else None) for i, _ in n.inputs])
+            for n in sym._topo() if n.op != 'null']
+
+
 @pytest.mark.parametrize('fn', ['convert_symbol', 'convert_model'])
-def test_symbol_passes_raise_naming_their_roadmap_item(fn):
-    with pytest.raises(NotImplementedError, match=r'A11 \(symbol/\)'):
-        getattr(tamp, fn)(None, {}, {})
+def test_symbol_passes_match_the_jax_package(fn):
+    """``convert_symbol`` puts the casts where the JAX package does
+    (fully_connected's inputs to bf16, layer_norm's to fp32, one cast per
+    source and dtype), leaving the input symbol as it was;
+    ``convert_model``'s converted graph computes in bf16 within bf16
+    tolerance of the JAX package's, its parameters fp32 at rest."""
+    runs = []
+    for mx, net, sym, params, x in _traced_mlp():
+        mod = jamp if mx is jmx else tamp
+        if fn == 'convert_symbol':
+            csym = mod.convert_symbol(sym, target_dtype='bfloat16')
+            assert 'amp_cast' not in [n.op for n in sym._topo()]
+            runs.append(_casts(csym))
+        else:
+            csym, cargs, caux = mod.convert_model(sym, params)
+            assert caux == {}
+            assert {str(v.dtype) for v in cargs.values()} == {'float32'}
+            got = csym.eval(**cargs, data=mx.np.array(x))[0]
+            want = net(mx.np.array(x)).asnumpy()
+            assert not np.array_equal(got.asnumpy(), want)     # bf16 ran
+            runs.append(got.asnumpy().astype(np.float32))
+    if fn == 'convert_symbol':
+        assert runs[1] == runs[0]
+        assert ('fully_connected', [('amp_cast', 'bfloat16')] * 3) in runs[1]
+        assert ('layer_norm', [('amp_cast', 'float32')] * 3) in runs[1]
+    else:
+        np.testing.assert_allclose(runs[1], runs[0], rtol=1e-2, atol=1e-2)
+
+
+def test_excluded_and_conditional_match_the_jax_package():
+    got = []
+    for mx, net, sym, params, x in _traced_mlp():
+        mod = jamp if mx is jmx else tamp
+        fc = [n.name for n in sym._topo() if n.op == 'fully_connected']
+        got.append((
+            _casts(mod.convert_symbol(sym, excluded_sym_names=[fc[0]])),
+            _casts(mod.convert_symbol(sym, conditional_fp32_ops=[
+                ('fully_connected', 'num_hidden', [4])]))))
+    assert got[1] == got[0]
+    excluded, conditional = got[1]
+    assert excluded[0] == ('fully_connected', [('null', None)] * 3)
+    assert conditional[-1] == ('fully_connected',
+                               [('amp_cast', 'float32')] * 3)
+
+
+def test_tojson_removes_amp_cast_as_the_jax_package():
+    files = []
+    for mx, net, sym, params, x in _traced_mlp():
+        mod = jamp if mx is jmx else tamp
+        csym = mod.convert_symbol(sym)
+        clean = json.loads(csym.tojson())
+        kept = json.loads(csym.tojson(remove_amp_cast=False))
+        assert all(n['op'] != 'amp_cast' for n in clean['nodes'])
+        assert any(n['op'] == 'amp_cast' for n in kept['nodes'])
+        files.append([[{k: v for k, v in n.items() if k != 'name'}
+                       for n in d['nodes']] for d in (clean, kept)])
+    assert files[1] == files[0]
+
+
+def test_convert_model_cast_optional_params_as_the_jax_package():
+    """Only parameters whose every consumer is a bf16 cast are cast: the
+    LayerNorm's gamma and beta stay fp32."""
+    dtypes = []
+    for mx, net, sym, params, x in _traced_mlp():
+        mod = jamp if mx is jmx else tamp
+        _, cargs, _ = mod.convert_model(sym, params,
+                                        cast_optional_params=True)
+        dtypes.append({k: str(v.dtype) for k, v in cargs.items()})
+    assert dtypes[1] == dtypes[0]
+    assert dtypes[1]['0.weight'] == 'bfloat16'
+    assert dtypes[1]['1.gamma'] == dtypes[1]['1.beta'] == 'float32'

@@ -70,6 +70,28 @@ def test_the_sparse_fft_and_control_flow_surfaces_load_no_jax():
     assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
 
 
+def test_the_symbol_export_and_engine_surfaces_load_no_jax():
+    code = (
+        'import sys\n'
+        'import mxnet_tpu_torch as mx\n'
+        'from mxnet_tpu_torch import _bulk, _deferred_compute, engine\n'
+        'have = [mx.sym.var, mx.symbol.Group, mx.sym.np.matmul,\n'
+        '        mx.gluon.SymbolBlock.imports, mx.gluon.HybridBlock.export,\n'
+        '        mx.model.save_checkpoint, mx.model.load_checkpoint,\n'
+        '        mx.amp.convert_symbol, mx.amp.convert_model,\n'
+        '        engine.bulk, engine.naive_engine, engine.bulk_stats,\n'
+        '        _bulk.try_record, _deferred_compute.get_symbol]\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
+
+
 @pytest.mark.parametrize('path', sorted(
     str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')))
 def test_no_source_imports_jax_or_the_jax_package(path):
