@@ -25,8 +25,14 @@
                                                   # training, A3 ops
     python3 chip_smoke.py --phases device,build,symbol  # export, import,
                                                   # amp.convert_model, bulking
+    python3 chip_smoke.py --phases device,build,gluon  # the HF import of
+                                                  # the Gluon Llama
     python3 chip_smoke.py --host-cost build/parent  # mx.np.add's host
                                                   # cost against another
+                                                  # checkout's, in turns
+    python3 chip_smoke.py --llama-host-cost build/parent  # the Llama's
+                                                  # eager calls' host ms
+                                                  # against another
                                                   # checkout's, in turns
 
 Phases, each of which fails the run on any error:
@@ -70,9 +76,13 @@ Phases, each of which fails the run on any error:
                shapes, each bf16 output within one bf16 ulp plus the fp32
                tolerance of its plain version, timed beside its bound at
                2-byte elements and the library call in bf16.
-4. forward  -- ``llama3_8b`` at full width and depth, weights from a seeded
-               generator: one ``(1, 512)`` forward, finite logits, and
-               exactly 65 RMSNorm and 32 flash-attention launches.
+4. forward  -- ``llama3_8b`` at full width and depth, the Gluon block
+               (``HybridBlock``s, ``collect_params()`` names as in the JAX
+               package) built by ``get_llama``, ``grad_req='null'`` as a
+               served net sets it, and ``initialize(LlamaInit(SEED))``:
+               one ``(1, 512)`` forward through the registered ops,
+               finite logits, and exactly 65 RMSNorm and 32
+               flash-attention launches.
 5. serve    -- ``DecodeServer`` with its scheduler thread over six seeded
                prompts (17 to 1500 tokens, two sharing a 64-token prefix),
                32 new tokens each; its warm-up captures the prefill chunk
@@ -93,7 +103,8 @@ Phases, each of which fails the run on any error:
                layer; the norm's kernel time in each is logged apart.
 6. int8     -- the same net, quantized in place by ``quantize_net`` (naive
                calibration on one seeded (1, 512) batch, bf16
-               activations): 225 ``QuantizedLinear`` layers. One (1, 512)
+               activations): its 225 ``Dense`` layers become Gluon
+               ``QuantizedDense`` layers. One (1, 512)
                forward with exactly 225 int8, 65 norm and 32 flash
                launches; the six prompts served again, with 225 int8
                launches per decode step and per prefill chunk, through
@@ -105,9 +116,11 @@ Phases, each of which fails the run on any error:
                only (``int8_checks`` says why); the kernel-time breakdown,
                eager and graphed. Then a small quantized Llama must serve
                the same tokens on the card and the CPU.
-7. train    -- ``llama3_8b`` at full width cut to 4 layers (1.92 B
-               parameters; fp32 Adam's weights, gradients and two moments
-               for all 32 layers would not fit one 80 GB card): three
+7. train    -- ``llama3_8b``'s Gluon block at full width cut to 4 layers
+               (1.92 B parameters; fp32 Adam's weights, gradients and two
+               moments for all 32 layers would not fit one 80 GB card),
+               trained as tests/test_llama.py's loop does (``record()``,
+               ``backward()``, ``Trainer(net.collect_params())``): three
                ``Trainer('adam')`` steps, then three of a fresh
                ``Trainer('sgd', momentum=0.9)``, each from the same seeded
                weights (so that the second run has something left to
@@ -170,7 +183,8 @@ Phases, each of which fails the run on any error:
                x 2 x the head gradient), two recorded calls of one key
                before one backward (the second runs eagerly, gradients
                equal eager's), and ``create_graph=True`` through a
-               replayed call raises naming A5 rest. Logged: host ms a
+               replayed call of the Dropout net raises (an eager
+               recomputation would draw other masks). Logged: host ms a
                step, samples/s and the busy share, eager and graphed, the
                step's GEMM TFLOP against cuBLAS's measured fp32 rate, the
                plain flash backward, graphed against eager predict ms and
@@ -231,9 +245,9 @@ Phases, each of which fails the run on any error:
                ``resnet50_v1`` at batch 32 in bf16: graphed predict (K
                forwards back to back), graphed SGD-momentum steps with
                ``RESNET_UPDATED`` plain updates and no kernel, and the K =
-               24 loop over ``pure_function``. ``llama3_8b`` at full width
-               and depth: one causal (1, 2048) forward in fp32, then cast
-               to bf16 (16 GB), the same forward with 65 B1 and 32 B2
+               24 loop over ``pure_function``. ``llama3_8b``'s Gluon block
+               at full width and depth: one causal (1, 2048) forward in
+               fp32, then ``net.cast('bfloat16')`` (16 GB), the same forward with 65 B1 and 32 B2
                launches, all bf16; ``generate()`` of 32 tokens from a
                32-token prompt, teacher-forced through the forward (held
                where the top-2 margin exceeds 0.25). Each path is logged
@@ -296,17 +310,19 @@ Phases, each of which fails the run on any error:
                (``parallel.launch.spawn``, gloo, all on cuda:0, CUDA
                tensors staged through pinned host buffers), each counted
                from 0 just before and read just after its main path:
-               (b) ``bert_12_768_12`` at (16, 128) a rank (the bert
+               (b) ``bert_12_768_12``'s widths at ``DIST_LAYERS`` (4) of
+               its 12 layers (cut to keep the run inside its time
+               limit) at (16, 128) a rank (the bert
                phase's 32 sequences split), hybridized, ``BERT_STEPS``
                Adam steps through ``Trainer(..., kvstore='dist_sync')``
                with ``allreduce_grads`` and ``update`` as two calls:
-               exactly 26 B1, 12 B2 and 156 B5 a step in each rank, the
+               exactly 10 B1, 4 B2 and 60 B5 a step in each rank, the
                ranks' weights bit-equal after every step, the losses and
                each tensor's change within rtol 1e-4 and 1 % of one
                process over the 32 sequences (``kvstore='device'``,
                ``step(1 / DIST_RANKS)``, since the kvstore sums); (c) the
                same with ``update_on_kvstore=True``, the ZeRO-1 update:
-               B5 launches summed over the ranks exactly 156 a step, the
+               B5 launches summed over the ranks exactly 60 a step, the
                ranks bit-equal and within 1e-6 of (b)'s weights; (d) a
                2-bit compressed pushpull of ``DIST_GC_SHAPES``: words
                bit-equal to the CPU's, sums exact; (e) SyncBatchNorm on
@@ -327,11 +343,12 @@ Phases, each of which fails the run on any error:
                Adam 1e-4 through ``Trainer(kvstore='dist_async',
                update_on_kvstore=True)``, each server updating its
                weights on cuda:0 through B5. (a) One worker and its
-               server in this process, 3 steps: losses and weights
-               bit-equal to a ``kvstore=None`` Trainer's from the same
-               weights, with Adam, again under ``DIST_ASYNC_FAULTS``, and
-               with SGD-momentum (B6 on the server); 26 B1, 12 B2 and 156
-               B5 or B6 a step. (b) Two workers of BERT-base's widths at
+               server in this process, 3 steps at BERT-base's widths and
+               ``DIST_ASYNC_LAYERS`` (4) layers (cut for time): losses and
+               weights bit-equal to a ``kvstore=None`` Trainer's from the
+               same weights, with Adam, again under ``DIST_ASYNC_FAULTS``,
+               and with SGD-momentum (B6 on the server); 10 B1, 4 B2 and
+               60 B5 or B6 a step. (b) Two workers of BERT-base's widths at
                ``DIST_ASYNC_LAYERS`` (4) of its 12 layers (cut to keep the
                run inside its time limit)
                (``parallel.launch.spawn``, both on cuda:0, each process
@@ -359,8 +376,11 @@ Phases, each of which fails the run on any error:
                layers (its 32 took 88 s of the run's time limit, its 8
                up to 51 s), against
                a one-process server of those 4, with seeded weights
-               (each rank draws each weight whole in turn and keeps its
-               half), the serve phase's settings and six prompts: each
+               (the Gluon block initialized inside the mesh: each rank
+               draws each weight whole in turn and keeps its half, placed
+               by the ``('llama', 'tp')`` rules as a hybridized Gluon call
+               places them), the serve phase's settings and six prompts:
+               each
                rank must hold half the weights (``memory_allocated``), 16
                of 32 query and 4 of 8 KV heads, launch exactly 2L + 1 B1
                and L B4 a decode step (9 and 4 at L = 4 layers), never
@@ -514,7 +534,31 @@ Phases, each of which fails the run on any error:
                op, eager and bulked (one captured segment a chain,
                replayed), equal results. These figures set bulking's
                default on the card (off: PERF.md).
-22. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
+22. gluon   -- Gluon beyond the core (A5 rest). (a) The HF import: an
+               HF-named Llama state dict at ``llama3_8b``'s widths and 2
+               layers (bf16, as HF checkpoints ship; rotate-half q and k)
+               written as ``pytorch_model.bin`` and as
+               ``model.safetensors``, each beside a ``config.json``, under
+               ``build/gluon/``, and loaded by ``from_hf_pretrained`` on
+               the card with no ``transformers``: a (1, 64) forward's
+               logits bit-equal between the two files and to the same
+               weights set through ``collect_params()``, within 1e-3 of
+               the largest logit of a rotate-half reference forward
+               written in plain PyTorch here (``rotate_half_logits``), and
+               exactly 5 B1 and 2 B2 launches a forward. (b) A gradient
+               penalty (the squared norm of dL/dx) through a hybridized
+               MLP whose recorded calls replay: ``create_graph=True``
+               through the replayed node gives ``hybridize(False)``'s
+               gradients at 1e-5. (c) BERT-base's 12 encoder cells with
+               dropout 0.1 at (32, 128), hybridized with and without
+               ``remat=True``, the generator reseeded between the capture
+               and the replay: the replayed call's gradients from the
+               same generator state equal at 1e-5 (the remat backward
+               graph draws with the forward's seed and offset), and the
+               peak memory of each. (d) ``gluon.contrib.cnn.DeformableConvolution`` at
+               (4, 32, 28, 28): its output and gradients on the card
+               equal its CPU run at 1e-5 of each tensor's largest value.
+23. ring    -- ``parallel.ring_attention`` at ``llama3_8b``'s attention
                widths (32 heads of 128) over its whole 8192 tokens,
                sharded over four ranks (``parallel.launch.spawn``) that
                share cuda:0 over gloo, causal and full. Each rank must
@@ -528,15 +572,15 @@ Phases, each of which fails the run on any error:
                k and v gradients of a seeded cotangent must meet autograd
                through plain dense attention (``ring_grad_checks``). Logs each rank's host ms,
                stats-kernel ms and transport ms.
-23. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
+24. rtc     -- ``rtc.CudaModule`` compiles two kernels written in CUDA C
                (``RTC_SOURCE``: a doubling and one with a scalar argument
                and two outputs) with NVRTC and launches them at (4096,
                14336) fp32: bit-equal to their torch twins, timed against
                the bytes they must move.
 
 The launch counters are set to 0 just before each of the forward, serve,
-int8, train, ndarray, bert, resnet, bf16, qresnet, optim, sparse, symbol
-and rtc phases and read just after
+int8, train, ndarray, bert, resnet, bf16, qresnet, optim, sparse, symbol,
+gluon and rtc phases and read just after
 it (with the optimizer's plain-update counters), and in each
 rank just before and after its ring runs, its dist runs (b) and (c), its
 dist_async runs (b) and (c) (the dist_async phase's (a) runs in this
@@ -571,7 +615,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ('device', 'build', 'kernels', 'forward', 'serve', 'int8',
           'train', 'ndarray', 'bert', 'resnet', 'bf16', 'qresnet', 'optim',
           'dist', 'dist_async', 'sharding', 'elastic', 'pipeline', 'moe',
-          'sparse', 'symbol', 'ring', 'rtc')
+          'sparse', 'symbol', 'gluon', 'ring', 'rtc')
 SEED = 0    # seeds the generators of the weights, inputs and prompts
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s,
@@ -618,6 +662,37 @@ TRAIN_LAYERS = 4
 TRAIN_TOKENS = 2048
 TRAIN_OPTS = (('adam', 'adam', {'learning_rate': 1e-5}),
               ('sgd', 'sgd_mom', {'learning_rate': 0.1, 'momentum': 0.9}))
+
+
+_ST_NAMES = {'float64': 'F64', 'float32': 'F32', 'float16': 'F16',
+             'bfloat16': 'BF16', 'int64': 'I64', 'int32': 'I32',
+             'int16': 'I16', 'int8': 'I8', 'uint8': 'U8', 'bool': 'BOOL'}
+
+
+def write_safetensors(path, tensors):
+    """Write ``tensors`` (name -> torch tensor) as a ``.safetensors`` file:
+    an 8-byte little-endian header length, the JSON header (each name's
+    ``dtype``, ``shape`` and ``data_offsets``), then the raw little-endian
+    bytes, as HuggingFace checkpoints hold them (no ``safetensors``
+    package)."""
+    import torch
+    header, chunks, off = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() \
+            if t.numel() else b''
+        header[name] = {'dtype': _ST_NAMES[str(t.dtype).split('.')[-1]],
+                        'shape': list(t.shape),
+                        'data_offsets': [off, off + len(raw)]}
+        chunks.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b' ' * (-len(head) % 8)
+    with open(path, 'wb') as f:
+        f.write(len(head).to_bytes(8, 'little'))
+        f.write(head)
+        for raw in chunks:
+            f.write(raw)
 
 
 def log(*a):
@@ -1702,7 +1777,66 @@ def _sync(torch, dev):
 
 
 def _device(net):
-    return net.model.embed_tokens.weight.device
+    return net._device()
+
+
+def _t(x):
+    """The tensor of an NDArray (the Gluon Llama's logits), or ``x``."""
+    return x._data if hasattr(x, '_data') else x
+
+
+def build_llama(name, seed, where='cuda', serve=True, **kw):
+    """``get_llama(name, **kw)`` initialized by ``LlamaInit(seed)`` on
+    ``where`` (inside a ``tp`` mesh: this rank's shards of the same
+    values). ``serve`` sets ``grad_req='null'`` first, as an MXNet user does
+    for inference, so that no parameter holds a gradient buffer."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.llama import LlamaInit, get_llama
+    net = get_llama(name, **kw)
+    if serve:
+        net.collect_params().setattr('grad_req', 'null')
+    net.initialize(LlamaInit(seed),
+                   ctx=mx.cpu() if where == 'cpu' else mx.gpu(0))
+    return net
+
+
+def copy_llama(net, where):
+    """A Llama of ``net``'s configuration on ``where`` holding its weights:
+    the float parameters by name, each int8 layer by its quantized state
+    (``load_jax_quantized``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo.llama import LlamaForCausalLM, \
+        from_jax_params
+    from mxnet_tpu_torch.quantization import QuantizedDense, _gluon_walk, \
+        load_jax_quantized
+    q = {path: m for _, _, path, m in _gluon_walk(net)
+         if isinstance(m, QuantizedDense)}
+    state = {path: dict(qweight=m.qweight.data().asnumpy(),
+                        w_scale=m._w_scale.cpu().numpy(),
+                        collected_range=m.collected_range, bias=None)
+             for path, m in q.items()}
+    skip = tuple(f'{path}.' for path in q)
+    floats = {n: p.data().asnumpy() for n, p in net.collect_params().items()
+              if not n.startswith(skip)}
+    out = LlamaForCausalLM(net.cfg)
+    out.initialize(initializer.Zero(),
+                   ctx=mx.cpu() if str(where) == 'cpu' else mx.gpu(0))
+    if not q:
+        return from_jax_params(out, floats)
+    act = str(next(iter(q.values()))._act_dtype).split('.')[-1]
+    return load_jax_quantized(out, state, floats, activation_dtype=act)
+
+
+def param_bytes(net, dtypes=None):
+    """Bytes of ``net``'s parameter leaves here (this rank's shards), of
+    the given dtypes only where named."""
+    out = 0
+    for p in net.collect_params().values():
+        t = p._var
+        if dtypes is None or str(t.dtype).split('.')[-1] in dtypes:
+            out += t.numel() * t.element_size()
+    return out
 
 
 def _want(**counts):
@@ -1723,8 +1857,7 @@ def phase_forward(torch, net, seed, length=512, int8_layers=0, tag='forward'):
                          generator=torch.Generator().manual_seed(seed))
     _sync(torch, dev)
     t0 = time.perf_counter()
-    with torch.no_grad():
-        logits = net(toks.to(dev))
+    logits = _t(net(toks.to(dev)))
     _sync(torch, dev)
     dt = time.perf_counter() - t0
     after = kernels.launch_counts()
@@ -1795,6 +1928,7 @@ def phase_serve(torch, net, seed, int8_layers=0, tag='serve'):
         f'{[len(p) for p in prompts]}, {gen} tokens in {wall:.2f} s '
         f'({gen / wall:.1f} tok/s), decode steps {steps}, prefill chunks '
         f'{chunks}, prefix_hit {stats["prefix_hit"]}, launches {delta}')
+    beside_earlier(tag, 'tok/s', gen / wall, 'tok/s')
     log(f'[{tag}] ttft_ms p50 {stats["ttft_ms"][50]:.1f} p95 '
         f'{stats["ttft_ms"][95]:.1f}; intertoken_ms p50 '
         f'{stats["intertoken_ms"][50]:.1f} p95 '
@@ -1849,7 +1983,7 @@ def eager_steps(torch, net, prompt, n_new, slots=4, max_length=2048,
             toks = prompt[start:start + real] + [0] * (chunk - real)
             logits, _ = net(torch.tensor([toks], device=dev), caches=pool,
                             offset=start, pages=row)
-        out = [int(logits[0, real - 1].float().argmax())]
+        out = [int(_t(logits)[0, real - 1].float().argmax())]
         bt = torch.zeros(slots, mp, dtype=torch.int32, device=dev)
         bt[0] = row[0]
         while len(out) < n_new:
@@ -1858,7 +1992,7 @@ def eager_steps(torch, net, prompt, n_new, slots=4, max_length=2048,
             offs = torch.zeros(slots, dtype=torch.int32, device=dev)
             offs[0] = len(prompt) + len(out) - 1
             logits, _ = net(toks, caches=pool, offset=offs, pages=bt)
-            out.append(int(logits[0, -1].float().argmax()))
+            out.append(int(_t(logits)[0, -1].float().argmax()))
     del pool
     return out
 
@@ -2006,6 +2140,10 @@ def profiled_calls(torch, call, reps, what):
 #: how many times a profiled call runs before a profile that lost kernel
 #: events fails its phase (ROADMAP C5)
 PROFILE_TRIES = 3
+#: ``CHIP_SMOKE_C5_PROBE=1``: the symbol phase's bf16 predict is profiled
+#: once with no warm-up kernels before its checked sessions, and whether
+#: that session lost events is logged (``[c5]``; ROADMAP C5)
+C5_PROBE = os.environ.get('CHIP_SMOKE_C5_PROBE') == '1'
 #: every profiled session of this run: (what, try, {kernel: (events,
 #: launches)} where the two differ; empty when the profile is whole)
 PROFILES = []
@@ -2141,6 +2279,32 @@ def profile_summary():
                 for k, (e, c) in s.items()) for w, n, s in lost))
 
 
+#: the earlier tree's figures (PERF.md §5, on an H100 80GB HBM3 at
+#: 700.00 W) that the Llama phases print theirs beside: host ms of a
+#: profiled call, and tok/s of a serving run
+EARLIER = {
+    ('profile', 'eager decode step (4 slots at depth 1024)'): 33.35,
+    ('profile', 'graphed decode step (4 slots at depth 1024)'): 15.63,
+    ('profile', 'eager prefill chunk (1, 32) at 1024'): 65.58,
+    ('profile', 'graphed prefill chunk (1, 32) at 1024'): 31.43,
+    ('int8', 'eager decode step (4 slots at depth 1024)'): 52.52,
+    ('int8', 'graphed decode step (4 slots at depth 1024)'): 9.42,
+    ('int8', 'eager prefill chunk (1, 32) at 1024'): 92.44,
+    ('int8', 'graphed prefill chunk (1, 32) at 1024'): 15.59,
+    ('train', 'adam step 3 (profiled)'): 401.45,
+    ('bf16', 'llama3_8b fp32 forward'): 652.20,
+    ('bf16', 'llama3_8b bf16 forward'): 86.56,
+    ('serve', 'tok/s'): 42.3, ('int8', 'tok/s'): 75.5}
+
+
+def beside_earlier(tag, what, value, unit='host ms'):
+    """Log ``value`` beside the earlier tree's figure for it, if any."""
+    old = EARLIER.get((tag, what))
+    if old is not None:
+        log(f'[{tag}] {what}: {value:.2f} {unit} in this tree, {old:.2f} in '
+            f'PERF.md §5 ({value / old:.3f}x)')
+
+
 def kernel_breakdown(tag, what, prof, wall_ms, reps=1, top=8):
     """Log the kernel time of a ``torch.profiler`` run of ``reps`` calls
     by name, against ``wall_ms``, the host-clock ms of one call; returns
@@ -2155,6 +2319,7 @@ def kernel_breakdown(tag, what, prof, wall_ms, reps=1, top=8):
         f'{busy:.2f} ms of kernel time ({100 * busy / wall_ms:.0f}% '
         f'busy), {sum(e.count for e in ev) // reps} kernels; '
         f'card {smi_line()}')
+    beside_earlier(tag, what, wall_ms)
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / reps
         log(f'[{tag}]   {ms:8.3f} ms {100 * ms / busy:5.1f}% '
@@ -2185,8 +2350,7 @@ def teacher_forced(torch, net, prompt, out, tag='serve', check=True):
     margin exceeds 1e-2. With ``check`` False the agreement is only
     logged."""
     seq = torch.tensor([prompt + out[:-1]], device=_device(net))
-    with torch.no_grad():
-        logits = net(seq)[0, len(prompt) - 1:].float()
+    logits = _t(net(seq))[0, len(prompt) - 1:].float()
     top2 = logits.topk(2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1]).tolist()
     pick = logits.argmax(-1).tolist()
@@ -2210,10 +2374,9 @@ def path_spread(torch, net, seq):
     pages = torch.arange(1, n_pages + 1, dtype=torch.int32,
                          device=dev)[None]
     toks = torch.tensor([seq], device=dev)
-    with torch.no_grad():
-        full = net(toks).float()
-        chunk, _ = net(toks, caches=pool, offset=0, pages=pages)
-    return float((full - chunk.float()).abs().max())
+    full = _t(net(toks)).float()
+    chunk, _ = net(toks, caches=pool, offset=0, pages=pages)
+    return float((full - _t(chunk).float()).abs().max())
 
 
 @contextlib.contextmanager
@@ -2255,8 +2418,10 @@ def phase_int8(torch, net, seed, float_logits=None, float_outs=None):
     server over the six prompts, and ``generate()`` on one of them, each
     launch counted. The float net's logits and tokens, where given, are
     compared in the log only. Returns what :func:`int8_checks` holds."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
     from mxnet_tpu_torch.ops import kernels
-    from mxnet_tpu_torch.quantization import QuantizedLinear, quantize_net
+    from mxnet_tpu_torch.quantization import QuantizedDense, _gluon_walk, \
+        quantize_net
     cfg = net.cfg
     L = cfg.num_layers
     n_dense = 7 * L + (0 if cfg.tie_word_embeddings else 1)
@@ -2265,22 +2430,24 @@ def phase_int8(torch, net, seed, float_logits=None, float_outs=None):
     before = kernels.launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    quantize_net(net, calib_data=[calib], calib_mode='naive')
+    quantize_net(net, calib_data=[NDArray(calib.to(_device(net)))],
+                 calib_mode='naive')
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     after = kernels.launch_counts()
     delta = {k: after[k] - before[k] for k in after}
     torch.cuda.empty_cache()
-    layers = [m for m in net.modules() if isinstance(m, QuantizedLinear)]
-    int8_bytes = sum(m.qweight.numel() for m in layers)
-    float_bytes = sum(p.numel() * p.element_size() for p in net.parameters())
+    layers = [m for _, _, _, m in _gluon_walk(net)
+              if isinstance(m, QuantizedDense)]
+    int8_bytes = param_bytes(net, ('int8',))
+    float_bytes = param_bytes(net) - int8_bytes
     log(f'[int8] quantize_net (naive, one (1, 512) batch) in {dt:.1f} s: '
-        f'{len(layers)} QuantizedLinear layers, {int8_bytes / 1e9:.3f} GB of '
+        f'{len(layers)} QuantizedDense layers, {int8_bytes / 1e9:.3f} GB of '
         f'int8 weights, {float_bytes / 1e9:.3f} GB of float parameters '
         f'left, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; '
         f'calibration launches {delta}')
     if len(layers) != n_dense:
-        fail(f'int8: {len(layers)} QuantizedLinear layers, want {n_dense}')
+        fail(f'int8: {len(layers)} QuantizedDense layers, want {n_dense}')
     if delta != _want(fused_norm=2 * L + 1, flash_attention=L):
         fail(f'int8: the calibration forward launched {delta}')
     logits = phase_forward(torch, net, SEED + 1, int8_layers=n_dense,
@@ -2339,7 +2506,7 @@ def int8_checks(torch, net, logits, prompts, outs, gen):
     toks = torch.randint(0, net.cfg.vocab_size, (1, 512),
                          generator=torch.Generator().manual_seed(SEED + 1))
     with plain_int8(net), torch.no_grad():
-        plain = net(toks.to(_device(net))).float().cpu()
+        plain = _t(net(toks.to(_device(net)))).float().cpu()
         plain_served = serve_one(torch, net, prompt, len(out), tag='int8')
         plain_gen = net.generate([prompt], max_new_tokens=len(out))[
             0, len(prompt):].tolist()
@@ -2366,8 +2533,7 @@ def int8_parity(torch, seed):
     """A small Llama (head dim 64, GQA 4/2) quantized on the CPU, then
     served on the card (the int8 kernel) and on the CPU (its plain
     version): the greedy tokens must be equal."""
-    import copy
-    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.quantization import quantize_net
     from mxnet_tpu_torch.serve import DecodeServer
@@ -2375,13 +2541,11 @@ def int8_parity(torch, seed):
     prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
                for n in (5, 19, 40)]
     calib = torch.randint(0, 512, (2, 24), generator=g)
-    cpu_net = get_llama('llama_tiny', device='cpu', seed=seed,
-                        vocab_size=512, units=256, num_layers=2, num_heads=4,
-                        num_kv_heads=2, hidden_size=512, max_length=128)
-    quantize_net(cpu_net, calib_data=[calib], calib_mode='naive')
+    cpu_net = build_llama('llama_tiny', seed, 'cpu', **SMALL_LLAMA)
+    quantize_net(cpu_net, calib_data=[NDArray(calib)], calib_mode='naive')
     outs, launches = {}, {}
     for where in ('cpu', 'cuda'):
-        net = copy.deepcopy(cpu_net).to(where)
+        net = copy_llama(cpu_net, where)
         before = kernels.launch_counts()['int8_matmul']
         ds = DecodeServer(net, slots=2, max_length=64, page_size=4,
                           prefill_chunk=8, start=False)
@@ -2408,12 +2572,20 @@ def int8_parity(torch, seed):
              'apart')
 
 
+#: the small Llama of the parity checks: head dim 64, GQA 4/2
+SMALL_LLAMA = dict(vocab_size=512, units=256, num_layers=2, num_heads=4,
+                   num_kv_heads=2, hidden_size=512, max_length=128)
+
+
 def _grad_faults(torch, params):
-    """Names of the parameters whose gradient is missing, not finite, or
-    zero everywhere."""
-    return [n for n, p in params.items()
-            if p.grad is None or not bool(torch.isfinite(p.grad).all())
-            or not bool((p.grad != 0).any())]
+    """Names of the parameters whose gradient is not finite, or zero
+    everywhere."""
+    out = []
+    for n, p in params.items():
+        g = p.grad()._data
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            out.append(n)
+    return out
 
 
 def phase_train(torch, seed, steps=3):
@@ -2422,17 +2594,19 @@ def phase_train(torch, seed, steps=3):
     ``TRAIN_TOKENS`` tokens, as tests/test_llama.py's loop runs them, each
     run from the same seeded weights; the last step of each run goes
     through ``torch.profiler``."""
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon import Trainer, loss as gloss
-    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+    from mxnet_tpu_torch.gluon.model_zoo.llama import LlamaInit
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
     from mxnet_tpu_torch.ops import kernels
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    net = get_llama('llama3_8b', num_layers=TRAIN_LAYERS, device='cuda',
-                    seed=seed)
+    net = build_llama('llama3_8b', seed, serve=False,
+                      num_layers=TRAIN_LAYERS)
     L = net.cfg.num_layers
-    params = dict(net.named_parameters())
-    n_par = sum(p.numel() for p in params.values())
+    params = net.collect_params()
+    n_par = param_bytes(net) // 4
     torch.cuda.synchronize()
     log(f'[train] llama3_8b widths at {L} layers: {len(params)} '
         f'parameters, {n_par / 1e9:.3f} B fp32, on cuda in '
@@ -2440,11 +2614,12 @@ def phase_train(torch, seed, steps=3):
     toks = torch.randint(0, net.cfg.vocab_size, (1, TRAIN_TOKENS + 1),
                          generator=torch.Generator().manual_seed(seed))
     toks = toks.cuda()
-    x, y = toks[:, :-1], toks[:, 1:]
+    x, y = NDArray(toks[:, :-1]), NDArray(toks[:, 1:])
     loss_fn = gloss.SoftmaxCrossEntropyLoss()
     for run, (opt, kernel, hyper) in enumerate(TRAIN_OPTS):
         if run:
-            net.reset_parameters(seed)
+            net.initialize(LlamaInit(seed), ctx=mx.gpu(0),
+                           force_reinit=True)
         trainer = Trainer(params, opt, dict(hyper))
         want = dict.fromkeys(KERNELS, 0)
         want.update(fused_norm=2 * L + 1, flash_attention=L)
@@ -2452,7 +2627,8 @@ def phase_train(torch, seed, steps=3):
         losses, wall = [], []
 
         def step(check=False):
-            loss = loss_fn(net(x), y).mean()
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y).mean()
             loss.backward()
             if check:
                 bad = _grad_faults(torch, params)
@@ -2479,7 +2655,7 @@ def phase_train(torch, seed, steps=3):
                 loss = step(check=run == 0 and i == 0)
                 wall.append((time.perf_counter() - t1) * 1e3)
                 delta = _counts_since(kernels, before)
-            losses.append(float(loss.detach()))
+            losses.append(float(loss.asnumpy()))
             delta = {k: delta.get(k, 0) for k in want}
             if delta != want:
                 fail(f'train: {opt} step {i + 1} launches {delta}, want '
@@ -2508,30 +2684,30 @@ def train_parity(torch, seed, steps=2):
     the card, through the kernels, and on the CPU, through the plain
     versions, from the same weights and tokens: the losses must agree at
     rtol 1e-4, and every parameter on the card must get a gradient."""
-    import copy
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon import Trainer, loss as gloss
-    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
-    cpu_net = get_llama('llama_tiny', device='cpu', seed=seed,
-                        vocab_size=512, units=256, num_layers=2, num_heads=4,
-                        num_kv_heads=2, hidden_size=512, max_length=128)
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    cpu_net = build_llama('llama_tiny', seed, 'cpu', serve=False,
+                          **SMALL_LLAMA)
     toks = torch.randint(0, 512, (2, 33),
                          generator=torch.Generator().manual_seed(seed))
     losses = {}
     for where in ('cpu', 'cuda'):
-        net = copy.deepcopy(cpu_net).to(where)
-        params = dict(net.named_parameters())
+        net = copy_llama(cpu_net, where)
+        params = net.collect_params()
         trainer = Trainer(params, 'adam', {'learning_rate': 1e-3})
-        t = toks.to(where)
+        t = NDArray(toks.to(where))
         losses[where] = []
         for i in range(steps):
-            loss = gloss.SoftmaxCrossEntropyLoss()(net(t[:, :-1]),
-                                                    t[:, 1:]).mean()
+            with mx.autograd.record():
+                loss = gloss.SoftmaxCrossEntropyLoss()(net(t[:, :-1]),
+                                                        t[:, 1:]).mean()
             loss.backward()
             if i == 0 and _grad_faults(torch, params):
                 fail(f'train: on {where} these parameters of the small '
                      f'Llama get no gradient: {_grad_faults(torch, params)}')
             trainer.step(1)
-            losses[where].append(float(loss.detach()))
+            losses[where].append(float(loss.asnumpy()))
     ok = all(math.isclose(a, b, rel_tol=1e-4)
              for a, b in zip(losses['cuda'], losses['cpu']))
     log(f'[train] small Llama (units 256, heads 4/2, dh 64), {steps} Adam '
@@ -2555,7 +2731,7 @@ NDARRAY_TOKENS = 2048
 NDARRAY_STEPS = 3
 FRONTEND_OPTS = (('adam', {'lr': 1e-5}),
                  ('sgd_mom', {'lr': 0.1, 'momentum': 0.9}))
-_L0 = 'model.layers.0.'
+_L0 = 'model.layers0.'
 
 
 def frontend_shapes(w):
@@ -2655,43 +2831,53 @@ def frontend_slots(mx, p, opt):
 
 def module_step(torch, net, tokens, opt, hyper, slots, t):
     """The same step through the port's module path: ``net`` (a one-block
-    ``LlamaForCausalLM``), torch autograd, ``SoftmaxCrossEntropyLoss`` and
-    the in-place tensor functions of ``ops/optimizer_ops.py``; returns the
-    loss."""
+    Gluon ``LlamaForCausalLM``), ``mx.autograd``,
+    ``SoftmaxCrossEntropyLoss`` and the in-place tensor functions of
+    ``ops/optimizer_ops.py`` on each parameter's leaf and grad buffer;
+    returns the loss."""
+    from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
     from mxnet_tpu_torch.ops import optimizer_ops as oo
-    x, y = tokens[:, :-1], tokens[:, 1:]
-    loss = gloss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
+    x, y = NDArray(tokens[:, :-1]), NDArray(tokens[:, 1:])
+    with autograd.record():
+        loss = gloss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
     loss.backward()
     with torch.no_grad():
-        for n, prm in net.named_parameters():
+        for n, prm in net.collect_params().items():
+            w, g = prm._sync(), prm._grad_buffer()
             if opt == 'adam':
-                oo.fused_adam_step(prm, prm.grad, *slots[n], t=t, **hyper)
+                oo.fused_adam_step(w, g, *slots[n], t=t, **hyper)
             else:
-                oo.fused_sgd_mom_step(prm, prm.grad, *slots[n], **hyper)
-            prm.grad = None
-    return loss.detach()
+                oo.fused_sgd_mom_step(w, g, *slots[n], **hyper)
+    return loss._data.detach()
 
 
 def module_net(torch, w, p, device):
-    """A one-block ``LlamaForCausalLM`` at widths ``w`` on ``device`` whose
-    weights are copies of the NDArray payloads ``p``."""
+    """A one-block Gluon ``LlamaForCausalLM`` at widths ``w`` on
+    ``device`` whose weights are copies of the NDArray payloads ``p``."""
+    from mxnet_tpu_torch import initializer
     from mxnet_tpu_torch.gluon.model_zoo.llama import LlamaConfig, \
         LlamaForCausalLM
+    from mxnet_tpu_torch.ndarray.ndarray import context_of
     cfg = LlamaConfig(vocab_size=w['vocab'], units=w['units'], num_layers=1,
                       num_heads=w['heads'], num_kv_heads=w['kv_heads'],
                       hidden_size=w['hidden'], rope_theta=w['theta'],
                       rms_norm_eps=w['eps'])
-    net = LlamaForCausalLM(cfg, device='meta')
-    net.to_empty(device=device)
+    net = LlamaForCausalLM(cfg)
+    net.initialize(initializer.Zero(), ctx=context_of(torch.device(device)))
     load_module(torch, net, p)
     return net
 
 
+def module_params(net):
+    """The module path's weights, by name: each parameter's leaf."""
+    return {n: prm._sync() for n, prm in net.collect_params().items()}
+
+
 def load_module(torch, net, p):
-    with torch.no_grad():
-        for n, prm in net.named_parameters():
-            prm.copy_(p[n]._data)
+    for n, prm in net.collect_params().items():
+        prm.set_data(p[n]._data)
 
 
 def _take_back(kernels, before, paths_before):
@@ -2755,7 +2941,7 @@ def phase_ndarray(torch, seed):
         slots = frontend_slots(mx, p, opt)
         load_module(torch, net, p0)
         mslots = {n: tuple(torch.zeros_like(q) for _ in slots[n])
-                  for n, q in net.named_parameters()}
+                  for n, q in module_params(net).items()}
         step_want = dict(want, **{'adam' if opt == 'adam' else 'sgd_mom':
                                   len(p)})
         rows = []
@@ -2784,7 +2970,7 @@ def phase_ndarray(torch, seed):
                 fail(f'ndarray: the module path launched {mod}, want '
                      f'{step_want}')
             werr = max(float((p[n]._data.detach() - prm.detach()).abs().max())
-                       for n, prm in net.named_parameters())
+                       for n, prm in module_params(net).items())
             ok = lv == mv and werr == 0 and math.isfinite(lv)
             rows.append((t, lv, mv, werr, imp_ms, mod_ms, ops))
             log(f'[ndarray] {opt} step {t}: loss {lv!r} (module path '
@@ -2928,6 +3114,90 @@ def host_cost(other, rounds=31, calls=2000):
     return best
 
 
+def llama_host_cost(other, rounds=7, layers=8):
+    """``--llama-host-cost DIR``: the host ms of the Llama's eager calls
+    with this tree's package and with the one of the checkout ``DIR``,
+    each loaded in this process under a name of its own, at
+    ``llama3_8b``'s widths and ``layers`` layers from the same seeded
+    weights: a decode step (4 slots at depth 1024) and a prefill chunk
+    ((1, 32) at 1024) over the paged pool, the dense-cache prefill that
+    ``generate()`` runs eagerly ((1, 512)) and the (1, 512) forward, each
+    synchronised, timed in turns (the order reversed every other round),
+    the least of ``rounds`` kept. The kernels are the same in both trees,
+    so the difference is host time."""
+    import importlib.util
+    import torch
+
+    def load(root, name):
+        src = Path(root).resolve() / 'mxnet_tpu_torch'
+        spec = importlib.util.spec_from_file_location(
+            name, src / '__init__.py', submodule_search_locations=[str(src)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        return mod
+
+    full_fp32(torch)
+    trees = {'this tree': load(ROOT, 'mxnet_tpu_torch_this'),
+             other: load(other, 'mxnet_tpu_torch_other')}
+    dev = torch.device('cuda', 0)
+    slots, psz, NP, depth = 4, 16, 128, 1024
+    pages = (torch.arange(slots * NP, dtype=torch.int32) + 1).reshape(
+        slots, NP).to(dev)
+    toks = torch.ones(slots, 1, dtype=torch.long, device=dev)
+    off = torch.full((slots,), depth, dtype=torch.int32, device=dev)
+    ctoks = torch.ones(1, 32, dtype=torch.long, device=dev)
+    ptoks = torch.randint(1, 128256, (1, 512), device=dev,
+                          generator=torch.Generator(dev).manual_seed(SEED))
+    calls = {}
+    for name, mx in trees.items():
+        llama = sys.modules[mx.__name__ + '.gluon.model_zoo.llama']
+        if hasattr(llama.LlamaForCausalLM, 'collect_params'):
+            net = llama.get_llama('llama3_8b', num_layers=layers)
+            net.collect_params().setattr('grad_req', 'null')
+            net.initialize(llama.LlamaInit(SEED), ctx=mx.gpu(0))
+        else:       # the torch.nn Llama of earlier trees
+            net = llama.get_llama('llama3_8b', num_layers=layers,
+                                  device='cuda', seed=SEED).eval()
+        pool = net.init_paged_pool(slots * NP + 1, psz)
+        dense = net.init_caches(1, 520)
+        calls[name] = {
+            f'decode step ({slots} slots at {depth})':
+                lambda net=net, pool=pool: net(toks, caches=pool,
+                                               offset=off, pages=pages),
+            f'prefill chunk (1, 32) at {depth}':
+                lambda net=net, pool=pool: net(ctoks, caches=pool,
+                                               offset=depth,
+                                               pages=pages[:1]),
+            "generate()'s dense prefill (1, 512)":
+                lambda net=net, dense=dense: net(ptoks, caches=dense,
+                                                 offset=0),
+            'forward (1, 512)': lambda net=net: net(ptoks)}
+    best = {(t, c): math.inf for t in calls for c in calls[t]}
+    with torch.no_grad():
+        for t in calls:
+            for fn in calls[t].values():
+                fn()
+        torch.cuda.synchronize()
+        names = list(calls)
+        for r in range(rounds):
+            for c in calls[names[0]]:
+                for t in (names if r % 2 == 0 else names[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    calls[t][c]()
+                    torch.cuda.synchronize()
+                    best[t, c] = min(best[t, c],
+                                     (time.perf_counter() - t0) * 1e3)
+    for c in calls[names[0]]:
+        a, b = best[names[0], c], best[names[1], c]
+        log(f'[llama host cost] {c}, llama3_8b widths at {layers} layers: '
+            f'this tree {a:.2f} host ms, {other} {b:.2f} ({a / b:.3f}x; '
+            f'{(a - b) / layers:+.3f} ms a layer), the least of {rounds} '
+            f'in turns ({smi_line()})')
+    return best
+
+
 def ndarray_costs(torch, got, rounds=5, calls=2000):
     """What the frontend costs on the host, beside the card's name and
     power limit: ms per imperative step against the module path's, µs per
@@ -2955,7 +3225,7 @@ def ndarray_costs(torch, got, rounds=5, calls=2000):
              for n, a in p.items()}
     nd_slots = {n: (mx.NDArray(s[0]), mx.NDArray(s[1]))
                 for n, s in slots.items()}
-    prms = dict(net.named_parameters())
+    prms = module_params(net)
 
     def pure():
         for n in p:
@@ -3318,6 +3588,7 @@ def graphed_checks(torch, mx, dev):
             and net.capture_count == 2):
         fail('graphs: a graphed Dropout replayed its mask, kept another '
              'share, or its gradient is not its own mask\'s')
+    drop = net
     # two recorded calls of one key before one backward
     grads = {}
     x1 = mx.NDArray(torch.randn(64, 1024, device=dev, generator=g))
@@ -3352,19 +3623,22 @@ def graphed_checks(torch, mx, dev):
     if net.eager_call_count != 1 or not all(ok for _, ok in errs):
         fail('graphs: a second recorded call of a key overwrote the first '
              'call\'s activations')
-    # create_graph through a replayed call
+    # create_graph through a replayed call of the Dropout net: an eager
+    # recomputation would draw other masks (the gluon phase's (b) holds
+    # the call that draws nothing)
+    x.attach_grad()
     with mx.autograd.record():
-        out = (net(x1) ** 2).sum()
+        out = (drop(x) ** 2).sum()
     try:
-        mx.autograd.grad(out, [net.collect_params()['0.weight'].data()],
-                         create_graph=True)
-        fail('graphs: create_graph=True through a replayed call did not '
-             'raise')
+        mx.autograd.grad(out, [x], create_graph=True)
+        fail('graphs: create_graph=True through a replayed call that draws '
+             'did not raise')
     except MXNetError as e:
-        log(f'[graphs] create_graph=True through a replayed call raises: '
-            f'{str(e)[:100]}...')
-        if 'A5 rest' not in str(e):
-            fail(f'graphs: the create_graph error does not name A5 rest: {e}')
+        log(f'[graphs] create_graph=True through a replayed call that '
+            f'draws raises: {str(e)[:100]}...')
+        if 'random' not in str(e):
+            fail(f'graphs: the create_graph error does not name the random '
+                 f'numbers: {e}')
 
 
 def bert_breakdown(torch, prof, wall_ms):
@@ -4380,9 +4654,8 @@ def _bf16_llama(torch, seed):
     kernel names; finite logits), generate() from a BF16_PROMPT-token
     prompt (BF16_NEW new tokens), and the generated tokens teacher-forced
     through the forward."""
-    from mxnet_tpu_torch.gluon.model_zoo.llama import llama3_8b
     from mxnet_tpu_torch.ops import kernels
-    net = llama3_8b(device='cuda', seed=seed).eval()
+    net = build_llama('llama3_8b', seed)
     cfg, dev = net.cfg, _device(net)
     toks = torch.randint(0, cfg.vocab_size, (1, BF16_TOKENS),
                          generator=torch.Generator().manual_seed(seed))
@@ -4393,7 +4666,7 @@ def _bf16_llama(torch, seed):
     for dtype in (torch.float32, torch.bfloat16):
         tag = 'bf16' if dtype == torch.bfloat16 else 'fp32'
         if dtype == torch.bfloat16:
-            net.to(torch.bfloat16)
+            net.cast('bfloat16')
             torch.cuda.empty_cache()
         mem = _memory_start(torch, dev)
         before = kernels.launch_counts()
@@ -4401,7 +4674,7 @@ def _bf16_llama(torch, seed):
             logits = net(toks)          # the first call: warm-up
             _sync(torch, dev)
             t1 = time.perf_counter()
-            logits = net(toks)
+            logits = _t(net(toks))
             _sync(torch, dev)
             ms = (time.perf_counter() - t1) * 1e3
             launched = _counts_since(kernels, before)
@@ -4463,8 +4736,7 @@ def _bf16_llama(torch, seed):
     # round bf16 in other places, so only positions whose top-2 logit
     # margin exceeds 0.25 (a few bf16 ulps of a logit) are held
     seq = out[:, :-1]
-    with torch.no_grad():
-        logits = net(seq)[0, BF16_PROMPT - 1:].float()
+    logits = _t(net(seq))[0, BF16_PROMPT - 1:].float()
     top2 = logits.topk(2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1]).tolist()
     pick = logits.argmax(-1).tolist()
@@ -5256,6 +5528,10 @@ def optim_parity(torch, seed, steps=2):
 #: ranks (BERT_BATCH sequences in all, half a rank), the 2-bit keys and
 #: the SyncBatchNorm thumbnail's batch
 DIST_RANKS = 2
+#: (b) and (c) train BERT-base's widths at this many of its 12 layers (cut
+#: to keep the run inside its time limit, as elastic, sharding and
+#: dist_async are)
+DIST_LAYERS = 4
 DIST_KEYS, DIST_KEY_ELEMS, DIST_REPLICAS = 50, 1_000_000, 4
 DIST_STEPS = BERT_STEPS
 DIST_GC_SHAPES = ((1000,), (64, 33), (7,))
@@ -5529,7 +5805,7 @@ def _dist_rank(seed):
     rows = slice(rank * half, (rank + 1) * half)
     mx.random.seed(seed)
     net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
-                              use_classifier=False)
+                              use_classifier=False, num_layers=DIST_LAYERS)
     net.initialize(ctx=mx.gpu(0))
     ids, tt, labels = (a[rows] for a in bert_batch(
         mx, seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB))
@@ -5587,7 +5863,9 @@ def phase_dist(torch, seed):
     log(f'[dist] {DIST_RANKS} ranks on cuda:0 over gloo in '
         f'{time.perf_counter() - t0:.1f} s (spawn included)')
     counts, by_design = dict.fromkeys(KERNELS, 0), {}
-    want_dp = dict(BERT_FORWARD, adam=BERT_UPDATED)
+    want_dp = bert_launches(DIST_LAYERS)
+    forward = {k: v for k, v in want_dp.items() if k != 'adam'}
+    updated = want_dp['adam']
     for r in ranks:
         PROFILES.extend(r['profiles'])
         for run in ('dp', 'zero1'):
@@ -5600,7 +5878,7 @@ def phase_dist(torch, seed):
         if any(c != want_dp for c in r['dp']['counts']):
             fail(f'dist: rank {r["rank"]} (b) launched {r["dp"]["counts"]} '
                  f'a step, want {want_dp}')
-        if any({k: v for k, v in c.items() if k != 'adam'} != BERT_FORWARD
+        if any({k: v for k, v in c.items() if k != 'adam'} != forward
                for c in r['zero1']['counts']):
             fail(f'dist: rank {r["rank"]} (c) launched '
                  f'{r["zero1"]["counts"]} a step')
@@ -5611,9 +5889,9 @@ def phase_dist(torch, seed):
                  f'{r["zero1"]["graphs"]}: want (2, 1, 0) and (2, 0, 0)')
     owned = [sum(c.get('adam', 0) for c in zip_c)
              for zip_c in zip(*(r['zero1']['counts'] for r in ranks))]
-    if owned != [BERT_UPDATED] * DIST_STEPS:
+    if owned != [updated] * DIST_STEPS:
         fail(f'dist: (c) B5 launches summed over the ranks {owned} a step, '
-             f'want {BERT_UPDATED}')
+             f'want {updated}')
     for run in ('dp', 'zero1'):
         digests = [r[run]['digests'] for r in ranks]
         if any(d != digests[0] for d in digests):
@@ -5622,7 +5900,7 @@ def phase_dist(torch, seed):
     gap = max(r['zero1_gap'] for r in ranks)
     log(f'[dist] (b) and (c): every rank {want_dp} a step in (b); (c) B5 '
         f'launches by rank a step {[[c.get("adam", 0) for c in r["zero1"]["counts"]] for r in ranks]} '
-        f'(sum {BERT_UPDATED}: each key on its owner); the ranks\' weights '
+        f'(sum {updated}: each key on its owner); the ranks\' weights '
         f'bit-equal after every step in both; (c) against (b) after '
         f'{DIST_STEPS} steps: worst |w_c - w_b| / |w_b| {gap:.3g} (1e-6); '
         f'no collective in a captured graph (the transport refuses to run '
@@ -5655,7 +5933,7 @@ def dist_one_process(torch, mx, gluon, bert, seed, ranks):
     phase holds the card against the CPU."""
     mx.random.seed(seed)
     net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
-                              use_classifier=False)
+                              use_classifier=False, num_layers=DIST_LAYERS)
     net.initialize(ctx=mx.gpu(0))
     ids, tt, labels = bert_batch(mx, seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB)
     net(ids, tt)
@@ -5835,13 +6113,14 @@ def _environ(**env):
 
 def async_parity(torch, mx, gluon, bert, seed):
     """(a) One worker and its server in this process: DIST_ASYNC_PARITY_STEPS
-    steps of BERT-base on 16 sequences through ``Trainer(kvstore=
+    steps of BERT-base's widths at DIST_ASYNC_LAYERS layers (cut for
+    time, as (b) and (c) are) on 16 sequences through ``Trainer(kvstore=
     'dist_async', update_on_kvstore=True)`` from the same weights as a
     ``kvstore=None`` Trainer's steps, with Adam (B5 on the server), again
     under the fault plan, and with SGD-momentum (B6 on the server). The
     server applies the fused update to the same gradient, copied to the
     host and back, in the same order as the local update graph, so losses
-    and weights must be bit-equal; 26 B1, 12 B2 and 156 updates a step in
+    and weights must be bit-equal; 10 B1, 4 B2 and 60 updates a step in
     each run."""
     from mxnet_tpu_torch.kvstore import dist_async, faults
     from mxnet_tpu_torch.ops import kernels
@@ -5849,7 +6128,8 @@ def async_parity(torch, mx, gluon, bert, seed):
     dev = mx.gpu(0).to_torch()
     mx.random.seed(seed)
     net = bert.bert_12_768_12(max_length=BERT_SEQ, dropout=0.0,
-                              use_classifier=False)
+                              use_classifier=False,
+                              num_layers=DIST_ASYNC_LAYERS)
     net.initialize(ctx=mx.gpu(0))
     ids, tt, labels = bert_batch(mx, seed, BERT_BATCH // DIST_RANKS,
                                  BERT_SEQ, BERT_VOCAB)
@@ -5897,7 +6177,9 @@ def async_parity(torch, mx, gluon, bert, seed):
 
     for (opt, kernel, hyper), faulted in ((BERT_OPTS[0], True),
                                           (BERT_OPTS[1], False)):
-        want = dict(BERT_FORWARD, **{kernel: BERT_UPDATED})
+        launches = bert_launches(DIST_ASYNC_LAYERS)
+        updated = launches.pop('adam')
+        want = dict(launches, **{kernel: updated})
         runs = {'local': run(opt, hyper, None),
                 'dist_async': run(opt, hyper, 'dist_async')}
         if faulted:
@@ -5916,7 +6198,8 @@ def async_parity(torch, mx, gluon, bert, seed):
         faulted_run = runs.get('under faults')
         log(f'[dist_async] (a) one worker, one server in this process, '
             f'{DIST_ASYNC_PARITY_STEPS} {opt} {hyper} steps of '
-            f'bert_12_768_12 at ({BERT_BATCH // DIST_RANKS}, {BERT_SEQ}): '
+            f'bert_12_768_12 at {DIST_ASYNC_LAYERS} layers, '
+            f'({BERT_BATCH // DIST_RANKS}, {BERT_SEQ}): '
             f'losses {plain["losses"]}, kvstore=None {local["losses"]}; '
             f'losses and weights bit-equal to kvstore=None {equal}'
             + (f' (under {spec}: transport {faulted_run["transport"]}, '
@@ -5930,7 +6213,7 @@ def async_parity(torch, mx, gluon, bert, seed):
         if not all(equal.values()):
             fail(f'dist_async: (a) {opt} through the server trains apart '
                  f'from the local Trainer: {equal}')
-        if applied != DIST_ASYNC_PARITY_STEPS * BERT_UPDATED or \
+        if applied != DIST_ASYNC_PARITY_STEPS * updated or \
                 health['device']['device'] != str(dev) or \
                 (faulted_run and not faulted_run['transport']['retries']):
             fail(f'dist_async: (a) {opt}: {applied} pushes applied, server '
@@ -6303,16 +6586,13 @@ def _teacher_logits(torch, net, prompt, toks, j, dev):
     """The logits of the whole vocabulary after ``prompt + toks[:j]``
     (fp32, on the host): the token at ``j`` is picked from them."""
     seq = torch.tensor([list(prompt) + list(toks[:j])], device=dev)
-    with torch.no_grad():
-        logits = net(seq)
-        if getattr(net, '_tp', None) is not None:
-            logits = net.gather_logits(logits)
-    return logits[0, -1].float().cpu()
+    return net.gather_logits(net(seq))[0, -1].float().cpu()
 
 
 def _shard_llama_rank(cfg, axes, layers, prompts, want, num_pages=None):
-    """(a) or (b) in one rank: the Llama built under ``mesh(**axes)`` (this
-    rank's shard of each weight, drawn whole in turn from the seed), the
+    """(a) or (b) in one rank: the Gluon Llama built and initialized under
+    ``mesh(**axes)`` (this rank's shard of each weight, drawn whole in turn
+    from the seed by ``LlamaInit``), the
     prompts served with the launch counters set to 0 just before and read
     just after; then one decode step timed alone, and at the first token
     where the run parts from ``want`` (the one-process server's), the
@@ -6320,7 +6600,6 @@ def _shard_llama_rank(cfg, axes, layers, prompts, want, num_pages=None):
     import torch
     import torch.distributed as dist
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.serve import DecodeServer
     from mxnet_tpu_torch.sharding import _collectives as C
@@ -6332,12 +6611,10 @@ def _shard_llama_rank(cfg, axes, layers, prompts, want, num_pages=None):
     with mx.sharding.mesh(**axes) as ctx:
         t0 = time.perf_counter()
         kw = {} if layers is None else {'num_layers': layers}
-        net = get_llama(cfg['model'], device=cfg['dev'], seed=SEED,
-                        **kw).eval()
+        net = build_llama(cfg['model'], SEED, cfg['dev'], **kw)
         _sync(torch, dev)
         res['build_s'] = time.perf_counter() - t0
-        res['weight_bytes'] = sum(p.numel() * p.element_size()
-                                  for p in net.parameters())
+        res['weight_bytes'] = param_bytes(net)
         res['allocated'] = torch.cuda.memory_allocated(dev) \
             if dev.type == 'cuda' else None
         res['heads'] = net.model.layers[0].self_attn._heads()
@@ -6570,15 +6847,14 @@ def _flat_tree(tree, prefix=''):
 def shard_one_process_serve(torch, cfg, layers, prompts):
     """The one-process server's tokens and tok/s for the same prompts, its
     graphs captured (the serve phase's server)."""
-    from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
     from mxnet_tpu_torch.serve import DecodeServer
     kw = {} if layers is None else {'num_layers': layers}
-    net = get_llama(cfg['model'], device=cfg['dev'], seed=SEED, **kw).eval()
+    net = build_llama(cfg['model'], SEED, cfg['dev'], **kw)
     ds = DecodeServer(net, slots=cfg['slots'], max_length=cfg['max_length'],
                       page_size=cfg['psz'], prefill_chunk=cfg['chunk'],
                       start=False)
     outs, wall, _ = _serve_all(ds, prompts, cfg['n_new'])
-    dev = net.model.embed_tokens.weight.device
+    dev = _device(net)
     step_ms, _ = _step_ms(torch, ds, dev)
     ds.close()
     return net, {'outs': outs, 'wall': wall, 'step_ms': step_ms,
@@ -6633,10 +6909,10 @@ def phase_sharding(torch, seed, cfg=None, serve_ref=None):
 
     # ---- (a) tp = 2, full width at SHARD['layers'] layers
     from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
-    meta = get_llama(cfg['model'], device='meta',
-                     **({} if cfg['layers'] is None
-                        else {'num_layers': cfg['layers']}))
-    full_bytes = sum(p.numel() * 4 for p in meta.parameters())
+    meta = get_llama(cfg['model'], **({} if cfg['layers'] is None
+                                      else {'num_layers': cfg['layers']}))
+    full_bytes = sum(math.prod(p.shape) * 4
+                     for p in meta.collect_params().values())
     L = meta.cfg.num_layers
     prompts = _prompts(torch, meta.cfg.vocab_size, seed)
     if serve_ref is None or cfg['layers'] is not None:
@@ -6698,9 +6974,9 @@ def phase_sharding(torch, seed, cfg=None, serve_ref=None):
         + f'; rank 0 collectives {ra[0]["coll"]}; tokens '
         f'{"equal to one process" if part is None else f"part at {part}"}')
     if part is not None:
-        net = get_llama(cfg['model'], device=cfg['dev'], seed=SEED,
-                        **({} if cfg['layers'] is None
-                           else {'num_layers': cfg['layers']})).eval()
+        net = build_llama(cfg['model'], SEED, cfg['dev'],
+                          **({} if cfg['layers'] is None
+                             else {'num_layers': cfg['layers']}))
         i, j = part
         want_l = _teacher_logits(torch, net, prompts[i],
                                  serve_ref['outs'][i], j, dev)
@@ -8860,12 +9136,18 @@ def _symbol_bf16(torch, mx, got):
         pad = torch.zeros(1, device=dev)
 
         def call():
-            for _ in range(64):
+            for _ in range(0 if C5_PROBE else 64):
                 pad.add_(1.0)
             res = blk(ids, tt)
             torch.cuda.synchronize()
             return res
 
+        if card and C5_PROBE:
+            # the probe: one session with no small kernels before it
+            *_, short = profile_once(
+                torch, f'symbol bf16 {tag} graphed predict, C5 probe', call)
+            log(f'[c5] symbol bf16 {tag}: the first session with no '
+                f'warm-up kernels lost {short or "no events"}')
         if card:
             prof, out, _, launched = profile_checked(
                 torch, f'symbol bf16 {tag} graphed predict', call,
@@ -9129,6 +9411,390 @@ def phase_symbol(torch, seed):
     return got
 
 
+# ----------------------------------------------------------------- gluon
+GLUON_DIR = ROOT / 'build' / 'gluon'
+#: the gluon phase: (a) an HF-named Llama at llama3_8b's widths and this
+#: many layers, bf16 as HF checkpoints ship, over a seeded (1, tokens)
+#: batch
+GLUON = dict(model='llama3_8b', layers=2, tokens=64, dev='cuda')
+
+
+def hf_llama_state(torch, cfg, seed, dev):
+    """An HF-named Llama state dict (``model.layers.{i}.``, rotate-half q
+    and k) at ``cfg``'s widths, in bf16 on the host: projections and
+    embeddings N(0, 0.02), norms 1 + N(0, 0.02), drawn on ``dev`` from a
+    generator seeded with ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u, f, v = cfg.units, cfg.hidden_size, cfg.vocab_size
+    kv = cfg.num_kv_heads * (u // cfg.num_heads)
+
+    def w(*shape, one=False):
+        t = torch.empty(shape, device=dev).normal_(0.0, 0.02, generator=g)
+        return (t + 1.0 if one else t).to(torch.bfloat16).cpu()
+    sd = {'model.embed_tokens.weight': w(v, u)}
+    for i in range(cfg.num_layers):
+        p = f'model.layers.{i}.'
+        sd.update({p + 'input_layernorm.weight': w(u, one=True),
+                   p + 'self_attn.q_proj.weight': w(u, u),
+                   p + 'self_attn.k_proj.weight': w(kv, u),
+                   p + 'self_attn.v_proj.weight': w(kv, u),
+                   p + 'self_attn.o_proj.weight': w(u, u),
+                   p + 'post_attention_layernorm.weight': w(u, one=True),
+                   p + 'mlp.gate_proj.weight': w(f, u),
+                   p + 'mlp.up_proj.weight': w(f, u),
+                   p + 'mlp.down_proj.weight': w(u, f)})
+    sd['model.norm.weight'] = w(u, one=True)
+    sd['lm_head.weight'] = w(v, u)
+    return sd
+
+
+def hf_config(cfg):
+    """``config.json`` of a HuggingFace Llama with ``cfg``'s fields."""
+    return {'architectures': ['LlamaForCausalLM'], 'model_type': 'llama',
+            'vocab_size': cfg.vocab_size, 'hidden_size': cfg.units,
+            'intermediate_size': cfg.hidden_size,
+            'num_hidden_layers': cfg.num_layers,
+            'num_attention_heads': cfg.num_heads,
+            'num_key_value_heads': cfg.num_kv_heads,
+            'max_position_embeddings': cfg.max_length,
+            'rope_theta': cfg.rope_theta, 'rms_norm_eps': cfg.rms_norm_eps,
+            'tie_word_embeddings': False, 'torch_dtype': 'bfloat16'}
+
+
+def rotate_half_logits(torch, sd, cfg, toks):
+    """The logits of ``toks`` from HF-named weights ``sd`` by a plain
+    PyTorch Llama written as HuggingFace's is (rotate-half RoPE on q and k
+    as the checkpoint stores them, GQA, SwiGLU, RMSNorm), fp32 on the
+    tokens' device: the reference the HF import is held to."""
+    dev = toks.device
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    dh = cfg.units // H
+    B, S = toks.shape
+
+    def w(name):
+        return sd[name].to(dev, torch.float32)
+
+    def rms(x, g):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True)
+                               + cfg.rms_norm_eps) * g
+
+    def rot_half(t):
+        return torch.cat([-t[..., dh // 2:], t[..., :dh // 2]], dim=-1)
+    inv = 1.0 / (cfg.rope_theta ** (torch.arange(0, dh, 2, device=dev,
+                                                 dtype=torch.float32) / dh))
+    ang = torch.arange(S, device=dev, dtype=torch.float32)[:, None] * inv
+    ang = torch.cat([ang, ang], dim=-1)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    mask = torch.full((S, S), float('-inf'), device=dev).triu(1)
+    x = w('model.embed_tokens.weight')[toks]
+    for i in range(cfg.num_layers):
+        p = f'model.layers.{i}.'
+        h = rms(x, w(p + 'input_layernorm.weight'))
+        q = (h @ w(p + 'self_attn.q_proj.weight').T).view(
+            B, S, H, dh).transpose(1, 2)
+        k = (h @ w(p + 'self_attn.k_proj.weight').T).view(
+            B, S, KV, dh).transpose(1, 2)
+        v = (h @ w(p + 'self_attn.v_proj.weight').T).view(
+            B, S, KV, dh).transpose(1, 2)
+        q = q * cos + rot_half(q) * sin
+        k = k * cos + rot_half(k) * sin
+        k = k.repeat_interleave(H // KV, dim=1)
+        v = v.repeat_interleave(H // KV, dim=1)
+        att = torch.softmax(q @ k.transpose(-1, -2) / dh ** 0.5 + mask, -1)
+        o = (att @ v).transpose(1, 2).reshape(B, S, H * dh)
+        x = x + o @ w(p + 'self_attn.o_proj.weight').T
+        h = rms(x, w(p + 'post_attention_layernorm.weight'))
+        gate = torch.nn.functional.silu(h @ w(p + 'mlp.gate_proj.weight').T)
+        x = x + (gate * (h @ w(p + 'mlp.up_proj.weight').T)) @ \
+            w(p + 'mlp.down_proj.weight').T
+    x = rms(x, w('model.norm.weight'))
+    return x @ w('lm_head.weight').T
+
+
+def _gluon_hf(torch, mx, seed):
+    """(a) The HF import on the card: an HF-named state dict at
+    ``llama3_8b``'s widths and ``GLUON['layers']`` layers written as
+    ``pytorch_model.bin`` and as ``model.safetensors``, each beside a
+    ``config.json``, and loaded by ``from_hf_pretrained``: the logits
+    bit-equal between the two files and to the same weights set through
+    ``collect_params()``, within 1e-3 of the largest logit of
+    :func:`rotate_half_logits`, and 2L + 1 B1 and L B2 a forward."""
+    from mxnet_tpu_torch.gluon.model_zoo import llama
+    from mxnet_tpu_torch.ops import kernels
+    full_fp32(torch)
+    cfg = llama.get_llama(GLUON['model'], num_layers=GLUON['layers']).cfg
+    dev = torch.device(GLUON['dev'], 0) if GLUON['dev'] == 'cuda' \
+        else torch.device('cpu')
+    t0 = time.perf_counter()
+    sd = hf_llama_state(torch, cfg, seed, dev)
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    files = {}
+    for fmt in ('bin', 'safetensors'):
+        d = GLUON_DIR / fmt
+        d.mkdir(parents=True)
+        (d / 'config.json').write_text(json.dumps(hf_config(cfg)))
+        if fmt == 'bin':
+            torch.save(sd, d / 'pytorch_model.bin')
+        else:
+            write_safetensors(d / 'model.safetensors', sd)
+        files[fmt] = d
+    t_write = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (1, GLUON['tokens']),
+                         generator=torch.Generator().manual_seed(seed + 1))
+    toks = toks.to(dev)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(fused_norm=2 * cfg.num_layers + 1,
+                flash_attention=cfg.num_layers)
+    logits, load_s = {}, {}
+    for fmt, d in files.items():
+        t1 = time.perf_counter()
+        net = llama.from_hf_pretrained(str(d))
+        _sync(torch, dev)
+        load_s[fmt] = time.perf_counter() - t1
+        if _device(net) != dev:
+            fail(f'gluon: (a) from_hf_pretrained put the net on '
+                 f'{_device(net)}, want {dev}')
+        before = kernels.launch_counts()
+        logits[fmt] = _t(net(toks)).float()
+        got = {k: v for k, v in _counts_since(kernels, before).items()}
+        got = {k: got.get(k, 0) for k in want}
+        if dev.type == 'cuda' and got != want:
+            fail(f'gluon: (a) the {fmt} net\'s forward launched {got}, '
+                 f'want {want}')
+        del net
+    # the same weights set through collect_params() by their own names
+    net = llama.get_llama(GLUON['model'], num_layers=GLUON['layers'])
+    net.collect_params().setattr('grad_req', 'null')
+    net.initialize(mx.init.Zero(), ctx=mx.gpu(0) if dev.type == 'cuda'
+                   else mx.cpu())
+    own = net.collect_params()
+    for name, v in sd.items():
+        own[llama._hf_name(name)].set_data(
+            llama._hf_to_interleaved(v, cfg.num_heads, cfg.units //
+                                     cfg.num_heads)
+            if name.endswith('q_proj.weight') else
+            llama._hf_to_interleaved(v, cfg.num_kv_heads, cfg.units //
+                                     cfg.num_heads)
+            if name.endswith('k_proj.weight') else v)
+    logits['params'] = _t(net(toks)).float()
+    del net
+    ref = rotate_half_logits(torch, sd, cfg, toks)
+    scale = float(ref.abs().max())
+    gap = float((logits['bin'] - ref).abs().max()) / scale
+    same = torch.equal(logits['bin'], logits['safetensors']) and \
+        torch.equal(logits['bin'], logits['params'])
+    log(f'[gluon] (a) HF import: {cfg.num_layers} layers at '
+        f'{GLUON["model"]}\'s widths, {nbytes / 1e9:.2f} GB of bf16 '
+        f'weights written as pytorch_model.bin and model.safetensors in '
+        f'{t_write:.1f} s; from_hf_pretrained {load_s["bin"]:.1f} s (bin), '
+        f'{load_s["safetensors"]:.1f} s (safetensors); logits of a (1, '
+        f'{GLUON["tokens"]}) forward {"bit-equal" if same else "DIFFER"} '
+        f'between the files and collect_params(); against the rotate-half '
+        f'reference {gap:.3g} of its largest logit {scale:.3f} (limit '
+        f'1e-3); launches a forward {want}')
+    if not same or not gap <= 1e-3:
+        fail(f'gluon: (a) the HF import: bit-equal {same}, gap {gap:.3g}')
+    return dict(write_s=t_write, load_s=load_s, gap=gap, gb=nbytes / 1e9)
+
+
+def _gluon_create_graph(torch, mx, seed):
+    """(b) A gradient penalty ``||dL/dx||^2`` through a hybridized block
+    whose recorded calls replay on the card: ``create_graph=True`` through
+    the replayed node (its forward run again eagerly under autograd) gives
+    ``hybridize(False)``'s input and parameter gradients at 1e-5."""
+    from mxnet_tpu_torch.gluon import nn
+    ctx = _ctxd(mx, GLUON['dev'])
+    dev = ctx.to_torch()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x0 = torch.randn(64, 1024, device=dev, generator=g)
+    init = None
+    grads, ms = {}, {}
+    for graphed in (True, False):
+        net = nn.HybridSequential(nn.Dense(1024, in_units=1024),
+                                  nn.GELU(), nn.Dense(256, in_units=1024))
+        net.initialize(mx.init.Normal(0.02), ctx=ctx)
+        if init is None:
+            init = {k: p.data()._data.clone()
+                    for k, p in net.collect_params().items()}
+        for k, p in net.collect_params().items():
+            p.set_data(init[k])
+        x = mx.NDArray(x0.clone())
+        net(x)
+        if graphed:
+            net.hybridize()
+        x.attach_grad()
+        for _ in range(2):          # a capture, then a replay
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            with mx.autograd.record():
+                loss = (net(x) ** 2).mean()
+                gx = mx.autograd.grad(loss, [x], create_graph=True)[0]
+                penalty = (gx ** 2).sum()
+            penalty.backward()
+            _sync(torch, dev)
+            ms[graphed] = (time.perf_counter() - t0) * 1e3
+        grads[graphed] = [x.grad._data.clone()] + [
+            p.grad()._data.clone() for p in net.collect_params().values()]
+        caps = net.capture_count
+    errs = [compare(torch, a, b, 1e-5, 1e-5)
+            for a, b in zip(grads[True], grads[False])]
+    ok = all(k for _, k in errs)
+    log(f'[gluon] (b) create_graph=True through a replayed call (Dense 1024 '
+        f'-> GELU -> Dense 256, (64, 1024) input): the penalty\'s input and '
+        f'{len(errs) - 1} parameter gradients against hybridize(False)\'s, '
+        f'max |diff| {max(e for e, _ in errs):.3g} (rtol 1e-5) -> '
+        f'{"ok" if ok else "MISMATCH"}; host ms a step graphed '
+        f'{ms[True]:.2f}, eager {ms[False]:.2f}')
+    if not ok:
+        fail('gluon: (b) create_graph through a replay parts from eager')
+    return dict(ms=ms)
+
+
+def _gluon_remat_dropout(torch, mx, seed):
+    """(c) ``bert_12_768_12``'s 12 encoder cells with dropout 0.1 at the bert
+    phase's (32, 128) batch, hybridized with and without ``remat=True``:
+    the generator reseeded between the capture and the replay, the
+    replayed call's gradients from the same generator state equal (the
+    remat backward graph draws with the forward's seed and offset), and
+    the peak memory of each."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    ctx = _ctxd(mx, GLUON['dev'])
+    dev = ctx.to_torch()
+    cuda = dev.type == 'cuda'
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x0 = torch.randn(BERT_BATCH, BERT_SEQ, 768, device=dev, generator=g)
+    init = None
+    grads, peak, ms = {}, {}, {}
+    for remat in (False, True):
+        net = bert.BERTEncoder(12, 768, 3072, 12, dropout=0.1)
+        net.initialize(mx.init.Normal(0.02), ctx=ctx)
+        x = mx.NDArray(x0)
+        net(x)
+        if init is None:
+            init = {k: p.data()._data.clone()
+                    for k, p in net.collect_params().items()}
+        for k, p in net.collect_params().items():
+            p.set_data(init[k])
+        net.hybridize(remat=remat)
+        mem = _memory_start(torch, dev) if cuda else None
+        mx.random.seed(seed + 1000)
+        with mx.autograd.record():      # the capture
+            loss = (net(x) ** 2).mean()
+        loss.backward()
+        mx.random.seed(seed)            # another seed than the capture's
+        t0 = time.perf_counter()
+        with mx.autograd.record():      # a replay
+            loss = (net(x) ** 2).mean()
+        loss.backward()
+        _sync(torch, dev)
+        ms[remat] = (time.perf_counter() - t0) * 1e3
+        peak[remat] = _memory_peaks(torch, dev, mem) if cuda else (0.0, 0.0)
+        grads[remat] = {k: p.grad()._data.clone()
+                        for k, p in net.collect_params().items()}
+        if cuda and (net.capture_count != 2 or net.eager_call_count):
+            fail(f'gluon: (c) remat={remat}: {net.capture_count} captures, '
+                 f'{net.eager_call_count} eager calls, want 2 and 0')
+        del net
+        _empty_cache(torch)
+    errs = [compare(torch, grads[True][k], v, 1e-5, 1e-6)
+            for k, v in grads[False].items()]
+    ok = all(k for _, k in errs)
+    log(f'[gluon] (c) BERT-base\'s 12 cells, dropout 0.1, (32, 128): the '
+        f'replayed call\'s {len(errs)} gradients with remat against '
+        f'without, from the same generator state, max |diff| '
+        f'{max(e for e, _ in errs):.3g} (rtol 1e-5) -> '
+        f'{"ok" if ok else "MISMATCH"}; peak GiB over the capture and the '
+        f'replay (allocated, reserved: a graph\'s activations live in its '
+        f'pool) {tuple(round(v, 3) for v in peak[False])} without remat, '
+        f'{tuple(round(v, 3) for v in peak[True])} with; '
+        f'host ms a step {ms[False]:.2f} and {ms[True]:.2f}')
+    if not ok:
+        fail('gluon: (c) the remat backward drew other dropout masks')
+    return dict(peak=peak, ms=ms)
+
+
+def _gluon_deformable(torch, mx, seed):
+    """(d) ``gluon.contrib.cnn.DeformableConvolution`` (over the registered
+    ``deformable_convolution`` op) at (4, 32, 28, 28), 3 x 3, 32 filters,
+    its offsets about 0.5 of a pixel (the offset layer's bias 0.5, its
+    weights N(0, 0.002)): the output and the input,
+    weight, bias and offset-layer gradients of ``sum(out ** 2)`` on the
+    card against the same net on the CPU, at 1e-5."""
+    from mxnet_tpu_torch.gluon.contrib.cnn import DeformableConvolution
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(4, 32, 28, 28, generator=g)
+    res, nets = {}, {}
+    for where in ('cpu', GLUON['dev']):
+        ctx = _ctxd(mx, where)
+        with ctx:
+            net = DeformableConvolution(32, kernel_size=3, padding=1,
+                                        in_channels=32)
+            net.initialize(mx.init.Normal(0.05))
+            net(mx.NDArray(x.to(ctx.to_torch())))
+            # offsets near 0.5 of a pixel, away from the integers where a
+            # sample's corners (and the offsets' gradient) change
+            off = net.offset_conv
+            off.bias.set_data(torch.full(off.bias.shape, 0.5))
+            off.weight.set_data(off.weight.data()._data * 0.04)
+        if nets:
+            for k, p in net.collect_params().items():
+                p.set_data(nets['cpu'].collect_params()[k].data()._data)
+        nets[where] = net
+        xx = mx.NDArray(x.to(ctx.to_torch()))
+        xx.attach_grad()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            out = net(xx)
+            loss = (out ** 2).sum()
+        loss.backward()
+        _sync(torch, ctx.to_torch())
+        ms = (time.perf_counter() - t0) * 1e3
+        ps = net.collect_params()
+        res[where] = ([out._data, xx.grad._data] + [
+            ps[k].grad()._data for k in ('weight', 'bias',
+                                         'offset_conv.weight')], ms)
+    # 1e-5 of each tensor's largest value: a gradient sums 3136 terms a
+    # weight in another order on each device
+    errs = [compare(torch, a.cpu(), b, 1e-5, 1e-5 * float(b.abs().max()))
+            for a, b in zip(res[GLUON['dev']][0], res['cpu'][0])]
+    ok = all(k for _, k in errs)
+    log(f'[gluon] (d) DeformableConvolution (4, 32, 28, 28), 3 x 3, 32 '
+        f'filters: output and 4 gradients on {GLUON["dev"]} against the '
+        f'CPU, max |diff| {max(e for e, _ in errs):.3g} (1e-5 of each '
+        f'tensor\'s largest value) -> '
+        f'{"ok" if ok else "MISMATCH"}; a forward and backward '
+        f'{res[GLUON["dev"]][1]:.2f} host ms there, '
+        f'{res["cpu"][1]:.2f} on the CPU')
+    if not ok:
+        fail('gluon: (d) DeformableConvolution parts from the CPU')
+    return dict(ms=res[GLUON['dev']][1])
+
+
+def phase_gluon(torch, seed):
+    """The gluon phase: see the module docstring."""
+    import shutil
+    import mxnet_tpu_torch as mx
+    shutil.rmtree(GLUON_DIR, ignore_errors=True)
+    GLUON_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    with _ctxd(mx, GLUON['dev']):
+        got = {'a': _gluon_hf(torch, mx, seed)}
+        t_a = time.perf_counter()
+        shutil.rmtree(GLUON_DIR, ignore_errors=True)
+        _empty_cache(torch)
+        got['b'] = _gluon_create_graph(torch, mx, seed + 1)
+        t_b = time.perf_counter()
+        got['c'] = _gluon_remat_dropout(torch, mx, seed + 2)
+        t_c = time.perf_counter()
+        _empty_cache(torch)
+        got['d'] = _gluon_deformable(torch, mx, seed + 3)
+        t_d = time.perf_counter()
+    log(f'[gluon] {smi_line() if GLUON["dev"] == "cuda" else "host"}; '
+        f'(a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) {t_c - t_b:.1f} '
+        f's, (d) {t_d - t_c:.1f} s')
+    return got
+
+
 NEW_DESIGNS = {'fused_norm': ('regs', 'cluster'),
                'int8_matmul': ('tma_splitk', 'tma'),
                'flash_attention': ('tf32x3', 'tf32x3_splitkv'),
@@ -9159,10 +9825,17 @@ def main(argv=None):
     ap.add_argument('--host-cost', metavar='DIR',
                     help='time mx.np.add\'s host cost against the package '
                          'of the checkout DIR, in turns (no phases run)')
+    ap.add_argument('--llama-host-cost', metavar='DIR',
+                    help='time the Llama\'s eager calls against the package '
+                         'of the checkout DIR, in turns (no phases run)')
     args = ap.parse_args(argv)
     if args.host_cost:
         sys.path.insert(0, str(ROOT))
         host_cost(args.host_cost)
+        return 0
+    if args.llama_host_cost:
+        sys.path.insert(0, str(ROOT))
+        llama_host_cost(args.llama_host_cost)
         return 0
     if args.elastic_worker:
         sys.path.insert(0, str(ROOT))
@@ -9205,11 +9878,10 @@ def main(argv=None):
         return out
 
     if {'forward', 'serve', 'int8'} & set(phases):
-        from mxnet_tpu_torch.gluon.model_zoo.llama import llama3_8b
         t0 = time.perf_counter()
-        net = llama3_8b(device='cuda', seed=SEED).eval()
+        net = build_llama('llama3_8b', SEED)
         torch.cuda.synchronize()
-        n_par = sum(p.numel() for p in net.parameters())
+        n_par = param_bytes(net) // 4
         log(f'[model] llama3_8b {n_par / 1e9:.2f} B fp32 parameters on '
             f'cuda in {time.perf_counter() - t0:.1f} s, '
             f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
@@ -9332,6 +10004,9 @@ def main(argv=None):
             rows['adam'].append(row)
     if 'symbol' in phases:
         window('symbol', phase_symbol, torch, SEED + 70)
+        torch.cuda.empty_cache()
+    if 'gluon' in phases:
+        window('gluon', phase_gluon, torch, SEED + 80)
         torch.cuda.empty_cache()
     if 'ring' in phases:        # counted in the ranks, which return counts
         paths['ring'], designs['ring'] = phase_ring(torch, SEED + 7)

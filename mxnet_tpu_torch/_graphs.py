@@ -299,9 +299,15 @@ class GraphedCall:
     grads, which the node hands to autograd for the parameters
     themselves. Those of ``generators`` that the first call drew from are
     registered with the forward graph, so that stochastic ops draw anew on
-    every replay (a remat block that draws raises in the caller). With
-    ``remat`` the forward graph keeps no activation: the backward graph
-    runs ``fn`` again, with ``recompute`` (a context manager) around it.
+    every replay. With ``remat`` the forward graph keeps no activation:
+    the backward graph runs ``fn`` again, with ``recompute`` (a context
+    manager taking a generator and its state) around it, and draws the
+    forward's numbers again: it draws from a clone of each such
+    generator's state (``clone_state``, registered with the backward
+    graph), whose seed and offset are set before each backward replay to
+    those the forward replay drew at (a reseed between the two is seen);
+    emulated, the recomputation runs from the generator's state before the
+    forward.
 
     :meth:`first_call` is a key's first call: it runs ``fn`` eagerly on
     the caller's inputs (the real answer, returned with its own autograd
@@ -310,7 +316,12 @@ class GraphedCall:
     nothing runs twice. :meth:`__call__` replays. A replayed call whose
     backward has not run yet holds the graphs' activations: while it is
     alive, :meth:`busy` is true, and the caller runs the next call
-    another way. ``create_graph`` through the node raises.
+    another way. Asked for a backward that can be differentiated again
+    (``create_graph=True``), the node runs ``fn`` once more eagerly under
+    autograd on the call's own inputs and parameters, as an unhybridized
+    block computes, and returns that graph's gradients instead of the
+    backward graph's; a call that draws random numbers raises there, since
+    an eager run would draw other numbers than the replay did.
 
     ``captures`` counts graphs captured (two)."""
 
@@ -337,6 +348,8 @@ class GraphedCall:
         self._pending = None
         self.fwd = self.bwd = None
         self.fwd_counts = self.bwd_counts = None
+        self.recompute_states = []  # (generator, its clone for the remat)
+        self.fwd_draws = []         # their (seed, offset) at the last forward
 
     # ----------------------------------------------------------- capture
     def _run_fn(self, inputs, grad, values=None):
@@ -355,13 +368,19 @@ class GraphedCall:
         """Warm up on ``inputs`` (the real answer, returned), capture."""
         self.in_grad = [x.requires_grad for x in inputs]
         if self.emulated:
-            return self._first_emulated(inputs)
+            from . import _rng
+            with _Drawn(self.generators
+                        or (_rng.generator(self.device),)) as drew:
+                warm = self._first_emulated(inputs)
+            self.draws = bool(drew.drawn)
+            return warm
         cur = torch.cuda.current_stream(self.device)
         s = self.stream
         s.wait_stream(cur)
         with torch.cuda.stream(s):
             with _Drawn(self.generators) as drew:
                 warm = self._run_fn(inputs, True)
+            self.draws = bool(drew.drawn)
             targets = [x for x, g in zip(inputs, self.in_grad) if g]
             with _Counted(s):       # throwaway: its launches do not count
                 self._grads(warm, targets + self.params,
@@ -381,6 +400,11 @@ class GraphedCall:
             self.fwd_counts = (c.launches, c.by_path)
             self._set_outputs(outs)
             bwd = torch.cuda.CUDAGraph()
+            if self.remat:
+                for gen in drew.drawn:
+                    clone = gen.clone_state()
+                    bwd.register_generator_state(clone)
+                    self.recompute_states.append((gen, clone))
             with _Counted(s) as c:
                 with torch.cuda.graph(bwd, pool=pool, stream=s,
                                       capture_error_mode=_MODE):
@@ -403,7 +427,7 @@ class GraphedCall:
     def _backward_body(self):
         targets = [x for x, g in zip(self.static_in, self.in_grad) if g]
         if self.remat:
-            with self.recompute():
+            with self._recompute_draws():
                 outs = self._run_fn(self.static_in, True, self.aliases)
         else:
             outs = self.static_out
@@ -412,6 +436,27 @@ class GraphedCall:
         return self._grads([o for o, k in zip(diff, keep) if k],
                            targets + self.alias_targets,
                            [b for b, k in zip(self.static_gout, keep) if k])
+
+    @contextlib.contextmanager
+    def _recompute_draws(self):
+        """The remat recomputation's context: in a capture, each generator
+        the forward drew from draws from its clone; emulated, from the
+        state it had before the forward (``recompute(gen, state)``)."""
+        if self.emulated:
+            gen, state = getattr(self, '_emulated_draw', (None, None))
+            with self.recompute(gen, state):
+                yield
+            return
+        saved = [(g, g.graphsafe_get_state())
+                 for g, _ in self.recompute_states]
+        for g, clone in self.recompute_states:
+            g.graphsafe_set_state(clone)
+        try:
+            with self.recompute():
+                yield
+        finally:
+            for g, st in saved:
+                g.graphsafe_set_state(st)
 
     def _first_emulated(self, inputs):
         warm = self._run_fn(inputs, True)
@@ -440,11 +485,17 @@ class GraphedCall:
             for buf, x in zip(self.static_in, inputs):
                 buf.copy_(x)
         if self.emulated:
+            if self.remat:
+                from . import _rng
+                gen = _rng.generator(self.device)
+                self._emulated_draw = (gen, gen.get_state())
             outs = self._run_fn(self.static_in, not self.remat,
                                 self.aliases)
             self._emulated_outs = outs
             _copy_into(self.static_out, outs)
         else:
+            self.fwd_draws = [(g.initial_seed(), g.get_offset())
+                              for g, _ in self.recompute_states]
             self.fwd.replay()
             kernels.add_launch_counts(*self.fwd_counts, times=1)
         self.generation += 1
@@ -477,9 +528,53 @@ class GraphedCall:
                 with torch.no_grad():
                     self.static_grads[j].copy_(g)
         else:
+            for (_, clone), (seed, off) in zip(self.recompute_states,
+                                               self.fwd_draws):
+                clone.manual_seed(seed)     # the forward's numbers again
+                clone.set_offset(off)
             self.bwd.replay()
             kernels.add_launch_counts(*self.bwd_counts, times=1)
         return self.static_grads
+
+    def _graphed_grads(self, generation, gouts):
+        """The node's gradients from the backward graph, for the replay of
+        ``generation``."""
+        if generation != self.generation:
+            raise MXNetError(
+                'this recorded call\'s activations were overwritten by a '
+                'later call of the same hybridized block and input shapes, '
+                'replayed after its first backward; run backward before '
+                'the next call, or call hybridize(False)')
+        self._pending = None
+        # aliases autograd may take over as a leaf's .grad without a copy:
+        # the parameters' hooks copy them into the grad buffers before the
+        # next replay overwrites them
+        return [None if g is None else g.detach()
+                for g in self._replay_backward(gouts)]
+
+    def _differentiable_grads(self, inputs, gouts):
+        """The gradients of the inputs that require grad and of the
+        parameters for ``gouts``, as a graph that can be differentiated
+        again: ``fn`` run eagerly under autograd on ``inputs`` (the
+        recomputation context writes no running statistic), then
+        ``torch.autograd.grad(..., create_graph=True)``."""
+        if self.draws:
+            raise MXNetError(
+                'create_graph=True through a hybridized block\'s recorded '
+                'call that draws random numbers (Dropout): an eager '
+                'recomputation would draw other numbers than the replay '
+                'did; call hybridize(False) for higher-order gradients')
+        with self.recompute():
+            outs = self._run_fn(list(inputs), True)
+        targets = [x for x, g in zip(inputs, self.in_grad) if g] \
+            + self.params
+        pairs = [(o, g) for o, g in zip(outs, gouts)
+                 if g is not None and o.requires_grad]
+        if not pairs or not targets:
+            return [None] * len(targets)
+        return list(torch.autograd.grad(
+            [o for o, _ in pairs], targets, [g for _, g in pairs],
+            create_graph=True, allow_unused=True))
 
 
 class _Replay(torch.autograd.Function):
@@ -488,6 +583,9 @@ class _Replay(torch.autograd.Function):
     @staticmethod
     def forward(ctx, call, n_in, *tensors):
         ctx.set_materialize_grads(False)
+        # the inputs, for a create_graph backward (the parameters are the
+        # call's own)
+        ctx.save_for_backward(*tensors[:n_in])
         call._replay_forward(tensors[:n_in])
         ctx.call, ctx.n_in, ctx.generation = call, n_in, call.generation
         outs = tuple(o.detach().clone() for o in call.static_out)
@@ -499,24 +597,11 @@ class _Replay(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gouts):
         call = ctx.call
-        if torch.is_grad_enabled():
-            raise MXNetError(
-                'create_graph=True through a hybridized block\'s recorded '
-                'call on the card: its backward is a captured graph, which '
-                'cannot be differentiated again (ROADMAP A5 rest); call '
-                'hybridize(False) for higher-order gradients')
-        if ctx.generation != call.generation:
-            raise MXNetError(
-                'this recorded call\'s activations were overwritten by a '
-                'later call of the same hybridized block and input shapes, '
-                'replayed after its first backward; run backward before '
-                'the next call, or call hybridize(False)')
-        call._pending = None
-        # aliases autograd may take over as a leaf's .grad without a copy:
-        # the parameters' hooks copy them into the grad buffers before the
-        # next replay overwrites them
-        grads = [None if g is None else g.detach()
-                 for g in call._replay_backward(gouts)]
+        if torch.is_grad_enabled():         # create_graph=True
+            call._pending = None
+            grads = call._differentiable_grads(ctx.saved_tensors, gouts)
+        else:
+            grads = call._graphed_grads(ctx.generation, gouts)
         out = [None] * (len(ctx.needs_input_grad) - 2)
         n_in = ctx.n_in
         k = 0

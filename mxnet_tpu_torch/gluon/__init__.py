@@ -5,9 +5,10 @@ and whose ``export()`` writes a symbol file), :class:`SymbolBlock`
 (an imported symbol run as a block),
 the layers of :mod:`.nn`, the losses of :mod:`.loss`, :mod:`.utils`, the
 single-device :class:`Trainer`, :mod:`.data` (datasets, samplers,
-``DataLoader``), ``gluon.metric`` (``mx.metric``), and the model zoo (the
-vision zoo and BERT on these blocks, the Llama family as
-``torch.nn.Module``s)."""
+``DataLoader``), ``gluon.metric`` (``mx.metric``), the model zoo (the
+vision zoo, BERT and the Llama family on these blocks) and
+``gluon.contrib`` (the estimator, ``DeformableConvolution``, the contrib
+layers and datasets)."""
 
 from .block import Block, HybridBlock, ParameterDict, SymbolBlock
 from .parameter import Constant, DeferredInitializationError, Parameter
@@ -17,8 +18,9 @@ from . import loss
 from . import data
 from . import utils
 from . import model_zoo
+from . import contrib
 from .. import metric  # gluon.metric is the reference's home for metrics
 
 __all__ = ['Block', 'HybridBlock', 'ParameterDict', 'SymbolBlock', 'Constant',
            'DeferredInitializationError', 'Parameter', 'Trainer', 'nn',
-           'loss', 'data', 'utils', 'model_zoo', 'metric']
+           'loss', 'data', 'utils', 'model_zoo', 'contrib', 'metric']

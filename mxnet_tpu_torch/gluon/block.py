@@ -35,7 +35,9 @@ is that program's VJP; here, on a CUDA device:
   True)``: a sparse tensor of new size each backward) and every call of
   a block whose ``npx.while_loop`` or ``npx.cond`` decides on the host
   (``HostStopError`` inside a capture), none of which can be captured.
-  ``create_graph=True`` through a replayed node raises;
+  ``create_graph=True`` through a replayed node runs the forward again
+  eagerly under autograd, so that the gradients can be differentiated
+  again (one that draws random numbers raises there);
 * a key's first call is the capture's warm-up and the call's real answer
   (BatchNorm's running statistics move once); the graphs of a key are
   captured once, and again only if a parameter's leaf was replaced
@@ -53,8 +55,10 @@ tests).
 ``hybridize(remat=True)`` recomputes the forward in the backward: eagerly
 through ``torch.utils.checkpoint``, graphed by a backward graph that runs
 the forward again; the recomputation writes no running statistic and
-redraws the forward's random numbers eagerly, and a graphed call that
-draws random numbers raises under ``remat``. ``pure_function`` gives the
+draws the forward's random numbers again (eagerly from the generator's
+state before the forward, graphed from a clone of the generator's state
+set to the forward replay's offset: ``_graphs.GraphedCall``), so a block
+with Dropout trains as it does without ``remat``. ``pure_function`` gives the
 forward as a function of explicit tensors (the JAX package's pure export,
 for K-step loops captured as one graph), ``prewarm`` builds keys ahead of
 traffic, and ``register_op_hook`` monitors whole cached calls.
@@ -85,17 +89,25 @@ Export and import (reference ``block.py:1299``, :1485):
 the inputs and, through :func:`.parameter.substituted`, the parameters
 are meta tensors inside the trace, so no FLOP runs and no parameter's
 leaf is touched (the graphs captured from those leaves, and the Trainer's,
-still read the trained weights after it). Under a capture a hybridized
-block and its children run ``forward``, never a graph replay.
+still read the trained weights after it). Under a capture (a symbol
+trace, or a CUDA graph capture of the caller's stream) a hybridized block
+and its children run ``forward``, never a graph replay.
 ``export()`` writes ``{path}-symbol.json`` and
 ``{path}-{epoch:04d}.params.npz`` in the JAX package's formats;
 :class:`SymbolBlock` runs a symbol as a block, its free variables
 parameters, its forward the symbol's replay through the op registry, so
 autograd, ``hybridize()`` and the Trainer work on it.
 
-Not ported (ROADMAP A5 rest): ``hybridize``'s ``backend``/``check``/
-``donate_inputs``, which raise, and the StableHLO export of a graph with
-an opaque op, which waits with ``gluon/rnn`` (A11).
+``hybridize(backend=...)`` is kept and the whole graph captured, as the
+JAX package keeps it and compiles the whole graph with XLA.
+``hybridize(donate_inputs=True)`` donates the caller's input arrays to
+every call that is not recorded (the JAX package's ``donate_argnums``,
+its own key): the caller must not touch them after the call, and an
+array so taken raises on its next read, as a deleted JAX array does; the
+replay still copies it into the graph's static buffer. Not ported:
+``hybridize(check=True)``, which waits with the analysis rules (ROADMAP
+A11) and raises, and the StableHLO export of a graph with an opaque op,
+which waits with ``gluon/rnn`` (A11).
 """
 
 import contextlib
@@ -158,6 +170,15 @@ def _capturing():
         yield
     finally:
         _CAPTURE.depth -= 1
+
+
+def _stream_capturing():
+    """True inside a CUDA graph capture of the current stream (a caller's
+    ``StepGraph``, such as ``DecodeServer``'s step): a hybridized block
+    then runs ``forward`` into that capture, as its children run inline in
+    its own cached call."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
 
 
 class _Tracing:
@@ -251,7 +272,28 @@ def _unflatten(spec, leaves):
 
 
 def _pending(what):
-    raise NotImplementedError(f'{what} is not ported yet (ROADMAP A5 rest)')
+    raise NotImplementedError(f'{what} is not ported yet (it waits with the '
+                              f'analysis rules, ROADMAP A11)')
+
+
+class _DonatedNDArray(NDArray):
+    """An input that a ``hybridize(donate_inputs=True)`` call took: deleted,
+    as a donated JAX array is, so that reading it raises."""
+
+    def __getattr__(self, name):
+        if name == '_data':
+            raise RuntimeError(
+                'Array has been deleted: it was donated to a hybridized '
+                'call (hybridize(donate_inputs=True))')
+        raise AttributeError(name)
+
+
+def _donate(arrays):
+    """Delete the caller's ``arrays`` after a donating call."""
+    for nd in arrays:
+        if type(nd) is NDArray and not getattr(nd, '_param', False):
+            nd.__dict__.pop('_data', None)
+            nd.__class__ = _DonatedNDArray
 
 
 class ParameterDict(dict):
@@ -537,18 +579,17 @@ class _Recorded:
         self.call, self.leaves, self.out = call, leaves, out
 
 
-def _generator_state(dev):
-    return _rng.generator(dev).get_state()
-
-
 class _CachedGraph:
     """The cache of one hybridized block (the role of CachedOp, reference
     src/imperative/cached_op.h:463); see the module docstring."""
 
-    def __init__(self, block, static_alloc=True, remat=False):
+    def __init__(self, block, static_alloc=True, remat=False, backend=None,
+                 donate_inputs=False):
         self.block = block
         self.static_alloc = static_alloc
         self.remat = remat
+        self.backend = backend      # kept; the whole graph is captured
+        self.donate_inputs = donate_inputs
         self.compiles = 0     # keys built
         self.captures = 0     # CUDA graphs captured
         self.eager_calls = 0  # recorded calls run eagerly while a replay
@@ -585,11 +626,7 @@ class _CachedGraph:
         fp = ctx.fingerprint()
         if self._planned == fp:
             return
-        rules = ctx.rules_for_block(self.block)
-        for name, p in self.block.collect_params().items():
-            if p._var is None:
-                p._finish_deferred_init()
-            p._shard_to(ctx, ctx.spec_for(name, p.shape, rules))
+        ctx.place_params(self.block)
         self._planned = fp
 
     def _unplan(self):
@@ -645,6 +682,8 @@ class _CachedGraph:
         # on recorded train-mode calls under static_alloc, a key of its own
         donate = (3,) if (self.static_alloc and train_mode and recording
                           and aux) else ()
+        if self.donate_inputs and not recording:
+            donate += (1,)
         key = (tuple((x.shape, str(x.dtype)) for x in in_nds), train_mode,
                donate, spec)
         with self._lock:
@@ -666,6 +705,9 @@ class _CachedGraph:
                 out = self._recorded(key, entry, spec, in_nds, params, dev)
             else:
                 out = self._replay(key, entry, spec, in_nds, params, dev)
+        if self.donate_inputs and not recording:
+            kept = {id(o) for o in _flatten(out, inputs=False)[0]}
+            _donate([x for x in leaves if id(x) not in kept])
         return self._monitor(out)
 
     def _syncs(self):
@@ -842,7 +884,6 @@ class _CachedGraph:
         call = _graphs.GraphedCall(fn, leaves, dev,
                                    _rng.graph_generators(dev),
                                    remat=self.remat, recompute=_recomputing)
-        before = _generator_state(dev) if self.remat else None
         try:
             with _capturing():
                 warm = call.first_call([x._data for x in in_nds])
@@ -850,12 +891,6 @@ class _CachedGraph:
             return self._stop_on_host(key, spec, in_nds)
         except DynamicShapeError:
             return self._go_dynamic(key, spec, in_nds)
-        if self.remat and not torch.equal(before, _generator_state(dev)):
-            raise MXNetError(
-                f'{type(self.block).__name__}: hybridize(remat=True) on a '
-                f'block that draws random numbers: a captured backward '
-                f'cannot draw the forward\'s numbers again (ROADMAP A5 '
-                f'rest); hybridize without remat')
         entry.recorded[sub] = _Recorded(call, leaves, out)
         self.captures += call.captures
         return _unflatten(out[0], [NDArray(t) for t in warm])
@@ -878,16 +913,18 @@ class HybridBlock(Block):
         """Reference block.py:1217. ``remat=True`` recomputes the forward's
         activations in the backward instead of keeping them (the
         reference's backward mirroring, as a per-block switch; see the
-        module docstring). ``backend``, ``check`` and ``donate_inputs``
-        are not ported (ROADMAP A5 rest)."""
-        for flag, what in ((backend, 'backend='), (check, 'check=True'),
-                           (donate_inputs, 'donate_inputs=True')):
-            if flag:
-                _pending(f'hybridize({what})')
+        module docstring). ``backend`` is kept and the whole graph
+        captured, as the JAX package keeps it;
+        ``donate_inputs`` donates the inputs of every call that is not
+        recorded (see the module docstring). ``check`` waits with the
+        analysis rules (ROADMAP A11) and raises."""
+        if check:
+            _pending('hybridize(check=True)')
         self._clear_cache()
         self._active = active
         self._cached_graph = _CachedGraph(
-            self, static_alloc=static_alloc, remat=remat) if active else None
+            self, static_alloc=static_alloc, remat=remat, backend=backend,
+            donate_inputs=donate_inputs) if active else None
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
 
@@ -1036,8 +1073,9 @@ class HybridBlock(Block):
     def __call__(self, *args, **kwargs):
         for hook in self._forward_pre_hooks:
             hook(self, args)
+        d = self.__dict__     # plain attributes: no registration to do
         if args and all(isinstance(a, NDArray) for a in args):
-            self._last_in_specs = [(a.shape, a._data.dtype) for a in args]
+            d['_last_in_specs'] = [(a.shape, a._data.dtype) for a in args]
         if _dc.is_deferred_compute():
             # a capture records the forward's ops, never a graph replay
             out = self.forward(*args, **kwargs)
@@ -1055,7 +1093,8 @@ class HybridBlock(Block):
                     with current_unsharded():
                         self.infer_shape(*args)
                 self._first_forward_done = True
-        if self._active and self._first_forward_done and not is_tracing():
+        if self._active and self._first_forward_done and not is_tracing() \
+                and not _stream_capturing():
             if kwargs:
                 raise ValueError(
                     'keyword arguments are not supported when a HybridBlock '
@@ -1064,7 +1103,7 @@ class HybridBlock(Block):
             out = self._cached_graph(args)
         else:
             out = self.forward(*args, **kwargs)
-            self._first_forward_done = True
+            d['_first_forward_done'] = True
         for hook in self._forward_hooks:
             hook(self, args, out)
         return out

@@ -5,12 +5,11 @@ python/mxnet/gluon/loss.py), with the same arguments and arithmetic,
 through the registered ops. Each returns the per-sample loss (the mean
 over every axis but the batch axis) unless the reference says otherwise.
 
-A loss also takes ``torch.Tensor``s and then returns one: the module path
-(the ``torch.nn`` Llama and its training loop) calls
-``SoftmaxCrossEntropyLoss()(logits, labels).mean()`` on tensors and runs
-torch's ``backward``. For tensors the loss records exactly when torch's
-autograd would (grad mode on and an input that requires grad), whatever
-``autograd.record()`` says.
+A loss also takes ``torch.Tensor``s and then returns one: a training loop
+written on tensors calls ``SoftmaxCrossEntropyLoss()(logits,
+labels).mean()`` and runs torch's ``backward``. For tensors the loss
+records exactly when torch's autograd would (grad mode on and an input
+that requires grad), whatever ``autograd.record()`` says.
 
 ``CTCLoss`` needs the fused ``ctc_loss`` op (ROADMAP A11).
 """

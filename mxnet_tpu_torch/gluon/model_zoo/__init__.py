@@ -1,6 +1,5 @@
-"""Model zoo of the PyTorch port: the vision zoo (``vision``, with
-``get_model``) and BERT on the port's Gluon blocks, and the Llama family
-as ``torch.nn.Module``s."""
+"""Model zoo of the PyTorch port, on its Gluon blocks: the vision zoo
+(``vision``, with ``get_model``), BERT and the Llama family."""
 
 from . import vision
 from . import bert

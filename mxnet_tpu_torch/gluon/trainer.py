@@ -1,6 +1,5 @@
 """``gluon.Trainer`` of the port: applies an :mod:`..optimizer` to a set of
-Gluon :class:`.Parameter`s (``net.collect_params()``) or
-``torch.nn.Parameter``s (the ``torch.nn`` Llama's) on one device.
+Gluon :class:`.Parameter`s (``net.collect_params()``).
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py`` (``__init__``,
 ``learning_rate``, ``set_learning_rate``, ``step``, ``allreduce_grads``,
@@ -117,23 +116,11 @@ holds (zeros for a parameter no backward reached, such as BERT's pooler
 under an MLM loss), and with its ``lr_mult`` and ``wd_mult``. Its buffer
 follows ``grad_req`` (the autograd hook overwrites it for ``'write'``),
 so a loop needs no ``zero_grad``.
-
-A ``torch.nn.Parameter`` has no grad buffer, only ``.grad``, into which
-PyTorch's ``backward`` accumulates. So :meth:`Trainer.step` (and
-:meth:`Trainer.update`) set the ``.grad`` of every such parameter it
-updated to ``None`` after the update: the next backward writes a fresh
-gradient, as MXNet's ``grad_req='write'`` does, and one without a
-gradient since the last step raises unless ``ignore_stale_grad``. Since
-PyTorch gives such a parameter a new ``.grad`` on every backward, a graph
-could not read it at one address: these parameters (the ``torch.nn``
-Llama's) keep one launch each from Python, reading the same device
-vectors.
 """
 
 import copy
 import math
 import pickle
-import re
 import warnings
 
 import numpy as np
@@ -144,7 +131,7 @@ from ..base import MXNetError
 from .. import optimizer as opt
 from ..kvstore import create as _create_kvstore
 from ..kvstore.base import KVStoreBase
-from ..ndarray.ndarray import NDArray, context_of
+from ..ndarray.ndarray import NDArray
 from ..ops.kernels.fused_optimizer import hyper_vector
 from ..optimizer import states_into, states_to_host
 from .parameter import Parameter
@@ -152,17 +139,10 @@ from .parameter import Parameter
 __all__ = ['Trainer']
 
 
-def _jax_name(name):
-    """The JAX package's name of a port parameter: Gluon names the i-th
-    block of a list ``layers{i}``, ``torch.nn.ModuleList`` ``layers.{i}``
-    (the inverse of the renaming in ``llama.from_jax_params``)."""
-    return re.sub(r'\.(\d+)(?=\.)', r'\1', name)
-
-
 class Trainer:
     """Apply ``optimizer`` (a name or an :class:`..optimizer.Optimizer`)
-    to ``params``: a dict of named parameters (``net.collect_params()``,
-    ``dict(net.named_parameters())``) or a list of them, all on the same
+    to ``params``: a dict of named parameters (``net.collect_params()``)
+    or a list of them, all on the same
     contexts, their gradients reduced through ``kvstore`` (a name or a
     KVStore)."""
 
@@ -176,7 +156,7 @@ class Trainer:
         else:
             raise ValueError('params must be a dict/list of Parameters')
         for param in params:
-            if not isinstance(param, (Parameter, torch.nn.Parameter)):
+            if not isinstance(param, Parameter):
                 raise ValueError(f'invalid parameter {param!r}')
         self._params = params
         self._names = names
@@ -196,12 +176,9 @@ class Trainer:
         _check_contexts); raises when two differ."""
         contexts = None
         for i, param in enumerate(self._params):
-            if isinstance(param, Parameter):
-                if param._var is None and param._deferred_init is None:
-                    continue
-                ctx = param.list_ctx()
-            else:
-                ctx = [context_of(param.device)]
+            if param._var is None and param._deferred_init is None:
+                continue
+            ctx = param.list_ctx()
             if contexts is not None and contexts != ctx:
                 name = self._names[i] if self._names else f'#{i}'
                 raise MXNetError(
@@ -279,7 +256,7 @@ class Trainer:
         wait for a later step."""
         waiting = []
         for param in self._params_to_init:
-            if isinstance(param, Parameter) and param._var is None:
+            if param._var is None:
                 if param._deferred_init is not None:
                     waiting.append(param)
                 continue
@@ -306,29 +283,23 @@ class Trainer:
             return
         keys, grads, outs = [], [], []
         for i, param in enumerate(self._params):
-            if isinstance(param, Parameter):
-                if param.grad_req == 'null' or param._var is None:
-                    continue
-                if _row_sparse(param):
-                    # a dense reduction of a table-sized gradient is what
-                    # the sparse path avoids: applied on this rank alone
-                    if self._kvstore.num_workers > 1 and \
-                            not self._warned_sparse_dist:
-                        warnings.warn(
-                            'row_sparse gradients are applied rank-locally '
-                            'under a distributed kvstore (no sparse '
-                            'allreduce); replicate embeddings or use '
-                            'dist_async for server-side sparse updates.',
-                            UserWarning)
-                        self._warned_sparse_dist = True
-                    continue
-                g = param._grad_buffers()
-            elif param.requires_grad and param.grad is not None:
-                g = [param.grad]
-            else:
+            if param.grad_req == 'null' or param._var is None:
+                continue
+            if _row_sparse(param):
+                # a dense reduction of a table-sized gradient is what the
+                # sparse path avoids: applied on this rank alone
+                if self._kvstore.num_workers > 1 and \
+                        not self._warned_sparse_dist:
+                    warnings.warn(
+                        'row_sparse gradients are applied rank-locally '
+                        'under a distributed kvstore (no sparse '
+                        'allreduce); replicate embeddings or use '
+                        'dist_async for server-side sparse updates.',
+                        UserWarning)
+                    self._warned_sparse_dist = True
                 continue
             keys.append(i)
-            grads.append(g)
+            grads.append(param._grad_buffers())
             outs.append(_datas(param))
         if not keys:
             return
@@ -419,47 +390,30 @@ class Trainer:
 
     def _update(self, ignore_stale_grad=False):
         if self._update_on_kvstore:
-            # the kvstore's updater wrote the weights
-            for param in self._params:
-                if not isinstance(param, Parameter):
-                    param.grad = None            # grad_req='write'
-            return
+            return          # the kvstore's updater wrote the weights
         if getattr(self, '_amp_skip_update', False):
             # amp.unscale found an overflow: this step updates nothing
             self._amp_skip_update = False
             return
-        live = []           # (index, weight, grad, torch.nn leaf or None)
+        live = []           # (index, weight, grad)
         sparse = []
         for i, param in enumerate(self._params):
-            if isinstance(param, Parameter):
-                if param.grad_req != 'null' and param._var is not None:
-                    if _row_sparse(param):
-                        sparse.append((i, param))
-                        continue
-                    live.append((i, param._sync().detach(),
-                                 param._grad_buffer(), None))
-                continue
-            if not param.requires_grad:          # grad_req='null'
-                continue
-            if param.grad is None:
-                if ignore_stale_grad:
+            if param.grad_req != 'null' and param._var is not None:
+                if _row_sparse(param):
+                    sparse.append((i, param))
                     continue
-                name = self._names[i] if self._names else f'#{i}'
-                raise MXNetError(
-                    f'Gradient of Parameter `{name}` has not been computed '
-                    f'by backward since the last step; call step with '
-                    f'ignore_stale_grad=True to skip it')
-            live.append((i, param.detach(), param.grad, param))
+                live.append((i, param._sync().detach(),
+                             param._grad_buffer()))
         if sparse:
             self._update_sparse(sparse)
         if not live:
             return
         optim = self._optimizer
-        for i, weight, _, _ in live:
+        for i, weight, _ in live:
             if i not in self._states:
                 self._states[i] = \
                     optim.create_state_multi_precision(i, weight)
-        indices = tuple(i for i, _, _, _ in live)
+        indices = tuple(i for i, _, _ in live)
         device = live[0][1].device
         vec = self._vectors.get(indices)
         if vec is None:
@@ -467,23 +421,17 @@ class Trainer:
                                                     optim.hyper_width)
         vec.upload(*optim.step_values(indices))
         rows = list(enumerate(live))
-        graphed = [(j, e) for j, e in rows
-                   if e[3] is None and _graphs.can_capture(device)]
-        eager = [(j, e) for j, e in rows
-                 if e[3] is not None or not _graphs.can_capture(device)]
-        if graphed:
-            self._graphed_update(vec, graphed, device)
+        if _graphs.can_capture(device):
+            self._graphed_update(vec, rows, device)
         else:
             optim.fill_hyper(vec.hyper, vec.ts)
+            with torch.no_grad():
+                for j, (i, weight, grad) in rows:
+                    optim.step(weight, grad, self._states[i], vec.hyper[j])
         with torch.no_grad():
-            for j, (i, weight, grad, leaf) in eager:
-                optim.step(weight, grad, self._states[i], vec.hyper[j])
-                if leaf is not None:
-                    leaf.grad = None             # grad_req='write'
-            for i, weight, _, leaf in live:      # the other replicas
-                if leaf is None:
-                    for r in self._params[i]._replicas:
-                        r.sync(self._params[i].grad_req).copy_(weight)
+            for i, weight, _ in live:       # the other replicas
+                for r in self._params[i]._replicas:
+                    r.sync(self._params[i].grad_req).copy_(weight)
 
     # --------------------------------------------------------------- sharded
     def _shard_ctx(self):
@@ -497,7 +445,7 @@ class Trainer:
 
     def _sharded_live(self):
         return [(i, p) for i, p in enumerate(self._params)
-                if isinstance(p, Parameter) and p.grad_req != 'null'
+                if p.grad_req != 'null'
                 and p._var is not None]
 
     def _reduce_sharded(self, ctx, live):
@@ -667,7 +615,7 @@ class Trainer:
             live = self._sharded_live()
         else:
             live = [(i, p) for i, p in enumerate(self._params)
-                    if isinstance(p, Parameter) and p.grad_req != 'null'
+                    if p.grad_req != 'null'
                     and p._var is not None]
         optim = self._optimizer
         for i, p in live:
@@ -854,7 +802,7 @@ class Trainer:
         if self._names is None:
             raise MXNetError('load_jax_state needs a Trainer built from a '
                              'dict of named parameters')
-        index = {_jax_name(n): i for i, n in enumerate(self._names)}
+        index = {n: i for i, n in enumerate(self._names)}
         unknown = sorted((set(states) | set(counts)) - set(index))
         if unknown:
             raise KeyError(f'no parameter of this Trainer is named '
@@ -873,24 +821,19 @@ class Trainer:
 
 def _row_sparse(param):
     """True for a Gluon parameter whose gradients are row-sparse."""
-    return isinstance(param, Parameter) and \
-        param._grad_stype == 'row_sparse'
+    return param._grad_stype == 'row_sparse'
 
 
 def _datas(param):
     """Every replica's weight tensor of a parameter, the first context's
     first."""
-    if isinstance(param, Parameter):
-        return param._datas()
-    return [param.detach()]
+    return param._datas()
 
 
 def _device(param):
     """The device of a parameter; None for a Gluon parameter whose
     initialization is still deferred."""
-    if isinstance(param, Parameter):
-        return None if param._var is None else param._var.device
-    return param.device
+    return None if param._var is None else param._var.device
 
 
 class _Vectors:

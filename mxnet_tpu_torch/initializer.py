@@ -90,10 +90,12 @@ class Initializer:
             0.0, sigma, generator=_rng.generator(t.device))
 
     def _init_zero(self, desc, arr):
-        self._set(arr, torch.zeros(arr.shape))
+        t = arr._data
+        arr._rebind(torch.zeros(t.shape, dtype=t.dtype, device=t.device))
 
     def _init_one(self, desc, arr):
-        self._set(arr, torch.ones(arr.shape))
+        t = arr._data
+        arr._rebind(torch.ones(t.shape, dtype=t.dtype, device=t.device))
 
     def _init_weight(self, desc, arr):
         raise NotImplementedError

@@ -191,7 +191,9 @@ def deformable_convolution(data, offset, weight, bias=None, kernel=(3, 3),
                            no_bias=False):
     """Deformable convolution v1 (reference
     contrib/deformable_convolution.cc): each tap sampled bilinearly at its
-    offset position, zero outside, then one product with the weights."""
+    offset position, then one product with the weights. A sample outside
+    the padded input reads zero; a corner past the edge of a sample
+    inside it reads the edge pixel, as the JAX package's op does."""
     kh, kw = kernel
     sh, sw = stride
     ph, pw = pad

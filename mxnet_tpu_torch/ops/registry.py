@@ -6,7 +6,9 @@ port's tensor functions stay callable as they are), :func:`apply_op`,
 which runs an op over NDArray inputs, and :func:`invoke`, the call path
 of every generated frontend function (``mx.np.*``, ``mx.npx.*``,
 ``mx.nd.*``), which splits NDArrays from constants, injects a stochastic
-op's generator and honours ``out=``.
+op's generator and honours ``out=``. The common eager call (no mode on,
+no sharded argument, nothing to lift, no generator, no ``out=``) takes
+:func:`_direct`, which hands the payloads to the op with no more work.
 
 An op's ``fn`` is a plain function over ``torch.Tensor``s. Autograd is
 ``torch.autograd``: :func:`apply_op` turns torch's grad mode on exactly
@@ -373,6 +375,56 @@ def _first_device(args, kwargs, of=None):
     return None
 
 
+_NDArray = None      # ndarray.NDArray, bound at the first direct call
+
+
+def _direct(op, args, kwargs):
+    """:func:`invoke`'s path for the common eager call, taken while no mode
+    of :mod:`.._modes` is on: the positional NDArray arguments (none of them
+    sharded) go to the op as their payloads and everything else as it is;
+    nothing needs lifting, no argument is an op's static one, no list is
+    searched for an array, no generator is drawn from and no ``out=`` is
+    written. Returns what :func:`apply_op` would, or None where the general
+    path must run."""
+    global _NDArray
+    if _NDArray is None:
+        from ..ndarray.ndarray import NDArray as _NDArray
+    if op.stochastic or op.dynamic_shape or op.static_argnums \
+            or op.static_argnames or 'out' in kwargs:
+        return None
+    sh = _DISPATCH[0]
+    made = sh is not None and sh.made
+    call = list(args)
+    raws = []
+    for i, a in enumerate(args):
+        if isinstance(a, _NDArray):
+            if a._layout is not None:
+                return None
+            call[i] = r = a._data
+            raws.append(r)
+        elif isinstance(a, (_np.ndarray, list, tuple)):
+            return None
+    if not raws:
+        return None
+    for v in kwargs.values():
+        if isinstance(v, (_NDArray, _np.ndarray)) or (
+                made and isinstance(v, (list, tuple))):
+            return None
+    grad = op.differentiable and _tape.is_recording() and any(
+        r.requires_grad for r in raws)
+    if grad and sh is not None and sh.seen:
+        return None
+    _dispatched[0] += 1
+    if grad == torch.is_grad_enabled():
+        outs = op.fn(*call, **kwargs)
+    else:
+        with torch.set_grad_enabled(grad):
+            outs = op.fn(*call, **kwargs)
+    if isinstance(outs, (tuple, list)):
+        return tuple(_NDArray(_narrow(o, grad)) for o in outs)
+    return _NDArray(_narrow(outs, grad))
+
+
 def invoke(op_name, args, kwargs):
     """The call path of generated frontend functions: NDArray arguments
     (also inside list arguments, as ``concatenate`` takes them) become
@@ -384,11 +436,15 @@ def invoke(op_name, args, kwargs):
     NDArray (no gradient, as in the reference); a stochastic op gets
     ``key=``, the generator of its device (the first NDArray's, else
     ``ctx=``/``device=``, else the current context)."""
+    op = _OPS[op_name] if isinstance(op_name, str) else op_name
+    special = _modes.on[0]
+    if not special:
+        res = _direct(op, args, kwargs)
+        if res is not None:
+            return res
     from ..ndarray.ndarray import NDArray, array
     from ..context import resolve_device
 
-    op = _OPS[op_name] if isinstance(op_name, str) else op_name
-    special = _modes.on[0]
     if op.dynamic_shape and (op.dynamic_shape is True
                              or op.dynamic_shape(args, kwargs)):
         from ..gluon.block import is_tracing

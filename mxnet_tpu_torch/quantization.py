@@ -7,15 +7,12 @@ then swap each layer for its int8 twin. Layer outputs stay float (bf16 by
 default), so only layer inputs need calibrated ranges and there is no int8
 graph between layers.
 
-:func:`quantize_net` takes either kind of net the port has:
-
-* a Gluon :class:`~.gluon.Block` (the vision zoo, BERT, a user's blocks):
-  the reference's walk over ``_children``, which swaps each ``Dense`` for a
-  :class:`QuantizedDense` and each ``Conv2D`` for a
-  :class:`QuantizedConv2D`, both ``HybridBlock``s with the reference's
-  parameters (``qweight`` int8, ``grad_req='null'``, and ``bias``);
-* a ``torch.nn.Module`` (the Llama family, until it moves onto the blocks):
-  each ``nn.Linear`` becomes a :class:`QuantizedLinear`.
+:func:`quantize_net` takes a Gluon :class:`~.gluon.Block` (the vision
+zoo, BERT, the Llama family, a user's blocks) and walks its ``_children``
+as the reference does, swapping each ``Dense`` for a
+:class:`QuantizedDense` and each ``Conv2D`` for a :class:`QuantizedConv2D`,
+both ``HybridBlock``s with the reference's parameters (``qweight`` int8,
+``grad_req='null'``, and ``bias``).
 
 Scheme: symmetric; per tensor for activations (scale = max(|min|, |max|) /
 127, zero point 0), per output channel for weights. The products run
@@ -27,15 +24,13 @@ copies nothing from the host, so a hybridized net's predict call can be
 captured as a CUDA graph.
 
 The calibration collector and ``calib_table`` are the reference's, in
-numpy. :func:`load_jax_quantized` carries a JAX quantized Llama's per-layer
-state into a port net.
+numpy. :func:`load_jax_quantized` carries a JAX quantized net's per-layer
+state into the port's net of the same structure, as ``QuantizedDense``
+layers.
 """
-
-import re
 
 import numpy as _np
 import torch
-from torch import nn
 
 from .gluon.block import Block, HybridBlock
 from .gluon.parameter import Parameter
@@ -46,7 +41,7 @@ from .ops.quantization_ops import (quantize_v2, dequantize, requantize,
 
 __all__ = ['quantize_v2', 'dequantize', 'requantize', 'quantize_net',
            'calib_table', 'QuantizedDense', 'QuantizedConv2D',
-           'QuantizedLinear', 'load_jax_quantized']
+           'load_jax_quantized']
 
 
 # ------------------------------------------------------------ calibration
@@ -207,29 +202,38 @@ class _QuantizedLayer(HybridBlock):
     def __init__(self, float_layer, in_min, in_max,
                  activation_dtype='bfloat16', **kwargs):
         super().__init__(**kwargs)
-        self._act_dtype = _torch_dtype(activation_dtype)
         w = float_layer.weight.data()
-        ctx, dev = w.context, w._data.device
-        self._w_scale, qw = _weight_scale(w._data)
+        w_scale, qw = _weight_scale(w._data)
+        has_bias = getattr(float_layer, 'bias', None) is not None and \
+            getattr(float_layer, '_use_bias', True)
+        self._init_state(qw, w_scale, (in_min, in_max),
+                         float_layer.bias.data() if has_bias else None,
+                         w.context, float_layer.act, activation_dtype)
+
+    def _init_state(self, qw, w_scale, in_range, bias, ctx, act,
+                    activation_dtype):
+        self._act_dtype = _torch_dtype(activation_dtype)
+        self._w_scale = w_scale
+        dev = ctx.to_torch()
+        # the codes and the bias bound as the parameters' values at once
         self.qweight = Parameter('qweight', shape=tuple(qw.shape),
                                  dtype='int8', grad_req='null')
-        self.qweight.initialize(init='zeros', ctx=ctx)
-        self.qweight.set_data(qw)
-        self._has_bias = getattr(float_layer, 'bias', None) is not None and \
-            getattr(float_layer, '_use_bias', True)
+        self.qweight._bind(qw.to(dev, torch.int8), [ctx])
+        self._has_bias = bias is not None
         if self._has_bias:
-            self.bias = Parameter('bias', shape=float_layer.bias.shape,
+            b = bias._data if isinstance(bias, NDArray) else \
+                torch.as_tensor(bias)
+            self.bias = Parameter('bias', shape=tuple(b.shape),
                                   grad_req='null')
-            self.bias.initialize(init='zeros', ctx=ctx)
-            self.bias.set_data(float_layer.bias.data())
-        self.collected_range = (in_min, in_max)
+            self.bias._bind(b.detach().to(dev, torch.float32), [ctx])
+        self.collected_range = tuple(in_range)
         # a range from the collector is float64; it rounds to fp32 here as
         # the reference's quantize_v2 rounds it
-        rng = torch.tensor([float(in_min), float(in_max)],
-                           dtype=torch.float32, device=dev)
+        rng = torch.tensor([float(v) for v in in_range],
+                           dtype=torch.float32, device=w_scale.device)
         self._x_scale = range_to_scale(rng[0], rng[1])
         self._scale = (self._x_scale * self._w_scale).contiguous()
-        self.act = float_layer.act
+        self.act = act
 
     def _quantize_input(self, x):
         xr = x._data if isinstance(x, NDArray) else x
@@ -253,6 +257,28 @@ class QuantizedDense(_QuantizedLayer):
     def __init__(self, float_layer, in_min, in_max, **kwargs):
         super().__init__(float_layer, in_min, in_max, **kwargs)
         self._flatten = float_layer._flatten
+
+    @classmethod
+    def from_state(cls, qweight, w_scale, in_range, bias=None, ctx=None,
+                   flatten=True, act=None, activation_dtype='bfloat16'):
+        """A layer from its quantized state (the JAX layer's): ``qweight``
+        int8 ``(out, in)``, ``w_scale`` ``(out,)``, the input range ``(min,
+        max)`` and the float bias or None (tensors or numpy arrays), on
+        ``ctx`` (the current context by default)."""
+        from .context import current_context
+        ctx = ctx or current_context()
+        layer = cls.__new__(cls)
+        HybridBlock.__init__(layer)
+        dev = ctx.to_torch()
+        t = torch.tensor        # a copy: the arrays may be read-only
+        layer._init_state(
+            t(_np.asarray(qweight, _np.int8)),
+            t(_np.asarray(w_scale, _np.float32), device=dev),
+            tuple(float(v) for v in _np.asarray(in_range).ravel()),
+            None if bias is None else t(_np.asarray(bias, _np.float32)),
+            ctx, act, activation_dtype)
+        layer._flatten = flatten
+        return layer
 
     def forward(self, x):
         q = self._quantize_input(x)
@@ -287,82 +313,6 @@ class QuantizedConv2D(_QuantizedLayer):
             layout=self._layout))
 
 
-class QuantizedLinear(nn.Module):
-    """The int8 twin of a ``torch.nn.Linear`` (the reference's
-    ``QuantizedDense`` for the port's ``torch.nn`` Llama): the input
-    is quantized per tensor under its calibrated range, the product runs
-    int8 x int8 -> int32 in the kernel, and one fp32 rescale per output
-    channel (with the bias) leaves in ``activation_dtype``.
-
-    Buffers: ``qweight`` int8 ``(out, in)``, ``w_scale`` fp32 ``(out,)``
-    (max |w| / 127 per output channel), ``in_range`` fp32 ``(2,)``, the
-    calibrated input range, ``x_scale`` fp32 ``()``, its scale, ``scale``
-    fp32 ``(out,)``, the combined input x weight scale the epilogue
-    applies, and ``bias`` fp32 or None. The scales are computed once here,
-    on the layer's device, so that a forward copies nothing from the
-    host."""
-
-    def __init__(self, float_layer, in_min, in_max,
-                 activation_dtype='bfloat16'):
-        super().__init__()
-        bias = float_layer.bias
-        w_scale, qweight = _weight_scale(float_layer.weight)
-        self._init_state(qweight, w_scale, (in_min, in_max),
-                         None if bias is None else bias.detach().float(),
-                         activation_dtype)
-
-    @classmethod
-    def from_state(cls, qweight, w_scale, in_range, bias=None,
-                   activation_dtype='bfloat16'):
-        """A layer from its quantized state: ``qweight`` int8 ``(out,
-        in)``, ``w_scale`` ``(out,)``, the input range ``(min, max)`` and
-        the float bias or None (tensors or numpy arrays)."""
-        layer = cls.__new__(cls)
-        nn.Module.__init__(layer)
-        t = torch.tensor        # a copy: the arrays may be read-only
-        layer._init_state(
-            t(_np.asarray(qweight, _np.int8)),
-            t(_np.asarray(w_scale, _np.float32)),
-            tuple(float(v) for v in _np.asarray(in_range).ravel()),
-            None if bias is None else t(_np.asarray(bias, _np.float32)),
-            activation_dtype)
-        return layer
-
-    def _init_state(self, qweight, w_scale, in_range, bias,
-                    activation_dtype):
-        dev = qweight.device
-        self._act_dtype = _torch_dtype(activation_dtype)
-        self.in_features = qweight.shape[1]
-        self.out_features = qweight.shape[0]
-        # a range from the collector is float64; it rounds to fp32 here as
-        # the reference rounds it on use
-        rng = torch.tensor([float(in_range[0]), float(in_range[1])],
-                           dtype=torch.float32, device=dev)
-        self.register_buffer('qweight', qweight.contiguous())
-        self.register_buffer('w_scale', w_scale.to(dev, torch.float32))
-        self.register_buffer('in_range', rng)
-        self.register_buffer('x_scale', range_to_scale(rng[0], rng[1]))
-        self.register_buffer('scale',
-                             (self.x_scale * self.w_scale).contiguous())
-        self.register_buffer('bias', None if bias is None
-                             else bias.to(dev, torch.float32).contiguous())
-
-    @property
-    def collected_range(self):
-        return tuple(float(v) for v in self.in_range.tolist())
-
-    def forward(self, x):
-        q = _quantize_input(x, self.x_scale)
-        return quantized_dense(q, self.qweight, self.scale, self.bias,
-                               out_dtype=self._act_dtype)
-
-    def extra_repr(self):
-        return (f'in_features={self.in_features}, '
-                f'out_features={self.out_features}, '
-                f'bias={self.bias is not None}, '
-                f'activation_dtype={self._act_dtype}')
-
-
 # --------------------------------------------------------- graph rewrite
 def _gluon_twin(block):
     """The int8 twin class of a Gluon layer, or None (reference
@@ -376,29 +326,11 @@ def _gluon_twin(block):
     return None
 
 
-def _torch_quantizable(module, path):
-    """True for an ``nn.Linear``; raises on an ``nn.Conv2d``."""
-    if isinstance(module, nn.Conv2d):
-        raise NotImplementedError(
-            f'quantize_net: {path or "the net"} is a torch.nn.Conv2d; the '
-            f'int8 convolution twin is the Gluon QuantizedConv2D (ROADMAP '
-            f'A7): build the net from gluon.nn.Conv2D, or exclude it with '
-            f'exclude_layers=[{path!r}] to keep it float.')
-    return isinstance(module, nn.Linear)
-
-
 def _gluon_walk(block, prefix=''):
     for name, child in list(block._children.items()):
         path = f'{prefix}{name}'
         yield block, name, path, child
         yield from _gluon_walk(child, path + '.')
-
-
-def _torch_walk(module, prefix=''):
-    for name, child in list(module.named_children()):
-        path = f'{prefix}{name}'
-        yield module, name, path, child
-        yield from _torch_walk(child, path + '.')
 
 
 def _batch(batch):
@@ -449,19 +381,15 @@ def quantize_net(net, calib_data=None, calib_mode='entropy',
     gives its first element) through ``net`` with a forward pre-hook on
     every quantizable layer that collects its input, derives per-layer
     ranges by ``calib_mode`` ('naive' | 'percentile' | 'entropy'), then
-    swaps each layer for its int8 twin built from those ranges:
-
-    * a Gluon ``Block``: as the reference does, hybridization is cleared
-      first (a cached graph would bypass the hooks and keep serving the
-      float layers; re-hybridize afterwards), each ``Dense`` becomes a
-      :class:`QuantizedDense` and each ``Conv2D`` a
-      :class:`QuantizedConv2D`, swapped in the parent's ``_children`` and
-      in its attributes; paths are structural (``features.4.0.body.0``);
-    * a ``torch.nn.Module``: each ``nn.Linear`` becomes a
-      :class:`QuantizedLinear` (``setattr`` on its parent, ``nn.ModuleList``
-      children too), and the float layer is dropped as soon as its twin is
-      built; an ``nn.Conv2d`` raises; paths are ``named_modules`` names
-      (``model.layers.0.mlp.up_proj``).
+    swaps each layer for its int8 twin built from those ranges. As the
+    reference does, hybridization is cleared first (a cached graph would
+    bypass the hooks and keep serving the float layers; re-hybridize
+    afterwards), and so are the graphs of a Llama's ``generate()``; each
+    ``Dense`` becomes a :class:`QuantizedDense` and each ``Conv2D`` a
+    :class:`QuantizedConv2D`, swapped in the parent's ``_children`` and in
+    its attributes, and the float layer is dropped as soon as its twin is
+    built; paths are structural (``features.4.0.body.0``,
+    ``model.layers0.mlp.up_proj``).
 
     A layer that no calibration batch reached stays float (with a warning
     on ``logger``). If ``net`` itself is a quantizable layer its twin is
@@ -473,10 +401,10 @@ def quantize_net(net, calib_data=None, calib_mode='entropy',
         raise ValueError('calib_data is required for post-training '
                          'quantization')
     exclude_layers = set(exclude_layers or ())
-    if isinstance(net, Block):
-        return _quantize_gluon(net, calib_data, calib_mode, exclude_layers,
-                               num_calib_batches, logger, activation_dtype)
-    return _quantize_torch(net, calib_data, calib_mode, exclude_layers,
+    if not isinstance(net, Block):
+        raise TypeError(f'quantize_net takes a Gluon Block, not a '
+                        f'{type(net).__name__}')
+    return _quantize_gluon(net, calib_data, calib_mode, exclude_layers,
                            num_calib_batches, logger, activation_dtype)
 
 
@@ -505,51 +433,6 @@ def _quantize_gluon(net, calib_data, calib_mode, exclude_layers,
     table = calib_table(_calibrate(net, targets, calib_data,
                                    num_calib_batches, hook_on, run_batch),
                         calib_mode)
-    result = net
-    for parent, name, path, child in targets:
-        if path not in table:
-            if logger:
-                logger.warning('layer %s not exercised by calib_data; '
-                               'kept in float', path)
-            continue
-        lo, hi = table[path]
-        qlayer = _gluon_twin(child)(child, lo, hi,
-                                    activation_dtype=activation_dtype)
-        if parent is None:
-            result = qlayer     # the root swap happens via the return value
-            continue
-        parent._children[name] = qlayer
-        # attribute access must resolve to the new child too
-        for attr, value in list(parent.__dict__.items()):
-            if value is child:
-                object.__setattr__(parent, attr, qlayer)
-    _log_table(logger, table)
-    return result
-
-
-def _quantize_torch(net, calib_data, calib_mode, exclude_layers,
-                    num_calib_batches, logger, activation_dtype):
-    """The walk over ``torch.nn`` modules (the port's Llama)."""
-    targets = [(parent, name, path, child)
-               for parent, name, path, child in _torch_walk(net)
-               if path not in exclude_layers
-               and _torch_quantizable(child, path)]
-    if '.' not in exclude_layers and _torch_quantizable(net, ''):
-        targets.append((None, None, '.', net))     # the net IS the layer
-    if not targets:
-        return net
-    dev = next((p.device for p in net.parameters()), None)
-
-    def hook_on(child, hook):
-        return child.register_forward_pre_hook(hook).remove
-
-    def run_batch(x):
-        with torch.no_grad():
-            net(torch.as_tensor(x, device=dev))
-
-    table = calib_table(_calibrate(net, targets, calib_data,
-                                   num_calib_batches, hook_on, run_batch),
-                        calib_mode)
     if hasattr(net, 'release_graphs'):      # they read the float layers
         net.release_graphs()
     result = net
@@ -561,58 +444,70 @@ def _quantize_torch(net, calib_data, calib_mode, exclude_layers,
                                'kept in float', path)
             continue
         lo, hi = table[path]
-        qlayer = QuantizedLinear(child, lo, hi,
-                                 activation_dtype=activation_dtype)
-        del child
+        qlayer = _gluon_twin(child)(child, lo, hi,
+                                    activation_dtype=activation_dtype)
         if parent is None:
             result = qlayer     # the root swap happens via the return value
-        else:
-            setattr(parent, name, qlayer)
+            continue
+        _swap(parent, name, child, qlayer)
+        del child
     _log_table(logger, table)
     return result
 
 
+def _swap(parent, name, old, new):
+    """``new`` in place of the child ``old`` of ``parent``, also where an
+    attribute names it."""
+    parent._children[name] = new
+    for attr, value in list(parent.__dict__.items()):
+        if value is old:
+            object.__setattr__(parent, attr, new)
+
+
 def load_jax_quantized(net, qstate, params=None,
                        activation_dtype='bfloat16'):
-    """Load a JAX quantized net's state into the port net ``net``, in
-    place; returns ``net``.
+    """Load a JAX quantized net's state into the port net ``net`` (a Gluon
+    block of the same structure, float or quantized), in place; returns
+    ``net``.
 
-    ``qstate`` maps each quantized layer's JAX path
-    (``model.layers0.self_attn.q_proj``) to a dict of numpy arrays:
-    ``qweight``, ``w_scale`` (the JAX layer's ``_w_scale``),
-    ``collected_range`` and ``bias`` (None without one). Each named
-    ``nn.Linear`` of ``net`` is swapped for a :class:`QuantizedLinear`
-    built from that state. ``params`` optionally maps the JAX names of
-    the float parameters that stay (the embedding and the norms, as
-    ``from_jax_params`` takes them) to numpy arrays; every float
+    ``qstate`` maps each quantized layer's path
+    (``model.layers0.self_attn.q_proj``, the same in both packages) to a
+    dict of numpy arrays: ``qweight``, ``w_scale`` (the JAX layer's
+    ``_w_scale``), ``collected_range`` and ``bias`` (None without one).
+    Each named ``Dense`` (or ``QuantizedDense``) of ``net`` is swapped for
+    a :class:`QuantizedDense` built from that state on the layer's
+    context. ``params`` optionally maps the names of the float parameters
+    that stay (the embedding and the norms) to numpy arrays; every float
     parameter left in ``net`` must then be among them."""
-    for jpath, st in qstate.items():
-        path = re.sub(r'\.layers(\d+)\.', r'.layers.\1.', jpath)
+    from .gluon.nn.basic_layers import Dense
+    for path, st in qstate.items():
         *head, name = path.split('.')
-        parent = net.get_submodule('.'.join(head))
-        old = getattr(parent, name)
-        if not isinstance(old, (nn.Linear, QuantizedLinear)):
-            raise TypeError(f'{jpath}: {path} is a {type(old).__name__}, '
-                            f'not a Dense layer')
-        dev = next(old.buffers() if isinstance(old, QuantizedLinear)
-                   else old.parameters()).device
-        q = QuantizedLinear.from_state(st['qweight'], st['w_scale'],
-                                      st['collected_range'], st.get('bias'),
-                                      activation_dtype)
-        if tuple(q.qweight.shape) != (old.out_features, old.in_features):
-            raise ValueError(f'{jpath}: qweight {tuple(q.qweight.shape)}, '
-                             f'the layer is ({old.out_features}, '
-                             f'{old.in_features})')
-        setattr(parent, name, q.to(dev))
+        parent = net
+        for part in head:
+            parent = parent._children[part]
+        old = parent._children.get(name)
+        if not isinstance(old, (Dense, QuantizedDense)):
+            raise TypeError(f'{path} is a {type(old).__name__}, not a '
+                            f'Dense layer')
+        p = old.weight if isinstance(old, Dense) else old.qweight
+        want = tuple(p.shape)
+        got = tuple(_np.shape(st['qweight']))
+        if got != want:
+            raise ValueError(f'{path}: qweight {got}, the layer is {want}')
+        q = QuantizedDense.from_state(
+            st['qweight'], st['w_scale'], st['collected_range'],
+            st.get('bias'), ctx=p.list_ctx()[0], flatten=old._flatten,
+            act=old.act, activation_dtype=activation_dtype)
+        _swap(parent, name, old, q)
+    if hasattr(net, 'release_graphs'):
+        net.release_graphs()
     if params is not None:
-        own = dict(net.named_parameters())
-        sd = {}
-        for jname, value in params.items():
-            key = re.sub(r'\.layers(\d+)\.', r'.layers.\1.', jname)
-            if key in own:
-                sd[key] = torch.as_tensor(_np.asarray(value))
-        missing = sorted(set(own) - set(sd))
+        quantized = tuple(f'{path}.' for path in qstate)
+        own = {n: p for n, p in net.collect_params().items()
+               if not n.startswith(quantized)}
+        missing = sorted(n for n in own if n not in params)
         if missing:
             raise ValueError(f'float parameters missing: {missing}')
-        net.load_state_dict(sd, strict=False)
+        for n, p in own.items():
+            p.set_data(_np.asarray(params[n]))
     return net

@@ -43,17 +43,19 @@ produced (the cache key covers the entire prefix).
 
 Under ``mx.sharding.mesh(dp=..., tp=...)`` (reference :245-312) the server
 is SPMD: every rank runs this scheduler on the same submitted requests.
-The net keeps its ``tp`` shards (``LlamaForCausalLM.shard``: the Llama
-rules), and the pool ``P('dp', None, 'tp', None)`` through
-``resolve_spec``: each rank holds its ``tp`` share of the KV heads, and the
-slots and pages split on ``dp`` (slot ``s`` belongs to ``dp`` rank ``s //
-(slots / dp)``, whose own range of the pool, with its own allocator and
-garbage page, holds its pages). A decode step computes this ``dp`` rank's
-slots (B4 reads this rank's KV heads), picks the global greedy token over
-``tp`` and all-gathers the tokens over ``dp``; a prefill chunk runs on the
-ranks of its slot's ``dp`` index and its token is all-gathered. The calls
-hold collectives, so a sharded server runs them eagerly (no CUDA graph;
-``compile_count`` 0); the unsharded server keeps its graphs.
+The net's parameters are placed by the context's rules (the Llama's
+``('llama', 'tp')`` table, as a hybridized Gluon call places them; a net
+initialized inside the mesh holds its shards already), and the pool
+``P('dp', None, 'tp', None)`` through ``resolve_spec``: each rank holds
+its ``tp`` share of the KV heads, and the slots and pages split on ``dp``
+(slot ``s`` belongs to ``dp`` rank ``s // (slots / dp)``, whose own range
+of the pool, with its own allocator and garbage page, holds its pages). A
+decode step computes this ``dp`` rank's slots (B4 reads this rank's KV
+heads), picks the global greedy token over ``tp`` and all-gathers the
+tokens over ``dp``; a prefill chunk runs on the ranks of its slot's ``dp``
+index and its token is all-gathered. The calls hold collectives, so a
+sharded server runs them eagerly (no CUDA graph; ``compile_count`` 0); the
+unsharded server keeps its graphs.
 
 The ranks' collectives pair up only while every rank admits, prefills and
 steps in the same order, so a sharded server's schedule must not hang on
@@ -205,12 +207,20 @@ class DecodeServer:
         the CPU the bodies run once). Without it the first call of each
         captures its graph.
 
+    The net is a Gluon ``LlamaForCausalLM`` whose parameters are
+    initialized (on the card, or ``ctx=mx.cpu()``); the server runs its
+    cached calls (``net(tokens, caches=pool, offset=..., pages=...)``),
+    which never train. A served net should set ``grad_req='null'`` before
+    ``initialize()``, as an MXNet user does for inference: otherwise every
+    parameter also holds a gradient buffer of its size (32 GB beside the
+    32 GB of an fp32 ``llama3_8b``).
+
     The graphs read the weights through the addresses they had when they
-    were captured: updates in place (``load_state_dict``, an optimizer
-    step) are seen, a swapped module or a moved net is not, so a net
-    quantized by ``quantize_net`` after a server was built needs a new
-    server, as the reference's server takes its parameters at
-    construction.
+    were captured: updates in place (``set_data``, an optimizer step) are
+    seen, new leaves are not (``cast``, ``reset_ctx``, the layers
+    ``quantize_net`` swaps in), so a net quantized after a server was
+    built needs a new server, as the reference's server takes its
+    parameters at construction.
     """
 
     def __init__(self, net, slots=4, max_length=None, page_size=None,
@@ -218,7 +228,7 @@ class DecodeServer:
                  queue_depth=None, deadline_ms=None, clock=time.monotonic,
                  name=None, start=True, warmup=True):
         self.net = net
-        self.device = net.model.embed_tokens.weight.device
+        self.device = net.model.embed_tokens.weight.data()._data.device
         self.slots = int(slots)
         self.page_size = int(page_size or _pages.default_page_size())
         max_length = int(max_length or net.cfg.max_length)
@@ -321,7 +331,7 @@ class DecodeServer:
         self._owner = 0
         if ctx is None or ctx.n_devices == 1:
             return None
-        net.shard(ctx)
+        ctx.place_params(net)
         dp = ctx.size('dp')
         if self.slots % dp:
             raise ServeError(f'{self.slots} slots do not split over '
@@ -387,12 +397,12 @@ class DecodeServer:
         if self._shard_ctx is None:
             logits, pool = self.net(i['toks'][:, None], caches=self._pool,
                                     offset=i['offs'], pages=i['pages'])
-            return torch.argmax(logits[:, -1].float(), dim=-1), pool
+            return self.net.pick(logits), pool
         lo, hi = self._rows
         logits, pool = self.net(i['toks'][lo:hi, None], caches=self._pool,
                                 offset=i['offs'][lo:hi],
                                 pages=i['pages'][lo:hi])
-        nxt = self.net.pick(logits[:, -1])
+        nxt = self.net.pick(logits)
         if self._dp[0] is not None:
             from ..sharding import _collectives as C
             nxt = C.all_gather(nxt, self._dp[0], 0)
@@ -404,15 +414,14 @@ class DecodeServer:
         if self._shard_ctx is None:
             logits, pool = self.net(i['toks'], caches=self._pool,
                                     offset=i['off'], pages=i['pages'])
-            last = logits[0].index_select(0, i['last'])
-            return torch.argmax(last.float(), dim=-1), pool
+            return self.net.pick(logits, i['last']), pool
         group, _, d = self._dp
         pool = self._pool
         nxt = torch.full((1,), -1, dtype=torch.long, device=self.device)
         if self._owner == d:
             logits, pool = self.net(i['toks'], caches=self._pool,
                                     offset=i['off'], pages=i['pages'])
-            nxt = self.net.pick(logits[0].index_select(0, i['last']))
+            nxt = self.net.pick(logits, i['last'])
         if group is not None:
             from ..sharding import _collectives as C
             nxt = C.all_gather(nxt, group, 0)[self._owner:self._owner + 1]

@@ -111,6 +111,7 @@ class ShardingContext:
         self.n_devices = math.prod(sizes.values())
         self.base_group = group
         self._lines = {}
+        self._strides = {}
         if group is not None and ranks is None:
             import torch.distributed as dist
             ranks = dist.get_process_group_ranks(group)
@@ -194,11 +195,18 @@ class ShardingContext:
         return self.axis_sizes.get(axis, 1)
 
     def _stride(self, axis):
-        """This rank's position in :attr:`ranks` and ``axis``'s stride."""
-        _, rank = _world()
-        names = self.axis_names
-        return self.ranks.index(rank), math.prod(
-            self.axis_sizes[n] for n in names[names.index(axis) + 1:])
+        """This rank's position in :attr:`ranks` and ``axis``'s stride,
+        kept once a world of more than one rank gives them (the rank is
+        fixed while its world lives, as the mesh and the lines are)."""
+        got = self._strides.get(axis)
+        if got is None:
+            world, rank = _world()
+            names = self.axis_names
+            got = self.ranks.index(rank), math.prod(
+                self.axis_sizes[n] for n in names[names.index(axis) + 1:])
+            if world > 1:
+                self._strides[axis] = got
+        return got
 
     def coord(self, axis):
         """This rank's index along ``axis``."""
@@ -209,9 +217,9 @@ class ShardingContext:
 
     def group(self, axis):
         """The process group of this rank's line along ``axis``."""
-        if self.base_group is None:
-            return self.mesh.get_group(axis)
         g = self._lines.get(axis)
+        if g is None and self.base_group is None:
+            g = self._lines[axis] = self.mesh.get_group(axis)
         if g is None:
             i, stride = self._stride(axis)
             base = i - self.coord(axis) * stride
@@ -248,6 +256,20 @@ class ShardingContext:
         return _rules.resolve_spec(spec, shape, self, name=name)
 
     # ------------------------------------------------------------ placement
+    def place_params(self, block, each=None):
+        """Place every parameter of ``block`` by this context's rules,
+        names relative to ``block`` as the reference matches them, one at a
+        time: ``each(p)``, where given, runs just before ``p`` is placed
+        (an initialization: no rank then holds more than one parameter
+        whole), and a deferred parameter is initialized first."""
+        rules = self.rules_for_block(block)
+        for name, p in block.collect_params().items():
+            if each is not None:
+                each(p)
+            if p._var is None:
+                p._finish_deferred_init()
+            p._shard_to(self, self.spec_for(name, p.shape, rules))
+
     def batch_spec(self, shape):
         """Activation spec: leading (batch) dim on the data axis when it
         divides, otherwise replicated."""

@@ -41,6 +41,9 @@ import math
 import numpy as _np
 import torch
 
+from .. import _tape
+from ..ndarray.ndarray import NDArray, array, context_of
+from ..ops import registry as _registry
 from . import _collectives as C
 from .rules import PartitionSpec as P
 
@@ -134,7 +137,6 @@ def shard(tensor, layout):
     """An NDArray of this rank's shard ``tensor`` laid out by ``layout``
     (an unsharded NDArray when the layout splits nothing)."""
     global made
-    from ..ndarray.ndarray import NDArray
     out = NDArray(tensor)
     out._layout = layout if layout is not None and layout.sharded else None
     made = made or out._layout is not None
@@ -143,7 +145,6 @@ def shard(tensor, layout):
 
 def local(x):
     """The shard of ``x`` as an unsharded NDArray (the same tensor)."""
-    from ..ndarray.ndarray import NDArray
     if not is_sharded(x):
         return x
     out = NDArray(x._data)
@@ -182,7 +183,6 @@ def gather_tensor(t, layout, param=None):
 def gather_value(x):
     """The global value of ``x`` as an unsharded NDArray (a collective
     where ``x`` is sharded)."""
-    from ..ndarray.ndarray import NDArray
     if not is_sharded(x):
         return x
     return NDArray(gather_tensor(x._data, x._layout))
@@ -191,7 +191,6 @@ def gather_value(x):
 def redistribute(x, ctx, spec, blocks=None):
     """``x`` laid out at ``spec`` on ``ctx``: gathered where it lies
     otherwise, then cut to this rank's shard (with gradients)."""
-    from ..ndarray.ndarray import NDArray
     layout = Layout(ctx, spec, x.shape, blocks=blocks)
     if is_sharded(x) and x._layout.same(layout):
         return x
@@ -205,7 +204,6 @@ def redistribute(x, ctx, spec, blocks=None):
 def _nd_slots(args, kwargs):
     """``(where, NDArray)`` for every NDArray argument: ``('a', i, j)``
     (j None, or the index in a list argument) or ``('k', name, None)``."""
-    from ..ndarray.ndarray import NDArray
     out = []
     for i, a in enumerate(args):
         if isinstance(a, NDArray):
@@ -233,8 +231,7 @@ def _put(args, kwargs, where, value):
 
 
 def _run(op, args, kwargs):
-    from ..ops.registry import invoke
-    return invoke(op, tuple(args), kwargs)
+    return _registry.invoke(op, tuple(args), kwargs)
 
 
 def _wrap(res, layout_of):
@@ -266,7 +263,6 @@ def _gather_all(args, kwargs, slots):
 
 
 def _fallback(op, args, kwargs, slots):
-    from .. import _tape
     whole = _tape.is_recording() and any(
         _batch_split(nd) for _, nd in slots)
     _gather_all(args, kwargs, slots)
@@ -356,7 +352,6 @@ def _elementwise(op, args, kwargs, slots):
             return _fallback(op, args, kwargs, slots)
         full = nd._data.expand(lay.gshape) if shp != lay.gshape \
             else nd._data
-        from ..ndarray.ndarray import NDArray
         _put(args, kwargs, where, NDArray(cut(full, lay, grad=True)))
     # a value of parameters alone stays one: its gathers sum over dp
     out = lay.replace(blocks=lay.blocks, param=all(l.param for l in lays))
@@ -397,7 +392,6 @@ def _rowwise(op, args, kwargs, slots, batch):
     ``batch``) split on the data axis along dim 0, or unsharded with the
     global batch extent (then cut); the other arguments whole (gathered
     when sharded). The outputs of the batch extent are split alike."""
-    from ..ndarray.ndarray import NDArray
     lay = None
     for where, nd in slots:
         if where in batch and is_sharded(nd):
@@ -470,14 +464,14 @@ def _rest_layout(xlay, ctx, lead, last, last_axis=None, blocks=1):
     bl = [(1,) if s else () for s in spec]
     if last_axis:
         bl[-1] = (blocks,)
-    return Layout(ctx, (), tuple(lead) + (last,)).replace(
-        spec=spec, gshape=tuple(lead) + (last,), blocks=bl)
+    lay = Layout.__new__(Layout)      # every field set by replace
+    lay.ctx = ctx
+    return lay.replace(spec=spec, gshape=tuple(lead) + (last,), blocks=bl)
 
 
 def _dense(op, args, kwargs, slots):
     """``fully_connected``: column- or row-parallel by its weight's layout,
     else row-wise with the weight whole."""
-    from ..ndarray.ndarray import NDArray
     wsl, w = _slot(slots, 1, 'weight')
     xsl, x = _slot(slots, 0, 'data')
     wl = w._layout if is_sharded(w) else None
@@ -579,7 +573,6 @@ def vocab_lookup(ids, w, group, index):
 
 
 def _plain(t):
-    from ..ndarray.ndarray import NDArray
     return NDArray(t)
 
 
@@ -698,7 +691,6 @@ def _reduce(op, args, kwargs, slots):
         return _rows(op, args, kwargs, slots, {xsl})
     if op.name not in ('sum', 'mean'):
         return _fallback(op, args, kwargs, slots)
-    from .. import _tape
     ctx = lay.ctx
     _put(args, kwargs, xsl, local(x))
     if op.name == 'mean':
@@ -886,13 +878,10 @@ def _rule(op):
 def invoke(op, args, kwargs):
     """The frontend call of ``op`` where an argument is sharded (called by
     ``ops.registry.invoke``): the op's form above, on this rank's shards."""
-    from .. import _tape
-    from ..ndarray.ndarray import array
     args, kwargs = list(args), dict(kwargs)
     out = kwargs.pop('out', None)
     dev = next(nd._data.device for _, nd in _nd_slots(args, kwargs)
                if is_sharded(nd))
-    from ..ndarray.ndarray import context_of
     args = [array(a, ctx=context_of(dev)) if isinstance(a, _np.ndarray)
             else a for a in args]
     kwargs = {k: array(v, ctx=context_of(dev))

@@ -288,21 +288,9 @@ _ARCH_HINTS = (
 )
 
 
-def _children(block):
-    """A block's children: a Gluon block's ``_children``, a
-    ``torch.nn.Module``'s ``children()``."""
-    kids = getattr(block, '_children', None)
-    if isinstance(kids, dict):
-        return list(kids.values())
-    if callable(getattr(block, 'children', None)):
-        return list(block.children())
-    return []
-
-
 def infer_arch(block):
-    """Best-effort architecture tag for a block (class-name match down
-    the child tree: a Gluon block or a ``torch.nn.Module``, such as the
-    port's ``LlamaForCausalLM``); ``'generic'`` when nothing matches."""
+    """Best-effort architecture tag for a Gluon block (class-name match
+    down the child tree); ``'generic'`` when nothing matches."""
     seen, stack = set(), [block]
     while stack:
         b = stack.pop()
@@ -313,5 +301,5 @@ def infer_arch(block):
         for hint, arch in _ARCH_HINTS:
             if hint in cls:
                 return arch
-        stack.extend(_children(b))
+        stack.extend(getattr(b, '_children', {}).values())
     return 'generic'

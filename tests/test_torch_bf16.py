@@ -338,14 +338,13 @@ def test_llama_tiny_in_bf16_matches_the_jax_net():
     params = tl._weights(jnet)
     for name, p in jnet.collect_params().items():
         p.set_data(params[name])
-    tnet = tllama.llama_tiny(device='cpu')
-    tnet.load_state_dict(tllama.from_jax_params(params, tnet.cfg))
+    tnet = tl.port_net(params)
     jnet.cast('bfloat16')
-    tnet.to(torch.bfloat16)
+    tnet.cast('bfloat16')
     toks = np.random.default_rng(3).integers(1, 256, (2, 12)).astype(
         np.int32)
     want = jnet(jmx.np.array(toks))
-    got = tnet(torch.from_numpy(toks).long())
+    got = tnet(torch.from_numpy(toks).long())._data
     assert got.dtype == torch.bfloat16
     assert _scaled_gap(got.float().detach().numpy(),
                        _f32(want.asnumpy())) < 1e-2

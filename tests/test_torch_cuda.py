@@ -38,7 +38,9 @@ forked after CUDA was initialized; and the bf16 kernels against their
 plain versions (the norm in every (x, weights) dtype pair and design,
 both flash forms over head dims and masks, paged decode over head dims,
 groups, page sizes and split counts), a bf16 weight's plain update, and
-a bf16 Gluon LayerNorm and BERT encoder cell on the card against the CPU.
+a bf16 Gluon LayerNorm and BERT encoder cell on the card against the CPU;
+``create_graph=True`` through a replayed call, and ``remat=True`` with
+Dropout reseeded between the capture and the replays.
 bf16 outputs are held within one bf16 ulp plus the fp32 tolerance (each
 side rounds its fp32 result once; near zero the fp32 tolerance decides).
 
@@ -56,19 +58,20 @@ then the same rounded operations) and the rtc kernels (the same fp32
 roundings, none contracted).
 """
 
-import copy
 
 import pytest
 import torch
 
-from mxnet_tpu_torch import MXNetError
+import chip_smoke
+from mxnet_tpu_torch import MXNetError, autograd as tautograd
 from mxnet_tpu_torch.gluon import Trainer, loss as gloss
-from mxnet_tpu_torch.gluon.model_zoo.llama import get_llama
+from mxnet_tpu_torch.ndarray.ndarray import NDArray
 from mxnet_tpu_torch.ops import contrib, kernels, nn as nn_ops
 from mxnet_tpu_torch.ops.kernels import (fused_norms, flash_attention,
                                          fused_optimizer, int8_matmul,
                                          paged_attention)
-from mxnet_tpu_torch.quantization import QuantizedLinear, quantize_net
+from mxnet_tpu_torch.quantization import QuantizedDense, _gluon_walk, \
+    quantize_net
 from mxnet_tpu_torch.serve import DecodeServer
 from mxnet_tpu_torch.serve.errors import ServerClosed
 
@@ -77,8 +80,17 @@ pytestmark = pytest.mark.cuda
 NORM_TOL = dict(rtol=1e-5, atol=1e-5)
 ATT_TOL = dict(rtol=1e-4, atol=1e-4)
 OPT_TOL = dict(rtol=1e-6, atol=1e-7)
-SMALL_LLAMA = dict(vocab_size=512, units=256, num_layers=2, num_heads=4,
-                   num_kv_heads=2, hidden_size=512, max_length=128)
+SMALL_LLAMA = chip_smoke.SMALL_LLAMA
+
+
+def _small_llama(seed):
+    """The 2-layer Llama with head dim 64 and GQA 4/2 on the CPU, its
+    weights drawn by ``LlamaInit(seed)``."""
+    return chip_smoke.build_llama('llama_tiny', seed, 'cpu', serve=False,
+                                  **SMALL_LLAMA)
+
+
+_copy_to = chip_smoke.copy_llama
 
 
 @pytest.fixture
@@ -243,10 +255,9 @@ def test_small_llama_serves_the_same_tokens_on_the_card(dev):
     prompts = [torch.randint(1, 512, (n,), generator=gen_cpu).tolist()
                for n in (5, 19, 40)]
     outs = {}
-    cpu_net = get_llama('llama_tiny', device='cpu', seed=3,
-                        **SMALL_LLAMA)
+    cpu_net = _small_llama(3)
     for where in ('cpu', 'cuda'):
-        net = copy.deepcopy(cpu_net).to(where)
+        net = _copy_to(cpu_net, where)
         kernels.reset_launch_counts()
         ds = DecodeServer(net, slots=2, max_length=64, page_size=4,
                           prefill_chunk=8, start=False)
@@ -262,8 +273,7 @@ def test_small_llama_serves_the_same_tokens_on_the_card(dev):
             assert counts['fused_norm'] > 0
         else:
             assert set(counts.values()) == {0}
-        with torch.no_grad():
-            logits = net(torch.tensor([prompts[1]], device=where))
+        logits = net(torch.tensor([prompts[1]], device=where))._data
         outs[where + '_logits'] = logits.cpu()
     assert kernels.launch_counts()['flash_attention'] == 2
     assert outs['cuda'] == outs['cpu']
@@ -398,26 +408,27 @@ def test_small_llama_trains_the_same_on_the_card(dev):
     """Two Adam steps of a Llama with head dim 64 and GQA 4/2 on the card
     (every kernel) and on the CPU (every plain version): the same losses,
     and every parameter gets a gradient on the card."""
-    cpu_net = get_llama('llama_tiny', device='cpu', seed=4, **SMALL_LLAMA)
+    cpu_net = _small_llama(4)
     toks = torch.randint(0, 512, (2, 33),
                          generator=torch.Generator().manual_seed(5))
     losses = {}
     for where in ('cpu', 'cuda'):
-        net = copy.deepcopy(cpu_net).to(where)
-        params = dict(net.named_parameters())
+        net = _copy_to(cpu_net, where)
+        params = net.collect_params()
         trainer = Trainer(params, 'adam', {'learning_rate': 1e-3})
-        t = toks.to(where)
+        t = NDArray(toks.to(where))
         kernels.reset_launch_counts()
         losses[where] = []
         for i in range(2):
-            loss = gloss.SoftmaxCrossEntropyLoss()(net(t[:, :-1]),
-                                                    t[:, 1:]).mean()
+            with tautograd.record():
+                loss = gloss.SoftmaxCrossEntropyLoss()(net(t[:, :-1]),
+                                                        t[:, 1:]).mean()
             loss.backward()
             if i == 0:
-                assert all(p.grad is not None and bool((p.grad != 0).any())
+                assert all(bool((p.grad()._data != 0).any())
                            for p in params.values())
             trainer.step(1)
-            losses[where].append(float(loss.detach()))
+            losses[where].append(float(loss.asnumpy()))
         counts = kernels.launch_counts()
         if where == 'cuda':
             assert counts['adam'] == 2 * len(params)
@@ -509,14 +520,15 @@ def test_small_quantized_llama_serves_the_same_tokens_on_the_card(dev, act):
     prompts = [torch.randint(1, 512, (n,), generator=gen_cpu).tolist()
                for n in (5, 19, 40)]
     calib = torch.randint(0, 512, (2, 24), generator=gen_cpu)
-    cpu_net = get_llama('llama_tiny', device='cpu', seed=3, **SMALL_LLAMA)
-    quantize_net(cpu_net, calib_data=[calib], calib_mode='naive',
+    cpu_net = _small_llama(3)
+    quantize_net(cpu_net, calib_data=[NDArray(calib)], calib_mode='naive',
                  activation_dtype=act)
-    dense = [m for m in cpu_net.modules() if isinstance(m, QuantizedLinear)]
+    dense = [m for _, _, _, m in _gluon_walk(cpu_net)
+             if isinstance(m, QuantizedDense)]
     assert len(dense) == 15
     outs = {}
     for where in ('cpu', 'cuda'):
-        net = copy.deepcopy(cpu_net).to(where)
+        net = _copy_to(cpu_net, where)
         kernels.reset_launch_counts()
         ds = DecodeServer(net, slots=2, max_length=64, page_size=4,
                           prefill_chunk=8, start=False)
@@ -534,8 +546,7 @@ def test_small_quantized_llama_serves_the_same_tokens_on_the_card(dev, act):
                 2 * (stats['steps'] + 1)
         else:
             assert set(counts.values()) == {0}
-        with torch.no_grad():
-            logits = net(torch.tensor([prompts[1]], device=where))
+        logits = net(torch.tensor([prompts[1]], device=where))._data
         assert logits.dtype == getattr(torch, act)
         outs[where + '_logits'] = logits.float().cpu()
     assert outs['cuda'] == outs['cpu']
@@ -1051,7 +1062,7 @@ def _eager_steps(net, prompt, n_new, slots=2, max_length=64, psz=4,
     chunks through a block-table row of ``max_length / psz`` pages at
     Python-int offsets, then decode steps over ``slots`` rows, the
     sequence in row 0 and the others idle on the garbage page."""
-    dev = net.model.embed_tokens.weight.device
+    dev = net._device()
     mp = max_length // psz
     pool = net.init_paged_pool(slots * mp + 1, psz)
     row = torch.arange(1, mp + 1, dtype=torch.int32, device=dev)[None]
@@ -1061,7 +1072,7 @@ def _eager_steps(net, prompt, n_new, slots=2, max_length=64, psz=4,
             toks = prompt[start:start + real] + [0] * (chunk - real)
             logits, _ = net(torch.tensor([toks], device=dev), caches=pool,
                             offset=start, pages=row)
-        out = [int(logits[0, real - 1].float().argmax())]
+        out = [int(logits._data[0, real - 1].float().argmax())]
         bt = torch.zeros(slots, mp, dtype=torch.int32, device=dev)
         bt[0] = row[0]
         while len(out) < n_new:
@@ -1070,17 +1081,17 @@ def _eager_steps(net, prompt, n_new, slots=2, max_length=64, psz=4,
             offs = torch.zeros(slots, dtype=torch.int32, device=dev)
             offs[0] = len(prompt) + len(out) - 1
             logits, _ = net(toks, caches=pool, offset=offs, pages=bt)
-            out.append(int(logits[0, -1].float().argmax()))
+            out.append(int(logits._data[0, -1].float().argmax()))
     return out
 
 
 def _small_net(dev, quantized):
-    net = get_llama('llama_tiny', device='cpu', seed=3, **SMALL_LLAMA)
+    net = _small_llama(3)
     if quantized:
         calib = torch.randint(0, 512, (2, 24),
                               generator=torch.Generator().manual_seed(1))
-        quantize_net(net, calib_data=[calib], calib_mode='naive')
-    return net.to(dev)
+        quantize_net(net, calib_data=[NDArray(calib)], calib_mode='naive')
+    return _copy_to(net, dev)
 
 
 def _prompts(*lengths):
@@ -1220,18 +1231,19 @@ def test_graphed_sampling_is_deterministic_for_a_seed(dev):
 def test_generate_keeps_at_most_16_graphs_and_drops_them_on_a_swap(dev):
     """The graph cache is bounded as the reference's program cache is,
     and ``quantize_net`` (which swaps the layers the graphs read) and
-    ``.to()`` drop it."""
+    ``cast`` drop it."""
     net = _small_net(dev, False)
     for s in range(2, 19):
         net.generate(torch.ones(1, s, dtype=torch.long), max_new_tokens=3)
     assert net.graph_captures == 17 and len(net._decode_loops) == 16
     calib = torch.randint(0, 512, (2, 24),
                           generator=torch.Generator().manual_seed(1))
-    quantize_net(net, calib_data=[calib], calib_mode='naive')
+    quantize_net(net, calib_data=[NDArray(calib.to(dev))],
+                 calib_mode='naive')
     assert not net._decode_loops
     net.generate(torch.ones(1, 4, dtype=torch.long), max_new_tokens=3)
     assert len(net._decode_loops) == 1
-    net.to('cpu')
+    net.cast('float32')
     assert not net._decode_loops
 
 
@@ -1520,14 +1532,84 @@ def test_two_recorded_calls_before_one_backward_keep_their_residuals(dev):
 
 
 def test_create_graph_through_a_graphed_call_raises(dev):
+    """``create_graph=True`` through a replayed recorded call on the card:
+    a gradient penalty's gradients equal ``hybridize(False)``'s (the node
+    runs the forward again eagerly under autograd); the same call of a
+    net that draws random numbers raises."""
     import mxnet_tpu_torch as mx
-    net, ids, tt = _small_bert(dev, seed=4)
+    grads = {}
+    for graphed in (True, False):
+        net, ids, tt = _small_bert(dev, seed=4)
+        if not graphed:
+            net.hybridize(False)
+        w = net.collect_params()['encoder.cell0.ffn1.weight']
+        for _ in range(2):      # a capture, then a replay
+            with mx.autograd.record():
+                out = net(ids, tt)[0].sum()
+                g = mx.autograd.grad(out, [w.data()], create_graph=True)[0]
+                penalty = (g ** 2).sum()
+            penalty.backward()
+        grads[graphed] = {k: p.grad()._data.clone()
+                          for k, p in net.collect_params().items()
+                          if p.grad_req != 'null'}
+    for k, v in grads[False].items():
+        torch.testing.assert_close(grads[True][k], v, rtol=1e-5, atol=1e-6)
+    drop = mx.gluon.nn.HybridSequential(mx.gluon.nn.Dense(8, in_units=8),
+                                        mx.gluon.nn.Dropout(0.5))
+    drop.initialize(ctx=mx.gpu(0))
+    x = mx.np.ones((4, 8), ctx=mx.gpu(0))
+    drop(x)
+    drop.hybridize()
+    x.attach_grad()
     for _ in range(2):
         with mx.autograd.record():
-            out = net(ids, tt)[0].sum()
-    w = net.collect_params()['encoder.cell0.ffn1.weight']
-    with pytest.raises(MXNetError, match='A5 rest'):
-        mx.autograd.grad(out, [w.data()], create_graph=True)
+            out = (drop(x) ** 2).sum()
+    with pytest.raises(MXNetError, match='random'):
+        mx.autograd.grad(out, [x], create_graph=True)
+
+
+def test_remat_with_dropout_after_a_reseed_on_the_card(dev):
+    """``hybridize(remat=True)`` with Dropout on the card, the generator
+    reseeded to another value between the capture and each replay: the
+    replayed calls' gradients equal those without remat (the backward
+    graph's recomputation draws with the seed and offset the forward
+    replay drew with), and the two replays drew other masks."""
+    import mxnet_tpu_torch as mx
+    nn = mx.gluon.nn
+    ctx = mx.gpu(0)
+    x0 = _randn(dev, 16, 64, seed=5)
+    weights, grads = None, {}
+    for remat in (False, True):
+        net = nn.HybridSequential(
+            nn.Dense(128, activation='relu', in_units=64), nn.Dropout(0.3),
+            nn.Dense(32, in_units=128), nn.Dropout(0.3))
+        net.initialize(ctx=ctx)
+        x = NDArray(x0.clone())
+        net(x)
+        if weights is None:
+            weights = {k: p.data()._data.clone()
+                       for k, p in net.collect_params().items()}
+        for k, p in net.collect_params().items():
+            p.set_data(weights[k])
+        net.hybridize(remat=remat)
+        x.attach_grad()
+        mx.random.seed(1000)
+        runs = []
+        for call in range(3):       # a capture, then two replays
+            if call:
+                mx.random.seed(7 + call)
+            with mx.autograd.record():
+                loss = (net(x) ** 2).sum()
+            loss.backward()
+            runs.append([x.grad._data.clone()] + [
+                p.grad()._data.clone()
+                for p in net.collect_params().values()])
+        assert net.capture_count == 2 and net.eager_call_count == 0
+        grads[remat] = runs
+    for call in (1, 2):
+        for a, b in zip(grads[True][call], grads[False][call]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert not torch.equal(grads[False][1][0], grads[False][2][0])
 
 
 # ------------------------------------------------------------------- bf16

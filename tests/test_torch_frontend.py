@@ -6,8 +6,8 @@ packages on the CPU from the same numpy weights and tokens; the JAX
 package's Pallas ops run as its own tests run them on the CPU. The losses
 of both steps agree within rtol 1e-5, every gradient of the first step
 and every weight after two Adam steps within atol 1e-5 (rtol 1e-5). The
-port's module path (``LlamaForCausalLM``, torch autograd and the in-place
-tensor functions) meets the port's imperative program at the same
+port's module path (the Gluon ``LlamaForCausalLM``, ``mx.autograd`` and the
+in-place tensor functions) meets the port's imperative program at the same
 tolerances, as the chip phase holds them on the card.
 
 Adam runs at lr 1e-4, where two steps move the weights by about 2e-4, 20
@@ -95,11 +95,11 @@ def test_the_module_path_meets_the_imperative_program(runs):
         net = cs.module_net(torch, W, p, 'cpu')
     toks = torch.tensor(tokens).long()
     slots = {n: (torch.zeros_like(q), torch.zeros_like(q))
-             for n, q in net.named_parameters()}
+             for n, q in cs.module_params(net).items()}
     losses = [float(cs.module_step(torch, net, toks, 'adam', HYPER, slots,
                                    t)) for t in (1, 2)]
     np.testing.assert_allclose(losses, tl, rtol=RTOL)
-    for n, prm in net.named_parameters():
+    for n, prm in cs.module_params(net).items():
         np.testing.assert_allclose(prm.detach().numpy(), tw[n], rtol=RTOL,
                                    atol=ATOL, err_msg=n)
 

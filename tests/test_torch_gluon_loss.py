@@ -6,7 +6,7 @@ the per-sample losses and the gradient of their sum with respect to the
 prediction agree within 1e-5 (the same fp32 operations; ``log_softmax``,
 ``softplus`` and the norms are summed in another order by two libraries).
 A loss given ``torch.Tensor``s returns one that torch's ``backward``
-differentiates, as the ``torch.nn`` Llama's training loop uses it.
+differentiates, for a training loop written on tensors.
 """
 
 import numpy as np

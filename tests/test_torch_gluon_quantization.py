@@ -391,11 +391,10 @@ def test_exclude_layers_and_the_root_swap_as_the_reference():
         kept = q.quantize_net(dense, calib_data=[mx.np.array(x)],
                               exclude_layers=['.'])
         assert kept is dense
-    # the torch.nn walk stays for the Llama family
-    lin = torch.nn.Linear(4, 3)
-    assert isinstance(tq.quantize_net(lin, calib_data=[torch.ones(2, 4)],
-                                      calib_mode='naive'),
-                      tq.QuantizedLinear)
+    # a torch.nn net is refused: every net of the port is a Gluon block
+    with pytest.raises(TypeError, match='Gluon'):
+        tq.quantize_net(torch.nn.Linear(4, 3), calib_data=[torch.ones(2, 4)],
+                        calib_mode='naive')
 
 
 def test_hybridized_float_net_is_calibrated_eagerly_and_then_quantized():

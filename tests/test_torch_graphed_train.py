@@ -14,8 +14,8 @@ the CPU: a key's first call answers from its warm-up, later calls go
 through the static buffers and the replayed autograd node, and the
 Trainer's update through its captured body and device vectors. Those runs
 must equal the eager runs bit for bit (the same CPU operations), and the
-graphed node's guards (two recorded calls of one key before one backward,
-``create_graph``) are checked there.
+graphed node's guards (two recorded calls of one key before one backward)
+and its ``create_graph`` backward are checked there.
 """
 
 import contextlib
@@ -425,17 +425,52 @@ def test_two_recorded_calls_of_one_key_before_one_backward():
 
 
 def test_create_graph_through_a_replayed_call_raises():
-    net = _mlp_bn(tnn)
-    net.initialize(ctx=tmx.cpu())
-    x = tmx.np.array(_feats())
-    net(x)
-    net.hybridize()
+    """``create_graph=True`` through a replayed recorded call gives the
+    gradient graph an unhybridized net gives (the node runs the forward
+    again eagerly under autograd): a gradient penalty's second-order
+    gradients equal ``hybridize(False)``'s. A replayed call that draws
+    random numbers raises there: an eager run would draw other numbers."""
+    x0 = _feats()
+    grads = {}
+    for graphed in (True, False):
+        net = _mlp_bn(tnn)
+        net.initialize(ctx=tmx.cpu())
+        x = tmx.np.array(x0)
+        net(x)
+        for k, p in net.collect_params().items():
+            p.set_data(np.abs(_x(p.shape, 3)) + 0.5 if 'gamma' in k
+                       or 'var' in k else _x(p.shape, 4))
+        if graphed:
+            net.hybridize()
+        x.attach_grad()
+        with _graphs.emulated() if graphed else contextlib.nullcontext():
+            for _ in range(2):      # the second call is a replay
+                with tmx.autograd.record():
+                    out = (net(x) ** 2).sum()
+                    g = tmx.autograd.grad(out, [x], create_graph=True)[0]
+                    penalty = (g ** 2).sum()
+                penalty.backward()
+        grads[graphed] = [x.grad.asnumpy()] + [
+            p.grad().asnumpy() for p in net.collect_params().values()
+            if p.grad_req != 'null']
+    # fp32 second-order graphs summed in another order, values in the
+    # thousands; a gradient that is 0 in exact arithmetic (the first
+    # bias's, which BatchNorm removes) is rounding noise of that size
+    scale = max(float(np.abs(b).max()) for b in grads[False])
+    assert np.abs(grads[False][0]).max() > 0
+    for a, b in zip(grads[True], grads[False]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6 * scale)
+    drop = tnn.HybridSequential(tnn.Dense(8, in_units=4), tnn.Dropout(0.5))
+    drop.initialize(ctx=tmx.cpu())
+    x = tmx.np.array(x0)
+    drop(x)
+    drop.hybridize()
     x.attach_grad()
     with _graphs.emulated():
         for _ in range(2):
             with tmx.autograd.record():
-                out = (net(x) ** 2).sum()
-        with pytest.raises(MXNetError, match='A5 rest'):
+                out = (drop(x) ** 2).sum()
+        with pytest.raises(MXNetError, match='random'):
             tmx.autograd.grad(out, [x], create_graph=True)
         # without create_graph the same node differentiates
         g = tmx.autograd.grad(out, [x])[0]

@@ -24,8 +24,10 @@ import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo import llama as jax_llama
 from mxnet_tpu.serve import DecodeServer as JaxDecodeServer
 
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import _graphs
 from mxnet_tpu_torch.gluon.model_zoo import llama as torch_llama
+from mxnet_tpu_torch.ndarray.ndarray import NDArray
 from mxnet_tpu_torch.ops import kernels
 from mxnet_tpu_torch.serve import DecodeServer
 
@@ -45,8 +47,8 @@ def nets():
         w = rng.standard_normal(p.shape).astype(onp.float32) * 0.1
         params[name] = w + 1.0 if name.endswith('norm.weight') else w
         p.set_data(params[name])
-    tnet = torch_llama.llama_tiny(device='cpu')
-    tnet.load_state_dict(torch_llama.from_jax_params(params, tnet.cfg))
+    tnet = torch_llama.from_jax_params(torch_llama.llama_tiny(), params,
+                                       ctx=tmx.cpu())
     return jnet, tnet
 
 
@@ -88,15 +90,15 @@ def _forward_tables_per_layer(net, toks, **kw):
     """The net's forward with every layer building its own RoPE tables
     (``rope=None``), as each did before."""
     m = net.model
-    x = m.embed_tokens(toks)
+    x = m.embed_tokens(NDArray(toks))
     caches = kw.pop('caches', None)
     if caches is None:
         for blk in m.layers:
             x = blk(x)
-        return net.lm_head(m.norm(x))
+        return net.lm_head(m.norm(x))._data
     for blk, cache in zip(m.layers, caches):
         x, _ = blk(x, cache=cache, **kw)
-    return net.lm_head(m.norm(x))
+    return net.lm_head(m.norm(x))._data
 
 
 @torch.no_grad()
@@ -105,20 +107,21 @@ def test_rope_tables_once_a_forward_give_bit_equal_logits(nets):
     toks = torch.from_numpy(onp.random.default_rng(1).integers(0, 256,
                                                                 (2, 9)))
     assert tnet.cfg.num_layers == 2
-    assert torch.equal(tnet(toks), _forward_tables_per_layer(tnet, toks))
+    assert torch.equal(tnet(toks)._data,
+                       _forward_tables_per_layer(tnet, toks))
     pool = tnet.init_paged_pool(9, 4)
     pool2 = [(k.clone(), v.clone()) for k, v in pool]
     pages = torch.tensor([[3, 1, 7, 2]], dtype=torch.int32)
     got, _ = tnet(toks[:1, :8], caches=pool, offset=4, pages=pages)
     want = _forward_tables_per_layer(tnet, toks[:1, :8], caches=pool2,
                                      offset=4, pages=pages)
-    assert torch.equal(got, want)
+    assert torch.equal(got._data, want)
     off = torch.tensor([12, 3], dtype=torch.int32)
     bt = torch.tensor([[3, 1, 7, 2], [5, 6, 0, 0]], dtype=torch.int32)
     got, _ = tnet(toks[:, :1], caches=pool, offset=off, pages=bt)
     want = _forward_tables_per_layer(tnet, toks[:, :1], caches=pool2,
                                      offset=off, pages=bt)
-    assert torch.equal(got, want)
+    assert torch.equal(got._data, want)
 
 
 def _pool(tnet, seed, num_pages=24, psz=4):
@@ -154,8 +157,8 @@ def test_prefill_chunk_at_a_tensor_offset_matches_the_reference(nets):
                           pages=torch.from_numpy(pages))
         at_int, ipool = tnet(torch.from_numpy(chunk), caches=ipool,
                              offset=start, pages=torch.from_numpy(pages))
-        onp.testing.assert_allclose(got.numpy(), onp.asarray(want), **TOL)
-        assert torch.equal(got, at_int)
+        onp.testing.assert_allclose(got.asnumpy(), onp.asarray(want), **TOL)
+        assert torch.equal(got._data, at_int._data)
     for (tk, tv), (jk, jv), (ik, iv) in zip(tpool, jpool, ipool):
         onp.testing.assert_allclose(tk.numpy(), onp.asarray(jk), **TOL)
         onp.testing.assert_allclose(tv.numpy(), onp.asarray(jv), **TOL)
@@ -174,7 +177,7 @@ def test_dense_cache_at_a_tensor_offset_equals_the_int_offset(nets):
         got, a = tnet(toks[:, start:stop], caches=a,
                       offset=torch.tensor(start, dtype=torch.int32))
         want, b = tnet(toks[:, start:stop], caches=b, offset=start)
-        assert torch.equal(got, want)
+        assert torch.equal(got._data, want._data)
     for (ak, av), (bk, bv) in zip(a, b):
         assert torch.equal(ak, bk) and torch.equal(av, bv)
 

@@ -114,12 +114,14 @@ def test_no_card_means_an_error_not_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert context.current_context() == context.gpu(0)
     with pytest.raises(MXNetError):
-        llama_tiny()
+        llama_tiny().initialize()
     with pytest.raises(MXNetError):
         context.resolve_device('cuda:0')
     assert context.resolve_device('cpu') == torch.device('cpu')
     with context.cpu():
-        assert llama_tiny().lm_head.weight.device.type == 'cpu'
+        net = llama_tiny()
+        net.initialize()
+        assert net.lm_head.weight.data()._data.device.type == 'cpu'
 
 
 def test_the_frontend_with_no_card_and_no_context_raises(monkeypatch):
@@ -255,6 +257,40 @@ def test_elastic_pipeline_and_moe_modules_load_no_jax():
         '                              torch.ones(2, 2, 3),\n'
         '                              torch.ones(2, 3, 2), None)\n'
         '    assert y.shape == (4, 2) and float(aux) > 0\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+        'print("LOADED", bad)\n')
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
+
+
+def test_the_gluon_llama_and_its_hf_import_load_no_jax():
+    """The Llama family on the Gluon blocks, its HF import and the int8
+    Gluon walk are among the sources checked above, and using them (a
+    ``llama_tiny`` initialized, hybridized, called and quantized; a
+    safetensors file read back) loads no JAX."""
+    code = (
+        'import sys, tempfile, os, torch\n'
+        'import mxnet_tpu_torch as mx\n'
+        'from mxnet_tpu_torch import quantization\n'
+        'from mxnet_tpu_torch.gluon.model_zoo import llama\n'
+        'import chip_smoke\n'
+        'with mx.cpu():\n'
+        '    net = llama.llama_tiny()\n'
+        '    net.initialize(llama.LlamaInit(0))\n'
+        '    net.hybridize()\n'
+        '    toks = mx.nd.array([[1, 2, 3]], dtype="int32")\n'
+        '    assert net(toks).shape == (1, 3, 256)\n'
+        '    quantization.quantize_net(net, calib_data=[toks],\n'
+        '                              calib_mode="naive")\n'
+        'with tempfile.TemporaryDirectory() as d:\n'
+        '    f = os.path.join(d, "m.safetensors")\n'
+        '    chip_smoke.write_safetensors(f, {"a": torch.ones(2)})\n'
+        '    assert llama.read_safetensors(f)["a"].tolist() == [1.0, 1.0]\n'
         'bad = sorted(n for n in sys.modules\n'
         '             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
         'print("LOADED", bad)\n')

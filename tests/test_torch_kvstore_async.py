@@ -988,10 +988,15 @@ def _reference_weights():
     return w
 
 
-def _worker_loop(kv, group, log, ckpt, arr, stop_at=N_STEPS):
-    """The elastic step protocol from the ElasticGroup docstring."""
+def _worker_loop(kv, group, log, ckpt, arr, stop_at=N_STEPS, gate=None):
+    """The elastic step protocol from the ElasticGroup docstring. With
+    ``gate`` ``(step, event)`` the worker waits for ``event`` before that
+    step (ROADMAP C17: the port runs a step in about a millisecond, so the
+    chaos schedule must not hang on how soon a thread is scheduled)."""
     step = max(group.resume_step, group.committed + 1)
     while step < stop_at:
+        if gate is not None and step == gate[0]:
+            assert gate[1].wait(60), 'the restarted worker never joined'
         pre = group.pre_step(step)
         kv.pull('w')
         kv.push('w', arr(-LR * _grad(step) / pre['count']))
@@ -1010,11 +1015,21 @@ def _worker_loop(kv, group, log, ckpt, arr, stop_at=N_STEPS):
         step += 1
 
 
-def _chaos(monkeypatch, create, da, flt, group_cls, arr):
+def _chaos(monkeypatch, create, da, flt, group_cls, arr, late_s=0.0):
     """Worker 1 killed mid-push (``die_after``, no bye), ejected once the
     fake clock passes the deadline, the step rolled back, worker 1's new
     incarnation re-admitted. Returns the final weights, the logs and the
-    committed steps."""
+    committed steps.
+
+    The schedule is held by two gates, not by how soon threads run
+    (ROADMAP C17): both workers join the group before either steps (the
+    port runs all N_STEPS of a lone worker in about 10 ms, so a worker
+    thread started late under load joined after the other had finished,
+    and its fault never fired), and the survivor waits before step
+    ``N_STEPS - 2`` until the restarted incarnation has joined (else it
+    finished solo first and re-admitted no one). ``late_s`` starts each
+    worker-1 thread that much later, which showed both faults without
+    load."""
     port = _free_port()
     _env(monkeypatch, port, nproc=2, MXNET_KVSTORE_DEADLINE_S='30')
     stores, errors = [], []
@@ -1034,18 +1049,21 @@ def _chaos(monkeypatch, create, da, flt, group_cls, arr):
         flt.configure(f'die_after:push:{DIE_ON_PUSH}:rank=1')
         ckpt = {}
         log0, log1a, log1b = [], [], []
-        died = threading.Event()
+        died, rejoined = threading.Event(), threading.Event()
+        kv1 = make_store(1)
+        group0, group1 = group_cls(kv0), group_cls(kv1)    # the start gate
 
         def run0():
             try:
-                _worker_loop(kv0, group_cls(kv0), log0, ckpt, arr)
+                _worker_loop(kv0, group0, log0, ckpt, arr,
+                             gate=(N_STEPS - 2, rejoined))
             except BaseException as e:   # noqa: BLE001 - surfaced below
                 errors.append(('w0', e))
 
         def run1_doomed():
-            kv1 = make_store(1)
+            time.sleep(late_s)
             try:
-                _worker_loop(kv1, group_cls(kv1), log1a, ckpt, arr)
+                _worker_loop(kv1, group1, log1a, ckpt, arr)
             except flt.InjectedWorkerDeath:
                 died.set()             # dirty death: no bye, no leave
             except BaseException as e:
@@ -1065,9 +1083,11 @@ def _chaos(monkeypatch, create, da, flt, group_cls, arr):
                 lambda: srv._elastic_committed >= 2, timeout=60)
 
         def run1_restarted():
+            time.sleep(late_s)
             kv1b = make_store(1)
             try:
                 group = group_cls(kv1b)
+                rejoined.set()
                 assert group.committed >= 2
                 _worker_loop(kv1b, group, log1b, ckpt, arr)
             except BaseException as e:
@@ -1123,3 +1143,23 @@ def test_chaos_two_worker_training(monkeypatch):
         assert got['log1b'][0]['step'] > got['log1a'][-1]['step']
     assert want['ckpt'] == got['ckpt']
     onp.testing.assert_array_equal(got['final'], want['final'])
+
+
+def test_chaos_schedule_holds_when_worker_threads_start_late(monkeypatch):
+    """ROADMAP C17 without load: worker 1's threads start 0.3 s late, as a
+    loaded machine schedules them. Without the start gate worker 0 ran all
+    its steps alone before worker 1 joined ('fault never fired'); without
+    the restart gate it finished solo before the restarted worker joined
+    ('never re-admitted'). With both, the chaos run is the same run."""
+    got = _chaos(monkeypatch, lambda: tkv.create('dist_async', device='cpu'),
+                 dist_async, faults, ElasticGroup, torch.from_numpy,
+                 late_s=0.3)
+    assert got['die'] == 1
+    solo = [e for e in got['log0'] if e['live'] == [0]]
+    assert solo and solo[0]['step'] == DIE_ON_PUSH - 1
+    assert [e for e in got['log0'] if e['live'] == [0, 1]
+            and e['count'] == 2 and e['step'] > solo[0]['step']]
+    assert got['log1b'] and got['log1b'][0]['step'] == N_STEPS - 2
+    assert got['ckpt'] == list(range(N_STEPS))
+    onp.testing.assert_allclose(got['final'], _reference_weights(),
+                                rtol=1e-6, atol=1e-7)

@@ -1,13 +1,18 @@
 """The PyTorch port's Llama against the JAX package's, on ``llama_tiny``.
 
-Both nets hold the same weights, drawn with numpy from a seed and carried
-across by ``from_jax_params``. These outputs are held against the JAX
-net's ``_param_run``: the full-sequence forward (the flash path), a paged
+Both nets are Gluon blocks with the same parameter names and hold the same
+weights, drawn with numpy from a seed and carried across by
+``from_jax_params``. These outputs are held against the JAX net's
+``_param_run``: the full-sequence forward (the flash path), a paged
 chunked-prefill call and a per-slot paged decode call, a dense-cache
-prefill, lockstep decode and per-slot decode, with the caches and page
-pools they leave behind. Tolerance rtol = atol = 1e-4: the projections
-sum in another order in the two frameworks. ``generate()`` must pick the
-JAX net's greedy tokens.
+prefill, lockstep and per-slot decode, with the caches and page pools they
+leave behind. Tolerance rtol = atol = 1e-4: the projections sum in another
+order in the two frameworks. ``generate()`` must pick the JAX net's greedy
+tokens.
+
+The oracles of ``tests/test_llama.py`` and the HuggingFace import are in
+``tests/test_torch_llama_oracles.py``; the tensor-parallel forward runs in
+``tests/test_torch_sharding.py``'s world of gloo ranks.
 """
 
 import jax.numpy as jnp
@@ -18,7 +23,9 @@ import torch
 import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo import llama as jax_llama
 
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.gluon.model_zoo import llama as torch_llama
+from mxnet_tpu_torch.ndarray.ndarray import NDArray
 from mxnet_tpu_torch.ops import kernels
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -37,22 +44,41 @@ def _weights(net, seed=0):
     return out
 
 
+def jax_net(params=None, **kw):
+    """The JAX llama_tiny, materialized, with ``params`` if given."""
+    net = jax_llama.llama_tiny(**kw)
+    net.initialize()
+    net(mx.np.zeros((1, 2)))
+    if params is not None:
+        for name, p in net.collect_params().items():
+            p.set_data(params[name])
+    return net
+
+
+def port_net(params, **kw):
+    """The port's llama_tiny on the CPU with the JAX net's ``params``."""
+    return torch_llama.from_jax_params(torch_llama.llama_tiny(**kw), params,
+                                       ctx=tmx.cpu())
+
+
 @pytest.fixture(scope='module')
 def nets():
-    jnet = jax_llama.llama_tiny()
-    jnet.initialize()
-    jnet(mx.np.zeros((1, 2)))
+    jnet = jax_net()
     params = _weights(jnet)
     for name, p in jnet.collect_params().items():
         p.set_data(params[name])
-    tnet = torch_llama.llama_tiny(device='cpu')
-    tnet.load_state_dict(torch_llama.from_jax_params(params, tnet.cfg))
-    return jnet, tnet, params
+    return jnet, port_net(params), params
 
 
-def _close(got, want):
-    onp.testing.assert_allclose(got.detach().numpy(), onp.asarray(want),
-                                **TOL)
+def _np(x):
+    if isinstance(x, NDArray):
+        return x.asnumpy()
+    return x.detach().numpy() if torch.is_tensor(x) else onp.asarray(x)
+
+
+def _close(got, want, **tol):
+    onp.testing.assert_allclose(_np(got), onp.asarray(want),
+                                **(tol or TOL))
 
 
 def _pools(tnet, seed):
@@ -76,13 +102,30 @@ def _close_pools(tpool, jpool):
 
 
 def test_from_jax_params_maps_every_name(nets):
-    _, tnet, params = nets
-    sd = torch_llama.from_jax_params(params, tnet.cfg)
-    assert len(params) == len(sd) == 21
-    assert 'model.layers.1.self_attn.q_proj.weight' in sd
-    assert set(sd) == set(tnet.state_dict())
+    jnet, tnet, params = nets
+    assert list(tnet.collect_params()) == list(jnet.collect_params())
+    assert len(params) == 21
+    assert 'model.layers1.self_attn.q_proj.weight' in tnet.collect_params()
     with pytest.raises(KeyError):
-        torch_llama.from_jax_params({'model.nope': onp.zeros(1)}, tnet.cfg)
+        torch_llama.from_jax_params(tnet, {'model.nope': onp.zeros(1)})
+    bad = dict(params, **{'lm_head.weight': onp.zeros((3, 3), 'f')})
+    with pytest.raises(ValueError, match='shape'):
+        torch_llama.from_jax_params(tnet, bad)
+    short = {k: v for k, v in params.items() if k != 'lm_head.weight'}
+    with pytest.raises(ValueError, match='missing'):
+        torch_llama.from_jax_params(tnet, short)
+
+
+def test_every_part_is_a_hybrid_block(nets):
+    _, tnet, _ = nets
+    from mxnet_tpu_torch.gluon import HybridBlock
+    blk = tnet.model.layers[0]
+    parts = [tnet, tnet.model, blk, blk.self_attn, blk.mlp,
+             blk.input_layernorm, tnet.model.norm, tnet.lm_head,
+             tnet.model.embed_tokens]
+    assert all(isinstance(p, HybridBlock) for p in parts)
+    assert not isinstance(tnet, torch.nn.Module)
+    assert list(tnet.model._children)[1:3] == ['layers0', 'layers1']
 
 
 @pytest.mark.parametrize('batch', [1, 2])
@@ -91,8 +134,7 @@ def test_full_forward_logits_match(nets, batch):
     toks = onp.random.default_rng(1).integers(0, 256, (batch, 19))
     want = jnet(mx.np.array(toks.astype(onp.int32))).asnumpy()
     kernels.reset_launch_counts()
-    with torch.no_grad():
-        got = tnet(torch.from_numpy(toks))
+    got = tnet(torch.from_numpy(toks))
     assert got.shape == (batch, 19, 256)
     _close(got, want)
     assert kernels.launch_counts()['flash_attention'] == 0   # CPU: plain
@@ -110,9 +152,8 @@ def test_paged_chunked_prefill_matches(nets):
         chunk = toks[:, start:start + 8]
         want, jpool = run(praws, jnp.asarray(chunk, jnp.int32), jpool,
                           start, pages=jnp.asarray(pages))
-        with torch.no_grad():
-            got, tpool = tnet(torch.from_numpy(chunk), caches=tpool,
-                              offset=start, pages=torch.from_numpy(pages))
+        got, tpool = tnet(torch.from_numpy(chunk), caches=tpool,
+                          offset=start, pages=torch.from_numpy(pages))
         _close(got, want)
     _close_pools(tpool, jpool)
 
@@ -129,22 +170,26 @@ def test_paged_per_slot_decode_matches(nets):
     toks = onp.asarray([[17], [0], [201]])
     want, jpool = run(praws, jnp.asarray(toks, jnp.int32), jpool,
                       jnp.asarray(off), pages=jnp.asarray(pages))
-    with torch.no_grad():
-        got, tpool = tnet(torch.from_numpy(toks), caches=tpool,
-                          offset=torch.from_numpy(off),
-                          pages=torch.from_numpy(pages))
+    got, tpool = tnet(torch.from_numpy(toks), caches=tpool,
+                      offset=torch.from_numpy(off),
+                      pages=torch.from_numpy(pages))
     # only the idle row writes the garbage page, so all of it compares
     _close(got, want)
     _close_pools(tpool, jpool)
 
 
 def test_seeded_init_is_reproducible():
-    net = torch_llama.llama_tiny(device='cpu', seed=3)
-    again = torch_llama.llama_tiny(device='cpu', seed=3)
-    other = torch_llama.llama_tiny(device='cpu', seed=4)
-    assert torch.equal(net.lm_head.weight, again.lm_head.weight)
-    assert not torch.equal(net.lm_head.weight, other.lm_head.weight)
-    assert torch.equal(net.model.norm.weight, torch.ones(64))
+    def make(seed):
+        net = torch_llama.llama_tiny()
+        net.initialize(torch_llama.LlamaInit(seed), ctx=tmx.cpu())
+        return net.collect_params()
+    net, again, other = make(3), make(3), make(4)
+    w = 'lm_head.weight'
+    assert torch.equal(net[w].data()._data, again[w].data()._data)
+    assert not torch.equal(net[w].data()._data, other[w].data()._data)
+    assert torch.equal(net['model.norm.weight'].data()._data, torch.ones(64))
+    std = float(net[w].data()._data.detach().std())
+    assert 0.018 < std < 0.022
 
 
 def _dense(tnet, batch, length, seed):
@@ -179,8 +224,7 @@ def test_dense_prefill_then_lockstep_decode_match(nets):
     for start, stop in ((0, 7), (7, 8), (8, 9)):
         chunk = toks[:, start:stop]
         want, jc = run(praws, jnp.asarray(chunk, jnp.int32), jc, start)
-        with torch.no_grad():
-            got, tc = tnet(torch.from_numpy(chunk), caches=tc, offset=start)
+        got, tc = tnet(torch.from_numpy(chunk), caches=tc, offset=start)
         _close(got, want)
     _close_pools(tc, jc)
     with pytest.raises(ValueError, match='outside'):
@@ -196,9 +240,8 @@ def test_dense_per_slot_decode_matches(nets):
     toks = onp.asarray([[3], [250], [77]])
     want, jc = run(praws, jnp.asarray(toks, jnp.int32), jc,
                    jnp.asarray(off))
-    with torch.no_grad():
-        got, tc = tnet(torch.from_numpy(toks), caches=tc,
-                       offset=torch.from_numpy(off))
+    got, tc = tnet(torch.from_numpy(toks), caches=tc,
+                   offset=torch.from_numpy(off))
     _close(got, want)
     _close_pools(tc, jc)
 

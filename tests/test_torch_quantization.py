@@ -30,8 +30,6 @@ which the port follows; so under bf16 activations the port's
 cache, and under fp32 activations to the JAX ``generate()`` itself.
 """
 
-import re
-
 import jax.numpy as jnp
 import numpy as onp
 import pytest
@@ -46,8 +44,11 @@ from mxnet_tpu.ops import quantization_ops as jax_ops
 from mxnet_tpu.ops.pallas import int8_matmul as jax_int8
 from mxnet_tpu.serve import DecodeServer as JaxDecodeServer
 
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import quantization as tq
+from mxnet_tpu_torch.gluon import HybridBlock, nn as tnn
 from mxnet_tpu_torch.gluon.model_zoo import llama as torch_llama
+from mxnet_tpu_torch.ndarray.ndarray import NDArray
 from mxnet_tpu_torch.ops import contrib, kernels, nn as torch_nn, \
     quantization_ops as ops
 from mxnet_tpu_torch.ops.kernels import int8_matmul
@@ -59,7 +60,11 @@ BF16_LOGIT_TOL = 2.0 ** -5
 
 
 def _np(a):
-    return onp.asarray(a.float().numpy() if torch.is_tensor(a) else a)
+    if isinstance(a, NDArray):
+        a = a._data
+    if torch.is_tensor(a):
+        return onp.asarray(a.detach().float().numpy())
+    return onp.asarray(a)
 
 
 def _equal(got, want):
@@ -255,10 +260,6 @@ def _weights(net, seed=0):
     return out
 
 
-def _jax_path(path):
-    return re.sub(r'\.layers\.(\d+)\.', r'.layers\1.', path)
-
-
 def _jax_state(jnet):
     """The JAX quantized net's per-layer state as numpy arrays."""
     return {path: dict(qweight=child.qweight.data().asnumpy(),
@@ -283,29 +284,37 @@ def calibrated():
     calib = onp.random.default_rng(5).integers(0, 256, (2, 24))
     jax_q.quantize_net(jnet, calib_data=[mx.np.array(calib.astype(
         onp.int32))], calib_mode='naive')
-    tnet = torch_llama.llama_tiny(device='cpu')
-    tnet.load_state_dict(torch_llama.from_jax_params(params, tnet.cfg))
-    tq.quantize_net(tnet, calib_data=[torch.from_numpy(calib)],
+    tnet = _port_net(params)
+    tq.quantize_net(tnet, calib_data=[NDArray(torch.from_numpy(calib))],
                     calib_mode='naive')
     return jnet, tnet, _jax_state(jnet), params
 
 
+def _port_net(params):
+    return torch_llama.from_jax_params(torch_llama.llama_tiny(), params,
+                                       ctx=tmx.cpu())
+
+
 def test_quantize_net_matches_the_reference(calibrated):
+    """The port's Llama quantizes through the Gluon walk: a
+    ``QuantizedDense`` at every path where the JAX net has one."""
     _, tnet, state, _ = calibrated
-    layers = {_jax_path(path): m for path, m in tnet.named_modules()
-              if isinstance(m, tq.QuantizedLinear)}
+    layers = {path: m for _, _, path, m in tq._gluon_walk(tnet)
+              if isinstance(m, tq.QuantizedDense)}
     assert set(layers) == set(state) and len(state) == 15
     for path, st in state.items():
         m = layers[path]
-        assert m.qweight.dtype == torch.int8
-        _equal(m.qweight, st['qweight'])
-        _equal(m.w_scale, st['w_scale'])
+        qw = m.qweight.data()._data
+        assert qw.dtype == torch.int8
+        _equal(qw, st['qweight'])
+        _equal(m._w_scale, st['w_scale'])
         want = onp.asarray(st['collected_range'], onp.float64)
         onp.testing.assert_allclose(m.collected_range, want, rtol=0,
                                     atol=1e-6 * onp.abs(want).max())
-        assert m.bias is None and m._act_dtype == torch.bfloat16
+        assert not m._has_bias and m._act_dtype == torch.bfloat16
     # the float parameters left are the embedding and the norms
-    assert sorted({n.split('.')[-2] for n, _ in tnet.named_parameters()}) \
+    assert sorted({n.split('.')[-2] for n, p in
+                   tnet.collect_params().items() if p.dtype != 'int8'}) \
         == ['embed_tokens', 'input_layernorm', 'norm',
             'post_attention_layernorm']
 
@@ -313,8 +322,7 @@ def test_quantize_net_matches_the_reference(calibrated):
 def _loaded(calibrated, act):
     """A fresh port net carrying the JAX quantized state."""
     _, _, state, params = calibrated
-    tnet = torch_llama.llama_tiny(device='cpu')
-    tnet.load_state_dict(torch_llama.from_jax_params(params, tnet.cfg))
+    tnet = _port_net(params)
     floats = {n: a for n, a in params.items()
               if 'proj' not in n and 'lm_head' not in n}
     return tq.load_jax_quantized(tnet, state, floats, activation_dtype=act)
@@ -336,8 +344,7 @@ def test_quantized_forward_matches(calibrated, act):
     toks = onp.random.default_rng(1).integers(0, 256, (2, 19))
     want = onp.asarray(jnet(mx.np.array(toks.astype(onp.int32))).asnumpy())
     kernels.reset_launch_counts()
-    with torch.no_grad():
-        got = tnet(torch.from_numpy(toks))
+    got = tnet(torch.from_numpy(toks))._data
     assert got.dtype == getattr(torch, act) and str(want.dtype) == act
     tol = BF16_LOGIT_TOL if act == 'bfloat16' else 1e-4
     onp.testing.assert_allclose(_np(got), want.astype(onp.float32), rtol=0,
@@ -405,46 +412,59 @@ def test_quantized_generate_matches(calibrated, act):
 
 
 # ------------------------------------------------------- the net rewrite
-class _Mlp(torch.nn.Module):
+class _Mlp(HybridBlock):
+    """Two Dense layers registered as a list's children, and one the
+    forward never reaches."""
+
     def __init__(self):
         super().__init__()
-        self.blocks = torch.nn.ModuleList(
-            [torch.nn.Linear(16, 32), torch.nn.Linear(32, 8)])
-        self.idle = torch.nn.Linear(8, 8)
+        self.blocks = [tnn.Dense(32, in_units=16), tnn.Dense(8, in_units=32)]
+        for i, b in enumerate(self.blocks):
+            self.register_child(b, f'blocks{i}')
+        self.idle = tnn.Dense(8, in_units=8)
 
     def forward(self, x):
-        return self.blocks[1](torch.relu(self.blocks[0](x)))
+        from mxnet_tpu_torch import npx
+        return self._children['blocks1'](npx.relu(
+            self._children['blocks0'](x)))
 
 
 def test_quantize_net_swaps_in_module_lists_and_keeps_idle_layers_float():
-    torch.manual_seed(0)
     net = _Mlp()
-    x = torch.randn(4, 16)
-    want = net(x)
+    net.initialize(ctx=tmx.cpu())
+    x = NDArray(torch.randn(4, 16, generator=torch.Generator().manual_seed(0)))
+    want = net(x)._data
     out = tq.quantize_net(net, calib_data=[(x, None)], calib_mode='entropy',
-                          exclude_layers=['blocks.1'], num_calib_batches=1,
+                          exclude_layers=['blocks1'], num_calib_batches=1,
                           activation_dtype='float32')
     assert out is net
-    assert isinstance(net.blocks[0], tq.QuantizedLinear)
-    assert net.blocks[0].bias is not None
-    assert isinstance(net.blocks[1], torch.nn.Linear)     # excluded
-    assert isinstance(net.idle, torch.nn.Linear)          # never reached
-    got = net(x)
+    assert isinstance(net._children['blocks0'], tq.QuantizedDense)
+    assert net._children['blocks0']._has_bias
+    assert isinstance(net._children['blocks1'], tnn.Dense)     # excluded
+    assert isinstance(net.idle, tnn.Dense)                     # never reached
+    got = net(x)._data
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=0.05)
 
 
 def test_quantize_net_swaps_a_root_layer_and_refuses_convolutions():
-    lin = torch.nn.Linear(8, 4)
-    x = torch.randn(3, 8)
+    """A root ``Dense`` comes back as its twin; a ``torch.nn`` net is
+    refused (the port's nets are Gluon blocks), and a ``Conv2D`` excluded
+    by path stays float."""
+    lin = tnn.Dense(4, in_units=8)
+    lin.initialize(ctx=tmx.cpu())
+    x = NDArray(torch.randn(3, 8))
     q = tq.quantize_net(lin, calib_data=[x], calib_mode='naive')
-    assert isinstance(q, tq.QuantizedLinear) and q(x).dtype == torch.bfloat16
-    conv = torch.nn.Sequential(torch.nn.Conv2d(1, 2, 3), torch.nn.Flatten())
-    with pytest.raises(NotImplementedError, match='A7'):
-        tq.quantize_net(conv, calib_data=[torch.randn(1, 1, 5, 5)])
-    kept = tq.quantize_net(conv, calib_data=[torch.randn(1, 1, 5, 5)],
-                           exclude_layers=['0'])
-    assert isinstance(kept[0], torch.nn.Conv2d)
+    assert isinstance(q, tq.QuantizedDense)
+    assert q(x)._data.dtype == torch.bfloat16
+    with pytest.raises(TypeError, match='Gluon'):
+        tq.quantize_net(torch.nn.Linear(8, 4), calib_data=[torch.ones(1, 8)])
+    conv = tnn.HybridSequential()
+    conv.add(tnn.Conv2D(2, 3, in_channels=1), tnn.Flatten())
+    conv.initialize(ctx=tmx.cpu())
+    img = NDArray(torch.randn(1, 1, 5, 5))
+    kept = tq.quantize_net(conv, calib_data=[img], exclude_layers=['0'])
+    assert isinstance(kept[0], tnn.Conv2D)
     with pytest.raises(ValueError, match='calib_data'):
         tq.quantize_net(lin)
     with pytest.raises(ValueError, match='int8'):

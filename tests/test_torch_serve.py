@@ -16,7 +16,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo import llama as jax_llama
 from mxnet_tpu.serve import DecodeServer as JaxDecodeServer
 
-from mxnet_tpu_torch import serve
+from mxnet_tpu_torch import cpu, serve
 from mxnet_tpu_torch.gluon.model_zoo import llama as torch_llama
 from mxnet_tpu_torch.serve import DecodeServer
 
@@ -34,8 +34,8 @@ def _nets(seed=0):
         w = rng.standard_normal(p.shape).astype(onp.float32) * 0.1
         params[name] = w + 1.0 if name.endswith('norm.weight') else w
         p.set_data(params[name])
-    tnet = torch_llama.llama_tiny(device='cpu')
-    tnet.load_state_dict(torch_llama.from_jax_params(params, tnet.cfg))
+    tnet = torch_llama.from_jax_params(torch_llama.llama_tiny(), params,
+                                       ctx=cpu())
     return jnet, tnet
 
 

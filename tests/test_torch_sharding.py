@@ -26,9 +26,11 @@
   steps against the JAX Trainer under the same mesh (gradients and
   weights as the FSDP steps), ``llama_tiny``'s sharded ``DecodeServer``
   at dp 2 x tp 2 with the JAX ``generate()``'s tokens (the JAX test's
-  prompt; weights through ``from_jax_params`` and ``shard_params_for``;
-  its defaults, a scheduler thread, and a deadline raise under the
-  mesh),
+  prompt; the net initialized inside the mesh, each rank keeping its
+  shards, and loaded by ``from_jax_params``; its defaults, a scheduler
+  thread, and a deadline raise under the mesh), ``tests/test_llama.py``'s
+  tensor-parallel forward of ``llama_tiny`` at dp 2 x tp 2 against the
+  JAX net's one-device logits (2e-4),
   ``zero1_update_in_axis`` / ``bucketed_allreduce_in_axis`` against
   the JAX forms under ``shard_map`` (1e-6), BatchNorm trained on a split
   batch (1e-5), ``make_sharded_train_step`` against the JAX step (1e-6),
@@ -265,8 +267,7 @@ def test_infer_arch_finds_every_family():
     assert tsh.infer_arch(bert.get_bert_model(**BERT_TINY)) == 'bert'
     assert tsh.infer_arch(vision.get_model('resnet18_v1')) == 'resnet'
     net = LlamaForCausalLM(LlamaConfig(vocab_size=16, units=8, num_layers=1,
-                                       num_heads=2, hidden_size=16),
-                           device='meta')
+                                       num_heads=2, hidden_size=16))
     assert tsh.infer_arch(net) == 'llama'
     assert tsh.infer_arch(net.model) == 'llama'
     assert tsh.infer_arch(tmx.gluon.nn.Dense(2)) == 'generic'
@@ -529,13 +530,13 @@ def _bert_case(mx, inp):
 
 
 def _decode_case(mx, inp):
-    from mxnet_tpu_torch.gluon.model_zoo.llama import (
-        from_jax_params, llama_partition_rules, llama_tiny,
-        shard_params_for)
+    from mxnet_tpu_torch.gluon.model_zoo.llama import from_jax_params, \
+        llama_tiny
     from mxnet_tpu_torch.serve import DecodeServer, ServeError
     refused = []
-    with mx.sharding.mesh(dp=2, tp=2) as ctx:
-        net = llama_tiny(device='cpu')
+    with mx.sharding.mesh(dp=2, tp=2):
+        net = llama_tiny()
+        net.initialize()
         # the defaults start a scheduler thread, whose wake-ups would
         # order the ranks' collectives apart; a deadline reads each
         # rank's own clock: both are refused under the mesh
@@ -546,11 +547,7 @@ def _decode_case(mx, inp):
             except ServeError as e:
                 refused.append(str(e))
 
-        def spec_of(name, shape):
-            return tsh.resolve_spec(tsh.match_spec(
-                name, shape, llama_partition_rules()), shape, ctx)
-        net.load_state_dict(shard_params_for(
-            from_jax_params(inp['llama_w'], net.cfg), spec_of, ctx))
+        from_jax_params(net, inp['llama_w'])
         ds = DecodeServer(net, slots=2, max_length=32, page_size=4,
                           num_pages=66, prefill_chunk=8, start=False)
         k0 = tuple(ds._pool[0][0].shape)
@@ -572,6 +569,24 @@ def _decode_case(mx, inp):
     return {'tokens': got, 'pool': k0, 'spec': tuple(ds.pool_spec),
             'recompiles': st['recompiles'], 'audit': dict(rep.stats),
             'heads': heads, 'refused': refused}
+
+
+def _llama_tp_case(mx, inp):
+    """``llama_tiny`` built and loaded inside ``mesh(dp=2, tp=2)``, each
+    rank holding its shards from the start, then one hybridized forward:
+    the batch split on ``dp``, the heads on ``tp``."""
+    from mxnet_tpu_torch.gluon.model_zoo.llama import from_jax_params, \
+        llama_tiny
+    with mx.sharding.mesh(dp=2, tp=2):
+        net = from_jax_params(llama_tiny(), inp['llama_w'])
+        params = net.collect_params()
+        local = {k: tuple(params[k]._var.shape) for k in (
+            'model.layers0.self_attn.q_proj.weight',
+            'model.layers0.self_attn.o_proj.weight',
+            'model.embed_tokens.weight', 'model.norm.weight')}
+        net.hybridize()
+        logits = net(mx.np.array(inp['llama_toks'])).asnumpy()
+    return {'logits': logits, 'local': local}
 
 
 def _in_axis_case(mx, inp, rank):
@@ -702,6 +717,7 @@ def _world(inp):
                'bn': _bn_case(tmx, inp),
                'bert': _bert_case(tmx, inp),
                'decode': _decode_case(tmx, inp),
+               'llama_tp': _llama_tp_case(tmx, inp),
                'in_axis': _in_axis_case(tmx, inp, rank)}
     return out
 
@@ -728,6 +744,7 @@ def _inputs():
            'bn_y': f(16, 4),
            'lin': {'w': f(8, 3), 'b': f(3)}, 'lin_x': f(16, 8),
            'lin_y': f(16, 3),
+           'llama_toks': rng.integers(0, 256, (2, 8)).astype(np.int32),
            'bert': {'ids': rng.integers(0, 200, (8, 12)).astype(np.int32),
                     'tt': np.zeros((8, 12), np.int32),
                     'labels': rng.integers(0, 200, (8, 12)).astype(
@@ -773,6 +790,7 @@ def world():
     want = jl.generate(jmx.np.array([PROMPT]), max_new_tokens=6)
     oracle = {'tokens': [int(t) for t in
                          want.asnumpy()[0, len(PROMPT):]],
+              'llama_logits': jl(jmx.np.array(inp['llama_toks'])).asnumpy(),
               'devices': jax.devices()[:RANKS]}
     ranks = launch.spawn(_world, RANKS, inp, timeout=240)
     return inp, oracle, ranks
@@ -952,6 +970,23 @@ def test_llama_sharded_decode_dp2_tp2_token_parity(world):
         assert thread is not None and 'step_once' in thread
         assert deadline is not None and 'deadline' in deadline
         assert submit_deadline is not None and 'deadline' in submit_deadline
+
+
+def test_tp_sharded_forward_matches_single_device(world):
+    """tests/test_llama.py's tensor-parallel forward: the port's
+    ``llama_tiny`` under ``mesh(dp=2, tp=2)`` (Megatron's layout: q and the
+    embedding split on their rows, o on its columns, the norms whole), the
+    logits gathered, against the JAX net's one-device forward."""
+    _, oracle, ranks = world
+    for r in ranks:
+        t = r['llama_tp']
+        assert t['local'] == {
+            'model.layers0.self_attn.q_proj.weight': (32, 64),
+            'model.layers0.self_attn.o_proj.weight': (64, 32),
+            'model.embed_tokens.weight': (128, 64),
+            'model.norm.weight': (64,)}
+        np.testing.assert_allclose(t['logits'], oracle['llama_logits'],
+                                   rtol=2e-4, atol=2e-4)
 
 
 def test_in_axis_forms_equal_the_jax_shard_map_forms(world):

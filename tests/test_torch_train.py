@@ -2,15 +2,15 @@
 
 Both nets start from the same numpy weights (carried across by
 ``from_jax_params``) and train on the same numpy tokens, the loop of
-tests/test_llama.py:77-91 with the JAX net hybridized (see ``_jax_net``): ``SoftmaxCrossEntropyLoss().mean()`` over
-``tok[:, 1:]``, ``backward()``, ``Trainer.step(1)``, and no ``zero_grad``
-in either loop (MXNet's ``grad_req='write'``; the port's Trainer drops
-each gradient after its update). Per-step losses are held at rtol =
+tests/test_llama.py:77-91 with the JAX net hybridized (see ``_jax_net``):
+``SoftmaxCrossEntropyLoss().mean()`` over ``tok[:, 1:]`` under
+``autograd.record()``, ``backward()``, ``Trainer(net.collect_params())``'s
+``step(1)``, and no ``zero_grad`` in either loop (MXNet's
+``grad_req='write'``: each backward overwrites the grad buffers). Per-step
+losses are held at rtol =
 1e-4; weights and optimizer slots at rtol = atol = 1e-4: the two
 frameworks sum the projections and their gradients in another order.
 """
-
-import re
 
 import numpy as onp
 import pytest
@@ -21,9 +21,11 @@ from mxnet_tpu import autograd, gluon as jax_gluon
 from mxnet_tpu import lr_scheduler as jax_lr
 from mxnet_tpu.gluon.model_zoo import llama as jax_llama
 
-from mxnet_tpu_torch import MXNetError, lr_scheduler
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import MXNetError, autograd as tautograd, lr_scheduler
 from mxnet_tpu_torch.gluon import Trainer, loss as torch_loss
 from mxnet_tpu_torch.gluon.model_zoo import llama as torch_llama
+from mxnet_tpu_torch.ndarray.ndarray import NDArray
 from mxnet_tpu_torch.ops import kernels
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -33,10 +35,6 @@ SGD = ('sgd', {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-4})
 #: two frameworks' gradients, which differ in their last bits, may give
 #: opposite signs, and the weights differ by up to 2 lr there
 TINY_GRAD = 1e-6
-
-
-def _port_name(name):
-    return re.sub(r'\.layers(\d+)\.', r'.layers.\1.', name)
 
 
 def _weights(seed=0):
@@ -68,9 +66,8 @@ def _jax_net(params):
 
 
 def _torch_net(params):
-    net = torch_llama.llama_tiny(device='cpu')
-    net.load_state_dict(torch_llama.from_jax_params(params, net.cfg))
-    return net
+    return torch_llama.from_jax_params(torch_llama.llama_tiny(), params,
+                                       ctx=tmx.cpu())
 
 
 def _tokens(seed=1):
@@ -94,20 +91,18 @@ def _jax_train(net, trainer, toks, steps):
 
 
 def _torch_train(net, trainer, toks, steps):
-    """The same loop in the port, with no zero_grad; gradients by JAX
-    name."""
+    """The same loop in the port, with no zero_grad; gradients by name."""
     loss_fn = torch_loss.SoftmaxCrossEntropyLoss()
-    tok = torch.from_numpy(toks)
-    jax_names = {_port_name(n): n for n in _weights_names()}
+    tok = NDArray(torch.from_numpy(toks))
     losses, grads = [], []
     for _ in range(steps):
-        l = loss_fn(net(tok[:, :-1]), tok[:, 1:]).mean()
+        with tautograd.record():
+            l = loss_fn(net(tok[:, :-1]), tok[:, 1:]).mean()
         l.backward()
-        grads.append({jax_names[n]: p.grad.numpy().copy()
-                      for n, p in net.named_parameters()})
+        grads.append({n: p.grad().asnumpy().copy()
+                      for n, p in net.collect_params().items()})
         trainer.step(1)
-        assert all(p.grad is None for p in net.parameters())
-        losses.append(float(l.detach()))
+        losses.append(float(l.asnumpy()))
     return losses, grads
 
 
@@ -135,7 +130,7 @@ def _jax_state(jtrainer):
 
 
 def _torch_state(ttrainer, tnet):
-    names = [n for n, _ in tnet.named_parameters()]
+    names = list(tnet.collect_params())
     return {names[i]: st for i, st in ttrainer._states.items()}
 
 
@@ -147,10 +142,11 @@ def _close(got, want, mask=None, what=''):
 
 
 def _check_weights(jnet, tnet, tiny=None):
-    sd = tnet.state_dict()
+    tparams = tnet.collect_params()
     for name, p in jnet.collect_params().items():
         keep = None if tiny is None else ~tiny[name]
-        _close(sd[_port_name(name)].numpy(), p.data().asnumpy(), keep, name)
+        _close(tparams[name].data().asnumpy(), p.data().asnumpy(), keep,
+               name)
 
 
 def _check_slots(jtrainer, ttrainer, tnet):
@@ -158,7 +154,7 @@ def _check_slots(jtrainer, ttrainer, tnet):
     jstates, jcounts = _jax_state(jtrainer)
     assert len(tstates) == len(jstates) == 21
     for name, st in jstates.items():
-        got = tstates[_port_name(name)]
+        got = tstates[name]
         for a, b in zip(got if isinstance(got, tuple) else (got,),
                         st if isinstance(st, tuple) else (st,)):
             _close(a.numpy(), b, what=name)
@@ -185,7 +181,7 @@ def _both(opt, steps=3, params=None, toks=None):
     toks = _tokens() if toks is None else toks
     jnet, tnet = _jax_net(params), _torch_net(params)
     jtr = jax_gluon.Trainer(jnet.collect_params(), opt[0], dict(opt[1]))
-    ttr = Trainer(dict(tnet.named_parameters()), opt[0], dict(opt[1]))
+    ttr = Trainer(tnet.collect_params(), opt[0], dict(opt[1]))
     jl, jg = _jax_train(jnet, jtr, toks, steps)
     tl, tg = _torch_train(tnet, ttr, toks, steps)
     return (jnet, jtr, jl, jg), (tnet, ttr, tl, tg)
@@ -230,7 +226,7 @@ def test_adam_from_a_carried_over_state_at_t5():
     _jax_train(jnet, jtr, toks, 4)
     mid = {n: p.data().asnumpy() for n, p in jnet.collect_params().items()}
     tnet = _torch_net(mid)
-    ttr = Trainer(dict(tnet.named_parameters()), *ADAM)
+    ttr = Trainer(tnet.collect_params(), *ADAM)
     states, counts = _jax_state(jtr)
     assert set(counts.values()) == {4}
     ttr.load_jax_state(states, counts)
@@ -252,7 +248,7 @@ def test_factor_scheduler_gives_the_reference_lr_sequence():
     params, toks = _weights(), _tokens()
     jnet, tnet = _jax_net(params), _torch_net(params)
     jtr = jax_gluon.Trainer(jnet.collect_params(), *jopt)
-    ttr = Trainer(dict(tnet.named_parameters()), *topt)
+    ttr = Trainer(tnet.collect_params(), *topt)
     jlrs, tlrs = [], []
     for _ in range(3):
         _jax_train(jnet, jtr, toks, 1)
@@ -292,8 +288,9 @@ def test_l2_loss_matches_the_jax_loss():
 
 
 def test_trainer_refuses_what_one_device_cannot_do():
-    net = torch_llama.llama_tiny(device='cpu')
-    params = dict(net.named_parameters())
+    net = torch_llama.llama_tiny()
+    net.initialize(ctx=tmx.cpu())
+    params = net.collect_params()
     # dist_sync is taken; with one process it is the local store, and the
     # step reduces nothing (tests/test_torch_dist.py has two ranks)
     dist_tr = Trainer(params, 'sgd', kvstore='dist_sync')
@@ -304,11 +301,13 @@ def test_trainer_refuses_what_one_device_cannot_do():
         Trainer(params, 'sgd', kvstore='bogus').allreduce_grads()
     with pytest.raises(ValueError):
         Trainer([torch.zeros(3)], 'sgd')
+    with pytest.raises(ValueError):     # a torch.nn leaf is no Parameter
+        Trainer([torch.nn.Parameter(torch.zeros(3))], 'sgd')
     # multi_precision is accepted and kept, as the reference keeps it, and
     # makes no fp32 master copy: an fp32 weight's state is its two moments
     mp = Trainer(params, 'adam', {'multi_precision': True})
     assert mp.optimizer.multi_precision is True
-    w = next(iter(params.values()))
+    w = next(iter(params.values())).data()._data
     st = mp.optimizer.create_state_multi_precision(0, w.detach())
     assert len(st) == 2 and all(t.shape == w.shape for t in st)
     tr = Trainer(list(params.values()), 'adam')
@@ -320,15 +319,22 @@ def test_trainer_refuses_what_one_device_cannot_do():
 
 
 def test_step_without_a_fresh_gradient_raises_unless_told():
-    net = torch_llama.llama_tiny(device='cpu')
-    tr = Trainer(dict(net.named_parameters()), 'sgd',
-                 {'learning_rate': 0.1, 'momentum': 0.9})
+    """A second step with no backward between: as in the JAX Trainer, every
+    parameter whose ``grad_req`` is ``'write'`` updates again with what its
+    grad buffer holds (MXNet's buffers outlive the backward), so nothing
+    raises and ``ignore_stale_grad`` changes nothing; the weights follow
+    the JAX Trainer's three SGD-momentum steps."""
+    opt = ('sgd', {'learning_rate': 0.1, 'momentum': 0.9})
+    params, toks = _weights(), _tokens()
+    jnet, tnet = _jax_net(params), _torch_net(params)
+    jtr = jax_gluon.Trainer(jnet.collect_params(), *opt)
+    tr = Trainer(tnet.collect_params(), *opt)
+    _jax_train(jnet, jtr, toks, 1)
     kernels.reset_launch_counts()
-    net(torch.ones(1, 4, dtype=torch.long)).sum().backward()
+    _torch_train(tnet, tr, toks, 1)
+    jtr.step(1)
+    jtr.step(1, ignore_stale_grad=True)
     tr.step(1)
-    with pytest.raises(MXNetError, match='ignore_stale_grad'):
-        tr.step(1)
-    before = net.lm_head.weight.detach().clone()
     tr.step(1, ignore_stale_grad=True)
-    assert torch.equal(net.lm_head.weight, before)
+    _check_weights(jnet, tnet)
     assert kernels.launch_counts()['sgd_mom'] == 0        # CPU: plain
